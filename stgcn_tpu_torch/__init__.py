@@ -1,0 +1,16 @@
+"""stgcn_tpu_torch — the PyTorch / CUDA port of ``stgcn_tpu`` for one NVIDIA
+H100.
+
+This slice carries the forecast path: the GSO and data pipeline, the
+unfused STGCN, and the vertex-fused forward through four hand-written
+Hopper kernels (K1 head, K2 tail, K3/K4 output head). Entry points take
+``device=``, which defaults to ``"cuda"``; the CPU runs only when asked
+for. The package imports no JAX and nothing of ``stgcn_tpu``.
+"""
+
+from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler, gather_windows, load_adj, load_vel  # noqa: F401
+from stgcn_tpu_torch.graph import GraphShiftOperator, build_gso  # noqa: F401
+from stgcn_tpu_torch.nn import STGCN  # noqa: F401
+from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward  # noqa: F401
+from stgcn_tpu_torch.ops import DenseGraphOp, make_graph_op  # noqa: F401
+from stgcn_tpu_torch.train import evaluate_metrics  # noqa: F401

@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+All ``csrc/*.cu`` compile in ONE ``nvcc`` call into
+``_build/libstgcn_torch_kernels.so`` (a git-ignored directory beside this
+file), at first use::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o _build/libstgcn_torch_kernels.so csrc/*.cu
+
+The sources include no PyTorch header: each kernel is behind a plain C
+function that takes device pointers, sizes and a ``cudaStream_t`` and
+returns the ``cudaError_t`` of its launch. The library is rebuilt when the
+hash of the sources differs from the one stored beside it. A failed build
+raises with nvcc's output; nothing falls back to the plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+LIB_NAME = "libstgcn_torch_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of every entry point: device pointers, then ints, then the stream
+SIGNATURES = {
+    "stgcn_head_fwd": [_P] * 10 + [_I] * 9 + [_P],
+    "stgcn_tail_fwd": [_P] * 12 + [_I] * 9 + [_P],
+    "stgcn_ohead_fwd": [_P] * 11 + [_I] * 7 + [_P],
+    "stgcn_ofc_fwd": [_P] * 10 + [_I] * 5 + [_P],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    cached: bool     # True when a library with the same source hash existed
+    seconds: float   # wall time of this call (nvcc included when not cached)
+    log: str         # nvcc's output (ptxas register / shared-memory report)
+
+
+def sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")]):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError("nvcc not found (checked PATH and /usr/local/cuda/bin); "
+                       "the CUDA kernels cannot be built")
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless a library of the same source hash exists."""
+    t0 = time.perf_counter()
+    lib, stamp, log = BUILD_DIR / LIB_NAME, BUILD_DIR / "source.sha256", BUILD_DIR / "nvcc.log"
+    digest = source_hash()
+    if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
+        return BuildInfo(lib, True, time.perf_counter() - t0,
+                         log.read_text() if log.exists() else "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{out}")
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new, never half
+    log.write_text(out)
+    stamp.write_text(digest)
+    return BuildInfo(lib, False, time.perf_counter() - t0, out)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call) with typed entry points."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.stgcn_error_string.argtypes = [ctypes.c_int]
+    lib.stgcn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a kernel entry point returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = library().stgcn_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

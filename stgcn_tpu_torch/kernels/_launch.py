@@ -1,0 +1,43 @@
+"""Argument checks and ctypes plumbing shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True when a wrapper should run its plain version: only because the
+    tensor lies on the CPU. Any other device goes to the kernel, which
+    raises unless the device is CUDA."""
+    return t.device.type == "cpu"
+
+
+def require(t: torch.Tensor | None, name: str, shape: tuple[int, ...],
+            device: torch.device) -> int:
+    """Check a kernel operand and return its device pointer (0 for None)."""
+    if t is None:
+        return 0
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {t.device}")
+    return t.device
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+ACT_CODES = {"glu": 0, "gtu": 1, "relu": 2, "silu": 3}
+LANES = 128   # vertex lanes per CUDA block (csrc/common.cuh kLanes)
+MAX_OUT = 16  # narrow outputs a thread keeps in registers (csrc/common.cuh kMaxOut)

@@ -1,0 +1,140 @@
+"""Vertex-fused forward of the whole STGCN (port of
+``stgcn_tpu/nn/fused_sparse.py:90-135,290-577``, deterministic and
+single-device).
+
+A functional apply over the port's ``state_dict``: the same weights the
+unfused :class:`~stgcn_tpu_torch.nn.model.STGCN` holds. Each ST block runs as
+two hand-written kernels around the graph product::
+
+    K1 head (prev-LN-normalize → tconv1 → gate → align)
+      → graph aggregation (DenseGraphOp.cheb_pair_cv: torch.matmul)
+      → K2 tail (contraction → residual → ReLU → tconv2 → gate + LN partials)
+
+and the output head as K3 → μ/σ → K4 (:mod:`stgcn_tpu_torch.kernels.
+output_head`). Activations travel between them channel-before-vertex
+``[B, T, C, Vp]``. Per batch that is K1 ×n_blocks, K2 ×n_blocks, K3 ×1,
+K4 ×1. On CPU tensors every kernel wrapper runs its plain version.
+
+Dropout (training) comes with the training slice and raises here. Cheb
+``Ks > 3`` and the degenerate ``Ko == 0`` plan run the unfused model (same
+math), as the JAX package does for ``Ks > 3``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from stgcn_tpu_torch.kernels.output_head import output_head_fused
+from stgcn_tpu_torch.kernels.vertex_fused import VertexBlockCfg, head_fwd, ln_stats, tail_fwd
+from stgcn_tpu_torch.nn.model import STGCN
+
+
+def subtree(params: dict, prefix: str) -> dict:
+    """The entries of a flat ``state_dict`` under ``prefix.``, prefix removed."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
+
+
+def _graph_terms(cfg: VertexBlockCfg, gop: Any, xg: torch.Tensor):
+    """The graph outputs entering the tail contraction, in cv layout."""
+    if cfg.ks == 1 and cfg.graph_conv_type == "cheb_graph_conv":
+        return xg, xg  # contraction uses T_0 only
+    if not (hasattr(gop, "cheb_pair_cv") and hasattr(gop, "apply_cv")):
+        raise NotImplementedError(f"{type(gop).__name__} has no cv surface; only the dense "
+                                  "graph operator is ported")
+    if cfg.graph_conv_type == "graph_conv" or cfg.ks == 2:
+        t = gop.apply_cv(xg)
+        return t, t
+    return gop.cheb_pair_cv(xg)
+
+
+def _block_weights(blk: dict, graph_conv_type: str):
+    """One ST block's weights in the kernels' layouts."""
+    def conv(name):  # [g, c_in, kt, 1] → [kt, c_in, g]
+        return blk[f"{name}.causal_conv.weight"][..., 0].permute(2, 1, 0).contiguous()
+
+    if "graph_conv.align.align_conv.weight" not in blk:
+        raise NotImplementedError("the fused block needs the bottleneck align (c0 > c1)")
+    gaw = blk["graph_conv.align.align_conv.weight"].T.contiguous()
+    if graph_conv_type == "cheb_graph_conv":
+        gcw = blk["graph_conv.cheb_graph_conv.weight"].contiguous()
+        gcb = blk.get("graph_conv.cheb_graph_conv.bias")
+    else:
+        gcw = blk["graph_conv.graph_conv.weight"][None].contiguous()
+        gcb = blk.get("graph_conv.graph_conv.bias")
+    if gcb is None:
+        gcb = torch.zeros(gcw.shape[-1], device=gcw.device)
+    return (conv("tmp_conv1"), blk["tmp_conv1.causal_conv.bias"], gaw,
+            blk["graph_conv.align.align_conv.bias"], gcw, gcb,
+            conv("tmp_conv2"), blk["tmp_conv2.causal_conv.bias"],
+            blk["ln.weight"], blk["ln.bias"])
+
+
+def _st_block(cfg: VertexBlockCfg, gop: Any, head_in, mu, rstd, lng_p, lnb_p, w):
+    """One ST block: K1 → graph aggregation → K2; returns (a2, ps, pss)."""
+    c1k, c1b, gaw, gab, gcw, gcb, c2k, c2b = w
+    xg = head_fwd(cfg, head_in, mu, rstd, lng_p, lnb_p, c1k, c1b, gaw, gab)
+    t_a, t_b = _graph_terms(cfg, gop, xg)
+    return tail_fwd(cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b)
+
+
+def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, *,
+                         deterministic: bool = True) -> torch.Tensor:
+    """Forward pass through the vertex-fused kernels.
+
+    ``params``: the port's ``state_dict`` (``model.state_dict()``, or one
+    made by :func:`stgcn_tpu_torch.nn.convert.params_from_jax`); ``model``
+    supplies the configuration. ``x``: ``[B, T, V, C]`` on the device the
+    kernels run on (CUDA; CPU tensors take the plain versions). ``gop``
+    must expose ``v_pad``, a 128-aligned padded vertex count, and the cv
+    surface (:class:`~stgcn_tpu_torch.ops.DenseGraphOp`). Returns
+    ``[B, 1, V, 1]`` float32.
+    """
+    if not deterministic:
+        raise NotImplementedError("dropout in the fused forward comes with the training "
+                                  "slice; call with deterministic=True")
+    blocks, ko = model.plan()
+    if (model.graph_conv_type == "cheb_graph_conv" and model.ks > 3) or ko == 0:
+        # the kernels carry at most the ks=3 recurrence's two graph terms,
+        # and Ko == 0 leaves no time step for them: run the unfused model
+        return torch.func.functional_call(model, params, (x, gop))
+    v_pad = getattr(gop, "v_pad", None)
+    if v_pad is None:
+        raise ValueError("fused_sparse_forward needs a graph operator exposing a padded "
+                         "vertex count v_pad (DenseGraphOp)")
+    b, _, v_true, c_x = x.shape
+
+    x = x.float()
+    if c_x == 1:  # the cv transpose of one channel is a reshape
+        x = x.reshape(b, x.shape[1], 1, v_true)
+    else:
+        x = x.transpose(2, 3)
+    x = F.pad(x, (0, v_pad - v_true)).contiguous()
+
+    state = None  # (a2, mu, rstd, lng_pad, lnb_pad) awaiting normalize
+    cur_t, c_in = model.n_his, c_x
+    for l in range(len(blocks) - 3):
+        c0, c1, c2 = blocks[l + 1]
+        cfg = VertexBlockCfg(kt=model.kt, ks=model.ks, act_func=model.act_func,
+                             graph_conv_type=model.graph_conv_type, v_true=v_true,
+                             v_pad=v_pad, t_in=cur_t, c_in=c_in, c0=c0, c1=c1, c2=c2,
+                             apply_ln=l > 0)
+        *w, lng, lnb = _block_weights(subtree(params, f"st_block_{l}"), model.graph_conv_type)
+        if state is None:
+            head_in, mu, rstd, lng_p, lnb_p = x, None, None, None, None
+        else:
+            head_in, mu, rstd, lng_p, lnb_p = state
+        a2, ps, pss = _st_block(cfg, gop, head_in, mu, rstd, lng_p, lnb_p, w)
+        mu, rstd = ln_stats(ps, pss, v_true * c2)
+        pad_v = (0, 0, 0, v_pad - v_true)
+        state = (a2, mu, rstd, F.pad(lng, pad_v).T.contiguous(),
+                 F.pad(lnb, pad_v).T.contiguous())
+        cur_t, c_in = cfg.t2, c2
+
+    a2, mu, rstd, lng_p, lnb_p = state
+    out = output_head_fused(subtree(params, "output"), a2, mu, rstd, lng_p, lnb_p,
+                            v_true=v_true, act_func=model.act_func)
+    return out[:, :, :v_true, :]

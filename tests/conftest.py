@@ -50,3 +50,9 @@ def reference_modules():
     finally:
         sys.path.pop(0)
     return {"layers": ref_layers, "models": ref_models, "utility": ref_utility}
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one (on the card: "
+        "python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py)")

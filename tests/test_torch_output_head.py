@@ -1,0 +1,104 @@
+"""Plain versions of K3 (ohead) and K4 (ofc) against the JAX package's output
+head kernels in Pallas interpret mode, and the port's fused output head
+against both packages' cv oracle ``_output_block_apply_cv``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stgcn_tpu.kernels import output_head as joh
+from stgcn_tpu.nn.fused import _output_block_apply_cv as jax_output_block_apply_cv
+from stgcn_tpu_torch.kernels import output_head as toh
+from stgcn_tpu_torch.nn.convert import params_from_jax
+from stgcn_tpu_torch.nn.fused import _output_block_apply_cv
+from tests.torch_parity_utils import B, rand, t
+
+ATOL = 2e-5
+V_TRUE, V_PAD = 150, 256
+ACTS = ["glu", "gtu", "relu", "silu"]
+
+
+def _cfgs(act, c_in=16):
+    kw = dict(ko=4, c_in=c_in, c0=32, c1=24, c_end=1, act_func=act, v_true=V_TRUE,
+              v_pad=V_PAD)
+    return (joh.OutHeadCfg(droprate=0.5, tile_v=128, b_tile=B, training=False,
+                           interpret=True, **kw), toh.OutHeadCfg(**kw))
+
+
+def _stats(rng, n_t):
+    return (rand(rng, B, n_t, 1, 1, scale=0.1),
+            (0.5 + rng.random((B, n_t, 1, 1))).astype(np.float32))
+
+
+def _affine(rng, c):
+    g, b = 1.0 + rand(rng, c, V_PAD, scale=0.1), rand(rng, c, V_PAD)
+    g[:, V_TRUE:] = 0.0
+    b[:, V_TRUE:] = 0.0
+    return g, b
+
+
+def _j(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_ohead_plain_matches_jax_kernel(act):
+    jcfg, cfg = _cfgs(act)
+    rng = np.random.default_rng(31)
+    x = rand(rng, B, cfg.ko, cfg.c_in, V_PAD)
+    args = [x, *_stats(rng, cfg.ko), *_affine(rng, cfg.c_in),
+            rand(rng, cfg.ko, cfg.c_in, cfg.g, scale=0.2), rand(rng, cfg.g, scale=0.1)]
+    got = toh.ohead_fwd(cfg, *map(t, args))
+    kern = joh.ohead_fused(jcfg, jnp.int32(V_TRUE), 0, *_j(args))
+    for g, k in zip(got, kern):
+        atol = ATOL * max(1.0, float(np.abs(np.asarray(k)).max()))
+        np.testing.assert_allclose(g.numpy(), np.asarray(k), atol=atol)
+    assert got[0].shape == (B, 1, cfg.c0, V_PAD) and got[1].shape == (B, 1, 1, 1)
+
+
+@pytest.mark.parametrize("act", ACTS[:2])
+def test_ofc_plain_matches_jax_kernel(act):
+    jcfg, cfg = _cfgs(act)
+    rng = np.random.default_rng(32)
+    args = [rand(rng, B, 1, cfg.c0, V_PAD), *_stats(rng, 1), *_affine(rng, cfg.c0),
+            rand(rng, cfg.c0, cfg.c1, scale=0.2), rand(rng, cfg.c1, scale=0.1),
+            rand(rng, cfg.c1, cfg.c_end, scale=0.2), rand(rng, cfg.c_end, scale=0.1)]
+    got = toh.ofc_fwd(cfg, *map(t, args)).numpy()
+    kern = np.asarray(joh.ofc_fused(jcfg, jnp.int32(V_TRUE), 0, *_j(args)))
+    assert got.shape == (B, 1, cfg.c_end, V_PAD)
+    np.testing.assert_allclose(got, kern, atol=ATOL)
+
+
+def _head_params(rng, cfg):
+    """A flax output-block subtree (numpy) at the cfg's widths."""
+    return {"tmp_conv1": {"causal_conv": {
+                "kernel": rand(rng, cfg.ko, 1, cfg.c_in, cfg.g, scale=0.2),
+                "bias": rand(rng, cfg.g, scale=0.1)}},
+            "ln": {"scale": 1.0 + rand(rng, V_TRUE, cfg.c0, scale=0.1),
+                   "bias": rand(rng, V_TRUE, cfg.c0, scale=0.1)},
+            "fc1": {"kernel": rand(rng, cfg.c0, cfg.c1, scale=0.2),
+                    "bias": rand(rng, cfg.c1, scale=0.1)},
+            "fc2": {"kernel": rand(rng, cfg.c1, cfg.c_end, scale=0.2),
+                    "bias": rand(rng, cfg.c_end, scale=0.1)}}
+
+
+@pytest.mark.parametrize("act,c_in", [("glu", 16), ("gtu", 32), ("relu", 16), ("silu", 8)])
+def test_output_head_fused_matches_cv_oracles(act, c_in):
+    """K3 → μ/σ → K4 (plain versions) equals the unfused cv head of both
+    packages on the normalized input, at the true vertices."""
+    jcfg, cfg = _cfgs(act, c_in)
+    rng = np.random.default_rng(33)
+    jp = _head_params(rng, cfg)
+    a2 = rand(rng, B, cfg.ko, cfg.c_in, V_PAD)
+    mu, rstd = _stats(rng, cfg.ko)
+    lng, lnb = _affine(rng, cfg.c_in)
+    got = toh.output_head_fused(params_from_jax(jp), t(a2), t(mu), t(rstd), t(lng), t(lnb),
+                                v_true=V_TRUE, act_func=act)
+    assert got.shape == (B, 1, V_PAD, cfg.c_end)
+    y = (a2 - mu) * rstd * lng + lnb                  # the block's LN, as the path applies it
+    ref_t = _output_block_apply_cv(params_from_jax(jp), t(y), V_TRUE, act_func=act)
+    ref_j = np.asarray(jax_output_block_apply_cv(jp, jnp.asarray(y), V_TRUE, act_func=act,
+                                                 droprate=0.5, deterministic=True, rng=None))
+    np.testing.assert_allclose(ref_t.numpy(), ref_j, atol=ATOL)
+    np.testing.assert_allclose(got[:, :, :V_TRUE].numpy(), ref_j, atol=ATOL)

@@ -1,0 +1,165 @@
+"""Rules of the port: it imports no JAX and nothing of ``stgcn_tpu``; its
+entry points run on the card unless the caller asks for the CPU; a kernel
+wrapper runs its plain version only for a CPU tensor."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import stgcn_tpu_torch
+from stgcn_tpu_torch.kernels import _build, _launch
+from stgcn_tpu_torch.kernels import output_head as toh
+from stgcn_tpu_torch.kernels import vertex_fused as tvf
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "stgcn_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pandas", "stgcn_tpu"}
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys, stgcn_tpu_torch\n"
+        "for m in pkgutil.walk_packages(stgcn_tpu_torch.__path__, 'stgcn_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r})\n"
+        "print(len([m for m in sys.modules if m.startswith('stgcn_tpu_torch')]), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_mods, bad = out.stdout.strip().split(" ", 1)
+    assert int(n_mods) >= 20 and bad == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def _gso():
+    from stgcn_tpu_torch.graph import build_gso
+    import scipy.sparse as sp
+
+    return build_gso(sp.random(12, 12, density=0.3, random_state=0) + sp.eye(12))
+
+
+ENTRY_POINTS = {
+    "STGCN": lambda: stgcn_tpu_torch.STGCN(12, 12),
+    "make_graph_op": lambda: stgcn_tpu_torch.make_graph_op(_gso()),
+    "dense_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
+    .dense_graph_op(_gso()),
+    "ForecastDataset.from_numpy": lambda: stgcn_tpu_torch.ForecastDataset.from_numpy(
+        np.zeros((30, 12)), 12, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[name]()
+
+
+class _FakeLib:
+    """Stands in for the CUDA library: records each entry-point call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            self.calls.append((name, len(args)))
+            return 0
+        return fn
+
+
+def _wrapper_cases():
+    vcfg = tvf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                              v_true=100, v_pad=128, t_in=8, c_in=16, c0=16, c1=8, c2=16,
+                              apply_ln=True)
+    ocfg = toh.OutHeadCfg(ko=4, c_in=16, c0=32, c1=24, c_end=1, act_func="glu",
+                          v_true=100, v_pad=128)
+    b = 2
+
+    def z(*shape):
+        return lambda dev: torch.zeros(shape, device=dev)
+
+    st = (z(b, 8, 1, 1), z(b, 8, 1, 1), z(16, 128), z(16, 128))
+    return {
+        "head_fwd": (tvf, "head_reference", "stgcn_head_fwd", tvf.head_fwd, vcfg,
+                     [z(b, 8, 16, 128), *st, z(3, 16, 32), z(32), z(16, 8), z(8)]),
+        "tail_fwd": (tvf, "tail_reference", "stgcn_tail_fwd", tvf.tail_fwd, vcfg,
+                     [z(b, 6, 8, 128)] * 3 + [z(3, 8, 8), z(8), z(3, 8, 32), z(32)]),
+        "ohead_fwd": (toh, "ohead_reference", "stgcn_ohead_fwd", toh.ohead_fwd, ocfg,
+                      [z(b, 4, 16, 128), z(b, 4, 1, 1), z(b, 4, 1, 1), z(16, 128),
+                       z(16, 128), z(4, 16, 64), z(64)]),
+        "ofc_fwd": (toh, "ofc_reference", "stgcn_ofc_fwd", toh.ofc_fwd, ocfg,
+                    [z(b, 1, 32, 128), z(b, 1, 1, 1), z(b, 1, 1, 1), z(32, 128), z(32, 128),
+                     z(32, 24), z(24), z(24, 1), z(1)]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_wrapper_cases()))
+def test_wrapper_takes_plain_version_only_on_cpu(name, monkeypatch):
+    """Followed by code path, not by device: with the library replaced by a
+    recorder, a non-CPU tensor (``meta`` stands in for CUDA) runs the launch
+    path — checks, allocation, one C call, the counter — and never the
+    plain version; a CPU tensor runs the plain version and launches nothing."""
+    mod, ref_name, c_name, wrapper, cfg, makers = _wrapper_cases()[name]
+    plain_calls = []
+    real_ref = getattr(mod, ref_name)
+    monkeypatch.setattr(mod, ref_name,
+                        lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(mod, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
+
+    before = wrapper.launches
+    wrapper(cfg, *[m("meta") for m in makers])
+    assert plain_calls == [] and wrapper.launches == before + 1
+    assert fake.calls == [(c_name, len(_build.SIGNATURES[c_name]))]
+
+    wrapper(cfg, *[m("cpu") for m in makers])
+    assert plain_calls == [1] and wrapper.launches == before + 1 and len(fake.calls) == 1
+
+
+def test_wrapper_refuses_a_non_cuda_accelerator_tensor():
+    """Without the test double, a tensor that is neither CPU nor CUDA raises
+    instead of running the plain version."""
+    _, _, _, wrapper, cfg, makers = _wrapper_cases()["ofc_fwd"]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        wrapper(cfg, *[m("meta") for m in makers])
+    assert not _launch.on_cpu(torch.zeros(1, device="meta"))
+
+
+def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build.os.path, "isfile",
+                        lambda p: False if str(p).endswith("nvcc") else True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "_build" / _build.LIB_NAME).exists()
+
+
+def test_every_source_is_built_and_hashed():
+    srcs = {p.name for p in _build.sources()}
+    assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu"}
+    h = _build.source_hash()
+    assert len(h) == 64 and h == _build.source_hash()

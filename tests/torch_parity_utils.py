@@ -1,0 +1,58 @@
+"""Shared setup for the port's parity tests (tests/test_torch_*.py): the same
+graph, inputs and weights fed to the JAX package and to stgcn_tpu_torch.
+
+Inputs come from numpy seeds; weights are the JAX model's init, carried
+into the port by ``nn.convert.params_from_jax``. Everything runs on CPU.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from stgcn_tpu.data.synthetic import random_road_graph
+from stgcn_tpu.graph import build_gso as jax_build_gso
+from stgcn_tpu.nn.model import STGCN as JaxSTGCN
+from stgcn_tpu.ops import dense_graph_op as jax_dense_graph_op
+from stgcn_tpu_torch.graph import build_gso
+from stgcn_tpu_torch.nn.convert import params_from_jax
+from stgcn_tpu_torch.nn.model import STGCN
+from stgcn_tpu_torch.ops import dense_graph_op
+
+# V is not a multiple of 128, so the padded vertex lanes are exercised
+V, B, T = 150, 3, 12
+
+GATE_CASES = [
+    ("cheb_graph_conv", 3, "glu"),
+    ("cheb_graph_conv", 2, "gtu"),
+    ("cheb_graph_conv", 1, "glu"),
+    ("graph_conv", 3, "silu"),
+]
+
+
+def to_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def setup_model(gct="cheb_graph_conv", ks=3, act="glu", seed=0):
+    """(jax model, jax op, jax params, port model, port op, x numpy)."""
+    adj = random_road_graph(V, k_neighbors=4, seed=seed)
+    cheb = gct == "cheb_graph_conv"
+    jop = jax_dense_graph_op(jax_build_gso(adj, "sym_norm_lap", cheb=cheb))
+    top = dense_graph_op(build_gso(adj, "sym_norm_lap", cheb=cheb), device="cpu")
+    jm = JaxSTGCN(n_his=T, ks=ks, graph_conv_type=gct, act_func=act)
+    x = np.random.default_rng(1).standard_normal((B, T, V, 1)).astype(np.float32)
+    jparams = to_np(jm.init(jax.random.PRNGKey(3), jnp.asarray(x), jop,
+                            deterministic=True)["params"])
+    tm = STGCN(T, V, ks=ks, graph_conv_type=gct, act_func=act, device="cpu")
+    tm.load_state_dict(params_from_jax(jparams))
+    return jm, jop, jparams, tm, top, x
+
+
+def rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def t(a):
+    """numpy → CPU torch tensor (a copy)."""
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
