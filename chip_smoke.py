@@ -1,30 +1,51 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's forecast slice on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
+and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Five phases, each printing one JSON line with its own seconds:
+Seven phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
 2. build   — the nvcc build of ``stgcn_tpu_torch/kernels/csrc/*.cu``, cold
    or cached, with ptxas' register / spill report.
-3. kernels — K1-K4 at every shape the main path gives them, each held
-   against its plain PyTorch version on the card (|Δ| <= 1e-4 + 1e-4·|ref|:
-   the sums run in another order), a repeat launch bit-identical, the
-   launch counter moved; then CUDA-event times (median of 30 launches
-   after 5 of warm-up) of kernel and plain version.
-4. slice   — PeMSD7(M) (V=228, read from data/pemsd7-m) at the full width of
+3. kernels — K1-K4 forward at every shape the forecast path gives them (and
+   K3/K4 with the gtu gate), random inputs, each held against its plain
+   PyTorch version on the card (|Δ| <= 1e-4 + 1e-4·|ref|: the sums run in
+   another order), a repeat launch bit-identical, the launch counter moved;
+   then CUDA-event times (median of 30 launches after 5 of warm-up) of
+   kernel and plain version.
+4. kernels_bwd — one fused training step on a PeMSD7(M) batch (dropout on)
+   records the inputs of every kernel call of the training path: K1f/K2f ×2,
+   K3f, K4f and the backward kernels K1b/K2b ×2, K3b, K4b. Each recorded call
+   is checked and timed as in phase 3 against its plain version (the
+   backward's is autograd through the forward's, same mask). The forward
+   kernels' dropout masks, read back through identity weights
+   (``kernels/probes.py``), must equal the plain mask bit for bit, with a
+   keep rate within 4σ of 0.5.
+5. slice   — PeMSD7(M) (V=228, read from data/pemsd7-m) at the full width of
    the ``main.py`` defaults, weights drawn from ``torch.Generator().
    manual_seed(42)``: the whole test split forecast at batch 32 through
    ``evaluate_metrics`` over ``fused_sparse_forward`` (the kernels) and over
    the unfused ``STGCN`` forward; every prediction must agree within
    2e-4 + 2e-4·|ref|, and the launch counts of the fused run must be K1 ×2,
-   K2 ×2, K3 ×1, K4 ×1 per batch. Then both are timed again in turns (four
-   runs each, median reported).
-5. the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+   K2 ×2, K3 ×1, K4 ×1 per batch and no backward. Then both are timed again
+   in turns (four runs each, median reported).
+6. train   — the same model and data, droprate 0.5, AdamW + StepLR: one
+   batch's loss and gradients fused against unfused with the same masks
+   (relative L2 < 1e-4, each element within 2e-4 + 2e-3·|ref|: the JAX
+   package's fused-vs-autodiff bound); the first 20 step losses of a fused
+   and an unfused ``Trainer`` from the same weights within 1e-4 + 1e-4·|ref|;
+   a fused ``Trainer.fit`` of 3 epochs with a finite, falling train loss and
+   launches per step K1f ×2, K2f ×2, K3f, K4f, K1b ×2, K2b ×2, K3b, K4b
+   (validation launches none), then ``test()`` from the best checkpoint,
+   which prints the reference ``Dataset pemsd7-m | Test loss …`` line; then
+   3 unfused epochs, for the seconds per epoch of both routes.
+7. the ``{"kernels": [...]}`` line (every kernel's per-batch times on the
+   training path and its launches in phase 6's fit), the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.
 
 A failed check raises: the script then exits non-zero and prints no
 ``"ok"`` line. Without a CUDA device it exits 2 before doing anything.
@@ -33,6 +54,7 @@ A failed check raises: the script then exits non-zero and prints no
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -44,7 +66,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 KERNEL_TOL = 1e-4           # f32 kernel vs plain version, abs and rel
 SLICE_TOL = 2e-4            # fused vs unfused forward (tests/test_vertex_fused.py:49)
+GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL = 1e-4, 2e-4, 2e-3   # tests/test_vertex_fused.py:52-74
+LOSS_TOL = 1e-4             # fused vs unfused step losses, abs and rel
 BATCH = 32
+DROPRATE = 0.5
+N_HIS, N_PRED = 12, 3
 
 
 def emit(obj: dict) -> None:
@@ -78,7 +104,10 @@ def cuda_ms(fn, *, warmup: int = 5, reps: int = 30) -> float:
 
 
 def flat(out) -> list:
-    return list(out) if isinstance(out, (tuple, list)) else [out]
+    """A wrapper's outputs as a list, without the None entries (a head
+    without LayerNorm input has no LN gradients)."""
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    return [o for o in outs if o is not None]
 
 
 def max_err(got, ref) -> float:
@@ -87,7 +116,10 @@ def max_err(got, ref) -> float:
     import torch
 
     worst = 0.0
-    for g, r in zip(flat(got), flat(ref)):
+    got, ref = flat(got), flat(ref)
+    if len(got) != len(ref):
+        raise AssertionError(f"kernel gives {len(got)} outputs, its plain version {len(ref)}")
+    for g, r in zip(got, ref):
         if g.shape != r.shape or not torch.isfinite(g).all():
             raise AssertionError(f"kernel output shape {tuple(g.shape)} vs {tuple(r.shape)} "
                                  "or non-finite values")
@@ -134,37 +166,53 @@ def kernel_cases(gen):
         w1 = (rnd(3, c_in, 128, scale=(3 * c_in) ** -0.5), rnd(128, scale=0.1),
               rnd(64, 16, scale=64 ** -0.5), rnd(16, scale=0.1))
         head_args = (cfg, x, mu, rstd, lng, lnb, *w1)
-        flops = 2 * b * cfg.t1 * vp * (cfg.kt * c_in * cfg.g1 + cfg.c0 * cfg.c1)
         cases.append(("head_fwd", f"block{blk}", vf.head_fwd,
                       lambda cfg=cfg, x=x, ln=(mu, rstd, lng, lnb), w=w1:
                       vf.head_reference(cfg, x, ln if cfg.apply_ln else None, w),
-                      head_args, flops))
+                      head_args, flops_of("head_fwd", cfg, b)))
         xg, t1_, t2_ = (rnd(b, cfg.t1, 16, vp) for _ in range(3))
         w2 = (rnd(3, 16, 16, scale=16 ** -1), rnd(16, scale=0.1),
               rnd(3, 16, 128, scale=48 ** -0.5), rnd(128, scale=0.1))
-        flops = 2 * b * vp * (cfg.t1 * 3 * 16 * 16 + cfg.t2 * cfg.kt * 16 * cfg.g2)
         cases.append(("tail_fwd", f"block{blk}", vf.tail_fwd,
                       lambda cfg=cfg, a=(xg, [t1_, t2_]), w=w2: vf.tail_reference(cfg, *a, w),
-                      (cfg, xg, t1_, t2_, *w2), flops))
-    ocfg = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func="glu",
-                         v_true=v_true, v_pad=vp)
-    x = rnd(b, 4, 64, vp)
-    mu, rstd = stats(4)
-    lng, lnb = affine(64)
-    ck, cb = rnd(4, 64, 256, scale=256 ** -0.5), rnd(256, scale=0.1)
-    args = (ocfg, x, mu, rstd, lng, lnb, ck, cb)
-    cases.append(("ohead_fwd", "head", oh.ohead_fwd, lambda a=args: oh.ohead_reference(*a),
-                  args, 2 * b * vp * 4 * 64 * 256))
-    a = rnd(b, 1, 128, vp)
-    mu2, rstd2 = rnd(b, 1, 1, 1, scale=0.1), 0.5 + torch.rand((b, 1, 1, 1), generator=gen,
-                                                              device=dev)
-    lnw, lnb2 = affine(128)
-    w = (rnd(128, 128, scale=128 ** -0.5), rnd(128, scale=0.1), rnd(128, 1, scale=128 ** -0.5),
-         rnd(1, scale=0.1))
-    args = (ocfg, a, mu2, rstd2, lnw, lnb2, *w)
-    cases.append(("ofc_fwd", "head", oh.ofc_fwd, lambda a=args: oh.ofc_reference(*a),
-                  args, 2 * b * vp * (128 * 128 + 128 * 1)))
+                      (cfg, xg, t1_, t2_, *w2), flops_of("tail_fwd", cfg, b)))
+    for act in ("glu", "gtu"):   # the forecast path's gate, and gtu's code path
+        label = "head" if act == "glu" else "head-gtu"
+        ocfg = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func=act,
+                             v_true=v_true, v_pad=vp)
+        x = rnd(b, 4, 64, vp)
+        mu, rstd = stats(4)
+        lng, lnb = affine(64)
+        ck, cb = rnd(4, 64, 256, scale=256 ** -0.5), rnd(256, scale=0.1)
+        args = (ocfg, x, mu, rstd, lng, lnb, ck, cb)
+        cases.append(("ohead_fwd", label, oh.ohead_fwd, lambda a=args: oh.ohead_reference(*a),
+                      args, flops_of("ohead_fwd", ocfg, b)))
+        a = rnd(b, 1, 128, vp)
+        mu2, rstd2 = rnd(b, 1, 1, 1, scale=0.1), 0.5 + torch.rand((b, 1, 1, 1), generator=gen,
+                                                                  device=dev)
+        lnw, lnb2 = affine(128)
+        w = (rnd(128, 128, scale=128 ** -0.5), rnd(128, scale=0.1),
+             rnd(128, 1, scale=128 ** -0.5), rnd(1, scale=0.1))
+        args = (ocfg, a, mu2, rstd2, lnw, lnb2, *w)
+        cases.append(("ofc_fwd", label, oh.ofc_fwd, lambda a=args: oh.ofc_reference(*a),
+                      args, flops_of("ofc_fwd", ocfg, b)))
     return cases
+
+
+def flops_of(name: str, cfg, b: int) -> int:
+    """Contraction FLOPs of one call at batch ``b``; a backward counts 3× its
+    forward, as the JAX cost estimates do (vertex_fused.py:713, :913)."""
+    fwd = name.replace("_bwd", "_fwd")
+    if fwd == "head_fwd":
+        n = 2 * b * cfg.t1 * cfg.v_pad * (cfg.kt * cfg.c_in * cfg.g1 + cfg.c0 * cfg.c1)
+    elif fwd == "tail_fwd":
+        n_c = cfg.n_terms + (cfg.graph_conv_type == "cheb_graph_conv")
+        n = 2 * b * cfg.v_pad * (cfg.t1 * n_c * cfg.c1 * cfg.c1 + cfg.t2 * cfg.kt * cfg.c1 * cfg.g2)
+    elif fwd == "ohead_fwd":
+        n = 2 * b * cfg.v_pad * cfg.ko * cfg.c_in * cfg.g
+    else:
+        n = 2 * b * cfg.v_pad * (cfg.c0 * cfg.c1 + cfg.c1 * cfg.c_end)
+    return n * (3 if name.endswith("_bwd") else 1)
 
 
 def io_bytes(args, out) -> int:
@@ -183,7 +231,46 @@ KERNEL_META = {
                   "stgcn_tpu/kernels/output_head.py:214", "_ohead_pallas"),
     "ofc_fwd": ("K4f", "stgcn_tpu_torch/kernels/csrc/gate_gemm.cu",
                 "stgcn_tpu/kernels/output_head.py:407", "_ofc_pallas"),
+    "head_bwd": ("K1b", "stgcn_tpu_torch/kernels/csrc/vertex_fused_bwd.cu",
+                 "stgcn_tpu/kernels/vertex_fused.py:654", "_head_pallas_bwd"),
+    "tail_bwd": ("K2b", "stgcn_tpu_torch/kernels/csrc/vertex_fused_bwd.cu",
+                 "stgcn_tpu/kernels/vertex_fused.py:883", "_tail_pallas_bwd"),
+    "ohead_bwd": ("K3b", "stgcn_tpu_torch/kernels/csrc/output_head_bwd.cu",
+                  "stgcn_tpu/kernels/output_head.py:253", "_ohead_pallas_bwd"),
+    "ofc_bwd": ("K4b", "stgcn_tpu_torch/kernels/csrc/output_head_bwd.cu",
+                "stgcn_tpu/kernels/output_head.py:440", "_ofc_pallas_bwd"),
 }
+FWD_NAMES = ("head_fwd", "tail_fwd", "ohead_fwd", "ofc_fwd")
+PER_BATCH_FWD = {"head_fwd": 2, "tail_fwd": 2, "ohead_fwd": 1, "ofc_fwd": 1}
+PER_STEP = {**PER_BATCH_FWD, "head_bwd": 2, "tail_bwd": 2, "ohead_bwd": 1, "ofc_bwd": 1}
+
+
+def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops) -> dict:
+    """Hold one kernel call against its plain version (tolerance, repeat
+    bit-identical, launch counter) and time both."""
+    before = wrapper.launches
+    out1 = wrapper(*args, **kwargs)
+    out2 = wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 2:
+        raise AssertionError(f"{name}: launch counter moved {wrapper.launches - before}, "
+                             "expected 2")
+    if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
+        raise AssertionError(f"{name} [{label}]: a repeat launch is not bit-identical")
+    ref = plain()
+    try:
+        err = max_err(out1, ref)
+    except AssertionError as e:
+        raise AssertionError(f"{name} [{label}]: {e}") from None
+    ms = cuda_ms(lambda: wrapper(*args, **kwargs))
+    plain_ms = cuda_ms(plain)
+    nbytes = io_bytes(args, out1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"shape": label, "input": list(args[1].shape), "output": list(flat(out1)[0].shape),
+            "dropout": kwargs.get("drop") is not None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase_kernels(torch) -> dict:
@@ -191,59 +278,176 @@ def phase_kernels(torch) -> dict:
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
 
-    results: dict[str, list] = {name: [] for name in KERNEL_META}
+    results: dict[str, list] = {name: [] for name in FWD_NAMES}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, label, wrapper, plain, args, flops in kernel_cases(gen):
-        before = wrapper.launches
-        out1 = wrapper(*args)
-        out2 = wrapper(*args)
-        torch.cuda.synchronize()
-        if wrapper.launches != before + 2:
-            raise AssertionError(f"{name}: launch counter moved {wrapper.launches - before}, "
-                                 "expected 2")
-        if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
-            raise AssertionError(f"{name} [{label}]: a repeat launch is not bit-identical")
-        ref = plain()
-        err = max_err(out1, ref)
-        ms = cuda_ms(lambda: wrapper(*args))
-        plain_ms = cuda_ms(plain)
-        nbytes = io_bytes(args, out1)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-        results[name].append({
-            "shape": label, "input": list(args[1].shape), "output": list(flat(out1)[0].shape),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        results[name].append(check_and_time(torch, name, label, wrapper, plain, args, {}, flops))
     kernels.reset_launch_counts()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0, "tolerance": KERNEL_TOL,
           "results": results})
     return results
 
 
-def phase_slice(torch) -> dict:
-    """Phase 4: the whole PeMSD7(M) test split through the fused and the
+def load_pemsd7(torch) -> dict:
+    """PeMSD7(M) splits on the card, its dense Chebyshev GSO and the scaler."""
+    from stgcn_tpu_torch.data import (ForecastDataset, ZScoreScaler, chrono_split, load_adj,
+                                      load_vel)
+    from stgcn_tpu_torch.graph import build_gso
+    from stgcn_tpu_torch.ops import make_graph_op
+
+    data_root = str(ROOT / "data")
+    adj, n_vertex = load_adj("pemsd7-m", data_root)
+    train, val, test = chrono_split(load_vel("pemsd7-m", data_root))
+    scaler = ZScoreScaler().fit(train)
+
+    def ds(a):
+        return ForecastDataset.from_numpy(scaler.transform(a), N_HIS, N_PRED, device="cuda")
+
+    return {"n_vertex": n_vertex, "train": ds(train), "val": ds(val), "test": ds(test),
+            "scaler": scaler,
+            "gop": make_graph_op(build_gso(adj, "sym_norm_lap", cheb=True), "auto",
+                                 device="cuda")}
+
+
+def new_model(torch, n_vertex: int, droprate: float):
+    from stgcn_tpu_torch.nn import STGCN
+
+    return STGCN(N_HIS, n_vertex, kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                 droprate=droprate, device="cuda",
+                 generator=torch.Generator().manual_seed(42))
+
+
+def record_training_step(torch, data) -> list:
+    """Run one fused training step (forward with dropout, backward) on the
+    first PeMSD7(M) training batch and record every kernel call it makes:
+    (wrapper name, label, args, kwargs), in call order."""
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import output_head as oh
+    from stgcn_tpu_torch.kernels import vertex_fused as vf
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import masked_mse
+
+    calls: list = []
+    mods = {"head_fwd": vf, "tail_fwd": vf, "head_bwd": vf, "tail_bwd": vf,
+            "ohead_fwd": oh, "ofc_fwd": oh, "ohead_bwd": oh, "ofc_bwd": oh}
+    real = {name: getattr(mod, name) for name, mod in mods.items()}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            n = sum(c[0] == name for c in calls)
+            calls.append((name, f"call{n}", args, kwargs))
+            return real[name](*args, **kwargs)
+        # a wrapper counts its launches on the module attribute of its own
+        # name, which is this recorder while the step runs
+        call.launches = 0
+        return call
+
+    model = new_model(torch, data["n_vertex"], DROPRATE)
+    params = dict(model.named_parameters())
+    starts, n_valid = next(data["train"].batches(BATCH))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    try:
+        for name, mod in mods.items():
+            setattr(mod, name, recorder(name))
+        pred = fused_sparse_forward(params, x, data["gop"], model, deterministic=False,
+                                    seed=step_seed(42, 0))
+        loss = masked_mse(pred.reshape(BATCH, -1), y, n_valid)
+        torch.autograd.grad(loss, list(params.values()))
+    finally:
+        for name, mod in mods.items():
+            setattr(mod, name, real[name])
+    torch.cuda.synchronize()
+    return calls
+
+
+def plain_of(name: str, args, kwargs):
+    """The plain version of one recorded kernel call."""
+    from stgcn_tpu_torch.kernels import output_head as oh
+    from stgcn_tpu_torch.kernels import vertex_fused as vf
+
+    drop = kwargs.get("drop")
+    cfg = args[0]
+    if name == "head_fwd":
+        ln = args[2:6] if cfg.apply_ln else None
+        return lambda: vf.head_reference(cfg, args[1], ln, args[6:10], drop)
+    if name == "head_bwd":
+        ln = args[2:6] if cfg.apply_ln else None
+        return lambda: vf.head_bwd_reference(cfg, args[1], ln, args[6:10], args[10], drop)
+    if name == "tail_fwd":
+        terms = list(args[2:4])[: cfg.n_terms]
+        return lambda: vf.tail_reference(cfg, args[1], terms, args[4:8])
+    if name == "tail_bwd":
+        terms = list(args[2:4])[: cfg.n_terms]
+
+        def tail_plain():
+            dxg, dterms, *dw = vf.tail_bwd_reference(cfg, args[1], terms, args[4:8], *args[8:11])
+            pad = [args[1].new_zeros(args[1].shape)] * (2 - len(dterms))
+            return (dxg, *dterms, *pad, *dw)
+        return tail_plain
+    if name == "ohead_fwd":
+        return lambda: oh.ohead_reference(*args, drop=drop)
+    if name == "ohead_bwd":
+        return lambda: oh.ohead_bwd_reference(*args, drop=drop)
+    if name == "ofc_fwd":
+        return lambda: oh.ofc_reference(*args, drop=drop)
+    return lambda: oh.ofc_bwd_reference(*args, drop=drop)
+
+
+def phase_kernels_bwd(torch, data) -> dict:
+    """Phase 4: every kernel call of one training step, recorded on real data,
+    held against its plain version and timed; the masks read back."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels.dropout import Drop, step_seed
+    from stgcn_tpu_torch.kernels.probes import mask_probes
+
+    calls = record_training_step(torch, data)
+    counts = {name: sum(c[0] == name for c in calls) for name in PER_STEP}
+    if counts != PER_STEP:
+        raise AssertionError(f"one training step made kernel calls {counts}, expected {PER_STEP}")
+    results: dict[str, list] = {name: [] for name in PER_STEP}
+    for name, label, args, kwargs in calls:
+        wrapper = kernels.WRAPPERS[name]
+        flops = flops_of(name, args[0], args[1].shape[0])
+        results[name].append(check_and_time(torch, name, label, wrapper,
+                                            plain_of(name, args, kwargs), args, kwargs, flops))
+
+    # the forward kernels' masks, read back through identity weights
+    masks = {}
+    v_true, v_pad = data["n_vertex"], data["gop"].v_pad
+    for site in range(3):
+        drop = Drop(DROPRATE, step_seed(42, 7), site)
+        for name, (got, plain) in mask_probes(drop, BATCH, 8, v_true, v_pad, "cuda").items():
+            if not torch.equal(got, plain):
+                raise AssertionError(f"{name}: the kernel's dropout mask differs from the plain "
+                                     f"mask in {int((got != plain).sum())} elements")
+            live = got[..., :v_true]
+            n = live.numel()
+            keep = float((live > 0).float().mean())
+            sigma = (DROPRATE * (1 - DROPRATE) / n) ** 0.5
+            if abs(keep - (1 - DROPRATE)) > 4 * sigma:
+                raise AssertionError(f"{name}: keep rate {keep} is more than 4σ from "
+                                     f"{1 - DROPRATE} over {n} elements")
+            masks.setdefault(name, []).append({"site": site, "elements": n, "keep_rate": keep,
+                                               "four_sigma": 4 * sigma, "bit_identical": True})
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_bwd", "seconds": time.perf_counter() - t0, "tolerance": KERNEL_TOL,
+          "results": results, "masks": masks})
+    return results
+
+
+def phase_slice(torch, data) -> dict:
+    """Phase 5: the whole PeMSD7(M) test split through the fused and the
     unfused forward."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
-    from stgcn_tpu_torch.data import (ForecastDataset, ZScoreScaler, chrono_split,
-                                      gather_windows, load_adj, load_vel)
-    from stgcn_tpu_torch.graph import build_gso
-    from stgcn_tpu_torch.nn import STGCN
+    from stgcn_tpu_torch.data import gather_windows
     from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
-    from stgcn_tpu_torch.ops import make_graph_op
     from stgcn_tpu_torch.train import evaluate_metrics
 
-    n_his, n_pred = 12, 3
-    data_root = str(ROOT / "data")
-    adj, n_vertex = load_adj("pemsd7-m", data_root)
-    vel = load_vel("pemsd7-m", data_root)
-    train, _, test = chrono_split(vel)
-    scaler = ZScoreScaler().fit(train)
-    test_ds = ForecastDataset.from_numpy(scaler.transform(test), n_his, n_pred, device="cuda")
-    gop = make_graph_op(build_gso(adj, "sym_norm_lap", cheb=True), "auto", device="cuda")
-    model = STGCN(n_his, n_vertex, kt=3, ks=3, act_func="glu",
-                  graph_conv_type="cheb_graph_conv", device="cuda",
-                  generator=torch.Generator().manual_seed(42)).eval()
+    test_ds, scaler, gop, n_vertex = data["test"], data["scaler"], data["gop"], data["n_vertex"]
+    model = new_model(torch, n_vertex, DROPRATE).eval()
     params = model.state_dict()
     setup_s = time.perf_counter() - t0
 
@@ -251,7 +455,7 @@ def phase_slice(torch) -> dict:
 
     def predictor(kind):
         def predict(starts):
-            x, y = gather_windows(test_ds.series, starts, n_his, n_pred)
+            x, y = gather_windows(test_ds.series, starts, N_HIS, N_PRED)
             if kind == "fused":
                 out = fused_sparse_forward(params, x, gop, model)
             else:
@@ -281,8 +485,7 @@ def phase_slice(torch) -> dict:
             evaluate_metrics(predictor(kind), test_ds, scaler, BATCH)
             walls[kind].append(time.perf_counter() - t1)
 
-    per_batch = {"head_fwd": 2, "tail_fwd": 2, "ohead_fwd": 1, "ofc_fwd": 1}
-    want = {k: n * n_batches for k, n in per_batch.items()}
+    want = {k: PER_BATCH_FWD.get(k, 0) * n_batches for k in PER_STEP}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     if pf.shape != (n_batches * BATCH, n_vertex) or not torch.isfinite(pf).all():
@@ -301,6 +504,103 @@ def phase_slice(torch) -> dict:
               "forecast_seconds_all": walls,
               "max_abs_diff_fused_unfused": float(d.max()), "tolerance": SLICE_TOL,
               "launches": launches, "metrics_fused": m_fused, "metrics_unfused": m_unfused}
+    emit(result)
+    return result
+
+
+def phase_train(torch, data) -> dict:
+    """Phase 6: fused training against unfused, then a fused fit and test."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import TrainConfig, Trainer, masked_mse
+
+    n_vertex, gop = data["n_vertex"], data["gop"]
+    ckpt_root = ROOT / "checkpoints" / "chip_smoke"   # git-ignored, removed at the end
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # 1. one batch: loss and gradients, fused against unfused, same masks
+    model = new_model(torch, n_vertex, DROPRATE)
+    params = dict(model.named_parameters())
+    names = list(params)
+    starts, n_valid = next(data["train"].batches(BATCH))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    seed = step_seed(42, 0)
+
+    def loss_grads(fused):
+        pred = (fused_sparse_forward(params, x, gop, model, deterministic=False, seed=seed)
+                if fused else model(x, gop, deterministic=False, seed=seed))
+        loss = masked_mse(pred.reshape(BATCH, -1), y, n_valid)
+        return loss, torch.autograd.grad(loss, [params[k] for k in names])
+
+    lf, gf = loss_grads(True)
+    lu, gu = loss_grads(False)
+    ff, fu = torch.cat([g.flatten() for g in gf]), torch.cat([g.flatten() for g in gu])
+    rel = float((ff - fu).norm() / (fu.norm() + 1e-12))
+    worst = max(float(((a - b).abs() - GRAD_RTOL * b.abs()).max()) for a, b in zip(gf, gu))
+    if not rel < GRAD_REL_L2 or worst > GRAD_ATOL:
+        raise AssertionError(f"fused gradients off the unfused ones: relative L2 {rel:.3e}, "
+                             f"worst excess over the rtol {worst:.3e}")
+    one_batch = {"loss_fused": float(lf), "loss_unfused": float(lu), "grad_rel_l2": rel,
+                 "grad_max_abs_diff": float((ff - fu).abs().max())}
+
+    def trainer(fused, tag, state=None):
+        m = new_model(torch, n_vertex, DROPRATE)
+        if state is not None:
+            m.load_state_dict(state)
+        cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH,
+                          fused=fused, ckpt_dir=str(ckpt_root / tag), dataset_name="pemsd7-m")
+        return Trainer(cfg, m, gop, data["train"], data["val"], data["test"], data["scaler"],
+                       device="cuda")
+
+    # 2. the first 20 step losses, fused and unfused, from the same weights
+    state = {k: v.clone() for k, v in new_model(torch, n_vertex, DROPRATE).state_dict().items()}
+    steps = {}
+    for fused in (True, False):
+        tr = trainer(fused, f"steps_{fused}", state)
+        batches = list(tr.train_ds.batches(BATCH))[:20]
+        steps[fused] = torch.stack([tr.train_step(s, n, i)
+                                    for i, (s, n) in enumerate(batches)]).cpu()
+    dl = (steps[True] - steps[False]).abs()
+    if not bool((dl <= LOSS_TOL + LOSS_TOL * steps[False].abs()).all()):
+        raise AssertionError(f"fused and unfused step losses differ: {steps[True].tolist()} vs "
+                             f"{steps[False].tolist()}")
+
+    # 3. a fused fit of 3 epochs; the launches of every step counted
+    tr = trainer(True, "fused", state)
+    kernels.reset_launch_counts()
+    hist_f = tr.fit(3)["history"]
+    launches = kernels.launch_counts()
+    want = {k: n * 3 * tr.steps_per_epoch for k, n in PER_STEP.items()}
+    if launches != want:
+        raise AssertionError(f"fit launched {launches}, expected {want}")
+    kernels.reset_launch_counts()
+    tr.validate()
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"validation launched kernels: {kernels.launch_counts()}")
+    losses = [h["train_loss"] for h in hist_f]
+    if not all(v == v and abs(v) < float("inf") for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fused train loss not finite and falling: {losses}")
+    test_f = tr.test()
+    if not all(v == v and abs(v) < float("inf") for v in test_f.values()):
+        raise AssertionError(f"non-finite test metrics {test_f}")
+
+    # 4. the unfused route's epochs, after the fused ones
+    hist_u = trainer(False, "unfused", state).fit(3)["history"]
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    result = {"phase": "train", "seconds": time.perf_counter() - t0, "dataset": "pemsd7-m",
+              "batch_size": BATCH, "droprate": DROPRATE, "steps_per_epoch": tr.steps_per_epoch,
+              "one_batch": one_batch, "grad_tolerance": [GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL],
+              "first_20_losses_fused": steps[True].tolist(),
+              "first_20_losses_unfused": steps[False].tolist(),
+              "first_20_max_abs_diff": float(dl.max()), "loss_tolerance": LOSS_TOL,
+              "train_loss_fused": losses, "val_loss_fused": [h["val_loss"] for h in hist_f],
+              "epoch_seconds_fused": [h["epoch_time_s"] for h in hist_f],
+              "train_loss_unfused": [h["train_loss"] for h in hist_u],
+              "epoch_seconds_unfused": [h["epoch_time_s"] for h in hist_u],
+              "launches": launches, "test_fused": test_f}
     emit(result)
     return result
 
@@ -332,22 +632,25 @@ def main() -> int:
     emit({"phase": "build", "seconds": info.seconds, "cached": info.cached,
           "library": str(info.path.relative_to(ROOT)), "ptxas": ptxas})
 
-    per_shape = phase_kernels(torch)
-    sl = phase_slice(torch)
+    phase_kernels(torch)
+    data = load_pemsd7(torch)
+    per_call = phase_kernels_bwd(torch, data)
+    sl = phase_slice(torch, data)
+    tr = phase_train(torch, data)
 
     rows = []
-    for name, shapes in per_shape.items():
+    for name, calls in per_call.items():
         kid, source, replaces, tpu_fn = KERNEL_META[name]
-        # per batch of the main path the kernel runs once at each listed shape
+        # per training step the kernel runs once at each recorded call
         rows.append({
             "name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-            "tpu_fn": tpu_fn, "launches": sl["launches"][name],
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "ms": sum(s["ms"] for s in shapes), "kernel_ms": sum(s["ms"] for s in shapes),
-            "plain_ms": sum(s["plain_ms"] for s in shapes),
-            "bound_ms": sum(s["bound_ms"] for s in shapes),
-            "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-            "library_ms": None, "per_batch_shapes": shapes})
+            "tpu_fn": tpu_fn, "launches": tr["launches"][name],
+            "launches_forecast": sl["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in calls),
+            "ms": sum(c["ms"] for c in calls), "plain_ms": sum(c["plain_ms"] for c in calls),
+            "bound_ms": sum(c["bound_ms"] for c in calls),
+            "bound_by": max(calls, key=lambda c: c["bound_ms"])["bound_by"],
+            "library_ms": None, "per_step_calls": calls})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

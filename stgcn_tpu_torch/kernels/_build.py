@@ -9,7 +9,8 @@ file), at first use::
 
 The sources include no PyTorch header: each kernel is behind a plain C
 function that takes device pointers, sizes and a ``cudaStream_t`` and
-returns the ``cudaError_t`` of its launch. The library is rebuilt when the
+returns the ``cudaError_t`` of its launches; a backward entry point also
+takes a workspace that its ``*_work`` function sizes. The library is rebuilt when the
 hash of the sources differs from the one stored beside it. A failed build
 raises with nvcc's output; nothing falls back to the plain versions.
 """
@@ -33,13 +34,26 @@ LIB_NAME = "libstgcn_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of every entry point: device pointers, then ints, then the stream
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_DROP = [_U, _I, _U, _F]   # a dropout site: seed, site, threshold, scale
+# C signature of every entry point: device pointers, then ints (and a
+# dropout site), then the stream; each returns its cudaError_t
 SIGNATURES = {
-    "stgcn_head_fwd": [_P] * 10 + [_I] * 9 + [_P],
+    "stgcn_head_fwd": [_P] * 10 + [_I] * 10 + _DROP + [_P],
     "stgcn_tail_fwd": [_P] * 12 + [_I] * 9 + [_P],
-    "stgcn_ohead_fwd": [_P] * 11 + [_I] * 7 + [_P],
-    "stgcn_ofc_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    "stgcn_ohead_fwd": [_P] * 11 + [_I] * 7 + _DROP + [_P],
+    "stgcn_ofc_fwd": [_P] * 10 + [_I] * 6 + _DROP + [_P],
+    "stgcn_head_bwd": [_P] * 19 + [_I] * 10 + _DROP + [_P],
+    "stgcn_tail_bwd": [_P] * 18 + [_I] * 10 + [_P],
+    "stgcn_ohead_bwd": [_P] * 18 + [_I] * 7 + _DROP + [_P],
+    "stgcn_ofc_bwd": [_P] * 19 + [_I] * 6 + _DROP + [_P],
+}
+# workspace size in floats of each backward entry point, from its sizes
+WORK_SIGNATURES = {
+    "stgcn_head_bwd_work": [_I] * 9,
+    "stgcn_tail_bwd_work": [_I] * 9,
+    "stgcn_ohead_bwd_work": [_I] * 6,
+    "stgcn_ofc_bwd_work": [_I] * 5,
 }
 
 
@@ -98,10 +112,11 @@ def build() -> BuildInfo:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call) with typed entry points."""
     lib = ctypes.CDLL(str(build().path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    for table, restype in ((SIGNATURES, ctypes.c_int), (WORK_SIGNATURES, ctypes.c_longlong)):
+        for name, argtypes in table.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
     lib.stgcn_error_string.argtypes = [ctypes.c_int]
     lib.stgcn_error_string.restype = ctypes.c_char_p
     return lib

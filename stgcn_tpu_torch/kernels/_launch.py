@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from stgcn_tpu_torch.kernels.dropout import NO_DROP_ARGS
+
 
 def on_cpu(t: torch.Tensor) -> bool:
     """True when a wrapper should run its plain version: only because the
@@ -36,6 +38,17 @@ def cuda_device(t: torch.Tensor) -> torch.device:
 
 def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def workspace(floats: int, device: torch.device) -> torch.Tensor:
+    """Scratch of a backward entry point, sized by its ``*_work`` function."""
+    return torch.empty(max(int(floats), 1), device=device, dtype=torch.float32)
+
+
+def drop_args(drop) -> tuple:
+    """The (seed, site, threshold, scale) of a dropout site; the site is off
+    (threshold 0) for None."""
+    return NO_DROP_ARGS if drop is None else drop.c_args()
 
 
 ACT_CODES = {"glu": 0, "gtu": 1, "relu": 2, "silu": 3}

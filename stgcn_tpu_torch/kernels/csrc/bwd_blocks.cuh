@@ -1,0 +1,104 @@
+// Building blocks of the backward kernels K1b-K4b (vertex_fused_bwd.cu,
+// output_head_bwd.cu). Every operand is a cv tensor [B, T, C, Vp] float32
+// with Vp a multiple of kLanes. Each launcher returns the cudaError_t of
+// its launch. No block adds into memory another block writes: weight
+// gradients go through per-slice partials and a fixed-order second pass,
+// so a repeated backward is bit-identical.
+#pragma once
+
+#include "common.cuh"
+
+namespace stgcn {
+
+// Carves float buffers out of one workspace, in call order; with a null
+// base it only counts (the entry points size their workspace this way).
+struct Carver {
+  float* base;
+  size_t used = 0;
+  float* take(size_t n) {
+    float* p = base ? base + used : nullptr;
+    used += (n + 63) / 64 * 64;  // keep every buffer 256-byte aligned
+    return p;
+  }
+};
+
+// Return the error of a launch that failed.
+#define STGCN_TRY(...)                          \
+  do {                                          \
+    const cudaError_t err_ = (__VA_ARGS__);     \
+    if (err_ != cudaSuccess) return err_;       \
+  } while (0)
+
+// A cv operand: data pointer and its time / channel extents.
+struct Cv {
+  const float* p;
+  int t, c;
+};
+
+// Y[b, t, o, v] (t < ty, o < O) = bias[o] + sum over taps k < K and channels
+// c < C of X_k[b, tx, c, v] * W(k, c, o), where tx = t + k*tstep (forward)
+// or t - k*tstep (back: taps that fall outside [0, X.t) are skipped), and
+// X_k is xs[k] for k < 3 when given, else xs[0] (taps may name separate
+// operands: the Chebyshev terms).
+// W(k, c, o) is w[(k*C + c)*O + o] forward and w[(k*O + o)*C + c] back (the
+// transposed weight). Then, in this order: + add[b, t - add_shift, o, v]
+// where that lies inside add (o < add.c); relu when relu_out; times
+// (pos[b, t, o, v] > 0) when pos is given. K may be 0 (Y = add).
+struct ContractArgs {
+  const float* xs[3];
+  int x_t, c;          // time length and channels of every X_k
+  const float* w;
+  int k, tstep, back;
+  const float* bias;   // [O] or null
+  Cv add;              // add.p may be null
+  int add_shift, relu_out;
+  const float* pos;    // same shape as y, or null
+  float* y;
+  int batch, ty, o, vp;
+};
+cudaError_t launch_contract(const ContractArgs& a, cudaStream_t stream);
+
+// y = ((x - mu[b, t]) * rstd[b, t] * lng[c, v] + lnb[c, v]) * mask, over
+// x [B, T, C, Vp]; mask as `drop` gives it (none when threshold is 0).
+cudaError_t launch_ln_drop(const float* x, const float* mu, const float* rstd, const float* lng,
+                           const float* lnb, Drop drop, float* y, int batch, int t, int c,
+                           int vp, cudaStream_t stream);
+
+// Backward of the gate with its in-gate residual, elementwise over
+// s [B, T, G, Vp] (G = 2*c_out gated, c_out otherwise). xin = res[b, t +
+// res_shift, c, v] for c < res.c, else 0. The upstream gradient is da
+// [B, T, c_out, Vp], plus, when gps is given, the LayerNorm-partial
+// cotangents (gps[b, t] + 2 * gpss[b, t] * a) on lanes v < v_true. Writes
+// ds [B, T, G, Vp], dxin [B, T, c_out, Vp] and, when given, a_out (the
+// forward gate value).
+cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da,
+                            const float* gps, const float* gpss, int v_true, int act, int c_out,
+                            float* ds, float* dxin, float* a_out, int batch, int t, int vp,
+                            cudaStream_t stream);
+
+// K4b's fc1 epilogue over s [B, T, C, Vp]: zd = relu(s) * mask and
+// ds = dzd * mask * (s > 0).
+cudaError_t launch_relu_drop(const float* s, Drop drop, const float* dzd, float* zd, float* ds,
+                             int batch, int t, int c, int vp, cudaStream_t stream);
+
+// Weight gradient out[k, c, o] = sum over b, t < D.t, v of X[b, t + k, c, v]
+// * D[b, t, o, v] for k < K, c < X.c, o < D.c; X.p null stands for ones
+// (X.c = 1, K = 1: the bias gradient). The (b, t) steps are cut into
+// min(B * D.t, kWgradSlices) slices, fixed by the shapes; each slice's
+// partial goes to `part` (at most kWgradSlices * K * X.c * D.c floats) and a
+// second pass sums them in slice order.
+constexpr int kWgradSlices = 64;
+cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, int vp,
+                         cudaStream_t stream);
+
+// LayerNorm backward with given statistics, for dy = the gradient of
+// y = ((x - mu) * rstd * lng + lnb) * mask over x [B, T, C, Vp]:
+//   dx = dy * mask * lng * rstd, dmu[b, t] = -rstd * sum_{c,v} dy * mask * lng,
+//   drstd[b, t] = sum_{c,v} dy * mask * lng * (x - mu)   (one block per (b, t));
+//   dlng[c, v] = sum_{b,t} dy * mask * xn, dlnb[c, v] = sum_{b,t} dy * mask.
+cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, const float* lng,
+                          Drop drop, const float* dy, float* dx, float* dmu, float* drstd,
+                          float* dlng, float* dlnb, int batch, int t, int c, int vp,
+                          cudaStream_t stream);
+
+}  // namespace stgcn

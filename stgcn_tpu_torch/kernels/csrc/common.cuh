@@ -12,6 +12,8 @@
 
 #include <cuda_runtime.h>
 
+#include "dropout.cuh"
+
 namespace stgcn {
 
 constexpr int kLanes = 128;          // vertex lanes (threads) per block
@@ -20,6 +22,12 @@ constexpr int kMaxOut = 16;          // narrow outputs (K1's c1, K2's c1, K4's f
 constexpr int kMaxSmem = 232448;     // shared memory a block may use on sm_90 (227 KB)
 
 enum Act : int { kGlu = 0, kGtu = 1, kRelu = 2, kSilu = 3 };
+
+// A dropout site as the C entry points receive it (four scalars) plus the
+// true lane count of the dropped tensor.
+inline Drop make_drop(unsigned seed, int site, unsigned threshold, float scale, int v_true) {
+  return Drop{seed, site, threshold, scale, v_true};
+}
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -100,10 +108,13 @@ cudaError_t launch_reduce_partials(const float* part, float* ps, float* pss, int
 // from x [B, t_in, c_in, Vp], conv weight w [kt*c_in, G] (G = 2*c0 gated,
 // c0 otherwise), bias wb [G], second product ow [c0, n_out], ob [n_out].
 // mu/rstd [B, t_in] and lng/lnb [c_in, Vp] are read only when apply_ln.
+// drop_in masks the (normalized) input, keyed [B, t_in, c_in, V_true];
+// drop_out masks the gated a, keyed [B, t_out, c0, V_true].
 struct GateGemmArgs {
   const float *x, *mu, *rstd, *lng, *lnb, *w, *wb, *ow, *ob;
   float* y;
   int batch, t_in, c_in, vp, kt, c0, n_out, act, apply_ln, residual;
+  Drop drop_in, drop_out;
 };
 cudaError_t launch_gate_gemm(const GateGemmArgs& args, cudaStream_t stream);
 

@@ -8,7 +8,9 @@
 //   y[o, v]  = sum_c a[c, v] * ow[c, o] + ob[o]      o < n_out
 //
 // where xn is the input window, normalized with the previous LayerNorm's
-// per-(b, t) statistics and (V, C) affine when apply_ln is set.
+// per-(b, t) statistics and (V, C) affine when apply_ln is set, then
+// dropped out (drop_in: K1 in training); drop_out drops the gated a (K4's
+// dropout after fc1 -> ReLU). Both masks are keyed by element (dropout.cuh).
 //   K1 (stgcn_tpu/kernels/vertex_fused.py `_head_pallas` :610): W = the conv-1
 //      taps [kt*c_in, 2*c0], gate GLU/GTU/relu/silu with the in-gate
 //      residual xin = the window's last step, ow = the bottleneck align.
@@ -43,7 +45,8 @@ gate_gemm_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                  const float* __restrict__ lnb, const float* __restrict__ w,
                  const float* __restrict__ wb, const float* __restrict__ ow,
                  const float* __restrict__ ob, float* __restrict__ y, int t_in, int c_in,
-                 int vp, int kt, int c0, int n_out, int act, int apply_ln, int residual) {
+                 int vp, int kt, int c0, int n_out, int act, int apply_ln, int residual,
+                 Drop drop_in, Drop drop_out) {
   constexpr int NC = GATED ? 2 * kGemmCols : kGemmCols;  // staged weight columns
   __shared__ float4 w_s[kGemmRows][NC / 4];
   __shared__ float4 x_s[kGemmRows][kGemmLanes / 4];
@@ -58,12 +61,17 @@ gate_gemm_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   const int rows = kt * c_in;
   const int g = GATED ? 2 * c0 : c0;
 
-  // normalized input at step tt, channel c, lane v
+  const uint32_t key_in = drop_key(drop_in.seed, drop_in.site);
+  const uint32_t key_out = drop_key(drop_out.seed, drop_out.site);
+
+  // normalized (and dropped) input at step tt, channel c, lane v
   auto xn = [&](int tt, int c, int v) {
-    float val = x[((size_t)(b * t_in + tt) * c_in + c) * vp + v];
+    const size_t row = (size_t)(b * t_in + tt) * c_in + c;
+    float val = x[row * vp + v];
     if (apply_ln)
       val = (val - mu[b * t_in + tt]) * rstd[b * t_in + tt] * lng[(size_t)c * vp + v] +
             lnb[(size_t)c * vp + v];
+    if (drop_in.threshold) val *= drop_mask(drop_in, key_in, row, v);
     return val;
   };
 
@@ -132,6 +140,8 @@ gate_gemm_kernel(const float* __restrict__ x, const float* __restrict__ mu,
         const int v = v0 + (l < 4 ? 4 * lg + l : 32 + 4 * lg + l - 4);
         const float xin = (residual && c < c_in) ? xn(t + kt - 1, c, v) : 0.0f;
         a[l] = c < c0 ? gate(act, p[i][l], q[i][l], xin) : 0.0f;
+        if (drop_out.threshold && c < c0)
+          a[l] *= drop_mask(drop_out, key_out, (size_t)(b * t_out + t) * c0 + c, v);
       }
       a_s[4 * cg + i][lg] = make_float4(a[0], a[1], a[2], a[3]);
       a_s[4 * cg + i][lg + 8] = make_float4(a[4], a[5], a[6], a[7]);
@@ -165,7 +175,7 @@ cudaError_t gate_gemm_launch(const GateGemmArgs& a, cudaStream_t stream) {
   const dim3 grid(a.vp / kGemmLanes, a.t_in - a.kt + 1, a.batch);
   gate_gemm_kernel<GATED><<<grid, kGemmThreads, 0, stream>>>(
       a.x, a.mu, a.rstd, a.lng, a.lnb, a.w, a.wb, a.ow, a.ob, a.y, a.t_in, a.c_in, a.vp, a.kt,
-      a.c0, a.n_out, a.act, a.apply_ln, a.residual);
+      a.c0, a.n_out, a.act, a.apply_ln, a.residual, a.drop_in, a.drop_out);
   return cudaGetLastError();
 }
 

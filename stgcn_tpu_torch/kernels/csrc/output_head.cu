@@ -29,7 +29,7 @@ ohead_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                  const float* __restrict__ rstd, const float* __restrict__ lng,
                  const float* __restrict__ lnb, const float* __restrict__ ck,
                  const float* __restrict__ cb, float* __restrict__ a, float* __restrict__ part,
-                 int ko, int c_in, int vp, int c0, int act, int v_true) {
+                 int ko, int c_in, int vp, int c0, int act, int v_true, Drop drop) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const bool gated = act == kGlu || act == kGtu;
@@ -44,10 +44,13 @@ ohead_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   const int v = blockIdx.x * kLanes + threadIdx.x;
   const int b = blockIdx.z;
   const float* xb = x + (size_t)b * ko * c_in * vp + v;
+  const uint32_t key = drop_key(drop.seed, drop.site);
   auto load = [&](int t, int c) {
     const float xv = xb[((size_t)t * c_in + c) * vp];
-    return (xv - mu[b * ko + t]) * rstd[b * ko + t] * lng[(size_t)c * vp + v] +
-           lnb[(size_t)c * vp + v];
+    float y = (xv - mu[b * ko + t]) * rstd[b * ko + t] * lng[(size_t)c * vp + v] +
+              lnb[(size_t)c * vp + v];
+    if (drop.threshold) y *= drop_mask(drop, key, ((size_t)b * ko + t) * c_in + c, v);
+    return y;
   };
 
   float p[kChunk], q[kChunk];
@@ -90,11 +93,13 @@ using namespace stgcn;
 
 extern "C" {
 
-// part: scratch [B, ceil(c0 / 16), Vp / 128, 2]; ps, pss: [B].
+// part: scratch [B, ceil(c0 / 16), Vp / 128, 2]; ps, pss: [B]. The dropout
+// site masks the normalized input (threshold 0 turns it off).
 int stgcn_ohead_fwd(const float* x, const float* mu, const float* rstd, const float* lng,
                     const float* lnb, const float* ck, const float* cb, float* a, float* part,
                     float* ps, float* pss, int B, int ko, int c_in, int vp, int c0, int act,
-                    int v_true, void* stream) {
+                    int v_true, unsigned seed, int site, unsigned threshold, float scale,
+                    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(float) * ((size_t)ko * c_in * 2 * kChunk + 2 * kChunk + kLanes / 32);
   cudaError_t err = set_smem(ohead_fwd_kernel, smem);
@@ -102,20 +107,25 @@ int stgcn_ohead_fwd(const float* x, const float* mu, const float* rstd, const fl
   const int nch = (c0 + kChunk - 1) / kChunk;
   const dim3 grid(vp / kLanes, nch, B);
   ohead_fwd_kernel<<<grid, kLanes, smem, s>>>(x, mu, rstd, lng, lnb, ck, cb, a, part, ko, c_in,
-                                             vp, c0, act, v_true);
+                                             vp, c0, act, v_true,
+                                             make_drop(seed, site, threshold, scale, v_true));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce_partials(part, ps, pss, B, nch * (vp / kLanes), s);
 }
 
 // K4: out [B, 1, ce, Vp] (gate_gemm.cu: kt = 1, relu without residual).
-// ce (fc2 outputs) must be at most 16.
+// ce (fc2 outputs) must be at most 16. The dropout site masks the fc1 ->
+// ReLU output (threshold 0 turns it off).
 int stgcn_ofc_fwd(const float* a, const float* mu, const float* rstd, const float* lnw,
                   const float* lnb, const float* w1, const float* b1, const float* w2,
                   const float* b2, float* out, int B, int c0, int c1, int ce, int vp,
+                  int v_true, unsigned seed, int site, unsigned threshold, float scale,
                   void* stream) {
   const GateGemmArgs args{a, mu, rstd, lnw, lnb, w1, b1, w2,    b2, out,
-                          B, 1,  c0,   vp,  1,   c1, ce, kRelu, 1,  0};
+                          B, 1,  c0,   vp,  1,   c1, ce, kRelu, 1,  0,
+                          make_drop(0, 0, 0, 1.0f, v_true),
+                          make_drop(seed, site, threshold, scale, v_true)};
   return launch_gate_gemm(args, static_cast<cudaStream_t>(stream));
 }
 

@@ -152,13 +152,18 @@ extern "C" {
 
 const char* stgcn_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// K1: xg [B, t_in-kt+1, c1, Vp] (gate_gemm.cu). c1 must be at most 16.
+// K1: xg [B, t_in-kt+1, c1, Vp] (gate_gemm.cu). c1 must be at most 16. The
+// dropout site (seed, site, threshold, scale) masks the normalized input;
+// threshold 0 turns it off.
 int stgcn_head_fwd(const float* x, const float* mu, const float* rstd, const float* lng,
                    const float* lnb, const float* c1k, const float* c1b, const float* gaw,
                    const float* gab, float* xg, int B, int t_in, int c_in, int vp, int kt,
-                   int c0, int c1, int act, int apply_ln, void* stream) {
+                   int c0, int c1, int act, int apply_ln, int v_true, unsigned seed, int site,
+                   unsigned threshold, float scale, void* stream) {
   const GateGemmArgs args{x,  mu, rstd, lng,  lnb, c1k, c1b, gaw, gab,      xg,
-                          B,  t_in, c_in, vp, kt,  c0,  c1,  act, apply_ln, 1};
+                          B,  t_in, c_in, vp, kt,  c0,  c1,  act, apply_ln, 1,
+                          make_drop(seed, site, threshold, scale, v_true),
+                          make_drop(0, 0, 0, 1.0f, v_true)};
   return launch_gate_gemm(args, static_cast<cudaStream_t>(stream));
 }
 

@@ -1,5 +1,5 @@
 """K1 (block head) and K2 (block tail) of the vertex-fused ST block, forward
-(port of ``stgcn_tpu/kernels/vertex_fused.py``).
+and backward (port of ``stgcn_tpu/kernels/vertex_fused.py``).
 
 One ST block runs as two kernels around the graph aggregation:
 
@@ -13,14 +13,22 @@ One ST block runs as two kernels around the graph aggregation:
   pre-LN activation ``a2`` plus the LayerNorm partial sums (Σ, Σ²) over
   channels and the true vertex lanes, per (batch, step).
 
+In training, K1 drops out its normalized input with a mask keyed by element
+(:mod:`.dropout`). :func:`head_bwd` (K1b) and :func:`tail_bwd` (K2b) are the
+recompute-based backward kernels; :func:`head_fused` and :func:`tail_fused`
+wrap forward and backward as ``torch.autograd.Function``s that save only
+their inputs, as the TPU's ``custom_vjp`` does.
+
 All large operands are channel-before-vertex ``[B, T, C, Vp]`` float32, as
-on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body) and
-``csrc/vertex_fused.cu`` (K2, and both C entry points); their notes say
-what bounds each kernel and how the design answers it. Every wrapper runs
-its kernel on a CUDA tensor and its plain PyTorch version
-(:func:`head_reference`, :func:`tail_reference`) on a CPU tensor; ``launches``
-on each wrapper counts kernel launches. The bf16 variants (``precision=
-"bfloat16"`` on the TPU) are not ported yet and raise.
+on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body),
+``csrc/vertex_fused.cu`` (K2, and both forward entry points) and
+``csrc/vertex_fused_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K1b, K2b); their
+notes say what bounds each kernel and how the design answers it. Every
+wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
+(``*_reference``; the backward ones are autograd through the forward ones
+with the same mask) on a CPU tensor; ``launches`` on each wrapper counts
+kernel launches. The bf16 variants (``precision="bfloat16"`` on the TPU) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -29,9 +37,10 @@ import dataclasses
 
 import torch
 
-from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, LANES, MAX_OUT, cuda_device, on_cpu, require, stream_of)
+    ACT_CODES, LANES, MAX_OUT, cuda_device, drop_args, on_cpu, require, stream_of, workspace)
+from stgcn_tpu_torch.kernels.dropout import Drop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,12 +132,13 @@ def ln_normalize_cv(x, mu, rstd, lng, lnb):
     return (x - mu) * rstd * lng + lnb
 
 
-def head_reference(cfg: VertexBlockCfg, x, ln, w) -> torch.Tensor:
+def head_reference(cfg: VertexBlockCfg, x, ln, w, drop: Drop | None = None) -> torch.Tensor:
     """Plain version of :func:`head_fwd`. ``ln`` = (mu, rstd, lng, lnb) or
-    None when ``not cfg.apply_ln``; ``w`` = (c1k, c1b, gaw, gab)."""
+    None when ``not cfg.apply_ln``; ``w`` = (c1k, c1b, gaw, gab); ``drop``
+    drops the normalized input (LN, then dropout, `model/layers.py:255-256`)."""
     c1k, c1b, gaw, gab = w
     if cfg.apply_ln:
-        x = ln_normalize_cv(x, *ln)
+        x = dropout.apply_cv(ln_normalize_cv(x, *ln), drop, cfg.v_true)
     s1 = tconv_cv(x, c1k, c1b, cfg.kt)
     a1 = gate_cv(cfg.act_func, s1, pad_channels_cv(x[:, cfg.kt - 1:], cfg.c0), cfg.c0)
     return _cdot(a1, gaw) + gab[:, None]
@@ -170,6 +180,32 @@ def tail_reference(cfg: VertexBlockCfg, xg, terms, w):
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+def head_bwd_reference(cfg: VertexBlockCfg, x, ln, w, gy, drop: Drop | None = None):
+    """Plain version of :func:`head_bwd`: autograd through
+    :func:`head_reference` with the same mask."""
+    with torch.enable_grad():
+        ins = [x, *(ln if cfg.apply_ln else ()), *w]
+        ins = [t.detach().requires_grad_() for t in ins]
+        n_ln = 4 if cfg.apply_ln else 0
+        y = head_reference(cfg, ins[0], ins[1:1 + n_ln] or None, ins[1 + n_ln:], drop)
+        g = torch.autograd.grad(y, ins, gy, allow_unused=True)
+    g = [torch.zeros_like(t) if d is None else d for t, d in zip(ins, g)]
+    return (g[0], *(g[1:5] if cfg.apply_ln else (None,) * 4), *g[1 + n_ln:])
+
+
+def tail_bwd_reference(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss):
+    """Plain version of :func:`tail_bwd`: autograd through
+    :func:`tail_reference`; returns (dxg, [dterm per term], dgcw, dgcb, dc2k,
+    dc2b)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (xg, *terms, *w)]
+        n = len(terms)
+        outs = tail_reference(cfg, ins[0], ins[1:1 + n], ins[1 + n:])
+        g = torch.autograd.grad(outs, ins, (ga2, gps, gpss), allow_unused=True)
+    g = [torch.zeros_like(t) if d is None else d for t, d in zip(ins, g)]
+    return g[0], g[1:1 + n], *g[1 + n:]
+
+
 def _check_cfg(cfg: VertexBlockCfg) -> None:
     if cfg.precision != "default":
         raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 kernel variants "
@@ -185,16 +221,23 @@ def _check_cfg(cfg: VertexBlockCfg) -> None:
                          "(c_in <= c0, c1 <= c2)")
 
 
-def head_fwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab) -> torch.Tensor:
+def _check_drop(cfg: VertexBlockCfg, drop: Drop | None) -> None:
+    if drop is not None and not cfg.apply_ln:
+        raise ValueError("the head drops out only a normalized input (apply_ln)")
+
+
+def head_fwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, *,
+             drop: Drop | None = None) -> torch.Tensor:
     """K1: ``x`` [B, t_in, c_in, Vp] → ``xg`` [B, t1, c1, Vp]. When
     ``cfg.apply_ln`` the input is first normalized with ``mu``/``rstd``
-    [B, t_in, 1, 1] and the affine ``lng``/``lnb`` [c_in, Vp]; otherwise
-    those four may be None. Weights: ``c1k`` [kt, c_in, g1], ``c1b`` [g1],
-    ``gaw`` [c0, c1], ``gab`` [c1]."""
+    [B, t_in, 1, 1] and the affine ``lng``/``lnb`` [c_in, Vp], then dropped
+    out by ``drop`` (training); otherwise those four may be None. Weights:
+    ``c1k`` [kt, c_in, g1], ``c1b`` [g1], ``gaw`` [c0, c1], ``gab`` [c1]."""
     _check_cfg(cfg)
+    _check_drop(cfg, drop)
     if on_cpu(x):
         ln = (mu, rstd, lng, lnb) if cfg.apply_ln else None
-        return head_reference(cfg, x, ln, (c1k, c1b, gaw, gab))
+        return head_reference(cfg, x, ln, (c1k, c1b, gaw, gab), drop)
     dev = cuda_device(x)
     b = x.shape[0]
     ln_shapes = [(b, cfg.t_in, 1, 1)] * 2 + [(cfg.c_in, cfg.v_pad)] * 2
@@ -208,7 +251,8 @@ def head_fwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab) -> 
     xg = torch.empty((b, cfg.t1, cfg.c1, cfg.v_pad), device=dev, dtype=torch.float32)
     err = _build.library().stgcn_head_fwd(
         *ptrs, xg.data_ptr(), b, cfg.t_in, cfg.c_in, cfg.v_pad, cfg.kt, cfg.c0, cfg.c1,
-        ACT_CODES[cfg.act_func], int(cfg.apply_ln), stream_of(dev))
+        ACT_CODES[cfg.act_func], int(cfg.apply_ln), cfg.v_true, *drop_args(drop),
+        stream_of(dev))
     _build.check("head_fwd", err)
     head_fwd.launches += 1
     return xg
@@ -254,3 +298,145 @@ def tail_fwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
 
 
 tail_fwd.launches = 0
+
+
+def head_bwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, gy, *,
+             drop: Drop | None = None):
+    """K1b: the gradients of :func:`head_fwd` for the output cotangent ``gy``
+    [B, t1, c1, Vp], recomputing the forward from its inputs and regenerating
+    its mask. Returns ``(dx, dmu, drstd, dlng, dlnb, dc1k, dc1b, dgaw, dgab)``
+    shaped as the inputs; the four LayerNorm entries are None unless
+    ``cfg.apply_ln``."""
+    _check_cfg(cfg)
+    _check_drop(cfg, drop)
+    ln = (mu, rstd, lng, lnb) if cfg.apply_ln else None
+    if on_cpu(x):
+        return head_bwd_reference(cfg, x, ln, (c1k, c1b, gaw, gab), gy, drop)
+    dev = cuda_device(x)
+    b = x.shape[0]
+    lib = _build.library()
+    act = ACT_CODES[cfg.act_func]
+    ins = [require(x, "x", (b, cfg.t_in, cfg.c_in, cfg.v_pad), dev)]
+    ln_shapes = [(b, cfg.t_in, 1, 1)] * 2 + [(cfg.c_in, cfg.v_pad)] * 2
+    for name, t, shape in zip(("mu", "rstd", "lng", "lnb"), (mu, rstd, lng, lnb), ln_shapes):
+        ins.append(require(t, name, shape, dev) if cfg.apply_ln else 0)
+    ins += [require(c1k, "c1k", (cfg.kt, cfg.c_in, cfg.g1), dev),
+            require(c1b, "c1b", (cfg.g1,), dev),
+            require(gaw, "gaw", (cfg.c0, cfg.c1), dev),
+            require(gy, "gy", (b, cfg.t1, cfg.c1, cfg.v_pad), dev)]
+    require(gab, "gab", (cfg.c1,), dev)
+
+    def new(t):
+        return torch.empty_like(t)
+
+    dx = torch.empty_like(x)
+    dln = [new(t) for t in (mu, rstd, lng, lnb)] if cfg.apply_ln else [None] * 4
+    dw = [new(t) for t in (c1k, c1b, gaw, gab)]
+    sizes = (b, cfg.t_in, cfg.c_in, cfg.v_pad, cfg.kt, cfg.c0, cfg.c1, act, int(cfg.apply_ln))
+    work = workspace(lib.stgcn_head_bwd_work(*sizes), dev)
+    outs = [dx, *dln, *dw]
+    err = lib.stgcn_head_bwd(
+        *ins, *[0 if t is None else t.data_ptr() for t in outs], work.data_ptr(), *sizes,
+        cfg.v_true, *drop_args(drop), stream_of(dev))
+    _build.check("head_bwd", err)
+    head_bwd.launches += 1
+    return tuple(outs)
+
+
+head_bwd.launches = 0
+
+
+def tail_bwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gpss):
+    """K2b: the gradients of :func:`tail_fwd` for the cotangents ``ga2`` [B, t2,
+    c2, Vp] of ``a2`` and ``gps``/``gpss`` [B, t2, 1, 1] of its LayerNorm
+    partial sums, recomputing the forward. Returns ``(dxg, dt_a, dt_b, dgcw,
+    dgcb, dc2k, dc2b)``; the gradient of a graph term the tail does not read
+    (``t_b`` with one term) is zero."""
+    _check_cfg(cfg)
+    terms = [t_a, t_b][: cfg.n_terms]
+    if on_cpu(xg):
+        dxg, dterms, *dw = tail_bwd_reference(cfg, xg, terms, (gcw, gcb, c2k, c2b), ga2, gps,
+                                              gpss)
+        dterms = [*dterms] + [torch.zeros_like(xg)] * (2 - len(dterms))
+        return (dxg, *dterms, *dw)
+    dev = cuda_device(xg)
+    b = xg.shape[0]
+    lib = _build.library()
+    cheb = cfg.graph_conv_type == "cheb_graph_conv"
+    n_c = len(terms) + int(cheb)
+    act = (b, cfg.t1, cfg.c1, cfg.v_pad)
+    stat = (b, cfg.t2, 1, 1)
+    term_ptrs = [require(t, f"term{i}", act, dev) for i, t in enumerate(terms)]
+    ins = [require(xg, "xg", act, dev), *term_ptrs, *[0] * (2 - len(terms)),
+           require(gcw, "gcw", (n_c, cfg.c1, cfg.c1), dev),
+           require(gcb, "gcb", (cfg.c1,), dev),
+           require(c2k, "c2k", (cfg.kt, cfg.c1, cfg.g2), dev),
+           require(c2b, "c2b", (cfg.g2,), dev),
+           require(ga2, "ga2", (b, cfg.t2, cfg.c2, cfg.v_pad), dev),
+           require(gps, "gps", stat, dev), require(gpss, "gpss", stat, dev)]
+    dxg = torch.empty_like(xg)
+    dterms = [torch.empty_like(xg) if i < len(terms) else torch.zeros_like(xg)
+              for i in range(2)]
+    dw = [torch.empty_like(t) for t in (gcw, gcb, c2k, c2b)]
+    sizes = (b, cfg.t1, cfg.c1, cfg.v_pad, cfg.kt, len(terms), int(cheb), cfg.c2,
+             ACT_CODES[cfg.act_func])
+    work = workspace(lib.stgcn_tail_bwd_work(*sizes), dev)
+    outs = [dxg, *dterms, *dw]
+    err = lib.stgcn_tail_bwd(*ins, *[t.data_ptr() for t in outs], work.data_ptr(), *sizes,
+                             cfg.v_true, stream_of(dev))
+    _build.check("tail_bwd", err)
+    tail_bwd.launches += 1
+    return tuple(outs)
+
+
+tail_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# autograd Functions: forward and backward kernels, inputs saved
+# --------------------------------------------------------------------------
+
+class _HeadFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, drop, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab):
+        ctx.cfg, ctx.drop = cfg, drop
+        ctx.save_for_backward(x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab)
+        return head_fwd(cfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, drop=drop)
+
+    @staticmethod
+    def backward(ctx, gy):
+        grads = head_bwd(ctx.cfg, *ctx.saved_tensors, gy.contiguous(), drop=ctx.drop)
+        return (None, None, *grads)
+
+
+class _TailFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
+        ctx.cfg = cfg
+        ctx.save_for_backward(xg, t_a, t_b, gcw, gcb, c2k, c2b)
+        return tail_fwd(cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b)
+
+    @staticmethod
+    def backward(ctx, ga2, gps, gpss):
+        xg = ctx.saved_tensors[0]
+        b = xg.shape[0]
+        cfg = ctx.cfg
+        if ga2 is None:
+            ga2 = xg.new_zeros((b, cfg.t2, cfg.c2, cfg.v_pad))
+        stat = (b, cfg.t2, 1, 1)
+        gps = xg.new_zeros(stat) if gps is None else gps
+        gpss = xg.new_zeros(stat) if gpss is None else gpss
+        grads = tail_bwd(cfg, *ctx.saved_tensors, ga2.contiguous(), gps.contiguous(),
+                         gpss.contiguous())
+        return (None, *grads)
+
+
+def head_fused(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, *,
+               drop: Drop | None = None) -> torch.Tensor:
+    """Differentiable K1: :func:`head_fwd` forward, :func:`head_bwd` backward."""
+    return _HeadFused.apply(cfg, drop, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab)
+
+
+def tail_fused(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
+    """Differentiable K2: :func:`tail_fwd` forward, :func:`tail_bwd` backward."""
+    return _TailFused.apply(cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b)

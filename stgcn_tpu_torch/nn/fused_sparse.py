@@ -1,6 +1,6 @@
 """Vertex-fused forward of the whole STGCN (port of
-``stgcn_tpu/nn/fused_sparse.py:90-135,290-577``, deterministic and
-single-device).
+``stgcn_tpu/nn/fused_sparse.py:90-135,290-577``, single device), differentiable
+through the backward kernels K1b-K4b.
 
 A functional apply over the port's ``state_dict``: the same weights the
 unfused :class:`~stgcn_tpu_torch.nn.model.STGCN` holds. Each ST block runs as
@@ -13,11 +13,18 @@ two hand-written kernels around the graph product::
 and the output head as K3 → μ/σ → K4 (:mod:`stgcn_tpu_torch.kernels.
 output_head`). Activations travel between them channel-before-vertex
 ``[B, T, C, Vp]``. Per batch that is K1 ×n_blocks, K2 ×n_blocks, K3 ×1,
-K4 ×1. On CPU tensors every kernel wrapper runs its plain version.
+K4 ×1, and in the backward K1b/K2b ×n_blocks, K3b ×1, K4b ×1. On CPU
+tensors every kernel wrapper runs its plain version. The LayerNorm
+statistics between blocks (``ln_stats``), the graph product and the weight
+layout conversions are PyTorch ops, differentiated by autograd.
 
-Dropout (training) comes with the training slice and raises here. Cheb
-``Ks > 3`` and the degenerate ``Ko == 0`` plan run the unfused model (same
-math), as the JAX package does for ``Ks > 3``.
+Training (``deterministic=False``) drops out at one site per ST block (its
+LayerNorm output, site ``l``, applied inside block ``l+1``'s K1 or in K3)
+plus fc1's output in K4 (site ``n_blocks``), with masks keyed by element
+(:mod:`stgcn_tpu_torch.kernels.dropout`): the unfused model given the same
+``seed`` drops the same elements. Cheb ``Ks > 3`` and the degenerate
+``Ko == 0`` plan run the unfused model (same math), as the JAX package does
+for ``Ks > 3``.
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.output_head import output_head_fused
-from stgcn_tpu_torch.kernels.vertex_fused import VertexBlockCfg, head_fwd, ln_stats, tail_fwd
+from stgcn_tpu_torch.kernels.vertex_fused import (
+    VertexBlockCfg, head_fused, ln_stats, tail_fused)
 from stgcn_tpu_torch.nn.model import STGCN
 
 
@@ -73,34 +82,43 @@ def _block_weights(blk: dict, graph_conv_type: str):
             blk["ln.weight"], blk["ln.bias"])
 
 
-def _st_block(cfg: VertexBlockCfg, gop: Any, head_in, mu, rstd, lng_p, lnb_p, w):
+def _st_block(cfg: VertexBlockCfg, gop: Any, head_in, mu, rstd, lng_p, lnb_p, w,
+              drop: Drop | None):
     """One ST block: K1 → graph aggregation → K2; returns (a2, ps, pss)."""
     c1k, c1b, gaw, gab, gcw, gcb, c2k, c2b = w
-    xg = head_fwd(cfg, head_in, mu, rstd, lng_p, lnb_p, c1k, c1b, gaw, gab)
+    xg = head_fused(cfg, head_in, mu, rstd, lng_p, lnb_p, c1k, c1b, gaw, gab, drop=drop)
     t_a, t_b = _graph_terms(cfg, gop, xg)
-    return tail_fwd(cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b)
+    return tail_fused(cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b)
 
 
 def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, *,
-                         deterministic: bool = True) -> torch.Tensor:
+                         deterministic: bool = True, seed: int | None = None) -> torch.Tensor:
     """Forward pass through the vertex-fused kernels.
 
     ``params``: the port's ``state_dict`` (``model.state_dict()``, or one
-    made by :func:`stgcn_tpu_torch.nn.convert.params_from_jax`); ``model``
-    supplies the configuration. ``x``: ``[B, T, V, C]`` on the device the
-    kernels run on (CUDA; CPU tensors take the plain versions). ``gop``
-    must expose ``v_pad``, a 128-aligned padded vertex count, and the cv
-    surface (:class:`~stgcn_tpu_torch.ops.DenseGraphOp`). Returns
-    ``[B, 1, V, 1]`` float32.
+    made by :func:`stgcn_tpu_torch.nn.convert.params_from_jax`), or
+    ``dict(model.named_parameters())`` to train; ``model`` supplies the
+    configuration. ``x``: ``[B, T, V, C]`` on the device the kernels run on
+    (CUDA; CPU tensors take the plain versions). ``gop`` must expose
+    ``v_pad``, a 128-aligned padded vertex count, and the cv surface
+    (:class:`~stgcn_tpu_torch.ops.DenseGraphOp`). With ``deterministic=False``
+    and a nonzero droprate, ``seed`` (one step's dropout seed,
+    :func:`stgcn_tpu_torch.kernels.dropout.step_seed`) keys the masks.
+    Returns ``[B, 1, V, 1]`` float32.
     """
-    if not deterministic:
-        raise NotImplementedError("dropout in the fused forward comes with the training "
-                                  "slice; call with deterministic=True")
+    training = not deterministic and model.droprate > 0.0
+    if training and seed is None:
+        raise ValueError("training with dropout needs the step's dropout seed (seed=...)")
     blocks, ko = model.plan()
     if (model.graph_conv_type == "cheb_graph_conv" and model.ks > 3) or ko == 0:
         # the kernels carry at most the ks=3 recurrence's two graph terms,
         # and Ko == 0 leaves no time step for them: run the unfused model
-        return torch.func.functional_call(model, params, (x, gop))
+        return torch.func.functional_call(model, params, (x, gop),
+                                          {"deterministic": deterministic, "seed": seed})
+
+    def drop(site: int) -> Drop | None:
+        return Drop(model.droprate, seed, site) if training else None
+
     v_pad = getattr(gop, "v_pad", None)
     if v_pad is None:
         raise ValueError("fused_sparse_forward needs a graph operator exposing a padded "
@@ -127,7 +145,8 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
             head_in, mu, rstd, lng_p, lnb_p = x, None, None, None, None
         else:
             head_in, mu, rstd, lng_p, lnb_p = state
-        a2, ps, pss = _st_block(cfg, gop, head_in, mu, rstd, lng_p, lnb_p, w)
+        a2, ps, pss = _st_block(cfg, gop, head_in, mu, rstd, lng_p, lnb_p, w,
+                                drop(l - 1) if l > 0 else None)
         mu, rstd = ln_stats(ps, pss, v_true * c2)
         pad_v = (0, 0, 0, v_pad - v_true)
         state = (a2, mu, rstd, F.pad(lng, pad_v).T.contiguous(),
@@ -135,6 +154,8 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
         cur_t, c_in = cfg.t2, c2
 
     a2, mu, rstd, lng_p, lnb_p = state
+    n_st = len(blocks) - 3
     out = output_head_fused(subtree(params, "output"), a2, mu, rstd, lng_p, lnb_p,
-                            v_true=v_true, act_func=model.act_func)
+                            v_true=v_true, act_func=model.act_func,
+                            drop_in=drop(n_st - 1), drop_fc=drop(n_st))
     return out[:, :, :v_true, :]

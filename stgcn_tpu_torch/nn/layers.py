@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stgcn_tpu_torch.kernels import dropout
+from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.nn import init as tinit
 
 ACTIVATIONS = ("glu", "gtu", "relu", "silu")
@@ -195,14 +197,14 @@ class GraphConvLayer(nn.Module):
 
 class STConvBlock(nn.Module):
     """'TGTND' sandwich (`model/layers.py:233-258`): temporal gate → graph
-    conv → ReLU → temporal gate → LayerNorm([V, C], eps=1e-12) → dropout."""
+    conv → ReLU → temporal gate → LayerNorm([V, C], eps=1e-12) → dropout.
+    The dropout mask is keyed by element (``drop``, from the model), so the
+    fused kernels drop the same elements."""
 
     def __init__(self, kt: int, ks: int, n_vertex: int, c_in: int,
                  channels: tuple[int, int, int], act_func: str,
-                 graph_conv_type: str, use_bias: bool = True,
-                 droprate: float = 0.5, *, device=None):
+                 graph_conv_type: str, use_bias: bool = True, *, device=None):
         super().__init__()
-        self.droprate = droprate
         self.tmp_conv1 = TemporalConvLayer(kt, c_in, channels[0], act_func, device=device)
         self.graph_conv = GraphConvLayer(graph_conv_type, channels[0], channels[1], ks,
                                          use_bias, device=device)
@@ -210,11 +212,11 @@ class STConvBlock(nn.Module):
                                            device=device)
         self.ln = nn.LayerNorm([n_vertex, channels[2]], eps=1e-12, device=device)
 
-    def forward(self, x: torch.Tensor, gop: Any, deterministic: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gop: Any, drop: Drop | None = None) -> torch.Tensor:
         x = self.tmp_conv1(x)
         x = torch.relu(self.graph_conv(x, gop))
         x = self.ln(self.tmp_conv2(x))
-        return F.dropout(x, self.droprate, training=not deterministic)
+        return dropout.apply_channels_last(x, drop)
 
 
 class OutputBlock(nn.Module):
@@ -222,17 +224,15 @@ class OutputBlock(nn.Module):
     remaining ``Ko`` steps to 1 → LayerNorm → fc1 → ReLU → dropout → fc2."""
 
     def __init__(self, ko: int, n_vertex: int, c_in: int, channels: tuple[int, int],
-                 end_channel: int, act_func: str, use_bias: bool = True,
-                 droprate: float = 0.5, *, device=None):
+                 end_channel: int, act_func: str, use_bias: bool = True, *, device=None):
         super().__init__()
-        self.droprate = droprate
         self.tmp_conv1 = TemporalConvLayer(ko, c_in, channels[0], act_func, device=device)
         self.ln = nn.LayerNorm([n_vertex, channels[0]], eps=1e-12, device=device)
         self.fc1 = Linear(channels[0], channels[1], bias=use_bias, device=device)
         self.fc2 = Linear(channels[1], end_channel, bias=use_bias, device=device)
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Drop | None = None) -> torch.Tensor:
         x = self.ln(self.tmp_conv1(x))
         x = torch.relu(self.fc1(x))
-        x = F.dropout(x, self.droprate, training=not deterministic)
+        x = dropout.apply_channels_last(x, drop)
         return self.fc2(x)

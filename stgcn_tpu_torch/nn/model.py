@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from stgcn_tpu_torch.device import resolve_device
+from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.nn import layers as L
 
 
@@ -78,11 +79,10 @@ class STGCN(nn.Module):
         for l in range(len(blocks) - 3):
             self.add_module(f"st_block_{l}", L.STConvBlock(
                 kt, ks, n_vertex, blocks[l][-1], tuple(blocks[l + 1]), act_func,
-                graph_conv_type, use_bias, droprate, device=dev))
+                graph_conv_type, use_bias, device=dev))
         if ko > 1:
             self.output = L.OutputBlock(ko, n_vertex, blocks[-3][-1], tuple(blocks[-2]),
-                                        blocks[-1][0], act_func, use_bias, droprate,
-                                        device=dev)
+                                        blocks[-1][0], act_func, use_bias, device=dev)
         else:  # ko == 0 — fc head (`models.py:38-42,48-51`); its dropout is
             # defined there but never applied in forward — mirrored here
             self.fc1 = L.Linear(blocks[-3][-1], blocks[-2][0], bias=use_bias, device=dev)
@@ -101,12 +101,24 @@ class STGCN(nn.Module):
     def n_st_blocks(self) -> int:
         return len(self.plan()[0]) - 3
 
-    def forward(self, x: torch.Tensor, gop: Any, *, deterministic: bool = True
-                ) -> torch.Tensor:
-        for l in range(self.n_st_blocks):
-            x = getattr(self, f"st_block_{l}")(x, gop, deterministic)
+    def forward(self, x: torch.Tensor, gop: Any, *, deterministic: bool = True,
+                seed: int | None = None) -> torch.Tensor:
+        """``deterministic=False`` with a nonzero droprate needs ``seed``, one
+        training step's dropout seed: block ``l`` drops its LayerNorm output
+        at site ``l``, the output head its fc1 output at site ``n_st_blocks``
+        (:mod:`stgcn_tpu_torch.kernels.dropout`)."""
+        training = not deterministic and self.droprate > 0.0
+        if training and seed is None:
+            raise ValueError("training with dropout needs the step's dropout seed (seed=...)")
+
+        def drop(site: int) -> Drop | None:
+            return Drop(self.droprate, seed, site) if training else None
+
+        n_st = self.n_st_blocks
+        for l in range(n_st):
+            x = getattr(self, f"st_block_{l}")(x, gop, drop(l))
         if hasattr(self, "output"):
-            x = self.output(x, deterministic=deterministic)
+            x = self.output(x, drop(n_st))
         else:
             x = self.fc2(torch.relu(self.fc1(x)))
         return x.float()

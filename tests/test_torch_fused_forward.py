@@ -43,9 +43,16 @@ def test_fused_forward_falls_back_above_ks3():
 
 
 def test_fused_forward_training_mode_not_ported():
+    """Training mode is ported now; without the step's dropout seed it refuses
+    to guess one, and with a droprate of 0 it is the deterministic forward."""
     _, _, _, tm, top, x = setup_model()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="seed"):
         fused_sparse_forward(tm.state_dict(), t(x), top, tm, deterministic=False)
+    tm.droprate = 0.0
+    with torch.no_grad():
+        got = fused_sparse_forward(tm.state_dict(), t(x), top, tm, deterministic=False)
+        ref = fused_sparse_forward(tm.state_dict(), t(x), top, tm)
+    assert torch.equal(got, ref)
 
 
 def test_evaluate_metrics_matches_jax():

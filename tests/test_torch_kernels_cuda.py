@@ -1,4 +1,6 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions, on a card.
+"""The CUDA kernels K1-K4 and their backward kernels K1b-K4b against their
+plain PyTorch versions, on a card; the kernels' dropout masks against the
+plain mask bit for bit.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
 machine, which has neither:
@@ -16,6 +18,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import vertex_fused as vf
+from stgcn_tpu_torch.kernels.dropout import Drop
+from stgcn_tpu_torch.kernels.probes import mask_probes
 
 pytestmark = pytest.mark.cuda
 B, V_TRUE, V_PAD = 3, 150, 256
@@ -69,7 +73,23 @@ def test_head_and_tail_match_plain(dev, act, apply_ln):
     assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
 
 
-@pytest.mark.parametrize("act", ["glu", "silu"])
+@pytest.mark.parametrize("gct,ks", [("graph_conv", 3), ("cheb_graph_conv", 2),
+                                    ("cheb_graph_conv", 1)])
+def test_tail_with_one_or_two_terms_matches_plain(dev, gct, ks):
+    """K2 reads one graph term (graph_conv, Ks=2) or none (Ks=1)."""
+    rng = np.random.default_rng(22)
+    cfg = vf.VertexBlockCfg(kt=3, ks=ks, act_func="glu", graph_conv_type=gct, v_true=V_TRUE,
+                            v_pad=V_PAD, t_in=8, c_in=16, c0=32, c1=16, c2=32, apply_ln=True)
+    n_c = cfg.n_terms + (gct == "cheb_graph_conv")
+    xg, ta, tb = (_rand(rng, dev, B, cfg.t1, cfg.c1, V_PAD) for _ in range(3))
+    w = (_rand(rng, dev, n_c, cfg.c1, cfg.c1, scale=0.2), _rand(rng, dev, cfg.c1, scale=0.1),
+         _rand(rng, dev, 3, cfg.c1, cfg.g2, scale=0.2), _rand(rng, dev, cfg.g2, scale=0.1))
+    got = vf.tail_fwd(cfg, xg, ta, tb, *w)
+    for g, r in zip(got, vf.tail_reference(cfg, xg, [ta, tb][: cfg.n_terms], w)):
+        torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("act", ["glu", "silu", "gtu", "relu"])
 def test_ohead_and_ofc_match_plain(dev, act):
     rng = np.random.default_rng(41)
     cfg = oh.OutHeadCfg(ko=4, c_in=16, c0=40, c1=24, c_end=1, act_func=act, v_true=V_TRUE,
@@ -97,3 +117,106 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         oh.ofc_fwd(cfg, args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="contiguous"):
         oh.ofc_fwd(cfg, *args[:3], args[3].T.contiguous().T, *args[4:])
+
+
+DROP = Drop(0.5, 2024, 1)
+
+
+def _head_case(rng, dev, act, apply_ln):
+    cfg = vf.VertexBlockCfg(kt=3, ks=3, act_func=act, graph_conv_type="cheb_graph_conv",
+                            v_true=V_TRUE, v_pad=V_PAD, t_in=8 if apply_ln else 12,
+                            c_in=16 if apply_ln else 1, c0=40, c1=16, c2=32, apply_ln=apply_ln)
+    x = _rand(rng, dev, B, cfg.t_in, cfg.c_in, V_PAD)
+    ln = _ln_args(rng, dev, cfg.t_in, cfg.c_in) if apply_ln else (None,) * 4
+    w = (_rand(rng, dev, 3, cfg.c_in, cfg.g1, scale=0.2), _rand(rng, dev, cfg.g1, scale=0.1),
+         _rand(rng, dev, cfg.c0, cfg.c1, scale=0.2), _rand(rng, dev, cfg.c1, scale=0.1))
+    return cfg, x, ln, w
+
+
+def _close_all(got, ref):
+    for g, r in zip(got, ref):
+        if r is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("act", ["glu", "gtu", "relu", "silu"])
+def test_head_forward_with_dropout_matches_plain(dev, act):
+    rng = np.random.default_rng(51)
+    cfg, x, ln, w = _head_case(rng, dev, act, True)
+    torch.testing.assert_close(vf.head_fwd(cfg, x, *ln, *w, drop=DROP),
+                               vf.head_reference(cfg, x, ln, w, DROP), **TOL)
+
+
+@pytest.mark.parametrize("apply_ln,drop", [(False, None), (True, None), (True, DROP)])
+@pytest.mark.parametrize("act", ["glu", "gtu", "relu", "silu"])
+def test_head_bwd_matches_plain(dev, act, apply_ln, drop):
+    rng = np.random.default_rng(52)
+    cfg, x, ln, w = _head_case(rng, dev, act, apply_ln)
+    gy = _rand(rng, dev, B, cfg.t1, cfg.c1, V_PAD)
+    before = vf.head_bwd.launches
+    got = vf.head_bwd(cfg, x, *ln, *w, gy, drop=drop)
+    again = vf.head_bwd(cfg, x, *ln, *w, gy, drop=drop)
+    assert vf.head_bwd.launches == before + 2
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+    _close_all(got, vf.head_bwd_reference(cfg, x, ln if apply_ln else None, w, gy, drop))
+
+
+@pytest.mark.parametrize("gct,ks,act", [("cheb_graph_conv", 3, "glu"),
+                                        ("cheb_graph_conv", 2, "gtu"),
+                                        ("cheb_graph_conv", 1, "relu"),
+                                        ("graph_conv", 3, "silu")])
+def test_tail_bwd_matches_plain(dev, gct, ks, act):
+    rng = np.random.default_rng(53)
+    cfg = vf.VertexBlockCfg(kt=3, ks=ks, act_func=act, graph_conv_type=gct, v_true=V_TRUE,
+                            v_pad=V_PAD, t_in=8, c_in=16, c0=32, c1=16, c2=32, apply_ln=True)
+    n_c = cfg.n_terms + (gct == "cheb_graph_conv")
+    xg, ta, tb = (_rand(rng, dev, B, cfg.t1, cfg.c1, V_PAD) for _ in range(3))
+    w = (_rand(rng, dev, n_c, cfg.c1, cfg.c1, scale=0.2), _rand(rng, dev, cfg.c1, scale=0.1),
+         _rand(rng, dev, 3, cfg.c1, cfg.g2, scale=0.2), _rand(rng, dev, cfg.g2, scale=0.1))
+    ga2 = _rand(rng, dev, B, cfg.t2, cfg.c2, V_PAD)
+    gps, gpss = (_rand(rng, dev, B, cfg.t2, 1, 1, scale=1e-2) for _ in range(2))
+    got = vf.tail_bwd(cfg, xg, ta, tb, *w, ga2, gps, gpss)
+    again = vf.tail_bwd(cfg, xg, ta, tb, *w, ga2, gps, gpss)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    cpu = [t.cpu() for t in (xg, ta, tb, *w, ga2, gps, gpss)]
+    ref = vf.tail_bwd(cfg, *cpu)          # the plain version, on the CPU copy
+    _close_all([g.cpu() for g in got], ref)
+
+
+@pytest.mark.parametrize("drop", [None, DROP])
+@pytest.mark.parametrize("act", ["glu", "gtu", "relu", "silu"])
+def test_ohead_bwd_matches_plain(dev, act, drop):
+    rng = np.random.default_rng(54)
+    cfg = oh.OutHeadCfg(ko=4, c_in=16, c0=40, c1=24, c_end=1, act_func=act, v_true=V_TRUE,
+                        v_pad=V_PAD)
+    args = (_rand(rng, dev, B, cfg.ko, cfg.c_in, V_PAD), *_ln_args(rng, dev, cfg.ko, cfg.c_in),
+            _rand(rng, dev, cfg.ko, cfg.c_in, cfg.g, scale=0.2), _rand(rng, dev, cfg.g, scale=0.1))
+    _close_all(oh.ohead_fwd(cfg, *args, drop=drop), oh.ohead_reference(cfg, *args, drop))
+    cot = (_rand(rng, dev, B, 1, cfg.c0, V_PAD), _rand(rng, dev, B, 1, 1, 1, scale=1e-2),
+           _rand(rng, dev, B, 1, 1, 1, scale=1e-2))
+    got = oh.ohead_bwd(cfg, *args, *cot, drop=drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, oh.ohead_bwd(cfg, *args, *cot, drop=drop)))
+    _close_all(got, oh.ohead_bwd_reference(cfg, *args, *cot, drop))
+
+
+@pytest.mark.parametrize("drop", [None, DROP])
+def test_ofc_bwd_matches_plain(dev, drop):
+    rng = np.random.default_rng(55)
+    cfg = oh.OutHeadCfg(ko=4, c_in=16, c0=40, c1=24, c_end=1, act_func="glu", v_true=V_TRUE,
+                        v_pad=V_PAD)
+    args = (_rand(rng, dev, B, 1, cfg.c0, V_PAD), *_ln_args(rng, dev, 1, cfg.c0),
+            _rand(rng, dev, cfg.c0, cfg.c1, scale=0.2), _rand(rng, dev, cfg.c1, scale=0.1),
+            _rand(rng, dev, cfg.c1, cfg.c_end, scale=0.2), _rand(rng, dev, cfg.c_end, scale=0.1))
+    _close_all([oh.ofc_fwd(cfg, *args, drop=drop)], [oh.ofc_reference(cfg, *args, drop)])
+    gout = _rand(rng, dev, B, 1, cfg.c_end, V_PAD)
+    got = oh.ofc_bwd(cfg, *args, gout, drop=drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, oh.ofc_bwd(cfg, *args, gout, drop=drop)))
+    _close_all(got, oh.ofc_bwd_reference(cfg, *args, gout, drop))
+
+
+@pytest.mark.parametrize("v_true", [V_TRUE, 228])
+def test_kernel_masks_equal_the_plain_mask(dev, v_true):
+    for name, (got, plain) in mask_probes(DROP, B, 8, v_true, V_PAD, dev).items():
+        assert torch.equal(got, plain), name

@@ -1,0 +1,97 @@
+"""Plain versions of K3b (ohead backward) and K4b (ofc backward) against
+``jax.vjp`` of the JAX package's kernel cores (``_ln_drop_fwd`` +
+``_ohead_core`` / ``_ofc_core``) fed the port's dropout mask, and against
+``ohead_fused`` / ``ofc_fused`` in Pallas interpret mode without dropout."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from stgcn_tpu.kernels import output_head as joh
+from stgcn_tpu.kernels.vertex_fused import _bdot, _ln_drop_fwd
+from stgcn_tpu_torch.kernels import dropout as D
+from stgcn_tpu_torch.kernels import output_head as toh
+from tests.test_torch_output_head import ACTS, V_PAD, V_TRUE, _affine, _cfgs, _j, _stats
+from tests.torch_parity_utils import B, assert_grads, rand, t
+
+DROPS = {"nodrop": None, "drop": D.Drop(0.5, D.step_seed(42, 9), 1)}
+
+
+def _ohead_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    args = [rand(rng, B, cfg.ko, cfg.c_in, V_PAD), *_stats(rng, cfg.ko), *_affine(rng, cfg.c_in),
+            rand(rng, cfg.ko, cfg.c_in, cfg.g, scale=0.2), rand(rng, cfg.g, scale=0.1)]
+    cot = [rand(rng, B, 1, cfg.c0, V_PAD), rand(rng, B, 1, 1, 1, scale=1e-2),
+           rand(rng, B, 1, 1, 1, scale=1e-2)]
+    return args, cot
+
+
+def _ofc_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
+    args = [rand(rng, B, 1, cfg.c0, V_PAD), *_stats(rng, 1), *_affine(rng, cfg.c0),
+            rand(rng, cfg.c0, cfg.c1, scale=0.2), rand(rng, cfg.c1, scale=0.1),
+            rand(rng, cfg.c1, cfg.c_end, scale=0.2), rand(rng, cfg.c_end, scale=0.1)]
+    return args, rand(rng, B, 1, cfg.c_end, V_PAD)
+
+
+def _mask(drop, shape):
+    return None if drop is None else jnp.asarray(D.keep_mask(drop, shape, V_TRUE).numpy())
+
+
+@pytest.mark.parametrize("drop", sorted(DROPS))
+@pytest.mark.parametrize("act", ACTS)
+def test_ohead_bwd_plain_matches_jax_core(act, drop):
+    jcfg, cfg = _cfgs(act)
+    args, cot = _ohead_inputs(cfg, seed=61)
+    mask = _mask(DROPS[drop], args[0].shape)
+    vm = (jnp.arange(V_PAD) < V_TRUE).astype(jnp.float32)
+
+    def f(x, mu, rstd, lng, lnb, ck, cb):
+        x4 = _ln_drop_fwd(jcfg, x, mu, rstd, lng, lnb, mask)
+        _, _, a, _ = joh._ohead_core(jcfg, x4, ck, cb)
+        am = a * vm
+        return a, am.sum((2, 3), keepdims=True), (am * am).sum((2, 3), keepdims=True)
+
+    outs, vjp = jax.vjp(f, *_j(args))
+    fwd = toh.ohead_fwd(cfg, *map(t, args), drop=DROPS[drop])
+    assert_grads([o.numpy() for o in fwd], outs)
+    got = toh.ohead_bwd(cfg, *map(t, args), *map(t, cot), drop=DROPS[drop])
+    assert_grads([g.numpy() for g in got], vjp(tuple(_j(cot))))
+
+
+@pytest.mark.parametrize("drop", sorted(DROPS))
+@pytest.mark.parametrize("act", ACTS[:2])
+def test_ofc_bwd_plain_matches_jax_core(act, drop):
+    jcfg, cfg = _cfgs(act)
+    args, gout = _ofc_inputs(cfg, seed=62)
+    mask = _mask(DROPS[drop], (B, 1, cfg.c1, V_PAD))
+
+    def f(a, mu, rstd, lnw, lnb, w1, b1, w2, b2):
+        h = _ln_drop_fwd(jcfg, a, mu, rstd, lnw, lnb, None)
+        _, z = joh._ofc_core(jcfg, h, w1, b1)
+        if mask is not None:
+            z = z * mask
+        return _bdot(z, w2, None) + b2[:, None]
+
+    out, vjp = jax.vjp(f, *_j(args))
+    fwd = toh.ofc_fwd(cfg, *map(t, args), drop=DROPS[drop])
+    assert_grads([fwd.numpy()], [out])
+    got = toh.ofc_bwd(cfg, *map(t, args), t(gout), drop=DROPS[drop])
+    assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gout)))
+
+
+@pytest.mark.parametrize("act", ["glu", "relu"])
+def test_ohead_and_ofc_bwd_plain_match_jax_kernels(act):
+    """Without dropout, the JAX custom VJPs run ``_ohead_pallas_bwd`` and
+    ``_ofc_pallas_bwd`` themselves (interpret mode)."""
+    jcfg, cfg = _cfgs(act)
+    args, cot = _ohead_inputs(cfg, seed=63)
+    _, vjp = jax.vjp(lambda *a: joh.ohead_fused(jcfg, jnp.int32(V_TRUE), 0, *a), *_j(args))
+    got = toh.ohead_bwd(cfg, *map(t, args), *map(t, cot))
+    assert_grads([g.numpy() for g in got], vjp(tuple(_j(cot))))
+
+    args, gout = _ofc_inputs(cfg, seed=64)
+    _, vjp = jax.vjp(lambda *a: joh.ofc_fused(jcfg, jnp.int32(V_TRUE), 0, *a), *_j(args))
+    got = toh.ofc_bwd(cfg, *map(t, args), t(gout))
+    assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gout)))

@@ -57,8 +57,19 @@ def _gso():
     return build_gso(sp.random(12, 12, density=0.3, random_state=0) + sp.eye(12))
 
 
+def _cpu_trainer_parts():
+    from stgcn_tpu_torch.ops import dense_graph_op
+
+    ds = stgcn_tpu_torch.ForecastDataset.from_numpy(np.zeros((30, 12)), 12, 3, device="cpu")
+    scaler = stgcn_tpu_torch.ZScoreScaler().fit(np.ones((30, 12)))
+    return (stgcn_tpu_torch.STGCN(12, 12, device="cpu"), dense_graph_op(_gso(), device="cpu"),
+            ds, ds, ds, scaler)
+
+
 ENTRY_POINTS = {
     "STGCN": lambda: stgcn_tpu_torch.STGCN(12, 12),
+    "Trainer": lambda: stgcn_tpu_torch.Trainer(stgcn_tpu_torch.TrainConfig(),
+                                               *_cpu_trainer_parts()),
     "make_graph_op": lambda: stgcn_tpu_torch.make_graph_op(_gso()),
     "dense_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
     .dense_graph_op(_gso()),
@@ -100,7 +111,21 @@ def _wrapper_cases():
         return lambda dev: torch.zeros(shape, device=dev)
 
     st = (z(b, 8, 1, 1), z(b, 8, 1, 1), z(16, 128), z(16, 128))
+    head = [z(b, 8, 16, 128), *st, z(3, 16, 32), z(32), z(16, 8), z(8)]
+    tail = [z(b, 6, 8, 128)] * 3 + [z(3, 8, 8), z(8), z(3, 8, 32), z(32)]
+    ohead = [z(b, 4, 16, 128), z(b, 4, 1, 1), z(b, 4, 1, 1), z(16, 128), z(16, 128),
+             z(4, 16, 64), z(64)]
+    ofc = [z(b, 1, 32, 128), z(b, 1, 1, 1), z(b, 1, 1, 1), z(32, 128), z(32, 128),
+           z(32, 24), z(24), z(24, 1), z(1)]
     return {
+        "head_bwd": (tvf, "head_bwd_reference", "stgcn_head_bwd", tvf.head_bwd, vcfg,
+                     head + [z(b, 6, 8, 128)]),
+        "tail_bwd": (tvf, "tail_bwd_reference", "stgcn_tail_bwd", tvf.tail_bwd, vcfg,
+                     tail + [z(b, 4, 16, 128), z(b, 4, 1, 1), z(b, 4, 1, 1)]),
+        "ohead_bwd": (toh, "ohead_bwd_reference", "stgcn_ohead_bwd", toh.ohead_bwd, ocfg,
+                      ohead + [z(b, 1, 32, 128), z(b, 1, 1, 1), z(b, 1, 1, 1)]),
+        "ofc_bwd": (toh, "ofc_bwd_reference", "stgcn_ofc_bwd", toh.ofc_bwd, ocfg,
+                    ofc + [z(b, 1, 1, 128)]),
         "head_fwd": (tvf, "head_reference", "stgcn_head_fwd", tvf.head_fwd, vcfg,
                      [z(b, 8, 16, 128), *st, z(3, 16, 32), z(32), z(16, 8), z(8)]),
         "tail_fwd": (tvf, "tail_reference", "stgcn_tail_fwd", tvf.tail_fwd, vcfg,
@@ -133,10 +158,14 @@ def test_wrapper_takes_plain_version_only_on_cpu(name, monkeypatch):
     before = wrapper.launches
     wrapper(cfg, *[m("meta") for m in makers])
     assert plain_calls == [] and wrapper.launches == before + 1
-    assert fake.calls == [(c_name, len(_build.SIGNATURES[c_name]))]
+    launches = [c for c in fake.calls if c[0] in _build.SIGNATURES]
+    assert launches == [(c_name, len(_build.SIGNATURES[c_name]))]
+    for name, n_args in fake.calls:   # a backward first sizes its workspace
+        assert name in _build.SIGNATURES or n_args == len(_build.WORK_SIGNATURES[name])
+    n_calls = len(fake.calls)
 
     wrapper(cfg, *[m("cpu") for m in makers])
-    assert plain_calls == [1] and wrapper.launches == before + 1 and len(fake.calls) == 1
+    assert plain_calls == [1] and wrapper.launches == before + 1 and len(fake.calls) == n_calls
 
 
 def test_wrapper_refuses_a_non_cuda_accelerator_tensor():
@@ -160,6 +189,7 @@ def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
 
 def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
-    assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu"}
+    assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
+                    "vertex_fused_bwd.cu", "output_head_bwd.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()

@@ -1,0 +1,108 @@
+"""Plain versions of K1b (head backward) and K2b (tail backward) against the
+JAX package's ``_head_pallas_bwd`` / ``_tail_pallas_bwd`` in Pallas interpret
+mode (through ``jax.vjp`` of ``head_fused`` / ``tail_fused``, droprate 0), and
+with dropout through ``jax.vjp`` of ``head_reference`` fed the port's mask
+(the interpret mode's PRNG stub returns zero bits). Then the port's fused
+gradients against its unfused ones with dropout on."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stgcn_tpu.kernels import vertex_fused as jvf
+from stgcn_tpu_torch.kernels import dropout as D
+from stgcn_tpu_torch.kernels import vertex_fused as tvf
+from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+from tests.torch_parity_utils import B, GATE_CASES, assert_grads, rand, setup_model, t
+from tests.test_torch_vertex_fused import _cfgs, _head_inputs, _tail_inputs
+
+ATOL = 2e-5   # scaled by max(1, |ref|) per gradient: assert_grads
+DROP = D.Drop(0.5, D.step_seed(42, 3), 0)
+
+
+def _j(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("apply_ln", [False, True])
+@pytest.mark.parametrize("gct,ks,act", GATE_CASES)
+def test_head_bwd_plain_matches_jax_kernel(gct, ks, act, apply_ln):
+    jcfg, cfg = _cfgs(gct, ks, act, apply_ln)
+    x, ln, w = _head_inputs(cfg, seed=21)
+    gy = rand(np.random.default_rng(22), B, cfg.t1, cfg.c1, cfg.v_pad)
+    got = tvf.head_bwd(cfg, t(x), *(map(t, ln) if apply_ln else [None] * 4), *map(t, w), t(gy))
+    args = _j([x, *ln, *w])
+    _, vjp = jax.vjp(lambda *a: jvf.head_fused(jcfg, 0, *a), *args)
+    ref = vjp(jnp.asarray(gy))
+    keep = [0, 1, 2, 3, 4] if apply_ln else [0]
+    assert_grads([got[i].numpy() for i in keep] + [g.numpy() for g in got[5:]],
+                  [ref[i] for i in keep] + list(ref[5:]))
+    if not apply_ln:
+        assert got[1:5] == (None,) * 4
+
+
+@pytest.mark.parametrize("gct,ks,act", GATE_CASES)
+def test_head_bwd_with_dropout_matches_jax_reference(gct, ks, act):
+    """The port's mask fed to the JAX oracle ``head_reference(..., drop_mask)``."""
+    jcfg, cfg = _cfgs(gct, ks, act, True)
+    x, ln, w = _head_inputs(cfg, seed=23)
+    gy = rand(np.random.default_rng(24), B, cfg.t1, cfg.c1, cfg.v_pad)
+    mask = D.keep_mask(DROP, x.shape, cfg.v_true).numpy()
+    got = tvf.head_bwd(cfg, t(x), *map(t, ln), *map(t, w), t(gy), drop=DROP)
+    fwd = tvf.head_fwd(cfg, t(x), *map(t, ln), *map(t, w), drop=DROP)
+
+    def f(x_, mu, rstd, lng, lnb, *w_):
+        return jvf.head_reference(jcfg, x_, (mu, rstd, lng, lnb), w_, jnp.asarray(mask))
+
+    y, vjp = jax.vjp(f, *_j([x, *ln, *w]))
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(y), atol=ATOL)
+    assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gy)))
+
+
+@pytest.mark.parametrize("gct,ks,act", GATE_CASES)
+def test_tail_bwd_plain_matches_jax_kernel(gct, ks, act):
+    jcfg, cfg = _cfgs(gct, ks, act, True)
+    xg, ta, tb, w = _tail_inputs(cfg, seed=25)
+    rng = np.random.default_rng(26)
+    ga2 = rand(rng, B, cfg.t2, cfg.c2, cfg.v_pad)
+    gps, gpss = rand(rng, B, cfg.t2, 1, 1, scale=1e-2), rand(rng, B, cfg.t2, 1, 1, scale=1e-2)
+    got = tvf.tail_bwd(cfg, t(xg), t(ta), t(tb), *map(t, w), t(ga2), t(gps), t(gpss))
+    _, vjp = jax.vjp(lambda *a: jvf.tail_fused(jcfg, jnp.int32(cfg.v_true), *a),
+                     *_j([xg, ta, tb, *w]))
+    ref = vjp(tuple(_j([ga2, gps, gpss])))
+    assert_grads([g.numpy() for g in got], ref)
+
+
+@pytest.mark.parametrize("gct,ks,act", GATE_CASES)
+def test_fused_gradients_match_unfused_with_dropout(gct, ks, act):
+    """Same seed, same masks: the fused route's loss gradients (kernels' plain
+    versions) within the JAX package's fused-vs-autodiff bound
+    (``tests/test_vertex_fused.py:52-74``) of the unfused model's."""
+    _, _, _, tm, top, x = setup_model(gct, ks, act)
+    params = dict(tm.named_parameters())
+    names = list(params)
+
+    def grads(fn):
+        y = fn()
+        return torch.autograd.grad((y * torch.cos(y)).sum(), [params[k] for k in names])
+
+    seed = D.step_seed(42, 5)
+    gu = grads(lambda: tm(t(x), top, deterministic=False, seed=seed))
+    gf = grads(lambda: fused_sparse_forward(params, t(x), top, tm, deterministic=False,
+                                            seed=seed))
+    fu, ff = torch.cat([g.flatten() for g in gu]), torch.cat([g.flatten() for g in gf])
+    assert float((ff - fu).norm() / (fu.norm() + 1e-12)) < 1e-4
+    for k, a, b in zip(names, gf, gu):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4, rtol=2e-3, err_msg=k)
+    with torch.no_grad():   # dropout is on: the output differs from the deterministic one
+        y_det = tm(t(x), top)
+        y_tr = fused_sparse_forward(params, t(x), top, tm, deterministic=False, seed=seed)
+    assert float((y_tr - y_det).abs().max()) > 1e-3
+
+
+def test_training_needs_a_seed():
+    _, _, _, tm, top, x = setup_model()
+    with pytest.raises(ValueError, match="seed"):
+        tm(t(x), top, deterministic=False)

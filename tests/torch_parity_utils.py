@@ -56,3 +56,14 @@ def rand(rng, *shape, scale=1.0):
 def t(a):
     """numpy → CPU torch tensor (a copy)."""
     return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+def assert_grads(got, ref, atol=2e-5):
+    """Each gradient (or output) within ``atol`` scaled by the largest |ref|
+    of that array above 1: weight gradients and LayerNorm partial sums are
+    sums over batch, time and vertices."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = np.asarray(g), np.asarray(r)
+        assert g.shape == r.shape, (i, g.shape, r.shape)
+        np.testing.assert_allclose(g, r, atol=atol * max(1.0, float(np.abs(r).max())),
+                                   err_msg=f"array {i}")
