@@ -13,15 +13,19 @@ Seven phases, each printing one JSON line with its own seconds:
    or cached, with ptxas' register / spill report.
 3. kernels — K1-K4 forward at every shape the forecast path gives them (and
    K3/K4 with the gtu gate), random inputs, each held against its plain
-   PyTorch version on the card (|Δ| <= 1e-4 + 1e-4·|ref|: the sums run in
-   another order), a repeat launch bit-identical, the launch counter moved;
+   PyTorch version on the card (|Δ| <= 1e-4·min(1, max |ref|) + 1e-4·|ref|
+   per output: the sums run in another order), a repeat launch
+   bit-identical, the launch counter moved;
    then CUDA-event times (median of 30 launches after 5 of warm-up) of
    kernel and plain version.
 4. kernels_bwd — one fused training step on a PeMSD7(M) batch (dropout on)
    records the inputs of every kernel call of the training path: K1f/K2f ×2,
    K3f, K4f and the backward kernels K1b/K2b ×2, K3b, K4b. Each recorded call
    is checked and timed as in phase 3 against its plain version (the
-   backward's is autograd through the forward's, same mask). The forward
+   backward's is autograd through the forward's, same mask); the floor of
+   the tolerance shrinks with an output whose entries are all below 1 (the
+   step's data gradients are about 1e-5), and each output's max |ref| is
+   printed beside max |Δ|. The forward
    kernels' dropout masks, read back through identity weights
    (``kernels/probes.py``), must equal the plain mask bit for bit, with a
    keep rate within 4σ of 0.5.
@@ -64,7 +68,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-KERNEL_TOL = 1e-4           # f32 kernel vs plain version, abs and rel
+KERNEL_TOL = 1e-4           # f32 kernel vs plain version, rel and abs (see max_err)
 SLICE_TOL = 2e-4            # fused vs unfused forward (tests/test_vertex_fused.py:49)
 GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL = 1e-4, 2e-4, 2e-3   # tests/test_vertex_fused.py:52-74
 LOSS_TOL = 1e-4             # fused vs unfused step losses, abs and rel
@@ -110,25 +114,35 @@ def flat(out) -> list:
     return [o for o in outs if o is not None]
 
 
-def max_err(got, ref) -> float:
-    """max |Δ| over all outputs; raises if any element is outside
+def max_err(got, ref) -> tuple[float, list]:
+    """max |Δ| over all outputs, and each output's max |ref|; raises if any
+    element is outside KERNEL_TOL·(min(1, max |ref|) + |ref|).
+
+    The floor scales with an output whose entries are all below 1: a real
+    training step's data gradients are about 1e-5 (dL/dpred of a mean over
+    32×228 outputs is about 2e-4 per element), and under a fixed floor of
+    1e-4 a zero or doubled one would pass. The bound is nowhere looser than
     KERNEL_TOL·(1 + |ref|)."""
     import torch
 
-    worst = 0.0
+    worst, ref_max = 0.0, []
     got, ref = flat(got), flat(ref)
     if len(got) != len(ref):
         raise AssertionError(f"kernel gives {len(got)} outputs, its plain version {len(ref)}")
     for g, r in zip(got, ref):
+        g, r = g.detach(), r.detach()
         if g.shape != r.shape or not torch.isfinite(g).all():
             raise AssertionError(f"kernel output shape {tuple(g.shape)} vs {tuple(r.shape)} "
                                  "or non-finite values")
         d = (g - r).abs()
         worst = max(worst, float(d.max()))
-        if not bool((d <= KERNEL_TOL + KERNEL_TOL * r.abs()).all()):
-            raise AssertionError(f"kernel disagrees with its plain version: max |Δ| "
-                                 f"{float(d.max()):.3e}")
-    return worst
+        ref_max.append(float(r.abs().max()))
+        floor = KERNEL_TOL * min(1.0, ref_max[-1])
+        if not bool((d <= floor + KERNEL_TOL * r.abs()).all()):
+            raise AssertionError(f"kernel disagrees with its plain version in output "
+                                 f"{len(ref_max) - 1}: max |Δ| {float(d.max()):.3e}, "
+                                 f"max |ref| {ref_max[-1]:.3e}")
+    return worst, ref_max
 
 
 def kernel_cases(gen):
@@ -248,18 +262,20 @@ PER_STEP = {**PER_BATCH_FWD, "head_bwd": 2, "tail_bwd": 2, "ohead_bwd": 1, "ofc_
 def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops) -> dict:
     """Hold one kernel call against its plain version (tolerance, repeat
     bit-identical, launch counter) and time both."""
-    before = wrapper.launches
+    from stgcn_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()[name]
     out1 = wrapper(*args, **kwargs)
     out2 = wrapper(*args, **kwargs)
     torch.cuda.synchronize()
-    if wrapper.launches != before + 2:
-        raise AssertionError(f"{name}: launch counter moved {wrapper.launches - before}, "
-                             "expected 2")
+    moved = launch_counts()[name] - before
+    if moved != 2:
+        raise AssertionError(f"{name}: launch counter moved {moved}, expected 2")
     if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
         raise AssertionError(f"{name} [{label}]: a repeat launch is not bit-identical")
     ref = plain()
     try:
-        err = max_err(out1, ref)
+        err, ref_max = max_err(out1, ref)
     except AssertionError as e:
         raise AssertionError(f"{name} [{label}]: {e}") from None
     ms = cuda_ms(lambda: wrapper(*args, **kwargs))
@@ -267,8 +283,8 @@ def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops) -> d
     nbytes = io_bytes(args, out1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return {"shape": label, "input": list(args[1].shape), "output": list(flat(out1)[0].shape),
-            "dropout": kwargs.get("drop") is not None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+            "dropout": kwargs.get("drop") is not None, "max_abs_err": err, "ref_max": ref_max,
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -338,9 +354,6 @@ def record_training_step(torch, data) -> list:
             n = sum(c[0] == name for c in calls)
             calls.append((name, f"call{n}", args, kwargs))
             return real[name](*args, **kwargs)
-        # a wrapper counts its launches on the module attribute of its own
-        # name, which is this recorder while the step runs
-        call.launches = 0
         return call
 
     model = new_model(torch, data["n_vertex"], DROPRATE)

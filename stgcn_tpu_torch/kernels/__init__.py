@@ -7,6 +7,7 @@ backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
 at first use.
 """
 
+from stgcn_tpu_torch.kernels._launch import LAUNCHES
 from stgcn_tpu_torch.kernels.output_head import ofc_bwd, ofc_fwd, ohead_bwd, ohead_fwd
 from stgcn_tpu_torch.kernels.vertex_fused import head_bwd, head_fwd, tail_bwd, tail_fwd
 
@@ -17,9 +18,8 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    LAUNCHES.clear()
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: LAUNCHES.get(name, 0) for name in WRAPPERS}

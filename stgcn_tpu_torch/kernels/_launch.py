@@ -7,6 +7,15 @@ import torch
 from stgcn_tpu_torch.kernels.dropout import NO_DROP_ARGS
 
 
+# kernel launches per wrapper name, read by kernels.launch_counts()
+LAUNCHES: dict[str, int] = {}
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of a wrapper's kernel; called only where it launches."""
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
 def on_cpu(t: torch.Tensor) -> bool:
     """True when a wrapper should run its plain version: only because the
     tensor lies on the CPU. Any other device goes to the kernel, which

@@ -33,7 +33,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, LANES, MAX_OUT, cuda_device, drop_args, on_cpu, require, stream_of, workspace)
+    ACT_CODES, LANES, MAX_OUT, count_launch, cuda_device, drop_args, on_cpu, require,
+    stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.vertex_fused import (
     _cdot, gate_cv, ln_normalize_cv, ln_stats, masked_ln_sums, pad_channels_cv, tconv_cv)
@@ -144,11 +145,8 @@ def ohead_fwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, *, drop: Drop | No
         b, cfg.ko, cfg.c_in, cfg.v_pad, cfg.c0, ACT_CODES[cfg.act_func], cfg.v_true,
         *drop_args(drop), stream_of(dev))
     _build.check("ohead_fwd", err)
-    ohead_fwd.launches += 1
+    count_launch("ohead_fwd")
     return a, ps, pss
-
-
-ohead_fwd.launches = 0
 
 
 def ofc_fwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, *,
@@ -172,11 +170,8 @@ def ofc_fwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, *,
         *ptrs, out.data_ptr(), b, cfg.c0, cfg.c1, cfg.c_end, cfg.v_pad, cfg.v_true,
         *drop_args(drop), stream_of(dev))
     _build.check("ofc_fwd", err)
-    ofc_fwd.launches += 1
+    count_launch("ofc_fwd")
     return out
-
-
-ofc_fwd.launches = 0
 
 
 def ohead_bwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss, *,
@@ -207,11 +202,8 @@ def ohead_bwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss, *,
         *ptrs, *[t.data_ptr() for t in outs], work.data_ptr(), b, cfg.ko, cfg.c_in, cfg.v_pad,
         cfg.c0, act, cfg.v_true, *drop_args(drop), stream_of(dev))
     _build.check("ohead_bwd", err)
-    ohead_bwd.launches += 1
+    count_launch("ohead_bwd")
     return tuple(outs)
-
-
-ohead_bwd.launches = 0
 
 
 def ofc_bwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout, *,
@@ -240,11 +232,8 @@ def ofc_bwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout, *,
         *ptrs, *[t.data_ptr() for t in outs], work.data_ptr(), b, cfg.c0, cfg.c1, cfg.c_end,
         cfg.v_pad, cfg.v_true, *drop_args(drop), stream_of(dev))
     _build.check("ofc_bwd", err)
-    ofc_bwd.launches += 1
+    count_launch("ofc_bwd")
     return tuple(outs)
-
-
-ofc_bwd.launches = 0
 
 
 class _OheadFused(torch.autograd.Function):

@@ -26,9 +26,9 @@ on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body),
 notes say what bounds each kernel and how the design answers it. Every
 wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_reference``; the backward ones are autograd through the forward ones
-with the same mask) on a CPU tensor; ``launches`` on each wrapper counts
-kernel launches. The bf16 variants (``precision="bfloat16"`` on the TPU) are
-not ported yet and raise.
+with the same mask) on a CPU tensor, and counts its kernel launches
+(:func:`stgcn_tpu_torch.kernels.launch_counts`). The bf16 variants
+(``precision="bfloat16"`` on the TPU) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, LANES, MAX_OUT, cuda_device, drop_args, on_cpu, require, stream_of, workspace)
+    ACT_CODES, LANES, MAX_OUT, count_launch, cuda_device, drop_args, on_cpu, require,
+    stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 
 
@@ -254,11 +255,8 @@ def head_fwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, *,
         ACT_CODES[cfg.act_func], int(cfg.apply_ln), cfg.v_true, *drop_args(drop),
         stream_of(dev))
     _build.check("head_fwd", err)
-    head_fwd.launches += 1
+    count_launch("head_fwd")
     return xg
-
-
-head_fwd.launches = 0
 
 
 def tail_fwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
@@ -293,11 +291,8 @@ def tail_fwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
         b, cfg.t1, cfg.c1, cfg.v_pad, cfg.kt, n_c, cfg.c2, ACT_CODES[cfg.act_func],
         cfg.v_true, stream_of(dev))
     _build.check("tail_fwd", err)
-    tail_fwd.launches += 1
+    count_launch("tail_fwd")
     return a2, ps, pss
-
-
-tail_fwd.launches = 0
 
 
 def head_bwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, gy, *,
@@ -339,11 +334,8 @@ def head_bwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, gy,
         *ins, *[0 if t is None else t.data_ptr() for t in outs], work.data_ptr(), *sizes,
         cfg.v_true, *drop_args(drop), stream_of(dev))
     _build.check("head_bwd", err)
-    head_bwd.launches += 1
+    count_launch("head_bwd")
     return tuple(outs)
-
-
-head_bwd.launches = 0
 
 
 def tail_bwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gpss):
@@ -385,11 +377,8 @@ def tail_bwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gp
     err = lib.stgcn_tail_bwd(*ins, *[t.data_ptr() for t in outs], work.data_ptr(), *sizes,
                              cfg.v_true, stream_of(dev))
     _build.check("tail_bwd", err)
-    tail_bwd.launches += 1
+    count_launch("tail_bwd")
     return tuple(outs)
-
-
-tail_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -43,8 +43,22 @@ def test_fused_forward_falls_back_above_ks3():
 
 
 def test_fused_forward_training_mode_not_ported():
-    """Training mode is ported now; without the step's dropout seed it refuses
-    to guess one, and with a droprate of 0 it is the deterministic forward."""
+    """What training mode still lacks: a graph operator without the dense cv
+    surface (the sparse operators of a later slice) raises instead of
+    running."""
+    _, _, _, tm, top, x = setup_model()
+
+    class SparseStandIn:
+        v_pad = top.v_pad
+
+    with pytest.raises(NotImplementedError, match="only the dense graph operator is ported"):
+        fused_sparse_forward(dict(tm.named_parameters()), t(x), SparseStandIn(), tm,
+                             deterministic=False, seed=1)
+
+
+def test_fused_forward_training_needs_seed_and_droprate0_is_deterministic():
+    """Without the step's dropout seed training mode refuses to guess one,
+    and with a droprate of 0 it is the deterministic forward."""
     _, _, _, tm, top, x = setup_model()
     with pytest.raises(ValueError, match="seed"):
         fused_sparse_forward(tm.state_dict(), t(x), top, tm, deterministic=False)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from stgcn_tpu_torch import kernels
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import vertex_fused as vf
 from stgcn_tpu_torch.kernels.dropout import Drop
@@ -155,10 +156,10 @@ def test_head_bwd_matches_plain(dev, act, apply_ln, drop):
     rng = np.random.default_rng(52)
     cfg, x, ln, w = _head_case(rng, dev, act, apply_ln)
     gy = _rand(rng, dev, B, cfg.t1, cfg.c1, V_PAD)
-    before = vf.head_bwd.launches
+    before = kernels.launch_counts()["head_bwd"]
     got = vf.head_bwd(cfg, x, *ln, *w, gy, drop=drop)
     again = vf.head_bwd(cfg, x, *ln, *w, gy, drop=drop)
-    assert vf.head_bwd.launches == before + 2
+    assert kernels.launch_counts()["head_bwd"] == before + 2
     assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))   # no atomics
     _close_all(got, vf.head_bwd_reference(cfg, x, ln if apply_ln else None, w, gy, drop))
 

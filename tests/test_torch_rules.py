@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import stgcn_tpu_torch
+from stgcn_tpu_torch import kernels
 from stgcn_tpu_torch.kernels import _build, _launch
 from stgcn_tpu_torch.kernels import output_head as toh
 from stgcn_tpu_torch.kernels import vertex_fused as tvf
@@ -155,17 +156,24 @@ def test_wrapper_takes_plain_version_only_on_cpu(name, monkeypatch):
     monkeypatch.setattr(mod, "cuda_device", lambda t: t.device)
     monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
 
-    before = wrapper.launches
+    before = kernels.launch_counts()[name]
     wrapper(cfg, *[m("meta") for m in makers])
-    assert plain_calls == [] and wrapper.launches == before + 1
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
     launches = [c for c in fake.calls if c[0] in _build.SIGNATURES]
     assert launches == [(c_name, len(_build.SIGNATURES[c_name]))]
-    for name, n_args in fake.calls:   # a backward first sizes its workspace
-        assert name in _build.SIGNATURES or n_args == len(_build.WORK_SIGNATURES[name])
+    # besides its one launch, a backward wrapper (and only a backward one)
+    # sizes its own workspace first
+    others = [c for c in fake.calls if c[0] not in _build.SIGNATURES]
+    if name.endswith("_bwd"):
+        work = c_name + "_work"
+        assert others == [(work, len(_build.WORK_SIGNATURES[work]))]
+    else:
+        assert others == []
     n_calls = len(fake.calls)
 
     wrapper(cfg, *[m("cpu") for m in makers])
-    assert plain_calls == [1] and wrapper.launches == before + 1 and len(fake.calls) == n_calls
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    assert len(fake.calls) == n_calls
 
 
 def test_wrapper_refuses_a_non_cuda_accelerator_tensor():

@@ -19,6 +19,11 @@ from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.model import STGCN
 from stgcn_tpu_torch.ops import dense_graph_op
 
+# The test suite runs in several worker processes at once; torch's default
+# of one intra-op thread per core in each of them oversubscribes the CPU,
+# and at these sizes one thread is as fast as eight.
+torch.set_num_threads(1)
+
 # V is not a multiple of 128, so the padded vertex lanes are exercised
 V, B, T = 150, 3, 12
 
