@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
-and check them.
+and check them: PeMSD7(M) through the dense operator, then a 100k-vertex
+road graph through the banded operator and its kernel K5, then the CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Seven phases, each printing one JSON line with its own seconds:
+Ten phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -47,9 +48,31 @@ Seven phases, each printing one JSON line with its own seconds:
    (validation launches none), then ``test()`` from the best checkpoint,
    which prints the reference ``Dataset pemsd7-m | Test loss …`` line; then
    3 unfused epochs, for the seconds per epoch of both routes.
-7. the ``{"kernels": [...]}`` line (every kernel's per-batch times on the
-   training path and its launches in phase 6's fit), the ``nvidia-smi``
-   line, and last ``{"ok": true, "device": {...}}``.
+7. kernels_banded — the 100k-vertex problem (``random_road_graph(100_000,
+   k_neighbors=8, seed=0)``, ``sym_norm_lap`` Chebyshev GSO with Lanczos
+   lambda_max, RCM, the banded nv pack of 256-row slabs, one day of
+   synthetic series; ``BASELINE.json`` configs[3]) is built, each host step
+   timed. K5 in modes single, pair and chain at N = 1280 and 768 (B·T·c1 of
+   the two ST blocks at batch 8) on the real pack, random operands, held
+   against its plain version as in phase 3, repeat bit-identical; timed
+   beside its bound (bytes over 3.35 TB/s against the nonzeros' FLOPs over
+   67 TFLOP/s; the band's FLOPs are printed too) and ``torch.sparse.mm``
+   on the CSR GSO (operand transposed outside the timing).
+8. banded_100k — one forecast batch of 8 fused against the unfused model on
+   the same banded operator (2e-4 + 2e-4·|ref|, launches K1/K2 ×2, K3, K4,
+   K5 pair ×2); every K1-K4 call of one fused training step at 100k held
+   against its plain version; one batch's fused gradients against unfused
+   (the bound of phase 6); a fused ``Trainer.fit(1)`` with every step's
+   loss (finite) and seconds and launches per step K1-K4 as in phase 6 plus
+   K5 pair ×2 and chain ×2 (validation batches: the forward's); ``test()``;
+   peak device memory.
+9. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
+   ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack):
+   its epoch and test lines, every kernel of the step (K5 pair and chain
+   included) launched.
+10. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
+   training paths, PeMSD7(M) and 100k, and its launches), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 A failed check raises: the script then exits non-zero and prints no
 ``"ok"`` line. Without a CUDA device it exits 2 before doing anything.
@@ -69,6 +92,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 KERNEL_TOL = 1e-4           # f32 kernel vs plain version, rel and abs (see max_err)
+FLIP_FRACTION, FLIP_REL_L2 = 1e-5, 2e-3   # ReLU decisions that round the other way (max_err)
 SLICE_TOL = 2e-4            # fused vs unfused forward (tests/test_vertex_fused.py:49)
 GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL = 1e-4, 2e-4, 2e-3   # tests/test_vertex_fused.py:52-74
 LOSS_TOL = 1e-4             # fused vs unfused step losses, abs and rel
@@ -114,18 +138,30 @@ def flat(out) -> list:
     return [o for o in outs if o is not None]
 
 
-def max_err(got, ref) -> tuple[float, list]:
-    """max |Δ| over all outputs, and each output's max |ref|; raises if any
+def max_err(got, ref, *, relu_flips: bool = False) -> tuple[float, list, list]:
+    """max |Δ| over all outputs, each output's max |ref| and its count of
+    elements outside the bound; raises if any
     element is outside KERNEL_TOL·(min(1, max |ref|) + |ref|).
 
     The floor scales with an output whose entries are all below 1: a real
     training step's data gradients are about 1e-5 (dL/dpred of a mean over
     32×228 outputs is about 2e-4 per element), and under a fixed floor of
     1e-4 a zero or doubled one would pass. The bound is nowhere looser than
-    KERNEL_TOL·(1 + |ref|)."""
+    KERNEL_TOL·(1 + |ref|).
+
+    ``relu_flips`` is for a backward kernel whose function has a ReLU
+    (K2b, K4b) at the 100k shapes: there ~1e8 ReLU inputs are summed in
+    another order than the plain version sums them, so a few that lie
+    within rounding of 0 take the other branch, and every element fed by
+    one of them differs by that term. Measured on the card: one flip in
+    K4b's 1.04e8 ReLU inputs put the 128 channels of one lane of ``da``
+    outside the bound (|Δ| 5.5e-8 on max |ref| 1.2e-6; relative L2 of the
+    output 3.6e-4). Then at most FLIP_FRACTION of an output's elements
+    (about 8 such lanes) may lie outside the bound, and the output must
+    still agree in relative L2 within FLIP_REL_L2."""
     import torch
 
-    worst, ref_max = 0.0, []
+    worst, ref_max, n_out = 0.0, [], []
     got, ref = flat(got), flat(ref)
     if len(got) != len(ref):
         raise AssertionError(f"kernel gives {len(got)} outputs, its plain version {len(ref)}")
@@ -138,11 +174,16 @@ def max_err(got, ref) -> tuple[float, list]:
         worst = max(worst, float(d.max()))
         ref_max.append(float(r.abs().max()))
         floor = KERNEL_TOL * min(1.0, ref_max[-1])
-        if not bool((d <= floor + KERNEL_TOL * r.abs()).all()):
+        outside = int((d > floor + KERNEL_TOL * r.abs()).sum())
+        rel = float((g - r).double().norm() / max(float(r.double().norm()), 1e-30))
+        n_out.append(outside)
+        if outside and not (relu_flips and outside <= FLIP_FRACTION * d.numel()
+                            and rel <= FLIP_REL_L2):
             raise AssertionError(f"kernel disagrees with its plain version in output "
                                  f"{len(ref_max) - 1}: max |Δ| {float(d.max()):.3e}, "
-                                 f"max |ref| {ref_max[-1]:.3e}")
-    return worst, ref_max
+                                 f"max |ref| {ref_max[-1]:.3e}, {outside} of {d.numel()} "
+                                 f"elements outside the bound, relative L2 {rel:.3e}")
+    return worst, ref_max, n_out
 
 
 def kernel_cases(gen):
@@ -257,11 +298,22 @@ KERNEL_META = {
 FWD_NAMES = ("head_fwd", "tail_fwd", "ohead_fwd", "ofc_fwd")
 PER_BATCH_FWD = {"head_fwd": 2, "tail_fwd": 2, "ohead_fwd": 1, "ofc_fwd": 1}
 PER_STEP = {**PER_BATCH_FWD, "head_bwd": 2, "tail_bwd": 2, "ohead_bwd": 1, "ofc_bwd": 1}
+NV_MODES = ("nv_single", "nv_pair", "nv_chain")
 
 
-def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops) -> dict:
+def expected(per: dict, n: int, *more: tuple[dict, int]) -> dict:
+    """Launch counts over every kernel name: ``per`` times ``n`` (plus each
+    further (per, n) pair), zero for a kernel not in them."""
+    from stgcn_tpu_torch.kernels import WRAPPERS
+
+    pairs = [(per, n), *more]
+    return {k: sum(p.get(k, 0) * m for p, m in pairs) for k in WRAPPERS}
+
+
+def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops, *,
+                   reps: int = 30, relu_flips: bool = False) -> dict:
     """Hold one kernel call against its plain version (tolerance, repeat
-    bit-identical, launch counter) and time both."""
+    bit-identical, launch counter) and time both (medians of ``reps``)."""
     from stgcn_tpu_torch.kernels import launch_counts
 
     before = launch_counts()[name]
@@ -275,15 +327,17 @@ def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops) -> d
         raise AssertionError(f"{name} [{label}]: a repeat launch is not bit-identical")
     ref = plain()
     try:
-        err, ref_max = max_err(out1, ref)
+        err, ref_max, outside = max_err(out1, ref, relu_flips=relu_flips)
     except AssertionError as e:
         raise AssertionError(f"{name} [{label}]: {e}") from None
-    ms = cuda_ms(lambda: wrapper(*args, **kwargs))
-    plain_ms = cuda_ms(plain)
+    warmup = min(5, reps)
+    ms = cuda_ms(lambda: wrapper(*args, **kwargs), warmup=warmup, reps=reps)
+    plain_ms = cuda_ms(plain, warmup=warmup, reps=reps)
     nbytes = io_bytes(args, out1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return {"shape": label, "input": list(args[1].shape), "output": list(flat(out1)[0].shape),
             "dropout": kwargs.get("drop") is not None, "max_abs_err": err, "ref_max": ref_max,
+            "outside_bound": outside,
             "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -333,10 +387,10 @@ def new_model(torch, n_vertex: int, droprate: float):
                  generator=torch.Generator().manual_seed(42))
 
 
-def record_training_step(torch, data) -> list:
+def record_training_step(torch, data, batch: int = BATCH) -> list:
     """Run one fused training step (forward with dropout, backward) on the
-    first PeMSD7(M) training batch and record every kernel call it makes:
-    (wrapper name, label, args, kwargs), in call order."""
+    first training batch of ``data`` and record every kernel call of K1-K4
+    it makes: (wrapper name, label, args, kwargs), in call order."""
     from stgcn_tpu_torch.data import gather_windows
     from stgcn_tpu_torch.kernels import output_head as oh
     from stgcn_tpu_torch.kernels import vertex_fused as vf
@@ -358,14 +412,14 @@ def record_training_step(torch, data) -> list:
 
     model = new_model(torch, data["n_vertex"], DROPRATE)
     params = dict(model.named_parameters())
-    starts, n_valid = next(data["train"].batches(BATCH))
+    starts, n_valid = next(data["train"].batches(batch))
     x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
     try:
         for name, mod in mods.items():
             setattr(mod, name, recorder(name))
         pred = fused_sparse_forward(params, x, data["gop"], model, deterministic=False,
                                     seed=step_seed(42, 0))
-        loss = masked_mse(pred.reshape(BATCH, -1), y, n_valid)
+        loss = masked_mse(pred.reshape(batch, -1), y, n_valid)
         torch.autograd.grad(loss, list(params.values()))
     finally:
         for name, mod in mods.items():
@@ -407,6 +461,31 @@ def plain_of(name: str, args, kwargs):
     return lambda: oh.ofc_bwd_reference(*args, drop=drop)
 
 
+def check_recorded(torch, calls, reps: int = 30, relu_flips: bool = False) -> dict:
+    """Each recorded kernel call of one training step held against its plain
+    version and timed; the calls must be those of PER_STEP. ``relu_flips``
+    applies to the backward kernels with a ReLU, K2b and K4b (``max_err``)."""
+    from stgcn_tpu_torch import kernels
+
+    counts = {name: sum(c[0] == name for c in calls) for name in PER_STEP}
+    if counts != PER_STEP:
+        raise AssertionError(f"one training step made kernel calls {counts}, expected {PER_STEP}")
+    results: dict[str, list] = {name: [] for name in PER_STEP}
+    failed = []   # every call is checked before the phase fails, so one run shows them all
+    for name, label, args, kwargs in calls:
+        flops = flops_of(name, args[0], args[1].shape[0])
+        try:
+            results[name].append(check_and_time(
+                torch, name, label, kernels.WRAPPERS[name], plain_of(name, args, kwargs), args,
+                kwargs, flops, reps=reps,
+                relu_flips=relu_flips and name in ("tail_bwd", "ofc_bwd")))
+        except AssertionError as e:
+            failed.append(str(e))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return results
+
+
 def phase_kernels_bwd(torch, data) -> dict:
     """Phase 4: every kernel call of one training step, recorded on real data,
     held against its plain version and timed; the masks read back."""
@@ -415,16 +494,7 @@ def phase_kernels_bwd(torch, data) -> dict:
     from stgcn_tpu_torch.kernels.dropout import Drop, step_seed
     from stgcn_tpu_torch.kernels.probes import mask_probes
 
-    calls = record_training_step(torch, data)
-    counts = {name: sum(c[0] == name for c in calls) for name in PER_STEP}
-    if counts != PER_STEP:
-        raise AssertionError(f"one training step made kernel calls {counts}, expected {PER_STEP}")
-    results: dict[str, list] = {name: [] for name in PER_STEP}
-    for name, label, args, kwargs in calls:
-        wrapper = kernels.WRAPPERS[name]
-        flops = flops_of(name, args[0], args[1].shape[0])
-        results[name].append(check_and_time(torch, name, label, wrapper,
-                                            plain_of(name, args, kwargs), args, kwargs, flops))
+    results = check_recorded(torch, record_training_step(torch, data))
 
     # the forward kernels' masks, read back through identity weights
     masks = {}
@@ -498,7 +568,7 @@ def phase_slice(torch, data) -> dict:
             evaluate_metrics(predictor(kind), test_ds, scaler, BATCH)
             walls[kind].append(time.perf_counter() - t1)
 
-    want = {k: PER_BATCH_FWD.get(k, 0) * n_batches for k in PER_STEP}
+    want = expected(PER_BATCH_FWD, n_batches)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     if pf.shape != (n_batches * BATCH, n_vertex) or not torch.isfinite(pf).all():
@@ -586,7 +656,7 @@ def phase_train(torch, data) -> dict:
     kernels.reset_launch_counts()
     hist_f = tr.fit(3)["history"]
     launches = kernels.launch_counts()
-    want = {k: n * 3 * tr.steps_per_epoch for k, n in PER_STEP.items()}
+    want = expected(PER_STEP, 3 * tr.steps_per_epoch)
     if launches != want:
         raise AssertionError(f"fit launched {launches}, expected {want}")
     kernels.reset_launch_counts()
@@ -616,6 +686,308 @@ def phase_train(torch, data) -> dict:
               "launches": launches, "test_fused": test_f}
     emit(result)
     return result
+
+
+# --------------------------------------------------------------------------
+# the 100k-vertex banded route (BASELINE.json configs[3]: bench.py:253-335)
+# --------------------------------------------------------------------------
+
+V_100K, BATCH_100K, STEPS_100K = 100_000, 8, 288   # one day of 5-minute steps
+K5_REPS = 5
+PER_STEP_100K = {**PER_STEP, "nv_pair": 2, "nv_chain": 2}
+PER_BATCH_100K = {**PER_BATCH_FWD, "nv_pair": 2}
+K5_META = ("K5", "stgcn_tpu_torch/kernels/csrc/banded_nv.cu",
+           "stgcn_tpu/kernels/banded_nv.py:208", "_stream_nv_call")
+
+
+def build_100k(torch) -> dict:
+    """The synthetic 100k-vertex road graph, its Chebyshev GSO (Lanczos
+    lambda_max), RCM order, banded nv pack on the card and one day of
+    synthetic series with the sensor columns in RCM order; each host step
+    timed."""
+    from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler, chrono_split
+    from stgcn_tpu_torch.data.synthetic import generate_synthetic_vel, random_road_graph
+    from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
+    from stgcn_tpu_torch.graph.gso import GraphShiftOperator
+    from stgcn_tpu_torch.ops import BandedGraphOp, make_graph_op
+
+    prep: dict = {}
+    t = time.perf_counter()
+
+    def lap(key):
+        nonlocal t
+        now = time.perf_counter()
+        prep[key] = now - t
+        t = now
+
+    adj = random_road_graph(V_100K, k_neighbors=8, seed=0)
+    lap("graph_s")
+    art = build_gso(adj, "sym_norm_lap", cheb=True)
+    lap("gso_s")
+    perm = rcm_ordering(art.matrix)
+    art = GraphShiftOperator(matrix=permute_matrix(art.matrix, perm), gso_type=art.gso_type,
+                             cheb_rescaled=True, lam_max=art.lam_max)
+    lap("rcm_s")
+    gop = make_graph_op(art, "auto", device="cuda")
+    torch.cuda.synchronize()
+    lap("pack_s")
+    if not isinstance(gop, BandedGraphOp):
+        raise AssertionError(f"make_graph_op(auto) gave {type(gop).__name__} at 100k vertices")
+    vel = generate_synthetic_vel(adj, STEPS_100K, seed=0)[:, perm]
+    lap("series_s")
+    train, val, test = chrono_split(vel)
+    scaler = ZScoreScaler().fit(train)
+
+    def ds(a):
+        return ForecastDataset.from_numpy(scaler.transform(a), N_HIS, N_PRED, device="cuda")
+
+    data = {"n_vertex": V_100K, "gop": gop, "matrix": art.matrix, "scaler": scaler,
+            "train": ds(train), "val": ds(val), "test": ds(test)}
+    torch.cuda.synchronize()
+    lap("split_s")
+    nbr, w, bs = gop.slabs_nv.shape
+    nnz = int(art.matrix.nnz)
+    data["prep"] = {**prep, "nnz": nnz, "nbr": nbr, "w": w, "bs": bs, "v_pad": gop.v_pad,
+                    "band_occupancy": nnz / (nbr * w * bs),
+                    "slab_bytes": gop.slabs_nv.numel() * 4,
+                    "shared_transpose_pack": gop.slabs_nv_t is gop.slabs_nv,
+                    "lambda_max": art.lam_max}
+    return data
+
+
+def phase_kernels_banded(torch, data) -> dict:
+    """K5 in each mode at the 100k shapes (N = B·T·c1 of blocks 1 and 2, the
+    real pack), held against its plain version, repeat bit-identical, timed
+    beside its bound and torch.sparse.mm."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import banded_nv as nv
+
+    gop, v, nnz = data["gop"], data["n_vertex"], data["prep"]["nnz"]
+    nbr, w, bs = gop.slabs_nv.shape
+    m = data["matrix"]
+    a_csr = torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype("int64")),
+                                    torch.from_numpy(m.indices.astype("int64")),
+                                    torch.from_numpy(m.data.astype("float32")),
+                                    size=(v, v), check_invariants=False).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results: dict[str, list] = {name: [] for name in NV_MODES}
+    for n in (BATCH_100K * (N_HIS - 2) * 16, BATCH_100K * (N_HIS - 6) * 16):
+        x = torch.randn((n, gop.v_pad), generator=gen, device="cuda")
+        g = torch.randn((n, gop.v_pad), generator=gen, device="cuda")
+        x_vn = x[:, :v].T.contiguous()   # the library call's operand, transposed once here
+        for mode in ("single", "pair", "chain"):
+            name = f"nv_{mode}"
+            args = (gop.slabs_nv, gop.lo, x, g if mode == "chain" else None, mode)
+
+            def kernel(args=args):
+                return nv.stream_nv(*args)
+
+            def plain(args=args):
+                return nv.stream_nv_reference(*args)
+
+            before = kernels.launch_counts()[name]
+            out1, out2 = kernel(), kernel()
+            torch.cuda.synchronize()
+            if kernels.launch_counts()[name] - before != 2:
+                raise AssertionError(f"{name}: launch counter did not move by 2")
+            if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
+                raise AssertionError(f"{name} [N={n}]: a repeat launch is not bit-identical")
+            try:
+                err, ref_max, _ = max_err(out1, plain())
+            except AssertionError as e:
+                raise AssertionError(f"{name} [N={n}]: {e}") from None
+            apps = 1 if mode == "single" else 2
+
+            def library(apps=apps):
+                y = torch.sparse.mm(a_csr, x_vn)
+                return torch.sparse.mm(a_csr, y) if apps == 2 else y
+
+            if mode == "single":   # the pack encodes the GSO: the library agrees
+                lib_err = max_err(out1[:, :v], library().T)[0]
+            ms = cuda_ms(kernel, warmup=2, reps=K5_REPS)
+            plain_ms = cuda_ms(plain, warmup=1, reps=3)
+            library_ms = cuda_ms(library, warmup=2, reps=K5_REPS)
+            # each input read once (slabs, lo, x, and g for chain), each output written once
+            n_operands = 1 + (mode == "chain") + (1 if mode == "single" else 2)
+            nbytes = (gop.slabs_nv.numel() + nbr + n_operands * n * gop.v_pad) * 4
+            nnz_flops, band_flops = 2 * apps * n * nnz, 2 * apps * n * nbr * w * bs
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nnz_flops / F32_FLOP_PER_S * 1e3
+            results[name].append({
+                "shape": f"N={n}", "input": [n, gop.v_pad], "slabs": [nbr, w, bs],
+                "max_abs_err": err, "ref_max": ref_max, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "library_call": f"torch.sparse.mm CSR x{apps}, "
+                "operand transposed outside the timing" + ("" if apps == 1 else
+                                                           ", 2·y − x not included"),
+                "library_max_abs_err": lib_err if mode == "single" else None,
+                "bytes": nbytes, "nnz_flops": nnz_flops, "band_flops": band_flops,
+                "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
+                "band_flops_ms": band_flops / F32_FLOP_PER_S * 1e3,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            del out1, out2
+        del x, g, x_vn
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_banded", "seconds": time.perf_counter() - t0,
+          "tolerance": KERNEL_TOL, "pack": data["prep"], "results": results})
+    return results
+
+
+def phase_banded_100k(torch, data) -> dict:
+    """The 100k-vertex route end to end: one forecast batch fused against
+    unfused on the banded operator, every K1-K4 call of one training step
+    held against its plain version, fused gradients against unfused ones,
+    then a fused Trainer.fit(1) with its launches counted, and test()."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import TrainConfig, Trainer, masked_mse
+
+    gop, v = data["gop"], data["n_vertex"]
+    ckpt_root = ROOT / "checkpoints" / "chip_smoke_100k"   # git-ignored, removed at the end
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. one forecast batch: fused (K1-K4, K5 pair) against the unfused model
+    model = new_model(torch, v, DROPRATE).eval()
+    params = model.state_dict()
+    starts, _ = next(data["test"].batches(BATCH_100K))
+    x, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        pf = fused_sparse_forward(params, x, gop, model)
+        torch.cuda.synchronize()
+        fwd_launches = kernels.launch_counts()
+        pu = model(x, gop)
+        walls: dict[str, list] = {"fused": [], "unfused": []}
+        for kind in ("fused", "unfused", "unfused", "fused"):
+            t1 = time.perf_counter()
+            (fused_sparse_forward(params, x, gop, model) if kind == "fused" else model(x, gop))
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t1)
+    if fwd_launches != expected(PER_BATCH_100K, 1):
+        raise AssertionError(f"fused forecast launched {fwd_launches}, expected "
+                             f"{expected(PER_BATCH_100K, 1)}")
+    if pf.shape != (BATCH_100K, 1, v, 1) or not torch.isfinite(pf).all():
+        raise AssertionError(f"fused forecast has shape {tuple(pf.shape)} or non-finite values")
+    d = (pf - pu).abs()
+    if not bool((d <= SLICE_TOL + SLICE_TOL * pu.abs()).all()):
+        raise AssertionError(f"100k fused and unfused forecasts differ: max |Δ| {float(d.max()):.3e}")
+    forecast = {"max_abs_diff_fused_unfused": float(d.max()), "tolerance": SLICE_TOL,
+                "launches": fwd_launches, "seconds_fused": statistics.median(walls["fused"]),
+                "seconds_unfused": statistics.median(walls["unfused"])}
+    del model, params, pf, pu
+
+    # 2. every K1-K4 call of one fused training step at 100k, against its plain version
+    per_call = check_recorded(torch, record_training_step(torch, data, BATCH_100K), reps=3,
+                              relu_flips=True)
+
+    # 3. one batch's gradients, fused against unfused, same masks
+    model = new_model(torch, v, DROPRATE)
+    params = dict(model.named_parameters())
+    starts, n_valid = next(data["train"].batches(BATCH_100K))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+
+    def grads(fused):
+        pred = (fused_sparse_forward(params, x, gop, model, deterministic=False,
+                                     seed=step_seed(42, 0))
+                if fused else model(x, gop, deterministic=False, seed=step_seed(42, 0)))
+        loss = masked_mse(pred.reshape(BATCH_100K, -1), y, n_valid)
+        return torch.cat([g.flatten() for g in torch.autograd.grad(loss, list(params.values()))])
+
+    gf, gu = grads(True), grads(False)
+    rel = float((gf - gu).norm() / (gu.norm() + 1e-12))
+    worst = float(((gf - gu).abs() - GRAD_RTOL * gu.abs()).max())
+    if not rel < GRAD_REL_L2 or worst > GRAD_ATOL:
+        raise AssertionError(f"100k fused gradients off the unfused ones: relative L2 {rel:.3e}, "
+                             f"worst excess over the rtol {worst:.3e}")
+    one_batch = {"grad_rel_l2": rel, "grad_max_abs_diff": float((gf - gu).abs().max())}
+    del model, params, gf, gu
+
+    # 4. a fused fit of one epoch, every step's loss and time, then test()
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH_100K,
+                      fused=True, ckpt_dir=str(ckpt_root), dataset_name="road-100k")
+    tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
+                 data["test"], data["scaler"], device="cuda")
+    step_losses, step_seconds = [], []
+    real_step = tr.train_step
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = real_step(*a)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t1)
+        step_losses.append(loss)
+        return loss
+
+    tr.train_step = timed_step
+    kernels.reset_launch_counts()
+    hist = tr.fit(1)["history"]
+    launches = kernels.launch_counts()
+    val_batches = -(-tr.val_ds.num_windows // BATCH_100K)
+    want = expected(PER_STEP_100K, tr.steps_per_epoch, (PER_BATCH_100K, val_batches))
+    if launches != want:
+        raise AssertionError(f"100k fit launched {launches}, expected {want}")
+    losses = [float(v_) for v_ in step_losses]
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
+        raise AssertionError(f"non-finite 100k step losses {losses}")
+    test_m = tr.test()
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
+        raise AssertionError(f"non-finite 100k test metrics {test_m}")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    result = {"phase": "banded_100k", "seconds": time.perf_counter() - t0, "n_vertex": v,
+              "batch_size": BATCH_100K, "series_steps": STEPS_100K, "prep": data["prep"],
+              "forecast_one_batch": forecast, "one_batch": one_batch,
+              "grad_tolerance": [GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL],
+              "steps_per_epoch": tr.steps_per_epoch, "val_batches": val_batches,
+              "step_losses": losses, "step_seconds": step_seconds,
+              "step_seconds_median": statistics.median(step_seconds),
+              "epoch": hist[0], "launches": launches, "test": test_m,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "per_step_calls": per_call}
+    emit(result)
+    return result
+
+
+def phase_cli(torch) -> dict:
+    """``python -m stgcn_tpu_torch.cli`` in-process: PeMSD7(M) through the
+    banded operator (one block row of 256) and the fused kernels, one epoch,
+    then the reference test line."""
+    import contextlib
+    import io
+
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.cli import main as cli_main
+
+    ckpt = ROOT / "checkpoints" / "chip_smoke_cli"   # git-ignored, removed at the end
+    shutil.rmtree(ckpt, ignore_errors=True)
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        mets = cli_main(["--dataset", "pemsd7-m", "--data_root", str(ROOT / "data"),
+                         "--graph_op", "banded", "--fused", "True", "--epochs", "1",
+                         "--ckpt_dir", str(ckpt)])
+    launches = kernels.launch_counts()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[1:]:   # the epoch and test lines (the first is the config dump)
+        print(line, flush=True)
+    if not lines[-1].startswith("Dataset pemsd7-m | Test loss "):
+        raise AssertionError(f"the CLI's last line is not the test line: {lines[-1]!r}")
+    if not all(launches[k] > 0 for k in (*PER_STEP, "nv_pair", "nv_chain")):
+        raise AssertionError(f"the CLI run routed around a kernel: {launches}")
+    if not all(v == v and abs(v) < float("inf") for v in mets.values()):
+        raise AssertionError(f"non-finite CLI test metrics {mets}")
+    result = {"phase": "cli", "seconds": time.perf_counter() - t0, "test_line": lines[-1],
+              "launches": launches, "test": mets}
+    emit(result)
+    return result
+
 
 
 def main() -> int:
@@ -650,20 +1022,37 @@ def main() -> int:
     per_call = phase_kernels_bwd(torch, data)
     sl = phase_slice(torch, data)
     tr = phase_train(torch, data)
+    del data
+    big = build_100k(torch)
+    k5 = phase_kernels_banded(torch, big)
+    b100 = phase_banded_100k(torch, big)
+    del big
+    cli = phase_cli(torch)
 
-    rows = []
-    for name, calls in per_call.items():
-        kid, source, replaces, tpu_fn = KERNEL_META[name]
-        # per training step the kernel runs once at each recorded call
-        rows.append({
-            "name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
-            "tpu_fn": tpu_fn, "launches": tr["launches"][name],
-            "launches_forecast": sl["launches"][name],
-            "max_abs_err": max(c["max_abs_err"] for c in calls),
-            "ms": sum(c["ms"] for c in calls), "plain_ms": sum(c["plain_ms"] for c in calls),
-            "bound_ms": sum(c["bound_ms"] for c in calls),
-            "bound_by": max(calls, key=lambda c: c["bound_ms"])["bound_by"],
-            "library_ms": None, "per_step_calls": calls})
+    def row(name, meta, calls, **extra):
+        """One kernel's line: per training step it runs once at each call."""
+        kid, source, replaces, tpu_fn = meta
+        return {"name": name, "id": kid, "route": "cuda", "source": source,
+                "replaces": replaces, "tpu_fn": tpu_fn, **extra,
+                "max_abs_err": max(c["max_abs_err"] for c in calls),
+                "ms": sum(c["ms"] for c in calls), "plain_ms": sum(c["plain_ms"] for c in calls),
+                "bound_ms": sum(c["bound_ms"] for c in calls),
+                "bound_by": max(calls, key=lambda c: c["bound_ms"])["bound_by"],
+                "library_ms": (sum(c["library_ms"] for c in calls)
+                               if all(c.get("library_ms") is not None for c in calls) else None),
+                "per_step_calls": calls}
+
+    rows = [row(name, KERNEL_META[name], calls, launches=tr["launches"][name],
+                launches_forecast=sl["launches"][name],
+                launches_100k=b100["launches"][name],
+                ms_100k=sum(c["ms"] for c in b100["per_step_calls"][name]),
+                plain_ms_100k=sum(c["plain_ms"] for c in b100["per_step_calls"][name]),
+                bound_ms_100k=sum(c["bound_ms"] for c in b100["per_step_calls"][name]),
+                max_abs_err_100k=max(c["max_abs_err"] for c in b100["per_step_calls"][name]))
+            for name, calls in per_call.items()]
+    rows += [row(name, K5_META, calls, mode=name[3:], launches=b100["launches"][name],
+                 launches_cli=cli["launches"][name])
+             for name, calls in k5.items()]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

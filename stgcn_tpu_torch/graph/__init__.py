@@ -1,4 +1,5 @@
-"""Graph preprocessing: GSO construction, normalization, Chebyshev rescale."""
+"""Graph preprocessing: GSO construction, normalization, Chebyshev rescale,
+and the RCM vertex order of the banded operator."""
 
 from stgcn_tpu_torch.graph.gso import (  # noqa: F401
     GSO_TYPES,
@@ -9,3 +10,4 @@ from stgcn_tpu_torch.graph.gso import (  # noqa: F401
     lambda_max,
     symmetrize,
 )
+from stgcn_tpu_torch.graph.partition import permute_matrix, rcm_ordering  # noqa: F401

@@ -1,20 +1,26 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
 K1 :func:`vertex_fused.head_fwd`, K2 :func:`vertex_fused.tail_fwd`,
-K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd`, and their
+K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd`, their
 backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
-``ofc_bwd``). The CUDA sources under ``csrc/`` are built by :mod:`._build`
-at first use.
+``ofc_bwd``), and the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
+per mode (``nv_single``, ``nv_pair``, ``nv_chain``). The CUDA sources under
+``csrc/`` are built by :mod:`._build` at first use.
 """
 
+import functools
+
 from stgcn_tpu_torch.kernels._launch import LAUNCHES
+from stgcn_tpu_torch.kernels.banded_nv import stream_nv
 from stgcn_tpu_torch.kernels.output_head import ofc_bwd, ofc_fwd, ohead_bwd, ohead_fwd
 from stgcn_tpu_torch.kernels.vertex_fused import head_bwd, head_fwd, tail_bwd, tail_fwd
 
 WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             "ohead_fwd": ohead_fwd, "ofc_fwd": ofc_fwd,
             "head_bwd": head_bwd, "tail_bwd": tail_bwd,
-            "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd}
+            "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd,
+            **{f"nv_{m}": functools.partial(stream_nv, mode=m)
+               for m in ("single", "pair", "chain")}}
 
 
 def reset_launch_counts() -> None:

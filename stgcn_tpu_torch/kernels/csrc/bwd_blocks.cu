@@ -237,31 +237,57 @@ __global__ void sum_slices_kernel(const float* __restrict__ part, float* __restr
   }
 }
 
-// grid (B * T), block kLanes: dx and the (b, t) statistics gradients.
+// grid (splits, B * T), block kLanes: dx, and per (b, t) row the partial sums
+// of the statistics gradients over one slice of `len` (c, v) elements, so a
+// thread adds a few hundred terms (one block per row left each thread 1e5
+// serial adds at 100k vertices, and 8-96 blocks on 132 SMs).
 __global__ void __launch_bounds__(kLanes)
 ln_bwd_stats_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                     const float* __restrict__ rstd, const float* __restrict__ lng, Drop drop,
                     const float* __restrict__ dy, float* __restrict__ dx,
-                    float* __restrict__ dmu, float* __restrict__ drstd, int c, int vp) {
+                    float* __restrict__ part, int c, int vp, int len) {
   __shared__ float red[kLanes / 32];
   const uint32_t key = drop_key(drop.seed, drop.site);
-  const size_t bt = blockIdx.x;
+  const size_t bt = blockIdx.y;
   const float m = mu[bt], r = rstd[bt];
+  const int n = c * vp;
+  const int i0 = blockIdx.x * len, i1 = i0 + len < n ? i0 + len : n;
   float s1 = 0.0f, s2 = 0.0f;
-  for (int ch = 0; ch < c; ++ch)
-    for (int v = threadIdx.x; v < vp; v += kLanes) {
-      const size_t row = bt * c + ch, i = row * vp + v;
-      float g = dy[i];
-      if (drop.threshold) g *= drop_mask(drop, key, row, v);
-      const float dxn = g * lng[(size_t)ch * vp + v];
-      dx[i] = dxn * r;
-      s1 += dxn;
-      s2 += dxn * (x[i] - m);
-    }
+  for (int i = i0 + threadIdx.x; i < i1; i += kLanes) {
+    const int ch = i / vp, v = i % vp;
+    const size_t row = bt * c + ch, idx = row * vp + v;
+    float g = dy[idx];
+    if (drop.threshold) g *= drop_mask(drop, key, row, v);
+    const float dxn = g * lng[(size_t)ch * vp + v];
+    dx[idx] = dxn * r;
+    s1 += dxn;
+    s2 += dxn * (x[idx] - m);
+  }
   s1 = block_sum(s1, red);
   s2 = block_sum(s2, red);
   if (threadIdx.x == 0) {
-    dmu[bt] = -s1 * r;
+    const size_t o = (bt * gridDim.x + blockIdx.x) * 2;
+    part[o] = s1;
+    part[o + 1] = s2;
+  }
+}
+
+// grid (B * T), block kLanes: a row's slice partials summed in a fixed
+// order (strided per thread, then the block's tree), then dmu and drstd.
+__global__ void __launch_bounds__(kLanes)
+ln_bwd_stats_sum_kernel(const float* __restrict__ part, const float* __restrict__ rstd,
+                        float* __restrict__ dmu, float* __restrict__ drstd, int splits) {
+  __shared__ float red[kLanes / 32];
+  const size_t bt = blockIdx.x;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int k = threadIdx.x; k < splits; k += kLanes) {
+    s1 += part[(bt * splits + k) * 2];
+    s2 += part[(bt * splits + k) * 2 + 1];
+  }
+  s1 = block_sum(s1, red);
+  s2 = block_sum(s2, red);
+  if (threadIdx.x == 0) {
+    dmu[bt] = -s1 * rstd[bt];
     drstd[bt] = s2;
   }
 }
@@ -342,11 +368,18 @@ cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, 
 
 cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, const float* lng,
                           Drop drop, const float* dy, float* dx, float* dmu, float* drstd,
-                          float* dlng, float* dlnb, int batch, int t, int c, int vp,
+                          float* dlng, float* dlnb, float* part, int batch, int t, int c, int vp,
                           cudaStream_t stream) {
-  ln_bwd_stats_kernel<<<batch * t, kLanes, 0, stream>>>(x, mu, rstd, lng, drop, dy, dx, dmu,
-                                                        drstd, c, vp);
+  const int n = c * vp;
+  int splits = (n + kLanes * 256 - 1) / (kLanes * 256);   // about 256 terms a thread
+  splits = splits < 1 ? 1 : (splits > kLnSplits ? kLnSplits : splits);
+  const int len = (n + splits - 1) / splits;
+  ln_bwd_stats_kernel<<<dim3(splits, batch * t), kLanes, 0, stream>>>(x, mu, rstd, lng, drop, dy,
+                                                                       dx, part, c, vp, len);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_bwd_stats_sum_kernel<<<batch * t, kLanes, 0, stream>>>(part, rstd, dmu, drstd, splits);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ln_bwd_affine_kernel<<<(c * vp + 255) / 256, 256, 0, stream>>>(x, mu, rstd, drop, dy, dlng,
                                                                  dlnb, batch * t, c, vp);

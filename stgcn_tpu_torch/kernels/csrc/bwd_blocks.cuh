@@ -94,11 +94,15 @@ cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, 
 // LayerNorm backward with given statistics, for dy = the gradient of
 // y = ((x - mu) * rstd * lng + lnb) * mask over x [B, T, C, Vp]:
 //   dx = dy * mask * lng * rstd, dmu[b, t] = -rstd * sum_{c,v} dy * mask * lng,
-//   drstd[b, t] = sum_{c,v} dy * mask * lng * (x - mu)   (one block per (b, t));
+//   drstd[b, t] = sum_{c,v} dy * mask * lng * (x - mu)   (per (b, t) row, up to
+//   kLnSplits slice partials in `part`, ln_bwd_part_floats(B, T) floats, then
+//   a fixed-order sum of them);
 //   dlng[c, v] = sum_{b,t} dy * mask * xn, dlnb[c, v] = sum_{b,t} dy * mask.
+constexpr int kLnSplits = 256;
+inline size_t ln_bwd_part_floats(int batch, int t) { return (size_t)batch * t * kLnSplits * 2; }
 cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, const float* lng,
                           Drop drop, const float* dy, float* dx, float* dmu, float* drstd,
-                          float* dlng, float* dlnb, int batch, int t, int c, int vp,
+                          float* dlng, float* dlnb, float* part, int batch, int t, int c, int vp,
                           cudaStream_t stream);
 
 }  // namespace stgcn

@@ -34,6 +34,7 @@ cudaError_t ohead_bwd(const float* x, const float* mu, const float* rstd, const 
   float* ds = w.take(lane * g);
   float* dxin = w.take(lane * c0);
   float* part = w.take(kWgradSlices * (size_t)ko * c_in * g);
+  float* lnpart = w.take(ln_bwd_part_floats(B, ko));
   if (floats) *floats = w.used;
   if (!work) return cudaSuccess;
   if (ko < 1) return cudaErrorInvalidValue;
@@ -50,8 +51,8 @@ cudaError_t ohead_bwd(const float* x, const float* mu, const float* rstd, const 
   // dx4 = tconv^T(ds) + dxin at the last step
   STGCN_TRY(launch_contract({{ds, nullptr, nullptr}, 1, g, ck, ko, 1, 1, nullptr,
                              Cv{dxin, 1, c0}, ko - 1, 0, nullptr, dx4, B, ko, c_in, vp}, s));
-  return launch_ln_bwd(x, mu, rstd, lng, drop, dx4, dx, dmu, drstd, dlng, dlnb, B, ko, c_in, vp,
-                       s);
+  return launch_ln_bwd(x, mu, rstd, lng, drop, dx4, dx, dmu, drstd, dlng, dlnb, lnpart, B, ko,
+                       c_in, vp, s);
 }
 
 cudaError_t ofc_bwd(const float* a, const float* mu, const float* rstd, const float* lnw,
@@ -71,6 +72,7 @@ cudaError_t ofc_bwd(const float* a, const float* mu, const float* rstd, const fl
   size_t wmax = (size_t)c0 * c1;
   if ((size_t)c1 * ce > wmax) wmax = (size_t)c1 * ce;
   float* part = w.take(kWgradSlices * wmax);
+  float* lnpart = w.take(ln_bwd_part_floats(B, 1));
   if (floats) *floats = w.used;
   if (!work) return cudaSuccess;
 
@@ -88,7 +90,8 @@ cudaError_t ofc_bwd(const float* a, const float* mu, const float* rstd, const fl
   STGCN_TRY(launch_wgrad(Cv{nullptr, 0, 1}, 1, Cv{ds2, 1, c1}, db1, part, B, vp, s));
   STGCN_TRY(launch_contract({{ds2, nullptr, nullptr}, 1, c1, w1, 1, 0, 1, nullptr, none, 0, 0,
                              nullptr, dh, B, 1, c0, vp}, s));
-  return launch_ln_bwd(a, mu, rstd, lnw, off, dh, da, dmu, drstd, dlnw, dlnb, B, 1, c0, vp, s);
+  return launch_ln_bwd(a, mu, rstd, lnw, off, dh, da, dmu, drstd, dlnw, dlnb, lnpart, B, 1, c0,
+                       vp, s);
 }
 
 }  // namespace

@@ -44,6 +44,7 @@ cudaError_t head_bwd(const float* x, const float* mu, const float* rstd, const f
   size_t wmax = (size_t)kt * c_in * g1;
   if ((size_t)c0 * c1 > wmax) wmax = (size_t)c0 * c1;
   float* part = w.take(kWgradSlices * wmax);
+  float* lnpart = apply_ln ? w.take(ln_bwd_part_floats(B, t_in)) : nullptr;
   if (floats) *floats = w.used;
   if (!work) return cudaSuccess;
   if (t1 < 1 || c1 > kMaxOut) return cudaErrorInvalidValue;
@@ -67,8 +68,8 @@ cudaError_t head_bwd(const float* x, const float* mu, const float* rstd, const f
   STGCN_TRY(launch_contract({{ds1, nullptr, nullptr}, t1, g1, c1k, kt, 1, 1, nullptr,
                              Cv{dxin, t1, c0}, kt - 1, 0, nullptr, dx4, B, t_in, c_in, vp}, s));
   if (apply_ln)
-    STGCN_TRY(launch_ln_bwd(x, mu, rstd, lng, drop, dx4, dx, dmu, drstd, dlng, dlnb, B, t_in,
-                            c_in, vp, s));
+    STGCN_TRY(launch_ln_bwd(x, mu, rstd, lng, drop, dx4, dx, dmu, drstd, dlng, dlnb, lnpart, B,
+                            t_in, c_in, vp, s));
   return cudaSuccess;
 }
 

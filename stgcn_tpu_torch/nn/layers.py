@@ -119,7 +119,9 @@ class TemporalConvLayer(nn.Module):
 class ChebGraphConv(nn.Module):
     """Chebyshev graph conv of order ``Ks`` (`model/layers.py:122-172`):
     ``T_0 = x``, ``T_1 = Gx``, ``T_k = 2G·T_{k−1} − T_{k−2}``; output
-    ``Σ_k T_k W_k + b``, folded term by term (no ``[Ks, ...]`` stack)."""
+    ``Σ_k T_k W_k + b``, folded term by term (no ``[Ks, ...]`` stack). At
+    ``Ks = 3`` an operator with ``cheb_pair`` (the banded one: K5 ``pair``)
+    gives both terms in one call (`nn/layers.py:159-168` of the JAX package)."""
 
     def __init__(self, c_in: int, c_out: int, ks: int, use_bias: bool = True, *,
                  device=None):
@@ -140,7 +142,12 @@ class ChebGraphConv(nn.Module):
     def forward(self, x: torch.Tensor, gop: Any) -> torch.Tensor:
         t_prev2 = x
         out = torch.matmul(x, self.weight[0])
-        if self.ks >= 2:
+        if self.ks == 3 and hasattr(gop, "cheb_pair"):
+            # fused recurrence: the sparse operator streams once for both terms
+            t1, t2 = gop.cheb_pair(x)
+            out = out + torch.matmul(t1, self.weight[1])
+            out = out + torch.matmul(t2, self.weight[2])
+        elif self.ks >= 2:
             t_prev1 = gop(x)
             out = out + torch.matmul(t_prev1, self.weight[1])
             for k in range(2, self.ks):

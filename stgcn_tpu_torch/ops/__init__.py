@@ -1,7 +1,9 @@
 """On-device graph operators."""
 
 from stgcn_tpu_torch.ops.graph_op import (  # noqa: F401
+    BandedGraphOp,
     DenseGraphOp,
+    banded_graph_op,
     dense_graph_op,
     make_graph_op,
 )

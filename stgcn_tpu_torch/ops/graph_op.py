@@ -1,13 +1,21 @@
 """On-device graph-shift-operator application (port of
-``stgcn_tpu/ops/graph_op.py:47-137,574-601``, dense kind).
+``stgcn_tpu/ops/graph_op.py:47-137,186-330,509-601``: the dense kind and
+the banded kind's nv pack family).
 
 The reference applies its dense GSO with ``torch.einsum('hi,btij->bthj')``
 (``model/layers.py:154-161,198``). Here the GSO is an operator object passed
-to the layers at call time. At road-graph sizes (207-325 vertices) the dense
-``[V, V]`` product is the whole story: its ``[..., V] @ [V, V]ᵀ`` forms go to
-``torch.matmul``, as the JAX package leaves them to XLA outside any Pallas
-kernel. The sparse kinds (banded, blocked-ELL, BCSR) come with their kernels
-in later slices of the port.
+to the layers at call time:
+
+- :class:`DenseGraphOp` — at road-graph sizes (207-325 vertices) the dense
+  ``[V, V]`` product is the whole story: its ``[..., V] @ [V, V]ᵀ`` forms go
+  to ``torch.matmul``, as the JAX package leaves them to XLA outside any
+  Pallas kernel;
+- :class:`BandedGraphOp` — above 4096 vertices, an RCM-ordered road graph
+  packed as dense slabs over its band, applied by the hand-written kernel
+  K5 (:mod:`stgcn_tpu_torch.kernels.banded_nv`) on the ``[N, V]`` operand.
+
+The other sparse kinds (blocked-ELL, BCSR, int8 packs) come with their
+kernels in later slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -15,10 +23,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from stgcn_tpu_torch.device import resolve_device
-from stgcn_tpu_torch.graph.gso import GraphShiftOperator
+from stgcn_tpu_torch.graph.gso import GraphShiftOperator, effectively_symmetric
+from stgcn_tpu_torch.kernels import banded_nv as nvk
+from stgcn_tpu_torch.kernels.banded_spmm import _window_meta, banded_viable, pack_banded_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +87,74 @@ class DenseGraphOp:
         return torch.einsum("uv,...vc->...uc", mat, x)
 
 
+@dataclasses.dataclass(frozen=True)
+class BandedGraphOp:
+    """Banded-slab GSO carrying only the nv pack family (the JAX
+    ``banded_graph_op(nv=True, nv_only=True)`` operator): per ``bs``-row
+    block of the RCM-ordered GSO one dense slab over its column window,
+    pre-transposed ``[nbr, w, bs]``, and the same for ``Aᵀ`` (the backward's
+    operator; one shared pack when the GSO is symmetric).
+
+    The nv surfaces (``apply_nv``, ``cheb_pair_nv``) run K5 on an
+    ``[N, W]`` operand, ``W <= v_pad``; the others (``apply_vn``,
+    ``cheb_pair_vn``, ``__call__``, ``cheb_pair``) reach the same kernel
+    through a transpose, as the JAX operator does when its vn slabs are
+    empty (:219-224, :252-256). Padded columns of the operand are zero."""
+
+    slabs_nv: torch.Tensor    # [nbr, w, bs] float32
+    lo: torch.Tensor          # [nbr] int32 window starts, on the device
+    slabs_nv_t: torch.Tensor  # transpose pack
+    lo_t: torch.Tensor
+    n_vertex: int
+    v_pad: int
+
+    has_nv = True
+
+    def _pad(self, x_nv: torch.Tensor) -> torch.Tensor:
+        if x_nv.dim() != 2 or x_nv.shape[1] > self.v_pad:
+            raise ValueError(f"nv operand must be [N, W <= {self.v_pad}], got {tuple(x_nv.shape)}")
+        pad = self.v_pad - x_nv.shape[1]
+        return torch.nn.functional.pad(x_nv, (0, pad)) if pad else x_nv.contiguous()
+
+    def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """``[N, W] → [N, v_pad]``: ``scale · (A x)`` on the nv operand (K5 single)."""
+        return nvk.banded_spmm_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
+                                  self._pad(x_nv), scale=scale)
+
+    def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """ks=3 recurrence ``(A x, 2 A (A x) − x)`` on the nv operand (K5 pair)."""
+        return nvk.cheb_pair_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
+                                self._pad(x_nv))
+
+    def apply_vn(self, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """``[V, N]`` operand, through the nv kernel and two transposes."""
+        return self.apply_nv(x_vn.T, scale=scale).T[:x_vn.shape[0]]
+
+    def cheb_pair_vn(self, x_vn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        t1, t2 = self.cheb_pair_nv(x_vn.T)
+        v = x_vn.shape[0]
+        return t1.T[:v], t2.T[:v]
+
+    @staticmethod
+    def _nv_view(x: torch.Tensor) -> torch.Tensor:
+        """Channels-last ``[..., V, C]`` → ``[N, V]`` with N ordered (..., C)."""
+        return x.movedim(-1, -2).reshape(-1, x.shape[-2])
+
+    @staticmethod
+    def _unview(y_nv: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        v = like.shape[-2]
+        return y_nv[:, :v].reshape(*like.shape[:-2], like.shape[-1], v).movedim(-1, -2)
+
+    def __call__(self, x: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """Channels-last ``[..., V, C]`` application."""
+        return self._unview(self.apply_nv(self._nv_view(x), scale=scale), x)
+
+    def cheb_pair(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Channels-last ``(G x, 2 G (G x) − x)`` (the Cheb layer's ks=3 route)."""
+        t1, t2 = self.cheb_pair_nv(self._nv_view(x))
+        return self._unview(t1, x), self._unview(t2, x)
+
+
 def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
                    device: str | torch.device = "cuda",
                    dtype: torch.dtype = torch.float32) -> DenseGraphOp:
@@ -83,26 +162,64 @@ def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
     return DenseGraphOp(matrix=torch.as_tensor(mat, dtype=dtype).to(resolve_device(device)))
 
 
-_LATER = {"bcsr": "the --graph_op bcsr slice (blocked-ELL SpMM and SDDMM kernels)",
-          "banded": "the 100k-vertex slice (banded nv kernels)",
-          "banded_int8": "the 100k-vertex slice (banded nv kernels)",
-          "ell": "the 1M-vertex slice (blocked-ELL nv kernels)",
-          "ell_int8": "the 1M-vertex slice (blocked-ELL nv kernels)"}
+def banded_graph_op(gso: GraphShiftOperator, *, block_size: int | None = None,
+                    device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
+                    quantize: bool = False, nv: bool = True,
+                    nv_only: bool = True) -> BandedGraphOp:
+    """The streaming pack of the JAX ``banded_graph_op`` (block-aligned,
+    diagonal-containing windows, ``col_align = bs``; :509-517 for
+    ``nv_only``), nv family only. A symmetric GSO (every ``sym_*``
+    normalization, up to rounding) reuses one pack for the transpose;
+    ``v_pad`` is the pack's natural one (the max of both directions)."""
+    if quantize:
+        raise NotImplementedError("the int8 banded pack comes with the banded_int8 slice of the "
+                                  "port (K5 with per-column scales)")
+    if not (nv and nv_only):
+        raise NotImplementedError("only the nv pack family is ported; the vn packs come with "
+                                  "the vn banded kernels K7-K9")
+    bs = block_size or 256
+    dev = resolve_device(device)
+    csr = sp.csr_matrix(gso.matrix)
+    symmetric = effectively_symmetric(csr)
+    v_pad = _window_meta(csr, bs)[3]
+    if not symmetric:
+        csr_t = csr.T.tocsr()
+        v_pad = max(v_pad, _window_meta(csr_t, bs)[3])
+
+    def pack(m):
+        slabs, lo, _ = pack_banded_device(m, block_size=bs, dtype=dtype, v_pad=v_pad,
+                                          device=dev)
+        return slabs, torch.from_numpy(lo).to(dev)
+
+    slabs, lo = pack(csr)
+    slabs_t, lo_t = (slabs, lo) if symmetric else pack(csr_t)
+    return BandedGraphOp(slabs_nv=slabs, lo=lo, slabs_nv_t=slabs_t, lo_t=lo_t,
+                         n_vertex=gso.n_vertex, v_pad=v_pad)
+
+
+_LATER = {"bcsr": "the --graph_op bcsr slice (blocked-ELL SpMM and SDDMM kernels K10/K11)",
+          "banded_int8": "the banded_int8 slice (K5 with per-column scales)",
+          "ell": "the 1M-vertex slice (blocked-ELL nv kernel K6)",
+          "ell_int8": "the 1M-vertex slice (blocked-ELL nv kernel K6)"}
 
 
 def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
-                  device: str | torch.device = "cuda", **kw) -> DenseGraphOp:
-    """Pick a representation: dense up to 4096 vertices (the JAX rule,
-    ``ops/graph_op.py:580-582``). Sparse kinds are not ported yet and
-    raise, naming the slice that brings them."""
+                  device: str | torch.device = "cuda", banded_block_size: int | None = None,
+                  **kw) -> DenseGraphOp | BandedGraphOp:
+    """Pick a representation (the JAX rule, ``ops/graph_op.py:574-586``):
+    dense up to 4096 vertices; above that the banded slabs when the
+    (RCM-ordered) band is narrow, else BCSR — which is not ported yet and
+    raises, as do the other sparse kinds, naming the slice that brings
+    them. ``banded_block_size`` sets the banded slab rows (default 256)."""
     if kind == "auto":
-        if gso.n_vertex > 4096:
-            raise NotImplementedError(
-                f"{gso.n_vertex} vertices need a sparse graph operator, which "
-                "comes with a later slice of the port (banded / blocked-ELL)")
-        kind = "dense"
+        if gso.n_vertex <= 4096:
+            kind = "dense"
+        else:
+            kind = "banded" if banded_viable(gso.matrix) else "bcsr"
     if kind == "dense":
         return dense_graph_op(gso, device=device, **kw)
+    if kind == "banded":
+        return banded_graph_op(gso, block_size=banded_block_size, device=device, **kw)
     if kind in _LATER:
         raise NotImplementedError(f"graph-op kind {kind!r} is not ported yet; it "
                                   f"comes with {_LATER[kind]}")

@@ -1,0 +1,92 @@
+"""The port's CLI (``python -m stgcn_tpu_torch.cli``) against the JAX
+package's: the same flags and defaults, ``build_trainer`` on PeMSD7(M)
+(V = 228) with ``--graph_op banded --fused True`` — the RCM order, the pack
+(one block row: the window clamp and padding edges), the split series and
+the scaler — a whole CPU run through ``main`` that prints the reference test
+line, and the refusals of what is not ported."""
+
+import importlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+from stgcn_tpu_torch.data import synthetic as TS
+from stgcn_tpu_torch.ops import BandedGraphOp
+
+# the modules (each package's __init__ re-exports the function ``main``)
+jcli = importlib.import_module("stgcn_tpu.cli.main")
+tcli = importlib.import_module("stgcn_tpu_torch.cli.main")
+
+ROOT = Path(__file__).resolve().parents[1]
+DATA = str(ROOT / "data")
+
+
+def test_flags_and_defaults_match_jax():
+    argv = ["--dataset", "pemsd7-m", "--graph_op", "banded", "--fused", "True", "--Ks", "2",
+            "--act_func", "gtu", "--enable_bias", "false", "--batch_size", "8", "--resume",
+            "--mesh_graph", "2", "--compute_dtype", "bfloat16"]
+    for args in ([], argv):
+        got, ref = vars(tcli.get_parameters(args)), vars(jcli.get_parameters(args))
+        assert got == ref
+    cfg = tcli.config_from_args(tcli.get_parameters(argv))
+    assert (cfg.ks, cfg.act_func, cfg.enable_bias, cfg.batch_size, cfg.fused) == \
+        (2, "gtu", False, 8, True)
+    assert cfg.ckpt_dir == "checkpoints/STGCN_pemsd7-m"
+
+
+def test_build_trainer_banded_matches_jax(tmp_path):
+    """Same RCM-permuted series, scaler and nv pack as the JAX CLI's."""
+    argv = ["--dataset", "pemsd7-m", "--graph_op", "banded", "--fused", "True",
+            "--ckpt_dir", str(tmp_path / "ck")]
+    kw = dict(dataset="pemsd7-m", data_root=DATA, graph_op_kind="banded")
+    jtr = jcli.build_trainer(jcli.config_from_args(jcli.get_parameters(argv)), **kw)
+    ttr = tcli.build_trainer(tcli.config_from_args(tcli.get_parameters(argv)), device="cpu",
+                             **kw)
+    gop, jop = ttr.gop, jtr.gop
+    assert isinstance(gop, BandedGraphOp) and gop.slabs_nv.shape[0] == 1   # 228 < 256
+    assert gop.v_pad == jop.v_pad == 256
+    np.testing.assert_array_equal(gop.slabs_nv.numpy(), np.asarray(jop.slabs_nv))
+    np.testing.assert_array_equal(gop.lo.numpy(), np.asarray(jop.lo))
+    for split in ("train_ds", "val_ds", "test_ds"):
+        np.testing.assert_array_equal(getattr(ttr, split).series.numpy(),
+                                      np.asarray(getattr(jtr, split).series))
+    np.testing.assert_array_equal(ttr.scaler.mean_, jtr.scaler.mean_)
+    np.testing.assert_array_equal(ttr.scaler.scale_, jtr.scaler.scale_)
+    assert ttr.cfg.fused and ttr.steps_per_epoch == jtr.steps_per_epoch
+
+
+def test_main_trains_on_the_banded_op_and_prints_the_test_line(tmp_path, capsys):
+    """A synthetic 200-vertex dataset (one block row of 256) without vel.csv:
+    the CLI makes the series, trains one fused epoch on the CPU and tests."""
+    (tmp_path / "toy").mkdir()
+    sp.save_npz(tmp_path / "toy" / "adj.npz", TS.random_road_graph(200, k_neighbors=4, seed=2))
+    TS.ensure_vel("toy", str(tmp_path), seed=1, n_steps=120)
+    mets = tcli.main(["--dataset", "toy", "--data_root", str(tmp_path), "--graph_op", "banded",
+                      "--fused", "True", "--epochs", "1", "--batch_size", "8",
+                      "--platform", "cpu", "--ckpt_dir", str(tmp_path / "ck")])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert any(line.startswith("Epoch: 001 |") for line in out)
+    assert out[-1].startswith("Dataset toy | Test loss ") and "| WMAPE " in out[-1]
+    assert all(np.isfinite(v) for v in mets.values())
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--compute_dtype", "bfloat16"], "bf16"),
+    (["--remat", "True"], "remat"),
+    (["--mesh_data", "2"], "dist"),
+    (["--distributed"], "dist"),
+    (["--profile_dir", "trace"], "profiling"),
+    (["--fused_tile_v", "256"], "tiles"),
+])
+def test_unported_options_raise(flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        tcli.main(["--dataset", "pemsd7-m", "--data_root", DATA, "--platform", "cpu", *flags])
+
+
+def test_sparse_kinds_not_ported_raise(tmp_path):
+    cfg = tcli.config_from_args(tcli.get_parameters(["--ckpt_dir", str(tmp_path)]))
+    with pytest.raises(NotImplementedError, match="bcsr"):
+        tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA, graph_op_kind="bcsr",
+                           device="cpu")

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1-K4 and their backward kernels K1b-K4b against their
-plain PyTorch versions, on a card; the kernels' dropout masks against the
-plain mask bit for bit.
+"""The CUDA kernels K1-K4, their backward kernels K1b-K4b and the banded nv
+SpMM K5 against their plain PyTorch versions, on a card; the kernels'
+dropout masks against the plain mask bit for bit.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
 machine, which has neither:
@@ -17,10 +17,15 @@ import pytest
 import torch
 
 from stgcn_tpu_torch import kernels
+from stgcn_tpu_torch.data.synthetic import random_road_graph
+from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
+from stgcn_tpu_torch.graph.gso import GraphShiftOperator
+from stgcn_tpu_torch.kernels import banded_nv as nv
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import vertex_fused as vf
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.probes import mask_probes
+from stgcn_tpu_torch.ops import banded_graph_op
 
 pytestmark = pytest.mark.cuda
 B, V_TRUE, V_PAD = 3, 150, 256
@@ -221,3 +226,63 @@ def test_ofc_bwd_matches_plain(dev, drop):
 def test_kernel_masks_equal_the_plain_mask(dev, v_true):
     for name, (got, plain) in mask_probes(DROP, B, 8, v_true, V_PAD, dev).items():
         assert torch.equal(got, plain), name
+
+
+def _banded_op(dev, n_vertex, bs, gso_type="sym_norm_lap"):
+    art = build_gso(random_road_graph(n_vertex, k_neighbors=6, seed=0), gso_type, cheb=True)
+    art = GraphShiftOperator(matrix=permute_matrix(art.matrix, rcm_ordering(art.matrix)),
+                             gso_type=gso_type, cheb_rescaled=True, lam_max=art.lam_max)
+    return banded_graph_op(art, block_size=bs, device=dev)
+
+
+@pytest.mark.parametrize("n", [480, 97])        # N a tile multiple, and not
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+@pytest.mark.parametrize("n_vertex,bs", [(600, 128), (600, 256), (200, 256)])
+def test_k5_matches_plain(dev, n_vertex, bs, mode, n):
+    """Every mode against its plain version; (200, 256) is a one-block-row
+    pack. The operand's padded lanes are not zero, so the padding rules are
+    held too. A repeat launch is bit-identical."""
+    op = _banded_op(dev, n_vertex, bs)
+    rng = np.random.default_rng(5)
+    x = _rand(rng, dev, n, op.v_pad)
+    g = _rand(rng, dev, n, op.v_pad) if mode == "chain" else None
+    before = kernels.launch_counts()[f"nv_{mode}"]
+    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode)
+    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[f"nv_{mode}"] == before + 2
+    ref = nv.stream_nv_reference(op.slabs_nv, op.lo, x, g, mode)
+    outs1, outs2, refs = ([o] if mode == "single" else list(o) for o in (out1, out2, ref))
+    for a, b, r in zip(outs1, outs2, refs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, r, **TOL)
+
+
+def test_k5_autograd_matches_plain(dev):
+    """The Functions' backward on the card (K5 single and chain on the
+    transpose pack of a non-symmetric GSO) against the same on the CPU."""
+    op = _banded_op(dev, 600, 128, "rw_norm_lap")
+    assert op.slabs_nv_t is not op.slabs_nv
+    rng = np.random.default_rng(6)
+    x, g1, g2 = (_rand(rng, dev, 96, op.v_pad) for _ in range(3))
+    pack = (op.slabs_nv, op.lo, op.slabs_nv_t, op.lo_t)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xx = x.to(d).requires_grad_(True)
+        p = [a.to(d) for a in pack]
+        t1, t2 = nv.cheb_pair_nv(*p, xx)
+        y = nv.banded_spmm_nv(*p, xx, scale=2.0)
+        loss = (t1 * g1.to(d)).sum() + (t2 * g2.to(d)).sum() + (y * g1.to(d)).sum()
+        grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], **TOL)
+
+
+def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    op = _banded_op(dev, 600, 256)
+    flat = torch.zeros(4 * op.v_pad + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):   # contiguous, one float off
+        nv.stream_nv(op.slabs_nv, op.lo, flat[1:].view(4, op.v_pad))
+    with pytest.raises(ValueError, match="int32"):
+        nv.stream_nv(op.slabs_nv, op.lo.long(), flat[:-1].view(4, op.v_pad))
+    with pytest.raises(ValueError, match="v_pad % bs"):
+        nv.stream_nv(op.slabs_nv, op.lo, torch.zeros(4, op.v_pad + 64, device=dev))

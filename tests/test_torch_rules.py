@@ -14,6 +14,7 @@ import torch
 import stgcn_tpu_torch
 from stgcn_tpu_torch import kernels
 from stgcn_tpu_torch.kernels import _build, _launch
+from stgcn_tpu_torch.kernels import banded_nv as tnv
 from stgcn_tpu_torch.kernels import output_head as toh
 from stgcn_tpu_torch.kernels import vertex_fused as tvf
 
@@ -76,6 +77,13 @@ ENTRY_POINTS = {
     .dense_graph_op(_gso()),
     "ForecastDataset.from_numpy": lambda: stgcn_tpu_torch.ForecastDataset.from_numpy(
         np.zeros((30, 12)), 12, 3),
+    "banded_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
+    .banded_graph_op(_gso()),
+    "make_graph_op(banded)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "banded"),
+    "cli.build_trainer": lambda: __import__("stgcn_tpu_torch.cli", fromlist=["x"]).build_trainer(
+        stgcn_tpu_torch.TrainConfig(), dataset="pemsd7-m", data_root=str(ROOT / "data")),
+    "cli.main": lambda: __import__("stgcn_tpu_torch.cli", fromlist=["x"]).main(
+        ["--dataset", "pemsd7-m", "--data_root", str(ROOT / "data"), "--epochs", "1"]),
 }
 
 
@@ -176,6 +184,38 @@ def test_wrapper_takes_plain_version_only_on_cpu(name, monkeypatch):
     assert len(fake.calls) == n_calls
 
 
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+def test_nv_wrapper_takes_plain_version_only_on_cpu(mode, monkeypatch):
+    """K5's wrapper, as above: one C call per wrapper call (both passes of
+    pair and chain are launched inside it), counted under its mode."""
+    plain_calls = []
+    real_ref = tnv.stream_nv_reference
+    monkeypatch.setattr(tnv, "stream_nv_reference",
+                        lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(tnv, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(tnv, "stream_of", lambda dev: 0)
+
+    def args(dev):
+        g = torch.zeros(5, 256, device=dev) if mode == "chain" else None
+        return (torch.zeros(1, 256, 128, device=dev), torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(5, 256, device=dev), g)
+
+    name = f"nv_{mode}"
+    before = kernels.launch_counts()[name]
+    out = tnv.stream_nv(*args("meta"), mode)
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
+    assert fake.calls == [("stgcn_banded_nv", len(_build.SIGNATURES["stgcn_banded_nv"]))]
+    assert all(o.shape == (5, 256) for o in ([out] if mode == "single" else out))
+    tnv.stream_nv(*args("cpu"), mode)
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    assert len(fake.calls) == 1
+    with pytest.raises(ValueError, match="CUDA or CPU"):   # without the test double
+        monkeypatch.undo()
+        tnv.stream_nv(*args("meta"), mode)
+
+
 def test_wrapper_refuses_a_non_cuda_accelerator_tensor():
     """Without the test double, a tensor that is neither CPU nor CUDA raises
     instead of running the plain version."""
@@ -198,6 +238,6 @@ def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
 def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
     assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
-                    "vertex_fused_bwd.cu", "output_head_bwd.cu"}
+                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()

@@ -10,11 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import dataclasses
+
 from stgcn_tpu.data.synthetic import random_road_graph
 from stgcn_tpu.graph import build_gso as jax_build_gso
+from stgcn_tpu.graph.partition import permute_matrix as jax_permute_matrix
+from stgcn_tpu.graph.partition import rcm_ordering as jax_rcm_ordering
 from stgcn_tpu.nn.model import STGCN as JaxSTGCN
 from stgcn_tpu.ops import dense_graph_op as jax_dense_graph_op
-from stgcn_tpu_torch.graph import build_gso
+from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
 from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.model import STGCN
 from stgcn_tpu_torch.ops import dense_graph_op
@@ -26,6 +30,9 @@ torch.set_num_threads(1)
 
 # V is not a multiple of 128, so the padded vertex lanes are exercised
 V, B, T = 150, 3, 12
+
+# the banded route's tests: 3 block rows of 256, 5 of 128, a multiple of neither
+BANDED_V = 600
 
 GATE_CASES = [
     ("cheb_graph_conv", 3, "glu"),
@@ -72,3 +79,16 @@ def assert_grads(got, ref, atol=2e-5):
         assert g.shape == r.shape, (i, g.shape, r.shape)
         np.testing.assert_allclose(g, r, atol=atol * max(1.0, float(np.abs(r).max())),
                                    err_msg=f"array {i}")
+
+
+def banded_gsos(gso_type="sym_norm_lap", n=BANDED_V, seed=0, cheb=True):
+    """(adjacency, JAX GSO, port GSO) of one synthetic road graph, each
+    RCM-ordered by its own package: the banded operator's input."""
+    adj = random_road_graph(n, k_neighbors=6, seed=seed)
+    jart = jax_build_gso(adj, gso_type, cheb=cheb)
+    jart = dataclasses.replace(jart, matrix=jax_permute_matrix(
+        jart.matrix, jax_rcm_ordering(jart.matrix)))
+    tart = build_gso(adj, gso_type, cheb=cheb)
+    tart = dataclasses.replace(tart, matrix=permute_matrix(tart.matrix,
+                                                           rcm_ordering(tart.matrix)))
+    return adj, jart, tart
