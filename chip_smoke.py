@@ -26,7 +26,9 @@ Ten phases, each printing one JSON line with its own seconds:
    backward's is autograd through the forward's, same mask); the floor of
    the tolerance shrinks with an output whose entries are all below 1 (the
    step's data gradients are about 1e-5), and each output's max |ref| is
-   printed beside max |Δ|. The forward
+   printed beside max |Δ|. K2b and K4b, whose functions have a ReLU, are
+   held to the kernel's ReLU decisions only at units whose input is within
+   rounding of 0, and elementwise everywhere (``relu_checked``). The forward
    kernels' dropout masks, read back through identity weights
    (``kernels/probes.py``), must equal the plain mask bit for bit, with a
    keep rate within 4σ of 0.5.
@@ -65,7 +67,8 @@ Ten phases, each printing one JSON line with its own seconds:
    (the bound of phase 6); a fused ``Trainer.fit(1)`` with every step's
    loss (finite) and seconds and launches per step K1-K4 as in phase 6 plus
    K5 pair ×2 and chain ×2 (validation batches: the forward's); ``test()``;
-   peak device memory.
+   peak device memory of the fit and test, and apart from it that of the
+   checks before it.
 9. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack):
    its epoch and test lines, every kernel of the step (K5 pair and chain
@@ -92,7 +95,6 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 KERNEL_TOL = 1e-4           # f32 kernel vs plain version, rel and abs (see max_err)
-FLIP_FRACTION, FLIP_REL_L2 = 1e-5, 2e-3   # ReLU decisions that round the other way (max_err)
 SLICE_TOL = 2e-4            # fused vs unfused forward (tests/test_vertex_fused.py:49)
 GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL = 1e-4, 2e-4, 2e-3   # tests/test_vertex_fused.py:52-74
 LOSS_TOL = 1e-4             # fused vs unfused step losses, abs and rel
@@ -138,30 +140,16 @@ def flat(out) -> list:
     return [o for o in outs if o is not None]
 
 
-def max_err(got, ref, *, relu_flips: bool = False) -> tuple[float, list, list]:
-    """max |Δ| over all outputs, each output's max |ref| and its count of
-    elements outside the bound; raises if any
-    element is outside KERNEL_TOL·(min(1, max |ref|) + |ref|).
+def outside_bound(torch, got, ref) -> tuple[float, list, list]:
+    """max |Δ| over all outputs, each output's max |ref|, and per output the
+    mask of elements outside KERNEL_TOL·(min(1, max |ref|) + |ref|).
 
     The floor scales with an output whose entries are all below 1: a real
     training step's data gradients are about 1e-5 (dL/dpred of a mean over
     32×228 outputs is about 2e-4 per element), and under a fixed floor of
     1e-4 a zero or doubled one would pass. The bound is nowhere looser than
-    KERNEL_TOL·(1 + |ref|).
-
-    ``relu_flips`` is for a backward kernel whose function has a ReLU
-    (K2b, K4b) at the 100k shapes: there ~1e8 ReLU inputs are summed in
-    another order than the plain version sums them, so a few that lie
-    within rounding of 0 take the other branch, and every element fed by
-    one of them differs by that term. Measured on the card: one flip in
-    K4b's 1.04e8 ReLU inputs put the 128 channels of one lane of ``da``
-    outside the bound (|Δ| 5.5e-8 on max |ref| 1.2e-6; relative L2 of the
-    output 3.6e-4). Then at most FLIP_FRACTION of an output's elements
-    (about 8 such lanes) may lie outside the bound, and the output must
-    still agree in relative L2 within FLIP_REL_L2."""
-    import torch
-
-    worst, ref_max, n_out = 0.0, [], []
+    KERNEL_TOL·(1 + |ref|)."""
+    worst, ref_max, masks = 0.0, [], []
     got, ref = flat(got), flat(ref)
     if len(got) != len(ref):
         raise AssertionError(f"kernel gives {len(got)} outputs, its plain version {len(ref)}")
@@ -173,17 +161,134 @@ def max_err(got, ref, *, relu_flips: bool = False) -> tuple[float, list, list]:
         d = (g - r).abs()
         worst = max(worst, float(d.max()))
         ref_max.append(float(r.abs().max()))
-        floor = KERNEL_TOL * min(1.0, ref_max[-1])
-        outside = int((d > floor + KERNEL_TOL * r.abs()).sum())
-        rel = float((g - r).double().norm() / max(float(r.double().norm()), 1e-30))
-        n_out.append(outside)
-        if outside and not (relu_flips and outside <= FLIP_FRACTION * d.numel()
-                            and rel <= FLIP_REL_L2):
-            raise AssertionError(f"kernel disagrees with its plain version in output "
-                                 f"{len(ref_max) - 1}: max |Δ| {float(d.max()):.3e}, "
-                                 f"max |ref| {ref_max[-1]:.3e}, {outside} of {d.numel()} "
-                                 f"elements outside the bound, relative L2 {rel:.3e}")
-    return worst, ref_max, n_out
+        masks.append(d > KERNEL_TOL * min(1.0, ref_max[-1]) + KERNEL_TOL * r.abs())
+    return worst, ref_max, masks
+
+
+def max_err(got, ref) -> tuple[float, list]:
+    """max |Δ| and each output's max |ref|; raises if any element of any
+    output lies outside the bound of ``outside_bound``."""
+    import torch
+
+    worst, ref_max, masks = outside_bound(torch, got, ref)
+    for i, m in enumerate(masks):
+        if m.any():
+            raise AssertionError(f"kernel disagrees with its plain version in output {i}: "
+                                 f"{int(m.sum())} of {m.numel()} elements outside the bound "
+                                 f"(max |Δ| {worst:.3e}, max |ref| {ref_max[i]:.3e})")
+    return worst, ref_max
+
+
+RELU_BWD = ("tail_bwd", "ofc_bwd")   # backward kernels whose function has a ReLU
+MAX_UNITS_PER_LANE = 3
+
+
+def relu_input(torch, name: str, args, wide: bool = False):
+    """For K2b / K4b: the input z of the function's ReLU as the plain version
+    computes it, or with ``wide`` in float64 beside the sum of its terms'
+    magnitudes (z's rounding scale) and the count of terms an f32 evaluation
+    of z sums."""
+    from stgcn_tpu_torch.kernels import output_head as oh
+    from stgcn_tpu_torch.kernels import vertex_fused as vf
+
+    def d(t):
+        return t.detach().double() if wide else t.detach()
+
+    if name == "tail_bwd":
+        cfg = args[0]
+        terms, w = list(args[2:4])[: cfg.n_terms], args[4:8]
+        z = vf.tail_preact(cfg, d(args[1]), [d(t) for t in terms], [d(t) for t in w])
+        if not wide:
+            return z
+        mag = vf.tail_preact(cfg, d(args[1]).abs(), [d(t).abs() for t in terms],
+                             [d(t).abs() for t in w])
+        n_cterms = len(terms) + (cfg.graph_conv_type == "cheb_graph_conv")
+        return z, mag, n_cterms * cfg.c1 + 2
+    cfg, a, mu, rstd, lnw, lnb, w1, b1 = args[:8]
+    z = oh.ofc_preact(*(d(t) for t in (a, mu, rstd, lnw, lnb, w1, b1)))
+    if not wide:
+        return z
+    mag = oh.ofc_preact((d(a) - d(mu)).abs(), torch.zeros_like(d(mu)), d(rstd), d(lnw).abs(),
+                        d(lnb).abs(), d(w1).abs(), d(b1).abs())
+    return z, mag, cfg.c0 + 1
+
+
+def relu_checked(torch, name: str, args, kwargs, got) -> tuple[float, list, dict]:
+    """``max_err`` for K2b / K4b, whose functions have a ReLU, holding the
+    plain version to the kernel's ReLU decisions where rounding leaves them
+    open, and nowhere else.
+
+    The kernel recomputes the ReLU input z = Σ terms in another order than
+    the plain version; where |z| is within rounding of 0 the two may take
+    different branches, and every element fed by that unit then differs by
+    its term (1e8 such inputs at the 100k shapes). Any f32 order of a sum
+    of n terms lies within γ = (n + 8)·2⁻²³ · Σ|terms| of the exact value (the
+    +8 covers the LayerNorm rounding of K4b's input; the factor 2 over the
+    textbook n·2⁻²⁴ is margin), so a unit is open only if |z| <= γ in
+    float64. Where the kernel's data gradients fall outside the bound, each
+    such lane (b, t, v) must hold an open unit (at most MAX_UNITS_PER_LANE);
+    the plain version is run again with those units' branches flipped, one
+    subset a lane by trial, and must then agree with the kernel elementwise
+    in every output, the weight gradients included. Returns max |Δ|, each
+    output's max |ref| and what was flipped."""
+    def plain(mask=None):
+        return flat(plain_of(name, args, kwargs, relu_mask=mask)())
+
+    worst, ref_max, masks = outside_bound(torch, got, plain())
+    if not any(bool(m.any()) for m in masks):
+        return worst, ref_max, {"flipped_units": 0}
+    z, mag, n_terms = relu_input(torch, name, args, wide=True)
+    open_units = z.abs() <= (n_terms + 8) * 2.0 ** -23 * mag
+    lane_shape = (z.shape[0], z.shape[1], z.shape[3])
+    data = [i for i, g in enumerate(flat(got))
+            if g.dim() == 4 and (g.shape[0], g.shape[1], g.shape[3]) == lane_shape]
+
+    def bad_lanes(ms):   # lanes (b, t, v) where a data gradient is outside the bound
+        return torch.stack([ms[i].any(2) for i in data]).any(0)
+
+    lanes = bad_lanes(masks)
+    if not bool(lanes.any()):
+        raise AssertionError("elements outside the bound only in the weight gradients")
+    if bool((lanes & ~open_units.any(2)).any()):
+        raise AssertionError(f"{int((lanes & ~open_units.any(2)).sum())} lanes outside the "
+                             "bound hold no ReLU input within rounding of 0")
+    units = (open_units & lanes[:, :, None, :]).nonzero().tolist()   # (b, t, g, v), by lane
+    by_lane: dict = {}
+    for b, t, g, v in units:
+        by_lane.setdefault((b, t, v), []).append(g)
+    most = max(len(gs) for gs in by_lane.values())
+    if most > MAX_UNITS_PER_LANE:
+        raise AssertionError(f"a lane outside the bound holds {most} open ReLU inputs, more "
+                             f"than {MAX_UNITS_PER_LANE}")
+    base = (relu_input(torch, name, args) > 0).to(torch.float32)   # the plain version's own
+    chosen: dict = {}
+    for r in range(1, 2 ** most):
+        mask = base.clone()
+        for (b, t, v), gs in by_lane.items():
+            for j, g in enumerate(gs):
+                if r >> j & 1:
+                    mask[b, t, g, v] = 1.0 - mask[b, t, g, v]
+        still = bad_lanes(outside_bound(torch, got, plain(mask))[2])
+        for lane in by_lane:
+            if lane not in chosen and not bool(still[lane]):
+                chosen[lane] = r
+        if len(chosen) == len(by_lane):
+            break
+    if len(chosen) != len(by_lane):
+        raise AssertionError(f"{len(by_lane) - len(chosen)} lanes outside the bound agree "
+                             "under no choice of their open ReLU branches")
+    mask, flipped = base.clone(), []
+    for (b, t, v), gs in by_lane.items():
+        for j, g in enumerate(gs):
+            if chosen[(b, t, v)] >> j & 1:
+                mask[b, t, g, v] = 1.0 - mask[b, t, g, v]
+                flipped.append(float(z[b, t, g, v].abs() / mag[b, t, g, v]))
+    worst, ref_max = max_err(got, plain(mask))
+    return worst, ref_max, {"flipped_units": len(flipped), "lanes": len(by_lane),
+                            "open_units_in_those_lanes": len(units),
+                            "open_units": int(open_units.sum()),
+                            "flipped_max_z_over_mag": max(flipped),
+                            "open_bound_over_mag": (n_terms + 8) * 2.0 ** -23}
 
 
 def kernel_cases(gen):
@@ -311,9 +416,10 @@ def expected(per: dict, n: int, *more: tuple[dict, int]) -> dict:
 
 
 def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops, *,
-                   reps: int = 30, relu_flips: bool = False) -> dict:
+                   reps: int = 30) -> dict:
     """Hold one kernel call against its plain version (tolerance, repeat
-    bit-identical, launch counter) and time both (medians of ``reps``)."""
+    bit-identical, launch counter; K2b / K4b through ``relu_checked``) and
+    time both (medians of ``reps``)."""
     from stgcn_tpu_torch.kernels import launch_counts
 
     before = launch_counts()[name]
@@ -325,9 +431,12 @@ def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops, *,
         raise AssertionError(f"{name}: launch counter moved {moved}, expected 2")
     if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
         raise AssertionError(f"{name} [{label}]: a repeat launch is not bit-identical")
-    ref = plain()
+    relu = None
     try:
-        err, ref_max, outside = max_err(out1, ref, relu_flips=relu_flips)
+        if name in RELU_BWD:
+            err, ref_max, relu = relu_checked(torch, name, args, kwargs, out1)
+        else:
+            err, ref_max = max_err(out1, plain())
     except AssertionError as e:
         raise AssertionError(f"{name} [{label}]: {e}") from None
     warmup = min(5, reps)
@@ -337,7 +446,7 @@ def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops, *,
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return {"shape": label, "input": list(args[1].shape), "output": list(flat(out1)[0].shape),
             "dropout": kwargs.get("drop") is not None, "max_abs_err": err, "ref_max": ref_max,
-            "outside_bound": outside,
+            **({"relu": relu} if relu else {}),
             "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -428,8 +537,9 @@ def record_training_step(torch, data, batch: int = BATCH) -> list:
     return calls
 
 
-def plain_of(name: str, args, kwargs):
-    """The plain version of one recorded kernel call."""
+def plain_of(name: str, args, kwargs, relu_mask=None):
+    """The plain version of one recorded kernel call (K2b / K4b with the
+    ReLU decisions ``relu_mask`` when given)."""
     from stgcn_tpu_torch.kernels import output_head as oh
     from stgcn_tpu_torch.kernels import vertex_fused as vf
 
@@ -448,7 +558,8 @@ def plain_of(name: str, args, kwargs):
         terms = list(args[2:4])[: cfg.n_terms]
 
         def tail_plain():
-            dxg, dterms, *dw = vf.tail_bwd_reference(cfg, args[1], terms, args[4:8], *args[8:11])
+            dxg, dterms, *dw = vf.tail_bwd_reference(cfg, args[1], terms, args[4:8], *args[8:11],
+                                                     relu_mask)
             pad = [args[1].new_zeros(args[1].shape)] * (2 - len(dterms))
             return (dxg, *dterms, *pad, *dw)
         return tail_plain
@@ -458,13 +569,12 @@ def plain_of(name: str, args, kwargs):
         return lambda: oh.ohead_bwd_reference(*args, drop=drop)
     if name == "ofc_fwd":
         return lambda: oh.ofc_reference(*args, drop=drop)
-    return lambda: oh.ofc_bwd_reference(*args, drop=drop)
+    return lambda: oh.ofc_bwd_reference(*args, drop=drop, relu_mask=relu_mask)
 
 
-def check_recorded(torch, calls, reps: int = 30, relu_flips: bool = False) -> dict:
+def check_recorded(torch, calls, reps: int = 30) -> dict:
     """Each recorded kernel call of one training step held against its plain
-    version and timed; the calls must be those of PER_STEP. ``relu_flips``
-    applies to the backward kernels with a ReLU, K2b and K4b (``max_err``)."""
+    version and timed; the calls must be those of PER_STEP."""
     from stgcn_tpu_torch import kernels
 
     counts = {name: sum(c[0] == name for c in calls) for name in PER_STEP}
@@ -477,8 +587,7 @@ def check_recorded(torch, calls, reps: int = 30, relu_flips: bool = False) -> di
         try:
             results[name].append(check_and_time(
                 torch, name, label, kernels.WRAPPERS[name], plain_of(name, args, kwargs), args,
-                kwargs, flops, reps=reps,
-                relu_flips=relu_flips and name in ("tail_bwd", "ofc_bwd")))
+                kwargs, flops, reps=reps))
         except AssertionError as e:
             failed.append(str(e))
     if failed:
@@ -794,7 +903,7 @@ def phase_kernels_banded(torch, data) -> dict:
             if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
                 raise AssertionError(f"{name} [N={n}]: a repeat launch is not bit-identical")
             try:
-                err, ref_max, _ = max_err(out1, plain())
+                err, ref_max = max_err(out1, plain())
             except AssertionError as e:
                 raise AssertionError(f"{name} [N={n}]: {e}") from None
             apps = 1 if mode == "single" else 2
@@ -882,8 +991,7 @@ def phase_banded_100k(torch, data) -> dict:
     del model, params, pf, pu
 
     # 2. every K1-K4 call of one fused training step at 100k, against its plain version
-    per_call = check_recorded(torch, record_training_step(torch, data, BATCH_100K), reps=3,
-                              relu_flips=True)
+    per_call = check_recorded(torch, record_training_step(torch, data, BATCH_100K), reps=3)
 
     # 3. one batch's gradients, fused against unfused, same masks
     model = new_model(torch, v, DROPRATE)
@@ -907,7 +1015,10 @@ def phase_banded_100k(torch, data) -> dict:
     one_batch = {"grad_rel_l2": rel, "grad_max_abs_diff": float((gf - gu).abs().max())}
     del model, params, gf, gu
 
-    # 4. a fused fit of one epoch, every step's loss and time, then test()
+    # 4. a fused fit of one epoch, every step's loss and time, then test();
+    # the peak memory of the checks above is kept apart from the fit's
+    checks_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH_100K,
                       fused=True, ckpt_dir=str(ckpt_root), dataset_name="road-100k")
     tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
@@ -948,7 +1059,7 @@ def phase_banded_100k(torch, data) -> dict:
               "step_seconds_median": statistics.median(step_seconds),
               "epoch": hist[0], "launches": launches, "test": test_m,
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-              "per_step_calls": per_call}
+              "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
     emit(result)
     return result
 

@@ -170,8 +170,7 @@ def config_from_args(args) -> TrainConfig:
 
 def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
                   gso_type: str = "sym_norm_lap", graph_op_kind: str = "auto",
-                  synthetic_ok: bool = True, banded_block_size: int = 256,
-                  device: str | torch.device = "cuda") -> Trainer:
+                  synthetic_ok: bool = True, device: str | torch.device = "cuda") -> Trainer:
     """Data + graph + model assembly (`stgcn_tpu/cli/main.py:151-251`, one
     device). The sparse kinds, and ``auto`` above 4096 vertices, reorder the
     graph by RCM and permute the series' sensor columns the same way; all
@@ -189,7 +188,7 @@ def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
     # the port's banded operator carries only the nv packs (the JAX CLI
     # asks for them with nv=True under --fused); the unfused model reaches
     # them through a transpose
-    gop = make_graph_op(art, graph_op_kind, device=dev, banded_block_size=banded_block_size)
+    gop = make_graph_op(art, graph_op_kind, device=dev)
 
     vel_path = os.path.join(data_root, dataset, "vel.csv")
     if not os.path.exists(vel_path):

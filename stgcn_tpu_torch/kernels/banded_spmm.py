@@ -90,21 +90,15 @@ def cheb_pair_stream_safe(lo, w: int, block_size: int) -> bool:
 
 
 def pack_banded_device(matrix: sp.spmatrix, *, block_size: int = 256,
-                       dtype: torch.dtype = torch.float32, v_pad: int | None = None,
-                       device: str | torch.device = "cuda"):
+                       v_pad: int | None = None, device: str | torch.device = "cuda"):
     """The streaming nv pack (the JAX ``pack_banded_device(contain_diag=True,
     col_align=block_size, transpose_slabs=True)``), built on the device:
     only the COO triplets travel there; the zero-filled slabs (717 MB at
     100k vertices) are scattered in place by one ``index_put_``. Returns
     ``(slabs, lo, v_pad)``: ``slabs`` ``[nbr, w, bs]`` (each block row's
     slab transposed, the operand layout of K5), ``lo`` the int32 window
-    starts (numpy).
-
-    float32 only: the int8 pack with per-row scales comes with the
-    ``banded_int8`` slice of the port."""
-    if dtype != torch.float32:
-        raise NotImplementedError(f"banded pack dtype {dtype}: only float32 is ported; the int8 "
-                                  "pack (per-row scales) comes with the banded_int8 slice")
+    starts (numpy). float32 only: the int8 pack with per-row scales comes
+    with the ``banded_int8`` slice of the port."""
     csr = sp.csr_matrix(matrix)
     bs = block_size
     nbr = -(-csr.shape[0] // bs)

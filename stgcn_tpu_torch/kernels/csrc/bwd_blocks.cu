@@ -240,12 +240,15 @@ __global__ void sum_slices_kernel(const float* __restrict__ part, float* __restr
 // grid (splits, B * T), block kLanes: dx, and per (b, t) row the partial sums
 // of the statistics gradients over one slice of `len` (c, v) elements, so a
 // thread adds a few hundred terms (one block per row left each thread 1e5
-// serial adds at 100k vertices, and 8-96 blocks on 132 SMs).
+// serial adds at 100k vertices, and 8-96 blocks on 132 SMs). With one slice
+// (rows of up to 32768 elements, every row at Vp = 256) the block writes
+// dmu and drstd itself and `part` is not read.
 __global__ void __launch_bounds__(kLanes)
 ln_bwd_stats_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                     const float* __restrict__ rstd, const float* __restrict__ lng, Drop drop,
                     const float* __restrict__ dy, float* __restrict__ dx,
-                    float* __restrict__ part, int c, int vp, int len) {
+                    float* __restrict__ part, float* __restrict__ dmu,
+                    float* __restrict__ drstd, int c, int vp, int len) {
   __shared__ float red[kLanes / 32];
   const uint32_t key = drop_key(drop.seed, drop.site);
   const size_t bt = blockIdx.y;
@@ -253,8 +256,13 @@ ln_bwd_stats_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   const int n = c * vp;
   const int i0 = blockIdx.x * len, i1 = i0 + len < n ? i0 + len : n;
   float s1 = 0.0f, s2 = 0.0f;
-  for (int i = i0 + threadIdx.x; i < i1; i += kLanes) {
-    const int ch = i / vp, v = i % vp;
+  // vp and len are multiples of kLanes: step v by kLanes and wrap into ch
+  int ch = (i0 + threadIdx.x) / vp, v = (i0 + threadIdx.x) % vp;
+  for (int i = i0 + threadIdx.x; i < i1; i += kLanes, v += kLanes) {
+    if (v >= vp) {
+      v -= vp;
+      ++ch;
+    }
     const size_t row = bt * c + ch, idx = row * vp + v;
     float g = dy[idx];
     if (drop.threshold) g *= drop_mask(drop, key, row, v);
@@ -265,7 +273,10 @@ ln_bwd_stats_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   }
   s1 = block_sum(s1, red);
   s2 = block_sum(s2, red);
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && gridDim.x == 1) {
+    dmu[bt] = -s1 * r;
+    drstd[bt] = s2;
+  } else if (threadIdx.x == 0) {
     const size_t o = (bt * gridDim.x + blockIdx.x) * 2;
     part[o] = s1;
     part[o + 1] = s2;
@@ -373,14 +384,16 @@ cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, co
   const int n = c * vp;
   int splits = (n + kLanes * 256 - 1) / (kLanes * 256);   // about 256 terms a thread
   splits = splits < 1 ? 1 : (splits > kLnSplits ? kLnSplits : splits);
-  const int len = (n + splits - 1) / splits;
-  ln_bwd_stats_kernel<<<dim3(splits, batch * t), kLanes, 0, stream>>>(x, mu, rstd, lng, drop, dy,
-                                                                       dx, part, c, vp, len);
+  const int len = ((n + splits - 1) / splits + kLanes - 1) / kLanes * kLanes;
+  ln_bwd_stats_kernel<<<dim3(splits, batch * t), kLanes, 0, stream>>>(
+      x, mu, rstd, lng, drop, dy, dx, part, dmu, drstd, c, vp, len);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_bwd_stats_sum_kernel<<<batch * t, kLanes, 0, stream>>>(part, rstd, dmu, drstd, splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (splits > 1) {
+    ln_bwd_stats_sum_kernel<<<batch * t, kLanes, 0, stream>>>(part, rstd, dmu, drstd, splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   ln_bwd_affine_kernel<<<(c * vp + 255) / 256, 256, 0, stream>>>(x, mu, rstd, drop, dy, dlng,
                                                                  dlnb, batch * t, c, vp);
   return cudaGetLastError();

@@ -96,7 +96,8 @@ cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, 
 //   dx = dy * mask * lng * rstd, dmu[b, t] = -rstd * sum_{c,v} dy * mask * lng,
 //   drstd[b, t] = sum_{c,v} dy * mask * lng * (x - mu)   (per (b, t) row, up to
 //   kLnSplits slice partials in `part`, ln_bwd_part_floats(B, T) floats, then
-//   a fixed-order sum of them);
+//   a fixed-order sum of them; a row of at most 32768 elements is one slice,
+//   one block per row, and its block writes dmu and drstd at once);
 //   dlng[c, v] = sum_{b,t} dy * mask * xn, dlnb[c, v] = sum_{b,t} dy * mask.
 constexpr int kLnSplits = 256;
 inline size_t ln_bwd_part_floats(int batch, int t) { return (size_t)batch * t * kLnSplits * 2; }

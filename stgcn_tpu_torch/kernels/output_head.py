@@ -74,12 +74,19 @@ def ohead_reference(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb,
     return (a, *masked_ln_sums(a, cfg.v_true))
 
 
+def ofc_preact(a, mu, rstd, lnw, lnb, w1, b1) -> torch.Tensor:
+    """The input of fc1's ReLU, ``[B, 1, c1, Vp]``."""
+    return _cdot(ln_normalize_cv(a, mu, rstd, lnw, lnb), w1) + b1[:, None]
+
+
 def ofc_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2,
-                  drop: Drop | None = None) -> torch.Tensor:
-    """Plain version of :func:`ofc_fwd`: ``[B, 1, c_end, Vp]``."""
-    h = ln_normalize_cv(a, mu, rstd, lnw, lnb)
-    z = dropout.apply_cv(torch.relu(_cdot(h, w1) + b1[:, None]), drop, cfg.v_true)
-    return _cdot(z, w2) + b2[:, None]
+                  drop: Drop | None = None, relu_mask=None) -> torch.Tensor:
+    """Plain version of :func:`ofc_fwd`: ``[B, 1, c_end, Vp]``. ``relu_mask``
+    (1 where the ReLU passes, shaped as :func:`ofc_preact`) replaces the
+    ReLU's own decisions when given."""
+    z = ofc_preact(a, mu, rstd, lnw, lnb, w1, b1)
+    h = torch.relu(z) if relu_mask is None else z * relu_mask
+    return _cdot(dropout.apply_cv(h, drop, cfg.v_true), w2) + b2[:, None]
 
 
 def _grad_reference(fn, ins, couts):
@@ -99,9 +106,10 @@ def ohead_bwd_reference(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps,
 
 
 def ofc_bwd_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout,
-                      drop: Drop | None = None):
-    """Plain version of :func:`ofc_bwd`: autograd through :func:`ofc_reference`."""
-    return _grad_reference(lambda *t: ofc_reference(cfg, *t, drop=drop),
+                      drop: Drop | None = None, relu_mask=None):
+    """Plain version of :func:`ofc_bwd`: autograd through :func:`ofc_reference`
+    (with ``relu_mask`` as there)."""
+    return _grad_reference(lambda *t: ofc_reference(cfg, *t, drop=drop, relu_mask=relu_mask),
                            (a, mu, rstd, lnw, lnb, w1, b1, w2, b2), gout)
 
 

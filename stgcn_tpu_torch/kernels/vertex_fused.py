@@ -145,13 +145,21 @@ def head_reference(cfg: VertexBlockCfg, x, ln, w, drop: Drop | None = None) -> t
     return _cdot(a1, gaw) + gab[:, None]
 
 
-def _tail_core(cfg: VertexBlockCfg, xg, terms, w) -> torch.Tensor:
-    gcw, gcb, c2k, c2b = w
+def tail_preact(cfg: VertexBlockCfg, xg, terms, w) -> torch.Tensor:
+    """The input of the tail's ReLU: graph-term contraction plus bias and
+    residual, ``[B, t1, c1, Vp]``."""
+    gcw, gcb = w[0], w[1]
     cterms = [xg, *terms] if cfg.graph_conv_type == "cheb_graph_conv" else list(terms)
     out = _cdot(cterms[0], gcw[0])
     for k in range(1, len(cterms)):
         out = out + _cdot(cterms[k], gcw[k])
-    h = torch.relu(out + gcb[:, None] + xg)
+    return out + gcb[:, None] + xg
+
+
+def _tail_core(cfg: VertexBlockCfg, xg, terms, w, relu_mask=None) -> torch.Tensor:
+    _, _, c2k, c2b = w
+    z = tail_preact(cfg, xg, terms, w)
+    h = torch.relu(z) if relu_mask is None else z * relu_mask
     s2 = tconv_cv(h, c2k, c2b, cfg.kt)
     return gate_cv(cfg.act_func, s2, pad_channels_cv(h[:, cfg.kt - 1:], cfg.c2), cfg.c2)
 
@@ -171,9 +179,11 @@ def ln_stats(ps: torch.Tensor, pss: torch.Tensor, count: int):
     return mu, torch.rsqrt(torch.clamp(var, min=0.0) + 1e-12)
 
 
-def tail_reference(cfg: VertexBlockCfg, xg, terms, w):
-    """Plain version of :func:`tail_fwd`; returns (a2, ps, pss)."""
-    a2 = _tail_core(cfg, xg, terms, w)
+def tail_reference(cfg: VertexBlockCfg, xg, terms, w, relu_mask=None):
+    """Plain version of :func:`tail_fwd`; returns (a2, ps, pss).
+    ``relu_mask`` (1 where the ReLU passes, shaped as :func:`tail_preact`)
+    replaces the ReLU's own decisions when given."""
+    a2 = _tail_core(cfg, xg, terms, w, relu_mask)
     return (a2, *masked_ln_sums(a2, cfg.v_true))
 
 
@@ -194,14 +204,14 @@ def head_bwd_reference(cfg: VertexBlockCfg, x, ln, w, gy, drop: Drop | None = No
     return (g[0], *(g[1:5] if cfg.apply_ln else (None,) * 4), *g[1 + n_ln:])
 
 
-def tail_bwd_reference(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss):
+def tail_bwd_reference(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss, relu_mask=None):
     """Plain version of :func:`tail_bwd`: autograd through
-    :func:`tail_reference`; returns (dxg, [dterm per term], dgcw, dgcb, dc2k,
-    dc2b)."""
+    :func:`tail_reference` (with ``relu_mask`` as there); returns (dxg,
+    [dterm per term], dgcw, dgcb, dc2k, dc2b)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (xg, *terms, *w)]
         n = len(terms)
-        outs = tail_reference(cfg, ins[0], ins[1:1 + n], ins[1 + n:])
+        outs = tail_reference(cfg, ins[0], ins[1:1 + n], ins[1 + n:], relu_mask)
         g = torch.autograd.grad(outs, ins, (ga2, gps, gpss), allow_unused=True)
     g = [torch.zeros_like(t) if d is None else d for t, d in zip(ins, g)]
     return g[0], g[1:1 + n], *g[1 + n:]

@@ -162,22 +162,15 @@ def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
     return DenseGraphOp(matrix=torch.as_tensor(mat, dtype=dtype).to(resolve_device(device)))
 
 
-def banded_graph_op(gso: GraphShiftOperator, *, block_size: int | None = None,
-                    device: str | torch.device = "cuda", dtype: torch.dtype = torch.float32,
-                    quantize: bool = False, nv: bool = True,
-                    nv_only: bool = True) -> BandedGraphOp:
-    """The streaming pack of the JAX ``banded_graph_op`` (block-aligned,
-    diagonal-containing windows, ``col_align = bs``; :509-517 for
-    ``nv_only``), nv family only. A symmetric GSO (every ``sym_*``
-    normalization, up to rounding) reuses one pack for the transpose;
-    ``v_pad`` is the pack's natural one (the max of both directions)."""
-    if quantize:
-        raise NotImplementedError("the int8 banded pack comes with the banded_int8 slice of the "
-                                  "port (K5 with per-column scales)")
-    if not (nv and nv_only):
-        raise NotImplementedError("only the nv pack family is ported; the vn packs come with "
-                                  "the vn banded kernels K7-K9")
-    bs = block_size or 256
+def banded_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
+                    device: str | torch.device = "cuda") -> BandedGraphOp:
+    """The streaming f32 pack of the JAX ``banded_graph_op`` (block-aligned,
+    diagonal-containing windows, ``col_align = bs``), nv family only, as
+    its ``nv=True, nv_only=True`` (:509-517). A symmetric GSO (every
+    ``sym_*`` normalization, up to rounding) reuses one pack for the
+    transpose; ``v_pad`` is the pack's natural one (the max of both
+    directions)."""
+    bs = block_size
     dev = resolve_device(device)
     csr = sp.csr_matrix(gso.matrix)
     symmetric = effectively_symmetric(csr)
@@ -187,8 +180,7 @@ def banded_graph_op(gso: GraphShiftOperator, *, block_size: int | None = None,
         v_pad = max(v_pad, _window_meta(csr_t, bs)[3])
 
     def pack(m):
-        slabs, lo, _ = pack_banded_device(m, block_size=bs, dtype=dtype, v_pad=v_pad,
-                                          device=dev)
+        slabs, lo, _ = pack_banded_device(m, block_size=bs, v_pad=v_pad, device=dev)
         return slabs, torch.from_numpy(lo).to(dev)
 
     slabs, lo = pack(csr)
@@ -204,13 +196,12 @@ _LATER = {"bcsr": "the --graph_op bcsr slice (blocked-ELL SpMM and SDDMM kernels
 
 
 def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
-                  device: str | torch.device = "cuda", banded_block_size: int | None = None,
-                  **kw) -> DenseGraphOp | BandedGraphOp:
+                  device: str | torch.device = "cuda", **kw) -> DenseGraphOp | BandedGraphOp:
     """Pick a representation (the JAX rule, ``ops/graph_op.py:574-586``):
     dense up to 4096 vertices; above that the banded slabs when the
     (RCM-ordered) band is narrow, else BCSR — which is not ported yet and
     raises, as do the other sparse kinds, naming the slice that brings
-    them. ``banded_block_size`` sets the banded slab rows (default 256)."""
+    them."""
     if kind == "auto":
         if gso.n_vertex <= 4096:
             kind = "dense"
@@ -219,7 +210,7 @@ def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
     if kind == "dense":
         return dense_graph_op(gso, device=device, **kw)
     if kind == "banded":
-        return banded_graph_op(gso, block_size=banded_block_size, device=device, **kw)
+        return banded_graph_op(gso, device=device, **kw)
     if kind in _LATER:
         raise NotImplementedError(f"graph-op kind {kind!r} is not ported yet; it "
                                   f"comes with {_LATER[kind]}")

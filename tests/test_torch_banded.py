@@ -202,8 +202,8 @@ def test_make_graph_op_routing():
     BCSR (not ported: raises) when it is not; the unported kinds raise."""
     _, _, tart = banded_gsos()
     assert isinstance(make_graph_op(tart, "auto", device="cpu"), DenseGraphOp)
-    op = make_graph_op(tart, "banded", device="cpu", banded_block_size=128)
-    assert isinstance(op, BandedGraphOp) and op.slabs_nv.shape[-1] == 128
+    op = make_graph_op(tart, "banded", device="cpu")
+    assert isinstance(op, BandedGraphOp) and op.slabs_nv.shape[-1] == 256
     big = TS.random_road_graph(5000, k_neighbors=4, seed=1)
     art = build_gso(big, "sym_norm_lap", cheb=False)
     with pytest.raises(NotImplementedError, match="bcsr"):   # unordered: a wide band
@@ -222,12 +222,6 @@ def test_make_graph_op_routing():
 
 def test_banded_pack_refuses_what_is_not_ported():
     _, _, tart = banded_gsos()
-    with pytest.raises(NotImplementedError, match="banded_int8"):
-        banded_graph_op(tart, quantize=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="K7-K9"):
-        banded_graph_op(tart, nv_only=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tbs.pack_banded_device(tart.matrix, dtype=torch.int8, device="cpu")
     with pytest.raises(ValueError, match="v_pad"):
         tbs.pack_banded_device(tart.matrix, v_pad=128, device="cpu")
     with pytest.raises(ValueError, match="chain"):

@@ -75,6 +75,29 @@ def test_tail_bwd_plain_matches_jax_kernel(gct, ks, act):
     assert_grads([g.numpy() for g in got], ref)
 
 
+def test_tail_bwd_plain_takes_given_relu_decisions():
+    """The ``relu_mask`` of the plain version (the card check's way to hold it
+    to a kernel's ReLU decisions): its own decisions give the default result
+    (to f32 rounding: autograd may sum the bias gradient in another order);
+    one unit's flipped decision moves the data gradient at its own (b, t, v)
+    and nowhere outside its vertex v of batch b (the gate's temporal conv
+    spreads it over t)."""
+    _, cfg = _cfgs("cheb_graph_conv", 3, "glu", True)
+    xg, ta, tb, w = _tail_inputs(cfg, seed=25)
+    rng = np.random.default_rng(26)
+    cot = (t(rand(rng, B, cfg.t2, cfg.c2, cfg.v_pad)), t(rand(rng, B, cfg.t2, 1, 1)),
+           t(rand(rng, B, cfg.t2, 1, 1)))
+    args = (cfg, t(xg), [t(ta), t(tb)][: cfg.n_terms], tuple(map(t, w)), *cot)
+    own = (tvf.tail_preact(*args[:4]) > 0).float()
+    ref = tvf.tail_bwd_reference(*args)
+    same = tvf.tail_bwd_reference(*args, relu_mask=own)
+    for a, b in zip([ref[0], *ref[1], *ref[2:]], [same[0], *same[1], *same[2:]]):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6 * float(a.abs().max()))
+    own[1, 2, 3, 40] = 1.0 - own[1, 2, 3, 40]
+    moved = (tvf.tail_bwd_reference(*args, relu_mask=own)[0] != same[0]).any(2)
+    assert moved[1, 2, 40] and int(moved.sum()) == int(moved[1, :, 40].sum())
+
+
 @pytest.mark.parametrize("gct,ks,act", GATE_CASES)
 def test_fused_gradients_match_unfused_with_dropout(gct, ks, act):
     """Same seed, same masks: the fused route's loss gradients (kernels' plain
