@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
 and check them: PeMSD7(M) through the dense operator, then a 100k-vertex
-road graph through the banded operator and its kernel K5, then the CLI.
+road graph through the banded operator and its kernel K5, then the 1M-vertex
+road graph through the blocked-ELL operator and its kernel K6, then the CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Ten phases, each printing one JSON line with its own seconds:
+Twelve phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -69,12 +70,33 @@ Ten phases, each printing one JSON line with its own seconds:
    K5 pair ×2 and chain ×2 (validation batches: the forward's); ``test()``;
    peak device memory of the fit and test, and apart from it that of the
    checks before it.
-9. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
-   ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack):
-   its epoch and test lines, every kernel of the step (K5 pair and chain
-   included) launched.
-10. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
-   training paths, PeMSD7(M) and 100k, and its launches), the
+9. kernels_ell — the 100k problem freed, the 1M-vertex problem
+   (``random_road_graph(1_000_000, k_neighbors=8, seed=0)``, ``sym_norm_lap``
+   Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
+   256 × 256 tiles, int8 and f32, scattered on the card, 55 steps of
+   synthetic series; ``BASELINE.json`` configs[4], ``bench.py:338-470``) is
+   built, each host step timed; nnz, tiles and their fill, pack bytes. K6 in
+   modes single, pair and chain on both packs at N = 160 and 96 (B·T·c1 of
+   the two ST blocks at batch 1), random operands, held against its plain
+   version as in phase 3, repeat bit-identical; timed beside its bound
+   (the live tiles' bytes as stored and the operands over 3.35 TB/s against
+   the nonzeros' FLOPs over 67 TFLOP/s; the tiles' FLOPs are printed too) and
+   ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
+10. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
+   Lion lr 1e-3, weight decay 1e-3, as phase 8 with K6 for K5: one forecast
+   batch fused against unfused (launches K1/K2 ×2, K3, K4, K6 pair ×2),
+   every K1-K4 call of one training step against its plain version, fused
+   against unfused gradients, a fused ``Trainer.fit(1)`` (8 steps; launches
+   per step those of phase 6 plus K6 pair ×2 and chain ×2) and ``test()``,
+   the fit's peak memory apart from the checks'. Cuts: f32 (the JAX bench ran
+   bf16), no remat, Lion's momentum in f32, the series cut to 55 steps split
+   23 / 16 / 16 (8 training windows, one validation and one test window).
+11. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
+   ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
+   then with ``--graph_op ell_int8``: its epoch and test lines, every kernel
+   of the step (K5 or K6 pair and chain included) launched.
+12. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
+   training paths, PeMSD7(M), 100k and 1M, and its launches), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 A failed check raises: the script then exits non-zero and prints no
@@ -860,8 +882,80 @@ def build_100k(torch) -> dict:
                     "band_occupancy": nnz / (nbr * w * bs),
                     "slab_bytes": gop.slabs_nv.numel() * 4,
                     "shared_transpose_pack": gop.slabs_nv_t is gop.slabs_nv,
-                    "lambda_max": art.lam_max}
+                    "lambda_max": art.lam_max, "series_steps": STEPS_100K}
     return data
+
+
+def csr_on_card(torch, m):
+    """The scipy CSR GSO as a torch CSR tensor on the card (the library
+    call's operator)."""
+    return torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype("int64")),
+                                   torch.from_numpy(m.indices.astype("int64")),
+                                   torch.from_numpy(m.data.astype("float32")),
+                                   size=m.shape, check_invariants=False).to("cuda")
+
+
+def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, pack_bytes: int,
+               pack_flops_one: int, library_agrees: bool, reps: int) -> dict:
+    """Hold one mode of a sparse nv kernel (K5, K6) against its plain version
+    (tolerance, repeat bit-identical, launch counter) at width N = ``n``,
+    and time it beside its plain version, its bound and ``library``
+    (``torch.sparse.mm`` on the CSR GSO, one call an application). In
+    ``single`` the library's product must agree with the kernel where
+    ``library_agrees`` (the pack encodes the GSO to f32 rounding); its max
+    |Δ| is reported either way. ``pack_bytes`` are the bytes of the pack
+    the kernel must read, ``pack_flops_one`` the FLOPs of one application
+    over the pack as stored (every FLOP the kernel does)."""
+    from stgcn_tpu_torch import kernels
+
+    before = kernels.launch_counts()[name]
+    out1, out2 = kernel(), kernel()
+    torch.cuda.synchronize()
+    if kernels.launch_counts()[name] - before != 2:
+        raise AssertionError(f"{name}: launch counter did not move by 2")
+    if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
+        raise AssertionError(f"{name} [N={n}]: a repeat launch is not bit-identical")
+    try:
+        err, ref_max = max_err(out1, plain())
+        lib_err = None
+        if mode == "single":
+            lib_err = float((out1[:, :v] - library().T).abs().max())
+            if library_agrees:
+                max_err(out1[:, :v], library().T)
+    except AssertionError as e:
+        raise AssertionError(f"{name} [N={n}]: {e}") from None
+    del out1, out2
+    apps = 1 if mode == "single" else 2
+    ms = cuda_ms(kernel, warmup=2, reps=reps)
+    plain_ms = cuda_ms(plain, warmup=1, reps=3)
+    library_ms = cuda_ms(library, warmup=2, reps=reps)
+    # each input read once (the pack, x, and g for chain), each output written once
+    n_operands = 1 + (mode == "chain") + (1 if mode == "single" else 2)
+    nbytes = pack_bytes + n_operands * n * vp * 4
+    nnz_flops, pack_flops = 2 * apps * n * nnz, apps * n * pack_flops_one
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nnz_flops / F32_FLOP_PER_S * 1e3
+    return {"shape": f"N={n}", "input": [n, vp], "max_abs_err": err, "ref_max": ref_max,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": f"torch.sparse.mm CSR x{apps}, operand transposed outside the "
+                            "timing" + ("" if apps == 1 else ", 2·y − x not included"),
+            "library_max_abs_diff": lib_err, "bytes": nbytes, "nnz_flops": nnz_flops,
+            "pack_flops": pack_flops, "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
+            "pack_flops_ms": pack_flops / F32_FLOP_PER_S * 1e3, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def spmm_operands(torch, gen, n, v, vp):
+    """Random x and g [n, vp] and x's first v lanes transposed once, for the
+    library call."""
+    x = torch.randn((n, vp), generator=gen, device="cuda")
+    g = torch.randn((n, vp), generator=gen, device="cuda")
+    return x, g, x[:, :v].T.contiguous()
+
+
+def sparse_mm(torch, a_csr, x_vn, apps: int):
+    y = torch.sparse.mm(a_csr, x_vn)
+    return torch.sparse.mm(a_csr, y) if apps == 2 else y
 
 
 def phase_kernels_banded(torch, data) -> dict:
@@ -874,68 +968,19 @@ def phase_kernels_banded(torch, data) -> dict:
 
     gop, v, nnz = data["gop"], data["n_vertex"], data["prep"]["nnz"]
     nbr, w, bs = gop.slabs_nv.shape
-    m = data["matrix"]
-    a_csr = torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype("int64")),
-                                    torch.from_numpy(m.indices.astype("int64")),
-                                    torch.from_numpy(m.data.astype("float32")),
-                                    size=(v, v), check_invariants=False).to("cuda")
+    a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(1)
     results: dict[str, list] = {name: [] for name in NV_MODES}
     for n in (BATCH_100K * (N_HIS - 2) * 16, BATCH_100K * (N_HIS - 6) * 16):
-        x = torch.randn((n, gop.v_pad), generator=gen, device="cuda")
-        g = torch.randn((n, gop.v_pad), generator=gen, device="cuda")
-        x_vn = x[:, :v].T.contiguous()   # the library call's operand, transposed once here
+        x, g, x_vn = spmm_operands(torch, gen, n, v, gop.v_pad)
         for mode in ("single", "pair", "chain"):
-            name = f"nv_{mode}"
             args = (gop.slabs_nv, gop.lo, x, g if mode == "chain" else None, mode)
-
-            def kernel(args=args):
-                return nv.stream_nv(*args)
-
-            def plain(args=args):
-                return nv.stream_nv_reference(*args)
-
-            before = kernels.launch_counts()[name]
-            out1, out2 = kernel(), kernel()
-            torch.cuda.synchronize()
-            if kernels.launch_counts()[name] - before != 2:
-                raise AssertionError(f"{name}: launch counter did not move by 2")
-            if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
-                raise AssertionError(f"{name} [N={n}]: a repeat launch is not bit-identical")
-            try:
-                err, ref_max = max_err(out1, plain())
-            except AssertionError as e:
-                raise AssertionError(f"{name} [N={n}]: {e}") from None
-            apps = 1 if mode == "single" else 2
-
-            def library(apps=apps):
-                y = torch.sparse.mm(a_csr, x_vn)
-                return torch.sparse.mm(a_csr, y) if apps == 2 else y
-
-            if mode == "single":   # the pack encodes the GSO: the library agrees
-                lib_err = max_err(out1[:, :v], library().T)[0]
-            ms = cuda_ms(kernel, warmup=2, reps=K5_REPS)
-            plain_ms = cuda_ms(plain, warmup=1, reps=3)
-            library_ms = cuda_ms(library, warmup=2, reps=K5_REPS)
-            # each input read once (slabs, lo, x, and g for chain), each output written once
-            n_operands = 1 + (mode == "chain") + (1 if mode == "single" else 2)
-            nbytes = (gop.slabs_nv.numel() + nbr + n_operands * n * gop.v_pad) * 4
-            nnz_flops, band_flops = 2 * apps * n * nnz, 2 * apps * n * nbr * w * bs
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = nnz_flops / F32_FLOP_PER_S * 1e3
-            results[name].append({
-                "shape": f"N={n}", "input": [n, gop.v_pad], "slabs": [nbr, w, bs],
-                "max_abs_err": err, "ref_max": ref_max, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "library_call": f"torch.sparse.mm CSR x{apps}, "
-                "operand transposed outside the timing" + ("" if apps == 1 else
-                                                           ", 2·y − x not included"),
-                "library_max_abs_err": lib_err if mode == "single" else None,
-                "bytes": nbytes, "nnz_flops": nnz_flops, "band_flops": band_flops,
-                "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
-                "band_flops_ms": band_flops / F32_FLOP_PER_S * 1e3,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            del out1, out2
+            results[f"nv_{mode}"].append({"slabs": [nbr, w, bs], **check_spmm(
+                torch, f"nv_{mode}", n, mode, lambda a=args: nv.stream_nv(*a),
+                lambda a=args: nv.stream_nv_reference(*a),
+                lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
+                v=v, nnz=nnz, vp=gop.v_pad, pack_bytes=(gop.slabs_nv.numel() + nbr) * 4,
+                pack_flops_one=2 * nbr * w * bs, library_agrees=True, reps=K5_REPS)})
         del x, g, x_vn
     kernels.reset_launch_counts()
     emit({"phase": "kernels_banded", "seconds": time.perf_counter() - t0,
@@ -943,10 +988,35 @@ def phase_kernels_banded(torch, data) -> dict:
     return results
 
 
+def diff_by_param(torch, params: dict, got, ref, top: int = 3) -> dict:
+    """Where two gradients differ: the ``top`` parameters by their share of
+    ||got − ref||², each with its relative L2 and the number of its elements
+    that hold 99 % of its share (a few: ReLU branches taken differently;
+    most: rounding)."""
+    d2 = {name: float(((a - b).double() ** 2).sum()) for name, a, b in zip(params, got, ref)}
+    total = sum(d2.values()) or 1.0
+    out = {}
+    for name in sorted(d2, key=d2.get, reverse=True)[:top]:
+        i = list(params).index(name)
+        sq = ((got[i] - ref[i]).double() ** 2).flatten().sort(descending=True).values.cumsum(0)
+        out[name] = {"share": d2[name] / total, "elements": sq.numel(),
+                     "holding_99pct": int((sq < 0.99 * sq[-1]).sum()) + 1,
+                     "rel_l2": d2[name] ** 0.5 / (float(ref[i].double().norm()) + 1e-30)}
+    return out
+
+
 def phase_banded_100k(torch, data) -> dict:
-    """The 100k-vertex route end to end: one forecast batch fused against
-    unfused on the banded operator, every K1-K4 call of one training step
-    held against its plain version, fused gradients against unfused ones,
+    """The 100k-vertex route end to end on the banded operator (``run_route``)."""
+    return run_route(torch, data, phase="banded_100k", batch=BATCH_100K,
+                     per_step=PER_STEP_100K, per_batch=PER_BATCH_100K, opt="adamw",
+                     dataset_name="road-100k", cuts=["one epoch", "a one-day series"])
+
+
+def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch: dict,
+              opt: str, dataset_name: str, cuts: list) -> dict:
+    """A large graph's route end to end: one forecast batch fused against
+    unfused on its sparse operator, every K1-K4 call of one fused training
+    step held against its plain version, fused gradients against unfused ones,
     then a fused Trainer.fit(1) with its launches counted, and test()."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
@@ -956,14 +1026,14 @@ def phase_banded_100k(torch, data) -> dict:
     from stgcn_tpu_torch.train import TrainConfig, Trainer, masked_mse
 
     gop, v = data["gop"], data["n_vertex"]
-    ckpt_root = ROOT / "checkpoints" / "chip_smoke_100k"   # git-ignored, removed at the end
+    ckpt_root = ROOT / "checkpoints" / f"chip_smoke_{phase}"   # git-ignored, removed at the end
     shutil.rmtree(ckpt_root, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
 
-    # 1. one forecast batch: fused (K1-K4, K5 pair) against the unfused model
+    # 1. one forecast batch: fused (K1-K4, the operator's pair) against the unfused model
     model = new_model(torch, v, DROPRATE).eval()
     params = model.state_dict()
-    starts, _ = next(data["test"].batches(BATCH_100K))
+    starts, _ = next(data["test"].batches(batch))
     x, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
     with torch.inference_mode():
         kernels.reset_launch_counts()
@@ -977,50 +1047,53 @@ def phase_banded_100k(torch, data) -> dict:
             (fused_sparse_forward(params, x, gop, model) if kind == "fused" else model(x, gop))
             torch.cuda.synchronize()
             walls[kind].append(time.perf_counter() - t1)
-    if fwd_launches != expected(PER_BATCH_100K, 1):
+    if fwd_launches != expected(per_batch, 1):
         raise AssertionError(f"fused forecast launched {fwd_launches}, expected "
-                             f"{expected(PER_BATCH_100K, 1)}")
-    if pf.shape != (BATCH_100K, 1, v, 1) or not torch.isfinite(pf).all():
+                             f"{expected(per_batch, 1)}")
+    if pf.shape != (batch, 1, v, 1) or not torch.isfinite(pf).all():
         raise AssertionError(f"fused forecast has shape {tuple(pf.shape)} or non-finite values")
     d = (pf - pu).abs()
     if not bool((d <= SLICE_TOL + SLICE_TOL * pu.abs()).all()):
-        raise AssertionError(f"100k fused and unfused forecasts differ: max |Δ| {float(d.max()):.3e}")
+        raise AssertionError(f"{phase}: fused and unfused forecasts differ: max |Δ| "
+                             f"{float(d.max()):.3e}")
     forecast = {"max_abs_diff_fused_unfused": float(d.max()), "tolerance": SLICE_TOL,
                 "launches": fwd_launches, "seconds_fused": statistics.median(walls["fused"]),
                 "seconds_unfused": statistics.median(walls["unfused"])}
     del model, params, pf, pu
 
-    # 2. every K1-K4 call of one fused training step at 100k, against its plain version
-    per_call = check_recorded(torch, record_training_step(torch, data, BATCH_100K), reps=3)
+    # 2. every K1-K4 call of one fused training step, against its plain version
+    per_call = check_recorded(torch, record_training_step(torch, data, batch), reps=3)
 
     # 3. one batch's gradients, fused against unfused, same masks
     model = new_model(torch, v, DROPRATE)
     params = dict(model.named_parameters())
-    starts, n_valid = next(data["train"].batches(BATCH_100K))
+    starts, n_valid = next(data["train"].batches(batch))
     x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
 
     def grads(fused):
         pred = (fused_sparse_forward(params, x, gop, model, deterministic=False,
                                      seed=step_seed(42, 0))
                 if fused else model(x, gop, deterministic=False, seed=step_seed(42, 0)))
-        loss = masked_mse(pred.reshape(BATCH_100K, -1), y, n_valid)
-        return torch.cat([g.flatten() for g in torch.autograd.grad(loss, list(params.values()))])
+        loss = masked_mse(pred.reshape(batch, -1), y, n_valid)
+        return torch.autograd.grad(loss, list(params.values()))
 
-    gf, gu = grads(True), grads(False)
+    per_f, per_u = grads(True), grads(False)
+    gf, gu = torch.cat([g.flatten() for g in per_f]), torch.cat([g.flatten() for g in per_u])
     rel = float((gf - gu).norm() / (gu.norm() + 1e-12))
     worst = float(((gf - gu).abs() - GRAD_RTOL * gu.abs()).max())
     if not rel < GRAD_REL_L2 or worst > GRAD_ATOL:
-        raise AssertionError(f"100k fused gradients off the unfused ones: relative L2 {rel:.3e}, "
-                             f"worst excess over the rtol {worst:.3e}")
-    one_batch = {"grad_rel_l2": rel, "grad_max_abs_diff": float((gf - gu).abs().max())}
-    del model, params, gf, gu
+        raise AssertionError(f"{phase}: fused gradients off the unfused ones: relative L2 "
+                             f"{rel:.3e}, worst excess over the rtol {worst:.3e}")
+    one_batch = {"grad_rel_l2": rel, "grad_max_abs_diff": float((gf - gu).abs().max()),
+                 "diff_by_param": diff_by_param(torch, params, per_f, per_u)}
+    del model, params, gf, gu, per_f, per_u
 
     # 4. a fused fit of one epoch, every step's loss and time, then test();
     # the peak memory of the checks above is kept apart from the fit's
     checks_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH_100K,
-                      fused=True, ckpt_dir=str(ckpt_root), dataset_name="road-100k")
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=batch, opt=opt,
+                      fused=True, ckpt_dir=str(ckpt_root), dataset_name=dataset_name)
     tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
                  data["test"], data["scaler"], device="cuda")
     step_losses, step_seconds = [], []
@@ -1039,19 +1112,19 @@ def phase_banded_100k(torch, data) -> dict:
     kernels.reset_launch_counts()
     hist = tr.fit(1)["history"]
     launches = kernels.launch_counts()
-    val_batches = -(-tr.val_ds.num_windows // BATCH_100K)
-    want = expected(PER_STEP_100K, tr.steps_per_epoch, (PER_BATCH_100K, val_batches))
+    val_batches = -(-tr.val_ds.num_windows // batch)
+    want = expected(per_step, tr.steps_per_epoch, (per_batch, val_batches))
     if launches != want:
-        raise AssertionError(f"100k fit launched {launches}, expected {want}")
+        raise AssertionError(f"{phase}: the fit launched {launches}, expected {want}")
     losses = [float(v_) for v_ in step_losses]
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
-        raise AssertionError(f"non-finite 100k step losses {losses}")
+        raise AssertionError(f"{phase}: non-finite step losses {losses}")
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
-        raise AssertionError(f"non-finite 100k test metrics {test_m}")
+        raise AssertionError(f"{phase}: non-finite test metrics {test_m}")
     shutil.rmtree(ckpt_root, ignore_errors=True)
-    result = {"phase": "banded_100k", "seconds": time.perf_counter() - t0, "n_vertex": v,
-              "batch_size": BATCH_100K, "series_steps": STEPS_100K, "prep": data["prep"],
+    result = {"phase": phase, "seconds": time.perf_counter() - t0, "n_vertex": v,
+              "batch_size": batch, "optimizer": opt, "cuts": cuts, "prep": data["prep"],
               "forecast_one_batch": forecast, "one_batch": one_batch,
               "grad_tolerance": [GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL],
               "steps_per_epoch": tr.steps_per_epoch, "val_batches": val_batches,
@@ -1064,10 +1137,150 @@ def phase_banded_100k(torch, data) -> dict:
     return result
 
 
-def phase_cli(torch) -> dict:
+# --------------------------------------------------------------------------
+# the 1M-vertex blocked-ELL route (BASELINE.json configs[4]: bench.py:338-470)
+# --------------------------------------------------------------------------
+
+V_1M, BATCH_1M = 1_000_000, 1
+# series steps: 8 training windows, one validation and one test window (a split
+# of T steps holds T − n_his − n_pred windows, as the reference's loader has it)
+SPLIT_1M = (23, 16, 16)
+K6_REPS = 5
+PER_STEP_1M = {**PER_STEP, "ell_int8_pair": 2, "ell_int8_chain": 2}
+PER_BATCH_1M = {**PER_BATCH_FWD, "ell_int8_pair": 2}
+K6_META = ("K6", "stgcn_tpu_torch/kernels/csrc/ell_nv.cu",
+           "stgcn_tpu/kernels/ell_nv.py:123", "_ell_nv_pallas")
+
+
+def pack_bytes(pack) -> tuple[int, int]:
+    """(bytes of the whole pack, bytes of its live tiles and index arrays)
+    as stored."""
+    per_tile = pack.data[0, 0].numel() * pack.data.element_size()
+    meta = sum(t.numel() * t.element_size() for t in (pack.cols, pack.counts, pack.scales)
+               if t is not None)
+    return (pack.data.numel() * pack.data.element_size() + meta,
+            int(pack.counts.sum()) * per_tile + meta)
+
+
+def build_1m(torch) -> dict:
+    """The synthetic 1M-vertex road graph, its Chebyshev GSO (Lanczos
+    lambda_max), RCM order, the int8 and f32 blocked-ELL packs scattered on
+    the card, and 55 steps of synthetic series with the sensor columns in RCM
+    order, split 23 / 16 / 16; each host step timed."""
+    from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler
+    from stgcn_tpu_torch.data.synthetic import generate_synthetic_vel, random_road_graph
+    from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
+    from stgcn_tpu_torch.graph.gso import GraphShiftOperator
+    from stgcn_tpu_torch.kernels.banded_spmm import banded_viable
+    from stgcn_tpu_torch.ops import EllGraphOp, make_graph_op
+
+    prep: dict = {}
+    t = time.perf_counter()
+
+    def lap(key):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        prep[key] = now - t
+        t = now
+
+    adj = random_road_graph(V_1M, k_neighbors=8, seed=0)
+    lap("graph_s")
+    art = build_gso(adj, "sym_norm_lap", cheb=True)
+    lap("gso_s")
+    perm = rcm_ordering(art.matrix)
+    art = GraphShiftOperator(matrix=permute_matrix(art.matrix, perm), gso_type=art.gso_type,
+                             cheb_rescaled=True, lam_max=art.lam_max)
+    lap("rcm_s")
+    gop = make_graph_op(art, "ell_int8", device="cuda")
+    lap("pack_int8_s")
+    gop_f32 = make_graph_op(art, "ell", device="cuda")
+    lap("pack_f32_s")
+    if not (isinstance(gop, EllGraphOp) and gop.pack.quantized and not gop_f32.pack.quantized):
+        raise AssertionError("make_graph_op(ell_int8 / ell) did not give the int8 / f32 ELL ops")
+    vel = generate_synthetic_vel(adj, sum(SPLIT_1M), seed=0)[:, perm]
+    lap("series_s")
+    n_train, n_val, _ = SPLIT_1M
+    train, val, test = vel[:n_train], vel[n_train:n_train + n_val], vel[n_train + n_val:]
+    scaler = ZScoreScaler().fit(train)
+
+    def ds(a):
+        return ForecastDataset.from_numpy(scaler.transform(a), N_HIS, N_PRED, device="cuda")
+
+    data = {"n_vertex": V_1M, "gop": gop, "gop_f32": gop_f32, "matrix": art.matrix,
+            "scaler": scaler, "train": ds(train), "val": ds(val), "test": ds(test)}
+    lap("split_s")
+    nbr, max_b, bs, _ = gop.pack.data.shape
+    nnz, tiles = int(art.matrix.nnz), int(gop.pack.counts.sum())
+    data["prep"] = {**prep, "nnz": nnz, "nbr": nbr, "max_b": max_b, "bs": bs,
+                    "v_pad": gop.v_pad, "tiles": tiles, "mean_tiles_per_block_row": tiles / nbr,
+                    "tile_fill": nnz / (tiles * bs * bs),
+                    "pack_bytes_int8": pack_bytes(gop.pack)[0],
+                    "pack_bytes_f32": pack_bytes(gop_f32.pack)[0],
+                    "shared_transpose_pack": gop.pack_t is gop.pack,
+                    "auto_picks": "banded" if banded_viable(art.matrix) else "bcsr",
+                    "lambda_max": art.lam_max, "series_steps": sum(SPLIT_1M),
+                    "split": list(SPLIT_1M)}
+    return data
+
+
+def phase_kernels_ell(torch, data) -> dict:
+    """K6 in each mode on the int8 and f32 packs at the 1M shapes (N = B·T·c1
+    of blocks 1 and 2 at batch 1), held against its plain version, repeat
+    bit-identical, timed beside its bound and torch.sparse.mm; then the f32
+    pack is freed."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import ell_nv as ek
+
+    v, nnz = data["n_vertex"], data["prep"]["nnz"]
+    a_csr = csr_on_card(torch, data["matrix"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results: dict[str, list] = {}
+    for n in (BATCH_1M * (N_HIS - 2) * 16, BATCH_1M * (N_HIS - 6) * 16):
+        x, g, x_vn = spmm_operands(torch, gen, n, v, data["gop"].v_pad)
+        for gop in (data["gop_f32"], data["gop"]):
+            pack = gop.pack   # the GSO is symmetric: the chain's transpose pack is this one
+            nbr, max_b, bs, _ = pack.data.shape
+            for mode in ("single", "pair", "chain"):
+                name = ek.launch_name(pack.quantized, mode)
+                args = (pack, x, g if mode == "chain" else None, mode)
+                results.setdefault(name, []).append({
+                    "tiles": [nbr, max_b, bs, bs], "dtype": "int8" if pack.quantized else "f32",
+                    **check_spmm(
+                        torch, name, n, mode, lambda a=args: ek.ell_nv(*a),
+                        lambda a=args: ek.ell_nv_reference(*a),
+                        lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
+                        v=v, nnz=nnz, vp=gop.v_pad, pack_bytes=pack_bytes(pack)[1],
+                        pack_flops_one=2 * int(pack.counts.sum()) * bs * bs,
+                        library_agrees=not pack.quantized, reps=K6_REPS)})
+        del x, g, x_vn
+    del data["gop_f32"], a_csr
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_ell", "seconds": time.perf_counter() - t0,
+          "tolerance": KERNEL_TOL, "pack": data["prep"], "results": results})
+    return results
+
+
+def phase_ell_1m(torch, data) -> dict:
+    """The 1M-vertex route end to end on the int8 ELL operator: one forecast
+    batch fused against unfused, every K1-K4 call of one training step held
+    against its plain version, fused gradients against unfused ones, then a
+    fused Trainer.fit(1) with its launches counted, and test()."""
+    return run_route(torch, data, phase="ell_1m", batch=BATCH_1M, per_step=PER_STEP_1M,
+                     per_batch=PER_BATCH_1M, opt="lion", dataset_name="road-1m",
+                     cuts=["f32, not the bench's bf16", "no remat",
+                           "Lion momentum in f32 (TrainConfig has no mu_dtype)",
+                           "series cut to 55 steps: 23 train (8 windows), 16 validation, "
+                           "16 test (one window each)"])
+
+
+def phase_cli(torch, graph_op: str, pair: str, chain: str) -> dict:
     """``python -m stgcn_tpu_torch.cli`` in-process: PeMSD7(M) through the
-    banded operator (one block row of 256) and the fused kernels, one epoch,
-    then the reference test line."""
+    sparse operator ``graph_op`` (one block row of 256) and the fused
+    kernels, one epoch, then the reference test line; the launch counters
+    ``pair`` and ``chain`` are the operator's kernel's."""
     import contextlib
     import io
 
@@ -1081,7 +1294,7 @@ def phase_cli(torch) -> dict:
     kernels.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         mets = cli_main(["--dataset", "pemsd7-m", "--data_root", str(ROOT / "data"),
-                         "--graph_op", "banded", "--fused", "True", "--epochs", "1",
+                         "--graph_op", graph_op, "--fused", "True", "--epochs", "1",
                          "--ckpt_dir", str(ckpt)])
     launches = kernels.launch_counts()
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1090,15 +1303,14 @@ def phase_cli(torch) -> dict:
         print(line, flush=True)
     if not lines[-1].startswith("Dataset pemsd7-m | Test loss "):
         raise AssertionError(f"the CLI's last line is not the test line: {lines[-1]!r}")
-    if not all(launches[k] > 0 for k in (*PER_STEP, "nv_pair", "nv_chain")):
-        raise AssertionError(f"the CLI run routed around a kernel: {launches}")
+    if not all(launches[k] > 0 for k in (*PER_STEP, pair, chain)):
+        raise AssertionError(f"the CLI run on {graph_op} routed around a kernel: {launches}")
     if not all(v == v and abs(v) < float("inf") for v in mets.values()):
         raise AssertionError(f"non-finite CLI test metrics {mets}")
-    result = {"phase": "cli", "seconds": time.perf_counter() - t0, "test_line": lines[-1],
-              "launches": launches, "test": mets}
+    result = {"phase": "cli", "graph_op": graph_op, "seconds": time.perf_counter() - t0,
+              "test_line": lines[-1], "launches": launches, "test": mets}
     emit(result)
     return result
-
 
 
 def main() -> int:
@@ -1138,7 +1350,13 @@ def main() -> int:
     k5 = phase_kernels_banded(torch, big)
     b100 = phase_banded_100k(torch, big)
     del big
-    cli = phase_cli(torch)
+    torch.cuda.empty_cache()   # the 100k checks peak at 45 GB
+    big = build_1m(torch)
+    k6 = phase_kernels_ell(torch, big)
+    m1 = phase_ell_1m(torch, big)
+    del big
+    cli = phase_cli(torch, "banded", "nv_pair", "nv_chain")
+    cli_ell = phase_cli(torch, "ell_int8", "ell_int8_pair", "ell_int8_chain")
 
     def row(name, meta, calls, **extra):
         """One kernel's line: per training step it runs once at each call."""
@@ -1153,17 +1371,25 @@ def main() -> int:
                                if all(c.get("library_ms") is not None for c in calls) else None),
                 "per_step_calls": calls}
 
+    def at(route, tag, name):
+        """K1-K4's per-step numbers on a large graph's route."""
+        calls = route["per_step_calls"][name]
+        return {f"launches_{tag}": route["launches"][name],
+                f"ms_{tag}": sum(c["ms"] for c in calls),
+                f"plain_ms_{tag}": sum(c["plain_ms"] for c in calls),
+                f"bound_ms_{tag}": sum(c["bound_ms"] for c in calls),
+                f"max_abs_err_{tag}": max(c["max_abs_err"] for c in calls)}
+
     rows = [row(name, KERNEL_META[name], calls, launches=tr["launches"][name],
-                launches_forecast=sl["launches"][name],
-                launches_100k=b100["launches"][name],
-                ms_100k=sum(c["ms"] for c in b100["per_step_calls"][name]),
-                plain_ms_100k=sum(c["plain_ms"] for c in b100["per_step_calls"][name]),
-                bound_ms_100k=sum(c["bound_ms"] for c in b100["per_step_calls"][name]),
-                max_abs_err_100k=max(c["max_abs_err"] for c in b100["per_step_calls"][name]))
+                launches_forecast=sl["launches"][name], **at(b100, "100k", name),
+                **at(m1, "1m", name))
             for name, calls in per_call.items()]
     rows += [row(name, K5_META, calls, mode=name[3:], launches=b100["launches"][name],
                  launches_cli=cli["launches"][name])
              for name, calls in k5.items()]
+    rows += [row(name, K6_META, calls, mode=name.rsplit("_", 1)[1], dtype=calls[0]["dtype"],
+                 launches=m1["launches"][name], launches_cli=cli_ell["launches"][name])
+             for name, calls in k6.items()]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

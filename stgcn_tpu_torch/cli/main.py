@@ -3,6 +3,7 @@ one device): the same flags as the JAX package's CLI, which keeps the
 reference's (`main.py:39-94`).
 
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op banded --fused True
+    python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op ell_int8 --fused True
 
 Pipeline: adjacency → GSO → (RCM order for the sparse kinds) → graph
 operator on the device; CSV (or a synthetic series) → chronological split
@@ -91,8 +92,9 @@ def get_parameters(argv=None):
     parser.add_argument("--graph_op", type=str, default="auto",
                         choices=["auto", "dense", "bcsr", "banded",
                                  "banded_int8", "ell", "ell_int8"],
-                        help="GSO representation: dense matmul, or banded slabs through "
-                             "the K5 kernel (the other sparse kinds are not ported yet)")
+                        help="GSO representation: dense matmul, banded slabs through the "
+                             "K5 kernel, or blocked-ELL tiles (f32 or int8) through K6 (bcsr "
+                             "and banded_int8 are not ported yet)")
     parser.add_argument("--shuffle", type=_str2bool, default=False,
                         help="shuffle training windows (reference keeps False)")
     parser.add_argument("--ckpt_dir", type=str, default=None)
@@ -109,7 +111,7 @@ def get_parameters(argv=None):
                         help="bfloat16 is not ported yet")
     parser.add_argument("--fused", type=_str2bool, default=False,
                         help="train through the vertex-fused kernels K1-K4 (the banded "
-                             "operator aggregates through K5)")
+                             "operator aggregates through K5, the ELL one through K6)")
     parser.add_argument("--remat", type=_str2bool, default=False,
                         help="recompute ST blocks in the backward (not ported yet)")
     parser.add_argument("--fused_tile_v", type=int, default=None,
@@ -185,9 +187,9 @@ def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
         art = GraphShiftOperator(matrix=permute_matrix(art.matrix, perm),
                                  gso_type=art.gso_type, cheb_rescaled=art.cheb_rescaled,
                                  lam_max=art.lam_max)
-    # the port's banded operator carries only the nv packs (the JAX CLI
-    # asks for them with nv=True under --fused); the unfused model reaches
-    # them through a transpose
+    # the port's banded and ELL operators carry only the nv packs (the JAX
+    # CLI asks for the banded ones with nv=True under --fused); the unfused
+    # model reaches them through a transpose
     gop = make_graph_op(art, graph_op_kind, device=dev)
 
     vel_path = os.path.join(data_root, dataset, "vel.csv")

@@ -48,6 +48,7 @@ SIGNATURES = {
     "stgcn_ohead_bwd": [_P] * 18 + [_I] * 7 + _DROP + [_P],
     "stgcn_ofc_bwd": [_P] * 19 + [_I] * 6 + _DROP + [_P],
     "stgcn_banded_nv": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "stgcn_ell_nv": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 # workspace size in floats of each backward entry point, from its sizes
 WORK_SIGNATURES = {

@@ -39,6 +39,15 @@ def require(t: torch.Tensor | None, name: str, shape: tuple[int, ...],
     return t.data_ptr()
 
 
+def require_index(t: torch.Tensor, name: str, shape: tuple[int, ...],
+                  device: torch.device) -> int:
+    """Check an int32 index operand and return its device pointer."""
+    if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 {list(shape)} tensor on {device}")
+    return t.data_ptr()
+
+
 def cuda_device(t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {t.device}")

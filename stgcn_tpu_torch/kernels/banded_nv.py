@@ -44,7 +44,8 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.kernels import _build
-from stgcn_tpu_torch.kernels._launch import count_launch, cuda_device, on_cpu, require, stream_of
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
+                                             require_index, stream_of)
 from stgcn_tpu_torch.kernels.banded_spmm import _round_up
 
 MODES = {"single": 0, "pair": 1, "chain": 2}
@@ -108,13 +109,11 @@ def stream_nv(slabs_nv, lo, x_nv, g_nv=None, mode: str = "single", *, scale: flo
     g_p = require(g_nv, "g_nv", (n, v_pad), dev)
     if x_p % 16:
         raise ValueError("x_nv must start on a 16-byte boundary (the kernel reads float4)")
-    if lo.device != dev or lo.dtype != torch.int32 or tuple(lo.shape) != (nbr,) \
-            or not lo.is_contiguous():
-        raise ValueError(f"lo must be a contiguous int32 [{nbr}] tensor on {dev}")
+    lo_p = require_index(lo, "lo", (nbr,), dev)
     out = torch.empty((n, v_pad), device=dev, dtype=torch.float32)
     mid = None if mode == "single" else torch.empty_like(out)
     err = _build.library().stgcn_banded_nv(
-        slab_p, lo.data_ptr(), x_p, g_p, 0 if mid is None else mid.data_ptr(), out.data_ptr(),
+        slab_p, lo_p, x_p, g_p, 0 if mid is None else mid.data_ptr(), out.data_ptr(),
         nbr, w, bs, n, v_pad, MODES[mode], float(scale), stream_of(dev))
     _build.check(f"stream_nv[{mode}]", err)
     count_launch(f"nv_{mode}")

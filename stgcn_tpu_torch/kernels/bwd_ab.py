@@ -1,8 +1,7 @@
-"""Time the backward kernels that end in the LayerNorm backward (K1b, K3b,
-K4b) of one or more checkouts, at the training path's PeMSD7(M) and
-100k-vertex shapes, on one CUDA card.
+"""Time the backward kernels K1b-K4b of one or more checkouts, at the
+training path's PeMSD7(M), 100k- and 1M-vertex shapes, on one CUDA card.
 
-    python3 stgcn_tpu_torch/kernels/ln_bwd_ab.py --tree PARENT --tree . --tree . --tree PARENT
+    python3 stgcn_tpu_torch/kernels/bwd_ab.py --tree PARENT --tree . --tree . --tree PARENT
 
 Each ``--tree`` is the root of a checkout of this repository. Each is run
 in a process of its own, which builds that checkout's kernels and imports
@@ -12,6 +11,7 @@ shape the median CUDA-event milliseconds of ``--reps`` launches (after 3
 of warm-up) on random inputs drawn from a fixed seed, and a SHA-256 of the
 outputs' bytes, so trees whose sums run in the same order show the same
 digest. Then the ``nvidia-smi`` name and power limit of the card.
+``--shape`` picks shapes (default: all).
 """
 
 from __future__ import annotations
@@ -24,12 +24,15 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = {"pemsd7m": (32, 228, 256), "100k": (8, 100_000, 101_376)}   # (B, V, Vp)
+# (B, V, Vp): the batches of the main.py default, bench.py:253 and bench.py:338
+SHAPES = {"pemsd7m": (32, 228, 256), "100k": (8, 100_000, 101_376),
+          "1m": (1, 1_000_000, 1_000_192)}
 
 
 def cases(torch, b: int, v_true: int, vp: int):
-    """(name, wrapper, args, kwargs) of K1b (block 2's head, t_in 8), K3b and
-    K4b at the main.py widths, dropout 0.5 on."""
+    """(name, wrapper, args, kwargs) of K1b (block 2's head, t_in 8), K2b
+    (block 1's tail, t_in 12), K3b and K4b at the main.py widths, dropout 0.5
+    on (K2b has no dropout site)."""
     from stgcn_tpu_torch.kernels import output_head as oh
     from stgcn_tpu_torch.kernels import vertex_fused as vf
     from stgcn_tpu_torch.kernels.dropout import Drop
@@ -48,6 +51,9 @@ def cases(torch, b: int, v_true: int, vp: int):
     head = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
                              v_true=v_true, v_pad=vp, t_in=8, c_in=64, c0=64, c1=16, c2=64,
                              apply_ln=True)
+    tail = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                             v_true=v_true, v_pad=vp, t_in=12, c_in=1, c0=64, c1=16, c2=64,
+                             apply_ln=False)
     out = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func="glu",
                         v_true=v_true, v_pad=vp)
     return [
@@ -55,6 +61,11 @@ def cases(torch, b: int, v_true: int, vp: int):
          (head, rnd(b, 8, 64, vp), *ln(8, 64), rnd(3, 64, 128, scale=192 ** -0.5),
           rnd(128, scale=0.1), rnd(64, 16, scale=0.125), rnd(16, scale=0.1),
           rnd(b, 6, 16, vp, scale=1e-3)), {"drop": Drop(0.5, 11, 1)}),
+        ("tail_bwd", vf.tail_bwd,
+         (tail, *(rnd(b, 10, 16, vp) for _ in range(3)), rnd(3, 16, 16, scale=48 ** -0.5),
+          rnd(16, scale=0.1), rnd(3, 16, 128, scale=48 ** -0.5), rnd(128, scale=0.1),
+          rnd(b, 8, 64, vp, scale=1e-3), rnd(b, 8, 1, 1, scale=1e-3),
+          rnd(b, 8, 1, 1, scale=1e-3)), {}),
         ("ohead_bwd", oh.ohead_bwd,
          (out, rnd(b, 4, 64, vp), *ln(4, 64), rnd(4, 64, 256, scale=256 ** -0.5),
           rnd(256, scale=0.1), rnd(b, 1, 128, vp, scale=1e-3), rnd(b, 1, 1, 1, scale=1e-3),
@@ -66,7 +77,7 @@ def cases(torch, b: int, v_true: int, vp: int):
     ]
 
 
-def run_one(tree: str, reps: int) -> dict:
+def run_one(tree: str, reps: int, shapes: list) -> dict:
     """Time every case with the checkout at ``tree`` imported."""
     sys.path[0] = os.path.abspath(tree)   # this file's directory out, the checkout in
     import torch
@@ -76,7 +87,8 @@ def run_one(tree: str, reps: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
               "sha256": {}}
-    for shape, (b, v_true, vp) in SHAPES.items():
+    for shape in shapes:
+        b, v_true, vp = SHAPES[shape]
         for name, wrapper, args, kwargs in cases(torch, b, v_true, vp):
             outs = [o for o in wrapper(*args, **kwargs) if o is not None]
             torch.cuda.synchronize()
@@ -105,14 +117,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", required=True)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--shape", action="append", choices=sorted(SHAPES))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    shapes = args.shape or list(SHAPES)
     if args.one:
-        print(json.dumps(run_one(args.tree[0], args.reps)), flush=True)
+        print(json.dumps(run_one(args.tree[0], args.reps, shapes)), flush=True)
         return 0
     for tree in args.tree:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", "--tree", tree,
-                              "--reps", str(args.reps)], capture_output=True, text=True)
+                              "--reps", str(args.reps), *(f"--shape={x}" for x in shapes)],
+                             capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stderr)
             return out.returncode

@@ -20,13 +20,11 @@
 // pass 1 writes `mid` to device memory, pass 2 reads it.
 //
 // Design: a block owns a 64-row x 64-column output tile inside one block
-// column i; it walks the w-long window in steps of 16, staging the x tile
-// (16 columns of 64 rows, read as float4) and the slab sub-tile (16 x 64,
-// float4) in shared memory; each of 256 threads keeps a 4 x 4 accumulator
-// in registers, float32 FMA (no TF32: the parity bound is 1e-4). The
-// epilogue alpha*acc + beta*add is applied in registers. No atomics: a
-// repeat launch is bit-identical. Offsets are size_t (N * vp is 130 M
-// elements at 100k vertices).
+// column i and walks the w-long window in steps of 16 through the register
+// tiling of nv_tile.cuh (shared with K6), float32 FMA (no TF32: the parity
+// bound is 1e-4). The epilogue alpha*acc + beta*add is applied in
+// registers. No atomics: a repeat launch is bit-identical. Offsets are
+// size_t (N * vp is 130 M elements at 100k vertices).
 //
 // What bounds it: the pack is dense over the band, but a road graph fills
 // 0.57 % of it (100k vertices, RCM, bs = 256: nnz 1.02 M in 391 slabs of
@@ -34,16 +32,14 @@
 // band FLOPs (>= 6.9 ms at 67 TFLOP/s) against 2.6 GFLOP of useful work
 // and 1.75 GB of bytes (>= 0.5 ms). This first version does every band
 // FLOP; skipping all-zero sub-tiles, wgmma and TMA are later work.
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "nv_tile.cuh"
 
 namespace {
 
-constexpr int kTm = 64;        // output rows per block
-constexpr int kTn = 64;        // output columns per block (inside one slab block column)
-constexpr int kTk = 16;        // window columns staged per step
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using nvtile::kTk;
+using nvtile::kTm;
+using nvtile::kTn;
+using nvtile::kThreads;
 
 // out = alpha * (A x) + beta * add, every operand [n, vp]
 struct PassArgs {
@@ -57,9 +53,7 @@ struct PassArgs {
 };
 
 __global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs a) {
-  __shared__ __align__(16) float xs[kTk][kTm];   // x tile, transposed: [k][row]
-  __shared__ __align__(16) float as[kTk][kTn];   // slab sub-tile: [k][col]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  __shared__ nvtile::Smem sm;
   const int c0 = blockIdx.x * kTn;   // first output column of the tile
   const int r0 = blockIdx.y * kTm;   // first output row
   const int blk = c0 / a.bs;         // block row of the operator
@@ -73,48 +67,15 @@ __global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs a) {
   if (blk < a.nbr) {  // output columns past nbr*bs have no slab: A x is 0 there
     const int lo = a.lo[blk];
     const float* slab = a.slabs + (size_t)blk * a.w * a.bs + (c0 - blk * a.bs);
-    const int xr = r0 + tid / 4, xq = 4 * (tid % 4);    // x load: row, first of 4 columns
-    const int sk = tid / 16, sq = 4 * (tid % 16);       // slab load: row, first of 4 columns
-    const float* xrow = a.x + (size_t)xr * a.vp;
     for (int k0 = 0; k0 < a.w; k0 += kTk) {
-      const int xc = lo + k0 + xq;
-      float4 xv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (xr < a.n && xc < a.vp) xv = *reinterpret_cast<const float4*>(xrow + xc);
-      xs[xq + 0][tid / 4] = xv.x;
-      xs[xq + 1][tid / 4] = xv.y;
-      xs[xq + 2][tid / 4] = xv.z;
-      xs[xq + 3][tid / 4] = xv.w;
-      *reinterpret_cast<float4*>(&as[sk][sq]) =
-          *reinterpret_cast<const float4*>(slab + (size_t)(k0 + sk) * a.bs + sq);
+      nvtile::stage_x(sm, a.x, a.n, a.vp, r0, lo + k0);
+      nvtile::stage_a(sm, slab + (size_t)k0 * a.bs, a.bs);
       __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTk; ++kk) {
-        const float4 xa = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-        const float4 sb = *reinterpret_cast<const float4*>(&as[kk][tx * 4]);
-        const float xv4[4] = {xa.x, xa.y, xa.z, xa.w};
-        const float sv4[4] = {sb.x, sb.y, sb.z, sb.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv4[i], sv4[j], acc[i][j]);
-      }
+      nvtile::fma_tile(sm, acc);
       __syncthreads();
     }
   }
-
-  const int c = c0 + tx * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= a.n) continue;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = a.alpha * acc[i][j];
-      if (a.add != nullptr) v[j] = fmaf(a.beta, a.add[(size_t)r * a.vp + c + j], v[j]);
-    }
-    *reinterpret_cast<float4*>(a.out + (size_t)r * a.vp + c) = make_float4(v[0], v[1], v[2], v[3]);
-  }
+  nvtile::store(acc, nullptr, a.alpha, a.beta, a.add, a.out, a.n, a.vp, r0, c0);
 }
 
 cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {

@@ -175,23 +175,36 @@ __global__ void relu_drop_kernel(const float* __restrict__ s, Drop drop,
 
 constexpr int kTile = 32;          // wgrad output tile: 32 rows x 32 columns
 constexpr int kWgradThreads = 256;  // each thread 4 rows of one column
+constexpr int kFlushSteps = 128;    // lane tiles a thread sums before it banks the sum
 
-// grid (ceil(M / 32), ceil(O / 32), slices); M = K * X.c rows. Slice s sums
-// the (b, t) steps [s * B*T / slices, (s + 1) * B*T / slices) in order.
+// grid (ceil(M / 32), ceil(O / 32), slices); M = K * X.c rows. The slices
+// are bt_slices x lane_splits: slice s sums the (b, t) steps
+// [q * B*T / bt_slices, (q + 1) * B*T / bt_slices), q = s / lane_splits, over
+// lane chunk s % lane_splits of each, in order. A thread banks its running
+// sum every kFlushSteps lane tiles (4096 lanes) and adds the banks, so no
+// f32 chain runs longer than that (a serial sum over 1M lanes left weight
+// gradients about 1e-3 off, relative to their largest entry).
 __global__ void __launch_bounds__(kWgradThreads)
-wgrad_kernel(Cv x, int k_taps, Cv d, float* __restrict__ part, int batch, int vp) {
+wgrad_kernel(Cv x, int k_taps, Cv d, float* __restrict__ part, int batch, int vp,
+             int lane_splits) {
   __shared__ float xs[kTile][kTile + 1];
   __shared__ float dsh[kTile][kTile + 1];  // [v][o]
   const int m_total = k_taps * x.c, o_total = d.c;
   const int m0 = blockIdx.x * kTile, o0 = blockIdx.y * kTile, slice = blockIdx.z;
   const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
   const long long bt_total = (long long)batch * d.t;
-  const int bt_lo = (int)(bt_total * slice / gridDim.z);
-  const int bt_hi = (int)(bt_total * (slice + 1) / gridDim.z);
+  const int bt_slices = gridDim.z / lane_splits, q = slice / lane_splits;
+  const int bt_lo = (int)(bt_total * q / bt_slices);
+  const int bt_hi = (int)(bt_total * (q + 1) / bt_slices);
+  const int v_tiles = vp / kTile, chunk = slice % lane_splits;
+  const int v_lo = (int)((long long)v_tiles * chunk / lane_splits) * kTile;
+  const int v_hi = (int)((long long)v_tiles * (chunk + 1) / lane_splits) * kTile;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float bank[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int steps = 0;
   for (int bt = bt_lo; bt < bt_hi; ++bt) {
     const int b = bt / d.t, t = bt % d.t;
-    for (int v0 = 0; v0 < vp; v0 += kTile) {
+    for (int v0 = v_lo; v0 < v_hi; v0 += kTile) {
         __syncthreads();
         for (int i = threadIdx.x; i < kTile * kTile; i += kWgradThreads) {
           const int r = i / kTile, vv = i % kTile;
@@ -215,6 +228,14 @@ wgrad_kernel(Cv x, int k_taps, Cv d, float* __restrict__ part, int batch, int vp
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[j] = fmaf(xs[ty + 8 * j][vv], dv, acc[j]);
         }
+        if (++steps == kFlushSteps) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            bank[j] += acc[j];
+            acc[j] = 0.0f;
+          }
+          steps = 0;
+        }
     }
   }
   const size_t per_slice = (size_t)m_total * o_total;
@@ -223,7 +244,7 @@ wgrad_kernel(Cv x, int k_taps, Cv d, float* __restrict__ part, int batch, int vp
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 8 * j;
-      if (m < m_total) part[slice * per_slice + (size_t)m * o_total + o] = acc[j];
+      if (m < m_total) part[slice * per_slice + (size_t)m * o_total + o] = bank[j] + acc[j];
     }
 }
 
@@ -367,9 +388,16 @@ cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, 
                          cudaStream_t stream) {
   if (vp % kTile != 0) return cudaErrorInvalidValue;
   const int m_total = k * x.c;
-  const int slices = batch * d.t < kWgradSlices ? batch * d.t : kWgradSlices;
+  // (b, t) steps first; with fewer than kWgradSlices of them (batch 1 at 1M
+  // vertices: 4-10 steps of 1M lanes each), each step's lanes are cut too
+  const int bt_total = batch * d.t;
+  if (bt_total <= 0) return cudaErrorInvalidConfiguration;
+  const int bt_slices = bt_total < kWgradSlices ? bt_total : kWgradSlices;
+  int lane_splits = kWgradSlices / bt_slices;
+  lane_splits = lane_splits < vp / kTile ? lane_splits : vp / kTile;
+  const int slices = bt_slices * lane_splits;
   const dim3 grid((m_total + kTile - 1) / kTile, (d.c + kTile - 1) / kTile, slices);
-  wgrad_kernel<<<grid, kWgradThreads, 0, stream>>>(x, k, d, part, batch, vp);
+  wgrad_kernel<<<grid, kWgradThreads, 0, stream>>>(x, k, d, part, batch, vp, lane_splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = (size_t)m_total * d.c;

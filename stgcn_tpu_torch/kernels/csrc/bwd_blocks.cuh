@@ -84,9 +84,11 @@ cudaError_t launch_relu_drop(const float* s, Drop drop, const float* dzd, float*
 // Weight gradient out[k, c, o] = sum over b, t < D.t, v of X[b, t + k, c, v]
 // * D[b, t, o, v] for k < K, c < X.c, o < D.c; X.p null stands for ones
 // (X.c = 1, K = 1: the bias gradient). The (b, t) steps are cut into
-// min(B * D.t, kWgradSlices) slices, fixed by the shapes; each slice's
-// partial goes to `part` (at most kWgradSlices * K * X.c * D.c floats) and a
-// second pass sums them in slice order.
+// min(B * D.t, kWgradSlices) slices and, when there are fewer steps than
+// kWgradSlices, each step's lanes into kWgradSlices / (B * D.t) chunks, all
+// fixed by the shapes; within a slice no f32 chain sums more than 4096 lanes.
+// Each slice's partial goes to `part` (at most kWgradSlices * K * X.c * D.c
+// floats) and a second pass sums them in slice order.
 constexpr int kWgradSlices = 64;
 cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, int vp,
                          cudaStream_t stream);

@@ -1,0 +1,192 @@
+"""K6: blocked-ELL SpMM on the nv operand ``[N, V]`` (port of
+``stgcn_tpu/kernels/ell_nv.py``, float32 and int8 tiles).
+
+The O(nnz) operator of the 1M-vertex road graph: a contiguous-window pack
+(K5's banded slabs) grows as ``V^1.5`` on a road graph, so the blocked-ELL
+pack (:func:`stgcn_tpu_torch.graph.packing.pack_ell_device`) keeps only the
+live ``bs × bs`` tiles, pre-transposed, and one application is
+
+    y[:, i·bs:(i+1)·bs] = scales[i] ⊙ Σ_{k < counts[i]} x[:, cols[i,k]·bs : +bs] @ tiles[i,k]
+
+with ``scales`` the per-output-lane dequant factors of an int8 pack (none
+for f32). :func:`ell_nv` serves the modes of K5:
+
+- ``single`` — ``A x`` (times ``scale``);
+- ``pair``   — the ks=3 Chebyshev recurrence ``(t1 = A x, 2 A t1 − x)``
+  (`model/layers.py:154-161`);
+- ``chain``  — its VJP on the transpose pack, given ``(g2, g1)``:
+  ``(u = g1 + 2 Aᵀ g2, Aᵀ u − g2)``.
+
+The TPU kernel (``_ell_nv_pallas`` :123) streams x's column blocks by DMA
+into a VMEM ring per block row; the pair is two kernel applications there
+(``ell_cheb_pair_nv`` :274) with ``2y − x`` in XLA. The CUDA kernel
+(``csrc/ell_nv.cu``) is K5's register-tiled loop over the live tiles; the
+pair and chain are two passes launched by one C entry point (the second
+folding ``2y − x`` into its epilogue), counted as one launch of the
+wrapper's mode and dtype (``ell_f32_pair``, ``ell_int8_chain``, …).
+
+The operand is exactly ``nbr·bs`` wide (the operator pads to it); output
+lanes of rows past ``n_vertex`` are zero. :class:`EllSpmmNv` and
+:class:`EllChebPairNv` are the autograd Functions (JAX ``ell_spmm_nv_vjp``
+:237, ``ell_cheb_pair_nv`` :274): their backward runs ``single`` and
+``chain`` on the transpose pack. The tile-value gradient (``_ell_nv_ddata``,
+a scan SDDMM on the TPU, not a Pallas kernel) is not ported: the trainer
+never differentiates the operator, and the Functions return no gradient
+for it. :func:`ell_nv_reference` is the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
+                                             require_index, stream_of)
+
+MODES = {"single": 0, "pair": 1, "chain": 2}
+# elements of the plain version's largest temporary (one chunk of block rows)
+REF_CHUNK_ELEMS = 1 << 26
+
+
+class EllPack(NamedTuple):
+    """One direction of a blocked-ELL operator (the JAX pack's arrays)."""
+
+    data: torch.Tensor                # [nbr, max_b, bs, bs] float32 or int8, tiles transposed
+    cols: torch.Tensor                # [nbr, max_b] int32 column blocks (padding: 0)
+    counts: torch.Tensor              # [nbr] int32 live tiles per block row
+    scales: torch.Tensor | None = None  # [nbr, bs] float32 per output lane (int8 packs)
+
+    @property
+    def quantized(self) -> bool:
+        return self.scales is not None
+
+
+def launch_name(quantized: bool, mode: str) -> str:
+    """The launch counter of K6 in ``mode`` on an int8 or float32 pack."""
+    return f"ell_{'int8' if quantized else 'f32'}_{mode}"
+
+
+def _apply_reference(pack: EllPack, x_nv: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """One application ``scale · (A x)``, ``[n, nbr·bs]``, chunked over block
+    rows so the gathered x windows (``[n, rows, max_b, bs]``) stay small.
+    Padding tiles are all zero, so no count masking is needed (the JAX
+    ``ell_nv_reference`` :47)."""
+    nbr, max_b, bs, _ = pack.data.shape
+    n = x_nv.shape[0]
+    xb = x_nv.reshape(n, nbr, bs)
+    rows = max(1, REF_CHUNK_ELEMS // (max_b * bs * max(n, bs)))
+    ys = []
+    for s in range(0, nbr, rows):
+        win = xb[:, pack.cols[s:s + rows].long()]            # [n, rows, max_b, bs]
+        ys.append(torch.einsum("nrkj,rkjb->nrb", win, pack.data[s:s + rows].float()))
+    y = torch.cat(ys, dim=1)                                   # [n, nbr, bs]
+    if pack.scales is not None:   # the dequant factors per output lane, scale folded in
+        y = y * (pack.scales if scale == 1.0 else pack.scales * scale)
+    elif scale != 1.0:
+        y = scale * y
+    return y.reshape(n, nbr * bs)
+
+
+def ell_nv_reference(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *,
+                     scale: float = 1.0):
+    """Plain version of :func:`ell_nv`: :func:`_apply_reference` once or
+    twice, as the JAX ``ell_spmm_nv_vjp`` / ``ell_cheb_pair_nv`` apply it."""
+    if mode == "single":
+        return _apply_reference(pack, x_nv, scale)
+    if mode == "pair":
+        t1 = _apply_reference(pack, x_nv)
+        return t1, 2.0 * _apply_reference(pack, t1) - x_nv
+    if mode == "chain":
+        u = g_nv + 2.0 * _apply_reference(pack, x_nv)
+        return u, _apply_reference(pack, u) - x_nv
+    raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
+
+
+def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float = 1.0):
+    """K6. ``pack`` on the operand's device; ``x_nv`` [N, nbr·bs] float32;
+    ``g_nv`` [N, nbr·bs] only for ``chain``. Returns ``y`` (single) or
+    ``(t1, t2)`` / ``(u, dx)``, each [N, nbr·bs]. ``scale`` multiplies the
+    single application (the Chebyshev ``2G`` step; for an int8 pack it joins
+    the dequant factors, the tiles are never multiplied)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
+    if (g_nv is not None) != (mode == "chain"):
+        raise ValueError("g_nv is given for mode 'chain' and only for it")
+    if scale != 1.0 and mode != "single":
+        raise ValueError("scale applies to mode 'single' only")
+    if on_cpu(x_nv):
+        return ell_nv_reference(pack, x_nv, g_nv, mode, scale=scale)
+    dev = cuda_device(x_nv)
+    nbr, max_b, bs, _ = pack.data.shape
+    n, vp = x_nv.shape
+    if bs % 64 or vp != nbr * bs:
+        raise ValueError(f"K6 needs bs % 64 == 0 and an operand nbr·bs = {nbr * bs} wide; got "
+                         f"bs={bs}, width {vp}")
+    want = torch.int8 if pack.quantized else torch.float32
+    if pack.data.device != dev or pack.data.dtype != want or not pack.data.is_contiguous() \
+            or pack.data.shape[3] != bs:
+        raise ValueError(f"the tiles are {pack.data.dtype} on {pack.data.device}; K6 takes "
+                         f"contiguous [nbr, max_b, bs, bs] tiles on {dev}, float32 without "
+                         "scales or int8 with them")
+    cols_p = require_index(pack.cols, "cols", (nbr, max_b), dev)
+    counts_p = require_index(pack.counts, "counts", (nbr,), dev)
+    scales_p = require(pack.scales, "scales", (nbr, bs), dev)
+    x_p = require(x_nv, "x_nv", (n, vp), dev)
+    g_p = require(g_nv, "g_nv", (n, vp), dev)
+    if x_p % 16 or g_p % 16:
+        raise ValueError("x_nv and g_nv must start on a 16-byte boundary (the kernel reads float4)")
+    out = torch.empty((n, vp), device=dev, dtype=torch.float32)
+    mid = None if mode == "single" else torch.empty_like(out)
+    err = _build.library().stgcn_ell_nv(
+        pack.data.data_ptr(), cols_p, counts_p, scales_p, x_p, g_p,
+        0 if mid is None else mid.data_ptr(), out.data_ptr(), nbr, max_b, bs, n,
+        int(pack.quantized), MODES[mode], float(scale), stream_of(dev))
+    _build.check(f"ell_nv[{mode}]", err)
+    count_launch(launch_name(pack.quantized, mode))
+    return out if mid is None else (mid, out)
+
+
+# --------------------------------------------------------------------------
+# autograd Functions: the operator is fixed, the operand differentiable
+# --------------------------------------------------------------------------
+
+class EllSpmmNv(torch.autograd.Function):
+    """``y = scale·(A x)`` on the nv operand; d/dx applies the transpose pack."""
+
+    @staticmethod
+    def forward(ctx, x_nv, pack, pack_t, scale):
+        ctx.pack_t, ctx.scale = pack_t, scale
+        return ell_nv(pack, x_nv, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ell_nv(ctx.pack_t, g.contiguous(), scale=ctx.scale), None, None, None
+
+
+class EllChebPairNv(torch.autograd.Function):
+    """``(A x, 2 A (A x) − x)``; backward: the chain on the transpose pack."""
+
+    @staticmethod
+    def forward(ctx, x_nv, pack, pack_t):
+        ctx.pack_t = pack_t
+        return ell_nv(pack, x_nv, mode="pair")
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        ref = g1 if g1 is not None else g2
+        g1 = torch.zeros_like(ref) if g1 is None else g1.contiguous()
+        g2 = torch.zeros_like(ref) if g2 is None else g2.contiguous()
+        _, dx = ell_nv(ctx.pack_t, g2, g1, mode="chain")
+        return dx, None, None
+
+
+def ell_spmm_nv(pack: EllPack, pack_t: EllPack, x_nv, *, scale: float = 1.0):
+    """Differentiable in ``x_nv`` (JAX ``ell_spmm_nv_vjp``)."""
+    return EllSpmmNv.apply(x_nv, pack, pack_t, scale)
+
+
+def ell_cheb_pair_nv(pack: EllPack, pack_t: EllPack, x_nv):
+    """Differentiable in ``x_nv`` (JAX ``ell_cheb_pair_nv``)."""
+    return EllChebPairNv.apply(x_nv, pack, pack_t)

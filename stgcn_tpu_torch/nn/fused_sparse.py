@@ -7,16 +7,17 @@ unfused :class:`~stgcn_tpu_torch.nn.model.STGCN` holds. Each ST block runs as
 two hand-written kernels around the graph product::
 
     K1 head (prev-LN-normalize → tconv1 → gate → align)
-      → graph aggregation (DenseGraphOp.cheb_pair_cv: torch.matmul; or
-        BandedGraphOp.cheb_pair_nv: K5 on the [N, Vp] view, no transpose)
+      → graph aggregation (DenseGraphOp.cheb_pair_cv: torch.matmul; or the
+        cheb_pair_nv of BandedGraphOp (K5) or EllGraphOp (K6) on the
+        [N, Vp] view, no transpose)
       → K2 tail (contraction → residual → ReLU → tconv2 → gate + LN partials)
 
 and the output head as K3 → μ/σ → K4 (:mod:`stgcn_tpu_torch.kernels.
 output_head`). Activations travel between them channel-before-vertex
 ``[B, T, C, Vp]``. Per batch that is K1 ×n_blocks, K2 ×n_blocks, K3 ×1,
 K4 ×1, and in the backward K1b/K2b ×n_blocks, K3b ×1, K4b ×1; on a banded
-operator also K5 ``pair`` ×n_blocks, and ``chain`` ×n_blocks in the
-backward. On CPU
+(ELL) operator also K5 (K6) ``pair`` ×n_blocks, and ``chain`` ×n_blocks in
+the backward. On CPU
 tensors every kernel wrapper runs its plain version. The LayerNorm
 statistics between blocks (``ln_stats``), the graph product and the weight
 layout conversions are PyTorch ops, differentiated by autograd.
@@ -69,7 +70,7 @@ def _graph_terms(cfg: VertexBlockCfg, gop: Any, xg: torch.Tensor):
             return t, t
         return tuple(t.reshape(xg.shape) for t in gop.cheb_pair_nv(x_nv))
     raise NotImplementedError(f"{type(gop).__name__} has neither the cv nor the nv surface; "
-                              "only the dense and banded graph operators are ported")
+                              "only the dense, banded and ELL graph operators are ported")
 
 
 def _block_weights(blk: dict, graph_conv_type: str):
@@ -114,7 +115,8 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     (CUDA; CPU tensors take the plain versions). ``gop`` must expose
     ``v_pad``, a 128-aligned padded vertex count, and the cv surface
     (:class:`~stgcn_tpu_torch.ops.DenseGraphOp`) or the nv one
-    (:class:`~stgcn_tpu_torch.ops.BandedGraphOp`). With ``deterministic=False``
+    (:class:`~stgcn_tpu_torch.ops.BandedGraphOp`,
+    :class:`~stgcn_tpu_torch.ops.EllGraphOp`). With ``deterministic=False``
     and a nonzero droprate, ``seed`` (one step's dropout seed,
     :func:`stgcn_tpu_torch.kernels.dropout.step_seed`) keys the masks.
     Returns ``[B, 1, V, 1]`` float32.
@@ -135,7 +137,7 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     v_pad = getattr(gop, "v_pad", None)
     if v_pad is None:
         raise ValueError("fused_sparse_forward needs a graph operator exposing a padded "
-                         "vertex count v_pad (DenseGraphOp, BandedGraphOp)")
+                         "vertex count v_pad (DenseGraphOp, BandedGraphOp, EllGraphOp)")
     b, _, v_true, c_x = x.shape
 
     x = x.float()

@@ -120,8 +120,9 @@ class ChebGraphConv(nn.Module):
     """Chebyshev graph conv of order ``Ks`` (`model/layers.py:122-172`):
     ``T_0 = x``, ``T_1 = Gx``, ``T_k = 2G·T_{k−1} − T_{k−2}``; output
     ``Σ_k T_k W_k + b``, folded term by term (no ``[Ks, ...]`` stack). At
-    ``Ks = 3`` an operator with ``cheb_pair`` (the banded one: K5 ``pair``)
-    gives both terms in one call (`nn/layers.py:159-168` of the JAX package)."""
+    ``Ks = 3`` an operator with ``cheb_pair`` (the banded or ELL one: K5 or
+    K6 ``pair``) gives both terms in one call (`nn/layers.py:159-168` of the
+    JAX package)."""
 
     def __init__(self, c_in: int, c_out: int, ks: int, use_bias: bool = True, *,
                  device=None):

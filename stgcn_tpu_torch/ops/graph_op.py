@@ -1,6 +1,6 @@
 """On-device graph-shift-operator application (port of
-``stgcn_tpu/ops/graph_op.py:47-137,186-330,509-601``: the dense kind and
-the banded kind's nv pack family).
+``stgcn_tpu/ops/graph_op.py:47-137,186-417,509-601``: the dense kind, the
+banded kind's nv pack family and the blocked-ELL kind).
 
 The reference applies its dense GSO with ``torch.einsum('hi,btij->bthj')``
 (``model/layers.py:154-161,198``). Here the GSO is an operator object passed
@@ -12,10 +12,13 @@ to the layers at call time:
   Pallas kernel;
 - :class:`BandedGraphOp` — above 4096 vertices, an RCM-ordered road graph
   packed as dense slabs over its band, applied by the hand-written kernel
-  K5 (:mod:`stgcn_tpu_torch.kernels.banded_nv`) on the ``[N, V]`` operand.
+  K5 (:mod:`stgcn_tpu_torch.kernels.banded_nv`) on the ``[N, V]`` operand;
+- :class:`EllGraphOp` — the O(nnz) blocked-ELL pack (f32 or int8) that
+  carries the 1M-vertex graph, applied by K6
+  (:mod:`stgcn_tpu_torch.kernels.ell_nv`) on the same operand.
 
-The other sparse kinds (blocked-ELL, BCSR, int8 packs) come with their
-kernels in later slices of the port and raise here.
+The other sparse kinds (BCSR, the int8 banded pack) come with their kernels
+in later slices of the port and raise here.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import torch
 
 from stgcn_tpu_torch.device import resolve_device
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator, effectively_symmetric
+from stgcn_tpu_torch.graph.packing import pack_ell_device
 from stgcn_tpu_torch.kernels import banded_nv as nvk
+from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels.banded_spmm import _window_meta, banded_viable, pack_banded_device
 
 
@@ -87,27 +92,15 @@ class DenseGraphOp:
         return torch.einsum("uv,...vc->...uc", mat, x)
 
 
-@dataclasses.dataclass(frozen=True)
-class BandedGraphOp:
-    """Banded-slab GSO carrying only the nv pack family (the JAX
-    ``banded_graph_op(nv=True, nv_only=True)`` operator): per ``bs``-row
-    block of the RCM-ordered GSO one dense slab over its column window,
-    pre-transposed ``[nbr, w, bs]``, and the same for ``Aᵀ`` (the backward's
-    operator; one shared pack when the GSO is symmetric).
+class _NvSurfaces:
+    """The surfaces of an operator that carries only the nv kernels: given
+    ``apply_nv`` and ``cheb_pair_nv`` on an ``[N, v_pad]`` operand, the
+    others (``apply_vn``, ``cheb_pair_vn``, ``__call__``, ``cheb_pair``)
+    reach them through a transpose, as the JAX operators do when they hold
+    no vn pack (:219-224, :252-256, :396-414). Padded columns of the
+    operand are zero."""
 
-    The nv surfaces (``apply_nv``, ``cheb_pair_nv``) run K5 on an
-    ``[N, W]`` operand, ``W <= v_pad``; the others (``apply_vn``,
-    ``cheb_pair_vn``, ``__call__``, ``cheb_pair``) reach the same kernel
-    through a transpose, as the JAX operator does when its vn slabs are
-    empty (:219-224, :252-256). Padded columns of the operand are zero."""
-
-    slabs_nv: torch.Tensor    # [nbr, w, bs] float32
-    lo: torch.Tensor          # [nbr] int32 window starts, on the device
-    slabs_nv_t: torch.Tensor  # transpose pack
-    lo_t: torch.Tensor
-    n_vertex: int
     v_pad: int
-
     has_nv = True
 
     def _pad(self, x_nv: torch.Tensor) -> torch.Tensor:
@@ -115,16 +108,6 @@ class BandedGraphOp:
             raise ValueError(f"nv operand must be [N, W <= {self.v_pad}], got {tuple(x_nv.shape)}")
         pad = self.v_pad - x_nv.shape[1]
         return torch.nn.functional.pad(x_nv, (0, pad)) if pad else x_nv.contiguous()
-
-    def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-        """``[N, W] → [N, v_pad]``: ``scale · (A x)`` on the nv operand (K5 single)."""
-        return nvk.banded_spmm_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
-                                  self._pad(x_nv), scale=scale)
-
-    def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """ks=3 recurrence ``(A x, 2 A (A x) − x)`` on the nv operand (K5 pair)."""
-        return nvk.cheb_pair_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
-                                self._pad(x_nv))
 
     def apply_vn(self, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
         """``[V, N]`` operand, through the nv kernel and two transposes."""
@@ -153,6 +136,65 @@ class BandedGraphOp:
         """Channels-last ``(G x, 2 G (G x) − x)`` (the Cheb layer's ks=3 route)."""
         t1, t2 = self.cheb_pair_nv(self._nv_view(x))
         return self._unview(t1, x), self._unview(t2, x)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedGraphOp(_NvSurfaces):
+    """Banded-slab GSO carrying only the nv pack family (the JAX
+    ``banded_graph_op(nv=True, nv_only=True)`` operator): per ``bs``-row
+    block of the RCM-ordered GSO one dense slab over its column window,
+    pre-transposed ``[nbr, w, bs]``, and the same for ``Aᵀ`` (the backward's
+    operator; one shared pack when the GSO is symmetric). The nv surfaces
+    run K5 on an ``[N, W]`` operand, ``W <= v_pad``."""
+
+    slabs_nv: torch.Tensor    # [nbr, w, bs] float32
+    lo: torch.Tensor          # [nbr] int32 window starts, on the device
+    slabs_nv_t: torch.Tensor  # transpose pack
+    lo_t: torch.Tensor
+    n_vertex: int
+    v_pad: int
+
+    def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """``[N, W] → [N, v_pad]``: ``scale · (A x)`` on the nv operand (K5 single)."""
+        return nvk.banded_spmm_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
+                                  self._pad(x_nv), scale=scale)
+
+    def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """ks=3 recurrence ``(A x, 2 A (A x) − x)`` on the nv operand (K5 pair)."""
+        return nvk.cheb_pair_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
+                                self._pad(x_nv))
+
+
+@dataclasses.dataclass(frozen=True)
+class EllGraphOp(_NvSurfaces):
+    """Blocked-ELL GSO in nv orientation (the JAX ``EllGraphOp``,
+    ``ops/graph_op.py:332-417``): per ``bs``-row block of the GSO only its
+    live ``bs × bs`` tiles, pre-transposed (:class:`~stgcn_tpu_torch.kernels.
+    ell_nv.EllPack`), float32 or int8 with per-row dequant factors, and the
+    same for ``Aᵀ`` (one shared pack when the GSO is symmetric). O(nnz): the
+    1M-vertex road graph's operator. The nv surfaces run K6 on an ``[N, W]``
+    operand, ``W <= v_pad = nbr·bs``; a scalar ``scale`` is folded into the
+    kernel's epilogue, never into the pack."""
+
+    pack: ek.EllPack
+    pack_t: ek.EllPack
+    n_vertex: int
+
+    @property
+    def block_size(self) -> int:
+        return self.pack.data.shape[-1]
+
+    @property
+    def v_pad(self) -> int:
+        return self.pack.cols.shape[0] * self.block_size
+
+    def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """``[N, W] → [N, v_pad]``: ``scale · (A x)`` on the nv operand (K6 single)."""
+        return ek.ell_spmm_nv(self.pack, self.pack_t, self._pad(x_nv), scale=scale)
+
+    def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """ks=3 recurrence ``(A x, 2 A (A x) − x)`` on the nv operand (K6 pair)."""
+        return ek.ell_cheb_pair_nv(self.pack, self.pack_t, self._pad(x_nv))
 
 
 def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
@@ -189,19 +231,37 @@ def banded_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
                          n_vertex=gso.n_vertex, v_pad=v_pad)
 
 
+def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bool = False,
+                 device: str | torch.device = "cuda") -> EllGraphOp:
+    """The JAX ``ell_graph_op`` (:540-571), packed on the device: int8 tiles
+    with per-row scales when ``quantize``, else float32. A symmetric GSO
+    (every ``sym_*`` normalization, up to rounding) reuses the forward pack
+    for the transpose application — the same device tensors."""
+    dev = resolve_device(device)
+    csr = sp.csr_matrix(gso.matrix)
+
+    def pack(m):
+        return ek.EllPack(*pack_ell_device(m, block_size=block_size, quantize=quantize,
+                                           device=dev))
+
+    fwd = pack(csr)
+    return EllGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),
+                      n_vertex=gso.n_vertex)
+
+
 _LATER = {"bcsr": "the --graph_op bcsr slice (blocked-ELL SpMM and SDDMM kernels K10/K11)",
-          "banded_int8": "the banded_int8 slice (K5 with per-column scales)",
-          "ell": "the 1M-vertex slice (blocked-ELL nv kernel K6)",
-          "ell_int8": "the 1M-vertex slice (blocked-ELL nv kernel K6)"}
+          "banded_int8": "the banded_int8 slice (K5 with per-column scales)"}
 
 
 def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
-                  device: str | torch.device = "cuda", **kw) -> DenseGraphOp | BandedGraphOp:
-    """Pick a representation (the JAX rule, ``ops/graph_op.py:574-586``):
+                  device: str | torch.device = "cuda", **kw
+                  ) -> DenseGraphOp | BandedGraphOp | EllGraphOp:
+    """Pick a representation (the JAX rule, ``ops/graph_op.py:574-601``):
     dense up to 4096 vertices; above that the banded slabs when the
     (RCM-ordered) band is narrow, else BCSR — which is not ported yet and
-    raises, as do the other sparse kinds, naming the slice that brings
-    them."""
+    raises, as does the int8 banded kind, naming the slice that brings
+    them. ``ell`` / ``ell_int8`` are asked for by name, as in the JAX
+    package."""
     if kind == "auto":
         if gso.n_vertex <= 4096:
             kind = "dense"
@@ -211,6 +271,8 @@ def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
         return dense_graph_op(gso, device=device, **kw)
     if kind == "banded":
         return banded_graph_op(gso, device=device, **kw)
+    if kind in ("ell", "ell_int8"):
+        return ell_graph_op(gso, quantize=kind == "ell_int8", device=device, **kw)
     if kind in _LATER:
         raise NotImplementedError(f"graph-op kind {kind!r} is not ported yet; it "
                                   f"comes with {_LATER[kind]}")

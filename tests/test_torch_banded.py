@@ -30,7 +30,8 @@ from stgcn_tpu_torch.kernels import banded_spmm as tbs
 from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
 from stgcn_tpu_torch.nn.model import STGCN
-from stgcn_tpu_torch.ops import BandedGraphOp, DenseGraphOp, banded_graph_op, dense_graph_op
+from stgcn_tpu_torch.ops import (BandedGraphOp, DenseGraphOp, EllGraphOp, banded_graph_op,
+                                 dense_graph_op)
 from stgcn_tpu_torch.ops import make_graph_op
 from tests.torch_parity_utils import BANDED_V as V
 from tests.torch_parity_utils import GATE_CASES, B, assert_grads, banded_gsos, rand, t, to_np
@@ -199,7 +200,8 @@ def test_forward_on_banded_op_matches_jax(gct, ks, act, bs):
 
 def test_make_graph_op_routing():
     """auto: dense up to 4096 vertices, banded above when the band is narrow,
-    BCSR (not ported: raises) when it is not; the unported kinds raise."""
+    BCSR (not ported: raises) when it is not; ell / ell_int8 by name; the
+    unported kinds raise."""
     _, _, tart = banded_gsos()
     assert isinstance(make_graph_op(tart, "auto", device="cpu"), DenseGraphOp)
     op = make_graph_op(tart, "banded", device="cpu")
@@ -213,7 +215,11 @@ def test_make_graph_op_routing():
     op = make_graph_op(art, "auto", device="cpu")
     assert isinstance(op, BandedGraphOp) and op.n_vertex == 5000
     assert op.slabs_nv_t is op.slabs_nv and op.slabs_nv.shape[-1] == 256
-    for kind in ("bcsr", "banded_int8", "ell", "ell_int8"):
+    for kind in ("ell", "ell_int8"):
+        op = make_graph_op(tart, kind, device="cpu")
+        assert isinstance(op, EllGraphOp) and op.pack.quantized == (kind == "ell_int8")
+        assert op.pack_t is op.pack and op.block_size == 256 and op.n_vertex == V
+    for kind in ("bcsr", "banded_int8"):
         with pytest.raises(NotImplementedError, match="not ported"):
             make_graph_op(tart, kind, device="cpu")
     with pytest.raises(ValueError, match="unknown"):

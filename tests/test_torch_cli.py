@@ -2,8 +2,9 @@
 package's: the same flags and defaults, ``build_trainer`` on PeMSD7(M)
 (V = 228) with ``--graph_op banded --fused True`` — the RCM order, the pack
 (one block row: the window clamp and padding edges), the split series and
-the scaler — a whole CPU run through ``main`` that prints the reference test
-line, and the refusals of what is not ported."""
+the scaler — and with ``--graph_op ell_int8``, a whole CPU run through
+``main`` that prints the reference test line, and the refusals of what is
+not ported."""
 
 import importlib
 from pathlib import Path
@@ -13,7 +14,7 @@ import pytest
 import scipy.sparse as sp
 
 from stgcn_tpu_torch.data import synthetic as TS
-from stgcn_tpu_torch.ops import BandedGraphOp
+from stgcn_tpu_torch.ops import BandedGraphOp, EllGraphOp
 
 # the modules (each package's __init__ re-exports the function ``main``)
 jcli = importlib.import_module("stgcn_tpu.cli.main")
@@ -54,6 +55,26 @@ def test_build_trainer_banded_matches_jax(tmp_path):
                                       np.asarray(getattr(jtr, split).series))
     np.testing.assert_array_equal(ttr.scaler.mean_, jtr.scaler.mean_)
     np.testing.assert_array_equal(ttr.scaler.scale_, jtr.scaler.scale_)
+    assert ttr.cfg.fused and ttr.steps_per_epoch == jtr.steps_per_epoch
+
+
+def test_build_trainer_ell_int8_matches_jax(tmp_path):
+    """``--graph_op ell_int8``: the same RCM-permuted series, scaler and int8
+    ELL pack (tiles, column blocks, counts, scales) as the JAX CLI's."""
+    argv = ["--dataset", "pemsd7-m", "--graph_op", "ell_int8", "--fused", "True",
+            "--ckpt_dir", str(tmp_path / "ck")]
+    kw = dict(dataset="pemsd7-m", data_root=DATA, graph_op_kind="ell_int8")
+    jtr = jcli.build_trainer(jcli.config_from_args(jcli.get_parameters(argv)), **kw)
+    ttr = tcli.build_trainer(tcli.config_from_args(tcli.get_parameters(argv)), device="cpu",
+                             **kw)
+    gop, jop = ttr.gop, jtr.gop
+    assert isinstance(gop, EllGraphOp) and gop.pack.quantized and gop.v_pad == jop.v_pad == 256
+    for got, ref in zip(gop.pack, (jop.data, jop.cols, jop.counts, jop.scales)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    for split in ("train_ds", "val_ds", "test_ds"):
+        np.testing.assert_array_equal(getattr(ttr, split).series.numpy(),
+                                      np.asarray(getattr(jtr, split).series))
+    np.testing.assert_array_equal(ttr.scaler.mean_, jtr.scaler.mean_)
     assert ttr.cfg.fused and ttr.steps_per_epoch == jtr.steps_per_epoch
 
 

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1-K4, their backward kernels K1b-K4b and the banded nv
-SpMM K5 against their plain PyTorch versions, on a card; the kernels'
-dropout masks against the plain mask bit for bit.
+"""The CUDA kernels K1-K4, their backward kernels K1b-K4b, the banded nv
+SpMM K5 and the blocked-ELL nv SpMM K6 against their plain PyTorch versions,
+on a card; the kernels' dropout masks against the plain mask bit for bit.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
 machine, which has neither:
@@ -21,11 +21,12 @@ from stgcn_tpu_torch.data.synthetic import random_road_graph
 from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator
 from stgcn_tpu_torch.kernels import banded_nv as nv
+from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import vertex_fused as vf
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.probes import mask_probes
-from stgcn_tpu_torch.ops import banded_graph_op
+from stgcn_tpu_torch.ops import banded_graph_op, ell_graph_op
 
 pytestmark = pytest.mark.cuda
 B, V_TRUE, V_PAD = 3, 150, 256
@@ -286,3 +287,70 @@ def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):
         nv.stream_nv(op.slabs_nv, op.lo.long(), flat[:-1].view(4, op.v_pad))
     with pytest.raises(ValueError, match="v_pad % bs"):
         nv.stream_nv(op.slabs_nv, op.lo, torch.zeros(4, op.v_pad + 64, device=dev))
+
+
+def _rcm_gso(n_vertex, gso_type="sym_norm_lap"):
+    art = build_gso(random_road_graph(n_vertex, k_neighbors=6, seed=0), gso_type, cheb=True)
+    return GraphShiftOperator(matrix=permute_matrix(art.matrix, rcm_ordering(art.matrix)),
+                              gso_type=gso_type, cheb_rescaled=True, lam_max=art.lam_max)
+
+
+@pytest.mark.parametrize("n", [480, 97])        # N a tile multiple, and not
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("n_vertex,bs", [(600, 64), (600, 256), (200, 256)])
+def test_k6_matches_plain(dev, n_vertex, bs, quantize, mode, n):
+    """Every mode on f32 and int8 packs against its plain version; (600, 64)
+    has block rows with fewer live tiles than max_b (padding tiles), (200,
+    256) is a one-block-row pack. A repeat launch is bit-identical."""
+    op = ell_graph_op(_rcm_gso(n_vertex), block_size=bs, quantize=quantize, device=dev)
+    rng = np.random.default_rng(5)
+    x = _rand(rng, dev, n, op.v_pad)
+    g = _rand(rng, dev, n, op.v_pad) if mode == "chain" else None
+    name = ek.launch_name(quantize, mode)
+    before = kernels.launch_counts()[name]
+    out1 = ek.ell_nv(op.pack, x, g, mode)
+    out2 = ek.ell_nv(op.pack, x, g, mode)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    ref = ek.ell_nv_reference(op.pack, x, g, mode)
+    outs1, outs2, refs = ([o] if mode == "single" else list(o) for o in (out1, out2, ref))
+    for a, b, r in zip(outs1, outs2, refs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, r, **TOL)
+    if mode == "single":   # the Chebyshev 2G step: into alpha, never into the pack
+        torch.testing.assert_close(ek.ell_nv(op.pack, x, scale=2.0), 2.0 * refs[0], **TOL)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_k6_autograd_matches_plain(dev, quantize):
+    """The Functions' backward on the card (K6 single and chain on the
+    transpose pack of a non-symmetric GSO) against the same on the CPU."""
+    op = ell_graph_op(_rcm_gso(600, "rw_norm_lap"), block_size=64, quantize=quantize,
+                      device=dev)
+    assert op.pack_t is not op.pack
+    rng = np.random.default_rng(6)
+    x, g1, g2 = (_rand(rng, dev, 96, op.v_pad) for _ in range(3))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xx = x.to(d).requires_grad_(True)
+        pack, pack_t = (ek.EllPack(*(None if a is None else a.to(d) for a in p))
+                        for p in (op.pack, op.pack_t))
+        t1, t2 = ek.ell_cheb_pair_nv(pack, pack_t, xx)
+        y = ek.ell_spmm_nv(pack, pack_t, xx, scale=2.0)
+        loss = (t1 * g1.to(d)).sum() + (t2 * g2.to(d)).sum() + (y * g1.to(d)).sum()
+        grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], **TOL)
+
+
+def test_k6_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    op = ell_graph_op(_rcm_gso(600), block_size=256, quantize=True, device=dev)
+    flat = torch.zeros(4 * op.v_pad + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):   # contiguous, one float off
+        ek.ell_nv(op.pack, flat[1:].view(4, op.v_pad))
+    with pytest.raises(ValueError, match="int32"):
+        ek.ell_nv(op.pack._replace(cols=op.pack.cols.long()), flat[:-1].view(4, op.v_pad))
+    with pytest.raises(ValueError, match="wide"):
+        ek.ell_nv(op.pack, torch.zeros(4, op.v_pad - 64, device=dev))
+    with pytest.raises(ValueError, match="int8"):   # int8 tiles without their scales
+        ek.ell_nv(op.pack._replace(scales=None), flat[:-1].view(4, op.v_pad))

@@ -15,6 +15,7 @@ import stgcn_tpu_torch
 from stgcn_tpu_torch import kernels
 from stgcn_tpu_torch.kernels import _build, _launch
 from stgcn_tpu_torch.kernels import banded_nv as tnv
+from stgcn_tpu_torch.kernels import ell_nv as tek
 from stgcn_tpu_torch.kernels import output_head as toh
 from stgcn_tpu_torch.kernels import vertex_fused as tvf
 
@@ -80,6 +81,11 @@ ENTRY_POINTS = {
     "banded_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
     .banded_graph_op(_gso()),
     "make_graph_op(banded)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "banded"),
+    "ell_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
+    .ell_graph_op(_gso()),
+    "make_graph_op(ell_int8)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "ell_int8"),
+    "pack_ell_device": lambda: __import__("stgcn_tpu_torch.graph.packing", fromlist=["x"])
+    .pack_ell_device(_gso().matrix),
     "cli.build_trainer": lambda: __import__("stgcn_tpu_torch.cli", fromlist=["x"]).build_trainer(
         stgcn_tpu_torch.TrainConfig(), dataset="pemsd7-m", data_root=str(ROOT / "data")),
     "cli.main": lambda: __import__("stgcn_tpu_torch.cli", fromlist=["x"]).main(
@@ -216,6 +222,45 @@ def test_nv_wrapper_takes_plain_version_only_on_cpu(mode, monkeypatch):
         tnv.stream_nv(*args("meta"), mode)
 
 
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_ell_wrapper_takes_plain_version_only_on_cpu(quantize, mode, monkeypatch):
+    """K6's wrapper, as above: one C call per wrapper call (both passes of
+    pair and chain are launched inside it), counted under its dtype and
+    mode."""
+    plain_calls = []
+    real_ref = tek.ell_nv_reference
+    monkeypatch.setattr(tek, "ell_nv_reference",
+                        lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(tek, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(tek, "stream_of", lambda dev: 0)
+
+    def args(dev):
+        pack = tek.EllPack(
+            torch.zeros(2, 3, 128, 128, dtype=torch.int8 if quantize else torch.float32,
+                        device=dev),
+            torch.zeros(2, 3, dtype=torch.int32, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev),
+            torch.ones(2, 128, device=dev) if quantize else None)
+        g = torch.zeros(5, 256, device=dev) if mode == "chain" else None
+        return pack, torch.zeros(5, 256, device=dev), g
+
+    name = tek.launch_name(quantize, mode)
+    before = kernels.launch_counts()[name]
+    out = tek.ell_nv(*args("meta"), mode)
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
+    assert fake.calls == [("stgcn_ell_nv", len(_build.SIGNATURES["stgcn_ell_nv"]))]
+    assert all(o.shape == (5, 256) for o in ([out] if mode == "single" else out))
+    tek.ell_nv(*args("cpu"), mode)
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    assert len(fake.calls) == 1
+    with pytest.raises(ValueError, match="CUDA or CPU"):   # without the test double
+        monkeypatch.undo()
+        tek.ell_nv(*args("meta"), mode)
+
+
 def test_wrapper_refuses_a_non_cuda_accelerator_tensor():
     """Without the test double, a tensor that is neither CPU nor CUDA raises
     instead of running the plain version."""
@@ -238,6 +283,6 @@ def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
 def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
     assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
-                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu"}
+                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "ell_nv.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()
