@@ -895,17 +895,25 @@ def csr_on_card(torch, m):
                                    size=m.shape, check_invariants=False).to("cuda")
 
 
-def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, pack_bytes: int,
-               pack_flops_one: int, library_agrees: bool, reps: int) -> dict:
+def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, value_bytes: int,
+               row_scales: bool, pack_bytes: int, pack_flops_one: int, library_agrees: bool,
+               reps: int) -> dict:
     """Hold one mode of a sparse nv kernel (K5, K6) against its plain version
     (tolerance, repeat bit-identical, launch counter) at width N = ``n``,
     and time it beside its plain version, its bound and ``library``
     (``torch.sparse.mm`` on the CSR GSO, one call an application). In
     ``single`` the library's product must agree with the kernel where
     ``library_agrees`` (the pack encodes the GSO to f32 rounding); its max
-    |Δ| is reported either way. ``pack_bytes`` are the bytes of the pack
-    the kernel must read, ``pack_flops_one`` the FLOPs of one application
-    over the pack as stored (every FLOP the kernel does)."""
+    |Δ| is reported either way.
+
+    The bound counts what the function needs, not what the pack stores: the
+    operator as CSR (``nnz`` values of ``value_bytes`` each with an int32
+    column index, V + 1 int32 row offsets, and V f32 row factors where
+    ``row_scales``), each of the V-lane operands read once and each output
+    written once; and the nonzeros' FLOPs. ``pack_bytes`` (the pack as the
+    kernel reads it) and ``pack_flops_one`` (the FLOPs of one application
+    over the pack as stored: every FLOP the kernel does) are reported beside
+    it."""
     from stgcn_tpu_torch import kernels
 
     before = kernels.launch_counts()[name]
@@ -929,9 +937,10 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, pack
     ms = cuda_ms(kernel, warmup=2, reps=reps)
     plain_ms = cuda_ms(plain, warmup=1, reps=3)
     library_ms = cuda_ms(library, warmup=2, reps=reps)
-    # each input read once (the pack, x, and g for chain), each output written once
+    # each input read once (the operator, x, and g for chain), each output written once
     n_operands = 1 + (mode == "chain") + (1 if mode == "single" else 2)
-    nbytes = pack_bytes + n_operands * n * vp * 4
+    op_bytes = nnz * (value_bytes + 4) + (v + 1) * 4 + (v * 4 if row_scales else 0)
+    nbytes = op_bytes + n_operands * n * v * 4
     nnz_flops, pack_flops = 2 * apps * n * nnz, apps * n * pack_flops_one
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nnz_flops / F32_FLOP_PER_S * 1e3
@@ -940,8 +949,11 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, pack
             "library_call": f"torch.sparse.mm CSR x{apps}, operand transposed outside the "
                             "timing" + ("" if apps == 1 else ", 2·y − x not included"),
             "library_max_abs_diff": lib_err, "bytes": nbytes, "nnz_flops": nnz_flops,
-            "pack_flops": pack_flops, "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
-            "pack_flops_ms": pack_flops / F32_FLOP_PER_S * 1e3, "bound_ms": max(t_bytes, t_ops),
+            "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
+            "pack_bytes": pack_bytes + n_operands * n * vp * 4,
+            "pack_bytes_ms": (pack_bytes + n_operands * n * vp * 4) / HBM_BYTES_PER_S * 1e3,
+            "pack_flops": pack_flops, "pack_flops_ms": pack_flops / F32_FLOP_PER_S * 1e3,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -979,7 +991,8 @@ def phase_kernels_banded(torch, data) -> dict:
                 torch, f"nv_{mode}", n, mode, lambda a=args: nv.stream_nv(*a),
                 lambda a=args: nv.stream_nv_reference(*a),
                 lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
-                v=v, nnz=nnz, vp=gop.v_pad, pack_bytes=(gop.slabs_nv.numel() + nbr) * 4,
+                v=v, nnz=nnz, vp=gop.v_pad, value_bytes=4, row_scales=False,
+                pack_bytes=(gop.slabs_nv.numel() + nbr) * 4,
                 pack_flops_one=2 * nbr * w * bs, library_agrees=True, reps=K5_REPS)})
         del x, g, x_vn
     kernels.reset_launch_counts()
@@ -988,21 +1001,44 @@ def phase_kernels_banded(torch, data) -> dict:
     return results
 
 
-def diff_by_param(torch, params: dict, got, ref, top: int = 3) -> dict:
-    """Where two gradients differ: the ``top`` parameters by their share of
-    ||got − ref||², each with its relative L2 and the number of its elements
-    that hold 99 % of its share (a few: ReLU branches taken differently;
-    most: rounding)."""
-    d2 = {name: float(((a - b).double() ** 2).sum()) for name, a, b in zip(params, got, ref)}
-    total = sum(d2.values()) or 1.0
-    out = {}
-    for name in sorted(d2, key=d2.get, reverse=True)[:top]:
-        i = list(params).index(name)
-        sq = ((got[i] - ref[i]).double() ** 2).flatten().sort(descending=True).values.cumsum(0)
-        out[name] = {"share": d2[name] / total, "elements": sq.numel(),
-                     "holding_99pct": int((sq < 0.99 * sq[-1]).sum()) + 1,
-                     "rel_l2": d2[name] ** 0.5 / (float(ref[i].double().norm()) + 1e-30)}
-    return out
+def rel_l2(torch, got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / (ref.double().norm() + 1e-30))
+
+
+def head_grads_f64(torch, model, x, y, n_valid: int, gop, seed: int) -> tuple[dict, dict, int]:
+    """The output head's parameter gradients of one batch in float64: the ST
+    blocks run in f32 as the unfused forward runs them (no grad), then a
+    float64 copy of the head and the loss, with the same dropout mask, so
+    each route's f32 sums over the lanes can be held against exact ones.
+    Returns the gradients with the head's own ReLU, those with fc1's ReLU
+    taken where the unfused f32 head takes it, and how many of those ReLU
+    decisions differ between f32 and float64."""
+    import copy
+
+    from stgcn_tpu_torch.kernels import dropout
+    from stgcn_tpu_torch.kernels.dropout import Drop
+    from stgcn_tpu_torch.train import masked_mse
+
+    n_st, out32 = model.n_st_blocks, model.output
+    with torch.no_grad():
+        h = x
+        for l in range(n_st):
+            h = getattr(model, f"st_block_{l}")(h, gop, Drop(DROPRATE, seed, l))
+        on32 = out32.fc1(out32.ln(out32.tmp_conv1(h))) > 0
+    head = copy.deepcopy(out32).double()
+    h = h.double()
+
+    def grads(relu_on):
+        z = head.fc1(head.ln(head.tmp_conv1(h)))
+        a = torch.relu(z) if relu_on is None else z * relu_on
+        pred = head.fc2(dropout.apply_channels_last(a, Drop(DROPRATE, seed, n_st)))
+        loss = masked_mse(pred.reshape(pred.shape[0], -1), y.double(), n_valid)
+        g = torch.autograd.grad(loss, list(head.parameters()))
+        return {f"output.{k}": gi for (k, _), gi in zip(head.named_parameters(), g)}, z
+
+    exact, z = grads(None)
+    flips = int(((z > 0) != on32).sum())
+    return exact, grads(on32)[0], flips
 
 
 def phase_banded_100k(torch, data) -> dict:
@@ -1075,18 +1111,34 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
                                      seed=step_seed(42, 0))
                 if fused else model(x, gop, deterministic=False, seed=step_seed(42, 0)))
         loss = masked_mse(pred.reshape(batch, -1), y, n_valid)
-        return torch.autograd.grad(loss, list(params.values()))
+        return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
 
     per_f, per_u = grads(True), grads(False)
-    gf, gu = torch.cat([g.flatten() for g in per_f]), torch.cat([g.flatten() for g in per_u])
+    gf = torch.cat([g.flatten() for g in per_f.values()])
+    gu = torch.cat([g.flatten() for g in per_u.values()])
     rel = float((gf - gu).norm() / (gu.norm() + 1e-12))
     worst = float(((gf - gu).abs() - GRAD_RTOL * gu.abs()).max())
     if not rel < GRAD_REL_L2 or worst > GRAD_ATOL:
+        by_param = sorted(((rel_l2(torch, per_f[k], per_u[k]), k) for k in params), reverse=True)
         raise AssertionError(f"{phase}: fused gradients off the unfused ones: relative L2 "
-                             f"{rel:.3e}, worst excess over the rtol {worst:.3e}")
+                             f"{rel:.3e}, worst excess over the rtol {worst:.3e}; largest "
+                             f"per parameter: {by_param[:3]}")
+    # the output head's gradients against float64: which route's sums are off
+    # (unfused_same_relu: float64 with fc1's ReLU where the unfused f32 head takes it)
+    exact, same_relu, flips = head_grads_f64(torch, model, x, y, n_valid, gop,
+                                             step_seed(42, 0))
+    routes = (("fused", per_f, exact), ("unfused", per_u, exact),
+              ("unfused_same_relu", per_u, same_relu))
+    head = {k: {r: rel_l2(torch, got[k], ref[k]) for r, got, ref in routes} for k in exact}
+    head["all"] = {r: rel_l2(torch, torch.cat([got[k].flatten() for k in exact]),
+                             torch.cat([ref[k].flatten() for k in exact]))
+                   for r, got, ref in routes}
+    if not head["all"]["fused"] < GRAD_REL_L2:
+        raise AssertionError(f"{phase}: the fused route's output-head gradients are off "
+                             f"float64 by relative L2 {head['all']['fused']:.3e}")
     one_batch = {"grad_rel_l2": rel, "grad_max_abs_diff": float((gf - gu).abs().max()),
-                 "diff_by_param": diff_by_param(torch, params, per_f, per_u)}
-    del model, params, gf, gu, per_f, per_u
+                 "head_rel_l2_to_f64": head, "head_relu_decisions_f32_vs_f64": flips}
+    del model, params, gf, gu, per_f, per_u, exact, same_relu, routes
 
     # 4. a fused fit of one epoch, every step's loss and time, then test();
     # the peak memory of the checks above is kept apart from the fit's
@@ -1251,7 +1303,8 @@ def phase_kernels_ell(torch, data) -> dict:
                         torch, name, n, mode, lambda a=args: ek.ell_nv(*a),
                         lambda a=args: ek.ell_nv_reference(*a),
                         lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
-                        v=v, nnz=nnz, vp=gop.v_pad, pack_bytes=pack_bytes(pack)[1],
+                        v=v, nnz=nnz, vp=gop.v_pad, value_bytes=1 if pack.quantized else 4,
+                        row_scales=pack.quantized, pack_bytes=pack_bytes(pack)[1],
                         pack_flops_one=2 * int(pack.counts.sum()) * bs * bs,
                         library_agrees=not pack.quantized, reps=K6_REPS)})
         del x, g, x_vn

@@ -12,10 +12,10 @@ per-row factor ``scales[r] = absmax_r / 127`` (1.0 for an empty row).
 
 The JAX package assembles the pack one block row at a time on the host
 (59 s at 1M vertices there). Here the index of every nonzero in the pack is
-computed for all of them at once (:func:`_ell_layout`); :func:`pack_ell_nv`
-scatters on the host (the JAX function's result, equal to it exactly) and
+computed for all of them at once (:func:`_ell_layout`), and
 :func:`pack_ell_device` sends only the indices and values to the device and
-scatters there, into a zeroed tensor.
+scatters there, into a zeroed tensor; on the CPU its result equals the JAX
+function's exactly.
 """
 
 from __future__ import annotations
@@ -75,24 +75,15 @@ def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool):
     return flat, values, cols, counts, scales, (nbr, max_b, bs, bs)
 
 
-def pack_ell_nv(matrix: sp.spmatrix, *, block_size: int = 256, quantize: bool = False):
-    """The JAX ``pack_ell_nv`` on the host: ``(data, cols, counts, scales)``
-    numpy arrays, ``data`` ``[nbr, max_b, bs, bs]`` (int8 when ``quantize``,
-    else float32), ``cols`` ``[nbr, max_b]`` int32, ``counts`` ``[nbr]``
-    int32, ``scales`` ``[nbr, bs]`` float32 or None."""
-    flat, values, cols, counts, scales, shape = _ell_layout(matrix, block_size, quantize)
-    data = np.zeros(int(np.prod(shape)), values.dtype)
-    data[flat] = values
-    return data.reshape(shape), cols, counts, scales
-
-
 def pack_ell_device(matrix: sp.spmatrix, *, block_size: int = 256, quantize: bool = False,
                     device: str | torch.device = "cuda"):
-    """:func:`pack_ell_nv` built on ``device``: the pack's indices and values
-    travel there, the zero-filled tiles (3.3 GB int8 for the 1M-vertex road
-    graph) are scattered in place by one ``index_put_``. Returns ``(data, cols,
-    counts, scales)`` as tensors on ``device`` (``scales`` None unless
-    ``quantize``)."""
+    """The JAX ``pack_ell_nv`` built on ``device``: the pack's indices and
+    values travel there, the zero-filled tiles (3.3 GB int8 for the
+    1M-vertex road graph) are scattered in place by one ``index_put_``.
+    Returns ``(data, cols, counts, scales)`` as tensors on ``device``:
+    ``data`` ``[nbr, max_b, bs, bs]`` (int8 when ``quantize``, else
+    float32), ``cols`` ``[nbr, max_b]`` int32, ``counts`` ``[nbr]`` int32,
+    ``scales`` ``[nbr, bs]`` float32 or None."""
     dev = resolve_device(device)
     flat, values, cols, counts, scales, shape = _ell_layout(matrix, block_size, quantize)
     values = torch.from_numpy(values).to(dev)

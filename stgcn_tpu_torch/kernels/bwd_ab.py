@@ -11,7 +11,6 @@ shape the median CUDA-event milliseconds of ``--reps`` launches (after 3
 of warm-up) on random inputs drawn from a fixed seed, and a SHA-256 of the
 outputs' bytes, so trees whose sums run in the same order show the same
 digest. Then the ``nvidia-smi`` name and power limit of the card.
-``--shape`` picks shapes (default: all).
 """
 
 from __future__ import annotations
@@ -77,7 +76,7 @@ def cases(torch, b: int, v_true: int, vp: int):
     ]
 
 
-def run_one(tree: str, reps: int, shapes: list) -> dict:
+def run_one(tree: str, reps: int) -> dict:
     """Time every case with the checkout at ``tree`` imported."""
     sys.path[0] = os.path.abspath(tree)   # this file's directory out, the checkout in
     import torch
@@ -87,8 +86,7 @@ def run_one(tree: str, reps: int, shapes: list) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
               "sha256": {}}
-    for shape in shapes:
-        b, v_true, vp = SHAPES[shape]
+    for shape, (b, v_true, vp) in SHAPES.items():
         for name, wrapper, args, kwargs in cases(torch, b, v_true, vp):
             outs = [o for o in wrapper(*args, **kwargs) if o is not None]
             torch.cuda.synchronize()
@@ -117,16 +115,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", required=True)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--shape", action="append", choices=sorted(SHAPES))
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    shapes = args.shape or list(SHAPES)
     if args.one:
-        print(json.dumps(run_one(args.tree[0], args.reps, shapes)), flush=True)
+        print(json.dumps(run_one(args.tree[0], args.reps)), flush=True)
         return 0
     for tree in args.tree:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", "--tree", tree,
-                              "--reps", str(args.reps), *(f"--shape={x}" for x in shapes)],
+                              "--reps", str(args.reps)],
                              capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stderr)

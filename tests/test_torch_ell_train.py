@@ -26,7 +26,7 @@ from stgcn_tpu_torch.train import TrainConfig, Trainer
 from tests.torch_parity_utils import B, banded_gsos, rand, t, to_np
 
 V_TRAIN, BS = 520, 128   # 5 block rows of 128
-T_STEPS, N_HIS, N_PRED = 32, 12, 3   # 17 training windows: 5 full batches of 3 and a tail
+T_STEPS, N_HIS, N_PRED = 23, 12, 3   # 8 training windows: 2 full batches of 3 and a tail
 
 
 @pytest.mark.parametrize("quantize", [False, True])
