@@ -2,12 +2,14 @@
 """Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
 and check them: PeMSD7(M) through the dense operator, then a 100k-vertex
 road graph through the banded operator and its kernel K5, then the 1M-vertex
-road graph through the blocked-ELL operator and its kernel K6, then the CLI.
+road graph through the blocked-ELL operator and its kernel K6 and through
+the BCSR operator (what ``make_graph_op(kind="auto")`` picks there) and its
+kernels K10 and K11, then the CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Twelve phases, each printing one JSON line with its own seconds:
+Fourteen phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -91,11 +93,32 @@ Twelve phases, each printing one JSON line with its own seconds:
    the fit's peak memory apart from the checks'. Cuts: f32 (the JAX bench ran
    bf16), no remat, Lion's momentum in f32, the series cut to 55 steps split
    23 / 16 / 16 (8 training windows, one validation and one test window).
-11. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
+11. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
+   order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
+   of 256 × 256 row-major f32 tiles for both directions, scattered on the
+   card (timed). K10 at N = 160 and 96, scale 1 and 2 (its alpha), and K11
+   at the same widths, random operands, held against their plain versions
+   as in phase 3 (K11 a chunk of block rows at a time), repeat
+   bit-identical; timed beside their bounds (K10: the nonzeros as CSR and
+   the operands, as K6; K11: every entry of the live tiles, g and x read
+   once, the live tiles written once) and their library calls
+   (``torch.sparse.mm`` on the CSR GSO; one ``torch.bmm`` over the live
+   tiles' operands, gathered outside the timing).
+12. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
+   (the cuts of phase 10): one forecast batch through K10 (launches K10 ×4)
+   against the same weights on the f32 ELL operator (K6) within 2e-4 +
+   2e-4·|ref|; every K10 call of one unfused training step (×8) against its
+   plain version; one backward with the tile values requiring grad, K11
+   launched through autograd and held against its plain version; an
+   unfused ``Trainer.fit(1)`` with finite losses and launches per step K10
+   ×8 and K11 ×0 (validation: K10 ×4 a batch), then ``test()``; the fit's
+   peak memory apart from the checks'.
+13. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
-   then with ``--graph_op ell_int8``: its epoch and test lines, every kernel
-   of the step (K5 or K6 pair and chain included) launched.
-12. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
+   then with ``--graph_op ell_int8``, then ``bcsr`` (the fused forward's vn
+   branch): its epoch and test lines, every kernel of the step (K5 or K6
+   pair and chain, or K10, included) launched.
+14. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
    training paths, PeMSD7(M), 100k and 1M, and its launches), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -897,14 +920,15 @@ def csr_on_card(torch, m):
 
 def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, value_bytes: int,
                row_scales: bool, pack_bytes: int, pack_flops_one: int, library_agrees: bool,
-               reps: int) -> dict:
-    """Hold one mode of a sparse nv kernel (K5, K6) against its plain version
+               reps: int, vn: bool = False, scale: float = 1.0) -> dict:
+    """Hold one mode of a sparse kernel (K5, K6 on the nv operand ``[N, V]``;
+    K10 on the vn one ``[V, N]`` when ``vn``) against its plain version
     (tolerance, repeat bit-identical, launch counter) at width N = ``n``,
     and time it beside its plain version, its bound and ``library``
     (``torch.sparse.mm`` on the CSR GSO, one call an application). In
-    ``single`` the library's product must agree with the kernel where
-    ``library_agrees`` (the pack encodes the GSO to f32 rounding); its max
-    |Δ| is reported either way.
+    ``single`` ``scale`` times the library's product must agree with the
+    kernel where ``library_agrees`` (the pack encodes the GSO to f32
+    rounding); its max |Δ| is reported either way.
 
     The bound counts what the function needs, not what the pack stores: the
     operator as CSR (``nnz`` values of ``value_bytes`` each with an int32
@@ -927,9 +951,11 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
         err, ref_max = max_err(out1, plain())
         lib_err = None
         if mode == "single":
-            lib_err = float((out1[:, :v] - library().T).abs().max())
+            got, lib = (out1[:v], scale * library()) if vn else (out1[:, :v], library().T)
+            lib_err = float((got - lib).abs().max())
             if library_agrees:
-                max_err(out1[:, :v], library().T)
+                max_err(got, lib)
+            del got, lib
     except AssertionError as e:
         raise AssertionError(f"{name} [N={n}]: {e}") from None
     del out1, out2
@@ -944,10 +970,13 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     nnz_flops, pack_flops = 2 * apps * n * nnz, apps * n * pack_flops_one
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nnz_flops / F32_FLOP_PER_S * 1e3
-    return {"shape": f"N={n}", "input": [n, vp], "max_abs_err": err, "ref_max": ref_max,
+    return {"shape": f"N={n}", "input": [vp, n] if vn else [n, vp], "scale": scale,
+            "max_abs_err": err, "ref_max": ref_max,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_call": f"torch.sparse.mm CSR x{apps}, operand transposed outside the "
-                            "timing" + ("" if apps == 1 else ", 2·y − x not included"),
+            "library_call": f"torch.sparse.mm CSR x{apps}"
+                            + ("" if vn else ", operand transposed outside the timing")
+                            + ("" if apps == 1 else ", 2·y − x not included")
+                            + ("" if scale == 1.0 else ", the scale not included"),
             "library_max_abs_diff": lib_err, "bytes": nbytes, "nnz_flops": nnz_flops,
             "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
             "pack_bytes": pack_bytes + n_operands * n * vp * 4,
@@ -1208,8 +1237,8 @@ def pack_bytes(pack) -> tuple[int, int]:
     """(bytes of the whole pack, bytes of its live tiles and index arrays)
     as stored."""
     per_tile = pack.data[0, 0].numel() * pack.data.element_size()
-    meta = sum(t.numel() * t.element_size() for t in (pack.cols, pack.counts, pack.scales)
-               if t is not None)
+    meta = sum(t.numel() * t.element_size()
+               for t in (pack.cols, pack.counts, getattr(pack, "scales", None)) if t is not None)
     return (pack.data.numel() * pack.data.element_size() + meta,
             int(pack.counts.sum()) * per_tile + meta)
 
@@ -1259,7 +1288,7 @@ def build_1m(torch) -> dict:
     def ds(a):
         return ForecastDataset.from_numpy(scaler.transform(a), N_HIS, N_PRED, device="cuda")
 
-    data = {"n_vertex": V_1M, "gop": gop, "gop_f32": gop_f32, "matrix": art.matrix,
+    data = {"n_vertex": V_1M, "gop": gop, "gop_f32": gop_f32, "art": art, "matrix": art.matrix,
             "scaler": scaler, "train": ds(train), "val": ds(val), "test": ds(test)}
     lap("split_s")
     nbr, max_b, bs, _ = gop.pack.data.shape
@@ -1329,11 +1358,361 @@ def phase_ell_1m(torch, data) -> dict:
                            "16 test (one window each)"])
 
 
-def phase_cli(torch, graph_op: str, pair: str, chain: str) -> dict:
+# --------------------------------------------------------------------------
+# the 1M-vertex BCSR route: the operator make_graph_op(kind="auto") picks there
+# --------------------------------------------------------------------------
+
+K10_REPS = 5
+# unfused, per ST block: gop(x) and gop(t1, scale=2.0) forward, their dx backward
+PER_STEP_BCSR = {"bcsr_spmm": 8}
+PER_BATCH_BCSR = {"bcsr_spmm": 4}
+K10_SOURCE = "stgcn_tpu_torch/kernels/csrc/bcsr_spmm.cu"
+K10_META = (("K10a", K10_SOURCE, "stgcn_tpu/kernels/spmm.py:123", "_spmm_pallas_resident"),
+            ("K10b", K10_SOURCE, "stgcn_tpu/kernels/spmm.py:166", "_spmm_pallas"))
+K11_META = ("K11", "stgcn_tpu_torch/kernels/csrc/bcsr_sddmm.cu",
+            "stgcn_tpu/kernels/sddmm.py:60", "_sddmm_pallas")
+
+
+def check_bcsr_spmm(torch, pack, x, scale, *, v, nnz, a_csr, reps) -> dict:
+    """``check_spmm`` for K10 on the vn operand ``x`` [nbr·bs, N], with
+    ``scale`` as its alpha; the library call is ``torch.sparse.mm`` on the
+    CSR GSO and x's first V rows (no transpose)."""
+    from stgcn_tpu_torch.kernels import spmm
+
+    bs = pack.block_size
+    return check_spmm(
+        torch, spmm.LAUNCH_NAME, x.shape[1], "single",
+        lambda: spmm.bcsr_spmm(pack, x, scale=scale),
+        lambda: spmm.bcsr_spmm_reference(pack, x, scale=scale),
+        lambda: torch.sparse.mm(a_csr, x[:v]), v=v, nnz=nnz, vp=x.shape[0], value_bytes=4,
+        row_scales=False, pack_bytes=pack_bytes(pack)[1],
+        pack_flops_one=2 * int(pack.counts.sum()) * bs * bs, library_agrees=True, reps=reps,
+        vn=True, scale=scale)
+
+
+def sddmm_against_plain(torch, out, pack, g, x, scale: float = 1.0) -> tuple[float, float]:
+    """Hold a K11 output [nbr, max_b, bs, bs] against its plain version,
+    computed a chunk of block rows at a time (the whole is 13.3 GB at 1M),
+    at the per-output bound of ``max_err``; returns (max |Δ|, max |ref|)."""
+    from stgcn_tpu_torch.kernels import sddmm
+
+    nbr, max_b, bs, _ = out.shape
+    n = g.shape[1]
+    rows = max(1, sddmm.REF_CHUNK_ELEMS // (max_b * bs * max(n, bs)))
+
+    def plain(s):
+        return sddmm.bcsr_sddmm_reference(pack.cols[s:s + rows], pack.counts[s:s + rows],
+                                          g[s * bs:(s + rows) * bs], x, block_size=bs,
+                                          scale=scale)
+
+    ref_max = max(float(plain(s).abs().max()) for s in range(0, nbr, rows))
+    floor = KERNEL_TOL * min(1.0, ref_max)
+    err, bad = 0.0, 0
+    for s in range(0, nbr, rows):
+        r = plain(s)
+        d = (out[s:s + rows] - r).abs()
+        if not torch.isfinite(out[s:s + rows]).all():
+            raise AssertionError(f"K11: non-finite values in block rows {s}..{s + rows}")
+        err = max(err, float(d.max()))
+        bad += int((d > floor + KERNEL_TOL * r.abs()).sum())
+    if bad:
+        raise AssertionError(f"K11 disagrees with its plain version: {bad} of {out.numel()} "
+                             f"elements outside the bound (max |Δ| {err:.3e}, max |ref| "
+                             f"{ref_max:.3e})")
+    return err, ref_max
+
+
+def check_bcsr_sddmm(torch, pack, g, x, *, v, reps) -> dict:
+    """K11 on the live tiles of ``pack`` at width N: held against its plain
+    version (chunked), repeat bit-identical, launch counter; timed beside
+    its plain version, its bound (every entry of the live tiles: 2·tiles·
+    bs²·N FLOPs; g and x read once, the live tiles written once) and one
+    ``torch.bmm`` over the live tiles' operands, gathered outside the
+    timing."""
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import sddmm
+
+    nbr, max_b, bs, _ = pack.data.shape
+    n = g.shape[1]
+
+    def kernel():
+        return sddmm.bcsr_sddmm(pack.cols, pack.counts, g, x, block_size=bs)
+
+    before = kernels.launch_counts()[sddmm.LAUNCH_NAME]
+    out1, out2 = kernel(), kernel()
+    torch.cuda.synchronize()
+    if kernels.launch_counts()[sddmm.LAUNCH_NAME] - before != 2:
+        raise AssertionError("bcsr_sddmm: launch counter did not move by 2")
+    if not torch.equal(out1, out2):
+        raise AssertionError(f"bcsr_sddmm [N={n}]: a repeat launch is not bit-identical")
+    del out2
+    try:
+        err, ref_max = sddmm_against_plain(torch, out1, pack, g, x)
+    except AssertionError as e:
+        raise AssertionError(f"bcsr_sddmm [N={n}]: {e}") from None
+    live = torch.nonzero(torch.arange(max_b, device=g.device)[None, :] < pack.counts[:, None])
+    bi, ki = live[:, 0], live[:, 1]
+    gl = g.reshape(nbr, bs, n)[bi]                                        # [tiles, bs, N]
+    xl = x.reshape(nbr, bs, n)[pack.cols[bi, ki].long()].transpose(1, 2)  # [tiles, N, bs]
+
+    def library():
+        return torch.bmm(gl, xl)
+
+    lib, lib_err = library(), 0.0
+    for c in range(0, len(bi), 4096):
+        lib_err = max(lib_err, float((out1[bi[c:c + 4096], ki[c:c + 4096]]
+                                      - lib[c:c + 4096]).abs().max()))
+    del lib, out1
+    library_ms = cuda_ms(library, warmup=2, reps=reps)
+    tiles = len(bi)
+    del gl, xl, live, bi, ki
+    ms = cuda_ms(kernel, warmup=2, reps=reps)
+    plain_ms = cuda_ms(lambda: sddmm.bcsr_sddmm_reference(pack.cols, pack.counts, g, x,
+                                                           block_size=bs), warmup=1, reps=3)
+    nbytes = 2 * n * v * 4 + tiles * bs * bs * 4 + (tiles + nbr) * 4
+    flops = 2 * tiles * bs * bs * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"shape": f"N={n}", "input": [nbr * bs, n], "output": [nbr, max_b, bs, bs],
+            "tiles": tiles, "max_abs_err": err, "ref_max": [ref_max], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "torch.bmm over the live tiles' g and x blocks, gathered outside "
+                            "the timing",
+            "library_max_abs_diff": lib_err, "bytes": nbytes, "flops": flops,
+            "bytes_ms": t_bytes, "flops_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_kernels_bcsr(torch, data) -> dict:
+    """The operator ``make_graph_op(kind="auto")`` builds for the 1M graph
+    (BCSR, packed on the card, timed), then K10 at N = 160 and 96 (B·T·c1
+    of the two ST blocks at batch 1), scale 1 and 2, and K11 at the same
+    widths, random operands, real pack: held against their plain versions,
+    repeat bit-identical, timed beside their bounds and library calls."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.ops import BcsrGraphOp, make_graph_op
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gop = make_graph_op(data["art"], "auto", device="cuda")
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t1
+    if not isinstance(gop, BcsrGraphOp) or gop.pack_t is not gop.pack:
+        raise AssertionError(f"make_graph_op(auto) at 1M gave {type(gop).__name__}, not one "
+                             "BCSR pack for both directions")
+    data["bcsr"] = gop
+    v, nnz = data["n_vertex"], data["prep"]["nnz"]
+    nbr, max_b, bs, _ = gop.pack.data.shape
+    tiles = int(gop.pack.counts.sum())
+    a_csr = csr_on_card(torch, data["matrix"])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    results: dict[str, list] = {"bcsr_spmm": [], "bcsr_sddmm": []}
+    for n in (BATCH_1M * (N_HIS - 2) * 16, BATCH_1M * (N_HIS - 6) * 16):
+        x = torch.randn((gop.n_vertex_pad, n), generator=gen, device="cuda")
+        g = torch.randn((gop.n_vertex_pad, n), generator=gen, device="cuda")
+        for scale in (1.0, 2.0):
+            results["bcsr_spmm"].append(check_bcsr_spmm(torch, gop.pack, x, scale, v=v, nnz=nnz,
+                                                         a_csr=a_csr, reps=K10_REPS))
+        results["bcsr_sddmm"].append(check_bcsr_sddmm(torch, gop.pack, g, x, v=v,
+                                                      reps=K10_REPS))
+        del x, g
+    del a_csr
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    pack = {"auto_picks": type(gop).__name__, "pack_s": pack_s, "nbr": nbr, "max_b": max_b,
+            "bs": bs, "n_vertex_pad": gop.n_vertex_pad, "tiles": tiles,
+            "tile_fill": nnz / (tiles * bs * bs), "pack_bytes": pack_bytes(gop.pack)[0],
+            "shared_transpose_pack": True}
+    emit({"phase": "kernels_bcsr", "seconds": time.perf_counter() - t0,
+          "tolerance": KERNEL_TOL, "pack": pack, "results": results})
+    return results
+
+
+def record_bcsr_step(torch, data, gop) -> list:
+    """Run one unfused training step (forward with dropout, backward) on the
+    first training batch through the BCSR operator ``gop`` and record every
+    K10 call it makes: (label, pack, x, scale), in call order."""
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import spmm
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.train import masked_mse
+
+    calls: list = []
+    real = spmm.bcsr_spmm
+
+    def recorder(pack, x_vn, *, scale=1.0):
+        calls.append((f"call{len(calls)}", pack, x_vn.detach(), scale))
+        return real(pack, x_vn, scale=scale)
+
+    model = new_model(torch, data["n_vertex"], DROPRATE)
+    params = dict(model.named_parameters())
+    starts, n_valid = next(data["train"].batches(BATCH_1M))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    try:
+        spmm.bcsr_spmm = recorder
+        pred = model(x, gop, deterministic=False, seed=step_seed(42, 0))
+        loss = masked_mse(pred.reshape(BATCH_1M, -1), y, n_valid)
+        torch.autograd.grad(loss, list(params.values()))
+    finally:
+        spmm.bcsr_spmm = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_bcsr_1m(torch, data) -> dict:
+    """The 1M-vertex route of ``auto``, end to end: the unfused model on the
+    BCSR operator (K10) at batch 1 with Lion. One forecast batch against the
+    same weights on the f32 ELL operator (K6); every K10 call of one
+    unfused training step against its plain version; the tile-value
+    gradient through autograd (K11) against its plain version; an unfused
+    Trainer.fit(1) with its launches counted (K10 ×8 a step, K11 ×0), and
+    test()."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import spmm
+    from stgcn_tpu_torch.ops import make_graph_op
+    from stgcn_tpu_torch.train import TrainConfig, Trainer
+
+    gop, v = data["bcsr"], data["n_vertex"]
+    ckpt_root = ROOT / "checkpoints" / "chip_smoke_bcsr_1m"   # git-ignored, removed at the end
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. one forecast batch through K10, against the f32 ELL operator (K6)
+    model = new_model(torch, v, DROPRATE).eval()
+    starts, _ = next(data["test"].batches(BATCH_1M))
+    x, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ell = make_graph_op(data["art"], "ell", device="cuda")
+    torch.cuda.synchronize()
+    ell_pack_s = time.perf_counter() - t1
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        pb = model(x, gop)
+        torch.cuda.synchronize()
+        fwd_launches = kernels.launch_counts()
+        pe = model(x, ell)
+        walls: dict[str, list] = {"bcsr": [], "ell": []}
+        for kind in ("bcsr", "ell", "ell", "bcsr"):
+            t1 = time.perf_counter()
+            model(x, gop if kind == "bcsr" else ell)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t1)
+    del ell
+    torch.cuda.empty_cache()
+    if fwd_launches != expected(PER_BATCH_BCSR, 1):
+        raise AssertionError(f"the BCSR forecast launched {fwd_launches}, expected "
+                             f"{expected(PER_BATCH_BCSR, 1)}")
+    if pb.shape != (BATCH_1M, 1, v, 1) or not torch.isfinite(pb).all():
+        raise AssertionError(f"BCSR forecast has shape {tuple(pb.shape)} or non-finite values")
+    d = (pb - pe).abs()
+    if not bool((d <= SLICE_TOL + SLICE_TOL * pe.abs()).all()):
+        raise AssertionError(f"bcsr_1m: the BCSR and f32 ELL forecasts differ: max |Δ| "
+                             f"{float(d.max()):.3e}")
+    forecast = {"max_abs_diff_bcsr_ell_f32": float(d.max()), "tolerance": SLICE_TOL,
+                "launches": fwd_launches, "ell_f32_pack_s": ell_pack_s,
+                "seconds_bcsr": statistics.median(walls["bcsr"]),
+                "seconds_ell_f32": statistics.median(walls["ell"])}
+    del model, pb, pe, d
+
+    # 2. every K10 call of one unfused training step, against its plain version
+    calls = record_bcsr_step(torch, data, gop)
+    if len(calls) != PER_STEP_BCSR["bcsr_spmm"]:
+        raise AssertionError(f"one unfused step made {len(calls)} K10 calls, expected "
+                             f"{PER_STEP_BCSR['bcsr_spmm']}")
+    a_csr = csr_on_card(torch, data["matrix"])
+    per_call, failed = [], []
+    for label, pack, xv, scale in calls:
+        try:
+            per_call.append({"call": label, **check_bcsr_spmm(
+                torch, pack, xv, scale, v=v, nnz=data["prep"]["nnz"], a_csr=a_csr, reps=3)})
+        except AssertionError as e:
+            failed.append(f"{label}: {e}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    # 3. the tile-value gradient through autograd (K11), on the step's first operand
+    x_vn = calls[0][2]
+    del calls, a_csr
+    w = torch.randn(x_vn.shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    tiles = gop.pack.data.detach().requires_grad_(True)   # the same storage, no copy
+    pack = gop.pack._replace(data=tiles)
+    kernels.reset_launch_counts()
+    y = spmm.bcsr_spmm_vjp(pack, pack, x_vn, scale=2.0)
+    (dtiles,) = torch.autograd.grad((y * w).sum(), [tiles])
+    torch.cuda.synchronize()
+    grad_launches = kernels.launch_counts()
+    if grad_launches != expected({"bcsr_spmm": 1, "bcsr_sddmm": 1}, 1):
+        raise AssertionError(f"the tile-value gradient launched {grad_launches}, expected "
+                             "K10 and K11 once each")
+    err, ref_max = sddmm_against_plain(torch, dtiles, gop.pack, w, x_vn, scale=2.0)
+    tile_grad = {"n": x_vn.shape[1], "scale": 2.0, "launches": grad_launches,
+                 "max_abs_err": err, "ref_max": ref_max}
+    del y, dtiles, tiles, pack, w, x_vn
+    torch.cuda.empty_cache()
+
+    # 4. an unfused fit of one epoch, every step's loss and time, then test();
+    # the peak memory of the checks above is kept apart from the fit's
+    checks_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH_1M,
+                      opt="lion", fused=False, ckpt_dir=str(ckpt_root), dataset_name="road-1m")
+    tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
+                 data["test"], data["scaler"], device="cuda")
+    step_losses, step_seconds = [], []
+    real_step = tr.train_step
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = real_step(*a)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t1)
+        step_losses.append(loss)
+        return loss
+
+    tr.train_step = timed_step
+    kernels.reset_launch_counts()
+    hist = tr.fit(1)["history"]
+    launches = kernels.launch_counts()
+    val_batches = -(-tr.val_ds.num_windows // BATCH_1M)
+    want = expected(PER_STEP_BCSR, tr.steps_per_epoch, (PER_BATCH_BCSR, val_batches))
+    if launches != want:
+        raise AssertionError(f"bcsr_1m: the fit launched {launches}, expected {want}")
+    losses = [float(v_) for v_ in step_losses]
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
+        raise AssertionError(f"bcsr_1m: non-finite step losses {losses}")
+    fit_peak = torch.cuda.max_memory_allocated()
+    test_m = tr.test()
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
+        raise AssertionError(f"bcsr_1m: non-finite test metrics {test_m}")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    result = {"phase": "bcsr_1m", "seconds": time.perf_counter() - t0, "n_vertex": v,
+              "batch_size": BATCH_1M, "optimizer": "lion", "route": "unfused, BCSR (K10)",
+              "cuts": ["f32, not the bench's bf16", "no remat",
+                       "Lion momentum in f32 (TrainConfig has no mu_dtype)",
+                       "series cut to 55 steps: 23 train (8 windows), 16 validation, "
+                       "16 test (one window each)"],
+              "forecast_one_batch": forecast, "tile_value_grad": tile_grad,
+              "steps_per_epoch": tr.steps_per_epoch, "val_batches": val_batches,
+              "step_losses": losses, "step_seconds": step_seconds,
+              "step_seconds_median": statistics.median(step_seconds),
+              "epoch": hist[0], "launches": launches, "test": test_m,
+              "peak_memory_bytes_fit": fit_peak,
+              "peak_memory_bytes_fit_and_test": torch.cuda.max_memory_allocated(),
+              "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
+    emit(result)
+    return result
+
+
+def phase_cli(torch, graph_op: str, graph_kernels: tuple) -> dict:
     """``python -m stgcn_tpu_torch.cli`` in-process: PeMSD7(M) through the
     sparse operator ``graph_op`` (one block row of 256) and the fused
-    kernels, one epoch, then the reference test line; the launch counters
-    ``pair`` and ``chain`` are the operator's kernel's."""
+    kernels, one epoch, then the reference test line; ``graph_kernels`` are
+    the launch counters of the operator's kernel."""
     import contextlib
     import io
 
@@ -1356,7 +1735,7 @@ def phase_cli(torch, graph_op: str, pair: str, chain: str) -> dict:
         print(line, flush=True)
     if not lines[-1].startswith("Dataset pemsd7-m | Test loss "):
         raise AssertionError(f"the CLI's last line is not the test line: {lines[-1]!r}")
-    if not all(launches[k] > 0 for k in (*PER_STEP, pair, chain)):
+    if not all(launches[k] > 0 for k in (*PER_STEP, *graph_kernels)):
         raise AssertionError(f"the CLI run on {graph_op} routed around a kernel: {launches}")
     if not all(v == v and abs(v) < float("inf") for v in mets.values()):
         raise AssertionError(f"non-finite CLI test metrics {mets}")
@@ -1407,9 +1786,15 @@ def main() -> int:
     big = build_1m(torch)
     k6 = phase_kernels_ell(torch, big)
     m1 = phase_ell_1m(torch, big)
+    del big["gop"]   # the int8 ELL pack; the BCSR phases reuse the graph, GSO and order
+    torch.cuda.empty_cache()
+    k10 = phase_kernels_bcsr(torch, big)
+    b1 = phase_bcsr_1m(torch, big)
     del big
-    cli = phase_cli(torch, "banded", "nv_pair", "nv_chain")
-    cli_ell = phase_cli(torch, "ell_int8", "ell_int8_pair", "ell_int8_chain")
+    torch.cuda.empty_cache()
+    cli = phase_cli(torch, "banded", ("nv_pair", "nv_chain"))
+    cli_ell = phase_cli(torch, "ell_int8", ("ell_int8_pair", "ell_int8_chain"))
+    cli_bcsr = phase_cli(torch, "bcsr", ("bcsr_spmm",))
 
     def row(name, meta, calls, **extra):
         """One kernel's line: per training step it runs once at each call."""
@@ -1443,6 +1828,12 @@ def main() -> int:
     rows += [row(name, K6_META, calls, mode=name.rsplit("_", 1)[1], dtype=calls[0]["dtype"],
                  launches=m1["launches"][name], launches_cli=cli_ell["launches"][name])
              for name, calls in k6.items()]
+    rows += [row("bcsr_spmm", meta, b1["per_step_calls"], launches=b1["launches"]["bcsr_spmm"],
+                 launches_cli=cli_bcsr["launches"]["bcsr_spmm"], per_call_random=k10["bcsr_spmm"])
+             for meta in K10_META]
+    rows.append(row("bcsr_sddmm", K11_META, k10["bcsr_sddmm"],
+                    launches=b1["launches"]["bcsr_sddmm"],
+                    launches_tile_grad=b1["tile_value_grad"]["launches"]["bcsr_sddmm"]))
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

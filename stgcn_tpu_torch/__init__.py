@@ -6,7 +6,9 @@ unfused STGCN, the vertex-fused forward through four hand-written Hopper
 kernels (K1 head, K2 tail, K3/K4 output head) and their backward kernels
 (K1b-K4b), element-keyed dropout, the optimizers and the ``Trainer``; above
 4096 vertices the banded graph operator with its kernel K5, and for the
-1M-vertex graph the blocked-ELL operator with its kernel K6; and the CLI
+1M-vertex graph the blocked-ELL operator with its kernel K6 and the BCSR
+operator (what ``make_graph_op("auto")`` picks there) with its SpMM K10 and
+SDDMM K11; and the CLI
 (``python -m stgcn_tpu_torch.cli``). Entry points take ``device=``, which
 defaults to ``"cuda"``; the CPU runs only when asked for. The package
 imports no JAX and nothing of ``stgcn_tpu``.

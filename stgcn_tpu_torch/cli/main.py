@@ -4,6 +4,7 @@ reference's (`main.py:39-94`).
 
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op banded --fused True
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op ell_int8 --fused True
+    python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op bcsr --fused True
 
 Pipeline: adjacency → GSO → (RCM order for the sparse kinds) → graph
 operator on the device; CSV (or a synthetic series) → chronological split
@@ -15,7 +16,10 @@ Not ported yet, and refused with ``NotImplementedError``: ``--compute_dtype
 bfloat16`` (the bf16 kernel variants), ``--remat True``, a device mesh and
 ``--distributed`` (the ``dist`` slice), ``--profile_dir`` (``utils/
 profiling.py``), and ``--fused_tile_v`` / ``--fused_b_tile`` (the TPU
-kernels' tile sizes; the CUDA kernels fix their own).
+kernels' tile sizes; the CUDA kernels fix their own). ``--fused True`` with
+``--graph_op auto`` where auto picks bcsr raises a ``TypeError``, as the
+JAX CLI does (it asks ``bcsr_graph_op`` for nv packs it has no argument
+for); ``--graph_op bcsr --fused True`` runs.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from stgcn_tpu_torch.graph import build_gso
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator
 from stgcn_tpu_torch.graph.partition import permute_matrix, rcm_ordering
 from stgcn_tpu_torch.nn.model import STGCN
-from stgcn_tpu_torch.ops.graph_op import make_graph_op
+from stgcn_tpu_torch.ops.graph_op import auto_kind, make_graph_op
 from stgcn_tpu_torch.train.loop import TrainConfig, Trainer
 
 SPARSE_KINDS = ("banded", "banded_int8", "ell", "ell_int8")
@@ -92,9 +96,9 @@ def get_parameters(argv=None):
     parser.add_argument("--graph_op", type=str, default="auto",
                         choices=["auto", "dense", "bcsr", "banded",
                                  "banded_int8", "ell", "ell_int8"],
-                        help="GSO representation: dense matmul, banded slabs through the "
-                             "K5 kernel, or blocked-ELL tiles (f32 or int8) through K6 (bcsr "
-                             "and banded_int8 are not ported yet)")
+                        help="GSO representation: dense matmul, BCSR tiles through the K10 "
+                             "kernel, banded slabs through K5, or blocked-ELL tiles (f32 or "
+                             "int8) through K6 (banded_int8 is not ported yet)")
     parser.add_argument("--shuffle", type=_str2bool, default=False,
                         help="shuffle training windows (reference keeps False)")
     parser.add_argument("--ckpt_dir", type=str, default=None)
@@ -111,7 +115,8 @@ def get_parameters(argv=None):
                         help="bfloat16 is not ported yet")
     parser.add_argument("--fused", type=_str2bool, default=False,
                         help="train through the vertex-fused kernels K1-K4 (the banded "
-                             "operator aggregates through K5, the ELL one through K6)")
+                             "operator aggregates through K5, the ELL one through K6, the "
+                             "BCSR one through K10)")
     parser.add_argument("--remat", type=_str2bool, default=False,
                         help="recompute ST blocks in the backward (not ported yet)")
     parser.add_argument("--fused_tile_v", type=int, default=None,
@@ -174,9 +179,10 @@ def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
                   gso_type: str = "sym_norm_lap", graph_op_kind: str = "auto",
                   synthetic_ok: bool = True, device: str | torch.device = "cuda") -> Trainer:
     """Data + graph + model assembly (`stgcn_tpu/cli/main.py:151-251`, one
-    device). The sparse kinds, and ``auto`` above 4096 vertices, reorder the
-    graph by RCM and permute the series' sensor columns the same way; all
-    metrics are permutation-invariant."""
+    device). The banded and ELL kinds, and ``auto`` above 4096 vertices,
+    reorder the graph by RCM and permute the series' sensor columns the same
+    way (all metrics are permutation-invariant); ``bcsr`` asked for by name
+    keeps the graph's order, as the JAX CLI does."""
     dev = resolve_device(device)
     adj, _ = D.load_adj(dataset, data_root)
     art = build_gso(adj, gso_type, cheb=(cfg.graph_conv_type == "cheb_graph_conv"))
@@ -187,6 +193,12 @@ def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
         art = GraphShiftOperator(matrix=permute_matrix(art.matrix, perm),
                                  gso_type=art.gso_type, cheb_rescaled=art.cheb_rescaled,
                                  lam_max=art.lam_max)
+        if cfg.fused and graph_op_kind == "auto" and auto_kind(art) == "bcsr":
+            raise TypeError(
+                "--fused True with --graph_op auto picks bcsr for this graph (its RCM band is "
+                "too wide for the banded slabs); the JAX CLI cannot build that pairing either "
+                "(it asks bcsr_graph_op for nv packs, a TypeError). Ask for --graph_op bcsr or "
+                "ell by name")
     # the port's banded and ELL operators carry only the nv packs (the JAX
     # CLI asks for the banded ones with nv=True under --fused); the unfused
     # model reaches them through a transpose

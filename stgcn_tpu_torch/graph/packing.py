@@ -1,21 +1,32 @@
-"""Blocked-ELL pack of the GSO for the nv kernel K6 (port of ``pack_ell_nv``,
-``stgcn_tpu/graph/packing.py:63-133``, f32 and int8).
+"""Blocked-ELL packs of the GSO: the nv pack of kernel K6 (port of
+``pack_ell_nv``, ``stgcn_tpu/graph/packing.py:63-133``, f32 and int8) and
+the BCSR pack of kernels K10/K11 (port of ``pack_bcsr``, ``:17-60``, and of
+its native twin ``stgcn_tpu/native/packing.cpp``, f32).
 
 The ``[V, V]`` operator is cut into ``bs × bs`` tiles and only the tiles that
 hold a nonzero are kept, ``counts[i]`` of them for block row ``i``, padded
-to a common ``max_b`` with all-zero tiles that point at block column 0.
-Each tile is stored pre-transposed (``data[i, k] = A_tile(i, k)ᵀ``), the
-operand layout of the nv kernel :mod:`stgcn_tpu_torch.kernels.ell_nv`; the
-slots of a block row hold its column blocks in ascending order. An int8
-pack stores ``rint(A[r, c] / scales[r])`` (computed in float64) with the
-per-row factor ``scales[r] = absmax_r / 127`` (1.0 for an empty row).
+to a common ``max_b`` with all-zero tiles that point at block column 0; the
+slots of a block row hold its column blocks in ascending order. The two
+packs differ in the tile orientation:
 
-The JAX package assembles the pack one block row at a time on the host
-(59 s at 1M vertices there). Here the index of every nonzero in the pack is
-computed for all of them at once (:func:`_ell_layout`), and
-:func:`pack_ell_device` sends only the indices and values to the device and
-scatters there, into a zeroed tensor; on the CPU its result equals the JAX
-function's exactly.
+- :func:`pack_ell_device` stores each tile pre-transposed (``data[i, k] =
+  A_tile(i, k)ᵀ``), the operand layout of the nv kernel
+  :mod:`stgcn_tpu_torch.kernels.ell_nv`. An int8 pack stores
+  ``rint(A[r, c] / scales[r])`` (computed in float64) with the per-row
+  factor ``scales[r] = absmax_r / 127`` (1.0 for an empty row);
+- :func:`pack_bcsr_device` stores each tile row-major (``data[i, k] =
+  A_tile(i, k)``), the layout of the vn kernels :mod:`stgcn_tpu_torch.
+  kernels.spmm` (K10) and :mod:`~stgcn_tpu_torch.kernels.sddmm` (K11),
+  float32 only: each float64 GSO value rounded to float32 once, as the
+  native packer rounds before it packs.
+
+The JAX package assembles the pack on the host, one block row at a time
+(59 s for the ELL pack at 1M vertices there; the BCSR one is a 13.3 GB
+float32 host array there). Here the index of every nonzero in the pack is
+computed for all of them at once (:func:`_ell_layout`), and the device
+packers send only the indices and values to the device and scatter there,
+into a zeroed tensor; on the CPU their results equal the JAX functions'
+exactly.
 """
 
 from __future__ import annotations
@@ -27,8 +38,9 @@ import torch
 from stgcn_tpu_torch.device import resolve_device
 
 
-def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool):
-    """Where every nonzero goes in the pack, and its stored value.
+def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool, transposed: bool = True):
+    """Where every nonzero goes in the pack, and its stored value; the tiles
+    are transposed (the nv pack) or row-major (the BCSR pack).
 
     Returns ``(flat, values, cols, counts, scales, shape)``: ``flat`` the
     int64 offset of each nonzero in the flattened ``[nbr, max_b, bs, bs]``
@@ -63,8 +75,10 @@ def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool):
     max_b = max(int(counts.max()), 1)
     cols = np.zeros((nbr, max_b), np.int32)
     cols[tile_br, tile_slot] = tiles % n_bc
-    # transposed tiles: [col-local, row-local]
-    flat = ((br * max_b + tile_slot[tile_of.ravel()]) * bs + indices % bs) * bs + row_of - br * bs
+    # a tile's offset, then [col-local, row-local] (transposed) or [row-local, col-local]
+    lead, trail = (indices % bs, row_of - br * bs) if transposed else (row_of - br * bs,
+                                                                       indices % bs)
+    flat = ((br * max_b + tile_slot[tile_of.ravel()]) * bs + lead) * bs + trail
 
     values = vals.astype(np.float64)
     if quantize:
@@ -86,9 +100,29 @@ def pack_ell_device(matrix: sp.spmatrix, *, block_size: int = 256, quantize: boo
     ``scales`` ``[nbr, bs]`` float32 or None."""
     dev = resolve_device(device)
     flat, values, cols, counts, scales, shape = _ell_layout(matrix, block_size, quantize)
+    return (_scatter(flat, values, shape, dev), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(counts).to(dev),
+            None if scales is None else torch.from_numpy(scales).to(dev))
+
+
+def pack_bcsr_device(matrix: sp.spmatrix, *, block_size: int = 256,
+                     device: str | torch.device = "cuda"):
+    """The JAX ``pack_bcsr`` built on ``device`` (13.3 GB of float32 tiles
+    for the 1M-vertex road graph, scattered in place). Returns ``(data,
+    cols, counts)`` as tensors on ``device``: ``data`` ``[nbr, max_b, bs,
+    bs]`` float32 row-major tiles, ``cols`` ``[nbr, max_b]`` int32 (padding
+    slots: 0), ``counts`` ``[nbr]`` int32."""
+    dev = resolve_device(device)
+    flat, values, cols, counts, _, shape = _ell_layout(matrix, block_size, False,
+                                                       transposed=False)
+    return (_scatter(flat, values, shape, dev), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(counts).to(dev))
+
+
+def _scatter(flat: np.ndarray, values: np.ndarray, shape: tuple, dev: torch.device):
+    """A zeroed tensor of ``shape`` on ``dev`` with ``values`` at the flat
+    offsets ``flat`` (one ``index_put_``)."""
     values = torch.from_numpy(values).to(dev)
     data = torch.zeros(int(np.prod(shape)), dtype=values.dtype, device=dev)
     data.index_put_((torch.from_numpy(flat).to(dev),), values)
-    return (data.reshape(shape), torch.from_numpy(cols).to(dev),
-            torch.from_numpy(counts).to(dev),
-            None if scales is None else torch.from_numpy(scales).to(dev))
+    return data.reshape(shape)

@@ -4,9 +4,11 @@ K1 :func:`vertex_fused.head_fwd`, K2 :func:`vertex_fused.tail_fwd`,
 K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd`, their
 backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
 ``ofc_bwd``), the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
-per mode (``nv_single``, ``nv_pair``, ``nv_chain``), and the blocked-ELL nv
+per mode (``nv_single``, ``nv_pair``, ``nv_chain``), the blocked-ELL nv
 SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
-``ell_int8_chain``, …). The CUDA sources under
+``ell_int8_chain``, …), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
+(``bcsr_spmm``) with its tile-value gradient, the SDDMM K11
+:func:`sddmm.bcsr_sddmm` (``bcsr_sddmm``). The CUDA sources under
 ``csrc/`` are built by :mod:`._build` at first use.
 """
 
@@ -16,6 +18,8 @@ from stgcn_tpu_torch.kernels._launch import LAUNCHES
 from stgcn_tpu_torch.kernels.banded_nv import stream_nv
 from stgcn_tpu_torch.kernels import ell_nv as _ell   # the module: its wrapper shares its name
 from stgcn_tpu_torch.kernels.output_head import ofc_bwd, ofc_fwd, ohead_bwd, ohead_fwd
+from stgcn_tpu_torch.kernels.sddmm import bcsr_sddmm
+from stgcn_tpu_torch.kernels.spmm import bcsr_spmm
 from stgcn_tpu_torch.kernels.vertex_fused import head_bwd, head_fwd, tail_bwd, tail_fwd
 
 WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
@@ -25,7 +29,8 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             **{f"nv_{m}": functools.partial(stream_nv, mode=m)
                for m in ("single", "pair", "chain")},
             **{_ell.launch_name(q, m): functools.partial(_ell.ell_nv, mode=m)
-               for q in (False, True) for m in ("single", "pair", "chain")}}
+               for q in (False, True) for m in ("single", "pair", "chain")},
+            "bcsr_spmm": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm}
 
 
 def reset_launch_counts() -> None:

@@ -49,6 +49,8 @@ SIGNATURES = {
     "stgcn_ofc_bwd": [_P] * 19 + [_I] * 6 + _DROP + [_P],
     "stgcn_banded_nv": [_P] * 6 + [_I] * 6 + [_F, _P],
     "stgcn_ell_nv": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "stgcn_bcsr_spmm": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "stgcn_bcsr_sddmm": [_P] * 5 + [_I] * 4 + [_F, _P],
 }
 # workspace size in floats of each backward entry point, from its sizes
 WORK_SIGNATURES = {

@@ -32,6 +32,7 @@ _M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 SITE_OFFSET = 0x7F4A7C15
 HI_MUL = 0x85EBCA6B
+MASK_CHUNK_ELEMS = 1 << 24   # elements hashed at once by keep_mask
 
 
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
@@ -107,14 +108,23 @@ NO_DROP_ARGS = (0, 0, 0, 1.0)   # threshold 0 keeps every element at scale 1
 def keep_mask(drop: Drop, shape: tuple[int, int, int, int], v_true: int, *,
               device: torch.device | str = "cpu") -> torch.Tensor:
     """The pre-scaled float32 keep mask of a ``[B, T, C, W]`` cv tensor whose
-    first ``v_true`` lanes are true vertices; lanes ``>= v_true`` are 0."""
+    first ``v_true`` lanes are true vertices; lanes ``>= v_true`` are 0.
+
+    Hashed a chunk of ``[T·C]`` rows at a time: the int64 temporaries of
+    :func:`bits` are 8 bytes an element, several alive at once, and a whole
+    mask at 1M vertices holds 5e8 elements."""
     b, t, c, w = shape
-    idx = torch.arange(b * t * c, device=device, dtype=torch.int64)[:, None] * v_true \
-        + torch.arange(w, device=device, dtype=torch.int64)[None, :]
-    keep = bits(drop.seed, drop.site, idx) >= drop.threshold
-    keep &= torch.arange(w, device=device)[None, :] < v_true
+    rows = b * t * c
+    lanes = torch.arange(w, device=device, dtype=torch.int64)
     scale = torch.tensor(drop.scale, dtype=torch.float32, device=device)
-    return (keep.to(torch.float32) * scale).reshape(b, t, c, w)
+    out = torch.empty((rows, w), dtype=torch.float32, device=device)
+    step = max(1, MASK_CHUNK_ELEMS // max(w, 1))
+    for r0 in range(0, rows, step):
+        idx = torch.arange(r0, min(r0 + step, rows), device=device,
+                           dtype=torch.int64)[:, None] * v_true + lanes[None, :]
+        keep = (bits(drop.seed, drop.site, idx) >= drop.threshold) & (lanes < v_true)[None, :]
+        out[r0:r0 + step] = keep.to(torch.float32) * scale
+    return out.reshape(b, t, c, w)
 
 
 def apply_cv(x: torch.Tensor, drop: Drop | None, v_true: int) -> torch.Tensor:

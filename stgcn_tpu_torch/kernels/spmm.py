@@ -1,0 +1,129 @@
+"""K10: BCSR SpMM on the vn operand ``[Vp, N]`` (port of
+``stgcn_tpu/kernels/spmm.py``, float32).
+
+The operator of ``--graph_op bcsr``, which ``make_graph_op(kind="auto")``
+picks above 4096 vertices when the RCM band is too wide for the banded
+slabs (the 1M-vertex road graph). The pack
+(:func:`stgcn_tpu_torch.graph.packing.pack_bcsr_device`) keeps each block
+row's live ``bs × bs`` tiles, row-major, and one application is
+
+    y[i·bs:(i+1)·bs, :] = scale · Σ_{k < counts[i]} tiles[i,k] @ x[cols[i,k]·bs : +bs, :]
+
+The TPU has two kernels for it, ``_spmm_pallas_resident`` (:123, x
+resident in VMEM) and ``_spmm_pallas`` (:166, x streamed by DMA), and pads
+N to a multiple of 512 and chunks the block rows by 1024 for its scalar
+memory (:222-245). The CUDA kernel (``csrc/bcsr_spmm.cu``) is one kernel
+for both: x lies in device memory and its tiles are staged in shared
+memory; any N, no chunking. A scalar ``scale`` is the kernel's alpha, never
+multiplied into the pack (the JAX op copies the pack per call,
+``ops/graph_op.py:172-173``).
+
+:class:`BcsrSpmmVjp` is the autograd Function (JAX ``bcsr_spmm_vjp``
+:248-279): forward K10 on the pack; ``dx`` K10 on the transpose pack; the
+tile-value gradient K11 (:func:`stgcn_tpu_torch.kernels.sddmm.bcsr_sddmm`)
+times the scale, computed (and ``x`` saved for it) only when the tile
+values require grad. :func:`bcsr_spmm_reference` is the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import sddmm as _sddmm
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
+                                             require_index, stream_of)
+
+# elements of the plain version's largest temporary (one chunk of block rows)
+REF_CHUNK_ELEMS = 1 << 26
+LAUNCH_NAME = "bcsr_spmm"
+
+
+class BcsrPack(NamedTuple):
+    """One direction of a BCSR operator (the JAX ``BcsrGraphOp`` arrays)."""
+
+    data: torch.Tensor     # [nbr, max_b, bs, bs] float32 row-major tiles
+    cols: torch.Tensor     # [nbr, max_b] int32 column blocks (padding: 0)
+    counts: torch.Tensor   # [nbr] int32 live tiles per block row
+
+    @property
+    def block_size(self) -> int:
+        return self.data.shape[-1]
+
+
+def bcsr_spmm_reference(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0
+                        ) -> torch.Tensor:
+    """Plain version of :func:`bcsr_spmm`: the JAX ``bcsr_spmm_reference``
+    (:38-48), gather x tiles per (row, slot) and contract, chunked over
+    block rows. Padding tiles are all zero, so no count masking is needed."""
+    nbr, max_b, bs, _ = pack.data.shape
+    n = x_vn.shape[1]
+    xb = x_vn.reshape(nbr, bs, n)
+    rows = max(1, REF_CHUNK_ELEMS // (max_b * bs * max(n, bs)))
+    ys = [torch.einsum("rkab,rkbn->ran", pack.data[s:s + rows],
+                       xb[pack.cols[s:s + rows].long()])
+          for s in range(0, nbr, rows)]
+    y = torch.cat(ys).reshape(nbr * bs, n)
+    return y if scale == 1.0 else scale * y
+
+
+def bcsr_spmm(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+    """K10. ``pack`` on the operand's device; ``x_vn`` ``[nbr·bs, N]``
+    float32, any N. Returns ``scale · (A x)``, ``[nbr·bs, N]``."""
+    if on_cpu(x_vn):
+        return bcsr_spmm_reference(pack, x_vn, scale=scale)
+    dev = cuda_device(x_vn)
+    nbr, max_b, bs, _ = pack.data.shape
+    if bs % 64 or x_vn.dim() != 2 or x_vn.shape[0] != nbr * bs:
+        raise ValueError(f"K10 needs bs % 64 == 0 and an operand [nbr·bs = {nbr * bs}, N]; got "
+                         f"bs={bs}, operand {tuple(x_vn.shape)}")
+    data = pack.data
+    if data.device != dev or data.dtype != torch.float32 or not data.is_contiguous() \
+            or data.shape[2:] != (bs, bs) or data.data_ptr() % 16:
+        raise ValueError(f"the tiles are {data.dtype} {tuple(data.shape)} on {data.device}; K10 "
+                         f"takes contiguous, 16-byte aligned float32 [nbr, max_b, bs, bs] tiles "
+                         f"on {dev}")
+    cols_p = require_index(pack.cols, "cols", (nbr, max_b), dev)
+    counts_p = require_index(pack.counts, "counts", (nbr,), dev)
+    x_p = require(x_vn, "x_vn", tuple(x_vn.shape), dev)
+    out = torch.empty(x_vn.shape, device=dev, dtype=torch.float32)
+    err = _build.library().stgcn_bcsr_spmm(data.data_ptr(), cols_p, counts_p, x_p,
+                                           out.data_ptr(), nbr, max_b, bs, x_vn.shape[1],
+                                           float(scale), stream_of(dev))
+    _build.check("bcsr_spmm", err)
+    count_launch(LAUNCH_NAME)
+    return out
+
+
+class BcsrSpmmVjp(torch.autograd.Function):
+    """``y = scale·(A x)`` on the vn operand, differentiable in ``x`` (K10 on
+    the transpose pack) and in the tile values ``data`` (K11 at the pack's
+    live tiles, times ``scale``); ``data`` is the pack's tile tensor, an
+    input so that a caller can ask for its gradient."""
+
+    @staticmethod
+    def forward(ctx, x_vn, data, pack, pack_t, scale):
+        ctx.pack, ctx.pack_t, ctx.scale = pack, pack_t, scale
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(x_vn)
+        return bcsr_spmm(pack._replace(data=data), x_vn, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dx = bcsr_spmm(ctx.pack_t, g, scale=ctx.scale) if ctx.needs_input_grad[0] else None
+        ddata = None
+        if ctx.needs_input_grad[1]:
+            (x_vn,) = ctx.saved_tensors
+            ddata = _sddmm.bcsr_sddmm(ctx.pack.cols, ctx.pack.counts, g, x_vn,
+                                      block_size=ctx.pack.block_size, scale=ctx.scale)
+        return dx, ddata, None, None, None
+
+
+def bcsr_spmm_vjp(pack: BcsrPack, pack_t: BcsrPack, x_vn: torch.Tensor, *,
+                  scale: float = 1.0) -> torch.Tensor:
+    """Differentiable K10 (JAX ``bcsr_spmm_vjp``): in ``x_vn``, and in
+    ``pack.data`` when it requires grad."""
+    return BcsrSpmmVjp.apply(x_vn, pack.data, pack, pack_t, scale)

@@ -7,9 +7,10 @@ unfused :class:`~stgcn_tpu_torch.nn.model.STGCN` holds. Each ST block runs as
 two hand-written kernels around the graph product::
 
     K1 head (prev-LN-normalize → tconv1 → gate → align)
-      → graph aggregation (DenseGraphOp.cheb_pair_cv: torch.matmul; or the
+      → graph aggregation (DenseGraphOp.cheb_pair_cv: torch.matmul; the
         cheb_pair_nv of BandedGraphOp (K5) or EllGraphOp (K6) on the
-        [N, Vp] view, no transpose)
+        [N, Vp] view, no transpose; or BcsrGraphOp.apply_vn twice (K10) on
+        the [Vp, N] transpose, ``_graph_terms``)
       → K2 tail (contraction → residual → ReLU → tconv2 → gate + LN partials)
 
 and the output head as K3 → μ/σ → K4 (:mod:`stgcn_tpu_torch.kernels.
@@ -17,7 +18,8 @@ output_head`). Activations travel between them channel-before-vertex
 ``[B, T, C, Vp]``. Per batch that is K1 ×n_blocks, K2 ×n_blocks, K3 ×1,
 K4 ×1, and in the backward K1b/K2b ×n_blocks, K3b ×1, K4b ×1; on a banded
 (ELL) operator also K5 (K6) ``pair`` ×n_blocks, and ``chain`` ×n_blocks in
-the backward. On CPU
+the backward; on a BCSR operator K10 ×2·n_blocks, and as many in the
+backward. On CPU
 tensors every kernel wrapper runs its plain version. The LayerNorm
 statistics between blocks (``ln_stats``), the graph product and the weight
 layout conversions are PyTorch ops, differentiated by autograd.
@@ -38,6 +40,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from stgcn_tpu_torch.kernels._launch import LANES
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.output_head import output_head_fused
 from stgcn_tpu_torch.kernels.vertex_fused import (
@@ -69,8 +72,32 @@ def _graph_terms(cfg: VertexBlockCfg, gop: Any, xg: torch.Tensor):
             t = gop.apply_nv(x_nv).reshape(xg.shape)
             return t, t
         return tuple(t.reshape(xg.shape) for t in gop.cheb_pair_nv(x_nv))
-    raise NotImplementedError(f"{type(gop).__name__} has neither the cv nor the nv surface; "
-                              "only the dense, banded and ELL graph operators are ported")
+    if hasattr(gop, "apply_vn"):
+        # an operator on the folded [V, N] operand (BCSR: K10): a transpose
+        # each way; rows past the operator's pad are zero padding
+        x_vn = xg.reshape(-1, xg.shape[-1]).T[:_op_pad(gop)]
+        if one:
+            t = _from_vn(gop.apply_vn(x_vn), xg)
+            return t, t
+        t1 = gop.apply_vn(x_vn)
+        t2 = gop.apply_vn(t1, scale=2.0) - x_vn
+        return _from_vn(t1, xg), _from_vn(t2, xg)
+    raise NotImplementedError(f"{type(gop).__name__} has neither the cv, the nv nor the vn "
+                              "surface; only the dense, banded, ELL and BCSR graph operators "
+                              "are ported")
+
+
+def _from_vn(y_vn: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``[W, N]`` → the cv layout of ``like`` (``[B, T, C, Vp]``), rows past W
+    zero, contiguous (K2 reads it as such)."""
+    y_vn = F.pad(y_vn, (0, 0, 0, like.shape[-1] - y_vn.shape[0]))
+    return y_vn.T.contiguous().reshape(like.shape)
+
+
+def _op_pad(gop: Any) -> int | None:
+    """The operator's padded vertex count: ``v_pad`` (dense, banded, ELL)
+    or ``n_vertex_pad`` (BCSR), as the JAX package reads it."""
+    return getattr(gop, "v_pad", None) or getattr(gop, "n_vertex_pad", None)
 
 
 def _block_weights(blk: dict, graph_conv_type: str):
@@ -112,11 +139,13 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     made by :func:`stgcn_tpu_torch.nn.convert.params_from_jax`), or
     ``dict(model.named_parameters())`` to train; ``model`` supplies the
     configuration. ``x``: ``[B, T, V, C]`` on the device the kernels run on
-    (CUDA; CPU tensors take the plain versions). ``gop`` must expose
-    ``v_pad``, a 128-aligned padded vertex count, and the cv surface
-    (:class:`~stgcn_tpu_torch.ops.DenseGraphOp`) or the nv one
+    (CUDA; CPU tensors take the plain versions). ``gop`` must expose a
+    padded vertex count (``v_pad``, or ``n_vertex_pad``; the kernels' lanes
+    round it up to a multiple of 128) and the cv surface
+    (:class:`~stgcn_tpu_torch.ops.DenseGraphOp`), the nv one
     (:class:`~stgcn_tpu_torch.ops.BandedGraphOp`,
-    :class:`~stgcn_tpu_torch.ops.EllGraphOp`). With ``deterministic=False``
+    :class:`~stgcn_tpu_torch.ops.EllGraphOp`) or the vn one
+    (:class:`~stgcn_tpu_torch.ops.BcsrGraphOp`). With ``deterministic=False``
     and a nonzero droprate, ``seed`` (one step's dropout seed,
     :func:`stgcn_tpu_torch.kernels.dropout.step_seed`) keys the masks.
     Returns ``[B, 1, V, 1]`` float32.
@@ -134,10 +163,14 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     def drop(site: int) -> Drop | None:
         return Drop(model.droprate, seed, site) if training else None
 
-    v_pad = getattr(gop, "v_pad", None)
-    if v_pad is None:
+    gv = _op_pad(gop)
+    if gv is None:
         raise ValueError("fused_sparse_forward needs a graph operator exposing a padded "
-                         "vertex count v_pad (DenseGraphOp, BandedGraphOp, EllGraphOp)")
+                         "vertex count, v_pad (DenseGraphOp, BandedGraphOp, EllGraphOp) or "
+                         "n_vertex_pad (BcsrGraphOp)")
+    # K1-K4 take whole 128-lane blocks (the JAX _round_up(gv, tile_v)); the
+    # dense, banded and ELL pads are multiples already, a BCSR one may not be
+    v_pad = -(-gv // LANES) * LANES
     b, _, v_true, c_x = x.shape
 
     x = x.float()

@@ -1,5 +1,5 @@
 """On-device graph-shift-operator application (port of
-``stgcn_tpu/ops/graph_op.py:47-137,186-417,509-601``: the dense kind, the
+``stgcn_tpu/ops/graph_op.py:30-601``: the dense kind, the BCSR kind, the
 banded kind's nv pack family and the blocked-ELL kind).
 
 The reference applies its dense GSO with ``torch.einsum('hi,btij->bthj')``
@@ -15,10 +15,14 @@ to the layers at call time:
   K5 (:mod:`stgcn_tpu_torch.kernels.banded_nv`) on the ``[N, V]`` operand;
 - :class:`EllGraphOp` — the O(nnz) blocked-ELL pack (f32 or int8) that
   carries the 1M-vertex graph, applied by K6
-  (:mod:`stgcn_tpu_torch.kernels.ell_nv`) on the same operand.
+  (:mod:`stgcn_tpu_torch.kernels.ell_nv`) on the same operand;
+- :class:`BcsrGraphOp` — the same tiles row-major, applied by K10
+  (:mod:`stgcn_tpu_torch.kernels.spmm`) on the folded ``[V, N]`` operand:
+  what ``auto`` picks above 4096 vertices when the RCM band is too wide for
+  the banded slabs (the 1M-vertex road graph), as in the JAX package.
 
-The other sparse kinds (BCSR, the int8 banded pack) come with their kernels
-in later slices of the port and raise here.
+The int8 banded kind comes with its kernel in a later slice of the port and
+raises here.
 """
 
 from __future__ import annotations
@@ -31,10 +35,21 @@ import torch
 
 from stgcn_tpu_torch.device import resolve_device
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator, effectively_symmetric
-from stgcn_tpu_torch.graph.packing import pack_ell_device
+from stgcn_tpu_torch.graph.packing import pack_bcsr_device, pack_ell_device
 from stgcn_tpu_torch.kernels import banded_nv as nvk
 from stgcn_tpu_torch.kernels import ell_nv as ek
+from stgcn_tpu_torch.kernels import spmm as sk
 from stgcn_tpu_torch.kernels.banded_spmm import _window_meta, banded_viable, pack_banded_device
+
+
+def _fold_to_vn(x: torch.Tensor) -> torch.Tensor:
+    """``[..., V, C]`` → ``[V, prod(...)·C]``, V leading (the JAX ``_fold_to_vn``)."""
+    return x.movedim(-2, 0).reshape(x.shape[-2], -1)
+
+
+def _unfold_from_vn(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_fold_to_vn` for an operand shaped like ``like``."""
+    return y.reshape(y.shape[0], *like.shape[:-2], like.shape[-1]).movedim(0, -2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +212,47 @@ class EllGraphOp(_NvSurfaces):
         return ek.ell_cheb_pair_nv(self.pack, self.pack_t, self._pad(x_nv))
 
 
+@dataclasses.dataclass(frozen=True)
+class BcsrGraphOp:
+    """Blocked-CSR GSO applied by K10 (the JAX ``BcsrGraphOp``,
+    ``ops/graph_op.py:139-184``): per ``bs``-row block of the GSO its live
+    ``bs × bs`` tiles, row-major (:class:`~stgcn_tpu_torch.kernels.spmm.
+    BcsrPack`), and the same for ``Aᵀ`` (one shared pack when the GSO is
+    symmetric). Its surfaces are the vn operand ``[V, N]`` and, through a
+    fold, the channels-last ``[..., V, C]`` one; like the JAX operator it has
+    no ``cheb_pair``, so the Cheb layer applies it twice (``gop(x)``, then
+    ``gop(t1, scale=2.0) − x``). A scalar ``scale`` is K10's alpha, never
+    multiplied into the pack. Differentiable in the operand, and in
+    ``pack.data`` when that requires grad (K11)."""
+
+    pack: sk.BcsrPack
+    pack_t: sk.BcsrPack
+    n_vertex: int
+
+    @property
+    def block_size(self) -> int:
+        return self.pack.block_size
+
+    @property
+    def n_vertex_pad(self) -> int:
+        return self.pack.cols.shape[0] * self.block_size
+
+    def apply_vn(self, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """``[W, N] → [W, N]``, ``W <= n_vertex_pad`` rows (zero-padded to
+        it for the kernel, the result cut back)."""
+        w, pad = x_vn.shape[0], self.n_vertex_pad - x_vn.shape[0]
+        if x_vn.dim() != 2 or pad < 0:
+            raise ValueError(f"vn operand must be [W <= {self.n_vertex_pad}, N], got "
+                             f"{tuple(x_vn.shape)}")
+        x_vn = torch.nn.functional.pad(x_vn, (0, 0, 0, pad)) if pad else x_vn.contiguous()
+        y = sk.bcsr_spmm_vjp(self.pack, self.pack_t, x_vn, scale=scale)
+        return y[:w] if pad else y
+
+    def __call__(self, x: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """Channels-last ``[..., V, C]`` application."""
+        return _unfold_from_vn(self.apply_vn(_fold_to_vn(x), scale=scale), x)
+
+
 def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
                    device: str | torch.device = "cuda",
                    dtype: torch.dtype = torch.float32) -> DenseGraphOp:
@@ -249,26 +305,50 @@ def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bo
                       n_vertex=gso.n_vertex)
 
 
-_LATER = {"bcsr": "the --graph_op bcsr slice (blocked-ELL SpMM and SDDMM kernels K10/K11)",
-          "banded_int8": "the banded_int8 slice (K5 with per-column scales)"}
+def bcsr_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
+                  device: str | torch.device = "cuda") -> BcsrGraphOp:
+    """The JAX ``bcsr_graph_op`` (:420-442), packed on the device, float32,
+    256 × 256 tiles as its default. A symmetric GSO (every ``sym_*``
+    normalization, up to rounding) reuses the forward pack for the
+    transpose — the same device tensors; the JAX op packs ``Aᵀ`` apart
+    (:434), the same numbers, and at 1M vertices 26.6 GB where one pack is
+    13.3 GB."""
+    dev = resolve_device(device)
+    csr = sp.csr_matrix(gso.matrix)
+
+    def pack(m):
+        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, device=dev))
+
+    fwd = pack(csr)
+    return BcsrGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),
+                       n_vertex=gso.n_vertex)
+
+
+def auto_kind(gso: GraphShiftOperator) -> str:
+    """The representation ``auto`` picks (the JAX rule, ``ops/graph_op.py:
+    580-586``): dense up to 4096 vertices; above that the banded slabs when
+    the (RCM-ordered) band is narrow, else BCSR."""
+    if gso.n_vertex <= 4096:
+        return "dense"
+    return "banded" if banded_viable(gso.matrix) else "bcsr"
+
+
+_LATER = {"banded_int8": "the banded_int8 slice (K5 with per-column scales)"}
 
 
 def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
                   device: str | torch.device = "cuda", **kw
-                  ) -> DenseGraphOp | BandedGraphOp | EllGraphOp:
+                  ) -> DenseGraphOp | BandedGraphOp | EllGraphOp | BcsrGraphOp:
     """Pick a representation (the JAX rule, ``ops/graph_op.py:574-601``):
-    dense up to 4096 vertices; above that the banded slabs when the
-    (RCM-ordered) band is narrow, else BCSR — which is not ported yet and
-    raises, as does the int8 banded kind, naming the slice that brings
-    them. ``ell`` / ``ell_int8`` are asked for by name, as in the JAX
-    package."""
+    ``auto`` as :func:`auto_kind`; ``ell`` / ``ell_int8`` are asked for by
+    name, as in the JAX package. The int8 banded kind is not ported yet and
+    raises, naming the slice that brings it."""
     if kind == "auto":
-        if gso.n_vertex <= 4096:
-            kind = "dense"
-        else:
-            kind = "banded" if banded_viable(gso.matrix) else "bcsr"
+        kind = auto_kind(gso)
     if kind == "dense":
         return dense_graph_op(gso, device=device, **kw)
+    if kind == "bcsr":
+        return bcsr_graph_op(gso, device=device, **kw)
     if kind == "banded":
         return banded_graph_op(gso, device=device, **kw)
     if kind in ("ell", "ell_int8"):

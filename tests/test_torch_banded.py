@@ -30,8 +30,8 @@ from stgcn_tpu_torch.kernels import banded_spmm as tbs
 from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
 from stgcn_tpu_torch.nn.model import STGCN
-from stgcn_tpu_torch.ops import (BandedGraphOp, DenseGraphOp, EllGraphOp, banded_graph_op,
-                                 dense_graph_op)
+from stgcn_tpu_torch.ops import (BandedGraphOp, BcsrGraphOp, DenseGraphOp, EllGraphOp,
+                                 banded_graph_op, dense_graph_op)
 from stgcn_tpu_torch.ops import make_graph_op
 from tests.torch_parity_utils import BANDED_V as V
 from tests.torch_parity_utils import GATE_CASES, B, assert_grads, banded_gsos, rand, t, to_np
@@ -200,16 +200,17 @@ def test_forward_on_banded_op_matches_jax(gct, ks, act, bs):
 
 def test_make_graph_op_routing():
     """auto: dense up to 4096 vertices, banded above when the band is narrow,
-    BCSR (not ported: raises) when it is not; ell / ell_int8 by name; the
-    unported kinds raise."""
+    BCSR when it is not; bcsr, ell / ell_int8 by name; the unported kind
+    raises."""
     _, _, tart = banded_gsos()
     assert isinstance(make_graph_op(tart, "auto", device="cpu"), DenseGraphOp)
     op = make_graph_op(tart, "banded", device="cpu")
     assert isinstance(op, BandedGraphOp) and op.slabs_nv.shape[-1] == 256
     big = TS.random_road_graph(5000, k_neighbors=4, seed=1)
     art = build_gso(big, "sym_norm_lap", cheb=False)
-    with pytest.raises(NotImplementedError, match="bcsr"):   # unordered: a wide band
-        make_graph_op(art, "auto", device="cpu")
+    op = make_graph_op(art, "auto", device="cpu")   # unordered: a wide band
+    assert isinstance(op, BcsrGraphOp) and op.n_vertex == 5000 and op.block_size == 256
+    assert op.pack_t is op.pack and op.n_vertex_pad == 20 * 256
     art = GraphShiftOperator(matrix=permute_matrix(art.matrix, rcm_ordering(art.matrix)),
                              gso_type=art.gso_type, cheb_rescaled=False, lam_max=None)
     op = make_graph_op(art, "auto", device="cpu")
@@ -219,9 +220,11 @@ def test_make_graph_op_routing():
         op = make_graph_op(tart, kind, device="cpu")
         assert isinstance(op, EllGraphOp) and op.pack.quantized == (kind == "ell_int8")
         assert op.pack_t is op.pack and op.block_size == 256 and op.n_vertex == V
-    for kind in ("bcsr", "banded_int8"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_graph_op(tart, kind, device="cpu")
+    op = make_graph_op(tart, "bcsr", device="cpu")
+    assert isinstance(op, BcsrGraphOp) and op.pack_t is op.pack and op.block_size == 256
+    assert op.n_vertex == V and op.n_vertex_pad == 768
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_graph_op(tart, "banded_int8", device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         make_graph_op(tart, "csr", device="cpu")
 

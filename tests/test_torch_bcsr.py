@@ -1,0 +1,279 @@
+"""The port's BCSR route against the JAX package's: the pack (the device
+scatter, run on the CPU), the plain versions of K10 (SpMM) and K11 (SDDMM),
+the differentiable SpMM's operand and tile-value gradients, the operator's
+surfaces, the unfused model's forward and parameter gradients, the fused
+forward's vn branch and a short unfused training trajectory on a BCSR
+operator. V = 600 and 520, RCM-ordered, bs = 64 (block rows with fewer
+live tiles than max_b, so padding slots; 520 vertices pad to 576, not a
+multiple of 128), B = 3; the JAX side runs its off-TPU branches
+(``use_pallas=False``: ``bcsr_spmm_reference`` / ``bcsr_sddmm_reference``;
+the fused forward with ``use_pallas="xla"``)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from stgcn_tpu import native
+from stgcn_tpu.data import datasets as JD
+from stgcn_tpu.data.synthetic import generate_synthetic_vel
+from stgcn_tpu.graph.packing import pack_bcsr as jax_pack_bcsr
+from stgcn_tpu.kernels import sddmm as jsd
+from stgcn_tpu.kernels import spmm as jsp
+from stgcn_tpu.nn.fused_sparse import fused_sparse_forward as jax_fused_sparse_forward
+from stgcn_tpu.nn.model import STGCN as JaxSTGCN
+from stgcn_tpu.ops.graph_op import bcsr_graph_op as jax_bcsr_graph_op
+from stgcn_tpu.train.loop import TrainConfig as JaxTrainConfig
+from stgcn_tpu.train.loop import Trainer as JaxTrainer
+from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler
+from stgcn_tpu_torch.graph import build_gso, rcm_ordering
+from stgcn_tpu_torch.graph.packing import pack_bcsr_device
+from stgcn_tpu_torch.kernels import sddmm as tsd
+from stgcn_tpu_torch.kernels import spmm as tsp
+from stgcn_tpu_torch.nn.convert import params_from_jax
+from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+from stgcn_tpu_torch.nn.model import STGCN
+from stgcn_tpu_torch.ops import BcsrGraphOp, bcsr_graph_op
+from stgcn_tpu_torch.train import TrainConfig, Trainer
+from tests.torch_parity_utils import BANDED_V as V
+from tests.torch_parity_utils import GATE_CASES, B, assert_grads, banded_gsos, rand, t, to_np
+
+BS = 64
+V_FUSED = 520       # 9 block rows of 64: n_vertex_pad 576, the fused lanes 640
+KERNEL_TOL = 2e-5   # K10 / K11 plain versions and the VJP against the JAX package (f32 sums)
+MODEL_TOL = 2e-5    # unfused model on the BCSR op (tests/test_vertex_fused.py:376)
+FUSED_TOL = 2e-4    # fused forward (tests/test_vertex_fused.py:381)
+T_STEPS, N_HIS, N_PRED = 23, 12, 3   # 8 training windows: 2 full batches of 3 and a tail
+
+
+def _ops(gso_type="sym_norm_lap", n=V, seed=0, cheb=True):
+    """(JAX op, port op) of one RCM-ordered synthetic road graph."""
+    _, jart, tart = banded_gsos(gso_type, n=n, seed=seed, cheb=cheb)
+    return (jax_bcsr_graph_op(jart, block_size=BS, use_pallas=False),
+            bcsr_graph_op(tart, block_size=BS, device="cpu"))
+
+
+@pytest.mark.parametrize("bs", [64, 256])
+@pytest.mark.parametrize("gso_type", ["sym_norm_lap", "rw_norm_lap"])
+def test_pack_equals_jax(gso_type, bs):
+    """The scattered pack equals the JAX pack exactly: float32 tiles (each
+    value rounded once), ascending slot order, padding slots all zero at
+    block column 0. Held against ``pack_bcsr`` as the JAX operator calls
+    it (its native packer where ``_libstgcn.so`` loads) and against its
+    scipy route on sorted column indices (on the unsorted CSR of an
+    RCM-permuted GSO that route orders a block row's slots by first
+    appearance, which the native packer and the port do not). The
+    operator's packs (rw_norm_lap is not symmetric: a transpose pack of its
+    own) equal the JAX operator's."""
+    _, jart, tart = banded_gsos(gso_type)
+    got = pack_bcsr_device(tart.matrix, block_size=bs, device="cpu")
+    refs = [jax_pack_bcsr(sp.csr_matrix(jart.matrix).sorted_indices(), block_size=bs,
+                          use_native=False)]
+    if native.available():
+        refs.append(jax_pack_bcsr(jart.matrix, block_size=bs))
+    for ref in refs:
+        for g, r in zip(got, ref):
+            r = r.astype(np.float32) if r.dtype == np.float64 else r
+            assert g.numpy().dtype == r.dtype
+            np.testing.assert_array_equal(g.numpy(), r)
+    data, cols, counts = (a.numpy() for a in got)
+    if bs == 64:   # some block rows hold padding slots: all zero, at block column 0
+        live = np.arange(cols.shape[1])[None, :] < counts[:, None]
+        assert not live.all() and (cols[~live] == 0).all() and (data[~live] == 0).all()
+    jop = jax_bcsr_graph_op(jart, block_size=bs, use_pallas=False)
+    top = bcsr_graph_op(tart, block_size=bs, device="cpu")
+    assert isinstance(top, BcsrGraphOp) and top.n_vertex_pad == jop.n_vertex_pad
+    assert top.n_vertex == V and top.block_size == bs
+    assert (top.pack_t is top.pack) == (gso_type == "sym_norm_lap")
+    for pack, want in ((top.pack, (jop.block_data, jop.block_cols, jop.block_counts)),
+                       (top.pack_t, (jop.block_data_t, jop.block_cols_t, jop.block_counts_t))):
+        for g, w in zip(pack, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+def test_k10_plain_matches_jax(scale):
+    """K10's plain version (scale as alpha) against the JAX ``bcsr_spmm``
+    off the TPU on the pack times the scale, as the JAX operator applies
+    it; N is no tile multiple."""
+    jop, top = _ops("rw_norm_lap")
+    x = rand(np.random.default_rng(7), top.n_vertex_pad, 3 * 5 * 16 + 1)
+    got = tsp.bcsr_spmm(top.pack, t(x), scale=scale)
+    ref = jsp.bcsr_spmm(jop.block_data * scale, jop.block_cols, jnp.asarray(x),
+                        counts=jop.block_counts, block_size=BS, use_pallas=False)
+    assert_grads([got.numpy()], [np.asarray(ref)], atol=KERNEL_TOL)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_k11_plain_matches_jax(scale):
+    """K11's plain version against the JAX ``bcsr_sddmm`` off the TPU: the
+    live tiles of ``g xᵀ``, padding slots exactly zero."""
+    jop, top = _ops("rw_norm_lap")
+    rng = np.random.default_rng(8)
+    g, x = (rand(rng, top.n_vertex_pad, 97) for _ in range(2))
+    got = tsd.bcsr_sddmm(top.pack.cols, top.pack.counts, t(g), t(x), block_size=BS,
+                         scale=scale)
+    ref = scale * jsd.bcsr_sddmm(jop.block_cols, jnp.asarray(g), jnp.asarray(x),
+                                 counts=jop.block_counts, block_size=BS, use_pallas=False)
+    assert got.shape == ref.shape
+    assert_grads([got.numpy()], [np.asarray(ref)], atol=KERNEL_TOL)
+    live = torch.arange(got.shape[1])[None, :] < top.pack.counts[:, None]
+    assert float(got[~live].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("gso_type", ["sym_norm_lap", "rw_norm_lap"])
+def test_vjp_matches_jax(gso_type, scale):
+    """``bcsr_spmm_vjp``'s operand gradient (K10 on the transpose pack) and
+    tile-value gradient (K11 times the scale) against ``jax.grad`` of the
+    JAX ``bcsr_spmm_vjp`` on the scaled packs, as the JAX operator builds
+    them; without a tile-value request nothing is saved for it."""
+    jop, top = _ops(gso_type)
+    rng = np.random.default_rng(11)
+    x, w = rand(rng, top.n_vertex_pad, 96), rand(rng, top.n_vertex_pad, 96)
+
+    def jloss(data, v):
+        y = jsp.bcsr_spmm_vjp(data * scale, jop.block_cols, jop.block_counts,
+                              jop.block_data_t * scale, jop.block_cols_t, jop.block_counts_t,
+                              v, BS, False)
+        return jnp.sum(y * jnp.asarray(w))
+
+    ddata_ref, dx_ref = jax.grad(jloss, argnums=(0, 1))(jop.block_data, jnp.asarray(x))
+    data = top.pack.data.clone().requires_grad_(True)
+    pack = top.pack._replace(data=data)
+    pack_t = pack if top.pack_t is top.pack else top.pack_t
+    xt = t(x).requires_grad_(True)
+    y = tsp.bcsr_spmm_vjp(pack, pack_t, xt, scale=scale)
+    ddata, dx = torch.autograd.grad((y * t(w)).sum(), [data, xt])
+    assert_grads([dx.numpy(), ddata.numpy()], [np.asarray(dx_ref), np.asarray(ddata_ref)],
+                 atol=KERNEL_TOL)
+    y = tsp.bcsr_spmm_vjp(top.pack, top.pack_t, xt, scale=scale)
+    assert y.grad_fn.saved_tensors == ()
+
+
+@pytest.mark.parametrize("gso_type", ["sym_norm_lap", "rw_norm_lap"])
+def test_bcsr_op_surfaces_match_jax(gso_type):
+    """``__call__`` (scale 1 and 2) and ``apply_vn`` on a full and on a
+    short (W = V < n_vertex_pad) operand against the JAX operator."""
+    jop, top = _ops(gso_type)
+    rng = np.random.default_rng(2)
+    x = rand(rng, B, 4, V, 5)
+    x_vn = np.ascontiguousarray(x.transpose(2, 0, 1, 3).reshape(V, -1))
+    x_pad = rand(rng, top.n_vertex_pad, 37)
+    cases = [
+        (top(t(x)), jop(jnp.asarray(x))),
+        (top(t(x), scale=2.0), jop(jnp.asarray(x), scale=2.0)),
+        (top.apply_vn(t(x_vn)), jop.apply_vn(jnp.asarray(x_vn))),
+        (top.apply_vn(t(x_pad), scale=2.0), jop.apply_vn(jnp.asarray(x_pad), scale=2.0)),
+    ]
+    for i, (got, ref) in enumerate(cases):
+        assert got.shape == ref.shape, i
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=KERNEL_TOL,
+                                   rtol=KERNEL_TOL, err_msg=f"case {i}")
+    with pytest.raises(ValueError, match="vn operand"):
+        top.apply_vn(torch.zeros(top.n_vertex_pad + 1, 3))
+
+
+@pytest.mark.parametrize("gct,ks,act", GATE_CASES)
+def test_forward_and_grads_on_bcsr_op_match_jax(gct, ks, act):
+    """The unfused model (the Cheb layer's generic route: ``gop(x)``, then
+    ``gop(t1, scale=2.0) − x``; K10 plain version) against JAX
+    ``model.apply``, forward and every parameter's gradient; the fused
+    forward's vn branch (K1-K4 around K10, plain versions) against JAX
+    ``fused_sparse_forward(use_pallas="xla")`` on the same op. V = 520:
+    the operator pads to 576 rows, the fused lanes to 640."""
+    jop, top = _ops(n=V_FUSED, seed=3, cheb=gct == "cheb_graph_conv")
+    jm = JaxSTGCN(n_his=N_HIS, ks=ks, graph_conv_type=gct, act_func=act)
+    rng = np.random.default_rng(1)
+    x, y = rand(rng, B, N_HIS, V_FUSED, 1), rand(rng, B, 1, V_FUSED, 1)
+    jparams = to_np(jm.init(jax.random.PRNGKey(3), jnp.asarray(x), jop,
+                            deterministic=True)["params"])
+    tm = STGCN(N_HIS, V_FUSED, ks=ks, graph_conv_type=gct, act_func=act, device="cpu")
+    tm.load_state_dict(params_from_jax(jparams))
+
+    def jloss(p):
+        pred = jm.apply({"params": p}, jnp.asarray(x), jop, deterministic=True)
+        return jnp.mean((pred - jnp.asarray(y)) ** 2), pred
+
+    (_, ref), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+    ref_fused = jax_fused_sparse_forward(jparams, jnp.asarray(x), jop, jm, deterministic=True,
+                                         use_pallas="xla")
+    params = dict(tm.named_parameters())
+    got = tm(t(x), top)
+    grads = torch.autograd.grad(((got - t(y)) ** 2).mean(), list(params.values()))
+    with torch.no_grad():
+        got_fused = fused_sparse_forward(tm.state_dict(), t(x), top, tm)
+    assert got.shape == got_fused.shape == ref.shape == (B, 1, V_FUSED, 1)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=MODEL_TOL,
+                               rtol=MODEL_TOL)
+    want = params_from_jax(to_np(jgrads))
+    assert set(want) == set(params)
+    assert_grads([g.numpy() for g in grads], [want[k].numpy() for k in params], atol=MODEL_TOL)
+    np.testing.assert_allclose(got_fused.numpy(), np.asarray(ref_fused), atol=FUSED_TOL,
+                               rtol=FUSED_TOL)
+    np.testing.assert_allclose(got_fused.numpy(), np.asarray(ref), atol=FUSED_TOL,
+                               rtol=FUSED_TOL)
+
+
+@pytest.mark.parametrize("kind", ["dense", "banded", "ell", "bcsr"])
+@pytest.mark.parametrize("one", [False, True])
+def test_graph_terms_are_contiguous_cv(kind, one):
+    """The fused forward's graph terms reach K2 in the contiguous cv layout
+    ``[B, T, C, Vp]`` on every operator surface (the CUDA kernel refuses a
+    strided operand; the plain versions on the CPU would not notice): the
+    cv (dense), nv (banded, ELL) and vn (BCSR, two transposes) branches;
+    ``one`` is the one-term case (``graph_conv``, Ks = 2)."""
+    from stgcn_tpu_torch.kernels.vertex_fused import VertexBlockCfg
+    from stgcn_tpu_torch.nn.fused_sparse import _graph_terms, _op_pad
+    from stgcn_tpu_torch.ops import make_graph_op
+
+    _, _, tart = banded_gsos()
+    gop = make_graph_op(tart, kind, device="cpu")
+    v_pad = -(-_op_pad(gop) // 128) * 128
+    cfg = VertexBlockCfg(kt=3, ks=2 if one else 3, act_func="glu",
+                         graph_conv_type="cheb_graph_conv", v_true=V, v_pad=v_pad, t_in=8,
+                         c_in=16, c0=16, c1=8, c2=16, apply_ln=False)
+    xg = torch.nn.functional.pad(t(rand(np.random.default_rng(3), B, 6, 8, V)),
+                                 (0, v_pad - V))
+    for term in _graph_terms(cfg, gop, xg):
+        assert term.shape == xg.shape and term.is_contiguous()
+        assert float(term[..., V:].abs().max()) == 0.0
+
+
+def test_unfused_trajectory_on_bcsr_op_matches_jax_trainer(tmp_path):
+    """2 unfused epochs on the BCSR operator, droprate 0, from the same
+    weights: the port's Trainer against the JAX one at rtol 2e-4
+    (tests/test_torch_train.py)."""
+    adj, jart, tart = banded_gsos(n=V_FUSED, seed=3)
+    perm = rcm_ordering(build_gso(adj, "sym_norm_lap", cheb=True).matrix)
+    vel = generate_synthetic_vel(adj, T_STEPS, seed=12)[:, perm]
+    jscaler = JD.ZScoreScaler()
+    jseries = jscaler.fit_transform(vel).astype(np.float32)
+    jds = lambda a: JD.ForecastDataset(jnp.asarray(a), N_HIS, N_PRED)  # noqa: E731
+    jcfg = JaxTrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=0.0, batch_size=B,
+                          ckpt_dir=str(tmp_path / "jax"), dataset_name="toy")
+    jop = jax_bcsr_graph_op(jart, block_size=BS, use_pallas=False)
+    jtr = JaxTrainer(jcfg, JaxSTGCN(n_his=N_HIS, droprate=0.0), jop, jds(jseries),
+                     jds(jseries[:20]), jds(jseries[:20]), jscaler)
+    state = params_from_jax(to_np(jax.device_get(jtr.params)))
+    ref = []
+    for _ in range(2):
+        ref.append(jtr.train_epoch())
+        jtr.epoch += 1
+
+    scaler = ZScoreScaler().fit(vel)
+    series = scaler.transform(vel)
+    ds = lambda a: ForecastDataset.from_numpy(a, N_HIS, N_PRED, device="cpu")  # noqa: E731
+    model = STGCN(N_HIS, V_FUSED, droprate=0.0, device="cpu")
+    model.load_state_dict(state)
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=0.0, batch_size=B,
+                      ckpt_dir=str(tmp_path / "port"), dataset_name="toy")
+    tr = Trainer(cfg, model, bcsr_graph_op(tart, block_size=BS, device="cpu"), ds(series),
+                 ds(series[:20]), ds(series[:20]), scaler, device="cpu")
+    got = []
+    for _ in range(2):
+        got.append(tr.train_epoch())
+        tr.epoch += 1
+    np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-5)

@@ -2,9 +2,9 @@
 package's: the same flags and defaults, ``build_trainer`` on PeMSD7(M)
 (V = 228) with ``--graph_op banded --fused True`` — the RCM order, the pack
 (one block row: the window clamp and padding edges), the split series and
-the scaler — and with ``--graph_op ell_int8``, a whole CPU run through
-``main`` that prints the reference test line, and the refusals of what is
-not ported."""
+the scaler — with ``--graph_op ell_int8`` and ``bcsr``, a whole CPU run
+through ``main`` that prints the reference test line, and the refusals of
+what is not ported (and of what the JAX CLI cannot run either)."""
 
 import importlib
 from pathlib import Path
@@ -14,7 +14,7 @@ import pytest
 import scipy.sparse as sp
 
 from stgcn_tpu_torch.data import synthetic as TS
-from stgcn_tpu_torch.ops import BandedGraphOp, EllGraphOp
+from stgcn_tpu_torch.ops import BandedGraphOp, BcsrGraphOp, EllGraphOp
 
 # the modules (each package's __init__ re-exports the function ``main``)
 jcli = importlib.import_module("stgcn_tpu.cli.main")
@@ -106,8 +106,51 @@ def test_unported_options_raise(flags, match):
         tcli.main(["--dataset", "pemsd7-m", "--data_root", DATA, "--platform", "cpu", *flags])
 
 
+def test_build_trainer_bcsr_matches_jax(tmp_path):
+    """``--graph_op bcsr`` by name: the graph keeps its order (no RCM, as in
+    the JAX CLI), the same BCSR pack as the JAX CLI's, and the same split
+    series to the last bit but one: the JAX loader's array is column-major
+    (pandas), so numpy sums the scaler's column means in another order (2
+    of 2M elements 1 ulp apart; the RCM-permuted copies above are
+    row-major in both packages and equal)."""
+    argv = ["--dataset", "pemsd7-m", "--graph_op", "bcsr", "--fused", "True",
+            "--ckpt_dir", str(tmp_path / "ck")]
+    kw = dict(dataset="pemsd7-m", data_root=DATA, graph_op_kind="bcsr")
+    jtr = jcli.build_trainer(jcli.config_from_args(jcli.get_parameters(argv)), **kw)
+    ttr = tcli.build_trainer(tcli.config_from_args(tcli.get_parameters(argv)), device="cpu",
+                             **kw)
+    gop, jop = ttr.gop, jtr.gop
+    assert isinstance(gop, BcsrGraphOp) and gop.n_vertex_pad == jop.n_vertex_pad == 256
+    for got, ref in zip(gop.pack, (jop.block_data, jop.block_cols, jop.block_counts)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    for split in ("train_ds", "val_ds", "test_ds"):
+        np.testing.assert_allclose(getattr(ttr, split).series.numpy(),
+                                   np.asarray(getattr(jtr, split).series), rtol=2.5e-7, atol=0)
+    assert ttr.cfg.fused and ttr.steps_per_epoch == jtr.steps_per_epoch
+
+
 def test_sparse_kinds_not_ported_raise(tmp_path):
+    """``banded_int8`` is not ported; ``--graph_op bcsr`` builds a Trainer;
+    and ``--fused True`` with ``auto`` picking bcsr (a 5000-vertex graph
+    whose hub vertex keeps the RCM band wider than the banded slabs take)
+    raises a TypeError in both packages: the JAX CLI asks ``bcsr_graph_op``
+    for nv packs it has no argument for."""
     cfg = tcli.config_from_args(tcli.get_parameters(["--ckpt_dir", str(tmp_path)]))
-    with pytest.raises(NotImplementedError, match="bcsr"):
-        tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA, graph_op_kind="bcsr",
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="banded_int8"):
+        tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA,
+                           graph_op_kind="banded_int8", device="cpu")
+    tr = tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA, graph_op_kind="bcsr",
+                            device="cpu")
+    assert isinstance(tr.gop, BcsrGraphOp) and not tr.cfg.fused
+    (tmp_path / "hub").mkdir()
+    adj = sp.lil_matrix(TS.random_road_graph(5000, k_neighbors=4, seed=2))
+    adj[0, 1:] = 1.0
+    adj[1:, 0] = 1.0
+    sp.save_npz(tmp_path / "hub" / "adj.npz", adj.tocsr())
+    argv = ["--graph_op", "auto", "--fused", "True", "--ckpt_dir", str(tmp_path / "ck")]
+    kw = dict(dataset="hub", data_root=str(tmp_path), graph_op_kind="auto")
+    with pytest.raises(TypeError, match="nv"):
+        jcli.build_trainer(jcli.config_from_args(jcli.get_parameters(argv)), **kw)
+    with pytest.raises(TypeError, match="--graph_op bcsr"):
+        tcli.build_trainer(tcli.config_from_args(tcli.get_parameters(argv)), device="cpu",
+                           **kw)

@@ -43,16 +43,16 @@ def test_fused_forward_falls_back_above_ks3():
 
 
 def test_fused_forward_training_mode_not_ported():
-    """What training mode still lacks: a graph operator with neither the
-    dense cv surface nor the nv one of the banded and blocked-ELL operators
-    (the BCSR operator of a later slice) raises instead of running."""
+    """A graph operator with none of the surfaces of the ported operators
+    (the dense cv one, the nv one of the banded and blocked-ELL operators,
+    the vn one of the BCSR operator) raises instead of running."""
     _, _, _, tm, top, x = setup_model()
 
     class SparseStandIn:
         v_pad = top.v_pad
 
     with pytest.raises(NotImplementedError,
-                       match="only the dense, banded and ELL graph operators are ported"):
+                       match="only the dense, banded, ELL and BCSR graph operators are ported"):
         fused_sparse_forward(dict(tm.named_parameters()), t(x), SparseStandIn(), tm,
                              deterministic=False, seed=1)
 

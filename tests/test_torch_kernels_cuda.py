@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K4, their backward kernels K1b-K4b, the banded nv
-SpMM K5 and the blocked-ELL nv SpMM K6 against their plain PyTorch versions,
-on a card; the kernels' dropout masks against the plain mask bit for bit.
+SpMM K5, the blocked-ELL nv SpMM K6 and the BCSR SpMM K10 and SDDMM K11
+against their plain PyTorch versions, on a card; the kernels' dropout masks
+against the plain mask bit for bit.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
 machine, which has neither:
@@ -23,10 +24,12 @@ from stgcn_tpu_torch.graph.gso import GraphShiftOperator
 from stgcn_tpu_torch.kernels import banded_nv as nv
 from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import output_head as oh
+from stgcn_tpu_torch.kernels import sddmm as sd
+from stgcn_tpu_torch.kernels import spmm as spm
 from stgcn_tpu_torch.kernels import vertex_fused as vf
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.probes import mask_probes
-from stgcn_tpu_torch.ops import banded_graph_op, ell_graph_op
+from stgcn_tpu_torch.ops import banded_graph_op, bcsr_graph_op, ell_graph_op
 
 pytestmark = pytest.mark.cuda
 B, V_TRUE, V_PAD = 3, 150, 256
@@ -354,3 +357,76 @@ def test_k6_wrapper_rejects_what_the_kernel_does_not_take(dev):
         ek.ell_nv(op.pack, torch.zeros(4, op.v_pad - 64, device=dev))
     with pytest.raises(ValueError, match="int8"):   # int8 tiles without their scales
         ek.ell_nv(op.pack._replace(scales=None), flat[:-1].view(4, op.v_pad))
+
+
+@pytest.mark.parametrize("n", [160, 97])        # N as on the 1M route's block 1, and ragged
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("n_vertex,bs", [(600, 64), (600, 256), (200, 256)])
+def test_k10_matches_plain(dev, n_vertex, bs, scale, n):
+    """K10 against its plain version; (600, 64) has block rows with fewer
+    live tiles than max_b (padding slots), (200, 256) is a one-block-row
+    pack. The scale is alpha; a repeat launch is bit-identical."""
+    op = bcsr_graph_op(_rcm_gso(n_vertex), block_size=bs, device=dev)
+    x = _rand(np.random.default_rng(5), dev, op.n_vertex_pad, n)
+    before = kernels.launch_counts()["bcsr_spmm"]
+    out1 = spm.bcsr_spmm(op.pack, x, scale=scale)
+    out2 = spm.bcsr_spmm(op.pack, x, scale=scale)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bcsr_spmm"] == before + 2
+    assert torch.equal(out1, out2)
+    torch.testing.assert_close(out1, spm.bcsr_spmm_reference(op.pack, x, scale=scale), **TOL)
+
+
+@pytest.mark.parametrize("n", [160, 97])
+@pytest.mark.parametrize("n_vertex,bs", [(600, 64), (600, 256), (200, 256)])
+def test_k11_matches_plain(dev, n_vertex, bs, n):
+    """K11 against its plain version, padding slots exactly zero; a repeat
+    launch is bit-identical."""
+    op = bcsr_graph_op(_rcm_gso(n_vertex), block_size=bs, device=dev)
+    rng = np.random.default_rng(6)
+    g, x = (_rand(rng, dev, op.n_vertex_pad, n) for _ in range(2))
+    args = (op.pack.cols, op.pack.counts, g, x)
+    before = kernels.launch_counts()["bcsr_sddmm"]
+    out1 = sd.bcsr_sddmm(*args, block_size=bs, scale=0.5)
+    out2 = sd.bcsr_sddmm(*args, block_size=bs, scale=0.5)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bcsr_sddmm"] == before + 2
+    assert torch.equal(out1, out2)
+    torch.testing.assert_close(out1, sd.bcsr_sddmm_reference(*args, block_size=bs, scale=0.5),
+                               **TOL)
+    live = torch.arange(out1.shape[1], device=dev)[None, :] < op.pack.counts[:, None]
+    assert not bool(out1[~live].any())
+
+
+def test_bcsr_autograd_matches_plain(dev):
+    """The Function's backward on the card (K10 on the transpose pack of a
+    non-symmetric GSO, K11 for the tile values, scale 2) against the same on
+    the CPU."""
+    op = bcsr_graph_op(_rcm_gso(600, "rw_norm_lap"), block_size=64, device=dev)
+    assert op.pack_t is not op.pack
+    rng = np.random.default_rng(7)
+    x, w = (_rand(rng, dev, op.n_vertex_pad, 96) for _ in range(2))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        pack, pack_t = (spm.BcsrPack(*(a.to(d) for a in p)) for p in (op.pack, op.pack_t))
+        data = pack.data.clone().requires_grad_(True)
+        xx = x.to(d).requires_grad_(True)
+        y = spm.bcsr_spmm_vjp(pack._replace(data=data), pack_t, xx, scale=2.0)
+        grads.append([gr.cpu() for gr in torch.autograd.grad((y * w.to(d)).sum(), [xx, data])])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def test_bcsr_wrappers_reject_what_the_kernels_do_not_take(dev):
+    op = bcsr_graph_op(_rcm_gso(600), block_size=64, device=dev)
+    x = torch.zeros(op.n_vertex_pad, 8, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        spm.bcsr_spmm(op.pack._replace(cols=op.pack.cols.long()), x)
+    with pytest.raises(ValueError, match="float32"):
+        spm.bcsr_spmm(op.pack._replace(data=op.pack.data.half()), x)
+    with pytest.raises(ValueError, match="nbr"):
+        spm.bcsr_spmm(op.pack, x[:-64])
+    with pytest.raises(ValueError, match="nbr"):
+        sd.bcsr_sddmm(op.pack.cols, op.pack.counts, x[:-64], x[:-64], block_size=64)
+    with pytest.raises(TypeError, match="float32"):
+        sd.bcsr_sddmm(op.pack.cols, op.pack.counts, x.double(), x, block_size=64)

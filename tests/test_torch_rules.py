@@ -17,6 +17,8 @@ from stgcn_tpu_torch.kernels import _build, _launch
 from stgcn_tpu_torch.kernels import banded_nv as tnv
 from stgcn_tpu_torch.kernels import ell_nv as tek
 from stgcn_tpu_torch.kernels import output_head as toh
+from stgcn_tpu_torch.kernels import sddmm as tsd
+from stgcn_tpu_torch.kernels import spmm as tsp
 from stgcn_tpu_torch.kernels import vertex_fused as tvf
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -86,6 +88,11 @@ ENTRY_POINTS = {
     "make_graph_op(ell_int8)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "ell_int8"),
     "pack_ell_device": lambda: __import__("stgcn_tpu_torch.graph.packing", fromlist=["x"])
     .pack_ell_device(_gso().matrix),
+    "bcsr_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
+    .bcsr_graph_op(_gso()),
+    "make_graph_op(bcsr)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "bcsr"),
+    "pack_bcsr_device": lambda: __import__("stgcn_tpu_torch.graph.packing", fromlist=["x"])
+    .pack_bcsr_device(_gso().matrix),
     "cli.build_trainer": lambda: __import__("stgcn_tpu_torch.cli", fromlist=["x"]).build_trainer(
         stgcn_tpu_torch.TrainConfig(), dataset="pemsd7-m", data_root=str(ROOT / "data")),
     "cli.main": lambda: __import__("stgcn_tpu_torch.cli", fromlist=["x"]).main(
@@ -261,6 +268,42 @@ def test_ell_wrapper_takes_plain_version_only_on_cpu(quantize, mode, monkeypatch
         tek.ell_nv(*args("meta"), mode)
 
 
+@pytest.mark.parametrize("name", ["bcsr_spmm", "bcsr_sddmm"])
+def test_bcsr_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
+    """K10's and K11's wrappers, as above: one C call per wrapper call,
+    counted under the wrapper's name."""
+    mod, ref_name, c_name = {"bcsr_spmm": (tsp, "bcsr_spmm_reference", "stgcn_bcsr_spmm"),
+                             "bcsr_sddmm": (tsd, "bcsr_sddmm_reference",
+                                            "stgcn_bcsr_sddmm")}[name]
+    plain_calls = []
+    real_ref = getattr(mod, ref_name)
+    monkeypatch.setattr(mod, ref_name, lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(mod, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
+
+    def call(dev):
+        pack = tsp.BcsrPack(torch.zeros(2, 3, 128, 128, device=dev),
+                            torch.zeros(2, 3, dtype=torch.int32, device=dev),
+                            torch.zeros(2, dtype=torch.int32, device=dev))
+        x = torch.zeros(256, 5, device=dev)
+        if name == "bcsr_spmm":
+            return tsp.bcsr_spmm(pack, x, scale=2.0), (256, 5)
+        return tsd.bcsr_sddmm(pack.cols, pack.counts, x, x, block_size=128), (2, 3, 128, 128)
+
+    before = kernels.launch_counts()[name]
+    out, shape = call("meta")
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
+    assert fake.calls == [(c_name, len(_build.SIGNATURES[c_name]))] and out.shape == shape
+    out, _ = call("cpu")
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    assert len(fake.calls) == 1 and out.shape == shape
+    with pytest.raises(ValueError, match="CUDA or CPU"):   # without the test double
+        monkeypatch.undo()
+        call("meta")
+
+
 def test_wrapper_refuses_a_non_cuda_accelerator_tensor():
     """Without the test double, a tensor that is neither CPU nor CUDA raises
     instead of running the plain version."""
@@ -283,6 +326,7 @@ def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
 def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
     assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
-                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "ell_nv.cu"}
+                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "ell_nv.cu",
+                    "bcsr_spmm.cu", "bcsr_sddmm.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()
