@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
 and check them: PeMSD7(M) through the dense operator, then a 100k-vertex
-road graph through the banded operator and its kernel K5, then the 1M-vertex
-road graph through the blocked-ELL operator and its kernel K6 and through
-the BCSR operator (what ``make_graph_op(kind="auto")`` picks there) and its
-kernels K10 and K11, then the CLI.
+road graph through the banded operator, fused through its kernel K5 and
+unfused (``main.py``'s default route there) through the vn kernels K7-K9,
+f32 and int8, then the 1M-vertex road graph through the blocked-ELL operator
+and its kernel K6 and through the BCSR operator (what
+``make_graph_op(kind="auto")`` picks there) and its kernels K10 and K11,
+then the CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Fourteen phases, each printing one JSON line with its own seconds:
+Sixteen phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
-2. build   — the nvcc build of ``stgcn_tpu_torch/kernels/csrc/*.cu``, cold
-   or cached, with ptxas' register / spill report.
+2. build   — the nvcc build of ``stgcn_tpu_torch/kernels/csrc/*.cu`` (one
+   nvcc per source, all started together, then one link), cold or cached,
+   with ptxas' register / spill report.
 3. kernels — K1-K4 forward at every shape the forecast path gives them (and
    K3/K4 with the gtu gate), random inputs, each held against its plain
    PyTorch version on the card (|Δ| <= 1e-4·min(1, max |ref|) + 1e-4·|ref|
@@ -55,24 +58,46 @@ Fourteen phases, each printing one JSON line with its own seconds:
    3 unfused epochs, for the seconds per epoch of both routes.
 7. kernels_banded — the 100k-vertex problem (``random_road_graph(100_000,
    k_neighbors=8, seed=0)``, ``sym_norm_lap`` Chebyshev GSO with Lanczos
-   lambda_max, RCM, the banded nv pack of 256-row slabs, one day of
-   synthetic series; ``BASELINE.json`` configs[3]) is built, each host step
-   timed. K5 in modes single, pair and chain at N = 1280 and 768 (B·T·c1 of
+   lambda_max, RCM, the banded operator of 256-row slabs that the JAX CLI
+   builds under ``--fused``: the vn stream pack and the nv one, f32; one day
+   of synthetic series; ``BASELINE.json`` configs[3]) is built, each host
+   step timed. K5 in modes single, pair and chain at N = 1280 and 768 (B·T·c1 of
    the two ST blocks at batch 8) on the real pack, random operands, held
    against its plain version as in phase 3, repeat bit-identical; timed
    beside its bound (bytes over 3.35 TB/s against the nonzeros' FLOPs over
    67 TFLOP/s; the band's FLOPs are printed too) and ``torch.sparse.mm``
    on the CSR GSO (operand transposed outside the timing).
-8. banded_100k — one forecast batch of 8 fused against the unfused model on
-   the same banded operator (2e-4 + 2e-4·|ref|, launches K1/K2 ×2, K3, K4,
-   K5 pair ×2); every K1-K4 call of one fused training step at 100k held
-   against its plain version; one batch's fused gradients against unfused
-   (the bound of phase 6); a fused ``Trainer.fit(1)`` with every step's
-   loss (finite) and seconds and launches per step K1-K4 as in phase 6 plus
-   K5 pair ×2 and chain ×2 (validation batches: the forward's); ``test()``;
-   peak device memory of the fit and test, and apart from it that of the
-   checks before it.
-9. kernels_ell — the 100k problem freed, the 1M-vertex problem
+8. kernels_banded_vn — on the same 100k graph, the int8 operator (vn and
+   nv packs, per-row scales) and the clamped one of ``stream=False``
+   (128-aligned windows, a pack of its own for Aᵀ) built on the card, each
+   pack timed; the vn kernel at N = 1280 and 768 on the real packs, random
+   operands: K7 at scale 1 and 2 and K9 pair and chain on the f32 and int8
+   stream packs, K8 pair on the clamped pack; and K5 single, pair and chain
+   on the int8 nv pack; each held against its plain version as in phase 3,
+   repeat bit-identical, timed beside its bound (the nonzeros as CSR, int8
+   values at 1 B and the row factors, the operands read or written once;
+   2·nnz·N FLOPs an application) and ``torch.sparse.mm`` on the CSR GSO.
+9. banded_100k — one forecast batch of 8 fused against the unfused model on
+   the same banded operator (K5 against K9; 2e-4 + 2e-4·|ref|, launches
+   K1/K2 ×2, K3, K4, K5 pair ×2); every K1-K4 call of one fused training
+   step at 100k held against its plain version; one batch's fused gradients
+   against unfused (the bound of phase 6); a fused ``Trainer.fit(1)`` with
+   every step's loss (finite) and seconds and launches per step K1-K4 as in
+   phase 6 plus K5 pair ×2 and chain ×2 (validation batches: the forward's);
+   ``test()``; peak device memory of the fit and test, and apart from it
+   that of the checks before it.
+10. banded_100k_unfused — the 100k route of ``auto`` without ``--fused``:
+   one forecast batch of the unfused model through K9 (launches K9 pair ×2)
+   against the fused one through K5; on ``banded_int8`` K9 int8 against K5
+   int8 (and the int8 forecast's distance from the f32 one, printed); the
+   clamped pack (K8 pair ×2) against the stream one; a ``graph_conv``
+   model's forecast through K7 against K5 single, f32 and int8 (each within
+   2e-4 + 2e-4·|ref|); every vn call of one unfused training step (K9 pair
+   ×2, chain ×2) against its plain version; an unfused ``Trainer.fit(1)``
+   with finite losses, every step's seconds, launches per step K9 pair ×2
+   and chain ×2 and K5 none, and ``test()``; the fit's peak memory apart
+   from the checks'. Then the int8 and clamped operators are freed.
+11. kernels_ell — the 100k problem freed, the 1M-vertex problem
    (``random_road_graph(1_000_000, k_neighbors=8, seed=0)``, ``sym_norm_lap``
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
    256 × 256 tiles, int8 and f32, scattered on the card, 55 steps of
@@ -84,7 +109,7 @@ Fourteen phases, each printing one JSON line with its own seconds:
    (the live tiles' bytes as stored and the operands over 3.35 TB/s against
    the nonzeros' FLOPs over 67 TFLOP/s; the tiles' FLOPs are printed too) and
    ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
-10. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
+12. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
    Lion lr 1e-3, weight decay 1e-3, as phase 8 with K6 for K5: one forecast
    batch fused against unfused (launches K1/K2 ×2, K3, K4, K6 pair ×2),
    every K1-K4 call of one training step against its plain version, fused
@@ -93,7 +118,7 @@ Fourteen phases, each printing one JSON line with its own seconds:
    the fit's peak memory apart from the checks'. Cuts: f32 (the JAX bench ran
    bf16), no remat, Lion's momentum in f32, the series cut to 55 steps split
    23 / 16 / 16 (8 training windows, one validation and one test window).
-11. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
+13. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
    order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
    of 256 × 256 row-major f32 tiles for both directions, scattered on the
    card (timed). K10 at N = 160 and 96, scale 1 and 2 (its alpha), and K11
@@ -104,7 +129,7 @@ Fourteen phases, each printing one JSON line with its own seconds:
    once, the live tiles written once) and their library calls
    (``torch.sparse.mm`` on the CSR GSO; one ``torch.bmm`` over the live
    tiles' operands, gathered outside the timing).
-12. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
+14. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
    (the cuts of phase 10): one forecast batch through K10 (launches K10 ×4)
    against the same weights on the f32 ELL operator (K6) within 2e-4 +
    2e-4·|ref|; every K10 call of one unfused training step (×8) against its
@@ -113,12 +138,14 @@ Fourteen phases, each printing one JSON line with its own seconds:
    unfused ``Trainer.fit(1)`` with finite losses and launches per step K10
    ×8 and K11 ×0 (validation: K10 ×4 a batch), then ``test()``; the fit's
    peak memory apart from the checks'.
-13. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
+15. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
    then with ``--graph_op ell_int8``, then ``bcsr`` (the fused forward's vn
-   branch): its epoch and test lines, every kernel of the step (K5 or K6
-   pair and chain, or K10, included) launched.
-14. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
+   branch), then unfused on ``banded`` (K9) and ``banded_int8`` (K9 int8),
+   then ``banded_int8 --fused True`` (K5 int8): its epoch and test lines,
+   every kernel of the step (K5, K6 or K9 pair and chain, or K10, included)
+   launched, and none of K1-K4 unfused.
+16. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
    training paths, PeMSD7(M), 100k and 1M, and its launches), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -533,10 +560,10 @@ def load_pemsd7(torch) -> dict:
                                  device="cuda")}
 
 
-def new_model(torch, n_vertex: int, droprate: float):
+def new_model(torch, n_vertex: int, droprate: float, gct: str = "cheb_graph_conv"):
     from stgcn_tpu_torch.nn import STGCN
 
-    return STGCN(N_HIS, n_vertex, kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+    return STGCN(N_HIS, n_vertex, kt=3, ks=3, act_func="glu", graph_conv_type=gct,
                  droprate=droprate, device="cuda",
                  generator=torch.Generator().manual_seed(42))
 
@@ -856,9 +883,10 @@ K5_META = ("K5", "stgcn_tpu_torch/kernels/csrc/banded_nv.cu",
 
 def build_100k(torch) -> dict:
     """The synthetic 100k-vertex road graph, its Chebyshev GSO (Lanczos
-    lambda_max), RCM order, banded nv pack on the card and one day of
-    synthetic series with the sensor columns in RCM order; each host step
-    timed."""
+    lambda_max), RCM order, the banded operator the JAX CLI builds under
+    ``--fused`` on the card (``auto`` with ``nv=True``: the vn stream pack
+    and the nv one, f32) and one day of synthetic series with the sensor
+    columns in RCM order; each host step timed."""
     from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler, chrono_split
     from stgcn_tpu_torch.data.synthetic import generate_synthetic_vel, random_road_graph
     from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
@@ -882,7 +910,7 @@ def build_100k(torch) -> dict:
     art = GraphShiftOperator(matrix=permute_matrix(art.matrix, perm), gso_type=art.gso_type,
                              cheb_rescaled=True, lam_max=art.lam_max)
     lap("rcm_s")
-    gop = make_graph_op(art, "auto", device="cuda")
+    gop = make_graph_op(art, "auto", nv=True, device="cuda")
     torch.cuda.synchronize()
     lap("pack_s")
     if not isinstance(gop, BandedGraphOp):
@@ -895,7 +923,7 @@ def build_100k(torch) -> dict:
     def ds(a):
         return ForecastDataset.from_numpy(scaler.transform(a), N_HIS, N_PRED, device="cuda")
 
-    data = {"n_vertex": V_100K, "gop": gop, "matrix": art.matrix, "scaler": scaler,
+    data = {"n_vertex": V_100K, "gop": gop, "art": art, "matrix": art.matrix, "scaler": scaler,
             "train": ds(train), "val": ds(val), "test": ds(test)}
     torch.cuda.synchronize()
     lap("split_s")
@@ -903,8 +931,10 @@ def build_100k(torch) -> dict:
     nnz = int(art.matrix.nnz)
     data["prep"] = {**prep, "nnz": nnz, "nbr": nbr, "w": w, "bs": bs, "v_pad": gop.v_pad,
                     "band_occupancy": nnz / (nbr * w * bs),
-                    "slab_bytes": gop.slabs_nv.numel() * 4,
-                    "shared_transpose_pack": gop.slabs_nv_t is gop.slabs_nv,
+                    "slab_bytes": gop.slabs_nv.numel() * 4, "vn_slab_bytes": gop.slabs.numel() * 4,
+                    "pair_stream": gop.pair_stream, "pair_safe": gop.pair_safe,
+                    "shared_transpose_pack": gop.slabs_nv_t is gop.slabs_nv
+                    and gop.slabs_t is gop.slabs,
                     "lambda_max": art.lam_max, "series_steps": STEPS_100K}
     return data
 
@@ -1213,6 +1243,338 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
               "step_seconds_median": statistics.median(step_seconds),
               "epoch": hist[0], "launches": launches, "test": test_m,
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
+    emit(result)
+    return result
+
+
+# --------------------------------------------------------------------------
+# the 100k route of auto without --fused: the vn banded kernels K7-K9, K5 int8
+# --------------------------------------------------------------------------
+
+VN_REPS = 5
+PER_STEP_100K_UNFUSED = {"vn_pair": 2, "vn_chain": 2}   # K9 pair per block, its chain back
+PER_BATCH_100K_UNFUSED = {"vn_pair": 2}
+VN_SOURCE = "stgcn_tpu_torch/kernels/csrc/banded_vn.cu"
+K7_META = (("K7a", VN_SOURCE, "stgcn_tpu/kernels/banded_spmm.py:255", "_banded_pallas_resident"),
+           ("K7b", VN_SOURCE, "stgcn_tpu/kernels/banded_spmm.py:302", "_banded_pallas"))
+K8_META = ("K8", VN_SOURCE, "stgcn_tpu/kernels/banded_spmm.py:519", "banded_cheb_pair")
+K9_META = ("K9", VN_SOURCE, "stgcn_tpu/kernels/banded_spmm.py:774", "_pair_stream_call")
+# the vn kernel's wrappers (kernels/banded_spmm.py) and the mode each launches
+VN_WRAPPERS = {"banded_spmm": "single", "banded_cheb_pair": "pair",
+               "banded_cheb_pair_stream": "pair", "banded_chain_stream": "chain"}
+
+
+def vn_launch(wrapper: str, scales) -> str:
+    from stgcn_tpu_torch.kernels import banded_spmm as bk
+
+    return bk.launch_name(VN_WRAPPERS[wrapper], scales is not None,
+                          resident=wrapper == "banded_cheb_pair")
+
+
+def check_vn(torch, wrapper, slabs, lo, x, g=None, scales=None, scale=1.0, *, v, nnz, a_csr,
+             reps, library_agrees) -> dict:
+    """``check_spmm`` for one wrapper of the vn kernel (K7, K8, K9) on the vn
+    operand ``x`` [v_pad, N] (``g`` for the chain; ``scales`` on an int8
+    pack), against its plain version; the library call is ``torch.sparse.mm``
+    on the CSR GSO and x's first V rows (Aᵀ for the chain: the GSO is
+    symmetric)."""
+    from stgcn_tpu_torch.kernels import banded_spmm as bk
+
+    mode = VN_WRAPPERS[wrapper]
+    nbr, bs, w = slabs.shape
+    kw = {"scale": scale} if mode == "single" else {}
+    if scales is not None:
+        kw["scales_t" if mode == "chain" else "scales"] = scales
+    args = (slabs, lo, x, g) if mode == "chain" else (slabs, lo, x)
+    fn = getattr(bk, wrapper)
+    q = scales is not None
+    return {"slabs": [nbr, bs, w], "dtype": "int8" if q else "f32", **check_spmm(
+        torch, vn_launch(wrapper, scales), x.shape[1], mode, lambda: fn(*args, **kw),
+        lambda: bk.banded_vn_reference(slabs, lo, x, g, mode, scales=scales, scale=scale),
+        lambda: sparse_mm(torch, a_csr, x[:v], 1 + (mode != "single")), v=v, nnz=nnz,
+        vp=x.shape[0], value_bytes=1 if q else 4, row_scales=q,
+        pack_bytes=slabs.numel() * slabs.element_size() + nbr * 4 + (nbr * bs * 4 if q else 0),
+        pack_flops_one=2 * nbr * bs * w, library_agrees=library_agrees, reps=reps, vn=True,
+        scale=scale)}
+
+
+def phase_kernels_banded_vn(torch, data) -> dict:
+    """The vn kernel (K7 single at scale 1 and 2, K9 pair and chain on the
+    stream packs, f32 and int8; K8 pair on the clamped pack of
+    ``stream=False``) and K5 on the int8 nv pack (single, pair, chain), at
+    N = 1280 and 768 on the 100k packs, random operands: held against their
+    plain versions, repeat bit-identical, timed beside their bounds and
+    ``torch.sparse.mm``. The int8 operator (vn and nv) and the clamped one
+    are built on the card here (timed) and kept for ``banded_100k_unfused``,
+    which frees them."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import banded_nv as nv
+    from stgcn_tpu_torch.kernels import banded_spmm as bk
+    from stgcn_tpu_torch.ops import banded_graph_op
+
+    gop, v, nnz = data["gop"], data["n_vertex"], data["prep"]["nnz"]
+    packs: dict = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        packs[key] = time.perf_counter() - t1
+        return out
+
+    matrix = data["art"].matrix
+    timed("f32_vn_stream_s", lambda: bk.pack_banded_device(matrix, block_size=256, col_align=256,
+                                                            contain_diag=True, device="cuda"))
+    timed("f32_nv_stream_s", lambda: bk.pack_banded_device(
+        matrix, block_size=256, col_align=256, contain_diag=True, transpose_slabs=True,
+        device="cuda"))
+    timed("int8_nv_stream_s", lambda: bk.pack_banded_device(
+        matrix, block_size=256, col_align=256, contain_diag=True, dtype=torch.int8,
+        transpose_slabs=True, device="cuda"))
+    q = data["int8"] = timed("int8_operator_vn_and_nv_s", lambda: banded_graph_op(
+        data["art"], quantize=True, nv=True, device="cuda"))
+    c = data["clamped"] = timed("clamped_operator_s", lambda: banded_graph_op(
+        data["art"], stream=False, device="cuda"))
+    torch.cuda.empty_cache()
+    for key, op in (("f32", gop), ("int8", q), ("clamped", c)):
+        packs[key] = {"slabs": list(op.slabs.shape), "bytes": op.slabs.numel()
+                      * op.slabs.element_size() * (1 if op.slabs_t is op.slabs else 2),
+                      "v_pad": op.v_pad, "pair_stream": op.pair_stream, "pair_safe": op.pair_safe}
+    if not (gop.pair_stream and q.pair_stream and c.pair_safe and not c.pair_stream):
+        raise AssertionError(f"the 100k packs do not take the JAX routes this phase checks: {packs}")
+
+    a_csr = csr_on_card(torch, data["matrix"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results: dict[str, list] = {}
+    common = dict(v=v, nnz=nnz, a_csr=a_csr, reps=VN_REPS)
+    for n in (BATCH_100K * (N_HIS - 2) * 16, BATCH_100K * (N_HIS - 6) * 16):
+        x = torch.randn((gop.v_pad, n), generator=gen, device="cuda")
+        g = torch.randn((gop.v_pad, n), generator=gen, device="cuda")
+        for op, agrees in ((gop, True), (q, False)):
+            for scale in (1.0, 2.0):
+                r = check_vn(torch, "banded_spmm", op.slabs, op.lo, x, scales=op.scales,
+                             scale=scale, library_agrees=agrees, **common)
+                results.setdefault(vn_launch("banded_spmm", op.scales), []).append(r)
+            r = check_vn(torch, "banded_cheb_pair_stream", op.slabs, op.lo, x, scales=op.scales,
+                         library_agrees=agrees, **common)
+            results.setdefault(vn_launch("banded_cheb_pair_stream", op.scales), []).append(r)
+            r = check_vn(torch, "banded_chain_stream", op.slabs_t, op.lo_t, x, g,
+                         scales=op.scales_t, library_agrees=agrees, **common)
+            results.setdefault(vn_launch("banded_chain_stream", op.scales), []).append(r)
+        xc = torch.randn((c.v_pad, n), generator=gen, device="cuda")
+        results.setdefault("vn_pair_resident", []).append(check_vn(
+            torch, "banded_cheb_pair", c.slabs, c.lo, xc, library_agrees=True, **common))
+        del x, g, xc
+        x, g, x_vn = spmm_operands(torch, gen, n, v, q.v_pad)
+        nbr, w, bs = q.slabs_nv.shape
+        for mode in ("single", "pair", "chain"):
+            args = (q.slabs_nv, q.lo, x, g if mode == "chain" else None, mode)
+            results.setdefault(nv.launch_name(mode, True), []).append(
+                {"slabs": [nbr, w, bs], "dtype": "int8", **check_spmm(
+                    torch, nv.launch_name(mode, True), n, mode,
+                    lambda a=args: nv.stream_nv(*a, scales=q.scales),
+                    lambda a=args: nv.stream_nv_reference(*a, scales=q.scales),
+                    lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
+                    v=v, nnz=nnz, vp=q.v_pad, value_bytes=1, row_scales=True,
+                    pack_bytes=q.slabs_nv.numel() + nbr * 4 + nbr * bs * 4,
+                    pack_flops_one=2 * nbr * w * bs, library_agrees=False, reps=VN_REPS)})
+        del x, g, x_vn
+    del a_csr
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_banded_vn", "seconds": time.perf_counter() - t0,
+          "tolerance": KERNEL_TOL, "packs": packs, "results": results})
+    return results
+
+
+def record_vn_step(torch, data, gop) -> list:
+    """Run one unfused training step (forward with dropout, backward) on the
+    first training batch through the banded operator ``gop`` and record
+    every call of the vn kernel's wrappers: (wrapper, args, kwargs)."""
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import banded_spmm as bk
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.train import masked_mse
+
+    calls: list = []
+    real = {name: getattr(bk, name) for name in VN_WRAPPERS}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            calls.append((name, tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                      for a in args), kwargs))
+            return real[name](*args, **kwargs)
+        return call
+
+    model = new_model(torch, data["n_vertex"], DROPRATE)
+    params = dict(model.named_parameters())
+    starts, n_valid = next(data["train"].batches(BATCH_100K))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    try:
+        for name in VN_WRAPPERS:
+            setattr(bk, name, recorder(name))
+        pred = model(x, gop, deterministic=False, seed=step_seed(42, 0))
+        loss = masked_mse(pred.reshape(BATCH_100K, -1), y, n_valid)
+        torch.autograd.grad(loss, list(params.values()))
+    finally:
+        for name in VN_WRAPPERS:
+            setattr(bk, name, real[name])
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_banded_100k_unfused(torch, data) -> dict:
+    """The 100k route of ``auto`` without ``--fused``, as ``main.py``'s
+    defaults run it: the unfused model on the vn stream pack (K9), batch 8,
+    AdamW. One forecast batch through K9 against the fused one through K5;
+    the same on ``banded_int8`` (K9 int8 against K5 int8, and against f32);
+    on the clamped pack of ``stream=False`` (K8) against the stream one;
+    a graph_conv model's forecast (K7 against K5 single, f32 and int8);
+    every vn call of one unfused training step against its plain version;
+    an unfused ``Trainer.fit(1)`` with its launches counted (K9 pair ×2 and
+    chain ×2 a step, K5 never), then ``test()``; the fit's peak memory apart
+    from the checks'. Frees the int8 and clamped operators at the end."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import TrainConfig, Trainer
+
+    gop, q, c, v = data["gop"], data["int8"], data["clamped"], data["n_vertex"]
+    ckpt_root = ROOT / "checkpoints" / "chip_smoke_banded_100k_unfused"   # removed at the end
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    starts, _ = next(data["test"].batches(BATCH_100K))
+    x, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+
+    def forecast(model, op, fused, want: dict):
+        """One forecast batch; its launches must be ``want``."""
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            out = (fused_sparse_forward(model.state_dict(), x, op, model) if fused
+                   else model(x, op))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        launches = kernels.launch_counts()
+        if launches != expected(want, 1):
+            raise AssertionError(f"a 100k forecast launched {launches}, expected "
+                                 f"{expected(want, 1)}")
+        if out.shape != (BATCH_100K, 1, v, 1) or not torch.isfinite(out).all():
+            raise AssertionError(f"a 100k forecast has shape {tuple(out.shape)} or non-finite "
+                                 "values")
+        return out, {k: n for k, n in launches.items() if n}, seconds
+
+    def agree(label, got, ref) -> float:
+        d = (got - ref).abs()
+        if not bool((d <= SLICE_TOL + SLICE_TOL * ref.abs()).all()):
+            raise AssertionError(f"banded_100k_unfused: {label} differ: max |Δ| "
+                                 f"{float(d.max()):.3e}")
+        return float(d.max())
+
+    # 1. forecasts: K9 against K5, f32 and int8; K8 against K9; K7 against K5 single
+    model = new_model(torch, v, DROPRATE).eval()
+    pu, lu, su = forecast(model, gop, False, PER_BATCH_100K_UNFUSED)
+    pf, lf, sf = forecast(model, gop, True, PER_BATCH_100K)
+    qu, lqu, squ = forecast(model, q, False, {"vn_pair_int8": 2})
+    qf, lqf, sqf = forecast(model, q, True, {**PER_BATCH_FWD, "nv_pair_int8": 2})
+    pc, lc, sc = forecast(model, c, False, {"vn_pair_resident": 2})
+    forecasts = {
+        "unfused_k9_vs_fused_k5": {"max_abs_diff": agree("K9 and K5 forecasts", pu, pf),
+                                   "launches": [lu, lf], "seconds": [su, sf]},
+        "int8_unfused_k9_vs_fused_k5": {"max_abs_diff": agree("int8 K9 and K5 forecasts", qu, qf),
+                                        "launches": [lqu, lqf], "seconds": [squ, sqf]},
+        "int8_vs_f32_unfused": {"max_abs_diff": float((qu - pu).abs().max()),
+                                "rel_l2": rel_l2(torch, qu, pu), "checked": False},
+        "clamped_k8_vs_stream_k9": {"max_abs_diff": agree("K8 and K9 forecasts", pc, pu),
+                                    "launches": lc, "seconds": sc},
+    }
+    del model, pu, pf, qu, qf, pc
+    gmodel = new_model(torch, v, DROPRATE, gct="graph_conv").eval()
+    for tag, op, sfx in (("f32", gop, ""), ("int8", q, "_int8")):
+        gu, lgu, sgu = forecast(gmodel, op, False, {f"vn_single{sfx}": 2})
+        gf, lgf, sgf = forecast(gmodel, op, True, {**PER_BATCH_FWD, f"nv_single{sfx}": 2})
+        forecasts[f"graph_conv_{tag}_unfused_k7_vs_fused_k5"] = {
+            "max_abs_diff": agree(f"graph_conv {tag} K7 and K5 forecasts", gu, gf),
+            "launches": [lgu, lgf], "seconds": [sgu, sgf]}
+        del gu, gf
+    del gmodel
+    forecasts["tolerance"] = SLICE_TOL
+
+    # 2. every vn call of one unfused training step, against its plain version
+    calls = record_vn_step(torch, data, gop)
+    names = [vn_launch(name, kw.get("scales")) for name, _, kw in calls]
+    if sorted(names) != sorted(k for k, n in PER_STEP_100K_UNFUSED.items() for _ in range(n)):
+        raise AssertionError(f"one unfused 100k step called {names}, expected "
+                             f"{PER_STEP_100K_UNFUSED}")
+    a_csr = csr_on_card(torch, data["matrix"])
+    per_call: dict[str, list] = {k: [] for k in PER_STEP_100K_UNFUSED}
+    failed = []
+    for i, (name, args, kw) in enumerate(calls):
+        try:
+            per_call[names[i]].append({"call": f"call{i}", **check_vn(
+                torch, name, *args, scales=kw.get("scales", kw.get("scales_t")),
+                scale=kw.get("scale", 1.0), v=v, nnz=data["prep"]["nnz"], a_csr=a_csr, reps=3,
+                library_agrees=True)})
+        except AssertionError as e:
+            failed.append(f"call{i} ({names[i]}): {e}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    del calls, a_csr
+    torch.cuda.empty_cache()
+
+    # 3. an unfused fit of one epoch, every step's loss and time, then test()
+    checks_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH_100K,
+                      opt="adamw", fused=False, ckpt_dir=str(ckpt_root), dataset_name="road-100k")
+    tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
+                 data["test"], data["scaler"], device="cuda")
+    step_losses, step_seconds = [], []
+    real_step = tr.train_step
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = real_step(*a)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t1)
+        step_losses.append(loss)
+        return loss
+
+    tr.train_step = timed_step
+    kernels.reset_launch_counts()
+    hist = tr.fit(1)["history"]
+    launches = kernels.launch_counts()
+    val_batches = -(-tr.val_ds.num_windows // BATCH_100K)
+    want = expected(PER_STEP_100K_UNFUSED, tr.steps_per_epoch,
+                    (PER_BATCH_100K_UNFUSED, val_batches))
+    if launches != want:
+        raise AssertionError(f"banded_100k_unfused: the fit launched {launches}, expected {want}")
+    losses = [float(v_) for v_ in step_losses]
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
+        raise AssertionError(f"banded_100k_unfused: non-finite step losses {losses}")
+    fit_peak = torch.cuda.max_memory_allocated()
+    test_m = tr.test()
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
+        raise AssertionError(f"banded_100k_unfused: non-finite test metrics {test_m}")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    steps = tr.steps_per_epoch
+    del tr, data["int8"], data["clamped"], q, c
+    torch.cuda.empty_cache()
+    result = {"phase": "banded_100k_unfused", "seconds": time.perf_counter() - t0,
+              "n_vertex": v, "batch_size": BATCH_100K, "optimizer": "adamw",
+              "route": "unfused, banded vn stream pack (K9)",
+              "cuts": ["one epoch", "a one-day series", "f32, not the bench's bf16", "no remat"],
+              "forecast_one_batch": forecasts, "steps_per_epoch": steps,
+              "val_batches": val_batches, "step_losses": losses, "step_seconds": step_seconds,
+              "step_seconds_median": statistics.median(step_seconds), "epoch": hist[0],
+              "launches": launches, "test": test_m, "peak_memory_bytes_fit": fit_peak,
+              "peak_memory_bytes_fit_and_test": torch.cuda.max_memory_allocated(),
               "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
     emit(result)
     return result
@@ -1708,11 +2070,12 @@ def phase_bcsr_1m(torch, data) -> dict:
     return result
 
 
-def phase_cli(torch, graph_op: str, graph_kernels: tuple) -> dict:
+def phase_cli(torch, graph_op: str, graph_kernels: tuple, fused: bool = True) -> dict:
     """``python -m stgcn_tpu_torch.cli`` in-process: PeMSD7(M) through the
-    sparse operator ``graph_op`` (one block row of 256) and the fused
-    kernels, one epoch, then the reference test line; ``graph_kernels`` are
-    the launch counters of the operator's kernel."""
+    sparse operator ``graph_op`` (one block row of 256), one epoch of the
+    fused kernels (or of the unfused model: none of K1-K4 may launch), then
+    the reference test line; ``graph_kernels`` are the launch counters of
+    the operator's kernel."""
     import contextlib
     import io
 
@@ -1726,7 +2089,7 @@ def phase_cli(torch, graph_op: str, graph_kernels: tuple) -> dict:
     kernels.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         mets = cli_main(["--dataset", "pemsd7-m", "--data_root", str(ROOT / "data"),
-                         "--graph_op", graph_op, "--fused", "True", "--epochs", "1",
+                         "--graph_op", graph_op, "--fused", str(fused), "--epochs", "1",
                          "--ckpt_dir", str(ckpt)])
     launches = kernels.launch_counts()
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1735,11 +2098,14 @@ def phase_cli(torch, graph_op: str, graph_kernels: tuple) -> dict:
         print(line, flush=True)
     if not lines[-1].startswith("Dataset pemsd7-m | Test loss "):
         raise AssertionError(f"the CLI's last line is not the test line: {lines[-1]!r}")
-    if not all(launches[k] > 0 for k in (*PER_STEP, *graph_kernels)):
-        raise AssertionError(f"the CLI run on {graph_op} routed around a kernel: {launches}")
+    if not all(launches[k] > 0 for k in (*(PER_STEP if fused else ()), *graph_kernels)) \
+            or not (fused or all(launches[k] == 0 for k in PER_STEP)):
+        raise AssertionError(f"the CLI run on {graph_op} (fused {fused}) routed around a "
+                             f"kernel: {launches}")
     if not all(v == v and abs(v) < float("inf") for v in mets.values()):
         raise AssertionError(f"non-finite CLI test metrics {mets}")
-    result = {"phase": "cli", "graph_op": graph_op, "seconds": time.perf_counter() - t0,
+    result = {"phase": "cli", "graph_op": graph_op, "fused": fused,
+              "seconds": time.perf_counter() - t0,
               "test_line": lines[-1], "launches": launches, "test": mets}
     emit(result)
     return result
@@ -1780,7 +2146,9 @@ def main() -> int:
     del data
     big = build_100k(torch)
     k5 = phase_kernels_banded(torch, big)
+    kvn = phase_kernels_banded_vn(torch, big)
     b100 = phase_banded_100k(torch, big)
+    b100u = phase_banded_100k_unfused(torch, big)
     del big
     torch.cuda.empty_cache()   # the 100k checks peak at 45 GB
     big = build_1m(torch)
@@ -1795,6 +2163,9 @@ def main() -> int:
     cli = phase_cli(torch, "banded", ("nv_pair", "nv_chain"))
     cli_ell = phase_cli(torch, "ell_int8", ("ell_int8_pair", "ell_int8_chain"))
     cli_bcsr = phase_cli(torch, "bcsr", ("bcsr_spmm",))
+    cli_vn = phase_cli(torch, "banded", ("vn_pair", "vn_chain"), fused=False)
+    cli_vn8 = phase_cli(torch, "banded_int8", ("vn_pair_int8", "vn_chain_int8"), fused=False)
+    cli_nv8 = phase_cli(torch, "banded_int8", ("nv_pair_int8", "nv_chain_int8"))
 
     def row(name, meta, calls, **extra):
         """One kernel's line: per training step it runs once at each call."""
@@ -1822,9 +2193,34 @@ def main() -> int:
                 launches_forecast=sl["launches"][name], **at(b100, "100k", name),
                 **at(m1, "1m", name))
             for name, calls in per_call.items()]
-    rows += [row(name, K5_META, calls, mode=name[3:], launches=b100["launches"][name],
-                 launches_cli=cli["launches"][name])
+    fc = b100u["forecast_one_batch"]
+    rows += [row(name, K5_META, calls, mode=name[3:], dtype="f32",
+                 launches=b100["launches"][name], launches_cli=cli["launches"][name],
+                 launches_graph_conv_forecast=fc["graph_conv_f32_unfused_k7_vs_fused_k5"]
+                 ["launches"][1].get(name, 0))
              for name, calls in k5.items()]
+    rows += [row(name, K5_META, kvn[name], mode=name.split("_")[1], dtype="int8",
+                 launches=cli_nv8["launches"][name],
+                 launches_forecast_100k=fc["int8_unfused_k9_vs_fused_k5"]["launches"][1]
+                 .get(name, 0)
+                 + fc["graph_conv_int8_unfused_k7_vs_fused_k5"]["launches"][1].get(name, 0))
+             for name in ("nv_single_int8", "nv_pair_int8", "nv_chain_int8")]
+    rows += [row(name, meta, [c for c in kvn[name] if c["scale"] == 1.0], mode="single",
+                 dtype=dt, per_call_scale_2=[c for c in kvn[name] if c["scale"] != 1.0],
+                 launches=fc[f"graph_conv_{dt}_unfused_k7_vs_fused_k5"]["launches"][0][name])
+             for meta in K7_META for name, dt in (("vn_single", "f32"), ("vn_single_int8", "int8"))]
+    rows.append(row("vn_pair_resident", K8_META, kvn["vn_pair_resident"], mode="pair",
+                    dtype="f32", launches=fc["clamped_k8_vs_stream_k9"]["launches"]
+                    ["vn_pair_resident"]))
+    rows += [row(name, K9_META, b100u["per_step_calls"][name], mode=name[3:], dtype="f32",
+                 launches=b100u["launches"][name], launches_cli=cli_vn["launches"][name],
+                 per_call_random=kvn[name])
+             for name in ("vn_pair", "vn_chain")]
+    rows += [row(name, K9_META, kvn[name], mode=name.split("_")[1], dtype="int8",
+                 launches=cli_vn8["launches"][name],
+                 launches_forecast_100k=fc["int8_unfused_k9_vs_fused_k5"]["launches"][0]
+                 .get(name, 0))
+             for name in ("vn_pair_int8", "vn_chain_int8")]
     rows += [row(name, K6_META, calls, mode=name.rsplit("_", 1)[1], dtype=calls[0]["dtype"],
                  launches=m1["launches"][name], launches_cli=cli_ell["launches"][name])
              for name, calls in k6.items()]

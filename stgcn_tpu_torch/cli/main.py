@@ -3,6 +3,7 @@ one device): the same flags as the JAX package's CLI, which keeps the
 reference's (`main.py:39-94`).
 
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op banded --fused True
+    python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op banded_int8
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op ell_int8 --fused True
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op bcsr --fused True
 
@@ -97,8 +98,8 @@ def get_parameters(argv=None):
                         choices=["auto", "dense", "bcsr", "banded",
                                  "banded_int8", "ell", "ell_int8"],
                         help="GSO representation: dense matmul, BCSR tiles through the K10 "
-                             "kernel, banded slabs through K5, or blocked-ELL tiles (f32 or "
-                             "int8) through K6 (banded_int8 is not ported yet)")
+                             "kernel, banded slabs (f32 or int8) through K7-K9 (and K5 under "
+                             "--fused), or blocked-ELL tiles (f32 or int8) through K6")
     parser.add_argument("--shuffle", type=_str2bool, default=False,
                         help="shuffle training windows (reference keeps False)")
     parser.add_argument("--ckpt_dir", type=str, default=None)
@@ -199,10 +200,13 @@ def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
                 "too wide for the banded slabs); the JAX CLI cannot build that pairing either "
                 "(it asks bcsr_graph_op for nv packs, a TypeError). Ask for --graph_op bcsr or "
                 "ell by name")
-    # the port's banded and ELL operators carry only the nv packs (the JAX
-    # CLI asks for the banded ones with nv=True under --fused); the unfused
-    # model reaches them through a transpose
-    gop = make_graph_op(art, graph_op_kind, device=dev)
+    # the fused path also packs the banded slabs pre-transposed for K5 (the
+    # JAX CLI's nv=True, stgcn_tpu/cli/main.py:207-211)
+    kw = {}
+    if cfg.fused and (graph_op_kind in ("banded", "banded_int8")
+                      or graph_op_kind == "auto" and art.n_vertex > 4096):
+        kw["nv"] = True
+    gop = make_graph_op(art, graph_op_kind, device=dev, **kw)
 
     vel_path = os.path.join(data_root, dataset, "vel.csv")
     if not os.path.exists(vel_path):

@@ -4,8 +4,10 @@ K1 :func:`vertex_fused.head_fwd`, K2 :func:`vertex_fused.tail_fwd`,
 K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd`, their
 backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
 ``ofc_bwd``), the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
-per mode (``nv_single``, ``nv_pair``, ``nv_chain``), the blocked-ELL nv
-SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
+per mode and dtype (``nv_single``, ``nv_pair_int8``, …), the banded vn SpMM
+of K7-K9 (:mod:`banded_spmm`), counted per wrapper and dtype (``vn_single``
+for K7, ``vn_pair_resident`` for K8, ``vn_pair`` and ``vn_chain`` for K9;
+``_int8`` on int8 packs), the blocked-ELL nv SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
 ``ell_int8_chain``, …), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
 (``bcsr_spmm``) with its tile-value gradient, the SDDMM K11
 :func:`sddmm.bcsr_sddmm` (``bcsr_sddmm``). The CUDA sources under
@@ -15,7 +17,8 @@ SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
 import functools
 
 from stgcn_tpu_torch.kernels._launch import LAUNCHES
-from stgcn_tpu_torch.kernels.banded_nv import stream_nv
+from stgcn_tpu_torch.kernels import banded_nv as _nv
+from stgcn_tpu_torch.kernels import banded_spmm as _vn
 from stgcn_tpu_torch.kernels import ell_nv as _ell   # the module: its wrapper shares its name
 from stgcn_tpu_torch.kernels.output_head import ofc_bwd, ofc_fwd, ohead_bwd, ohead_fwd
 from stgcn_tpu_torch.kernels.sddmm import bcsr_sddmm
@@ -26,8 +29,12 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             "ohead_fwd": ohead_fwd, "ofc_fwd": ofc_fwd,
             "head_bwd": head_bwd, "tail_bwd": tail_bwd,
             "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd,
-            **{f"nv_{m}": functools.partial(stream_nv, mode=m)
-               for m in ("single", "pair", "chain")},
+            **{_nv.launch_name(m, q): functools.partial(_nv.stream_nv, mode=m)
+               for q in (False, True) for m in ("single", "pair", "chain")},
+            **{_vn.launch_name("single", q): _vn.banded_spmm for q in (False, True)},
+            _vn.launch_name("pair", resident=True): _vn.banded_cheb_pair,
+            **{_vn.launch_name("pair", q): _vn.banded_cheb_pair_stream for q in (False, True)},
+            **{_vn.launch_name("chain", q): _vn.banded_chain_stream for q in (False, True)},
             **{_ell.launch_name(q, m): functools.partial(_ell.ell_nv, mode=m)
                for q in (False, True) for m in ("single", "pair", "chain")},
             "bcsr_spmm": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm}

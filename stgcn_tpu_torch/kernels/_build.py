@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-All ``csrc/*.cu`` compile in ONE ``nvcc`` call into
+Each ``csrc/*.cu`` compiles in an ``nvcc`` process of its own, all started
+together, and one more ``nvcc`` links the objects into
 ``_build/libstgcn_torch_kernels.so`` (a git-ignored directory beside this
 file), at first use::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/libstgcn_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o <obj> csrc/<source>.cu          # one per source, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o _build/libstgcn_torch_kernels.so <objs>
 
 The sources include no PyTorch header: each kernel is behind a plain C
 function that takes device pointers, sizes and a ``cudaStream_t`` and
@@ -31,8 +33,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libstgcn_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _DROP = [_U, _I, _U, _F]   # a dropout site: seed, site, threshold, scale
@@ -47,7 +49,8 @@ SIGNATURES = {
     "stgcn_tail_bwd": [_P] * 18 + [_I] * 10 + [_P],
     "stgcn_ohead_bwd": [_P] * 18 + [_I] * 7 + _DROP + [_P],
     "stgcn_ofc_bwd": [_P] * 19 + [_I] * 6 + _DROP + [_P],
-    "stgcn_banded_nv": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "stgcn_banded_nv": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "stgcn_banded_vn": [_P] * 7 + [_I] * 7 + [_F, _P],
     "stgcn_ell_nv": [_P] * 8 + [_I] * 6 + [_F, _P],
     "stgcn_bcsr_spmm": [_P] * 5 + [_I] * 4 + [_F, _P],
     "stgcn_bcsr_sddmm": [_P] * 5 + [_I] * 4 + [_F, _P],
@@ -97,16 +100,29 @@ def build() -> BuildInfo:
     if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
         return BuildInfo(lib, True, time.perf_counter() - t0,
                          log.read_text() if log.exists() else "")
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{out}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new, never half
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [Path(objdir) / f"{src.stem}.o" for src in sources()]
+        procs = [(src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True))
+                 for src, obj in zip(sources(), objs)]
+        logs, failed = [], []
+        for src, proc in procs:
+            out = proc.communicate()[0]
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src.name} (rc {proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = Path(objdir) / LIB_NAME
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        out = "".join(logs) + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{out}")
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees old or new, never half
     log.write_text(out)
     stamp.write_text(digest)
     return BuildInfo(lib, False, time.perf_counter() - t0, out)

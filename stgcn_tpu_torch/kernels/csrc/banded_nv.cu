@@ -1,14 +1,17 @@
 // K5: banded SpMM on the nv operand [N, V] (replaces the TPU kernel
-// `_stream_nv_call`, stgcn_tpu/kernels/banded_nv.py:208), float32.
+// `_stream_nv_call`, stgcn_tpu/kernels/banded_nv.py:208), float32 or int8
+// slabs.
 //
 // One application, with slab_i the pre-transposed [w, bs] dense slab of
-// block row i over its column window starting at lo_i:
+// block row i over its column window starting at lo_i, and scale_i the
+// per-output-lane dequant factors of an int8 pack (1 for float32):
 //
-//   y[r, i*bs + b] = sum_{k < w} x[r, lo_i + k] * slab_i[k, b]
+//   y[r, i*bs + b] = scale_i[b] * sum_{k < w} x[r, lo_i + k] * slab_i[k, b]
 //
-// Every operand is [n, vp] row-major; a window reads columns >= vp as zero
-// (the TPU pads x to x_cols = round_up(max(vp, nbr*bs), bs) with zeros) and
-// output columns >= nbr*bs have no slab (A x is zero there).
+// The factor multiplies the float32 sum, as the TPU kernel applies it
+// (:151, :179). Every operand is [n, vp] row-major; a window reads columns
+// >= vp as zero (the TPU pads x to x_cols = round_up(max(vp, nbr*bs), bs)
+// with zeros) and output columns >= nbr*bs have no slab (A x is zero there).
 //
 // Modes (one C entry point, one or two launches of one kernel):
 //   single: out = scale * A x
@@ -22,7 +25,8 @@
 // Design: a block owns a 64-row x 64-column output tile inside one block
 // column i and walks the w-long window in steps of 16 through the register
 // tiling of nv_tile.cuh (shared with K6), float32 FMA (no TF32: the parity
-// bound is 1e-4). The epilogue alpha*acc + beta*add is applied in
+// bound is 1e-4); int8 slabs are read as int8 and widened to float32 in
+// shared memory. The epilogue alpha*acc*scale + beta*add is applied in
 // registers. No atomics: a repeat launch is bit-identical. Offsets are
 // size_t (N * vp is 130 M elements at 100k vertices).
 //
@@ -41,18 +45,21 @@ using nvtile::kTm;
 using nvtile::kTn;
 using nvtile::kThreads;
 
-// out = alpha * (A x) + beta * add, every operand [n, vp]
+// out = alpha * (A x) * lane_scale + beta * add, every operand [n, vp]
+template <typename T>
 struct PassArgs {
-  const float* slabs;  // [nbr, w, bs]
-  const int* lo;       // [nbr]
+  const T* slabs;       // [nbr, w, bs]
+  const int* lo;        // [nbr]
+  const float* scales;  // [nbr * bs] or null
   const float* x;
-  const float* add;    // or null
+  const float* add;     // or null
   float* out;
   int nbr, w, bs, n, vp;
   float alpha, beta;
 };
 
-__global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs a) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs<T> a) {
   __shared__ nvtile::Smem sm;
   const int c0 = blockIdx.x * kTn;   // first output column of the tile
   const int r0 = blockIdx.y * kTm;   // first output row
@@ -66,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs a) {
 
   if (blk < a.nbr) {  // output columns past nbr*bs have no slab: A x is 0 there
     const int lo = a.lo[blk];
-    const float* slab = a.slabs + (size_t)blk * a.w * a.bs + (c0 - blk * a.bs);
+    const T* slab = a.slabs + (size_t)blk * a.w * a.bs + (c0 - blk * a.bs);
     for (int k0 = 0; k0 < a.w; k0 += kTk) {
       nvtile::stage_x(sm, a.x, a.n, a.vp, r0, lo + k0);
       nvtile::stage_a(sm, slab + (size_t)k0 * a.bs, a.bs);
@@ -75,39 +82,58 @@ __global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs a) {
       __syncthreads();
     }
   }
-  nvtile::store(acc, nullptr, a.alpha, a.beta, a.add, a.out, a.n, a.vp, r0, c0);
+  // past nbr*bs there is no slab and no scale: the sums are 0
+  nvtile::store(acc, blk < a.nbr ? a.scales : nullptr, a.alpha, a.beta, a.add, a.out, a.n,
+                a.vp, r0, c0);
 }
 
-cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_pass(const PassArgs<T>& a, cudaStream_t stream) {
   if (a.n <= 0) return cudaSuccess;
   const dim3 grid(a.vp / kTn, (a.n + kTm - 1) / kTm);
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  banded_nv_kernel<<<grid, kThreads, 0, stream>>>(a);
+  banded_nv_kernel<T><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_mode(const T* slabs, const int* lo, const float* scales, const float* x,
+                     const float* g, float* mid, float* out, int nbr, int w, int bs, int n,
+                     int vp, int mode, float scale, cudaStream_t s) {
+  // PassArgs: slabs, lo, scales, x, add, out, nbr, w, bs, n, vp, alpha, beta
+  if (mode == 0)
+    return launch_pass<T>({slabs, lo, scales, x, nullptr, out, nbr, w, bs, n, vp, scale, 0.0f},
+                          s);
+  if (mode != 1 && mode != 2) return cudaErrorInvalidValue;
+  const bool chain = mode == 2;
+  // pass 1: mid = A x (pair) or 2 A x + g (chain)
+  cudaError_t err = launch_pass<T>({slabs, lo, scales, x, chain ? g : nullptr, mid, nbr, w, bs,
+                                    n, vp, chain ? 2.0f : 1.0f, 1.0f}, s);
+  if (err != cudaSuccess) return err;
+  // pass 2: out = 2 A mid - x (pair) or A mid - x (chain)
+  return launch_pass<T>({slabs, lo, scales, mid, x, out, nbr, w, bs, n, vp,
+                         chain ? 1.0f : 2.0f, -1.0f}, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K5. slabs [nbr, w, bs], lo [nbr] int32; x, g, mid, out [n, vp] with
+// K5. slabs [nbr, w, bs] float32 (int8 when `int8`), lo [nbr] int32, scales
+// [nbr, bs] float32 (int8 only, else null); x, g, mid, out [n, vp] with
 // 16-byte-aligned rows; g only for chain, mid for pair and chain. mode 0
 // single, 1 pair, 2 chain. Needs bs % 64 == 0, w % 16 == 0, vp % 64 == 0.
-int stgcn_banded_nv(const float* slabs, const int* lo, const float* x, const float* g,
-                    float* mid, float* out, int nbr, int w, int bs, int n, int vp, int mode,
-                    float scale, void* stream) {
-  if (bs % kTn != 0 || w % kTk != 0 || vp % kTn != 0) return cudaErrorInvalidValue;
+int stgcn_banded_nv(const void* slabs, const int* lo, const float* scales, const float* x,
+                    const float* g, float* mid, float* out, int nbr, int w, int bs, int n,
+                    int vp, int int8, int mode, float scale, void* stream) {
+  if (bs % kTn != 0 || w % kTk != 0 || vp % kTn != 0 || (int8 != 0) != (scales != nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // PassArgs: slabs, lo, x, add, out, nbr, w, bs, n, vp, alpha, beta
-  if (mode == 0) return launch_pass({slabs, lo, x, nullptr, out, nbr, w, bs, n, vp, scale, 0.0f}, s);
-  if (mode != 1 && mode != 2) return cudaErrorInvalidValue;
-  const bool chain = mode == 2;
-  // pass 1: mid = A x (pair) or 2 A x + g (chain)
-  cudaError_t err = launch_pass({slabs, lo, x, chain ? g : nullptr, mid, nbr, w, bs, n, vp,
-                                 chain ? 2.0f : 1.0f, 1.0f}, s);
-  if (err != cudaSuccess) return err;
-  // pass 2: out = 2 A mid - x (pair) or A mid - x (chain)
-  return launch_pass({slabs, lo, mid, x, out, nbr, w, bs, n, vp, chain ? 1.0f : 2.0f, -1.0f}, s);
+  if (int8)
+    return run_mode(static_cast<const int8_t*>(slabs), lo, scales, x, g, mid, out, nbr, w, bs,
+                    n, vp, mode, scale, s);
+  return run_mode(static_cast<const float*>(slabs), lo, scales, x, g, mid, out, nbr, w, bs, n,
+                  vp, mode, scale, s);
 }
 
 }  // extern "C"

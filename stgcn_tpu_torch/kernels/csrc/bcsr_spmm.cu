@@ -39,19 +39,6 @@ using nvtile::kTk;
 using nvtile::kTm;
 using nvtile::kTn;
 
-// x[row0 + k, c0 + c] for k < kTk, c < kTn into s.as[k][c]; columns >= n read 0.
-__device__ __forceinline__ void stage_x_rows(nvtile::Smem& s, const float* x, int n, size_t row0,
-                                             int c0) {
-  constexpr int kRowsPerPass = kThreads / kTn;
-  const int c = threadIdx.x % kTn;
-  const bool live = c0 + c < n;
-#pragma unroll
-  for (int m = 0; m < kTk / kRowsPerPass; ++m) {
-    const int k = threadIdx.x / kTn + m * kRowsPerPass;
-    s.as[k][c] = live ? x[(row0 + k) * n + c0 + c] : 0.0f;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
     bcsr_spmm_kernel(const float* tiles, const int* cols, const int* counts, const float* x,
                      float* y, int max_b, int bs, int n, float alpha) {
@@ -67,7 +54,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  const size_t tile_len = (size_t)bs * bs;
+  const size_t tile_len = (size_t)bs * bs, rows = (size_t)gridDim.x * kTm;
   const float* row_tiles = tiles + (size_t)blk * max_b * tile_len;
   const int count = counts[blk];
   for (int k = 0; k < count; ++k) {
@@ -75,7 +62,7 @@ __global__ void __launch_bounds__(kThreads)
     const float* tile = row_tiles + k * tile_len;
     for (int k0 = 0; k0 < bs; k0 += kTk) {
       nvtile::stage_x(sm, tile, bs, bs, a0, k0);   // tile[a0 + r, k0 + j] -> xs[j][r]
-      stage_x_rows(sm, x, n, xr + k0, c0);         // x[xr + k0 + j, c0 + c] -> as[j][c]
+      nvtile::stage_x_rows(sm, x, n, rows, xr + k0, c0);   // x[xr + k0 + j, c0 + c] -> as[j][c]
       __syncthreads();
       nvtile::fma_tile(sm, acc);
       __syncthreads();

@@ -1,6 +1,9 @@
 // The register tiling shared by the nv SpMM kernels K5 (banded_nv.cu) and
 // K6 (ell_nv.cu): y[:, block i] = sum of x column windows @ pre-transposed
-// operator tiles, every operand [n, vp] row-major float32.
+// operator tiles, every operand [n, vp] row-major float32; and, with the
+// operands' roles swapped (the row-major operator staged transposed by
+// stage_x, the operand row by row by stage_x_rows), by the vn kernels K10
+// (bcsr_spmm.cu) and K7-K9 (banded_vn.cu).
 //
 // A block of kThreads threads owns a kTm-row x kTn-column output tile and
 // walks its reduction in steps of kTk: it stages the x tile (kTk columns of
@@ -38,6 +41,33 @@ __device__ __forceinline__ void stage_x(Smem& s, const float* x, int n, int vp, 
   s.xs[xq + 1][tid / 4] = v.y;
   s.xs[xq + 2][tid / 4] = v.z;
   s.xs[xq + 3][tid / 4] = v.w;
+}
+
+// The same from int8 values (x 4-byte aligned, vp % 4 == 0), widened to float32.
+__device__ __forceinline__ void stage_x(Smem& s, const int8_t* x, int n, int vp, int r0, int c) {
+  const int tid = threadIdx.x;
+  const int xr = r0 + tid / 4, xq = 4 * (tid % 4);
+  char4 q = make_char4(0, 0, 0, 0);
+  if (xr < n && c + xq < vp) q = *reinterpret_cast<const char4*>(x + (size_t)xr * vp + c + xq);
+  s.xs[xq + 0][tid / 4] = (float)q.x;
+  s.xs[xq + 1][tid / 4] = (float)q.y;
+  s.xs[xq + 2][tid / 4] = (float)q.z;
+  s.xs[xq + 3][tid / 4] = (float)q.w;
+}
+
+// x[row0 + k, c0 + c] for k < kTk, c < kTn into as[k][c], x [rows, n]
+// row-major; rows >= rows and columns >= n read 0. One coalesced 256-byte
+// row segment per 64 threads.
+__device__ __forceinline__ void stage_x_rows(Smem& s, const float* x, int n, size_t rows,
+                                             size_t row0, int c0) {
+  constexpr int kRowsPerPass = kThreads / kTn;
+  const int c = threadIdx.x % kTn;
+  const bool live = c0 + c < n;
+#pragma unroll
+  for (int m = 0; m < kTk / kRowsPerPass; ++m) {
+    const int k = threadIdx.x / kTn + m * kRowsPerPass;
+    s.as[k][c] = live && row0 + k < rows ? x[(row0 + k) * n + c0 + c] : 0.0f;
+  }
 }
 
 // a[k * ld + col] for k < kTk, col < kTn into as (a 16-byte aligned).

@@ -9,8 +9,9 @@ two hand-written kernels around the graph product::
     K1 head (prev-LN-normalize → tconv1 → gate → align)
       → graph aggregation (DenseGraphOp.cheb_pair_cv: torch.matmul; the
         cheb_pair_nv of BandedGraphOp (K5) or EllGraphOp (K6) on the
-        [N, Vp] view, no transpose; or BcsrGraphOp.apply_vn twice (K10) on
-        the [Vp, N] transpose, ``_graph_terms``)
+        [N, Vp] view, no transpose; or, on the [Vp, N] transpose,
+        BcsrGraphOp.apply_vn twice (K10) or the cheb_pair_vn of a banded
+        operator without its nv pack (K9), ``_graph_terms``)
       → K2 tail (contraction → residual → ReLU → tconv2 → gate + LN partials)
 
 and the output head as K3 → μ/σ → K4 (:mod:`stgcn_tpu_torch.kernels.
@@ -73,14 +74,18 @@ def _graph_terms(cfg: VertexBlockCfg, gop: Any, xg: torch.Tensor):
             return t, t
         return tuple(t.reshape(xg.shape) for t in gop.cheb_pair_nv(x_nv))
     if hasattr(gop, "apply_vn"):
-        # an operator on the folded [V, N] operand (BCSR: K10): a transpose
-        # each way; rows past the operator's pad are zero padding
+        # an operator on the folded [V, N] operand (BCSR: K10; banded without
+        # its nv pack: K7-K9): a transpose each way; rows past the operator's
+        # pad are zero padding
         x_vn = xg.reshape(-1, xg.shape[-1]).T[:_op_pad(gop)]
         if one:
             t = _from_vn(gop.apply_vn(x_vn), xg)
             return t, t
-        t1 = gop.apply_vn(x_vn)
-        t2 = gop.apply_vn(t1, scale=2.0) - x_vn
+        if hasattr(gop, "cheb_pair_vn"):
+            t1, t2 = gop.cheb_pair_vn(x_vn)
+        else:
+            t1 = gop.apply_vn(x_vn)
+            t2 = gop.apply_vn(t1, scale=2.0) - x_vn
         return _from_vn(t1, xg), _from_vn(t2, xg)
     raise NotImplementedError(f"{type(gop).__name__} has neither the cv, the nv nor the vn "
                               "surface; only the dense, banded, ELL and BCSR graph operators "

@@ -1,6 +1,6 @@
 """On-device graph-shift-operator application (port of
-``stgcn_tpu/ops/graph_op.py:30-601``: the dense kind, the BCSR kind, the
-banded kind's nv pack family and the blocked-ELL kind).
+``stgcn_tpu/ops/graph_op.py:30-601``: the dense, BCSR, banded (f32 and int8)
+and blocked-ELL kinds).
 
 The reference applies its dense GSO with ``torch.einsum('hi,btij->bthj')``
 (``model/layers.py:154-161,198``). Here the GSO is an operator object passed
@@ -11,8 +11,11 @@ to the layers at call time:
   to ``torch.matmul``, as the JAX package leaves them to XLA outside any
   Pallas kernel;
 - :class:`BandedGraphOp` — above 4096 vertices, an RCM-ordered road graph
-  packed as dense slabs over its band, applied by the hand-written kernel
-  K5 (:mod:`stgcn_tpu_torch.kernels.banded_nv`) on the ``[N, V]`` operand;
+  packed as dense slabs over its band (f32, or int8 with per-row scales),
+  applied by the hand-written kernels K7-K9
+  (:mod:`stgcn_tpu_torch.kernels.banded_spmm`) on the folded ``[V, N]``
+  operand, and by K5 (:mod:`stgcn_tpu_torch.kernels.banded_nv`) on the
+  ``[N, V]`` operand of the fused path;
 - :class:`EllGraphOp` — the O(nnz) blocked-ELL pack (f32 or int8) that
   carries the 1M-vertex graph, applied by K6
   (:mod:`stgcn_tpu_torch.kernels.ell_nv`) on the same operand;
@@ -20,9 +23,6 @@ to the layers at call time:
   (:mod:`stgcn_tpu_torch.kernels.spmm`) on the folded ``[V, N]`` operand:
   what ``auto`` picks above 4096 vertices when the RCM band is too wide for
   the banded slabs (the 1M-vertex road graph), as in the JAX package.
-
-The int8 banded kind comes with its kernel in a later slice of the port and
-raises here.
 """
 
 from __future__ import annotations
@@ -37,14 +37,26 @@ from stgcn_tpu_torch.device import resolve_device
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator, effectively_symmetric
 from stgcn_tpu_torch.graph.packing import pack_bcsr_device, pack_ell_device
 from stgcn_tpu_torch.kernels import banded_nv as nvk
+from stgcn_tpu_torch.kernels import banded_spmm as bk
 from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import spmm as sk
-from stgcn_tpu_torch.kernels.banded_spmm import _window_meta, banded_viable, pack_banded_device
 
 
 def _fold_to_vn(x: torch.Tensor) -> torch.Tensor:
     """``[..., V, C]`` → ``[V, prod(...)·C]``, V leading (the JAX ``_fold_to_vn``)."""
     return x.movedim(-2, 0).reshape(x.shape[-2], -1)
+
+
+def _fold_padded(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """:func:`_fold_to_vn` with zero rows appended up to ``rows``, contiguous,
+    in one copy; a vn operand ``[W, N]`` keeps its layout."""
+    pad = rows - x.shape[-2]
+    if pad < 0:
+        raise ValueError(f"operand has {x.shape[-2]} vertices, more than the operator's {rows}")
+    x = x.movedim(-2, 0)
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, pad))
+    return x.reshape(rows, -1).contiguous()
 
 
 def _unfold_from_vn(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -155,29 +167,103 @@ class _NvSurfaces:
 
 @dataclasses.dataclass(frozen=True)
 class BandedGraphOp(_NvSurfaces):
-    """Banded-slab GSO carrying only the nv pack family (the JAX
-    ``banded_graph_op(nv=True, nv_only=True)`` operator): per ``bs``-row
-    block of the RCM-ordered GSO one dense slab over its column window,
-    pre-transposed ``[nbr, w, bs]``, and the same for ``Aᵀ`` (the backward's
-    operator; one shared pack when the GSO is symmetric). The nv surfaces
-    run K5 on an ``[N, W]`` operand, ``W <= v_pad``."""
+    """Banded-slab GSO for RCM-ordered road graphs (the JAX
+    ``BandedGraphOp``, ``ops/graph_op.py:186-329``): per ``bs``-row block of
+    the GSO one dense slab over its column window, and the same for ``Aᵀ``
+    (the backward's operator), float32 or int8 with per-row dequant factors.
 
-    slabs_nv: torch.Tensor    # [nbr, w, bs] float32
+    Two pack families: the vn one ``[nbr, bs, w]`` (``slabs``), which K7-K9
+    apply to the folded ``[V, N]`` operand (the unfused model: ``__call__``,
+    ``cheb_pair``), and, with ``banded_graph_op(nv=True)``, the nv one
+    ``[nbr, w, bs]`` (``slabs_nv``), which K5 applies to the ``[N, V]`` view
+    of the fused path. An nv-only operator (``nv_only=True``) holds no vn
+    slabs (``slabs.shape[0] == 0``) and reaches its vn surfaces through K5
+    and two transposes, as the JAX one does. A scalar ``scale`` is the
+    kernels' alpha, never multiplied into the slabs (the JAX op multiplies
+    f32 slabs, or an int8 pack's scales, per call: at the model's scales of
+    1 and 2 the same product)."""
+
+    slabs: torch.Tensor       # [nbr, bs, w] float32 or int8 (nv-only: [0, bs, w])
     lo: torch.Tensor          # [nbr] int32 window starts, on the device
-    slabs_nv_t: torch.Tensor  # transpose pack
+    slabs_t: torch.Tensor     # transpose pack
     lo_t: torch.Tensor
     n_vertex: int
     v_pad: int
+    # the JAX routing of the pair: K8 where the wavefront schedule is safe,
+    # K9 on a stream pack (block-aligned, diagonal-containing windows)
+    pair_safe: bool = True
+    pair_stream: bool = False
+    scales: torch.Tensor | None = None     # [nbr, bs] per-row dequant (int8)
+    scales_t: torch.Tensor | None = None
+    slabs_nv: torch.Tensor | None = None   # [nbr, w, bs], banded_graph_op(nv=True)
+    slabs_nv_t: torch.Tensor | None = None
+
+    @property
+    def has_nv(self) -> bool:
+        return self.slabs_nv is not None
+
+    @property
+    def nv_only(self) -> bool:
+        return self.slabs.shape[0] == 0 and self.has_nv
+
+    def _apply_padded(self, x_vn: torch.Tensor, scale: float) -> torch.Tensor:
+        """``scale · (A x)`` on a ``[v_pad, N]`` operand (K7)."""
+        return bk.banded_spmm_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t, x_vn,
+                                  self.scales, self.scales_t, scale=scale)
+
+    def _pair_padded(self, x_vn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(A x, 2 A (A x) − x)`` on a ``[v_pad, N]`` operand, routed as
+        the JAX ``cheb_pair_vn`` (:248-282): a stream pack takes K9; an int8
+        pack without it, or a band the TPU's wavefront cannot run, two K7
+        applications; else K8."""
+        if self.pair_stream:
+            return bk.banded_cheb_pair_stream_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t,
+                                                  x_vn, self.scales, self.scales_t)
+        if self.scales is not None or not self.pair_safe:
+            t1 = self._apply_padded(x_vn, 1.0)
+            return t1, self._apply_padded(t1, 2.0) - x_vn
+        return bk.banded_cheb_pair_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t, x_vn)
+
+    def apply_vn(self, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """``[W, N] → [W, N]``, ``W <= v_pad`` rows (zero-padded to it for
+        the kernel, the result cut back)."""
+        if self.nv_only:
+            return super().apply_vn(x_vn, scale=scale)
+        return self._apply_padded(_fold_padded(x_vn, self.v_pad), scale)[:x_vn.shape[0]]
+
+    def cheb_pair_vn(self, x_vn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Folded-operand form of :meth:`cheb_pair` (``[W, N]`` in and out)."""
+        if self.nv_only:
+            return super().cheb_pair_vn(x_vn)
+        v = x_vn.shape[0]
+        t1, t2 = self._pair_padded(_fold_padded(x_vn, self.v_pad))
+        return t1[:v], t2[:v]
+
+    def __call__(self, x: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+        """Channels-last ``[..., V, C]`` application."""
+        if self.nv_only:
+            return super().__call__(x, scale=scale)
+        y = self._apply_padded(_fold_padded(x, self.v_pad), scale)
+        return _unfold_from_vn(y[:x.shape[-2]], x)
+
+    def cheb_pair(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Channels-last ``(G x, 2 G (G x) − x)`` (the Cheb layer's ks=3
+        route): the operand folded once for both terms."""
+        if self.nv_only:
+            return super().cheb_pair(x)
+        v = x.shape[-2]
+        t1, t2 = self._pair_padded(_fold_padded(x, self.v_pad))
+        return _unfold_from_vn(t1[:v], x), _unfold_from_vn(t2[:v], x)
 
     def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
         """``[N, W] → [N, v_pad]``: ``scale · (A x)`` on the nv operand (K5 single)."""
         return nvk.banded_spmm_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
-                                  self._pad(x_nv), scale=scale)
+                                  self._pad(x_nv), self.scales, self.scales_t, scale=scale)
 
     def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """ks=3 recurrence ``(A x, 2 A (A x) − x)`` on the nv operand (K5 pair)."""
         return nvk.cheb_pair_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
-                                self._pad(x_nv))
+                                self._pad(x_nv), self.scales, self.scales_t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,31 +346,69 @@ def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
     return DenseGraphOp(matrix=torch.as_tensor(mat, dtype=dtype).to(resolve_device(device)))
 
 
-def banded_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
-                    device: str | torch.device = "cuda") -> BandedGraphOp:
-    """The streaming f32 pack of the JAX ``banded_graph_op`` (block-aligned,
-    diagonal-containing windows, ``col_align = bs``), nv family only, as
-    its ``nv=True, nv_only=True`` (:509-517). A symmetric GSO (every
-    ``sym_*`` normalization, up to rounding) reuses one pack for the
-    transpose; ``v_pad`` is the pack's natural one (the max of both
-    directions)."""
-    bs = block_size
+def banded_graph_op(gso: GraphShiftOperator, *, quantize: bool = False,
+                    block_size: int | None = None, stream: bool = True, nv: bool = False,
+                    nv_only: bool = False, device: str | torch.device = "cuda") -> BandedGraphOp:
+    """The JAX ``banded_graph_op`` (:446-537), packed on the device.
+
+    ``stream`` or ``quantize``: block-aligned, diagonal-containing windows
+    (``col_align = bs``), the pack of the streaming pair K9, float32 or int8
+    with per-row scales; ``nv`` adds the pre-transposed nv family for K5,
+    ``nv_only`` keeps only that one. A symmetric GSO (every ``sym_*``
+    normalization, up to rounding) reuses one pack for the transpose;
+    ``v_pad`` is the pack's natural one (the max of both directions).
+    Otherwise: :func:`~stgcn_tpu_torch.kernels.banded_spmm.pack_banded_with_transpose`,
+    128-aligned windows clamped to ``v_pad``, a pack of its own for ``Aᵀ``
+    (K7, and K8 where :func:`~stgcn_tpu_torch.kernels.banded_spmm.
+    cheb_pair_wavefront_safe` holds); ``nv`` is ignored there, as in the JAX
+    function."""
+    bs = block_size or 256
     dev = resolve_device(device)
+    if not (stream or quantize):
+        slabs, lo, slabs_t, lo_t, v_pad = bk.pack_banded_with_transpose(
+            gso.matrix, block_size=bs, device=dev)
+        return BandedGraphOp(slabs=slabs, lo=torch.from_numpy(lo).to(dev), slabs_t=slabs_t,
+                             lo_t=torch.from_numpy(lo_t).to(dev), n_vertex=gso.n_vertex,
+                             v_pad=v_pad, pair_safe=bk.cheb_pair_wavefront_safe(lo, bs))
+
+    dtype = torch.int8 if quantize else torch.float32
     csr = sp.csr_matrix(gso.matrix)
+    csr_t = csr.T.tocsr()
     symmetric = effectively_symmetric(csr)
-    v_pad = _window_meta(csr, bs)[3]
-    if not symmetric:
-        csr_t = csr.T.tocsr()
-        v_pad = max(v_pad, _window_meta(csr_t, bs)[3])
+    v_pad = max(bk._window_meta(m, bs, bs, contain_diag=True)[3]
+                for m in ((csr,) if symmetric else (csr, csr_t)))
 
-    def pack(m):
-        slabs, lo, _ = pack_banded_device(m, block_size=bs, v_pad=v_pad, device=dev)
-        return slabs, torch.from_numpy(lo).to(dev)
+    def pack(m, transpose_slabs):
+        out = bk.pack_banded_device(m, block_size=bs, col_align=bs, contain_diag=True,
+                                    dtype=dtype, v_pad=v_pad, transpose_slabs=transpose_slabs,
+                                    device=dev)
+        return out[0], out[1], out[3] if quantize else None
 
-    slabs, lo = pack(csr)
-    slabs_t, lo_t = (slabs, lo) if symmetric else pack(csr_t)
-    return BandedGraphOp(slabs_nv=slabs, lo=lo, slabs_nv_t=slabs_t, lo_t=lo_t,
-                         n_vertex=gso.n_vertex, v_pad=v_pad)
+    def both(transpose_slabs):
+        fwd = pack(csr, transpose_slabs)
+        return fwd, fwd if symmetric else pack(csr_t, transpose_slabs)
+
+    (slabs, lo, scales), (slabs_t, lo_t, scales_t) = both(nv and nv_only)
+    slabs_nv = slabs_nv_t = None
+    if nv:
+        # pre-transposed packs for the fused path's kernel K5
+        if nv_only:
+            # carry only the nv family: the vn surfaces go through K5 and
+            # two transposes; empty vn slabs mark it, as in the JAX op
+            slabs_nv, slabs_nv_t = slabs, slabs_t
+            _, w, _ = slabs.shape
+            slabs = slabs_t = torch.zeros((0, bs, w), dtype=dtype, device=dev)
+        else:
+            (slabs_nv, _, _), (slabs_nv_t, _, _) = both(True)
+    w = slabs.shape[-1]
+    lo_d = torch.from_numpy(lo).to(dev)
+    return BandedGraphOp(
+        slabs=slabs, lo=lo_d, slabs_t=slabs_t,
+        lo_t=lo_d if symmetric else torch.from_numpy(lo_t).to(dev), n_vertex=gso.n_vertex,
+        v_pad=v_pad,
+        pair_safe=bk.cheb_pair_wavefront_safe(lo, bs),
+        pair_stream=bk.cheb_pair_stream_safe(lo, w, bs) and bk.cheb_pair_stream_safe(lo_t, w, bs),
+        scales=scales, scales_t=scales_t, slabs_nv=slabs_nv, slabs_nv_t=slabs_nv_t)
 
 
 def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bool = False,
@@ -330,30 +454,23 @@ def auto_kind(gso: GraphShiftOperator) -> str:
     the (RCM-ordered) band is narrow, else BCSR."""
     if gso.n_vertex <= 4096:
         return "dense"
-    return "banded" if banded_viable(gso.matrix) else "bcsr"
-
-
-_LATER = {"banded_int8": "the banded_int8 slice (K5 with per-column scales)"}
+    return "banded" if bk.banded_viable(gso.matrix) else "bcsr"
 
 
 def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
                   device: str | torch.device = "cuda", **kw
                   ) -> DenseGraphOp | BandedGraphOp | EllGraphOp | BcsrGraphOp:
     """Pick a representation (the JAX rule, ``ops/graph_op.py:574-601``):
-    ``auto`` as :func:`auto_kind`; ``ell`` / ``ell_int8`` are asked for by
-    name, as in the JAX package. The int8 banded kind is not ported yet and
-    raises, naming the slice that brings it."""
+    ``auto`` as :func:`auto_kind`; ``banded_int8``, ``ell`` / ``ell_int8``
+    and ``bcsr`` are asked for by name, as in the JAX package."""
     if kind == "auto":
         kind = auto_kind(gso)
     if kind == "dense":
         return dense_graph_op(gso, device=device, **kw)
     if kind == "bcsr":
         return bcsr_graph_op(gso, device=device, **kw)
-    if kind == "banded":
-        return banded_graph_op(gso, device=device, **kw)
+    if kind in ("banded", "banded_int8"):
+        return banded_graph_op(gso, quantize=kind == "banded_int8", device=device, **kw)
     if kind in ("ell", "ell_int8"):
         return ell_graph_op(gso, quantize=kind == "ell_int8", device=device, **kw)
-    if kind in _LATER:
-        raise NotImplementedError(f"graph-op kind {kind!r} is not ported yet; it "
-                                  f"comes with {_LATER[kind]}")
     raise ValueError(f"unknown graph-op kind {kind!r}")

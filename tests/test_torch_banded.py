@@ -47,7 +47,7 @@ def ops(request):
     bs = request.param
     _, jart, tart = banded_gsos()
     jop = jax_banded_graph_op(jart, block_size=bs, use_pallas=False, nv=True, nv_only=True)
-    return bs, jop, banded_graph_op(tart, block_size=bs, device="cpu")
+    return bs, jop, banded_graph_op(tart, block_size=bs, nv=True, nv_only=True, device="cpu")
 
 
 def test_synthetic_and_rcm_copies_equal_jax(tmp_path):
@@ -73,7 +73,7 @@ def test_pack_equals_jax(gso_type, bs):
     symmetric, so it has its own transpose pack."""
     _, jart, tart = banded_gsos(gso_type)
     jop = jax_banded_graph_op(jart, block_size=bs, use_pallas=False, nv=True, nv_only=True)
-    top = banded_graph_op(tart, block_size=bs, device="cpu")
+    top = banded_graph_op(tart, block_size=bs, nv=True, nv_only=True, device="cpu")
     assert top.v_pad == jop.v_pad and top.n_vertex == V
     np.testing.assert_array_equal(top.slabs_nv.numpy(), np.asarray(jop.slabs_nv))
     np.testing.assert_array_equal(top.slabs_nv_t.numpy(), np.asarray(jop.slabs_nv_t))
@@ -83,7 +83,7 @@ def test_pack_equals_jax(gso_type, bs):
     nbr, w, _ = top.slabs_nv.shape
     assert tbs.cheb_pair_stream_safe(top.lo.numpy(), w, bs)
     assert tbs.banded_viable(tart.matrix) == jbs.banded_viable(jart.matrix)
-    for got, ref in zip(tbs._window_meta(tart.matrix, bs),
+    for got, ref in zip(tbs._window_meta(tart.matrix, bs, bs, contain_diag=True),
                         jbs._window_meta(jart.matrix, bs, bs, contain_diag=True)):
         np.testing.assert_array_equal(got, ref)
 
@@ -118,7 +118,7 @@ def test_k5_vjps_match_jax(gso_type):
     on the transpose pack) against jax.vjp of banded_spmm_nv / cheb_pair_nv."""
     _, jart, tart = banded_gsos(gso_type)
     jop = jax_banded_graph_op(jart, block_size=128, use_pallas=False, nv=True, nv_only=True)
-    top = banded_graph_op(tart, block_size=128, device="cpu")
+    top = banded_graph_op(tart, block_size=128, nv=True, nv_only=True, device="cpu")
     rng = np.random.default_rng(11)
     x = rand(rng, 96, top.v_pad)
     g1, g2 = rand(rng, *x.shape), rand(rng, *x.shape)
@@ -169,7 +169,7 @@ def test_banded_op_surfaces_match_the_dense_op(ops):
 def _models(gct, ks, act, bs):
     adj, jart, tart = banded_gsos(cheb=gct == "cheb_graph_conv")
     jop = jax_banded_graph_op(jart, block_size=bs, use_pallas=False, nv=True, nv_only=True)
-    top = banded_graph_op(tart, block_size=bs, device="cpu")
+    top = banded_graph_op(tart, block_size=bs, nv=True, nv_only=True, device="cpu")
     jm = JaxSTGCN(n_his=12, ks=ks, graph_conv_type=gct, act_func=act)
     x = np.random.default_rng(1).standard_normal((B, 12, V, 1)).astype(np.float32)
     jparams = to_np(jm.init(jax.random.PRNGKey(3), jnp.asarray(x), jop,
@@ -200,12 +200,14 @@ def test_forward_on_banded_op_matches_jax(gct, ks, act, bs):
 
 def test_make_graph_op_routing():
     """auto: dense up to 4096 vertices, banded above when the band is narrow,
-    BCSR when it is not; bcsr, ell / ell_int8 by name; the unported kind
-    raises."""
-    _, _, tart = banded_gsos()
+    BCSR when it is not; banded_int8, bcsr, ell / ell_int8 by name; the
+    banded kinds build the JAX operator (the vn stream pack, and the nv one
+    with ``nv=True``)."""
+    _, jart, tart = banded_gsos()
     assert isinstance(make_graph_op(tart, "auto", device="cpu"), DenseGraphOp)
     op = make_graph_op(tart, "banded", device="cpu")
-    assert isinstance(op, BandedGraphOp) and op.slabs_nv.shape[-1] == 256
+    assert isinstance(op, BandedGraphOp) and op.slabs.shape[1] == 256 and not op.has_nv
+    assert op.pair_stream and op.scales is None
     big = TS.random_road_graph(5000, k_neighbors=4, seed=1)
     art = build_gso(big, "sym_norm_lap", cheb=False)
     op = make_graph_op(art, "auto", device="cpu")   # unordered: a wide band
@@ -215,7 +217,7 @@ def test_make_graph_op_routing():
                              gso_type=art.gso_type, cheb_rescaled=False, lam_max=None)
     op = make_graph_op(art, "auto", device="cpu")
     assert isinstance(op, BandedGraphOp) and op.n_vertex == 5000
-    assert op.slabs_nv_t is op.slabs_nv and op.slabs_nv.shape[-1] == 256
+    assert op.slabs_t is op.slabs and op.slabs.shape[1] == 256
     for kind in ("ell", "ell_int8"):
         op = make_graph_op(tart, kind, device="cpu")
         assert isinstance(op, EllGraphOp) and op.pack.quantized == (kind == "ell_int8")
@@ -223,8 +225,13 @@ def test_make_graph_op_routing():
     op = make_graph_op(tart, "bcsr", device="cpu")
     assert isinstance(op, BcsrGraphOp) and op.pack_t is op.pack and op.block_size == 256
     assert op.n_vertex == V and op.n_vertex_pad == 768
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_graph_op(tart, "banded_int8", device="cpu")
+    for nv in (False, True):
+        op = make_graph_op(tart, "banded_int8", nv=nv, device="cpu")
+        jop = jax_banded_graph_op(jart, quantize=True, use_pallas=False, nv=nv)
+        assert isinstance(op, BandedGraphOp) and op.slabs.dtype == torch.int8
+        assert op.has_nv == nv and op.pair_stream == jop.pair_stream
+        for f in ("slabs", "lo", "scales") + (("slabs_nv",) if nv else ()):
+            np.testing.assert_array_equal(getattr(op, f).numpy(), np.asarray(getattr(jop, f)))
     with pytest.raises(ValueError, match="unknown"):
         make_graph_op(tart, "csr", device="cpu")
 
@@ -233,6 +240,8 @@ def test_banded_pack_refuses_what_is_not_ported():
     _, _, tart = banded_gsos()
     with pytest.raises(ValueError, match="v_pad"):
         tbs.pack_banded_device(tart.matrix, v_pad=128, device="cpu")
+    with pytest.raises(TypeError, match="float32 or int8"):   # bf16 packs: the bf16 slice
+        tbs.pack_banded_device(tart.matrix, dtype=torch.bfloat16, device="cpu")
     with pytest.raises(ValueError, match="chain"):
         tnv.stream_nv(torch.zeros(1, 256, 256), torch.zeros(1, dtype=torch.int32),
                       torch.zeros(2, 256), mode="chain")

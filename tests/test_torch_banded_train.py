@@ -56,8 +56,9 @@ def test_trajectory_on_banded_op_matches_jax_trainer(fused, tmp_path):
     model.load_state_dict(state)
     cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=0.0, batch_size=B, fused=fused,
                       ckpt_dir=str(tmp_path / "port"), dataset_name="toy")
-    tr = Trainer(cfg, model, banded_graph_op(tart, block_size=128, device="cpu"), ds(series),
-                 ds(series[:20]), ds(series[:20]), scaler, device="cpu")
+    top = banded_graph_op(tart, block_size=128, nv=True, nv_only=True, device="cpu")
+    tr = Trainer(cfg, model, top, ds(series), ds(series[:20]), ds(series[:20]), scaler,
+                 device="cpu")
     got = []
     for _ in range(2):
         got.append(tr.train_epoch())
@@ -69,7 +70,7 @@ def test_fused_gradients_on_banded_op_match_unfused():
     """One batch with dropout on, the same masks: relative L2 < 1e-4 and each
     element within 2e-4 + 2e-3·|ref| (tests/test_vertex_fused.py:52-74)."""
     _, _, tart = banded_gsos()
-    top = banded_graph_op(tart, device="cpu")
+    top = banded_graph_op(tart, nv=True, nv_only=True, device="cpu")
     model = STGCN(N_HIS, tart.n_vertex, droprate=0.5, device="cpu",
                   generator=torch.Generator().manual_seed(0))
     params = dict(model.named_parameters())

@@ -2,9 +2,10 @@
 package's: the same flags and defaults, ``build_trainer`` on PeMSD7(M)
 (V = 228) with ``--graph_op banded --fused True`` — the RCM order, the pack
 (one block row: the window clamp and padding edges), the split series and
-the scaler — with ``--graph_op ell_int8`` and ``bcsr``, a whole CPU run
-through ``main`` that prints the reference test line, and the refusals of
-what is not ported (and of what the JAX CLI cannot run either)."""
+the scaler — with ``--graph_op banded_int8`` (fused and unfused),
+``ell_int8`` and ``bcsr``, a whole CPU run through ``main`` that prints the
+reference test line, and the refusals of what is not ported (and of what
+the JAX CLI cannot run either)."""
 
 import importlib
 from pathlib import Path
@@ -12,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 from stgcn_tpu_torch.data import synthetic as TS
 from stgcn_tpu_torch.ops import BandedGraphOp, BcsrGraphOp, EllGraphOp
@@ -48,8 +50,8 @@ def test_build_trainer_banded_matches_jax(tmp_path):
     gop, jop = ttr.gop, jtr.gop
     assert isinstance(gop, BandedGraphOp) and gop.slabs_nv.shape[0] == 1   # 228 < 256
     assert gop.v_pad == jop.v_pad == 256
-    np.testing.assert_array_equal(gop.slabs_nv.numpy(), np.asarray(jop.slabs_nv))
-    np.testing.assert_array_equal(gop.lo.numpy(), np.asarray(jop.lo))
+    for f in ("slabs", "slabs_nv", "lo"):   # both pack families under --fused, as the JAX CLI
+        np.testing.assert_array_equal(getattr(gop, f).numpy(), np.asarray(getattr(jop, f)))
     for split in ("train_ds", "val_ds", "test_ds"):
         np.testing.assert_array_equal(getattr(ttr, split).series.numpy(),
                                       np.asarray(getattr(jtr, split).series))
@@ -76,6 +78,31 @@ def test_build_trainer_ell_int8_matches_jax(tmp_path):
                                       np.asarray(getattr(jtr, split).series))
     np.testing.assert_array_equal(ttr.scaler.mean_, jtr.scaler.mean_)
     assert ttr.cfg.fused and ttr.steps_per_epoch == jtr.steps_per_epoch
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_build_trainer_banded_int8_matches_jax(fused, tmp_path):
+    """``--graph_op banded_int8``: the same RCM-permuted series and int8
+    pack (slabs, window starts, scales; the nv family under ``--fused``, as
+    the JAX CLI asks for it) as the JAX CLI's."""
+    argv = ["--dataset", "pemsd7-m", "--graph_op", "banded_int8", "--fused", str(fused),
+            "--ckpt_dir", str(tmp_path / "ck")]
+    kw = dict(dataset="pemsd7-m", data_root=DATA, graph_op_kind="banded_int8")
+    jtr = jcli.build_trainer(jcli.config_from_args(jcli.get_parameters(argv)), **kw)
+    ttr = tcli.build_trainer(tcli.config_from_args(tcli.get_parameters(argv)), device="cpu",
+                             **kw)
+    gop, jop = ttr.gop, jtr.gop
+    assert isinstance(gop, BandedGraphOp) and gop.slabs.dtype == torch.int8
+    assert gop.v_pad == jop.v_pad == 256 and gop.has_nv == jop.has_nv == fused
+    for f in ("slabs", "lo", "scales", "slabs_t", "scales_t", "slabs_nv"):
+        got, ref = getattr(gop, f), getattr(jop, f)
+        assert (got is None) == (ref is None), f
+        if got is not None:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref), err_msg=f)
+    for split in ("train_ds", "val_ds", "test_ds"):
+        np.testing.assert_array_equal(getattr(ttr, split).series.numpy(),
+                                      np.asarray(getattr(jtr, split).series))
+    assert ttr.cfg.fused == fused and ttr.steps_per_epoch == jtr.steps_per_epoch
 
 
 def test_main_trains_on_the_banded_op_and_prints_the_test_line(tmp_path, capsys):
@@ -130,15 +157,17 @@ def test_build_trainer_bcsr_matches_jax(tmp_path):
 
 
 def test_sparse_kinds_not_ported_raise(tmp_path):
-    """``banded_int8`` is not ported; ``--graph_op bcsr`` builds a Trainer;
-    and ``--fused True`` with ``auto`` picking bcsr (a 5000-vertex graph
-    whose hub vertex keeps the RCM band wider than the banded slabs take)
-    raises a TypeError in both packages: the JAX CLI asks ``bcsr_graph_op``
-    for nv packs it has no argument for."""
+    """Every sparse kind the JAX CLI builds builds here: ``banded_int8`` and
+    ``--graph_op bcsr`` give a Trainer on their operator; and ``--fused
+    True`` with ``auto`` picking bcsr (a 5000-vertex graph whose hub vertex
+    keeps the RCM band wider than the banded slabs take) raises a TypeError
+    in both packages: the JAX CLI asks ``bcsr_graph_op`` for nv packs it has
+    no argument for."""
     cfg = tcli.config_from_args(tcli.get_parameters(["--ckpt_dir", str(tmp_path)]))
-    with pytest.raises(NotImplementedError, match="banded_int8"):
-        tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA,
-                           graph_op_kind="banded_int8", device="cpu")
+    tr = tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA, graph_op_kind="banded_int8",
+                            device="cpu")
+    assert isinstance(tr.gop, BandedGraphOp) and tr.gop.scales is not None
+    assert not tr.gop.has_nv and not tr.cfg.fused
     tr = tcli.build_trainer(cfg, dataset="pemsd7-m", data_root=DATA, graph_op_kind="bcsr",
                             device="cpu")
     assert isinstance(tr.gop, BcsrGraphOp) and not tr.cfg.fused

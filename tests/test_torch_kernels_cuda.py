@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K4, their backward kernels K1b-K4b, the banded nv
-SpMM K5, the blocked-ELL nv SpMM K6 and the BCSR SpMM K10 and SDDMM K11
-against their plain PyTorch versions, on a card; the kernels' dropout masks
+SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8), the
+blocked-ELL nv SpMM K6 and the BCSR SpMM K10 and SDDMM K11 against their
+plain PyTorch versions, on a card; the kernels' dropout masks
 against the plain mask bit for bit.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
@@ -13,6 +14,8 @@ holds the same kernels against the same plain versions at the main path's
 full shapes.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from stgcn_tpu_torch.data.synthetic import random_road_graph
 from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator
 from stgcn_tpu_torch.kernels import banded_nv as nv
+from stgcn_tpu_torch.kernels import banded_spmm as bvn
 from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import sddmm as sd
@@ -232,11 +236,12 @@ def test_kernel_masks_equal_the_plain_mask(dev, v_true):
         assert torch.equal(got, plain), name
 
 
-def _banded_op(dev, n_vertex, bs, gso_type="sym_norm_lap"):
+def _banded_op(dev, n_vertex, bs, gso_type="sym_norm_lap", **kw):
+    """The banded operator ``kw`` asks for (K5's: ``nv=True, nv_only=True``)."""
     art = build_gso(random_road_graph(n_vertex, k_neighbors=6, seed=0), gso_type, cheb=True)
     art = GraphShiftOperator(matrix=permute_matrix(art.matrix, rcm_ordering(art.matrix)),
                              gso_type=gso_type, cheb_rescaled=True, lam_max=art.lam_max)
-    return banded_graph_op(art, block_size=bs, device=dev)
+    return banded_graph_op(art, block_size=bs, device=dev, **kw)
 
 
 @pytest.mark.parametrize("n", [480, 97])        # N a tile multiple, and not
@@ -246,7 +251,7 @@ def test_k5_matches_plain(dev, n_vertex, bs, mode, n):
     """Every mode against its plain version; (200, 256) is a one-block-row
     pack. The operand's padded lanes are not zero, so the padding rules are
     held too. A repeat launch is bit-identical."""
-    op = _banded_op(dev, n_vertex, bs)
+    op = _banded_op(dev, n_vertex, bs, nv=True, nv_only=True)
     rng = np.random.default_rng(5)
     x = _rand(rng, dev, n, op.v_pad)
     g = _rand(rng, dev, n, op.v_pad) if mode == "chain" else None
@@ -265,7 +270,7 @@ def test_k5_matches_plain(dev, n_vertex, bs, mode, n):
 def test_k5_autograd_matches_plain(dev):
     """The Functions' backward on the card (K5 single and chain on the
     transpose pack of a non-symmetric GSO) against the same on the CPU."""
-    op = _banded_op(dev, 600, 128, "rw_norm_lap")
+    op = _banded_op(dev, 600, 128, "rw_norm_lap", nv=True, nv_only=True)
     assert op.slabs_nv_t is not op.slabs_nv
     rng = np.random.default_rng(6)
     x, g1, g2 = (_rand(rng, dev, 96, op.v_pad) for _ in range(3))
@@ -282,7 +287,7 @@ def test_k5_autograd_matches_plain(dev):
 
 
 def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    op = _banded_op(dev, 600, 256)
+    op = _banded_op(dev, 600, 256, nv=True, nv_only=True)
     flat = torch.zeros(4 * op.v_pad + 1, device=dev)
     with pytest.raises(ValueError, match="16-byte"):   # contiguous, one float off
         nv.stream_nv(op.slabs_nv, op.lo, flat[1:].view(4, op.v_pad))
@@ -290,6 +295,137 @@ def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):
         nv.stream_nv(op.slabs_nv, op.lo.long(), flat[:-1].view(4, op.v_pad))
     with pytest.raises(ValueError, match="v_pad % bs"):
         nv.stream_nv(op.slabs_nv, op.lo, torch.zeros(4, op.v_pad + 64, device=dev))
+
+
+@pytest.mark.parametrize("n", [480, 97])        # N a tile multiple, and not
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+@pytest.mark.parametrize("n_vertex,bs", [(600, 128), (600, 256), (200, 256)])
+def test_k5_int8_matches_plain(dev, n_vertex, bs, mode, n):
+    """K5 on an int8 pack with its per-lane scales, every mode, against its
+    plain version; a repeat launch is bit-identical; the scale is alpha."""
+    op = _banded_op(dev, n_vertex, bs, quantize=True, nv=True, nv_only=True)
+    rng = np.random.default_rng(5)
+    x = _rand(rng, dev, n, op.v_pad)
+    g = _rand(rng, dev, n, op.v_pad) if mode == "chain" else None
+    name = nv.launch_name(mode, True)
+    before = kernels.launch_counts()[name]
+    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
+    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    ref = nv.stream_nv_reference(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
+    outs1, outs2, refs = ([o] if mode == "single" else list(o) for o in (out1, out2, ref))
+    for a, b, r in zip(outs1, outs2, refs):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, r, **TOL)
+    if mode == "single":
+        torch.testing.assert_close(nv.stream_nv(op.slabs_nv, op.lo, x, scales=op.scales,
+                                                scale=2.0), 2.0 * refs[0], **TOL)
+
+
+def test_k5_int8_autograd_matches_plain(dev):
+    """The int8 Functions' backward on the card (K5 single and chain on the
+    transpose pack of a non-symmetric GSO, with its scales) against the same
+    on the CPU."""
+    op = _banded_op(dev, 600, 128, "rw_norm_lap", quantize=True, nv=True, nv_only=True)
+    assert op.slabs_nv_t is not op.slabs_nv
+    rng = np.random.default_rng(6)
+    x, g1, g2 = (_rand(rng, dev, 96, op.v_pad) for _ in range(3))
+    pack = (op.slabs_nv, op.lo, op.slabs_nv_t, op.lo_t)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xx = x.to(d).requires_grad_(True)
+        p = [a.to(d) for a in pack]
+        sc = (op.scales.to(d), op.scales_t.to(d))
+        t1, t2 = nv.cheb_pair_nv(*p, xx, *sc)
+        y = nv.banded_spmm_nv(*p, xx, *sc, scale=2.0)
+        loss = (t1 * g1.to(d)).sum() + (t2 * g2.to(d)).sum() + (y * g1.to(d)).sum()
+        grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], **TOL)
+
+
+# the vn kernel's wrappers: launch name -> (wrapper, mode, the operator's arguments)
+VN_CASES = {
+    "vn_single": (bvn.banded_spmm, "single", {}),
+    "vn_single_int8": (bvn.banded_spmm, "single", {"quantize": True}),
+    "vn_pair_resident": (bvn.banded_cheb_pair, "pair", {"stream": False}),
+    "vn_pair": (bvn.banded_cheb_pair_stream, "pair", {}),
+    "vn_pair_int8": (bvn.banded_cheb_pair_stream, "pair", {"quantize": True}),
+    "vn_chain": (bvn.banded_chain_stream, "chain", {}),
+    "vn_chain_int8": (bvn.banded_chain_stream, "chain", {"quantize": True}),
+}
+
+
+@pytest.mark.parametrize("n", [480, 97])        # N a tile multiple, and not
+@pytest.mark.parametrize("name", sorted(VN_CASES))
+@pytest.mark.parametrize("n_vertex,bs", [(600, 128), (600, 256), (200, 256)])
+def test_k7_k8_k9_match_plain(dev, n_vertex, bs, name, n):
+    """Every wrapper of the vn kernel (K7 single, K8 pair on the clamped
+    pack, K9 pair and chain on the stream pack; f32 and int8) against its
+    plain version, the transpose pack of a non-symmetric GSO for the chain;
+    the operand's rows past nbr·bs are not zero, so the padding rules are
+    held too. A repeat launch is bit-identical; K7's scale is alpha."""
+    wrapper, mode, kw = VN_CASES[name]
+    op = _banded_op(dev, n_vertex, bs, "rw_norm_lap", **kw)
+    rng = np.random.default_rng(5)
+    x = _rand(rng, dev, op.v_pad, n)
+    if mode == "chain":
+        args, sc = (op.slabs_t, op.lo_t, x, _rand(rng, dev, op.v_pad, n)), op.scales_t
+        kwargs = {"scales_t": sc} if sc is not None else {}
+    else:
+        args, sc = (op.slabs, op.lo, x), op.scales
+        kwargs = {"scales": sc} if sc is not None else {}
+    before = kernels.launch_counts()[name]
+    out1, out2 = wrapper(*args, **kwargs), wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    g = args[3] if mode == "chain" else None
+    ref = bvn.banded_vn_reference(*args[:3], g, mode, scales=sc)
+    outs1, outs2, refs = ([o] if mode == "single" else list(o) for o in (out1, out2, ref))
+    for a, b, r in zip(outs1, outs2, refs):
+        assert a.shape == (op.v_pad, n) and torch.equal(a, b)
+        torch.testing.assert_close(a, r, **TOL)
+    if mode == "single":
+        torch.testing.assert_close(wrapper(*args, scale=2.0, **kwargs), 2.0 * refs[0], **TOL)
+
+
+@pytest.mark.parametrize("kw", [{}, {"quantize": True}, {"stream": False}],
+                         ids=["stream", "int8", "clamped"])
+def test_k7_k8_k9_autograd_matches_plain(dev, kw):
+    """The vn Functions' backward on the card (K7 on the transpose pack, K8's
+    two K7 applications, K9's chain; a non-symmetric GSO) against the same
+    on the CPU, through every surface of the operator."""
+    op = _banded_op(dev, 600, 128, "rw_norm_lap", **kw)
+    assert op.slabs_t is not op.slabs
+    rng = np.random.default_rng(6)
+    x = _rand(rng, dev, 3, 4, 600, 5)
+    g1, g2, g3 = (_rand(rng, dev, 3, 4, 600, 5) for _ in range(3))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        cop = dataclasses.replace(op, **{f.name: getattr(op, f.name).to(d)
+                                         for f in dataclasses.fields(op)
+                                         if isinstance(getattr(op, f.name), torch.Tensor)})
+        xx = x.to(d).requires_grad_(True)
+        t1, t2 = cop.cheb_pair(xx)
+        loss = (t1 * g1.to(d)).sum() + (t2 * g2.to(d)).sum() + (cop(xx, scale=2.0)
+                                                                * g3.to(d)).sum()
+        grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
+    torch.testing.assert_close(grads[0], grads[1], **TOL)
+
+
+def test_vn_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    op = _banded_op(dev, 600, 256, quantize=True)
+    x = torch.zeros(op.v_pad, 8, device=dev)
+    with pytest.raises(ValueError, match="int8"):   # int8 slabs without their scales
+        bvn.banded_spmm(op.slabs, op.lo, x)
+    with pytest.raises(ValueError, match="int32"):
+        bvn.banded_spmm(op.slabs, op.lo.long(), x, scales=op.scales)
+    with pytest.raises(TypeError, match="float32"):
+        bvn.banded_spmm(op.slabs, op.lo, x.double(), scales=op.scales)
+    with pytest.raises(ValueError, match="contiguous"):
+        bvn.banded_spmm(op.slabs, op.lo, x.T.contiguous().T, scales=op.scales)
+    with pytest.raises(ValueError, match="chain"):   # the chain without its g1
+        bvn.banded_chain_stream(op.slabs_t, op.lo_t, x, None, scales_t=op.scales_t)
 
 
 def _rcm_gso(n_vertex, gso_type="sym_norm_lap"):

@@ -15,6 +15,7 @@ import stgcn_tpu_torch
 from stgcn_tpu_torch import kernels
 from stgcn_tpu_torch.kernels import _build, _launch
 from stgcn_tpu_torch.kernels import banded_nv as tnv
+from stgcn_tpu_torch.kernels import banded_spmm as tbs
 from stgcn_tpu_torch.kernels import ell_nv as tek
 from stgcn_tpu_torch.kernels import output_head as toh
 from stgcn_tpu_torch.kernels import sddmm as tsd
@@ -83,6 +84,11 @@ ENTRY_POINTS = {
     "banded_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
     .banded_graph_op(_gso()),
     "make_graph_op(banded)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "banded"),
+    "make_graph_op(banded_int8)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "banded_int8"),
+    "banded_graph_op(quantize=True)": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
+    .banded_graph_op(_gso(), quantize=True),
+    "pack_banded_device": lambda: tbs.pack_banded_device(_gso().matrix),
+    "pack_banded_with_transpose": lambda: tbs.pack_banded_with_transpose(_gso().matrix),
     "ell_graph_op": lambda: __import__("stgcn_tpu_torch.ops", fromlist=["x"])
     .ell_graph_op(_gso()),
     "make_graph_op(ell_int8)": lambda: stgcn_tpu_torch.make_graph_op(_gso(), "ell_int8"),
@@ -230,6 +236,85 @@ def test_nv_wrapper_takes_plain_version_only_on_cpu(mode, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+def test_nv_int8_wrapper_takes_plain_version_only_on_cpu(mode, monkeypatch):
+    """K5's wrapper on an int8 pack with its scales, as above, counted under
+    its mode and dtype."""
+    plain_calls = []
+    real_ref = tnv.stream_nv_reference
+    monkeypatch.setattr(tnv, "stream_nv_reference",
+                        lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(tnv, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(tnv, "stream_of", lambda dev: 0)
+
+    def args(dev):
+        g = torch.zeros(5, 256, device=dev) if mode == "chain" else None
+        return (torch.zeros(1, 256, 128, dtype=torch.int8, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(5, 256, device=dev), g)
+
+    name = tnv.launch_name(mode, True)
+    scales = {d: torch.ones(1, 128, device=d) for d in ("meta", "cpu")}
+    before = kernels.launch_counts()[name]
+    out = tnv.stream_nv(*args("meta"), mode, scales=scales["meta"])
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
+    assert fake.calls == [("stgcn_banded_nv", len(_build.SIGNATURES["stgcn_banded_nv"]))]
+    assert all(o.shape == (5, 256) for o in ([out] if mode == "single" else out))
+    tnv.stream_nv(*args("cpu"), mode, scales=scales["cpu"])
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    with pytest.raises(ValueError, match="int8"):   # int8 slabs without their scales
+        tnv.stream_nv(*args("meta"), mode)
+
+
+VN_WRAPPERS = {   # launch name: (wrapper, its mode, int8)
+    "vn_single": (tbs.banded_spmm, "single", False),
+    "vn_single_int8": (tbs.banded_spmm, "single", True),
+    "vn_pair_resident": (tbs.banded_cheb_pair, "pair", False),
+    "vn_pair": (tbs.banded_cheb_pair_stream, "pair", False),
+    "vn_pair_int8": (tbs.banded_cheb_pair_stream, "pair", True),
+    "vn_chain": (tbs.banded_chain_stream, "chain", False),
+    "vn_chain_int8": (tbs.banded_chain_stream, "chain", True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VN_WRAPPERS))
+def test_vn_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
+    """The wrappers of the vn kernel (K7, K8, K9), as above: one C call per
+    wrapper call (both passes of pair and chain launched inside it), counted
+    under the wrapper's own name and dtype."""
+    wrapper, mode, int8 = VN_WRAPPERS[name]
+    plain_calls = []
+    real_ref = tbs.banded_vn_reference
+    monkeypatch.setattr(tbs, "banded_vn_reference",
+                        lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(tbs, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(tbs, "stream_of", lambda dev: 0)
+
+    def call(dev):
+        slabs = torch.zeros(2, 128, 256, dtype=torch.int8 if int8 else torch.float32, device=dev)
+        lo, x = torch.zeros(2, dtype=torch.int32, device=dev), torch.zeros(384, 5, device=dev)
+        kw = {"scales_t" if mode == "chain" else "scales": torch.ones(2, 128, device=dev)} \
+            if int8 else {}
+        if mode == "chain":
+            return wrapper(slabs, lo, x, x, **kw)
+        return wrapper(slabs, lo, x, **kw)
+
+    before = kernels.launch_counts()[name]
+    out = call("meta")
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
+    assert fake.calls == [("stgcn_banded_vn", len(_build.SIGNATURES["stgcn_banded_vn"]))]
+    assert all(o.shape == (384, 5) for o in ([out] if mode == "single" else out))
+    call("cpu")
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    assert len(fake.calls) == 1
+    with pytest.raises(ValueError, match="CUDA or CPU"):   # without the test double
+        monkeypatch.undo()
+        call("meta")
+
+
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
 @pytest.mark.parametrize("quantize", [False, True])
 def test_ell_wrapper_takes_plain_version_only_on_cpu(quantize, mode, monkeypatch):
     """K6's wrapper, as above: one C call per wrapper call (both passes of
@@ -326,7 +411,7 @@ def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
 def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
     assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
-                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "ell_nv.cu",
-                    "bcsr_spmm.cu", "bcsr_sddmm.cu"}
+                    "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "banded_vn.cu",
+                    "ell_nv.cu", "bcsr_spmm.cu", "bcsr_sddmm.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()
