@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
-and check them: PeMSD7(M) through the dense operator, then a 100k-vertex
+and check them: PeMSD7(M) through the dense operator, fused per vertex tile
+(K1-K4) and as whole ST blocks (K12, also at PEMS-BAY batch 512), then a 100k-vertex
 road graph through the banded operator, fused through its kernel K5 and
 unfused (``main.py``'s default route there) through the vn kernels K7-K9,
 f32 and int8, then the 1M-vertex road graph through the blocked-ELL operator
@@ -11,7 +12,7 @@ then the CLI.
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Sixteen phases, each printing one JSON line with its own seconds:
+Eighteen phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -56,7 +57,32 @@ Sixteen phases, each printing one JSON line with its own seconds:
    (validation launches none), then ``test()`` from the best checkpoint,
    which prints the reference ``Dataset pemsd7-m | Test loss …`` line; then
    3 unfused epochs, for the seconds per epoch of both routes.
-7. kernels_banded — the 100k-vertex problem (``random_road_graph(100_000,
+7. kernels_stblock — K12f and K12b (the whole dense ST block) at every call of
+   one PeMSD7(M) training step through ``fused_forward`` (two blocks, dropout
+   on) and of one PEMS-BAY step at batch 512 (``BASELINE.json`` configs[2]:
+   ``data/pems-bay/adj.npz``, inputs from ``numpy.random.default_rng(0)`` as
+   ``scripts/bench_fused.py``), recorded, plus a generality set at the
+   PeMSD7(M) block-0 shape (gtu, relu, silu; Ks 2 and 4; ``graph_conv``),
+   each held against its plain version as in phase 3, repeat bit-identical,
+   the counter moved; K12b's plain version takes the kernel's ReLU decisions
+   (read back through ``relu_out``), and each one it changes must have |r|
+   within 1e-5 of max |r|. Timed beside the bound: max(bytes over 3.35 TB/s,
+   the JAX cost estimate's FLOPs at the true V over 67 TFLOP/s, the backward
+   3×); no one PyTorch call computes the block, so no library time.
+8. fused_dense — the dense whole-block route end to end: the PeMSD7(M) test
+   split through ``fused_forward`` against the unfused forward and
+   ``fused_sparse_forward`` (2e-4 + 2e-4·|ref|; launches K12f ×2 a batch and
+   nothing else); one batch's gradients against the unfused ones with the
+   same masks (the bounds of phase 6); 20 AdamW steps (lr 1e-3, weight
+   decay 1e-3) dense and unfused from the same weights, losses within
+   1e-4 + 1e-4·|ref|, launches K12f ×2 and K12b ×2 a step and none of
+   K1-K11; then PEMS-BAY at batch 512: the forward of the three routes
+   against each other, one step's gradients dense against unfused, and the
+   CUDA-event ms of each route's forward and training step (AdamW) with
+   the peak memory above what was allocated before, in turns, and one step
+   of each route traced by ``torch.profiler``: its kernels' device time by
+   name and in all, and that sum's share of the step.
+9. kernels_banded — the 100k-vertex problem (``random_road_graph(100_000,
    k_neighbors=8, seed=0)``, ``sym_norm_lap`` Chebyshev GSO with Lanczos
    lambda_max, RCM, the banded operator of 256-row slabs that the JAX CLI
    builds under ``--fused``: the vn stream pack and the nv one, f32; one day
@@ -67,7 +93,7 @@ Sixteen phases, each printing one JSON line with its own seconds:
    beside its bound (bytes over 3.35 TB/s against the nonzeros' FLOPs over
    67 TFLOP/s; the band's FLOPs are printed too) and ``torch.sparse.mm``
    on the CSR GSO (operand transposed outside the timing).
-8. kernels_banded_vn — on the same 100k graph, the int8 operator (vn and
+10. kernels_banded_vn — on the same 100k graph, the int8 operator (vn and
    nv packs, per-row scales) and the clamped one of ``stream=False``
    (128-aligned windows, a pack of its own for Aᵀ) built on the card, each
    pack timed; the vn kernel at N = 1280 and 768 on the real packs, random
@@ -77,7 +103,7 @@ Sixteen phases, each printing one JSON line with its own seconds:
    repeat bit-identical, timed beside its bound (the nonzeros as CSR, int8
    values at 1 B and the row factors, the operands read or written once;
    2·nnz·N FLOPs an application) and ``torch.sparse.mm`` on the CSR GSO.
-9. banded_100k — one forecast batch of 8 fused against the unfused model on
+11. banded_100k — one forecast batch of 8 fused against the unfused model on
    the same banded operator (K5 against K9; 2e-4 + 2e-4·|ref|, launches
    K1/K2 ×2, K3, K4, K5 pair ×2); every K1-K4 call of one fused training
    step at 100k held against its plain version; one batch's fused gradients
@@ -86,7 +112,7 @@ Sixteen phases, each printing one JSON line with its own seconds:
    phase 6 plus K5 pair ×2 and chain ×2 (validation batches: the forward's);
    ``test()``; peak device memory of the fit and test, and apart from it
    that of the checks before it.
-10. banded_100k_unfused — the 100k route of ``auto`` without ``--fused``:
+12. banded_100k_unfused — the 100k route of ``auto`` without ``--fused``:
    one forecast batch of the unfused model through K9 (launches K9 pair ×2)
    against the fused one through K5; on ``banded_int8`` K9 int8 against K5
    int8 (and the int8 forecast's distance from the f32 one, printed); the
@@ -97,7 +123,7 @@ Sixteen phases, each printing one JSON line with its own seconds:
    with finite losses, every step's seconds, launches per step K9 pair ×2
    and chain ×2 and K5 none, and ``test()``; the fit's peak memory apart
    from the checks'. Then the int8 and clamped operators are freed.
-11. kernels_ell — the 100k problem freed, the 1M-vertex problem
+13. kernels_ell — the 100k problem freed, the 1M-vertex problem
    (``random_road_graph(1_000_000, k_neighbors=8, seed=0)``, ``sym_norm_lap``
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
    256 × 256 tiles, int8 and f32, scattered on the card, 55 steps of
@@ -109,8 +135,8 @@ Sixteen phases, each printing one JSON line with its own seconds:
    (the live tiles' bytes as stored and the operands over 3.35 TB/s against
    the nonzeros' FLOPs over 67 TFLOP/s; the tiles' FLOPs are printed too) and
    ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
-12. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
-   Lion lr 1e-3, weight decay 1e-3, as phase 8 with K6 for K5: one forecast
+14. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
+   Lion lr 1e-3, weight decay 1e-3, as phase 11 with K6 for K5: one forecast
    batch fused against unfused (launches K1/K2 ×2, K3, K4, K6 pair ×2),
    every K1-K4 call of one training step against its plain version, fused
    against unfused gradients, a fused ``Trainer.fit(1)`` (8 steps; launches
@@ -118,7 +144,7 @@ Sixteen phases, each printing one JSON line with its own seconds:
    the fit's peak memory apart from the checks'. Cuts: f32 (the JAX bench ran
    bf16), no remat, Lion's momentum in f32, the series cut to 55 steps split
    23 / 16 / 16 (8 training windows, one validation and one test window).
-13. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
+15. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
    order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
    of 256 × 256 row-major f32 tiles for both directions, scattered on the
    card (timed). K10 at N = 160 and 96, scale 1 and 2 (its alpha), and K11
@@ -129,8 +155,8 @@ Sixteen phases, each printing one JSON line with its own seconds:
    once, the live tiles written once) and their library calls
    (``torch.sparse.mm`` on the CSR GSO; one ``torch.bmm`` over the live
    tiles' operands, gathered outside the timing).
-14. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
-   (the cuts of phase 10): one forecast batch through K10 (launches K10 ×4)
+16. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
+   (the cuts of phase 14): one forecast batch through K10 (launches K10 ×4)
    against the same weights on the f32 ELL operator (K6) within 2e-4 +
    2e-4·|ref|; every K10 call of one unfused training step (×8) against its
    plain version; one backward with the tile values requiring grad, K11
@@ -138,14 +164,14 @@ Sixteen phases, each printing one JSON line with its own seconds:
    unfused ``Trainer.fit(1)`` with finite losses and launches per step K10
    ×8 and K11 ×0 (validation: K10 ×4 a batch), then ``test()``; the fit's
    peak memory apart from the checks'.
-15. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
+17. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
    then with ``--graph_op ell_int8``, then ``bcsr`` (the fused forward's vn
    branch), then unfused on ``banded`` (K9) and ``banded_int8`` (K9 int8),
    then ``banded_int8 --fused True`` (K5 int8): its epoch and test lines,
    every kernel of the step (K5, K6 or K9 pair and chain, or K10, included)
    launched, and none of K1-K4 unfused.
-16. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
+18. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
    training paths, PeMSD7(M), 100k and 1M, and its launches), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -865,6 +891,413 @@ def phase_train(torch, data) -> dict:
               "train_loss_unfused": [h["train_loss"] for h in hist_u],
               "epoch_seconds_unfused": [h["epoch_time_s"] for h in hist_u],
               "launches": launches, "test_fused": test_f}
+    emit(result)
+    return result
+
+
+# --------------------------------------------------------------------------
+# the dense whole-block route: fused_forward over K12f / K12b
+# --------------------------------------------------------------------------
+
+K12_META = {"stblock_fwd": ("K12f", "stgcn_tpu_torch/kernels/csrc/fused_stblock.cu",
+                            "stgcn_tpu/kernels/fused_stblock.py:590", "_fwd_pallas"),
+            "stblock_bwd": ("K12b", "stgcn_tpu_torch/kernels/csrc/fused_stblock_bwd.cu",
+                            "stgcn_tpu/kernels/fused_stblock.py:626", "_bwd_pallas")}
+PER_BATCH_DENSE = {"stblock_fwd": 2}
+PER_STEP_DENSE = {"stblock_fwd": 2, "stblock_bwd": 2}
+BATCH_PEMS_BAY = 512            # BASELINE.json configs[2], scripts/bench_fused.py's batch
+K12_REPS_PEMS_BAY = 10
+RELU_OPEN = 1e-5   # a ReLU decision the kernel takes otherwise: |r| <= this · max |r|
+# the generality set: (act, graph conv, Ks) beside the main.py plan's (glu, cheb, 3)
+K12_GENERAL = [("gtu", "cheb_graph_conv", 3), ("relu", "cheb_graph_conv", 3),
+               ("silu", "cheb_graph_conv", 3), ("glu", "cheb_graph_conv", 2),
+               ("glu", "cheb_graph_conv", 4), ("glu", "graph_conv", 1)]
+
+
+def stblock_flops(cfg, b: int, bwd: bool) -> int:
+    """Matmul FLOPs of one K12 call: the JAX cost estimate (`_flops_estimate`,
+    stgcn_tpu/kernels/fused_stblock.py:577-587) at the true vertex count over
+    the whole batch; the backward counts 3× its forward (:672)."""
+    v = cfg.v_true
+    n_g = 1 if cfg.graph_conv_type == "graph_conv" else max(cfg.ks - 1, 0)
+    f = 2 * b * cfg.t1 * v * (cfg.kt * cfg.c_in * cfg.g1 + cfg.c0 * cfg.c1 + n_g * v * cfg.c1
+                              + cfg.n_w * cfg.c1 * cfg.c1)
+    f += 2 * b * cfg.t2 * v * cfg.kt * cfg.c1 * cfg.g2
+    return f * (3 if bwd else 1)
+
+
+def load_pems_bay(torch) -> dict:
+    """PEMS-BAY (``BASELINE.json`` configs[2]) as ``scripts/bench_fused.py``
+    sets it up: the dense Chebyshev GSO of ``data/pems-bay/adj.npz``
+    (``sym_norm_lap``) and inputs ``[512, 12, 325, 1]`` from
+    ``numpy.random.default_rng(0)``; the target is zero, so the loss is the
+    bench's mean square of the forecast."""
+    import numpy as np
+
+    from stgcn_tpu_torch.data import load_adj
+    from stgcn_tpu_torch.graph import build_gso
+    from stgcn_tpu_torch.ops import make_graph_op
+
+    adj, n_vertex = load_adj("pems-bay", str(ROOT / "data"))
+    x = np.random.default_rng(0).standard_normal((BATCH_PEMS_BAY, N_HIS, n_vertex, 1))
+    return {"n_vertex": n_vertex,
+            "gop": make_graph_op(build_gso(adj, "sym_norm_lap", cheb=True), "auto",
+                                 device="cuda"),
+            "x": torch.from_numpy(x.astype(np.float32)).cuda(),
+            "y": torch.zeros((BATCH_PEMS_BAY, n_vertex), device="cuda")}
+
+
+def record_dense_step(torch, model, x, y, gop, seed: int) -> list:
+    """One training step through ``fused_forward`` (dropout on): every K12f /
+    K12b call it makes, (wrapper name, label, args, kwargs) in call order."""
+    from stgcn_tpu_torch.kernels import fused_stblock as fs
+    from stgcn_tpu_torch.nn.fused import fused_forward
+    from stgcn_tpu_torch.train import masked_mse
+
+    calls: list = []
+    real = {name: getattr(fs, name) for name in K12_META}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            n = sum(c[0] == name for c in calls)
+            calls.append((name, f"call{n}", args, kwargs))
+            return real[name](*args, **kwargs)
+        return call
+
+    params = dict(model.named_parameters())
+    try:
+        for name in real:
+            setattr(fs, name, recorder(name))
+        pred = fused_forward(params, x, gop, model, deterministic=False, seed=seed)
+        loss = masked_mse(pred.reshape(x.shape[0], -1), y, x.shape[0])
+        torch.autograd.grad(loss, list(params.values()))
+    finally:
+        for name in real:
+            setattr(fs, name, real[name])
+    torch.cuda.synchronize()
+    counts = {name: sum(c[0] == name for c in calls) for name in K12_META}
+    if counts != PER_STEP_DENSE:
+        raise AssertionError(f"one dense training step made K12 calls {counts}, expected "
+                             f"{PER_STEP_DENSE}")
+    return calls
+
+
+def check_stblock(torch, name, label, args, kwargs, reps: int) -> dict:
+    """One K12f / K12b call held against its plain version and timed
+    (``check_and_time``). K12b's plain version takes the kernel's ReLU
+    decisions, read back through ``relu_out``: where a ReLU input lies within
+    rounding of 0 the kernel's sums and the plain version's may take opposite
+    branches, and the backward is not continuous there; every decision that
+    differs must have |r| <= RELU_OPEN · max |r| in the plain version."""
+    from stgcn_tpu_torch.kernels import fused_stblock as fs
+
+    cfg, x, gso, *rest = args
+    w, drop, bwd = rest[:10], kwargs.get("drop"), name == "stblock_bwd"
+    relu = None
+    if bwd:
+        h = torch.empty((x.shape[0], cfg.t1, cfg.v_true, cfg.c1), device=x.device)
+        fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h)
+        r = fs.relu_input(cfg, x.detach(), gso, [t.detach() for t in w])
+        flipped = (r > 0) != (h > 0)
+        ratio = float(r[flipped].abs().max() / r.abs().max()) if bool(flipped.any()) else 0.0
+        if ratio > RELU_OPEN:
+            raise AssertionError(f"{name} [{label}]: the kernel takes a ReLU decision of the "
+                                 f"plain version's otherwise at |r| = {ratio:.2e} · max |r|")
+        mask = (h > 0).float()
+        relu = {"flipped_units": int(flipped.sum()), "units": flipped.numel(),
+                "flipped_max_r_over_max_r": ratio}
+        del h, r, flipped
+
+        def plain():
+            return fs.st_block_bwd_reference(cfg, x, gso, w, rest[10], drop, relu_mask=mask)
+    else:
+        def plain():
+            with torch.no_grad():
+                return fs.st_block_reference(cfg, x, gso, w, drop)
+    out = check_and_time(torch, name, label, getattr(fs, name), plain, args, kwargs,
+                         stblock_flops(cfg, x.shape[0], bwd), reps=reps)
+    out["v"], out["batch"] = cfg.v_true, x.shape[0]
+    if relu:
+        out["relu"] = relu
+    return out
+
+
+def check_dense_calls(torch, calls, reps: int) -> dict:
+    results: dict[str, list] = {name: [] for name in K12_META}
+    failed = []   # every call is checked before the phase fails
+    for name, label, args, kwargs in calls:
+        try:
+            results[name].append(check_stblock(torch, name, label, args, kwargs, reps))
+        except AssertionError as e:
+            failed.append(str(e))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return results
+
+
+def stblock_case(torch, gen, gso, act: str, gct: str, ks: int):
+    """K12f and K12b calls at the PeMSD7(M) block-0 shape (batch 32, t_in 12,
+    c_in 1, the main.py widths) with random weights and dropout on."""
+    from stgcn_tpu_torch.kernels import fused_stblock as fs
+    from stgcn_tpu_torch.kernels.dropout import Drop, step_seed
+
+    v = gso.shape[0]
+    cfg = fs.FusedBlockConfig(kt=3, ks=ks, act_func=act, graph_conv_type=gct,
+                              droprate=DROPRATE, v_true=v, t_in=N_HIS, c_in=1, c0=64, c1=16,
+                              c2=64, training=True)
+    scales = (0.5, 0.1, 64 ** -0.5, 0.1, 16 ** -0.5, 0.1, 48 ** -0.5, 0.1, 0.1, 0.1)
+    w = [torch.randn(s, generator=gen, device="cuda") * sc
+         for s, sc in zip(cfg.weight_shapes(), scales)]
+    w[8] = w[8] + 1.0
+    x = torch.randn((BATCH, N_HIS, v, 1), generator=gen, device="cuda")
+    drop = Drop(DROPRATE, step_seed(42, 11), 0)
+    gy = torch.randn((BATCH, cfg.t2, v, cfg.c2), generator=gen, device="cuda") * 1e-3
+    label = f"{act}-{gct}-ks{ks}"
+    return [("stblock_fwd", label, (cfg, x, gso, *w), {"drop": drop}),
+            ("stblock_bwd", label, (cfg, x, gso, *w, gy), {"drop": drop})]
+
+
+def phase_kernels_stblock(torch, data, pb) -> dict:
+    """Phase 7: every K12f / K12b call of one PeMSD7(M) training step and of one
+    PEMS-BAY batch-512 step through ``fused_forward`` (dropout on), and a
+    generality set, held against their plain versions and timed."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+
+    model = new_model(torch, data["n_vertex"], DROPRATE)
+    starts, _ = next(data["train"].batches(BATCH))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    calls = record_dense_step(torch, model, x, y, data["gop"], step_seed(42, 0))
+    results = {"pemsd7": check_dense_calls(torch, calls, reps=30)}
+    del calls
+    model = new_model(torch, pb["n_vertex"], DROPRATE)
+    calls = record_dense_step(torch, model, pb["x"], pb["y"], pb["gop"], step_seed(42, 0))
+    results["pems_bay"] = check_dense_calls(torch, calls, reps=K12_REPS_PEMS_BAY)
+    del calls, model
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    general = [c for case in K12_GENERAL
+               for c in stblock_case(torch, gen, data["gop"].matrix, *case)]
+    results["generality"] = check_dense_calls(torch, general, reps=10)
+    kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_stblock", "seconds": time.perf_counter() - t0,
+          "tolerance": KERNEL_TOL, "relu_open": RELU_OPEN, "results": results})
+    return results
+
+
+def profile_once(torch, fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` after a warm-up call: the
+    device time of every kernel launched, in all and by kernel name (the
+    twelve largest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the kernels themselves: a CPU op's entry repeats its kernels' device time
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    return {"device_ms": sum(e.self_device_time_total for e in ev) / 1e3,
+            "top": [{"name": e.key[:100], "calls": e.count, "ms": e.self_device_time_total / 1e3}
+                    for e in top]}
+
+
+def phase_fused_dense(torch, data, pb) -> dict:
+    """Phase 8: the dense whole-block route, ``fused_forward`` over K12f / K12b,
+    against the unfused model and ``fused_sparse_forward`` on the same weights:
+    the PeMSD7(M) test split, one batch's gradients, 20 AdamW steps, and the
+    PEMS-BAY batch-512 forward and step times with their peak memory."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused import fused_forward
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import evaluate_metrics, masked_mse
+    from stgcn_tpu_torch.train.optim import adamw, apply_updates
+
+    test_ds, scaler, gop, n_vertex = data["test"], data["scaler"], data["gop"], data["n_vertex"]
+    routes = {"dense": fused_forward, "sparse": fused_sparse_forward,
+              "unfused": lambda p, x, g, m, **kw: m(x, g, **kw)}
+
+    # 1. the test split through the three routes
+    model = new_model(torch, n_vertex, DROPRATE).eval()
+    params = model.state_dict()
+    preds: dict[str, list] = {k: [] for k in routes}
+
+    def predictor(kind):
+        def predict(starts):
+            x, y = gather_windows(test_ds.series, starts, N_HIS, N_PRED)
+            pred = routes[kind](params, x, gop, model).reshape(len(starts), -1)
+            preds[kind].append(pred)
+            return pred, y
+        return predict
+
+    with torch.inference_mode():
+        starts0, _ = next(test_ds.batches(BATCH))   # warm-up
+        for kind in routes:
+            predictor(kind)(starts0)
+            preds[kind].clear()
+        torch.cuda.synchronize()
+        n_batches = -(-test_ds.num_windows // BATCH)
+        kernels.reset_launch_counts()
+        metrics = {"dense": evaluate_metrics(predictor("dense"), test_ds, scaler, BATCH)}
+        launches_forecast = kernels.launch_counts()
+        for kind in ("unfused", "sparse"):
+            metrics[kind] = evaluate_metrics(predictor(kind), test_ds, scaler, BATCH)
+        pred = {k: torch.cat(v) for k, v in preds.items()}
+        walls: dict[str, list] = {k: [] for k in routes}
+        for kind in ("dense", "unfused", "sparse", "sparse", "unfused", "dense"):
+            t1 = time.perf_counter()
+            evaluate_metrics(predictor(kind), test_ds, scaler, BATCH)
+            walls[kind].append(time.perf_counter() - t1)
+    want = expected(PER_BATCH_DENSE, n_batches)
+    if launches_forecast != want:
+        raise AssertionError(f"dense forecast launched {launches_forecast}, expected {want}")
+    pd = pred["dense"]
+    if pd.shape != (n_batches * BATCH, n_vertex) or not torch.isfinite(pd).all():
+        raise AssertionError(f"dense forecast has shape {tuple(pd.shape)} or non-finite values")
+    forecast_diff = {}
+    for kind in ("unfused", "sparse"):
+        d = (pd - pred[kind]).abs()
+        forecast_diff[kind] = float(d.max())
+        if not bool((d <= SLICE_TOL + SLICE_TOL * pred[kind].abs()).all()):
+            raise AssertionError(f"dense and {kind} forecasts differ: max |Δ| "
+                                 f"{float(d.max()):.3e}")
+
+    # 2. one batch's gradients, dense against unfused, same masks
+    model = new_model(torch, n_vertex, DROPRATE)
+    params = dict(model.named_parameters())
+    names = list(params)
+    starts, n_valid = next(data["train"].batches(BATCH))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    seed = step_seed(42, 0)
+
+    def loss_grads(kind, m, p, xx, yy, nv, g):
+        out = routes[kind](p, xx, g, m, deterministic=False, seed=seed)
+        loss = masked_mse(out.reshape(xx.shape[0], -1), yy, nv)
+        return loss, torch.autograd.grad(loss, [p[k] for k in names])
+
+    def compare_grads(gf, gu) -> dict:
+        ff, fu = torch.cat([g.flatten() for g in gf]), torch.cat([g.flatten() for g in gu])
+        rel = float((ff - fu).norm() / (fu.norm() + 1e-12))
+        worst = max(float(((a - b).abs() - GRAD_RTOL * b.abs()).max()) for a, b in zip(gf, gu))
+        if not rel < GRAD_REL_L2 or worst > GRAD_ATOL:
+            raise AssertionError(f"dense gradients off the unfused ones: relative L2 "
+                                 f"{rel:.3e}, worst excess over the rtol {worst:.3e}")
+        return {"grad_rel_l2": rel, "grad_max_abs_diff": float((ff - fu).abs().max())}
+
+    lf, gf = loss_grads("dense", model, params, x, y, n_valid, gop)
+    lu, gu = loss_grads("unfused", model, params, x, y, n_valid, gop)
+    one_batch = {"loss_dense": float(lf.detach()), "loss_unfused": float(lu.detach()),
+                 **compare_grads(gf, gu)}
+
+    # 3. 20 AdamW steps (lr 1e-3, weight decay 1e-3) from the same weights
+    state = {k: v.clone() for k, v in new_model(torch, n_vertex, DROPRATE).state_dict().items()}
+    batches = list(data["train"].batches(BATCH))[:20]
+
+    def run_steps(kind):
+        m = new_model(torch, n_vertex, DROPRATE)
+        m.load_state_dict(state)
+        p = dict(m.named_parameters())
+        tx = adamw(1e-3, weight_decay=1e-3)
+        opt, losses = tx.init(p), []
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, (s, nv) in enumerate(batches):
+            xx, yy = gather_windows(data["train"].series, s, N_HIS, N_PRED)
+            out = routes[kind](p, xx, gop, m, deterministic=False, seed=step_seed(42, i))
+            loss = masked_mse(out.reshape(BATCH, -1), yy, nv)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            updates, opt = tx.update(dict(zip(p, grads)), opt, p)
+            apply_updates(p, updates)
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        return torch.stack(losses).cpu(), kernels.launch_counts(), time.perf_counter() - t1
+
+    ld, launches_steps, sec_d = run_steps("dense")
+    lu20, launches_unf, sec_u = run_steps("unfused")
+    if launches_steps != expected(PER_STEP_DENSE, len(batches)):
+        raise AssertionError(f"20 dense steps launched {launches_steps}")
+    if any(launches_unf.values()):
+        raise AssertionError(f"the unfused steps launched kernels: {launches_unf}")
+    dl = (ld - lu20).abs()
+    if not bool(torch.isfinite(ld).all()) or not bool((dl <= LOSS_TOL + LOSS_TOL * lu20.abs())
+                                                       .all()):
+        raise AssertionError(f"dense and unfused step losses differ: {ld.tolist()} vs "
+                             f"{lu20.tolist()}")
+
+    # 4. PEMS-BAY, batch 512: forward and one step of each route, times, peak memory
+    pbm = new_model(torch, pb["n_vertex"], DROPRATE)
+    pp = dict(pbm.named_parameters())
+    with torch.no_grad():
+        outs = {k: routes[k](pp, pb["x"], pb["gop"], pbm) for k in routes}
+    pb_diff = {}
+    for kind in ("unfused", "sparse"):
+        d = (outs["dense"] - outs[kind]).abs()
+        pb_diff[kind] = float(d.max())
+        if not bool((d <= SLICE_TOL + SLICE_TOL * outs[kind].abs()).all()):
+            raise AssertionError(f"PEMS-BAY dense and {kind} forward differ: max |Δ| "
+                                 f"{float(d.max()):.3e}")
+    del outs
+    pb_args = (pbm, pp, pb["x"], pb["y"], BATCH_PEMS_BAY, pb["gop"])
+    pb_grads = compare_grads(loss_grads("dense", *pb_args)[1],
+                             loss_grads("unfused", *pb_args)[1])
+    timing, profiles = {}, {}
+    tx = adamw(1e-3, weight_decay=1e-3)
+    for kind in ("dense", "sparse", "unfused", "unfused", "sparse", "dense"):
+        opt = tx.init(pp)
+
+        def forward():
+            with torch.no_grad():
+                routes[kind](pp, pb["x"], pb["gop"], pbm)
+
+        def step():
+            nonlocal opt
+            out = routes[kind](pp, pb["x"], pb["gop"], pbm, deterministic=False, seed=seed)
+            loss = masked_mse(out.reshape(BATCH_PEMS_BAY, -1), pb["y"], BATCH_PEMS_BAY)
+            grads = torch.autograd.grad(loss, list(pp.values()))
+            updates, opt = tx.update(dict(zip(pp, grads)), opt, pp)
+            apply_updates(pp, updates)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_ms = cuda_ms(forward, warmup=2, reps=K12_REPS_PEMS_BAY)
+        step_ms = cuda_ms(step, warmup=2, reps=K12_REPS_PEMS_BAY)
+        t = timing.setdefault(kind, {"forward_ms": [], "step_ms": [], "peak_gb": []})
+        t["forward_ms"].append(fwd_ms)
+        t["step_ms"].append(step_ms)
+        t["peak_gb"].append((torch.cuda.max_memory_allocated() - base) / 1e9)
+        if kind not in profiles:   # one traced step a route: its kernels' device time
+            profiles[kind] = profile_once(torch, step)
+            profiles[kind]["busy_share_of_step"] = profiles[kind]["device_ms"] / step_ms
+    del pbm, pp
+    torch.cuda.empty_cache()
+    result = {"phase": "fused_dense", "seconds": time.perf_counter() - t0,
+              "pemsd7": {"n_vertex": n_vertex, "windows": test_ds.num_windows,
+                         "batches": n_batches, "batch_size": BATCH,
+                         "forecast_max_abs_diff": forecast_diff, "tolerance": SLICE_TOL,
+                         "forecast_seconds": {k: statistics.median(v) for k, v in walls.items()},
+                         "launches_forecast": launches_forecast, "metrics": metrics,
+                         "one_batch": one_batch,
+                         "grad_tolerance": [GRAD_REL_L2, GRAD_ATOL, GRAD_RTOL],
+                         "first_20_losses_dense": ld.tolist(),
+                         "first_20_losses_unfused": lu20.tolist(),
+                         "first_20_max_abs_diff": float(dl.max()), "loss_tolerance": LOSS_TOL,
+                         "seconds_20_steps": {"dense": sec_d, "unfused": sec_u}},
+              "pems_bay": {"n_vertex": pb["n_vertex"], "batch_size": BATCH_PEMS_BAY,
+                           "forward_max_abs_diff": pb_diff, **pb_grads,
+                           "ms": {k: {m: statistics.median(v[m]) for m in v}
+                                  for k, v in timing.items()},
+                           "ms_all": timing, "step_profile": profiles},
+              "launches": launches_steps, "launches_forecast": launches_forecast}
     emit(result)
     return result
 
@@ -2143,7 +2576,11 @@ def main() -> int:
     per_call = phase_kernels_bwd(torch, data)
     sl = phase_slice(torch, data)
     tr = phase_train(torch, data)
-    del data
+    pb = load_pems_bay(torch)
+    kst = phase_kernels_stblock(torch, data, pb)
+    fd = phase_fused_dense(torch, data, pb)
+    del data, pb
+    torch.cuda.empty_cache()
     big = build_100k(torch)
     k5 = phase_kernels_banded(torch, big)
     kvn = phase_kernels_banded_vn(torch, big)
@@ -2230,6 +2667,15 @@ def main() -> int:
     rows.append(row("bcsr_sddmm", K11_META, k10["bcsr_sddmm"],
                     launches=b1["launches"]["bcsr_sddmm"],
                     launches_tile_grad=b1["tile_value_grad"]["launches"]["bcsr_sddmm"]))
+    rows += [row(name, K12_META[name], kst["pemsd7"][name], launches=fd["launches"][name],
+                 launches_forecast=fd["launches_forecast"][name],
+                 ms_pems_bay=sum(c["ms"] for c in kst["pems_bay"][name]),
+                 plain_ms_pems_bay=sum(c["plain_ms"] for c in kst["pems_bay"][name]),
+                 bound_ms_pems_bay=sum(c["bound_ms"] for c in kst["pems_bay"][name]),
+                 max_abs_err_pems_bay=max(c["max_abs_err"] for c in kst["pems_bay"][name]),
+                 per_call_pems_bay=kst["pems_bay"][name],
+                 per_call_generality=kst["generality"][name])
+             for name in K12_META]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,7 +10,9 @@ for K7, ``vn_pair_resident`` for K8, ``vn_pair`` and ``vn_chain`` for K9;
 ``_int8`` on int8 packs), the blocked-ELL nv SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
 ``ell_int8_chain``, …), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
 (``bcsr_spmm``) with its tile-value gradient, the SDDMM K11
-:func:`sddmm.bcsr_sddmm` (``bcsr_sddmm``). The CUDA sources under
+:func:`sddmm.bcsr_sddmm` (``bcsr_sddmm``), and the whole dense ST block
+K12f :func:`fused_stblock.stblock_fwd` (``stblock_fwd``) with its backward
+K12b :func:`fused_stblock.stblock_bwd` (``stblock_bwd``). The CUDA sources under
 ``csrc/`` are built by :mod:`._build` at first use.
 """
 
@@ -20,6 +22,7 @@ from stgcn_tpu_torch.kernels._launch import LAUNCHES
 from stgcn_tpu_torch.kernels import banded_nv as _nv
 from stgcn_tpu_torch.kernels import banded_spmm as _vn
 from stgcn_tpu_torch.kernels import ell_nv as _ell   # the module: its wrapper shares its name
+from stgcn_tpu_torch.kernels.fused_stblock import stblock_bwd, stblock_fwd
 from stgcn_tpu_torch.kernels.output_head import ofc_bwd, ofc_fwd, ohead_bwd, ohead_fwd
 from stgcn_tpu_torch.kernels.sddmm import bcsr_sddmm
 from stgcn_tpu_torch.kernels.spmm import bcsr_spmm
@@ -37,7 +40,8 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             **{_vn.launch_name("chain", q): _vn.banded_chain_stream for q in (False, True)},
             **{_ell.launch_name(q, m): functools.partial(_ell.ell_nv, mode=m)
                for q in (False, True) for m in ("single", "pair", "chain")},
-            "bcsr_spmm": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm}
+            "bcsr_spmm": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm,
+            "stblock_fwd": stblock_fwd, "stblock_bwd": stblock_bwd}
 
 
 def reset_launch_counts() -> None:

@@ -11,10 +11,11 @@ file), at first use::
 
 The sources include no PyTorch header: each kernel is behind a plain C
 function that takes device pointers, sizes and a ``cudaStream_t`` and
-returns the ``cudaError_t`` of its launches; a backward entry point also
-takes a workspace that its ``*_work`` function sizes. The library is rebuilt when the
-hash of the sources differs from the one stored beside it. A failed build
-raises with nvcc's output; nothing falls back to the plain versions.
+returns the ``cudaError_t`` of its launches; a backward entry point (and
+K12f's) also takes a workspace that its ``*_work`` function sizes. The
+library is rebuilt when the hash of the sources differs from the one stored
+beside it. A failed build raises with nvcc's output; nothing falls back to
+the plain versions.
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ SIGNATURES = {
     "stgcn_ell_nv": [_P] * 8 + [_I] * 6 + [_F, _P],
     "stgcn_bcsr_spmm": [_P] * 5 + [_I] * 4 + [_F, _P],
     "stgcn_bcsr_sddmm": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "stgcn_stblock_fwd": [_P] * 15 + [_I] * 11 + _DROP + [_P],
+    "stgcn_stblock_bwd": [_P] * 25 + [_I] * 11 + _DROP + [_P],
 }
 # workspace size in floats of each backward entry point, from its sizes
 WORK_SIGNATURES = {
@@ -61,6 +64,8 @@ WORK_SIGNATURES = {
     "stgcn_tail_bwd_work": [_I] * 9,
     "stgcn_ohead_bwd_work": [_I] * 6,
     "stgcn_ofc_bwd_work": [_I] * 5,
+    "stgcn_stblock_fwd_work": [_I] * 11,
+    "stgcn_stblock_bwd_work": [_I] * 11,
 }
 
 

@@ -48,6 +48,18 @@ def require_index(t: torch.Tensor, name: str, shape: tuple[int, ...],
     return t.data_ptr()
 
 
+def refuse_value_grad(*values: torch.Tensor | None) -> None:
+    """Raise where a caller asks for the gradient of an f32 operator's values
+    (banded slabs, ELL tiles): the JAX VJPs give it through scans that are
+    not ported yet (``ROADMAP.md`` §1 item 5), and returning nothing would
+    drop it without a word. int8 values are frozen, as in JAX."""
+    if any(v is not None and v.requires_grad and v.dtype == torch.float32 for v in values):
+        raise NotImplementedError(
+            "the gradient of the graph operator's f32 values (banded slabs, ELL tiles) is "
+            "not ported yet (ROADMAP.md §1 item 5); detach the operator, or use the BCSR "
+            "operator, whose tile-value gradient runs through K11")
+
+
 def cuda_device(t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA or CPU tensors, got {t.device}")

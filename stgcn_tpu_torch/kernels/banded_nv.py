@@ -45,8 +45,9 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.kernels import _build
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
-                                             require_index, stream_of)
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
+                                             refuse_value_grad, require, require_index,
+                                             stream_of)
 from stgcn_tpu_torch.kernels.banded_spmm import _round_up
 
 MODES = {"single": 0, "pair": 1, "chain": 2}
@@ -149,6 +150,7 @@ class BandedSpmmNv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, scale):
+        refuse_value_grad(slabs_nv, slabs_nv_t)
         ctx.pack_t, ctx.scale = (slabs_nv_t, lo_t, scales_t), scale
         return stream_nv(slabs_nv, lo, x_nv, scales=scales, scale=scale)
 
@@ -164,6 +166,7 @@ class ChebPairNv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t):
+        refuse_value_grad(slabs_nv, slabs_nv_t)
         ctx.pack_t = (slabs_nv_t, lo_t, scales_t)
         return stream_nv(slabs_nv, lo, x_nv, mode="pair", scales=scales)
 

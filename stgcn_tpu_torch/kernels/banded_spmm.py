@@ -68,8 +68,9 @@ import torch
 
 from stgcn_tpu_torch.device import resolve_device
 from stgcn_tpu_torch.kernels import _build
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
-                                             require_index, stream_of)
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
+                                             refuse_value_grad, require, require_index,
+                                             stream_of)
 
 MODES = {"single": 0, "pair": 1, "chain": 2}
 # elements of the plain version's largest temporary (one chunk of block rows)
@@ -396,6 +397,7 @@ class BandedSpmmVjp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, slabs, lo, slabs_t, lo_t, scales, scales_t, scale):
+        refuse_value_grad(slabs, slabs_t)
         ctx.pack_t, ctx.scale = (slabs_t, lo_t, scales_t), scale
         return banded_spmm(slabs, lo, x, scales=scales, scale=scale)
 
@@ -413,6 +415,7 @@ class BandedChebPairVjp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, slabs, lo, slabs_t, lo_t):
+        refuse_value_grad(slabs, slabs_t)
         ctx.pack_t = (slabs_t, lo_t)
         return banded_cheb_pair(slabs, lo, x)
 
@@ -430,6 +433,7 @@ class BandedChebPairStreamVjp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, slabs, lo, slabs_t, lo_t, scales, scales_t):
+        refuse_value_grad(slabs, slabs_t)
         ctx.pack_t = (slabs_t, lo_t, scales_t)
         return banded_cheb_pair_stream(slabs, lo, x, scales=scales)
 

@@ -42,8 +42,9 @@ from typing import NamedTuple
 import torch
 
 from stgcn_tpu_torch.kernels import _build
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
-                                             require_index, stream_of)
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
+                                             refuse_value_grad, require, require_index,
+                                             stream_of)
 
 MODES = {"single": 0, "pair": 1, "chain": 2}
 # elements of the plain version's largest temporary (one chunk of block rows)
@@ -157,6 +158,7 @@ class EllSpmmNv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_nv, pack, pack_t, scale):
+        refuse_value_grad(pack.data, pack_t.data)
         ctx.pack_t, ctx.scale = pack_t, scale
         return ell_nv(pack, x_nv, scale=scale)
 
@@ -170,6 +172,7 @@ class EllChebPairNv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x_nv, pack, pack_t):
+        refuse_value_grad(pack.data, pack_t.data)
         ctx.pack_t = pack_t
         return ell_nv(pack, x_nv, mode="pair")
 

@@ -11,3 +11,4 @@ from stgcn_tpu_torch.nn.layers import (  # noqa: F401
     TemporalConvLayer,
 )
 from stgcn_tpu_torch.nn.model import STGCN, build_blocks, compute_ko  # noqa: F401
+from stgcn_tpu_torch.nn.fused import fused_forward  # noqa: F401

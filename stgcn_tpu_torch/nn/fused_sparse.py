@@ -43,16 +43,12 @@ import torch.nn.functional as F
 
 from stgcn_tpu_torch.kernels._launch import LANES
 from stgcn_tpu_torch.kernels.dropout import Drop
+from stgcn_tpu_torch.kernels.fused_stblock import block_weights
 from stgcn_tpu_torch.kernels.output_head import output_head_fused
 from stgcn_tpu_torch.kernels.vertex_fused import (
     VertexBlockCfg, head_fused, ln_stats, tail_fused)
+from stgcn_tpu_torch.nn.fused import subtree
 from stgcn_tpu_torch.nn.model import STGCN
-
-
-def subtree(params: dict, prefix: str) -> dict:
-    """The entries of a flat ``state_dict`` under ``prefix.``, prefix removed."""
-    n = len(prefix) + 1
-    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
 def _graph_terms(cfg: VertexBlockCfg, gop: Any, xg: torch.Tensor):
@@ -103,28 +99,6 @@ def _op_pad(gop: Any) -> int | None:
     """The operator's padded vertex count: ``v_pad`` (dense, banded, ELL)
     or ``n_vertex_pad`` (BCSR), as the JAX package reads it."""
     return getattr(gop, "v_pad", None) or getattr(gop, "n_vertex_pad", None)
-
-
-def _block_weights(blk: dict, graph_conv_type: str):
-    """One ST block's weights in the kernels' layouts."""
-    def conv(name):  # [g, c_in, kt, 1] → [kt, c_in, g]
-        return blk[f"{name}.causal_conv.weight"][..., 0].permute(2, 1, 0).contiguous()
-
-    if "graph_conv.align.align_conv.weight" not in blk:
-        raise NotImplementedError("the fused block needs the bottleneck align (c0 > c1)")
-    gaw = blk["graph_conv.align.align_conv.weight"].T.contiguous()
-    if graph_conv_type == "cheb_graph_conv":
-        gcw = blk["graph_conv.cheb_graph_conv.weight"].contiguous()
-        gcb = blk.get("graph_conv.cheb_graph_conv.bias")
-    else:
-        gcw = blk["graph_conv.graph_conv.weight"][None].contiguous()
-        gcb = blk.get("graph_conv.graph_conv.bias")
-    if gcb is None:
-        gcb = torch.zeros(gcw.shape[-1], device=gcw.device)
-    return (conv("tmp_conv1"), blk["tmp_conv1.causal_conv.bias"], gaw,
-            blk["graph_conv.align.align_conv.bias"], gcw, gcb,
-            conv("tmp_conv2"), blk["tmp_conv2.causal_conv.bias"],
-            blk["ln.weight"], blk["ln.bias"])
 
 
 def _st_block(cfg: VertexBlockCfg, gop: Any, head_in, mu, rstd, lng_p, lnb_p, w,
@@ -193,7 +167,7 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
                              graph_conv_type=model.graph_conv_type, v_true=v_true,
                              v_pad=v_pad, t_in=cur_t, c_in=c_in, c0=c0, c1=c1, c2=c2,
                              apply_ln=l > 0)
-        *w, lng, lnb = _block_weights(subtree(params, f"st_block_{l}"), model.graph_conv_type)
+        *w, lng, lnb = block_weights(subtree(params, f"st_block_{l}"), model.graph_conv_type)
         if state is None:
             head_in, mu, rstd, lng_p, lnb_p = x, None, None, None, None
         else:

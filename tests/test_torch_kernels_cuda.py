@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K4, their backward kernels K1b-K4b, the banded nv
 SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8), the
-blocked-ELL nv SpMM K6 and the BCSR SpMM K10 and SDDMM K11 against their
-plain PyTorch versions, on a card; the kernels' dropout masks
-against the plain mask bit for bit.
+blocked-ELL nv SpMM K6, the BCSR SpMM K10 and SDDMM K11 and the whole dense
+ST block K12f / K12b against their plain PyTorch versions, on a card; the
+kernels' dropout masks against the plain mask bit for bit.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
 machine, which has neither:
@@ -27,6 +27,7 @@ from stgcn_tpu_torch.graph.gso import GraphShiftOperator
 from stgcn_tpu_torch.kernels import banded_nv as nv
 from stgcn_tpu_torch.kernels import banded_spmm as bvn
 from stgcn_tpu_torch.kernels import ell_nv as ek
+from stgcn_tpu_torch.kernels import fused_stblock as fs
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import sddmm as sd
 from stgcn_tpu_torch.kernels import spmm as spm
@@ -566,3 +567,86 @@ def test_bcsr_wrappers_reject_what_the_kernels_do_not_take(dev):
         sd.bcsr_sddmm(op.pack.cols, op.pack.counts, x[:-64], x[:-64], block_size=64)
     with pytest.raises(TypeError, match="float32"):
         sd.bcsr_sddmm(op.pack.cols, op.pack.counts, x.double(), x, block_size=64)
+
+
+def _stblock_case(rng, dev, act, gct, ks, c_in, training, v=V_TRUE):
+    cfg = fs.FusedBlockConfig(kt=3, ks=ks, act_func=act, graph_conv_type=gct, droprate=0.5,
+                              v_true=v, t_in=12 if c_in == 1 else 8, c_in=c_in, c0=32, c1=16,
+                              c2=32, training=training)
+    scales = (0.3, 0.1, 0.2, 0.1, 0.2, 0.1, 0.2, 0.1, 0.1, 0.1)
+    w = [_rand(rng, dev, *shape, scale=sc) for shape, sc in zip(cfg.weight_shapes(), scales)]
+    w[8] = w[8] + 1.0   # LayerNorm scale about 1
+    gso = _rand(rng, dev, v, v, scale=0.1)
+    x = _rand(rng, dev, B, cfg.t_in, v, c_in)
+    drop = Drop(0.5, 77, 1) if training else None
+    return cfg, x, gso, w, drop
+
+
+@pytest.mark.parametrize("gct,ks", [("cheb_graph_conv", 1), ("cheb_graph_conv", 2),
+                                    ("cheb_graph_conv", 3), ("cheb_graph_conv", 4),
+                                    ("graph_conv", 1)])
+@pytest.mark.parametrize("act", ["glu", "gtu", "relu", "silu"])
+@pytest.mark.parametrize("c_in,training", [(1, False), (16, True)])
+def test_k12_matches_plain(dev, act, gct, ks, c_in, training):
+    """K12f and K12b against their plain versions (the backward's held to the
+    kernel's ReLU decisions, read back through ``relu_out``), a repeat launch
+    bit-identical, one launch counted per call."""
+    rng = np.random.default_rng(31)
+    cfg, x, gso, w, drop = _stblock_case(rng, dev, act, gct, ks, c_in, training)
+    h = torch.empty((B, cfg.t1, cfg.v_true, cfg.c1), device=dev)
+    before = kernels.launch_counts()
+    y = fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h)
+    assert torch.equal(y, fs.stblock_fwd(cfg, x, gso, *w, drop=drop))
+    torch.testing.assert_close(y, fs.st_block_reference(cfg, x, gso, w, drop), **TOL)
+    r = fs.relu_input(cfg, x, gso, w)
+    torch.testing.assert_close(h, torch.relu(r), **TOL)
+    gy = _rand(rng, dev, *y.shape)
+    got = fs.stblock_bwd(cfg, x, gso, *w, gy, drop=drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, fs.stblock_bwd(cfg, x, gso, *w, gy,
+                                                                      drop=drop)))
+    ref = fs.st_block_bwd_reference(cfg, x, gso, w, gy, drop, relu_mask=(h > 0).float())
+    for i, (a, b) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())),
+                                   msg=lambda m, i=i: f"output {i}: {m}")
+    after = kernels.launch_counts()
+    assert after["stblock_fwd"] - before["stblock_fwd"] == 2
+    assert after["stblock_bwd"] - before["stblock_bwd"] == 2
+
+
+def test_k12_autograd_matches_plain(dev):
+    """``fused_st_block`` on the card against the same on the CPU (the plain
+    versions), dropout on; no gradient reaches the GSO."""
+    rng = np.random.default_rng(32)
+    cfg, x, gso, w, _ = _stblock_case(rng, dev, "glu", "cheb_graph_conv", 3, 16, True, v=200)
+    params = {"tmp_conv1.causal_conv.weight": w[0].permute(2, 1, 0)[..., None],
+              "tmp_conv1.causal_conv.bias": w[1], "graph_conv.align.align_conv.weight": w[2].T,
+              "graph_conv.align.align_conv.bias": w[3],
+              "graph_conv.cheb_graph_conv.weight": w[4], "graph_conv.cheb_graph_conv.bias": w[5],
+              "tmp_conv2.causal_conv.weight": w[6].permute(2, 1, 0)[..., None],
+              "tmp_conv2.causal_conv.bias": w[7], "ln.weight": w[8], "ln.bias": w[9]}
+    gy = _rand(rng, dev, B, cfg.t2, 200, cfg.c2)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        p = {k: v.detach().to(d).requires_grad_(True) for k, v in params.items()}
+        xx, g = x.to(d).requires_grad_(True), gso.to(d).requires_grad_(True)
+        y = fs.fused_st_block(xx, g, p, kt=3, ks=3, act_func="glu",
+                              graph_conv_type="cheb_graph_conv", droprate=0.5,
+                              deterministic=False, seed=77, site=1)
+        gr = torch.autograd.grad((y * gy.to(d)).sum(), [xx, g, *p.values()], allow_unused=True)
+        assert gr[1] is None
+        grads.append([y.detach().cpu(), gr[0].cpu(), *(t.cpu() for t in gr[2:])])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(33)
+    cfg, x, gso, w, _ = _stblock_case(rng, dev, "glu", "cheb_graph_conv", 3, 16, False)
+    with pytest.raises(ValueError, match="c1"):
+        wide = dataclasses.replace(cfg, c1=24, c2=32)
+        ws = [_rand(rng, dev, *s) for s in wide.weight_shapes()]
+        fs.stblock_fwd(wide, x, gso, *ws)
+    with pytest.raises(ValueError, match="gso"):
+        fs.stblock_fwd(cfg, x, gso[:-1], *w)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fs.stblock_fwd(dataclasses.replace(cfg, precision="bfloat16"), x, gso, *w)

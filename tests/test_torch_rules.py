@@ -17,6 +17,7 @@ from stgcn_tpu_torch.kernels import _build, _launch
 from stgcn_tpu_torch.kernels import banded_nv as tnv
 from stgcn_tpu_torch.kernels import banded_spmm as tbs
 from stgcn_tpu_torch.kernels import ell_nv as tek
+from stgcn_tpu_torch.kernels import fused_stblock as tfs
 from stgcn_tpu_torch.kernels import output_head as toh
 from stgcn_tpu_torch.kernels import sddmm as tsd
 from stgcn_tpu_torch.kernels import spmm as tsp
@@ -389,6 +390,41 @@ def test_bcsr_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
         call("meta")
 
 
+@pytest.mark.parametrize("name,ref_name", [("stblock_fwd", "st_block_reference"),
+                                           ("stblock_bwd", "st_block_bwd_reference")])
+def test_stblock_wrappers_take_plain_version_only_on_cpu(name, ref_name, monkeypatch):
+    """K12f / K12b: a non-CPU tensor sizes the workspace, makes one C call and
+    counts it, never the plain version; a CPU tensor runs the plain version
+    and launches nothing."""
+    cfg = tfs.FusedBlockConfig(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                               droprate=0.5, v_true=20, t_in=12, c_in=1, c0=16, c1=8, c2=16,
+                               training=False)
+    plain_calls = []
+    real_ref = getattr(tfs, ref_name)
+    monkeypatch.setattr(tfs, ref_name,
+                        lambda *a, **k: plain_calls.append(1) or real_ref(*a, **k))
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(tfs, "cuda_device", lambda t: t.device)
+    monkeypatch.setattr(tfs, "stream_of", lambda dev: 0)
+    shapes = [(2, 12, 20, 1), (20, 20), *cfg.weight_shapes()]
+    if name == "stblock_bwd":
+        shapes.append((2, cfg.t2, 20, 16))
+
+    def call(dev):
+        return getattr(tfs, name)(cfg, *[torch.zeros(sh, device=dev) for sh in shapes])
+
+    before = kernels.launch_counts()[name]
+    call("meta")
+    c_name = "stgcn_" + name
+    assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
+    assert fake.calls == [(c_name + "_work", len(_build.WORK_SIGNATURES[c_name + "_work"])),
+                          (c_name, len(_build.SIGNATURES[c_name]))]
+    call("cpu")
+    assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
+    assert len(fake.calls) == 2
+
+
 def test_wrapper_refuses_a_non_cuda_accelerator_tensor():
     """Without the test double, a tensor that is neither CPU nor CUDA raises
     instead of running the plain version."""
@@ -412,6 +448,7 @@ def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
     assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
                     "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "banded_vn.cu",
-                    "ell_nv.cu", "bcsr_spmm.cu", "bcsr_sddmm.cu"}
+                    "ell_nv.cu", "bcsr_spmm.cu", "bcsr_sddmm.cu", "fused_stblock.cu",
+                    "fused_stblock_bwd.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()
