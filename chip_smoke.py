@@ -128,12 +128,18 @@ Eighteen phases, each printing one JSON line with its own seconds:
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
    256 × 256 tiles, int8 and f32, scattered on the card, 55 steps of
    synthetic series; ``BASELINE.json`` configs[4], ``bench.py:338-470``) is
-   built, each host step timed; nnz, tiles and their fill, pack bytes. K6 in
+   built, each host step timed; nnz, tiles and their fill, pack bytes; each
+   pack's nonzero index (``kernels/nnz_index.py``, built by the packer
+   beside the tiles): its bytes and nonzeros, and a rebuild from the tile
+   values on the card, timed and equal to the packer's. K6 walks that
+   index: it stages each live tile's x window in shared memory and adds only
+   the nonzeros, reading each value from the tiles at its offset. K6 in
    modes single, pair and chain on both packs at N = 160 and 96 (B·T·c1 of
    the two ST blocks at batch 1), random operands, held against its plain
    version as in phase 3, repeat bit-identical; timed beside its bound
-   (the live tiles' bytes as stored and the operands over 3.35 TB/s against
-   the nonzeros' FLOPs over 67 TFLOP/s; the tiles' FLOPs are printed too) and
+   (the nonzeros as CSR and the operands over 3.35 TB/s against the
+   nonzeros' FLOPs over 67 TFLOP/s; what the kernel reads, the index, one
+   stored value a nonzero and the operands, is printed too) and
    ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
 14. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
    Lion lr 1e-3, weight decay 1e-3, as phase 11 with K6 for K5: one forecast
@@ -147,11 +153,13 @@ Eighteen phases, each printing one JSON line with its own seconds:
 15. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
    order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
    of 256 × 256 row-major f32 tiles for both directions, scattered on the
-   card (timed). K10 at N = 160 and 96, scale 1 and 2 (its alpha), and K11
-   at the same widths, random operands, held against their plain versions
-   as in phase 3 (K11 a chunk of block rows at a time), repeat
-   bit-identical; timed beside their bounds (K10: the nonzeros as CSR and
-   the operands, as K6; K11: every entry of the live tiles, g and x read
+   card (timed), and its nonzero index as in phase 13. K10 walks the index,
+   a warp per output row gathering the x rows of its nonzeros. K10 at N =
+   160 and 96, scale 1 and 2 (its alpha), and K11 at the same widths,
+   random operands, held against their plain versions as in phase 3 (K11 a
+   chunk of block rows at a time), repeat bit-identical; timed beside their
+   bounds (K10: the nonzeros as CSR and the operands, as K6; K11: every
+   entry of the live tiles, g and x read
    once, the live tiles written once) and their library calls
    (``torch.sparse.mm`` on the CSR GSO; one ``torch.bmm`` over the live
    tiles' operands, gathered outside the timing).
@@ -162,8 +170,9 @@ Eighteen phases, each printing one JSON line with its own seconds:
    plain version; one backward with the tile values requiring grad, K11
    launched through autograd and held against its plain version; an
    unfused ``Trainer.fit(1)`` with finite losses and launches per step K10
-   ×8 and K11 ×0 (validation: K10 ×4 a batch), then ``test()``; the fit's
-   peak memory apart from the checks'.
+   ×8 and K11 ×0 (validation: K10 ×4 a batch), then ``test()``, rebuilding
+   no nonzero index (so phase 14's fit); the fit's peak memory apart from
+   the checks'.
 17. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
    then with ``--graph_op ell_int8``, then ``bcsr`` (the fused forward's vn
@@ -1397,10 +1406,12 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     operator as CSR (``nnz`` values of ``value_bytes`` each with an int32
     column index, V + 1 int32 row offsets, and V f32 row factors where
     ``row_scales``), each of the V-lane operands read once and each output
-    written once; and the nonzeros' FLOPs. ``pack_bytes`` (the pack as the
-    kernel reads it) and ``pack_flops_one`` (the FLOPs of one application
-    over the pack as stored: every FLOP the kernel does) are reported beside
-    it."""
+    written once; and the nonzeros' FLOPs. ``pack_bytes`` (what the kernel
+    reads of the operator: the band as stored for K5 and K7-K9; the nonzero
+    index, one stored value a nonzero and the tile metadata for K6 and K10)
+    and ``pack_flops_one`` (the FLOPs of one application per operand column
+    as the kernel does them: the band's, or the index's nonzeros) are
+    reported beside it."""
     from stgcn_tpu_torch import kernels
 
     before = kernels.launch_counts()[name]
@@ -1549,6 +1560,7 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import nnz_index
     from stgcn_tpu_torch.kernels.dropout import step_seed
     from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
     from stgcn_tpu_torch.train import TrainConfig, Trainer, masked_mse
@@ -1654,6 +1666,7 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
 
     tr.train_step = timed_step
     kernels.reset_launch_counts()
+    builds = nnz_index.builds()
     hist = tr.fit(1)["history"]
     launches = kernels.launch_counts()
     val_batches = -(-tr.val_ds.num_windows // batch)
@@ -1666,6 +1679,9 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
         raise AssertionError(f"{phase}: non-finite test metrics {test_m}")
+    rebuilds = nnz_index.builds() - builds
+    if rebuilds:   # the operator is fixed: its nonzero index is never rebuilt
+        raise AssertionError(f"{phase}: the fit and test rebuilt a nonzero index {rebuilds} times")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     result = {"phase": phase, "seconds": time.perf_counter() - t0, "n_vertex": v,
               "batch_size": batch, "optimizer": opt, "cuts": cuts, "prep": data["prep"],
@@ -1675,6 +1691,7 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
               "step_losses": losses, "step_seconds": step_seconds,
               "step_seconds_median": statistics.median(step_seconds),
               "epoch": hist[0], "launches": launches, "test": test_m,
+              "index_rebuilds": rebuilds,
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
               "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
     emit(result)
@@ -2028,14 +2045,41 @@ K6_META = ("K6", "stgcn_tpu_torch/kernels/csrc/ell_nv.cu",
            "stgcn_tpu/kernels/ell_nv.py:123", "_ell_nv_pallas")
 
 
-def pack_bytes(pack) -> tuple[int, int]:
-    """(bytes of the whole pack, bytes of its live tiles and index arrays)
-    as stored."""
-    per_tile = pack.data[0, 0].numel() * pack.data.element_size()
+def pack_bytes(pack) -> int:
+    """Bytes of the whole pack as stored: the tiles, cols, counts and an int8
+    pack's lane factors (the nonzero index apart)."""
     meta = sum(t.numel() * t.element_size()
                for t in (pack.cols, pack.counts, getattr(pack, "scales", None)) if t is not None)
-    return (pack.data.numel() * pack.data.element_size() + meta,
-            int(pack.counts.sum()) * per_tile + meta)
+    return pack.data.numel() * pack.data.element_size() + meta
+
+
+def index_read(pack) -> tuple[int, int]:
+    """(bytes, FLOPs per operand column) of one application of K6 or K10 as
+    the kernel reads the operator: the nonzero index, one stored value a
+    nonzero, the tile metadata (cols, counts and an int8 pack's lane
+    factors); 2 FLOPs a nonzero."""
+    idx = pack.index
+    meta = sum(t.numel() * t.element_size()
+               for t in (pack.cols, pack.counts, getattr(pack, "scales", None)) if t is not None)
+    return idx.nbytes() + idx.nnz * pack.data.element_size() + meta, 2 * idx.nnz
+
+
+def index_info(torch, pack, *, transposed: bool) -> dict:
+    """A pack's nonzero index: its bytes and nonzeros, and a rebuild from the
+    tile values on the card (what a launch does after the values change),
+    timed and held equal to the packer's index."""
+    from stgcn_tpu_torch.kernels import nnz_index
+
+    idx = pack.index
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rebuilt = nnz_index.index_from_tiles(pack.data, pack.cols, pack.counts, transposed=transposed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    if not all(torch.equal(a, b) for a, b in zip((idx.row_ptr, idx.src, idx.off), rebuilt)):
+        raise AssertionError("the packer's nonzero index differs from the one rebuilt from the "
+                             "tile values")
+    return {"index_bytes": idx.nbytes(), "index_nnz": idx.nnz, "index_rebuild_s": seconds}
 
 
 def build_1m(torch) -> dict:
@@ -2091,8 +2135,8 @@ def build_1m(torch) -> dict:
     data["prep"] = {**prep, "nnz": nnz, "nbr": nbr, "max_b": max_b, "bs": bs,
                     "v_pad": gop.v_pad, "tiles": tiles, "mean_tiles_per_block_row": tiles / nbr,
                     "tile_fill": nnz / (tiles * bs * bs),
-                    "pack_bytes_int8": pack_bytes(gop.pack)[0],
-                    "pack_bytes_f32": pack_bytes(gop_f32.pack)[0],
+                    "pack_bytes_int8": pack_bytes(gop.pack),
+                    "pack_bytes_f32": pack_bytes(gop_f32.pack),
                     "shared_transpose_pack": gop.pack_t is gop.pack,
                     "auto_picks": "banded" if banded_viable(art.matrix) else "bcsr",
                     "lambda_max": art.lam_max, "series_steps": sum(SPLIT_1M),
@@ -2110,6 +2154,8 @@ def phase_kernels_ell(torch, data) -> dict:
     from stgcn_tpu_torch.kernels import ell_nv as ek
 
     v, nnz = data["n_vertex"], data["prep"]["nnz"]
+    index = {("int8" if g.pack.quantized else "f32"): index_info(torch, g.pack, transposed=True)
+             for g in (data["gop"], data["gop_f32"])}
     a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(2)
     results: dict[str, list] = {}
@@ -2128,15 +2174,15 @@ def phase_kernels_ell(torch, data) -> dict:
                         lambda a=args: ek.ell_nv_reference(*a),
                         lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
                         v=v, nnz=nnz, vp=gop.v_pad, value_bytes=1 if pack.quantized else 4,
-                        row_scales=pack.quantized, pack_bytes=pack_bytes(pack)[1],
-                        pack_flops_one=2 * int(pack.counts.sum()) * bs * bs,
+                        row_scales=pack.quantized, pack_bytes=index_read(pack)[0],
+                        pack_flops_one=index_read(pack)[1],
                         library_agrees=not pack.quantized, reps=K6_REPS)})
         del x, g, x_vn
     del data["gop_f32"], a_csr
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     emit({"phase": "kernels_ell", "seconds": time.perf_counter() - t0,
-          "tolerance": KERNEL_TOL, "pack": data["prep"], "results": results})
+          "tolerance": KERNEL_TOL, "pack": data["prep"], "index": index, "results": results})
     return results
 
 
@@ -2180,8 +2226,8 @@ def check_bcsr_spmm(torch, pack, x, scale, *, v, nnz, a_csr, reps) -> dict:
         lambda: spmm.bcsr_spmm(pack, x, scale=scale),
         lambda: spmm.bcsr_spmm_reference(pack, x, scale=scale),
         lambda: torch.sparse.mm(a_csr, x[:v]), v=v, nnz=nnz, vp=x.shape[0], value_bytes=4,
-        row_scales=False, pack_bytes=pack_bytes(pack)[1],
-        pack_flops_one=2 * int(pack.counts.sum()) * bs * bs, library_agrees=True, reps=reps,
+        row_scales=False, pack_bytes=index_read(pack)[0],
+        pack_flops_one=index_read(pack)[1], library_agrees=True, reps=reps,
         vn=True, scale=scale)
 
 
@@ -2299,6 +2345,7 @@ def phase_kernels_bcsr(torch, data) -> dict:
     v, nnz = data["n_vertex"], data["prep"]["nnz"]
     nbr, max_b, bs, _ = gop.pack.data.shape
     tiles = int(gop.pack.counts.sum())
+    index = index_info(torch, gop.pack, transposed=False)
     a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(3)
     results: dict[str, list] = {"bcsr_spmm": [], "bcsr_sddmm": []}
@@ -2316,8 +2363,8 @@ def phase_kernels_bcsr(torch, data) -> dict:
     kernels.reset_launch_counts()
     pack = {"auto_picks": type(gop).__name__, "pack_s": pack_s, "nbr": nbr, "max_b": max_b,
             "bs": bs, "n_vertex_pad": gop.n_vertex_pad, "tiles": tiles,
-            "tile_fill": nnz / (tiles * bs * bs), "pack_bytes": pack_bytes(gop.pack)[0],
-            "shared_transpose_pack": True}
+            "tile_fill": nnz / (tiles * bs * bs), "pack_bytes": pack_bytes(gop.pack),
+            "shared_transpose_pack": True, **index}
     emit({"phase": "kernels_bcsr", "seconds": time.perf_counter() - t0,
           "tolerance": KERNEL_TOL, "pack": pack, "results": results})
     return results
@@ -2365,7 +2412,7 @@ def phase_bcsr_1m(torch, data) -> dict:
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
-    from stgcn_tpu_torch.kernels import spmm
+    from stgcn_tpu_torch.kernels import nnz_index, spmm
     from stgcn_tpu_torch.ops import make_graph_op
     from stgcn_tpu_torch.train import TrainConfig, Trainer
 
@@ -2471,6 +2518,7 @@ def phase_bcsr_1m(torch, data) -> dict:
 
     tr.train_step = timed_step
     kernels.reset_launch_counts()
+    builds = nnz_index.builds()
     hist = tr.fit(1)["history"]
     launches = kernels.launch_counts()
     val_batches = -(-tr.val_ds.num_windows // BATCH_1M)
@@ -2484,6 +2532,10 @@ def phase_bcsr_1m(torch, data) -> dict:
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
         raise AssertionError(f"bcsr_1m: non-finite test metrics {test_m}")
+    rebuilds = nnz_index.builds() - builds
+    if rebuilds:   # the operator is fixed: its nonzero index is never rebuilt
+        raise AssertionError(f"bcsr_1m: the fit and test rebuilt a nonzero index {rebuilds} "
+                             "times")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     result = {"phase": "bcsr_1m", "seconds": time.perf_counter() - t0, "n_vertex": v,
               "batch_size": BATCH_1M, "optimizer": "lion", "route": "unfused, BCSR (K10)",
@@ -2496,7 +2548,7 @@ def phase_bcsr_1m(torch, data) -> dict:
               "step_losses": losses, "step_seconds": step_seconds,
               "step_seconds_median": statistics.median(step_seconds),
               "epoch": hist[0], "launches": launches, "test": test_m,
-              "peak_memory_bytes_fit": fit_peak,
+              "index_rebuilds": rebuilds, "peak_memory_bytes_fit": fit_peak,
               "peak_memory_bytes_fit_and_test": torch.cuda.max_memory_allocated(),
               "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
     emit(result)

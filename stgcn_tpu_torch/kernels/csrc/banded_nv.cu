@@ -24,7 +24,7 @@
 //
 // Design: a block owns a 64-row x 64-column output tile inside one block
 // column i and walks the w-long window in steps of 16 through the register
-// tiling of nv_tile.cuh (shared with K6), float32 FMA (no TF32: the parity
+// tiling of nv_tile.cuh, float32 FMA (no TF32: the parity
 // bound is 1e-4); int8 slabs are read as int8 and widened to float32 in
 // shared memory. The epilogue alpha*acc*scale + beta*add is applied in
 // registers. No atomics: a repeat launch is bit-identical. Offsets are

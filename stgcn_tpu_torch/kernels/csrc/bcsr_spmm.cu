@@ -1,8 +1,7 @@
 // K10: BCSR SpMM on the vn operand [Vp, N] (replaces both TPU kernels of
 // stgcn_tpu/kernels/spmm.py: `_spmm_pallas_resident` :123, x resident in
 // VMEM, and `_spmm_pallas` :166, x streamed by DMA; on Hopper x lies in
-// device memory either way and its tiles are staged in shared memory, so
-// one kernel serves both), float32.
+// device memory either way, so one kernel serves both), float32.
 //
 // With tiles[i, k] the row-major bs x bs tile of block row i at column
 // block cols[i, k], for k < counts[i]:
@@ -14,89 +13,167 @@
 // Chebyshev 2G step) is alpha: the JAX operator multiplies the whole pack
 // per call (ops/graph_op.py:172-173), a 13.3 GB copy at 1M vertices.
 //
-// Design: the register tiling of K5/K6 (nv_tile.cuh) with the operands'
-// roles swapped. A block owns 64 output rows (inside one block row) x 64
-// columns of N and walks its block row's counts[i] live tiles, each a
-// bs-deep reduction in steps of 16: the 64 x 16 operator sub-tile is staged
-// transposed (nvtile::stage_x, float4 reads) and the 16 x 64 x sub-tile
-// row by row (one coalesced 256-byte row segment per 64 threads, columns
-// past n read as 0); each thread keeps 4 x 4 sums in registers, float32
-// FMA. No atomics: a repeat launch is bit-identical. Offsets are size_t:
-// the 1M-vertex pack holds 3.3e9 floats.
+// What bounds it: bytes. A road graph fills a live tile to under 1 % (at
+// 1M vertices, RCM, bs = 256: 10.2M nonzeros in 34,113 tiles), so every
+// FLOP of a tile is 200x the work the function needs. This kernel touches
+// only the nonzeros, through the pack's nonzero index (kernels/
+// nnz_index.py: row_ptr, src, off in CSR order, by output row then
+// ascending source vertex); the values stay in the tiles and are read at
+// their offsets. What it must move is the index (8 B a nonzero), one value
+// sector a nonzero, the gathered x rows and y once.
 //
-// What bounds it: it does every FLOP of every live tile, and a road graph
-// fills a live tile to under 1 %: at 1M vertices (RCM, bs = 256, 34,113
-// live tiles) one application at N = 160 is 0.72 TFLOP of tile FLOPs (>= 11
-// ms at 67 TFLOP/s) against 0.41 ms of the bytes the function needs (the
-// nonzeros as CSR, x read and y written once, at 3.35 TB/s).
-// Skipping all-zero sub-tiles, wgmma and TMA are later work.
-#include "nv_tile.cuh"
+// Design: G lanes per output row (a warp; a half-warp where n <= 64). The
+// lanes load G (src, value) pairs at once and broadcast them by shuffle;
+// for each pair the group reads the x row x[src, :] coalesced, float4 where
+// n % 4 == 0 and x, y are 16-byte aligned, scalar loads otherwise. Each
+// output element is one fmaf chain in ascending src, alpha applied after
+// the sum; padded rows write 0. Rows are in RCM order, so the groups in
+// flight read neighbouring x rows, which the 50 MB L2 keeps (all of x is
+// 640 MB at n = 160). No atomics: a repeat launch is bit-identical. A
+// block row's tiles start at a size_t offset (the 1M pack holds 3.3e9
+// floats); `off` inside one block row fits int32.
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace {
 
-using nvtile::kThreads;
-using nvtile::kTk;
-using nvtile::kTm;
-using nvtile::kTn;
+constexpr int kThreads = 256;
 
+template <bool VEC>
+struct Cols;
+template <>
+struct Cols<true> {   // four columns a lane step
+  using T = float4;
+  static constexpr int kWidth = 4;
+  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static void fma(float v, const float* xr, int c, T& acc) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + c);
+    acc.x = fmaf(v, xv.x, acc.x);
+    acc.y = fmaf(v, xv.y, acc.y);
+    acc.z = fmaf(v, xv.z, acc.z);
+    acc.w = fmaf(v, xv.w, acc.w);
+  }
+  __device__ static void store(float* yr, int c, const T& acc, float alpha) {
+    *reinterpret_cast<float4*>(yr + c) =
+        make_float4(alpha * acc.x, alpha * acc.y, alpha * acc.z, alpha * acc.w);
+  }
+};
+template <>
+struct Cols<false> {  // one column a lane step
+  using T = float;
+  static constexpr int kWidth = 1;
+  __device__ static T zero() { return 0.0f; }
+  __device__ static void fma(float v, const float* xr, int c, T& acc) {
+    acc = fmaf(v, xr[c], acc);
+  }
+  __device__ static void store(float* yr, int c, const T& acc, float alpha) {
+    yr[c] = alpha * acc;
+  }
+};
+
+// G lanes per output row; a lane owns CPL column steps of a chunk of
+// G * CPL * width columns.
+template <int G, int CPL, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    bcsr_spmm_kernel(const float* tiles, const int* cols, const int* counts, const float* x,
-                     float* y, int max_b, int bs, int n, float alpha) {
-  __shared__ nvtile::Smem sm;
-  const int r0 = blockIdx.x * kTm;   // first output row
-  const int c0 = blockIdx.y * kTn;   // first output column
-  const int blk = r0 / bs;           // block row of the operator
-  const int a0 = r0 - blk * bs;      // first tile row
-
-  float acc[4][4];
+    bcsr_rows_kernel(const float* __restrict__ tiles, const int* __restrict__ row_ptr,
+                     const int* __restrict__ src, const int* __restrict__ off,
+                     const float* __restrict__ x, float* __restrict__ y, int rows, int bs,
+                     size_t row_tiles, int n, float alpha) {
+  using C = Cols<VEC>;
+  const int row = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  if (row >= rows) return;   // a whole group: rows is a multiple of kThreads / G
+  const int lane = threadIdx.x % G;
+  const unsigned mask = G == 32 ? 0xffffffffu : (0xffffu << (threadIdx.x & 16));
+  const int beg = row_ptr[row], end = row_ptr[row + 1];
+  const float* vals = tiles + (size_t)(row / bs) * row_tiles;
+  float* yr = y + (size_t)row * n;
+  constexpr int kChunk = G * CPL * C::kWidth;
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    typename C::T acc[CPL];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < CPL; ++q) acc[q] = C::zero();
+    for (int e0 = beg; e0 < end; e0 += G) {
+      int s = 0;
+      float v = 0.0f;
+      if (e0 + lane < end) {
+        s = src[e0 + lane];
+        v = vals[off[e0 + lane]];
+      }
+      const int cnt = min(G, end - e0);
+      for (int t = 0; t < cnt; ++t) {
+        const float* xr = x + (size_t)__shfl_sync(mask, s, t, G) * n;
+        const float vt = __shfl_sync(mask, v, t, G);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const size_t tile_len = (size_t)bs * bs, rows = (size_t)gridDim.x * kTm;
-  const float* row_tiles = tiles + (size_t)blk * max_b * tile_len;
-  const int count = counts[blk];
-  for (int k = 0; k < count; ++k) {
-    const size_t xr = (size_t)cols[(size_t)blk * max_b + k] * bs;
-    const float* tile = row_tiles + k * tile_len;
-    for (int k0 = 0; k0 < bs; k0 += kTk) {
-      nvtile::stage_x(sm, tile, bs, bs, a0, k0);   // tile[a0 + r, k0 + j] -> xs[j][r]
-      nvtile::stage_x_rows(sm, x, n, rows, xr + k0, c0);   // x[xr + k0 + j, c0 + c] -> as[j][c]
-      __syncthreads();
-      nvtile::fma_tile(sm, acc);
-      __syncthreads();
+        for (int q = 0; q < CPL; ++q) {
+          const int c = c0 + C::kWidth * (lane + G * q);
+          if (c < n) C::fma(vt, xr, c, acc[q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      const int c = c0 + C::kWidth * (lane + G * q);
+      if (c < n) C::store(yr, c, acc[q], alpha);
     }
   }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t r = (size_t)r0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx * 4 + j;
-      if (c < n) y[r * n + c] = alpha * acc[i][j];
-    }
-  }
+}
+
+template <int G, int CPL, bool VEC>
+cudaError_t launch(const float* tiles, const int* row_ptr, const int* src, const int* off,
+                   const float* x, float* y, int rows, int bs, size_t row_tiles, int n,
+                   float alpha, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((rows + kThreads / G - 1) / (kThreads / G));
+  bcsr_rows_kernel<G, CPL, VEC>
+      <<<blocks, kThreads, 0, s>>>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha);
+  return cudaGetLastError();
+}
+
+// column steps a lane needs for `steps` steps of a row, 1, 2 or 4 (wider
+// rows loop over chunks)
+template <int G, bool VEC>
+cudaError_t dispatch(int steps, const float* tiles, const int* row_ptr, const int* src,
+                     const int* off, const float* x, float* y, int rows, int bs,
+                     size_t row_tiles, int n, float alpha, cudaStream_t s) {
+  if (steps <= G)
+    return launch<G, 1, VEC>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha, s);
+  if (steps <= 2 * G)
+    return launch<G, 2, VEC>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha, s);
+  return launch<G, 4, VEC>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K10. tiles [nbr, max_b, bs, bs] float32 row-major, 16-byte aligned; cols
-// [nbr, max_b] and counts [nbr] int32; x, y [nbr*bs, n] float32 row-major.
-// Needs bs % 64 == 0 and every cols[i, k] < nbr.
-int stgcn_bcsr_spmm(const float* tiles, const int* cols, const int* counts, const float* x,
-                    float* y, int nbr, int max_b, int bs, int n, float alpha, void* stream) {
-  if (bs <= 0 || bs % kTm != 0 || nbr <= 0 || max_b <= 0 || n < 0) return cudaErrorInvalidValue;
+// K10. tiles [nbr, max_b, bs, bs] float32 row-major; the pack's nonzero
+// index row_ptr [nbr*bs + 1], src and off [nnz] int32; x, y [nbr*bs, n]
+// float32 row-major, any alignment (float4 only where both are 16-byte
+// aligned and n % 4 == 0). Needs bs % 16 == 0, every src < nbr*bs and every
+// off < max_b*bs*bs.
+int stgcn_bcsr_spmm(const float* tiles, const int* row_ptr, const int* src, const int* off,
+                    const float* x, float* y, int nbr, int max_b, int bs, int n, float alpha,
+                    void* stream) {
+  if (bs <= 0 || bs % 16 != 0 || nbr <= 0 || max_b <= 0 || n < 0 ||
+      (size_t)nbr * bs >= 0x7fffffffu)
+    return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const dim3 grid((unsigned)((size_t)nbr * bs / kTm), (unsigned)((n + kTn - 1) / kTn));
-  if ((size_t)nbr * bs / kTm > 0x7fffffffu || grid.y > 65535u)
-    return cudaErrorInvalidConfiguration;
-  bcsr_spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles, cols, counts, x, y, max_b, bs, n, alpha);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = nbr * bs;
+  const size_t row_tiles = (size_t)max_b * bs * bs;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int steps = vec ? n / 4 : n;
+  if (n <= 64)
+    return vec ? dispatch<16, true>(steps, tiles, row_ptr, src, off, x, y, rows, bs, row_tiles,
+                                    n, alpha, s)
+               : dispatch<16, false>(steps, tiles, row_ptr, src, off, x, y, rows, bs,
+                                     row_tiles, n, alpha, s);
+  return vec ? dispatch<32, true>(steps, tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n,
+                                  alpha, s)
+             : dispatch<32, false>(steps, tiles, row_ptr, src, off, x, y, rows, bs, row_tiles,
+                                   n, alpha, s);
 }
 
 }  // extern "C"

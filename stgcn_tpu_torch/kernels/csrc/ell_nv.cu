@@ -19,28 +19,44 @@
 // kernel; here the second pass folds it into its epilogue (the same
 // function: fma(-1, x, 2y) is 2y - x rounded once).
 //
-// Design: K5's register tiling (nv_tile.cuh). A block owns a 64-row x
-// 64-column output tile inside block column i; instead of one contiguous
-// window it walks block row i's counts[i] tiles, each a 256-deep reduction
-// whose x columns start at cols[i, k]*bs, read per tile. int8 tiles are read
-// as int8 and widened to float32 in shared memory; the pack is never
-// multiplied (a scalar folds into alpha). No atomics: a repeat launch is
-// bit-identical. Offsets are size_t: nbr*max_b*bs*bs passes 2^31 at 1M
-// vertices.
+// What bounds it: bytes. A road graph fills a live tile to under 1 % (at 1M
+// vertices, RCM, bs = 256: 10.2M nonzeros in 34,113 tiles, about 1.2 a tile
+// row), so this kernel touches only the nonzeros, through the pack's
+// nonzero index (kernels/nnz_index.py: row_ptr, src, off in CSR order by
+// output lane, then ascending source vertex); the values stay in the tiles
+// and are read at their offsets, int8 widened to float32. In the nv layout
+// a column x[:, u] is n values vp*4 bytes apart, a sector each, so the
+// columns a tile needs are staged instead: the window x[r0:r0+32,
+// cols[i,k]*bs : +bs], coalesced 16-byte reads, Σ counts * bs * n * 4 bytes
+// an application (5.6 GB at 1M and n = 160), most of it from L2: the grid
+// runs block rows fastest, so the neighbouring block rows that share
+// windows (RCM) run together.
 //
-// What bounds it: it does every FLOP of every live tile, and a road graph
-// fills a live tile to under 1 %. At 1M vertices (RCM, bs = 256, about 6
-// tiles a block row) one application at N = 160 is about 0.5 TFLOP of tile
-// FLOPs (>= 7 ms at 67 TFLOP/s) against under 1 ms of bytes. Skipping
-// all-zero sub-tiles, wgmma and TMA are later work.
-#include "nv_tile.cuh"
+// Design: one block per (block row i, 32 operand rows), a warp per 32
+// output lanes, a lane per operand row. For each live tile the block stages
+// the window transposed in shared memory (win[j][r], stride 33: conflict
+// free both ways); then each lane takes up to 4 of its own output lane's
+// nonzeros of this tile (their offsets lie in [k*bs², (k+1)*bs²), so a
+// per-lane pointer only advances) into the warp's list, and the warp walks
+// the list lane by lane: every lane reads the same (column, value) and
+// adds value * win[column][its row] into that output lane's sum. No lane
+// waits on another's nonzeros and nothing diverges. The sums leave through
+// shared memory, so the stores (and the epilogue's reads) are coalesced.
+// Each output element is one fmaf chain in ascending source vertex; no
+// atomics: a repeat launch is bit-identical. A block row's tiles start at a
+// size_t offset (the f32 pack holds 3.3e9 elements at 1M).
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace {
 
-using nvtile::kTk;
-using nvtile::kTm;
-using nvtile::kTn;
-using nvtile::kThreads;
+constexpr int kR = 32;        // operand rows a block: one a lane
+constexpr int kLd = kR + 1;   // the window's row stride in shared memory
+constexpr int kC = 4;         // nonzeros a lane lists per round
+constexpr int kMaxLanes = 256;   // output lanes (threads) a block at most
+constexpr unsigned kFull = 0xffffffffu;
 
 // out = alpha * (A x) * lane_scale + beta * add, every operand [n, vp]
 template <typename T>
@@ -48,6 +64,9 @@ struct PassArgs {
   const T* tiles;       // [nbr, max_b, bs, bs]
   const int* cols;      // [nbr, max_b]
   const int* counts;    // [nbr]
+  const int* row_ptr;   // [nbr * bs + 1]
+  const int* src;       // [nnz]
+  const int* off;       // [nnz]
   const float* scales;  // [nbr * bs] or null
   const float* x;
   const float* add;     // or null
@@ -56,62 +75,144 @@ struct PassArgs {
   float alpha, beta;
 };
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
+
+// output lanes a block: a block row's bs, or a 256-lane slice of a wider one
+__host__ __device__ int lanes_of(int bs) { return bs < kMaxLanes ? bs : kMaxLanes; }
+
+// floats of the window (or, at the end, the sums), then the warps' lists
+__host__ __device__ size_t win_floats(int bs) {
+  const size_t win = (size_t)bs * kLd, sums = (size_t)kR * (lanes_of(bs) + 1);
+  return win > sums ? win : sums;
+}
+
+size_t smem_bytes(int bs) {
+  return win_floats(bs) * sizeof(float) + (size_t)lanes_of(bs) * kC * sizeof(int2);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ell_nv_kernel(PassArgs<T> a) {
-  __shared__ nvtile::Smem sm;
-  const int c0 = blockIdx.x * kTn;   // first output column of the tile
-  const int r0 = blockIdx.y * kTm;   // first output row
-  const int blk = c0 / a.bs;         // block row of the operator
+__global__ void __launch_bounds__(kMaxLanes) ell_nv_kernel(PassArgs<T> a) {
+  extern __shared__ float smem[];
+  const int bs = a.bs, lanes = blockDim.x, slices = bs / lanes;
+  float* win = smem;   // [bs][kLd]; at the end the sums, [kR][lanes + 1]
+  const int i = blockIdx.x / slices, r0 = blockIdx.y * kR;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, warps = lanes >> 5;
+  int2* list = reinterpret_cast<int2*>(smem + win_floats(bs)) + w * 32 * kC;
+  // this thread's own output lane (vertex), whose nonzeros it lists
+  const int row = i * bs + (blockIdx.x % slices) * lanes + t;
+  int p = a.row_ptr[row];
+  const int pend = a.row_ptr[row + 1];
+  const T* vals = a.tiles + (size_t)i * a.max_b * bs * bs;
+  const int bs2 = bs * bs;
 
-  float acc[4][4];
+  float acc[32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int b = 0; b < 32; ++b) acc[b] = 0.0f;
 
-  const size_t tile_len = (size_t)a.bs * a.bs;
-  const T* row_tiles = a.tiles + (size_t)blk * a.max_b * tile_len + (c0 - blk * a.bs);
-  const int count = a.counts[blk];
+  const int count = a.counts[i];
   for (int k = 0; k < count; ++k) {
-    const int xc = a.cols[(size_t)blk * a.max_b + k] * a.bs;
-    const T* tile = row_tiles + k * tile_len;
-    for (int k0 = 0; k0 < a.bs; k0 += kTk) {
-      nvtile::stage_x(sm, a.x, a.n, a.vp, r0, xc + k0);
-      nvtile::stage_a(sm, tile + (size_t)k0 * a.bs, a.bs);
-      __syncthreads();
-      nvtile::fma_tile(sm, acc);
-      __syncthreads();
+    const int xc = a.cols[(size_t)i * a.max_b + k] * bs;
+    // the window, 4 operand rows x 32 columns a warp step (128 contiguous
+    // bytes a row; lanes 8 apart 4 columns apart: conflict-free stores)
+    for (int it = w; it < (kR / 4) * (bs / 32); it += warps) {
+      const int rr = (it % (kR / 4)) * 4 + lane / 8;
+      const int j = (it / (kR / 4)) * 32 + (lane % 8) * 4;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r0 + rr < a.n)
+        v = *reinterpret_cast<const float4*>(a.x + (size_t)(r0 + rr) * a.vp + xc + j);
+      win[(j + 0) * kLd + rr] = v.x;
+      win[(j + 1) * kLd + rr] = v.y;
+      win[(j + 2) * kLd + rr] = v.z;
+      win[(j + 3) * kLd + rr] = v.w;
     }
+    __syncthreads();
+    const int kend = (k + 1) * bs2;
+    while (true) {
+      // this lane's next (up to kC) nonzeros of tile k, loaded at once
+      int o[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[c] = p + c < pend ? a.off[p + c] : kend;
+      int cnt = 0;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        if (o[c] < kend) {
+          list[lane * kC + c] = make_int2(a.src[p + c] - xc, __float_as_int(widen(vals[o[c]])));
+          cnt = c + 1;
+        }
+      }
+      p += cnt;
+      __syncwarp();
+#pragma unroll
+      for (int b = 0; b < 32; ++b) {
+        const int nb = __shfl_sync(kFull, cnt, b);
+        for (int c = 0; c < nb; ++c) {
+          const int2 e = list[b * kC + c];
+          acc[b] = fmaf(__int_as_float(e.y), win[e.x * kLd + lane], acc[b]);
+        }
+      }
+      const bool more = cnt == kC && p < pend && a.off[p] < kend;
+      if (!__any_sync(kFull, more)) break;
+      __syncwarp();
+    }
+    __syncthreads();   // the window is overwritten next
   }
-  nvtile::store(acc, a.scales, a.alpha, a.beta, a.add, a.out, a.n, a.vp, r0, c0);
+  // the sums through shared memory: sums[r][lane b] = acc of lane r, b
+  float* sums = win;
+#pragma unroll
+  for (int b = 0; b < 32; ++b) sums[lane * (lanes + 1) + w * 32 + b] = acc[b];
+  __syncthreads();
+  const float sc = a.scales != nullptr ? a.scales[row] : 1.0f;
+  for (int rr = 0; rr < kR && r0 + rr < a.n; ++rr) {
+    const size_t at = (size_t)(r0 + rr) * a.vp + row;
+    float v = sums[rr * (lanes + 1) + t];
+    v = a.alpha * (a.scales != nullptr ? v * sc : v);
+    if (a.add != nullptr) v = fmaf(a.beta, a.add[at], v);
+    a.out[at] = v;
+  }
 }
 
 template <typename T>
 cudaError_t launch_pass(const PassArgs<T>& a, cudaStream_t stream) {
   if (a.n <= 0) return cudaSuccess;
-  const dim3 grid(a.vp / kTn, (a.n + kTm - 1) / kTm);
+  const int lanes = lanes_of(a.bs);
+  const dim3 grid((unsigned)(a.vp / lanes), (unsigned)((a.n + kR - 1) / kR));
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  ell_nv_kernel<T><<<grid, kThreads, 0, stream>>>(a);
+  const size_t smem = smem_bytes(a.bs);
+  cudaError_t err = cudaFuncSetAttribute(ell_nv_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ell_nv_kernel<T><<<grid, lanes, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t run_mode(const T* tiles, const int* cols, const int* counts, const float* scales,
-                     const float* x, const float* g, float* mid, float* out, int max_b, int bs,
-                     int n, int vp, int mode, float scale, cudaStream_t s) {
-  // PassArgs: tiles, cols, counts, scales, x, add, out, max_b, bs, n, vp, alpha, beta
-  if (mode == 0)
-    return launch_pass<T>({tiles, cols, counts, scales, x, nullptr, out, max_b, bs, n, vp,
-                           scale, 0.0f}, s);
+cudaError_t run_mode(PassArgs<T> a, const float* g, float* mid, int mode, float scale,
+                     cudaStream_t s) {
+  if (mode == 0) {
+    a.alpha = scale;
+    a.beta = 0.0f;
+    a.add = nullptr;
+    return launch_pass<T>(a, s);
+  }
   if (mode != 1 && mode != 2) return cudaErrorInvalidValue;
   const bool chain = mode == 2;
+  float* out = a.out;
+  const float* x = a.x;
   // pass 1: mid = A x (pair) or 2 A x + g (chain)
-  cudaError_t err = launch_pass<T>({tiles, cols, counts, scales, x, chain ? g : nullptr, mid,
-                                    max_b, bs, n, vp, chain ? 2.0f : 1.0f, 1.0f}, s);
+  a.add = chain ? g : nullptr;
+  a.out = mid;
+  a.alpha = chain ? 2.0f : 1.0f;
+  a.beta = 1.0f;
+  cudaError_t err = launch_pass<T>(a, s);
   if (err != cudaSuccess) return err;
   // pass 2: out = 2 A mid - x (pair) or A mid - x (chain)
-  return launch_pass<T>({tiles, cols, counts, scales, mid, x, out, max_b, bs, n, vp,
-                         chain ? 1.0f : 2.0f, -1.0f}, s);
+  a.x = mid;
+  a.add = x;
+  a.out = out;
+  a.alpha = chain ? 1.0f : 2.0f;
+  a.beta = -1.0f;
+  return launch_pass<T>(a, s);
 }
 
 }  // namespace
@@ -119,22 +220,30 @@ cudaError_t run_mode(const T* tiles, const int* cols, const int* counts, const f
 extern "C" {
 
 // K6. tiles [nbr, max_b, bs, bs] float32 (int8 when `int8`), cols [nbr,
-// max_b] and counts [nbr] int32, scales [nbr, bs] float32 (int8 only, else
+// max_b] and counts [nbr] int32, the pack's nonzero index row_ptr [nbr*bs +
+// 1], src and off [nnz] int32, scales [nbr, bs] float32 (int8 only, else
 // null); x, g, mid, out [n, nbr*bs] with 16-byte-aligned rows; g only for
 // chain, mid for pair and chain. mode 0 single, 1 pair, 2 chain. Needs
-// bs % 64 == 0 and every cols[i, k] < nbr.
-int stgcn_ell_nv(const void* tiles, const int* cols, const int* counts, const float* scales,
-                 const float* x, const float* g, float* mid, float* out, int nbr, int max_b,
-                 int bs, int n, int int8, int mode, float scale, void* stream) {
-  if (bs % kTn != 0 || nbr <= 0 || max_b <= 0 || (int8 != 0) != (scales != nullptr))
+// bs % 32 == 0 (bs % 256 == 0 above 256), bs <= 1024, every cols[i, k] <
+// nbr and the index of the pack's live tiles.
+int stgcn_ell_nv(const void* tiles, const int* cols, const int* counts, const int* row_ptr,
+                 const int* src, const int* off, const float* scales, const float* x,
+                 const float* g, float* mid, float* out, int nbr, int max_b, int bs, int n,
+                 int int8, int mode, float scale, void* stream) {
+  if (bs <= 0 || bs % 32 != 0 || bs > 1024 || bs % lanes_of(bs) != 0 || nbr <= 0 || max_b <= 0 || n < 0 ||
+      (int8 != 0) != (scales != nullptr) || (size_t)nbr * bs >= 0x7fffffffu ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || (mode == 2 && g == nullptr) ||
+      (mode != 0 && mid == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vp = nbr * bs;
   if (int8)
-    return run_mode(static_cast<const int8_t*>(tiles), cols, counts, scales, x, g, mid, out,
-                    max_b, bs, n, vp, mode, scale, s);
-  return run_mode(static_cast<const float*>(tiles), cols, counts, scales, x, g, mid, out, max_b,
-                  bs, n, vp, mode, scale, s);
+    return run_mode<int8_t>({static_cast<const int8_t*>(tiles), cols, counts, row_ptr, src, off,
+                             scales, x, nullptr, out, max_b, bs, n, vp, 1.0f, 0.0f},
+                            g, mid, mode, scale, s);
+  return run_mode<float>({static_cast<const float*>(tiles), cols, counts, row_ptr, src, off,
+                          scales, x, nullptr, out, max_b, bs, n, vp, 1.0f, 0.0f},
+                         g, mid, mode, scale, s);
 }
 
 }  // extern "C"

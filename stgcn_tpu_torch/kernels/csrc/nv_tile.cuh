@@ -1,9 +1,9 @@
-// The register tiling shared by the nv SpMM kernels K5 (banded_nv.cu) and
-// K6 (ell_nv.cu): y[:, block i] = sum of x column windows @ pre-transposed
-// operator tiles, every operand [n, vp] row-major float32; and, with the
-// operands' roles swapped (the row-major operator staged transposed by
-// stage_x, the operand row by row by stage_x_rows), by the vn kernels K10
-// (bcsr_spmm.cu) and K7-K9 (banded_vn.cu).
+// The register tiling of the banded nv SpMM kernel K5 (banded_nv.cu):
+// y[:, block i] = sum of x column windows @ pre-transposed operator tiles,
+// every operand [n, vp] row-major float32; with the operands' roles swapped
+// (the row-major operator staged transposed by stage_x, the operand row by
+// row by stage_x_rows), of the vn kernel of K7-K9 (banded_vn.cu); and of
+// the SDDMM K11 (bcsr_sddmm.cu).
 //
 // A block of kThreads threads owns a kTm-row x kTn-column output tile and
 // walks its reduction in steps of kTk: it stages the x tile (kTk columns of

@@ -20,7 +20,11 @@ for f32). :func:`ell_nv` serves the modes of K5:
 The TPU kernel (``_ell_nv_pallas`` :123) streams x's column blocks by DMA
 into a VMEM ring per block row; the pair is two kernel applications there
 (``ell_cheb_pair_nv`` :274) with ``2y − x`` in XLA. The CUDA kernel
-(``csrc/ell_nv.cu``) is K5's register-tiled loop over the live tiles; the
+(``csrc/ell_nv.cu``) does not walk the tiles: a road graph fills a live
+tile to under 1 %, so it walks the pack's nonzero index
+(:mod:`stgcn_tpu_torch.kernels.nnz_index`, carried by the pack and rebuilt
+from the tile values when they change), reading each value from the tiles
+at its offset; it stages each live tile's x window in shared memory. The
 pair and chain are two passes launched by one C entry point (the second
 folding ``2y − x`` into its epilogue), counted as one launch of the
 wrapper's mode and dtype (``ell_f32_pair``, ``ell_int8_chain``, …).
@@ -41,7 +45,7 @@ from typing import NamedTuple
 
 import torch
 
-from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import _build, nnz_index
 from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
                                              refuse_value_grad, require, require_index,
                                              stream_of)
@@ -58,6 +62,7 @@ class EllPack(NamedTuple):
     cols: torch.Tensor                # [nbr, max_b] int32 column blocks (padding: 0)
     counts: torch.Tensor              # [nbr] int32 live tiles per block row
     scales: torch.Tensor | None = None  # [nbr, bs] float32 per output lane (int8 packs)
+    index: nnz_index.NnzIndex | None = None   # the nonzeros K6 walks (the packer's)
 
     @property
     def quantized(self) -> bool:
@@ -106,7 +111,8 @@ def ell_nv_reference(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *,
 
 
 def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float = 1.0):
-    """K6. ``pack`` on the operand's device; ``x_nv`` [N, nbr·bs] float32;
+    """K6. ``pack`` (with its nonzero index) on the operand's device;
+    ``x_nv`` [N, nbr·bs] float32;
     ``g_nv`` [N, nbr·bs] only for ``chain``. Returns ``y`` (single) or
     ``(t1, t2)`` / ``(u, dx)``, each [N, nbr·bs]. ``scale`` multiplies the
     single application (the Chebyshev ``2G`` step; for an int8 pack it joins
@@ -122,9 +128,9 @@ def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float
     dev = cuda_device(x_nv)
     nbr, max_b, bs, _ = pack.data.shape
     n, vp = x_nv.shape
-    if bs % 64 or vp != nbr * bs:
-        raise ValueError(f"K6 needs bs % 64 == 0 and an operand nbr·bs = {nbr * bs} wide; got "
-                         f"bs={bs}, width {vp}")
+    if bs % 64 or bs > 1024 or (bs > 256 and bs % 256) or vp != nbr * bs:
+        raise ValueError(f"K6 needs bs % 64 == 0 (a multiple of 256 above 256, at most 1024) "
+                         f"and an operand nbr·bs = {nbr * bs} wide; got bs={bs}, width {vp}")
     want = torch.int8 if pack.quantized else torch.float32
     if pack.data.device != dev or pack.data.dtype != want or not pack.data.is_contiguous() \
             or pack.data.shape[3] != bs:
@@ -136,14 +142,17 @@ def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float
     scales_p = require(pack.scales, "scales", (nbr, bs), dev)
     x_p = require(x_nv, "x_nv", (n, vp), dev)
     g_p = require(g_nv, "g_nv", (n, vp), dev)
-    if x_p % 16 or g_p % 16:
-        raise ValueError("x_nv and g_nv must start on a 16-byte boundary (the kernel reads float4)")
+    if x_p % 16:
+        raise ValueError("x_nv must start on a 16-byte boundary (the kernel reads it as float4)")
+    idx = nnz_index.current(pack.index, pack.data, pack.cols, pack.counts, transposed=True,
+                            name="K6")
+    index_p = nnz_index.require(idx, vp, dev)
     out = torch.empty((n, vp), device=dev, dtype=torch.float32)
     mid = None if mode == "single" else torch.empty_like(out)
     err = _build.library().stgcn_ell_nv(
-        pack.data.data_ptr(), cols_p, counts_p, scales_p, x_p, g_p,
-        0 if mid is None else mid.data_ptr(), out.data_ptr(), nbr, max_b, bs, n,
-        int(pack.quantized), MODES[mode], float(scale), stream_of(dev))
+        pack.data.data_ptr(), cols_p, counts_p, *index_p, scales_p, x_p, g_p,
+        0 if mid is None else mid.data_ptr(), out.data_ptr(), nbr, max_b, bs,
+        n, int(pack.quantized), MODES[mode], float(scale), stream_of(dev))
     _build.check(f"ell_nv[{mode}]", err)
     count_launch(launch_name(pack.quantized, mode))
     return out if mid is None else (mid, out)

@@ -13,9 +13,13 @@ The TPU has two kernels for it, ``_spmm_pallas_resident`` (:123, x
 resident in VMEM) and ``_spmm_pallas`` (:166, x streamed by DMA), and pads
 N to a multiple of 512 and chunks the block rows by 1024 for its scalar
 memory (:222-245). The CUDA kernel (``csrc/bcsr_spmm.cu``) is one kernel
-for both: x lies in device memory and its tiles are staged in shared
-memory; any N, no chunking. A scalar ``scale`` is the kernel's alpha, never
-multiplied into the pack (the JAX op copies the pack per call,
+for both, and it does not walk the tiles: a road graph fills a live tile to
+under 1 %, so it walks the pack's nonzero index
+(:mod:`stgcn_tpu_torch.kernels.nnz_index`, carried by the pack and rebuilt
+from the tile values when they change), reading each value from the tiles
+at its offset and gathering the x rows it needs; any N, any alignment, no
+chunking. A scalar ``scale`` is the kernel's alpha, never multiplied into
+the pack (the JAX op copies the pack per call,
 ``ops/graph_op.py:172-173``).
 
 :class:`BcsrSpmmVjp` is the autograd Function (JAX ``bcsr_spmm_vjp``
@@ -31,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import _build, nnz_index
 from stgcn_tpu_torch.kernels import sddmm as _sddmm
 from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
                                              require_index, stream_of)
@@ -47,6 +51,7 @@ class BcsrPack(NamedTuple):
     data: torch.Tensor     # [nbr, max_b, bs, bs] float32 row-major tiles
     cols: torch.Tensor     # [nbr, max_b] int32 column blocks (padding: 0)
     counts: torch.Tensor   # [nbr] int32 live tiles per block row
+    index: nnz_index.NnzIndex | None = None   # the nonzeros K10 walks (the packer's)
 
     @property
     def block_size(self) -> int:
@@ -70,8 +75,10 @@ def bcsr_spmm_reference(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.
 
 
 def bcsr_spmm(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-    """K10. ``pack`` on the operand's device; ``x_vn`` ``[nbr·bs, N]``
-    float32, any N. Returns ``scale · (A x)``, ``[nbr·bs, N]``."""
+    """K10. ``pack`` (with its nonzero index) on the operand's device;
+    ``x_vn`` ``[nbr·bs, N]`` float32, any N, any alignment (float4 loads
+    where it is 16-byte aligned and N % 4 == 0, scalar ones otherwise).
+    Returns ``scale · (A x)``, ``[nbr·bs, N]``."""
     if on_cpu(x_vn):
         return bcsr_spmm_reference(pack, x_vn, scale=scale)
     dev = cuda_device(x_vn)
@@ -81,17 +88,19 @@ def bcsr_spmm(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0) -> torc
                          f"bs={bs}, operand {tuple(x_vn.shape)}")
     data = pack.data
     if data.device != dev or data.dtype != torch.float32 or not data.is_contiguous() \
-            or data.shape[2:] != (bs, bs) or data.data_ptr() % 16:
+            or data.shape[2:] != (bs, bs):
         raise ValueError(f"the tiles are {data.dtype} {tuple(data.shape)} on {data.device}; K10 "
-                         f"takes contiguous, 16-byte aligned float32 [nbr, max_b, bs, bs] tiles "
-                         f"on {dev}")
-    cols_p = require_index(pack.cols, "cols", (nbr, max_b), dev)
-    counts_p = require_index(pack.counts, "counts", (nbr,), dev)
+                         f"takes contiguous float32 [nbr, max_b, bs, bs] tiles on {dev}")
+    require_index(pack.cols, "cols", (nbr, max_b), dev)
+    require_index(pack.counts, "counts", (nbr,), dev)
     x_p = require(x_vn, "x_vn", tuple(x_vn.shape), dev)
+    idx = nnz_index.current(pack.index, data, pack.cols, pack.counts, transposed=False,
+                            name="K10")
+    index_p = nnz_index.require(idx, nbr * bs, dev)
     out = torch.empty(x_vn.shape, device=dev, dtype=torch.float32)
-    err = _build.library().stgcn_bcsr_spmm(data.data_ptr(), cols_p, counts_p, x_p,
-                                           out.data_ptr(), nbr, max_b, bs, x_vn.shape[1],
-                                           float(scale), stream_of(dev))
+    err = _build.library().stgcn_bcsr_spmm(data.data_ptr(), *index_p, x_p, out.data_ptr(), nbr,
+                                           max_b, bs, x_vn.shape[1], float(scale),
+                                           stream_of(dev))
     _build.check("bcsr_spmm", err)
     count_launch(LAUNCH_NAME)
     return out

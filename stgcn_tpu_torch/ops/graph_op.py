@@ -422,7 +422,7 @@ def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bo
 
     def pack(m):
         return ek.EllPack(*pack_ell_device(m, block_size=block_size, quantize=quantize,
-                                           device=dev))
+                                           device=dev, with_index=True))
 
     fwd = pack(csr)
     return EllGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),
@@ -441,7 +441,8 @@ def bcsr_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
     csr = sp.csr_matrix(gso.matrix)
 
     def pack(m):
-        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, device=dev))
+        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, device=dev,
+                                             with_index=True))
 
     fwd = pack(csr)
     return BcsrGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),

@@ -28,6 +28,7 @@ from stgcn_tpu_torch.kernels import banded_nv as nv
 from stgcn_tpu_torch.kernels import banded_spmm as bvn
 from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import fused_stblock as fs
+from stgcn_tpu_torch.kernels import nnz_index
 from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import sddmm as sd
 from stgcn_tpu_torch.kernels import spmm as spm
@@ -568,6 +569,103 @@ def test_bcsr_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError, match="float32"):
         sd.bcsr_sddmm(op.pack.cols, op.pack.counts, x.double(), x, block_size=64)
 
+
+
+# --- the nonzero index that K6 and K10 walk (kernels/nnz_index.py) --------
+
+def _sparse_op(kind, dev, n_vertex=600, bs=64, gso_type="sym_norm_lap"):
+    gso = _rcm_gso(n_vertex, gso_type)
+    if kind == "bcsr":
+        return bcsr_graph_op(gso, block_size=bs, device=dev)
+    return ell_graph_op(gso, block_size=bs, quantize=kind == "ell_int8", device=dev)
+
+
+def _sparse_apply(pack, x):
+    """(kernel, plain version) of one application of K10 or K6 single."""
+    if isinstance(pack, spm.BcsrPack):
+        return spm.bcsr_spmm(pack, x), spm.bcsr_spmm_reference(pack, x)
+    return ek.ell_nv(pack, x), ek.ell_nv_reference(pack, x)
+
+
+def _sparse_x(pack, n, dev, seed=5):
+    vp = pack.cols.shape[0] * pack.data.shape[-1]
+    shape = (vp, n) if isinstance(pack, spm.BcsrPack) else (n, vp)
+    return _rand(np.random.default_rng(seed), dev, *shape)
+
+
+@pytest.mark.parametrize("kind", ["bcsr", "ell_f32", "ell_int8"])
+def test_sparse_index_built_once_across_launches(dev, kind):
+    """The packer builds each pack's index once (one pack for both
+    directions of the symmetric GSO); repeated launches rebuild nothing."""
+    before = nnz_index.builds()
+    op = _sparse_op(kind, dev)
+    assert op.pack_t is op.pack and nnz_index.builds() == before + 1
+    x = _sparse_x(op.pack, 33, dev)
+    for _ in range(5):
+        got, ref = _sparse_apply(op.pack, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+    assert nnz_index.builds() == before + 1
+
+
+@pytest.mark.parametrize("kind", ["bcsr", "ell_f32", "ell_int8"])
+def test_sparse_index_follows_an_edited_pack(dev, kind):
+    """A zero entry of a live tile set in place (a learned tile value leaving
+    zero): the next launch rebuilds the index once, on the card, and the
+    kernel follows the new value; later launches and a detach() alias
+    rebuild nothing."""
+    op = _sparse_op(kind, dev)
+    pack = op.pack
+    x = _sparse_x(pack, 160, dev)
+    live = torch.arange(pack.cols.shape[1], device=dev)[None, :] < pack.counts[:, None]
+    zeros = torch.nonzero((pack.data == 0) & live[:, :, None, None])
+    entry = tuple(int(v) for v in zeros[len(zeros) // 2])
+    _sparse_apply(pack, x)
+    before = nnz_index.builds()
+    with torch.no_grad():
+        pack.data[entry] = 3 if kind == "ell_int8" else 0.5
+    got, ref = _sparse_apply(pack, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+    assert nnz_index.builds() == before + 1
+    for p in (pack, pack._replace(data=pack.data.detach())):
+        assert torch.equal(_sparse_apply(p, x)[0], got)
+    assert nnz_index.builds() == before + 1
+
+
+@pytest.mark.parametrize("kind", ["bcsr", "ell_f32", "ell_int8"])
+def test_sparse_dense_tile(dev, kind):
+    """A fully dense live tile goes through the same kernel."""
+    op = _sparse_op(kind, dev, n_vertex=200, gso_type="rw_norm_lap")
+    rng = np.random.default_rng(9)
+    fill = rng.integers(1, 100, (64, 64)) if kind == "ell_int8" else rng.uniform(0.1, 1, (64, 64))
+    with torch.no_grad():
+        op.pack.data[1, 0] = torch.from_numpy(fill).to(op.pack.data.dtype).to(dev)
+    got, ref = _sparse_apply(op.pack, _sparse_x(op.pack, 96, dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 97])   # the scalar path of K10; K6 any N
+@pytest.mark.parametrize("kind", ["bcsr", "ell_f32", "ell_int8"])
+def test_sparse_narrow_and_ragged_n(dev, kind, n):
+    op = _sparse_op(kind, dev, bs=256)
+    got, ref = _sparse_apply(op.pack, _sparse_x(op.pack, n, dev))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+def test_k10_takes_an_unaligned_operand(dev):
+    """K10 takes an operand that does not start on a 16-byte boundary on its
+    scalar path (N % 4 == 0, so it would read float4 if it were aligned);
+    K6 raises for one (test_k6_wrapper_rejects_what_the_kernel_does_not_take)."""
+    op = _sparse_op("bcsr", dev)
+    flat = _rand(np.random.default_rng(3), dev, op.n_vertex_pad * 8 + 1)
+    x = flat[1:].view(op.n_vertex_pad, 8)
+    assert x.data_ptr() % 16
+    got = spm.bcsr_spmm(op.pack, x, scale=2.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, spm.bcsr_spmm_reference(op.pack, x, scale=2.0), **TOL)
 
 def _stblock_case(rng, dev, act, gct, ks, c_in, training, v=V_TRUE):
     cfg = fs.FusedBlockConfig(kt=3, ks=ks, act_func=act, graph_conv_type=gct, droprate=0.5,

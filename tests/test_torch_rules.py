@@ -13,7 +13,7 @@ import torch
 
 import stgcn_tpu_torch
 from stgcn_tpu_torch import kernels
-from stgcn_tpu_torch.kernels import _build, _launch
+from stgcn_tpu_torch.kernels import _build, _launch, nnz_index
 from stgcn_tpu_torch.kernels import banded_nv as tnv
 from stgcn_tpu_torch.kernels import banded_spmm as tbs
 from stgcn_tpu_torch.kernels import ell_nv as tek
@@ -315,6 +315,15 @@ def test_vn_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
         call("meta")
 
 
+def _empty_index(data):
+    """The nonzero index of all-zero tiles (K6 and K10 walk it): every row
+    empty."""
+    nbr, _, bs, _ = data.shape
+    empty = torch.zeros(0, dtype=torch.int32, device=data.device)
+    return nnz_index.NnzIndex().bind(
+        data, torch.zeros(nbr * bs + 1, dtype=torch.int32, device=data.device), empty, empty)
+
+
 @pytest.mark.parametrize("mode", ["single", "pair", "chain"])
 @pytest.mark.parametrize("quantize", [False, True])
 def test_ell_wrapper_takes_plain_version_only_on_cpu(quantize, mode, monkeypatch):
@@ -331,12 +340,12 @@ def test_ell_wrapper_takes_plain_version_only_on_cpu(quantize, mode, monkeypatch
     monkeypatch.setattr(tek, "stream_of", lambda dev: 0)
 
     def args(dev):
-        pack = tek.EllPack(
-            torch.zeros(2, 3, 128, 128, dtype=torch.int8 if quantize else torch.float32,
-                        device=dev),
-            torch.zeros(2, 3, dtype=torch.int32, device=dev),
-            torch.zeros(2, dtype=torch.int32, device=dev),
-            torch.ones(2, 128, device=dev) if quantize else None)
+        data = torch.zeros(2, 3, 128, 128, dtype=torch.int8 if quantize else torch.float32,
+                           device=dev)
+        pack = tek.EllPack(data, torch.zeros(2, 3, dtype=torch.int32, device=dev),
+                           torch.zeros(2, dtype=torch.int32, device=dev),
+                           torch.ones(2, 128, device=dev) if quantize else None,
+                           _empty_index(data))
         g = torch.zeros(5, 256, device=dev) if mode == "chain" else None
         return pack, torch.zeros(5, 256, device=dev), g
 
@@ -370,9 +379,9 @@ def test_bcsr_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
     monkeypatch.setattr(mod, "stream_of", lambda dev: 0)
 
     def call(dev):
-        pack = tsp.BcsrPack(torch.zeros(2, 3, 128, 128, device=dev),
-                            torch.zeros(2, 3, dtype=torch.int32, device=dev),
-                            torch.zeros(2, dtype=torch.int32, device=dev))
+        data = torch.zeros(2, 3, 128, 128, device=dev)
+        pack = tsp.BcsrPack(data, torch.zeros(2, 3, dtype=torch.int32, device=dev),
+                            torch.zeros(2, dtype=torch.int32, device=dev), _empty_index(data))
         x = torch.zeros(256, 5, device=dev)
         if name == "bcsr_spmm":
             return tsp.bcsr_spmm(pack, x, scale=2.0), (256, 5)
