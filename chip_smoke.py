@@ -132,8 +132,9 @@ Eighteen phases, each printing one JSON line with its own seconds:
    pack's nonzero index (``kernels/nnz_index.py``, built by the packer
    beside the tiles): its bytes and nonzeros, and a rebuild from the tile
    values on the card, timed and equal to the packer's. K6 walks that
-   index: it stages each live tile's x window in shared memory and adds only
-   the nonzeros, reading each value from the tiles at its offset. K6 in
+   index: it transposes x to [V, N] by hand and gathers, for each output
+   lane, the x rows of its nonzeros, each value read from the tiles at its
+   offset. K6 in
    modes single, pair and chain on both packs at N = 160 and 96 (B·T·c1 of
    the two ST blocks at batch 1), random operands, held against its plain
    version as in phase 3, repeat bit-identical; timed beside its bound
@@ -2220,7 +2221,6 @@ def check_bcsr_spmm(torch, pack, x, scale, *, v, nnz, a_csr, reps) -> dict:
     CSR GSO and x's first V rows (no transpose)."""
     from stgcn_tpu_torch.kernels import spmm
 
-    bs = pack.block_size
     return check_spmm(
         torch, spmm.LAUNCH_NAME, x.shape[1], "single",
         lambda: spmm.bcsr_spmm(pack, x, scale=scale),

@@ -52,7 +52,7 @@ SIGNATURES = {
     "stgcn_ofc_bwd": [_P] * 19 + [_I] * 6 + _DROP + [_P],
     "stgcn_banded_nv": [_P] * 7 + [_I] * 7 + [_F, _P],
     "stgcn_banded_vn": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "stgcn_ell_nv": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "stgcn_ell_nv": [_P] * 10 + [_I] * 6 + [_F, _P],
     "stgcn_bcsr_spmm": [_P] * 6 + [_I] * 4 + [_F, _P],
     "stgcn_bcsr_sddmm": [_P] * 5 + [_I] * 4 + [_F, _P],
     "stgcn_stblock_fwd": [_P] * 15 + [_I] * 11 + _DROP + [_P],

@@ -11,7 +11,7 @@
 // applied once to the float32 sum, as the TPU kernel does (:116-117).
 // Every operand is [n, vp] row-major with vp = nbr*bs.
 //
-// Modes (one C entry point, one or two launches of one kernel), as K5's:
+// Modes (one C entry point, two or three launches), as K5's:
 //   single: out = scale * A x
 //   pair:   mid = A x;            out = 2 A mid - x
 //   chain:  mid = 2 A x + g;      out = A mid - x      (x = g2, g = g1)
@@ -20,31 +20,33 @@
 // function: fma(-1, x, 2y) is 2y - x rounded once).
 //
 // What bounds it: bytes. A road graph fills a live tile to under 1 % (at 1M
-// vertices, RCM, bs = 256: 10.2M nonzeros in 34,113 tiles, about 1.2 a tile
-// row), so this kernel touches only the nonzeros, through the pack's
-// nonzero index (kernels/nnz_index.py: row_ptr, src, off in CSR order by
-// output lane, then ascending source vertex); the values stay in the tiles
-// and are read at their offsets, int8 widened to float32. In the nv layout
-// a column x[:, u] is n values vp*4 bytes apart, a sector each, so the
-// columns a tile needs are staged instead: the window x[r0:r0+32,
-// cols[i,k]*bs : +bs], coalesced 16-byte reads, Σ counts * bs * n * 4 bytes
-// an application (5.6 GB at 1M and n = 160), most of it from L2: the grid
-// runs block rows fastest, so the neighbouring block rows that share
-// windows (RCM) run together.
+// vertices, RCM, bs = 256: 10.2M nonzeros in 34,113 tiles), so this kernel
+// touches only the nonzeros, through the pack's nonzero index (kernels/
+// nnz_index.py: row_ptr, src, off in CSR order by output lane, then
+// ascending source vertex); the values stay in the tiles and are read at
+// their offsets, int8 widened to float32. In the nv layout a column
+// x[:, u] is n values vp*4 bytes apart, a sector each, so the operand is
+// turned to vn first: what the kernel moves is x read and written once more
+// (the transpose), the index (8 B a nonzero) and a value sector a nonzero,
+// the gathered x rows (nnz * n * 4 bytes an application, which L2 must
+// catch: the rows are in RCM order), and each output written once (the
+// pair's middle result twice, nv and vn).
 //
-// Design: one block per (block row i, 32 operand rows), a warp per 32
-// output lanes, a lane per operand row. For each live tile the block stages
-// the window transposed in shared memory (win[j][r], stride 33: conflict
-// free both ways); then each lane takes up to 4 of its own output lane's
-// nonzeros of this tile (their offsets lie in [k*bs², (k+1)*bs²), so a
-// per-lane pointer only advances) into the warp's list, and the warp walks
-// the list lane by lane: every lane reads the same (column, value) and
-// adds value * win[column][its row] into that output lane's sum. No lane
-// waits on another's nonzeros and nothing diverges. The sums leave through
-// shared memory, so the stores (and the epilogue's reads) are coalesced.
-// Each output element is one fmaf chain in ascending source vertex; no
-// atomics: a repeat launch is bit-identical. A block row's tiles start at a
-// size_t offset (the f32 pack holds 3.3e9 elements at 1M).
+// Design: (1) a hand-written transpose of x into the workspace, [vp, n],
+// float4 reads, through a padded shared tile; (2) a gather pass: a block
+// per 32 output rows, a warp per row at a time, its lanes over 32 operand
+// columns each (up to 256 a chunk); the lanes load 32 (src, value) pairs at
+// once and broadcast them by shuffle, and each pair adds value * x_vn[src,
+// :] (one coalesced row read) into the row's sums; the 32 x chunk sums go
+// out through shared memory, so the nv stores and the epilogue's reads of
+// g or x are 128 contiguous bytes a warp. The pair's and chain's first pass
+// also writes its result in vn for the second, so no transpose comes back.
+// Each output element is one fmaf chain in ascending source vertex, the lane
+// factor and alpha applied after the sum; no atomics: a repeat launch is
+// bit-identical. A block row's tiles start at a size_t offset (the f32
+// pack holds 3.3e9 elements at 1M). A window kernel that staged each live
+// tile's x columns in shared memory instead was 5.3x slower on an H100
+// (int8 pair at N = 160 + 96; PERF.md, PR 12).
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -52,25 +54,42 @@
 
 namespace {
 
-constexpr int kR = 32;        // operand rows a block: one a lane
-constexpr int kLd = kR + 1;   // the window's row stride in shared memory
-constexpr int kC = 4;         // nonzeros a lane lists per round
-constexpr int kMaxLanes = 256;   // output lanes (threads) a block at most
+constexpr int kRows = 32;   // output rows (vertices) a gather block, 4 a warp at a time
 constexpr unsigned kFull = 0xffffffffu;
 
-// out = alpha * (A x) * lane_scale + beta * add, every operand [n, vp]
+// in [n, vp] -> out [vp, n]; a block moves 32 operand rows x 128 vertices
+__global__ void __launch_bounds__(256)
+    transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int n, int vp) {
+  __shared__ float tile[32][129];
+  const int c0 = blockIdx.x * 128, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (c0 + 4 * tx < vp)   // vp % 4 == 0: a float4 is whole or out
+    for (int j = ty; j < 32 && r0 + j < n; j += 8) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(in + (size_t)(r0 + j) * vp + c0 + 4 * tx);
+      tile[j][4 * tx + 0] = v.x;
+      tile[j][4 * tx + 1] = v.y;
+      tile[j][4 * tx + 2] = v.z;
+      tile[j][4 * tx + 3] = v.w;
+    }
+  __syncthreads();
+  if (r0 + tx < n)
+    for (int c = ty; c < 128 && c0 + c < vp; c += 8)
+      out[(size_t)(c0 + c) * n + r0 + tx] = tile[tx][c];
+}
+
+// out = alpha * (A x) * lane_scale + beta * add, with x given as xt [vp, n]
 template <typename T>
 struct PassArgs {
   const T* tiles;       // [nbr, max_b, bs, bs]
-  const int* cols;      // [nbr, max_b]
-  const int* counts;    // [nbr]
-  const int* row_ptr;   // [nbr * bs + 1]
+  const int* row_ptr;   // [vp + 1]
   const int* src;       // [nnz]
   const int* off;       // [nnz]
-  const float* scales;  // [nbr * bs] or null
-  const float* x;
-  const float* add;     // or null
-  float* out;
+  const float* scales;  // [vp] or null
+  const float* xt;      // [vp, n]
+  const float* add;     // [n, vp] or null
+  float* out;           // [n, vp]
+  float* out_t;         // [vp, n]: the result again in vn, or null
   int max_b, bs, n, vp;
   float alpha, beta;
 };
@@ -78,172 +97,144 @@ struct PassArgs {
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 
-// output lanes a block: a block row's bs, or a 256-lane slice of a wider one
-__host__ __device__ int lanes_of(int bs) { return bs < kMaxLanes ? bs : kMaxLanes; }
-
-// floats of the window (or, at the end, the sums), then the warps' lists
-__host__ __device__ size_t win_floats(int bs) {
-  const size_t win = (size_t)bs * kLd, sums = (size_t)kR * (lanes_of(bs) + 1);
-  return win > sums ? win : sums;
-}
-
-size_t smem_bytes(int bs) {
-  return win_floats(bs) * sizeof(float) + (size_t)lanes_of(bs) * kC * sizeof(int2);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxLanes) ell_nv_kernel(PassArgs<T> a) {
-  extern __shared__ float smem[];
-  const int bs = a.bs, lanes = blockDim.x, slices = bs / lanes;
-  float* win = smem;   // [bs][kLd]; at the end the sums, [kR][lanes + 1]
-  const int i = blockIdx.x / slices, r0 = blockIdx.y * kR;
-  const int t = threadIdx.x, lane = t & 31, w = t >> 5, warps = lanes >> 5;
-  int2* list = reinterpret_cast<int2*>(smem + win_floats(bs)) + w * 32 * kC;
-  // this thread's own output lane (vertex), whose nonzeros it lists
-  const int row = i * bs + (blockIdx.x % slices) * lanes + t;
-  int p = a.row_ptr[row];
-  const int pend = a.row_ptr[row + 1];
-  const T* vals = a.tiles + (size_t)i * a.max_b * bs * bs;
-  const int bs2 = bs * bs;
-
-  float acc[32];
+// Q operand columns a lane, 32 * Q a chunk
+template <typename T, int Q>
+__global__ void __launch_bounds__(256) ell_gather_kernel(PassArgs<T> a) {
+  constexpr int kW = 32 * Q;
+  __shared__ float ys[kRows][kW + 1];
+  const int r0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < a.n; c0 += kW) {
+    for (int q4 = 0; q4 < kRows / 8; ++q4) {
+      const int rl = w * (kRows / 8) + q4, row = r0 + rl;
+      const int beg = a.row_ptr[row], end = a.row_ptr[row + 1];
+      const T* vals = a.tiles + (size_t)(row / a.bs) * a.max_b * a.bs * a.bs;
+      float acc[Q];
 #pragma unroll
-  for (int b = 0; b < 32; ++b) acc[b] = 0.0f;
-
-  const int count = a.counts[i];
-  for (int k = 0; k < count; ++k) {
-    const int xc = a.cols[(size_t)i * a.max_b + k] * bs;
-    // the window, 4 operand rows x 32 columns a warp step (128 contiguous
-    // bytes a row; lanes 8 apart 4 columns apart: conflict-free stores)
-    for (int it = w; it < (kR / 4) * (bs / 32); it += warps) {
-      const int rr = (it % (kR / 4)) * 4 + lane / 8;
-      const int j = (it / (kR / 4)) * 32 + (lane % 8) * 4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r0 + rr < a.n)
-        v = *reinterpret_cast<const float4*>(a.x + (size_t)(r0 + rr) * a.vp + xc + j);
-      win[(j + 0) * kLd + rr] = v.x;
-      win[(j + 1) * kLd + rr] = v.y;
-      win[(j + 2) * kLd + rr] = v.z;
-      win[(j + 3) * kLd + rr] = v.w;
+      for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
+      for (int e0 = beg; e0 < end; e0 += 32) {
+        int s = 0;
+        float v = 0.0f;
+        if (e0 + lane < end) {
+          s = a.src[e0 + lane];
+          v = widen(vals[a.off[e0 + lane]]);
+        }
+        const int cnt = min(32, end - e0);
+        for (int t = 0; t < cnt; ++t) {
+          const float* xr = a.xt + (size_t)__shfl_sync(kFull, s, t) * a.n;
+          const float vt = __shfl_sync(kFull, v, t);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const int c = c0 + lane + 32 * q;
+            if (c < a.n) acc[q] = fmaf(vt, xr[c], acc[q]);
+          }
+        }
+      }
+      const float sc = a.scales != nullptr ? a.scales[row] : 1.0f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        ys[rl][lane + 32 * q] = a.alpha * (a.scales != nullptr ? acc[q] * sc : acc[q]);
     }
     __syncthreads();
-    const int kend = (k + 1) * bs2;
-    while (true) {
-      // this lane's next (up to kC) nonzeros of tile k, loaded at once
-      int o[kC];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) o[c] = p + c < pend ? a.off[p + c] : kend;
-      int cnt = 0;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) {
-        if (o[c] < kend) {
-          list[lane * kC + c] = make_int2(a.src[p + c] - xc, __float_as_int(widen(vals[o[c]])));
-          cnt = c + 1;
-        }
-      }
-      p += cnt;
-      __syncwarp();
-#pragma unroll
-      for (int b = 0; b < 32; ++b) {
-        const int nb = __shfl_sync(kFull, cnt, b);
-        for (int c = 0; c < nb; ++c) {
-          const int2 e = list[b * kC + c];
-          acc[b] = fmaf(__int_as_float(e.y), win[e.x * kLd + lane], acc[b]);
-        }
-      }
-      const bool more = cnt == kC && p < pend && a.off[p] < kend;
-      if (!__any_sync(kFull, more)) break;
-      __syncwarp();
+    // nv: a warp writes 32 consecutive vertices of one operand row
+    for (int cc = w; cc < kW && c0 + cc < a.n; cc += 8) {
+      const size_t at = (size_t)(c0 + cc) * a.vp + r0 + lane;
+      float v = ys[lane][cc];
+      if (a.add != nullptr) v = fmaf(a.beta, a.add[at], v);
+      a.out[at] = v;
+      ys[lane][cc] = v;
     }
-    __syncthreads();   // the window is overwritten next
-  }
-  // the sums through shared memory: sums[r][lane b] = acc of lane r, b
-  float* sums = win;
-#pragma unroll
-  for (int b = 0; b < 32; ++b) sums[lane * (lanes + 1) + w * 32 + b] = acc[b];
-  __syncthreads();
-  const float sc = a.scales != nullptr ? a.scales[row] : 1.0f;
-  for (int rr = 0; rr < kR && r0 + rr < a.n; ++rr) {
-    const size_t at = (size_t)(r0 + rr) * a.vp + row;
-    float v = sums[rr * (lanes + 1) + t];
-    v = a.alpha * (a.scales != nullptr ? v * sc : v);
-    if (a.add != nullptr) v = fmaf(a.beta, a.add[at], v);
-    a.out[at] = v;
+    if (a.out_t != nullptr) {   // vn: a warp writes one row's chunk
+      __syncthreads();
+      for (int rl = w; rl < kRows; rl += 8)
+        for (int cc = lane; cc < kW && c0 + cc < a.n; cc += 32)
+          a.out_t[(size_t)(r0 + rl) * a.n + c0 + cc] = ys[rl][cc];
+    }
+    __syncthreads();
   }
 }
 
-template <typename T>
-cudaError_t launch_pass(const PassArgs<T>& a, cudaStream_t stream) {
-  if (a.n <= 0) return cudaSuccess;
-  const int lanes = lanes_of(a.bs);
-  const dim3 grid((unsigned)(a.vp / lanes), (unsigned)((a.n + kR - 1) / kR));
-  if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  const size_t smem = smem_bytes(a.bs);
-  cudaError_t err = cudaFuncSetAttribute(ell_nv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  ell_nv_kernel<T><<<grid, lanes, smem, stream>>>(a);
+template <typename T, int Q>
+cudaError_t gather_q(const PassArgs<T>& a, cudaStream_t s) {
+  ell_gather_kernel<T, Q><<<a.vp / kRows, 256, 0, s>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t run_mode(PassArgs<T> a, const float* g, float* mid, int mode, float scale,
-                     cudaStream_t s) {
+cudaError_t gather(const PassArgs<T>& a, cudaStream_t s) {
+  const int q = (a.n + 31) / 32;   // wider operands loop over chunks of 256
+  if (q <= 1) return gather_q<T, 1>(a, s);
+  if (q <= 2) return gather_q<T, 2>(a, s);
+  if (q <= 3) return gather_q<T, 3>(a, s);
+  if (q <= 4) return gather_q<T, 4>(a, s);
+  if (q <= 5) return gather_q<T, 5>(a, s);
+  if (q <= 6) return gather_q<T, 6>(a, s);
+  return gather_q<T, 8>(a, s);
+}
+
+template <typename T>
+cudaError_t run_mode(PassArgs<T> a, const float* x, const float* g, float* mid, float* work,
+                     int mode, float scale, cudaStream_t s) {
+  float* xt = work;
+  transpose_kernel<<<dim3((a.vp + 127) / 128, (a.n + 31) / 32), dim3(32, 8), 0, s>>>(
+      x, xt, a.n, a.vp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  a.xt = xt;
   if (mode == 0) {
     a.alpha = scale;
-    a.beta = 0.0f;
-    a.add = nullptr;
-    return launch_pass<T>(a, s);
+    return gather<T>(a, s);
   }
-  if (mode != 1 && mode != 2) return cudaErrorInvalidValue;
   const bool chain = mode == 2;
   float* out = a.out;
-  const float* x = a.x;
-  // pass 1: mid = A x (pair) or 2 A x + g (chain)
+  // pass 1: mid = A x (pair) or 2 A x + g (chain), also in vn for pass 2
   a.add = chain ? g : nullptr;
   a.out = mid;
+  a.out_t = work + (size_t)a.vp * a.n;
   a.alpha = chain ? 2.0f : 1.0f;
   a.beta = 1.0f;
-  cudaError_t err = launch_pass<T>(a, s);
+  err = gather<T>(a, s);
   if (err != cudaSuccess) return err;
   // pass 2: out = 2 A mid - x (pair) or A mid - x (chain)
-  a.x = mid;
+  a.xt = a.out_t;
+  a.out_t = nullptr;
   a.add = x;
   a.out = out;
   a.alpha = chain ? 1.0f : 2.0f;
   a.beta = -1.0f;
-  return launch_pass<T>(a, s);
+  return gather<T>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K6. tiles [nbr, max_b, bs, bs] float32 (int8 when `int8`), cols [nbr,
-// max_b] and counts [nbr] int32, the pack's nonzero index row_ptr [nbr*bs +
-// 1], src and off [nnz] int32, scales [nbr, bs] float32 (int8 only, else
-// null); x, g, mid, out [n, nbr*bs] with 16-byte-aligned rows; g only for
-// chain, mid for pair and chain. mode 0 single, 1 pair, 2 chain. Needs
-// bs % 32 == 0 (bs % 256 == 0 above 256), bs <= 1024, every cols[i, k] <
-// nbr and the index of the pack's live tiles.
-int stgcn_ell_nv(const void* tiles, const int* cols, const int* counts, const int* row_ptr,
-                 const int* src, const int* off, const float* scales, const float* x,
-                 const float* g, float* mid, float* out, int nbr, int max_b, int bs, int n,
-                 int int8, int mode, float scale, void* stream) {
-  if (bs <= 0 || bs % 32 != 0 || bs > 1024 || bs % lanes_of(bs) != 0 || nbr <= 0 || max_b <= 0 || n < 0 ||
+// K6. tiles [nbr, max_b, bs, bs] float32 (int8 when `int8`), the pack's
+// nonzero index row_ptr [nbr*bs + 1], src and off [nnz] int32, scales [nbr,
+// bs] float32 (int8 only, else null); x, g, mid, out [n, nbr*bs], x 16-byte
+// aligned; g only for chain, mid for pair and chain; work n * nbr*bs floats
+// (single) or twice that (pair, chain). mode 0 single, 1 pair, 2 chain.
+// Needs bs % 64 == 0, every src < nbr*bs and every off < max_b*bs*bs.
+int stgcn_ell_nv(const void* tiles, const int* row_ptr, const int* src, const int* off,
+                 const float* scales, const float* x, const float* g, float* mid, float* out,
+                 float* work, int nbr, int max_b, int bs, int n, int int8, int mode, float scale,
+                 void* stream) {
+  if (bs <= 0 || bs % 64 != 0 || nbr <= 0 || max_b <= 0 || n < 0 || mode < 0 || mode > 2 ||
       (int8 != 0) != (scales != nullptr) || (size_t)nbr * bs >= 0x7fffffffu ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || (mode == 2 && g == nullptr) ||
-      (mode != 0 && mid == nullptr))
+      (mode != 0 && mid == nullptr) || work == nullptr)
     return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  if ((n + 31) / 32 > 65535) return cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vp = nbr * bs;
   if (int8)
-    return run_mode<int8_t>({static_cast<const int8_t*>(tiles), cols, counts, row_ptr, src, off,
-                             scales, x, nullptr, out, max_b, bs, n, vp, 1.0f, 0.0f},
-                            g, mid, mode, scale, s);
-  return run_mode<float>({static_cast<const float*>(tiles), cols, counts, row_ptr, src, off,
-                          scales, x, nullptr, out, max_b, bs, n, vp, 1.0f, 0.0f},
-                         g, mid, mode, scale, s);
+    return run_mode<int8_t>({static_cast<const int8_t*>(tiles), row_ptr, src, off, scales,
+                             nullptr, nullptr, out, nullptr, max_b, bs, n, vp, 1.0f, 0.0f},
+                            x, g, mid, work, mode, scale, s);
+  return run_mode<float>({static_cast<const float*>(tiles), row_ptr, src, off, scales, nullptr,
+                          nullptr, out, nullptr, max_b, bs, n, vp, 1.0f, 0.0f},
+                         x, g, mid, work, mode, scale, s);
 }
 
 }  // extern "C"

@@ -24,10 +24,13 @@ into a VMEM ring per block row; the pair is two kernel applications there
 tile to under 1 %, so it walks the pack's nonzero index
 (:mod:`stgcn_tpu_torch.kernels.nnz_index`, carried by the pack and rebuilt
 from the tile values when they change), reading each value from the tiles
-at its offset; it stages each live tile's x window in shared memory. The
-pair and chain are two passes launched by one C entry point (the second
-folding ``2y − x`` into its epilogue), counted as one launch of the
-wrapper's mode and dtype (``ell_f32_pair``, ``ell_int8_chain``, …).
+at its offset. It transposes x to ``[V, N]`` by hand into a workspace,
+gathers the x rows each output row needs and writes the sums back in nv
+through shared memory. The pair and chain are two gather passes launched
+by one C entry point (the first also keeping its result in vn for the
+second, the second folding ``2y − x`` into its epilogue), counted as one
+launch of the wrapper's mode and dtype (``ell_f32_pair``,
+``ell_int8_chain``, …).
 
 The operand is exactly ``nbr·bs`` wide (the operator pads to it); output
 lanes of rows past ``n_vertex`` are zero. :class:`EllSpmmNv` and
@@ -112,8 +115,8 @@ def ell_nv_reference(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *,
 
 def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float = 1.0):
     """K6. ``pack`` (with its nonzero index) on the operand's device;
-    ``x_nv`` [N, nbr·bs] float32;
-    ``g_nv`` [N, nbr·bs] only for ``chain``. Returns ``y`` (single) or
+    ``x_nv`` [N, nbr·bs] float32, 16-byte aligned; ``g_nv`` [N, nbr·bs]
+    only for ``chain``. Returns ``y`` (single) or
     ``(t1, t2)`` / ``(u, dx)``, each [N, nbr·bs]. ``scale`` multiplies the
     single application (the Chebyshev ``2G`` step; for an int8 pack it joins
     the dequant factors, the tiles are never multiplied)."""
@@ -128,17 +131,17 @@ def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float
     dev = cuda_device(x_nv)
     nbr, max_b, bs, _ = pack.data.shape
     n, vp = x_nv.shape
-    if bs % 64 or bs > 1024 or (bs > 256 and bs % 256) or vp != nbr * bs:
-        raise ValueError(f"K6 needs bs % 64 == 0 (a multiple of 256 above 256, at most 1024) "
-                         f"and an operand nbr·bs = {nbr * bs} wide; got bs={bs}, width {vp}")
+    if bs % 64 or vp != nbr * bs:
+        raise ValueError(f"K6 needs bs % 64 == 0 and an operand nbr·bs = {nbr * bs} wide; got "
+                         f"bs={bs}, width {vp}")
     want = torch.int8 if pack.quantized else torch.float32
     if pack.data.device != dev or pack.data.dtype != want or not pack.data.is_contiguous() \
             or pack.data.shape[3] != bs:
         raise ValueError(f"the tiles are {pack.data.dtype} on {pack.data.device}; K6 takes "
                          f"contiguous [nbr, max_b, bs, bs] tiles on {dev}, float32 without "
                          "scales or int8 with them")
-    cols_p = require_index(pack.cols, "cols", (nbr, max_b), dev)
-    counts_p = require_index(pack.counts, "counts", (nbr,), dev)
+    require_index(pack.cols, "cols", (nbr, max_b), dev)
+    require_index(pack.counts, "counts", (nbr,), dev)
     scales_p = require(pack.scales, "scales", (nbr, bs), dev)
     x_p = require(x_nv, "x_nv", (n, vp), dev)
     g_p = require(g_nv, "g_nv", (n, vp), dev)
@@ -149,9 +152,11 @@ def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float
     index_p = nnz_index.require(idx, vp, dev)
     out = torch.empty((n, vp), device=dev, dtype=torch.float32)
     mid = None if mode == "single" else torch.empty_like(out)
+    # x in vn, and for pair and chain the first pass's result in vn too
+    work = torch.empty(n * vp * (1 if mode == "single" else 2), device=dev, dtype=torch.float32)
     err = _build.library().stgcn_ell_nv(
-        pack.data.data_ptr(), cols_p, counts_p, *index_p, scales_p, x_p, g_p,
-        0 if mid is None else mid.data_ptr(), out.data_ptr(), nbr, max_b, bs,
+        pack.data.data_ptr(), *index_p, scales_p, x_p, g_p,
+        0 if mid is None else mid.data_ptr(), out.data_ptr(), work.data_ptr(), nbr, max_b, bs,
         n, int(pack.quantized), MODES[mode], float(scale), stream_of(dev))
     _build.check(f"ell_nv[{mode}]", err)
     count_launch(launch_name(pack.quantized, mode))
