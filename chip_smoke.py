@@ -128,19 +128,20 @@ Eighteen phases, each printing one JSON line with its own seconds:
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
    256 × 256 tiles, int8 and f32, scattered on the card, 55 steps of
    synthetic series; ``BASELINE.json`` configs[4], ``bench.py:338-470``) is
-   built, each host step timed; nnz, tiles and their fill, pack bytes; each
-   pack's nonzero index (``kernels/nnz_index.py``, built by the packer
-   beside the tiles): its bytes and nonzeros, and a rebuild from the tile
-   values on the card, timed and equal to the packer's. K6 walks that
-   index: it transposes x to [V, N] by hand and gathers, for each output
-   lane, the x rows of its nonzeros, each value read from the tiles at its
-   offset. K6 in
+   built, each host step timed; nnz, tiles and their fill, pack bytes. The
+   operators leave each pack's nonzero index (``kernels/nnz_index.py``)
+   unbuilt; it is built from the tile values on the card, as the first
+   launch would (timed, counted as one build), and held against the packed
+   CSR matrix; its bytes and nonzeros are printed. K6 walks that index: it
+   transposes x to [V, N] by hand and gathers, for each output lane, the x
+   rows of its nonzeros, each value read from the tiles at its offset. K6 in
    modes single, pair and chain on both packs at N = 160 and 96 (B·T·c1 of
    the two ST blocks at batch 1), random operands, held against its plain
    version as in phase 3, repeat bit-identical; timed beside its bound
    (the nonzeros as CSR and the operands over 3.35 TB/s against the
-   nonzeros' FLOPs over 67 TFLOP/s; what the kernel reads, the index, one
-   stored value a nonzero and the operands, is printed too) and
+   nonzeros' FLOPs over 67 TFLOP/s; what the kernel moves, the index, a
+   32-byte sector a value, the workspace passes and the operands, is
+   printed too) and
    ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
 14. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
    Lion lr 1e-3, weight decay 1e-3, as phase 11 with K6 for K5: one forecast
@@ -154,8 +155,9 @@ Eighteen phases, each printing one JSON line with its own seconds:
 15. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
    order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
    of 256 × 256 row-major f32 tiles for both directions, scattered on the
-   card (timed), and its nonzero index as in phase 13. K10 walks the index,
-   a warp per output row gathering the x rows of its nonzeros. K10 at N =
+   card (timed), and its nonzero index built and checked as in phase 13.
+   K10 walks the index, a warp per output row gathering the x rows of its
+   nonzeros (the row walk K6 shares, ``csrc/csr_rows.cuh``). K10 at N =
    160 and 96, scale 1 and 2 (its alpha), and K11 at the same widths,
    random operands, held against their plain versions as in phase 3 (K11 a
    chunk of block rows at a time), repeat bit-identical; timed beside their
@@ -1407,12 +1409,13 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     operator as CSR (``nnz`` values of ``value_bytes`` each with an int32
     column index, V + 1 int32 row offsets, and V f32 row factors where
     ``row_scales``), each of the V-lane operands read once and each output
-    written once; and the nonzeros' FLOPs. ``pack_bytes`` (what the kernel
-    reads of the operator: the band as stored for K5 and K7-K9; the nonzero
-    index, one stored value a nonzero and the tile metadata for K6 and K10)
-    and ``pack_flops_one`` (the FLOPs of one application per operand column
-    as the kernel does them: the band's, or the index's nonzeros) are
-    reported beside it."""
+    written once; and the nonzeros' FLOPs. ``pack_bytes`` (for K5 and K7-K9
+    the band as stored; for K6 and K10 what the kernel moves beyond the
+    operands, ``index_traffic``: the nonzero index, a 32-byte sector a value,
+    int8 lane factors and K6's workspace passes), plus the operands read and
+    written once, and ``pack_flops_one`` (the FLOPs of one application per
+    operand column as the kernel does them: the band's, or the index's
+    nonzeros) are reported beside it."""
     from stgcn_tpu_torch import kernels
 
     before = kernels.launch_counts()[name]
@@ -2054,33 +2057,87 @@ def pack_bytes(pack) -> int:
     return pack.data.numel() * pack.data.element_size() + meta
 
 
-def index_read(pack) -> tuple[int, int]:
-    """(bytes, FLOPs per operand column) of one application of K6 or K10 as
-    the kernel reads the operator: the nonzero index, one stored value a
-    nonzero, the tile metadata (cols, counts and an int8 pack's lane
-    factors); 2 FLOPs a nonzero."""
+SECTOR_BYTES = 32
+
+
+def index_traffic(pack, n: int, mode: str) -> tuple[int, int]:
+    """(bytes, FLOPs per operand column) of one K6 or K10 call of ``mode`` at
+    width ``n`` as the kernel moves and does them, beyond each operand read
+    and each output written once (which ``check_spmm`` adds): per
+    application the nonzero index (row offsets, src, off), one 32-byte
+    sector a value (a row's values lie a tile row or more apart) and an
+    int8 pack's lane factors; for K6 also its passes over ``[N, V]``
+    operands, 4 bytes an element: the workspace written by the transpose and
+    read by the gather, and in pair and chain the first pass's vn copy
+    written and read back and x read again by the second pass's epilogue.
+    The gathered x rows count once, as if the L2 caught every re-read.
+    FLOPs: 2 a nonzero."""
+    from stgcn_tpu_torch.kernels.ell_nv import EllPack
+
     idx = pack.index
-    meta = sum(t.numel() * t.element_size()
-               for t in (pack.cols, pack.counts, getattr(pack, "scales", None)) if t is not None)
-    return idx.nbytes() + idx.nnz * pack.data.element_size() + meta, 2 * idx.nnz
+    apps = 1 if mode == "single" else 2
+    scales = getattr(pack, "scales", None)
+    per_app = idx.nbytes() + idx.nnz * SECTOR_BYTES + (
+        0 if scales is None else scales.numel() * scales.element_size())
+    passes = (2 + (3 if apps == 2 else 0)) if isinstance(pack, EllPack) else 0
+    vp = pack.cols.shape[0] * pack.data.shape[-1]
+    return apps * per_app + passes * n * vp * 4, 2 * idx.nnz
 
 
-def index_info(torch, pack, *, transposed: bool) -> dict:
-    """A pack's nonzero index: its bytes and nonzeros, and a rebuild from the
-    tile values on the card (what a launch does after the values change),
-    timed and held equal to the packer's index."""
+def index_info(torch, pack, matrix, *, transposed: bool) -> dict:
+    """Build a pack's nonzero index from its tile values on the card, as the
+    first launch does (timed, counted as one build), and hold it against the
+    packed CSR ``matrix``: the same row offsets and source vertices, each
+    offset in a live tile at the position of (row, source), holding the
+    stored value (f32, or an int8 pack's ``rint(value / lane factor)``;
+    entries stored as 0 left out). Returns its bytes, nonzeros and build
+    seconds."""
+    import numpy as np
+    import scipy.sparse as sp
+
     from stgcn_tpu_torch.kernels import nnz_index
 
-    idx = pack.index
+    builds = nnz_index.builds()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    rebuilt = nnz_index.index_from_tiles(pack.data, pack.cols, pack.counts, transposed=transposed)
+    idx = nnz_index.current(pack.index, pack.data, pack.cols, pack.counts, transposed=transposed,
+                            name="index_info")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    if not all(torch.equal(a, b) for a, b in zip((idx.row_ptr, idx.src, idx.off), rebuilt)):
-        raise AssertionError("the packer's nonzero index differs from the one rebuilt from the "
-                             "tile values")
-    return {"index_bytes": idx.nbytes(), "index_nnz": idx.nnz, "index_rebuild_s": seconds}
+    if nnz_index.builds() != builds + 1:
+        raise AssertionError("the pack's nonzero index was built before its first launch")
+    csr = sp.csr_matrix(matrix)
+    csr.sort_indices()
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    scales = getattr(pack, "scales", None)
+    if scales is None:
+        stored = csr.data.astype(np.float32)
+    else:
+        stored = np.rint(csr.data / scales.cpu().numpy().reshape(-1)[rows]).astype(np.int8)
+    keep = stored != 0
+    nbr, _, bs, _ = pack.data.shape
+    row_ptr = np.zeros(nbr * bs + 1, np.int64)
+    np.cumsum(np.bincount(rows[keep], minlength=nbr * bs), out=row_ptr[1:])
+    dev = pack.data.device
+    src = torch.from_numpy(csr.indices[keep].astype(np.int64)).to(dev)
+    ok = (torch.equal(idx.row_ptr.long(), torch.from_numpy(row_ptr).to(dev))
+          and torch.equal(idx.src.long(), src))
+    if ok:
+        row = torch.repeat_interleave(torch.arange(nbr * bs, device=dev),
+                                      idx.row_ptr.diff().long())
+        br, off = row // bs, idx.off.long()
+        k, pos = off // (bs * bs), off % (bs * bs)
+        lane, c = (pos % bs, pos // bs) if transposed else (pos // bs, pos % bs)
+        ok = (bool((k < pack.counts.long()[br]).all()) and torch.equal(lane, row % bs)
+              and torch.equal(pack.cols.long()[br, k] * bs + c, src)
+              and torch.equal(pack.data.reshape(nbr, -1)[br, off],
+                              torch.from_numpy(stored[keep]).to(dev)))
+        del row, br, off, k, pos, lane, c
+    del src
+    if not ok:
+        raise AssertionError("the nonzero index built from the tiles differs from the packed "
+                             "CSR matrix's")
+    return {"index_bytes": idx.nbytes(), "index_nnz": idx.nnz, "index_build_s": seconds}
 
 
 def build_1m(torch) -> dict:
@@ -2155,7 +2212,8 @@ def phase_kernels_ell(torch, data) -> dict:
     from stgcn_tpu_torch.kernels import ell_nv as ek
 
     v, nnz = data["n_vertex"], data["prep"]["nnz"]
-    index = {("int8" if g.pack.quantized else "f32"): index_info(torch, g.pack, transposed=True)
+    index = {("int8" if g.pack.quantized else "f32"): index_info(torch, g.pack, data["matrix"],
+                                                                 transposed=True)
              for g in (data["gop"], data["gop_f32"])}
     a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2175,8 +2233,9 @@ def phase_kernels_ell(torch, data) -> dict:
                         lambda a=args: ek.ell_nv_reference(*a),
                         lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
                         v=v, nnz=nnz, vp=gop.v_pad, value_bytes=1 if pack.quantized else 4,
-                        row_scales=pack.quantized, pack_bytes=index_read(pack)[0],
-                        pack_flops_one=index_read(pack)[1],
+                        row_scales=pack.quantized,
+                        pack_bytes=index_traffic(pack, n, mode)[0],
+                        pack_flops_one=index_traffic(pack, n, mode)[1],
                         library_agrees=not pack.quantized, reps=K6_REPS)})
         del x, g, x_vn
     del data["gop_f32"], a_csr
@@ -2226,8 +2285,9 @@ def check_bcsr_spmm(torch, pack, x, scale, *, v, nnz, a_csr, reps) -> dict:
         lambda: spmm.bcsr_spmm(pack, x, scale=scale),
         lambda: spmm.bcsr_spmm_reference(pack, x, scale=scale),
         lambda: torch.sparse.mm(a_csr, x[:v]), v=v, nnz=nnz, vp=x.shape[0], value_bytes=4,
-        row_scales=False, pack_bytes=index_read(pack)[0],
-        pack_flops_one=index_read(pack)[1], library_agrees=True, reps=reps,
+        row_scales=False, pack_bytes=index_traffic(pack, x.shape[1], "single")[0],
+        pack_flops_one=index_traffic(pack, x.shape[1], "single")[1], library_agrees=True,
+        reps=reps,
         vn=True, scale=scale)
 
 
@@ -2345,7 +2405,7 @@ def phase_kernels_bcsr(torch, data) -> dict:
     v, nnz = data["n_vertex"], data["prep"]["nnz"]
     nbr, max_b, bs, _ = gop.pack.data.shape
     tiles = int(gop.pack.counts.sum())
-    index = index_info(torch, gop.pack, transposed=False)
+    index = index_info(torch, gop.pack, data["matrix"], transposed=False)
     a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(3)
     results: dict[str, list] = {"bcsr_spmm": [], "bcsr_sddmm": []}

@@ -26,10 +26,7 @@ float32 host array there). Here the index of every nonzero in the pack is
 computed for all of them at once (:func:`_ell_layout`), and the device
 packers send only the indices and values to the device and scatter there,
 into a zeroed tensor; on the CPU their results equal the JAX functions'
-exactly. With ``with_index`` they also keep the pack's nonzero index on
-the device (:mod:`stgcn_tpu_torch.kernels.nnz_index`: each nonzero's
-output row, source vertex and offset in its block row's tiles, in CSR
-order), which the kernels K6 and K10 walk instead of the tiles.
+exactly.
 """
 
 from __future__ import annotations
@@ -39,19 +36,17 @@ import scipy.sparse as sp
 import torch
 
 from stgcn_tpu_torch.device import resolve_device
-from stgcn_tpu_torch.kernels.nnz_index import index_from_layout
 
 
 def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool, transposed: bool = True):
     """Where every nonzero goes in the pack, and its stored value; the tiles
     are transposed (the nv pack) or row-major (the BCSR pack).
 
-    Returns ``(flat, values, cols, counts, scales, shape, row_of,
-    indices)``: ``flat`` the int64 offset of each nonzero in the flattened
-    ``[nbr, max_b, bs, bs]`` pack, ``values`` its stored value (int8 when
-    ``quantize``, else float32), the pack's ``cols``, ``counts``,
-    ``scales`` (None unless ``quantize``) and shape, and each nonzero's
-    output row and source vertex (for the nonzero index)."""
+    Returns ``(flat, values, cols, counts, scales, shape)``: ``flat`` the
+    int64 offset of each nonzero in the flattened ``[nbr, max_b, bs, bs]``
+    pack, ``values`` its stored value (int8 when ``quantize``, else
+    float32), and the pack's ``cols``, ``counts``, ``scales`` (None unless
+    ``quantize``) and shape."""
     csr = sp.csr_matrix(matrix)
     v = csr.shape[0]
     bs = block_size
@@ -91,47 +86,37 @@ def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool, transposed
     else:
         values = values.astype(np.float32)
     scales = None if scales_rows is None else scales_rows.reshape(nbr, bs)
-    return flat, values, cols, counts, scales, (nbr, max_b, bs, bs), row_of, indices
+    return flat, values, cols, counts, scales, (nbr, max_b, bs, bs)
 
 
 def pack_ell_device(matrix: sp.spmatrix, *, block_size: int = 256, quantize: bool = False,
-                    device: str | torch.device = "cuda", with_index: bool = False):
+                    device: str | torch.device = "cuda"):
     """The JAX ``pack_ell_nv`` built on ``device``: the pack's indices and
     values travel there, the zero-filled tiles (3.3 GB int8 for the
     1M-vertex road graph) are scattered in place by one ``index_put_``.
     Returns ``(data, cols, counts, scales)`` as tensors on ``device``:
     ``data`` ``[nbr, max_b, bs, bs]`` (int8 when ``quantize``, else
     float32), ``cols`` ``[nbr, max_b]`` int32, ``counts`` ``[nbr]`` int32,
-    ``scales`` ``[nbr, bs]`` float32 or None; ``with_index`` appends the
-    pack's :class:`~stgcn_tpu_torch.kernels.nnz_index.NnzIndex` (K6 walks
-    it), built from the same layout."""
+    ``scales`` ``[nbr, bs]`` float32 or None."""
     dev = resolve_device(device)
-    flat, values, cols, counts, scales, shape, row_of, indices = _ell_layout(
-        matrix, block_size, quantize)
-    data = _scatter(flat, values, shape, dev)
-    out = (data, torch.from_numpy(cols).to(dev), torch.from_numpy(counts).to(dev),
-           None if scales is None else torch.from_numpy(scales).to(dev))
-    if with_index:
-        out += (index_from_layout(flat, values, row_of, indices, shape, data),)
-    return out
+    flat, values, cols, counts, scales, shape = _ell_layout(matrix, block_size, quantize)
+    return (_scatter(flat, values, shape, dev), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(counts).to(dev),
+            None if scales is None else torch.from_numpy(scales).to(dev))
 
 
 def pack_bcsr_device(matrix: sp.spmatrix, *, block_size: int = 256,
-                     device: str | torch.device = "cuda", with_index: bool = False):
+                     device: str | torch.device = "cuda"):
     """The JAX ``pack_bcsr`` built on ``device`` (13.3 GB of float32 tiles
     for the 1M-vertex road graph, scattered in place). Returns ``(data,
     cols, counts)`` as tensors on ``device``: ``data`` ``[nbr, max_b, bs,
     bs]`` float32 row-major tiles, ``cols`` ``[nbr, max_b]`` int32 (padding
-    slots: 0), ``counts`` ``[nbr]`` int32; ``with_index`` appends the pack's
-    :class:`~stgcn_tpu_torch.kernels.nnz_index.NnzIndex` (K10 walks it)."""
+    slots: 0), ``counts`` ``[nbr]`` int32."""
     dev = resolve_device(device)
-    flat, values, cols, counts, _, shape, row_of, indices = _ell_layout(
-        matrix, block_size, False, transposed=False)
-    data = _scatter(flat, values, shape, dev)
-    out = (data, torch.from_numpy(cols).to(dev), torch.from_numpy(counts).to(dev))
-    if with_index:
-        out += (index_from_layout(flat, values, row_of, indices, shape, data),)
-    return out
+    flat, values, cols, counts, _, shape = _ell_layout(matrix, block_size, False,
+                                                       transposed=False)
+    return (_scatter(flat, values, shape, dev), torch.from_numpy(cols).to(dev),
+            torch.from_numpy(counts).to(dev))
 
 
 def _scatter(flat: np.ndarray, values: np.ndarray, shape: tuple, dev: torch.device):

@@ -3,25 +3,23 @@ training path's PeMSD7(M), 100k- and 1M-vertex shapes, on one CUDA card.
 
     python3 stgcn_tpu_torch/kernels/bwd_ab.py --tree PARENT --tree . --tree . --tree PARENT
 
-Each ``--tree`` is the root of a checkout of this repository. Each is run
-in a process of its own, which builds that checkout's kernels and imports
-its ``stgcn_tpu_torch``, in the order given (so two commits compare as
-A, B, B, A on one card). Per tree it prints one JSON line: per kernel and
-shape the median CUDA-event milliseconds of ``--reps`` launches (after 3
-of warm-up) on random inputs drawn from a fixed seed, and a SHA-256 of the
-outputs' bytes, so trees whose sums run in the same order show the same
-digest. Then the ``nvidia-smi`` name and power limit of the card.
+Each ``--tree`` is the root of a checkout of this repository, run in a
+process of its own that builds its kernels (the harness, ``_ab.py``). Per
+tree it prints one JSON line: per kernel and shape the median CUDA-event
+milliseconds of ``--reps`` launches (after 3 of warm-up) on random inputs
+drawn from a fixed seed, and a SHA-256 of the outputs' bytes. Then the
+``nvidia-smi`` name and power limit of the card.
 """
 
 from __future__ import annotations
 
-import argparse
-import hashlib
-import json
 import os
-import statistics
-import subprocess
 import sys
+
+if __package__:
+    from stgcn_tpu_torch.kernels import _ab
+else:   # run as a script: its directory is sys.path[0]
+    import _ab
 
 # (B, V, Vp): the batches of the main.py default, bench.py:253 and bench.py:338
 SHAPES = {"pemsd7m": (32, 228, 256), "100k": (8, 100_000, 101_376),
@@ -76,9 +74,8 @@ def cases(torch, b: int, v_true: int, vp: int):
     ]
 
 
-def run_one(tree: str, reps: int) -> dict:
+def run_one(tree: str, reps: int, data) -> dict:
     """Time every case with the checkout at ``tree`` imported."""
-    sys.path[0] = os.path.abspath(tree)   # this file's directory out, the checkout in
     import torch
 
     import stgcn_tpu_torch
@@ -88,51 +85,12 @@ def run_one(tree: str, reps: int) -> dict:
               "sha256": {}}
     for shape, (b, v_true, vp) in SHAPES.items():
         for name, wrapper, args, kwargs in cases(torch, b, v_true, vp):
-            outs = [o for o in wrapper(*args, **kwargs) if o is not None]
-            torch.cuda.synchronize()
-            digest = hashlib.sha256()
-            for o in outs:
-                digest.update(o.detach().cpu().numpy().tobytes())
-            del outs
-            for _ in range(3):
-                wrapper(*args, **kwargs)
-            times = []
-            for _ in range(reps):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                wrapper(*args, **kwargs)
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
-            result["ms"][f"{name}/{shape}"] = statistics.median(times)
-            result["sha256"][f"{name}/{shape}"] = digest.hexdigest()[:16]
+            key = f"{name}/{shape}"
+            result["ms"][key], result["sha256"][key] = _ab.timed(
+                torch, lambda: wrapper(*args, **kwargs), reps, warmup=3)
         torch.cuda.empty_cache()
     return result
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", action="append", required=True)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.one:
-        print(json.dumps(run_one(args.tree[0], args.reps)), flush=True)
-        return 0
-    for tree in args.tree:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", "--tree", tree,
-                              "--reps", str(args.reps)],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            sys.stderr.write(out.stderr)
-            return out.returncode
-        print(out.stdout.strip().splitlines()[-1], flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-                          "-i", "0"], capture_output=True, text=True)
-    print(smi.stdout.strip(), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_ab.main(__file__, __doc__.splitlines()[0], run_one, reps=20))

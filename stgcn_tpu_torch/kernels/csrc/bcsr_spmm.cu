@@ -22,12 +22,13 @@
 // their offsets. What it must move is the index (8 B a nonzero), one value
 // sector a nonzero, the gathered x rows and y once.
 //
-// Design: G lanes per output row (a warp; a half-warp where n <= 64). The
-// lanes load G (src, value) pairs at once and broadcast them by shuffle;
-// for each pair the group reads the x row x[src, :] coalesced, float4 where
-// n % 4 == 0 and x, y are 16-byte aligned, scalar loads otherwise. Each
-// output element is one fmaf chain in ascending src, alpha applied after
-// the sum; padded rows write 0. Rows are in RCM order, so the groups in
+// Design: G lanes per output row (a warp; a half-warp where n <= 64) walk
+// the row's nonzeros with csr_rows.cuh (shared with K6): the lanes load G
+// (src, value) pairs at once and broadcast them by shuffle; for each pair
+// the group reads the x row x[src, :] coalesced, float4 where n % 4 == 0
+// and x, y are 16-byte aligned, scalar loads otherwise. Each output element
+// is one fmaf chain in ascending src, alpha applied after the sum; padded
+// rows write 0. Rows are in RCM order, so the groups in
 // flight read neighbouring x rows, which the 50 MB L2 keeps (all of x is
 // 640 MB at n = 160). No atomics: a repeat launch is bit-identical. A
 // block row's tiles start at a size_t offset (the 1M pack holds 3.3e9
@@ -37,41 +38,19 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "csr_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-template <bool VEC>
-struct Cols;
-template <>
-struct Cols<true> {   // four columns a lane step
-  using T = float4;
-  static constexpr int kWidth = 4;
-  __device__ static T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
-  __device__ static void fma(float v, const float* xr, int c, T& acc) {
-    const float4 xv = *reinterpret_cast<const float4*>(xr + c);
-    acc.x = fmaf(v, xv.x, acc.x);
-    acc.y = fmaf(v, xv.y, acc.y);
-    acc.z = fmaf(v, xv.z, acc.z);
-    acc.w = fmaf(v, xv.w, acc.w);
-  }
-  __device__ static void store(float* yr, int c, const T& acc, float alpha) {
-    *reinterpret_cast<float4*>(yr + c) =
-        make_float4(alpha * acc.x, alpha * acc.y, alpha * acc.z, alpha * acc.w);
-  }
-};
-template <>
-struct Cols<false> {  // one column a lane step
-  using T = float;
-  static constexpr int kWidth = 1;
-  __device__ static T zero() { return 0.0f; }
-  __device__ static void fma(float v, const float* xr, int c, T& acc) {
-    acc = fmaf(v, xr[c], acc);
-  }
-  __device__ static void store(float* yr, int c, const T& acc, float alpha) {
-    yr[c] = alpha * acc;
-  }
-};
+__device__ __forceinline__ void store(float* yr, int c, const float4& acc, float alpha) {
+  *reinterpret_cast<float4*>(yr + c) =
+      make_float4(alpha * acc.x, alpha * acc.y, alpha * acc.z, alpha * acc.w);
+}
+__device__ __forceinline__ void store(float* yr, int c, float acc, float alpha) {
+  yr[c] = alpha * acc;
+}
 
 // G lanes per output row; a lane owns CPL column steps of a chunk of
 // G * CPL * width columns.
@@ -81,41 +60,21 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ src, const int* __restrict__ off,
                      const float* __restrict__ x, float* __restrict__ y, int rows, int bs,
                      size_t row_tiles, int n, float alpha) {
-  using C = Cols<VEC>;
+  using C = csr_rows::Cols<VEC>;
   const int row = blockIdx.x * (kThreads / G) + threadIdx.x / G;
   if (row >= rows) return;   // a whole group: rows is a multiple of kThreads / G
   const int lane = threadIdx.x % G;
-  const unsigned mask = G == 32 ? 0xffffffffu : (0xffffu << (threadIdx.x & 16));
   const int beg = row_ptr[row], end = row_ptr[row + 1];
   const float* vals = tiles + (size_t)(row / bs) * row_tiles;
   float* yr = y + (size_t)row * n;
   constexpr int kChunk = G * CPL * C::kWidth;
   for (int c0 = 0; c0 < n; c0 += kChunk) {
     typename C::T acc[CPL];
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[q] = C::zero();
-    for (int e0 = beg; e0 < end; e0 += G) {
-      int s = 0;
-      float v = 0.0f;
-      if (e0 + lane < end) {
-        s = src[e0 + lane];
-        v = vals[off[e0 + lane]];
-      }
-      const int cnt = min(G, end - e0);
-      for (int t = 0; t < cnt; ++t) {
-        const float* xr = x + (size_t)__shfl_sync(mask, s, t, G) * n;
-        const float vt = __shfl_sync(mask, v, t, G);
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          const int c = c0 + C::kWidth * (lane + G * q);
-          if (c < n) C::fma(vt, xr, c, acc[q]);
-        }
-      }
-    }
+    csr_rows::row_sums<G, CPL, VEC>(vals, src, off, beg, end, x, n, c0, lane, acc);
 #pragma unroll
     for (int q = 0; q < CPL; ++q) {
       const int c = c0 + C::kWidth * (lane + G * q);
-      if (c < n) C::store(yr, c, acc[q], alpha);
+      if (c < n) store(yr, c, acc[q], alpha);
     }
   }
 }

@@ -35,9 +35,10 @@
 // Design: (1) a hand-written transpose of x into the workspace, [vp, n],
 // float4 reads, through a padded shared tile; (2) a gather pass: a block
 // per 32 output rows, a warp per row at a time, its lanes over 32 operand
-// columns each (up to 256 a chunk); the lanes load 32 (src, value) pairs at
-// once and broadcast them by shuffle, and each pair adds value * x_vn[src,
-// :] (one coalesced row read) into the row's sums; the 32 x chunk sums go
+// columns each (up to 256 a chunk), walking the row with csr_rows.cuh as
+// K10 does: the lanes load 32 (src, value) pairs at once and broadcast them
+// by shuffle, and each pair adds value * x_vn[src, :] (one coalesced row
+// read) into the row's sums; the 32 x chunk sums go
 // out through shared memory, so the nv stores and the epilogue's reads of
 // g or x are 128 contiguous bytes a warp. The pair's and chain's first pass
 // also writes its result in vn for the second, so no transpose comes back.
@@ -52,10 +53,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "csr_rows.cuh"
+
 namespace {
 
 constexpr int kRows = 32;   // output rows (vertices) a gather block, 4 a warp at a time
-constexpr unsigned kFull = 0xffffffffu;
 
 // in [n, vp] -> out [vp, n]; a block moves 32 operand rows x 128 vertices
 __global__ void __launch_bounds__(256)
@@ -94,9 +96,6 @@ struct PassArgs {
   float alpha, beta;
 };
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(int8_t v) { return (float)v; }
-
 // Q operand columns a lane, 32 * Q a chunk
 template <typename T, int Q>
 __global__ void __launch_bounds__(256) ell_gather_kernel(PassArgs<T> a) {
@@ -110,26 +109,7 @@ __global__ void __launch_bounds__(256) ell_gather_kernel(PassArgs<T> a) {
       const int beg = a.row_ptr[row], end = a.row_ptr[row + 1];
       const T* vals = a.tiles + (size_t)(row / a.bs) * a.max_b * a.bs * a.bs;
       float acc[Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
-      for (int e0 = beg; e0 < end; e0 += 32) {
-        int s = 0;
-        float v = 0.0f;
-        if (e0 + lane < end) {
-          s = a.src[e0 + lane];
-          v = widen(vals[a.off[e0 + lane]]);
-        }
-        const int cnt = min(32, end - e0);
-        for (int t = 0; t < cnt; ++t) {
-          const float* xr = a.xt + (size_t)__shfl_sync(kFull, s, t) * a.n;
-          const float vt = __shfl_sync(kFull, v, t);
-#pragma unroll
-          for (int q = 0; q < Q; ++q) {
-            const int c = c0 + lane + 32 * q;
-            if (c < a.n) acc[q] = fmaf(vt, xr[c], acc[q]);
-          }
-        }
-      }
+      csr_rows::row_sums<32, Q, false>(vals, a.src, a.off, beg, end, a.xt, a.n, c0, lane, acc);
       const float sc = a.scales != nullptr ? a.scales[row] : 1.0f;
 #pragma unroll
       for (int q = 0; q < Q; ++q)

@@ -65,7 +65,7 @@ class EllPack(NamedTuple):
     cols: torch.Tensor                # [nbr, max_b] int32 column blocks (padding: 0)
     counts: torch.Tensor              # [nbr] int32 live tiles per block row
     scales: torch.Tensor | None = None  # [nbr, bs] float32 per output lane (int8 packs)
-    index: nnz_index.NnzIndex | None = None   # the nonzeros K6 walks (the packer's)
+    index: nnz_index.NnzIndex | None = None   # the nonzeros K6 walks
 
     @property
     def quantized(self) -> bool:

@@ -13,22 +13,31 @@ in each tile's 65,536 entries). The index lists the nonzeros of the tiles
   ``k·bs² + position`` (position ``a·bs + c`` in a row-major BCSR tile,
   ``c·bs + b`` in a transposed ELL tile).
 
-The values stay in the tiles: a kernel reads each one at ``off``. The index
-follows the tile values: it records the tiles' ``(data_ptr, _version)``
-when it is built, and :func:`current` rebuilds it on the device from the
-values (:func:`index_from_tiles`) when a launch brings tiles it was not
+The values stay in the tiles: a kernel reads each one at ``off``. The
+graph operators give each pack an unbuilt :class:`NnzIndex` (one for both
+directions of a symmetric GSO, which shares its pack), and the first CUDA
+launch builds it on the device from the tile values
+(:func:`index_from_tiles`, through :func:`current`). The index follows the
+tile values: it records the tiles' ``(data_ptr, _version)`` when it is
+built, and :func:`current` rebuilds it when a launch brings tiles it was not
 built for, as after an in-place update of learned tile values (K11 gives
 them a gradient over the whole tile, so an entry can leave zero). A
 ``detach()`` alias shares the version counter and so the index. Every build
 is counted (:func:`builds`), so a run can show that a fit builds each
 pack's index once and never rebuilds it.
+
+The limit: only an edit through the tiles tensor itself (or a ``detach()``
+alias), under ``torch.no_grad``, moves the version counter. An edit through
+``pack.data.data`` (``param.data.copy_(…)``, ``.data.clamp_()``) goes
+through a tensor with a counter of its own, so the index does not see it
+and K6 / K10 would walk the old nonzeros; after such an edit call
+:meth:`NnzIndex.invalidate`.
 """
 
 from __future__ import annotations
 
 import weakref
 
-import numpy as np
 import torch
 
 # elements of the rebuild's largest temporary (one chunk of block rows)
@@ -37,14 +46,16 @@ _BUILDS = [0]
 
 
 def builds() -> int:
-    """Index builds so far (by the packers and by rebuilds from the tiles)."""
+    """Index builds from the tile values so far (first builds and rebuilds)."""
     return _BUILDS[0]
 
 
 class NnzIndex:
     """The index of a pack's current tile values (mutable: a rebuild
     replaces the tensors in place, so every pack that carries it, the
-    transpose of a symmetric operator included, sees the new one)."""
+    transpose of a symmetric operator included, sees the new one). It
+    follows in-place edits of the tiles tensor, not edits through its
+    ``.data`` (call :meth:`invalidate` after those)."""
 
     __slots__ = ("row_ptr", "src", "off", "_ptr", "_version", "_source")
 
@@ -68,6 +79,11 @@ class NnzIndex:
         return (src is not None and self._ptr == data.data_ptr()
                 and self._version == data._version)
 
+    def invalidate(self) -> None:
+        """Make the next launch rebuild the index, after an edit of the tile
+        values that the version counter does not see (through ``.data``)."""
+        self._source = None
+
     @property
     def nnz(self) -> int:
         return 0 if self.src is None else self.src.numel()
@@ -86,26 +102,6 @@ def _check_int32(nbr: int, max_b: int, bs: int, nnz: int) -> None:
     if max(max_b * bs * bs, nbr * bs + 1, nnz) >= 2 ** 31:
         raise ValueError(f"the nonzero index is int32: a pack of {nbr} block rows of {max_b} "
                          f"tiles of {bs} × {bs} with {nnz} nonzeros does not fit it")
-
-
-def index_from_layout(flat: np.ndarray, values: np.ndarray, row_of: np.ndarray,
-                      indices: np.ndarray, shape: tuple, data: torch.Tensor) -> NnzIndex:
-    """The packers' index, from the layout they scatter (``flat`` offsets in
-    the whole pack, the stored ``values``, each nonzero's output row and
-    source vertex); entries whose stored value is zero (an int8 value that
-    rounds to 0) are left out, as a rebuild from the tiles leaves them."""
-    nbr, max_b, bs, _ = shape
-    keep = values != 0
-    row, src, flat = row_of[keep], indices[keep], flat[keep]
-    order = np.lexsort((src, row))   # by row, then ascending source vertex
-    row, src, flat = row[order], src[order], flat[order]
-    _check_int32(nbr, max_b, bs, len(src))
-    row_ptr = np.zeros(nbr * bs + 1, np.int64)
-    np.cumsum(np.bincount(row, minlength=nbr * bs), out=row_ptr[1:])
-    off = flat - (row // bs) * (max_b * bs * bs)
-    dev = data.device
-    return NnzIndex().bind(data, *(torch.from_numpy(a.astype(np.int32)).to(dev)
-                                   for a in (row_ptr, src, off)))
 
 
 def index_from_tiles(data: torch.Tensor, cols: torch.Tensor, counts: torch.Tensor, *,
@@ -146,9 +142,8 @@ def current(index: NnzIndex | None, data: torch.Tensor, cols: torch.Tensor,
     values; raises for a pack without one, and for tiles made under
     ``torch.inference_mode`` (they have no version counter to follow)."""
     if index is None:
-        raise ValueError(f"{name}: the pack carries no nonzero index; build it with the packers "
-                         "of stgcn_tpu_torch.graph.packing (with_index=True) or give it "
-                         "index=NnzIndex()")
+        raise ValueError(f"{name}: the pack carries no nonzero index; give it index=NnzIndex() "
+                         "(the graph operators do) and its first launch builds it")
     if data.is_inference():
         raise ValueError(f"{name}: tiles made under torch.inference_mode have no version "
                          "counter for the nonzero index to follow; build the pack outside it")

@@ -7,33 +7,30 @@ The 1M road graph (``random_road_graph(1_000_000, k_neighbors=8,
 seed=0)``, ``sym_norm_lap`` Chebyshev GSO, RCM: ``chip_smoke.py``'s) is
 built once, by the checkout that holds this file, and saved to a temporary
 file. Each ``--tree`` is the root of a checkout of this repository, run in
-a process of its own that builds that checkout's kernels, imports its
-``stgcn_tpu_torch``, packs the saved GSO with its ``make_graph_op`` (int8
-ELL, f32 ELL, BCSR) and times its wrappers, in the order given (so two
-commits compare as A, B, B, A on one card). Per tree it prints one JSON
-line: per kernel, mode and width N (160 and 96, ``B·T·c1`` of the two ST
-blocks at batch 1) the median CUDA-event milliseconds of ``--reps`` calls
-(after 2 of warm-up) on random operands from a fixed seed, and a SHA-256
-of the outputs' bytes, so trees whose sums run in the same order show the
-same digest. Then the ``nvidia-smi`` name and power limit of the card.
+a process of its own (the harness, ``_ab.py``) that builds that checkout's
+kernels, packs the saved GSO with its ``make_graph_op`` (int8 ELL, f32 ELL,
+BCSR) and times its wrappers. Per tree it prints one JSON line: per
+kernel, mode and width N (160 and 96, ``B·T·c1`` of the two ST blocks at
+batch 1) the median CUDA-event milliseconds of ``--reps`` calls (after 2
+of warm-up) on random operands from a fixed seed, and a SHA-256 of the
+outputs' bytes. Then the ``nvidia-smi`` name and power limit of the card.
 """
 
 from __future__ import annotations
 
-import argparse
-import hashlib
-import json
 import os
-import statistics
-import subprocess
 import sys
-import tempfile
+
+if __package__:
+    from stgcn_tpu_torch.kernels import _ab
+else:   # run as a script: its directory is sys.path[0]
+    import _ab
 
 WIDTHS = (160, 96)
 
 
-def build_gso(path: str) -> None:
-    """The RCM-ordered 1M GSO of ``chip_smoke.py``, saved to ``path``."""
+def build_gso(tmp: str) -> str:
+    """The RCM-ordered 1M GSO of ``chip_smoke.py``, saved under ``tmp``."""
     import scipy.sparse as sp
 
     sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..")))
@@ -42,33 +39,13 @@ def build_gso(path: str) -> None:
     from stgcn_tpu_torch.graph import permute_matrix, rcm_ordering
 
     art = gso_of(random_road_graph(1_000_000, k_neighbors=8, seed=0), "sym_norm_lap", cheb=True)
+    path = os.path.join(tmp, "gso_1m.npz")
     sp.save_npz(path, sp.csr_matrix(permute_matrix(art.matrix, rcm_ordering(art.matrix))))
+    return path
 
 
-def timed(torch, fn, reps: int) -> tuple[float, str]:
-    """(median ms of ``reps`` calls after 2 of warm-up, digest of one call's outputs)."""
-    out = fn()
-    torch.cuda.synchronize()
-    digest = hashlib.sha256()
-    for o in out if isinstance(out, tuple) else (out,):
-        digest.update(o.cpu().numpy().tobytes())
-    del out
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times), digest.hexdigest()[:16]
-
-
-def run_one(tree: str, gso_path: str, reps: int) -> dict:
+def run_one(tree: str, reps: int, gso_path: str) -> dict:
     """Pack the saved GSO and time K6 and K10 with the checkout at ``tree``."""
-    sys.path[0] = os.path.abspath(tree)   # this file's directory out, the checkout in
     import scipy.sparse as sp
     import torch
 
@@ -93,8 +70,9 @@ def run_one(tree: str, gso_path: str, reps: int) -> dict:
             g = torch.randn((n, vp), generator=gen, device="cuda")
             for mode in ("single", "pair", "chain"):
                 key = f"{ek.launch_name(pack.quantized, mode)}/N={n}"
-                result["ms"][key], result["sha256"][key] = timed(
-                    torch, lambda: ek.ell_nv(pack, x, g if mode == "chain" else None, mode), reps)
+                result["ms"][key], result["sha256"][key] = _ab.timed(
+                    torch, lambda: ek.ell_nv(pack, x, g if mode == "chain" else None, mode), reps,
+                    warmup=2)
             del x, g
         del pack
         torch.cuda.empty_cache()
@@ -102,36 +80,10 @@ def run_one(tree: str, gso_path: str, reps: int) -> dict:
     for n in WIDTHS:
         x = torch.randn((pack.cols.shape[0] * pack.block_size, n), generator=gen, device="cuda")
         key = f"bcsr_spmm/N={n}"
-        result["ms"][key], result["sha256"][key] = timed(
-            torch, lambda: spmm.bcsr_spmm(pack, x), reps)
+        result["ms"][key], result["sha256"][key] = _ab.timed(
+            torch, lambda: spmm.bcsr_spmm(pack, x), reps, warmup=2)
     return result
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tree", action="append", required=True)
-    ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--gso", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.gso:
-        print(json.dumps(run_one(args.tree[0], args.gso, args.reps)), flush=True)
-        return 0
-    with tempfile.TemporaryDirectory() as tmp:
-        gso_path = os.path.join(tmp, "gso_1m.npz")
-        build_gso(gso_path)
-        for tree in args.tree:
-            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--gso", gso_path,
-                                  "--tree", tree, "--reps", str(args.reps)],
-                                 capture_output=True, text=True)
-            if out.returncode != 0:
-                sys.stderr.write(out.stderr)
-                return out.returncode
-            print(out.stdout.strip().splitlines()[-1], flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-                          "-i", "0"], capture_output=True, text=True)
-    print(smi.stdout.strip(), flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_ab.main(__file__, __doc__.splitlines()[0], run_one, reps=10, prepare=build_gso))

@@ -46,12 +46,15 @@ LAUNCH_NAME = "bcsr_spmm"
 
 
 class BcsrPack(NamedTuple):
-    """One direction of a BCSR operator (the JAX ``BcsrGraphOp`` arrays)."""
+    """One direction of a BCSR operator (the JAX ``BcsrGraphOp`` arrays).
+    Edit learned tile values in place through ``data`` itself under
+    ``torch.no_grad`` (the index follows its version counter), not through
+    ``data.data``, or call ``index.invalidate()`` after."""
 
     data: torch.Tensor     # [nbr, max_b, bs, bs] float32 row-major tiles
     cols: torch.Tensor     # [nbr, max_b] int32 column blocks (padding: 0)
     counts: torch.Tensor   # [nbr] int32 live tiles per block row
-    index: nnz_index.NnzIndex | None = None   # the nonzeros K10 walks (the packer's)
+    index: nnz_index.NnzIndex | None = None   # the nonzeros K10 walks
 
     @property
     def block_size(self) -> int:

@@ -40,6 +40,7 @@ from stgcn_tpu_torch.kernels import banded_nv as nvk
 from stgcn_tpu_torch.kernels import banded_spmm as bk
 from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import spmm as sk
+from stgcn_tpu_torch.kernels.nnz_index import NnzIndex
 
 
 def _fold_to_vn(x: torch.Tensor) -> torch.Tensor:
@@ -416,13 +417,15 @@ def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bo
     """The JAX ``ell_graph_op`` (:540-571), packed on the device: int8 tiles
     with per-row scales when ``quantize``, else float32. A symmetric GSO
     (every ``sym_*`` normalization, up to rounding) reuses the forward pack
-    for the transpose application — the same device tensors."""
+    for the transpose application — the same device tensors. Each pack
+    carries an unbuilt nonzero index, which K6's first launch builds from
+    the tiles (one for both directions of a symmetric GSO)."""
     dev = resolve_device(device)
     csr = sp.csr_matrix(gso.matrix)
 
     def pack(m):
         return ek.EllPack(*pack_ell_device(m, block_size=block_size, quantize=quantize,
-                                           device=dev, with_index=True))
+                                           device=dev), NnzIndex())
 
     fwd = pack(csr)
     return EllGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),
@@ -436,13 +439,13 @@ def bcsr_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
     normalization, up to rounding) reuses the forward pack for the
     transpose — the same device tensors; the JAX op packs ``Aᵀ`` apart
     (:434), the same numbers, and at 1M vertices 26.6 GB where one pack is
-    13.3 GB."""
+    13.3 GB. Each pack carries an unbuilt nonzero index, which K10's first
+    launch builds from the tiles."""
     dev = resolve_device(device)
     csr = sp.csr_matrix(gso.matrix)
 
     def pack(m):
-        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, device=dev,
-                                             with_index=True))
+        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, device=dev), NnzIndex())
 
     fwd = pack(csr)
     return BcsrGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),

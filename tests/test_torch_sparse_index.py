@@ -1,18 +1,21 @@
 """The nonzero index that K6 and K10 walk (``stgcn_tpu_torch/kernels/
-nnz_index.py``), on the CPU, against the JAX package: the packers' index
-equals the one rebuilt from the tile values (BCSR, ELL f32 and int8); a
-plain product over the index (the kernels' arithmetic, by ``index_add_``)
-equals the port's plain versions in every mode and the JAX
-``bcsr_spmm_reference`` / ``ell_nv_reference``; an in-place edit of the
-tile values makes the next launch rebuild the index once, unchanged values
-and a ``detach()`` alias rebuild nothing; a fully dense tile. The RCM road
-graphs of V = 600 and 200 (``tests/test_torch_kernels_cuda.py``), bs 64
-and 256, ``sym_norm_lap`` (one pack for both directions) and
-``rw_norm_lap`` (a transpose pack of its own)."""
+nnz_index.py``), on the CPU, against the JAX package: the index built from
+the tile values at the first launch equals the one the packed CSR matrix
+implies (BCSR, ELL f32 and int8); a plain product over the index (the
+kernels' arithmetic, by ``index_add_``) equals the port's plain versions
+in every mode and the JAX ``bcsr_spmm_reference`` / ``ell_nv_reference``;
+an in-place edit of the tile values makes the next launch rebuild the
+index once, unchanged values and a ``detach()`` alias rebuild nothing, an
+edit through ``.data`` is not seen until ``invalidate()``; a fully dense
+tile. The RCM road graphs of V = 600 and 200
+(``tests/test_torch_kernels_cuda.py``), bs 64 and 256, ``sym_norm_lap``
+(one pack for both directions) and ``rw_norm_lap`` (a transpose pack of
+its own)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from stgcn_tpu.kernels import ell_nv as jek
@@ -90,27 +93,59 @@ def _reference(pack, x, scale=1.0):
     return ek.ell_nv_reference(pack, x, scale=scale)
 
 
+def _csr_index(matrix, pack):
+    """``(row_ptr, src, stored)`` that the packed matrix implies, in CSR
+    order: its entries whose stored value (f32, or an int8 pack's
+    ``rint(value / lane factor)``) is nonzero, over the padded rows."""
+    csr = sp.csr_matrix(matrix)
+    csr.sort_indices()
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    if getattr(pack, "scales", None) is None:
+        stored = csr.data.astype(np.float32)
+    else:
+        stored = np.rint(csr.data / pack.scales.numpy().reshape(-1)[rows]).astype(np.int8)
+    keep = stored != 0
+    rows, src, stored = rows[keep], csr.indices[keep], stored[keep]
+    vp = pack.cols.shape[0] * pack.data.shape[-1]
+    row_ptr = np.zeros(vp + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=vp), out=row_ptr[1:])
+    return row_ptr, src, stored
+
+
 @pytest.mark.parametrize("n_vertex,bs,gso_type", GRAPHS)
 @pytest.mark.parametrize("kind", KINDS)
 def test_packer_index_equals_rebuilt(kind, n_vertex, bs, gso_type):
-    """The packers' index (from the layout they scatter) equals the one
-    rebuilt from the tile values, in both directions; a symmetric GSO's
-    transpose shares the pack and so the index."""
+    """The packs leave the index unbuilt; the first launch builds it from
+    the tile values, once for a symmetric GSO's shared pack, and it equals
+    the index of the packed matrix: the same rows and source vertices in
+    CSR order, each offset in a live tile of its block row at the tile
+    position of (row, source), holding the stored value."""
     op = _op(kind, n_vertex, bs, gso_type)
     assert (op.pack_t is op.pack) == (gso_type == "sym_norm_lap")
-    for pack in (op.pack, op.pack_t):
-        idx = pack.index
-        assert idx.built_for(pack.data) and idx.nnz == int((pack.data != 0).sum())
-        rebuilt = nnz_index.index_from_tiles(pack.data, pack.cols, pack.counts,
-                                             transposed=kind != "bcsr")
-        for got, want in zip((idx.row_ptr, idx.src, idx.off), rebuilt):
-            assert got.dtype == torch.int32 and torch.equal(got, want)
-        # each row's nonzeros in ascending source vertex, padded rows empty
-        rows = torch.repeat_interleave(torch.arange(idx.row_ptr.numel() - 1),
-                                       idx.row_ptr.diff().long())
-        key = rows.long() * (1 << 32) + idx.src.long()
-        assert bool((key.diff() > 0).all())
-        assert int(idx.row_ptr[-1]) == idx.nnz and int(rows.max()) < n_vertex
+    matrix = _rcm_gso(n_vertex, gso_type).matrix
+    transposed = kind != "bcsr"
+    packs = [(op.pack, matrix)] + ([] if op.pack_t is op.pack else [(op.pack_t, matrix.T)])
+    for pack, m in packs:
+        assert pack.index.nnz == 0 and not pack.index.built_for(pack.data)
+        before = nnz_index.builds()
+        idx = _current(pack)
+        assert nnz_index.builds() == before + 1 and idx is pack.index
+        row_ptr, src, stored = _csr_index(m, pack)
+        for t in (idx.row_ptr, idx.src, idx.off):
+            assert t.dtype == torch.int32
+        assert np.array_equal(idx.row_ptr.numpy(), row_ptr)
+        assert np.array_equal(idx.src.numpy(), src)
+        rows = np.repeat(np.arange(len(row_ptr) - 1), np.diff(row_ptr))
+        nbr, max_b, _, _ = pack.data.shape
+        k, pos = np.divmod(idx.off.numpy().astype(np.int64), bs * bs)
+        lane, c = (pos % bs, pos // bs) if transposed else (pos // bs, pos % bs)
+        br = rows // bs
+        assert (k < pack.counts.numpy()[br]).all() and (lane == rows % bs).all()
+        assert np.array_equal(pack.cols.numpy()[br, k] * bs + c, src)
+        assert np.array_equal(pack.data.numpy().reshape(nbr, -1)[br, idx.off.numpy()], stored)
+        assert idx.nnz == int((pack.data != 0).sum())
+    before = nnz_index.builds()
+    assert _current(op.pack_t) is op.pack_t.index and nnz_index.builds() == before
 
 
 @pytest.mark.parametrize("n_vertex,bs,gso_type", GRAPHS)
@@ -158,6 +193,7 @@ def test_in_place_edit_rebuilds_once(kind):
     op = _op(kind, 600, 64, "sym_norm_lap")
     pack = op.pack
     x = _x(pack, 33)
+    _current(pack)   # the first launch builds the index
     before = nnz_index.builds()
     _current(pack)
     alias = pack._replace(data=pack.data.detach())
@@ -175,6 +211,25 @@ def test_in_place_edit_rebuilds_once(kind):
     other = pack._replace(data=pack.data.clone())
     torch.testing.assert_close(_index_product(other, x), _reference(other, x), **TOL)
     assert nnz_index.builds() == before + 2 and pack.index.built_for(other.data)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_data_edit_is_seen_only_after_invalidate(kind):
+    """The index follows the version counter of the tiles tensor: an edit
+    through ``pack.data.data`` does not move it, so the index stays as it
+    was (the documented limit) until ``invalidate()``, after which the next
+    launch rebuilds it once and the product follows the new value."""
+    op = _op(kind, 600, 64, "sym_norm_lap")
+    pack = op.pack
+    x = _x(pack, 33)
+    _current(pack)
+    before, nnz = nnz_index.builds(), pack.index.nnz
+    pack.data.data[_zero_entry(pack)] = 3 if kind == "ell_int8" else 0.5
+    _current(pack)
+    assert nnz_index.builds() == before and pack.index.nnz == nnz
+    pack.index.invalidate()
+    torch.testing.assert_close(_index_product(pack, x), _reference(pack, x), **TOL)
+    assert nnz_index.builds() == before + 1 and pack.index.nnz == nnz + 1
 
 
 @pytest.mark.parametrize("kind", KINDS)
