@@ -87,16 +87,24 @@ Eighteen phases, each printing one JSON line with its own seconds:
    lambda_max, RCM, the banded operator of 256-row slabs that the JAX CLI
    builds under ``--fused``: the vn stream pack and the nv one, f32; one day
    of synthetic series; ``BASELINE.json`` configs[3]) is built, each host
-   step timed. K5 in modes single, pair and chain at N = 1280 and 768 (B·T·c1 of
-   the two ST blocks at batch 8) on the real pack, random operands, held
-   against its plain version as in phase 3, repeat bit-identical; timed
-   beside its bound (bytes over 3.35 TB/s against the nonzeros' FLOPs over
-   67 TFLOP/s; the band's FLOPs are printed too) and ``torch.sparse.mm``
-   on the CSR GSO (operand transposed outside the timing).
+   step timed. The operator leaves each slab pack's nonzero index
+   (``kernels/nnz_index.py``) unbuilt; the nv and vn packs' are built from
+   the slabs on the card, as the first launch would (timed, counted as one
+   build each), and held against the packed CSR matrix. K5 walks that
+   index (K6's transposing walk). K5 in modes single, pair and chain at N =
+   1280 and 768 (B·T·c1 of the two ST blocks at batch 8) on the real pack,
+   random operands, held against its plain version as in phase 3, repeat
+   bit-identical; timed beside its bound (bytes over 3.35 TB/s against the
+   nonzeros' FLOPs over 67 TFLOP/s; what the kernel moves, the index, a
+   32-byte sector a value, the workspace passes and the operands, and the
+   band's FLOPs are printed too) and ``torch.sparse.mm`` on the CSR GSO
+   (operand transposed outside the timing).
 10. kernels_banded_vn — on the same 100k graph, the int8 operator (vn and
    nv packs, per-row scales) and the clamped one of ``stream=False``
    (128-aligned windows, a pack of its own for Aᵀ) built on the card, each
-   pack timed; the vn kernel at N = 1280 and 768 on the real packs, random
+   pack timed, and their indexes built and checked as in phase 9 (vn and
+   nv int8, the clamped pack and its transpose); the vn kernel (K10's row
+   walk over the index) at N = 1280 and 768 on the real packs, random
    operands: K7 at scale 1 and 2 and K9 pair and chain on the f32 and int8
    stream packs, K8 pair on the clamped pack; and K5 single, pair and chain
    on the int8 nv pack; each held against its plain version as in phase 3,
@@ -121,8 +129,9 @@ Eighteen phases, each printing one JSON line with its own seconds:
    2e-4 + 2e-4·|ref|); every vn call of one unfused training step (K9 pair
    ×2, chain ×2) against its plain version; an unfused ``Trainer.fit(1)``
    with finite losses, every step's seconds, launches per step K9 pair ×2
-   and chain ×2 and K5 none, and ``test()``; the fit's peak memory apart
-   from the checks'. Then the int8 and clamped operators are freed.
+   and chain ×2 and K5 none, and ``test()``, rebuilding no nonzero index
+   (so phase 11's fit); the fit's peak memory apart from the checks'. Then
+   the int8 and clamped operators are freed.
 13. kernels_ell — the 100k problem freed, the 1M-vertex problem
    (``random_road_graph(1_000_000, k_neighbors=8, seed=0)``, ``sym_norm_lap``
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
@@ -193,6 +202,7 @@ A failed check raises: the script then exits non-zero and prints no
 
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import statistics
@@ -200,6 +210,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1326,6 +1337,35 @@ K5_META = ("K5", "stgcn_tpu_torch/kernels/csrc/banded_nv.cu",
            "stgcn_tpu/kernels/banded_nv.py:208", "_stream_nv_call")
 
 
+class SlabPack(NamedTuple):
+    """One slab tensor of a banded operator with what its kernel walks."""
+
+    data: Any            # slabs: vn [nbr, bs, w], nv [nbr, w, bs]
+    lo: Any              # [nbr] int32 window starts
+    v_pad: int           # the operand's rows (vn) or lanes (nv)
+    scales: Any          # [nbr, bs] row factors of an int8 pack, or None
+    index: Any           # its NnzIndex
+    transposed: bool     # the nv layout
+
+    @property
+    def bs(self) -> int:
+        return self.data.shape[2 if self.transposed else 1]
+
+    @property
+    def w(self) -> int:
+        return self.data.shape[1 if self.transposed else 2]
+
+
+def slab_pack(op, field: str) -> SlabPack:
+    """The operator's slab tensor ``field`` (``slabs``, ``slabs_t``,
+    ``slabs_nv``, ``slabs_nv_t``) with its window starts, row factors and
+    nonzero index."""
+    t = field.endswith("_t")
+    return SlabPack(getattr(op, field), op.lo_t if t else op.lo, op.v_pad,
+                    op.scales_t if t else op.scales, getattr(op, "index" + field[len("slabs"):]),
+                    "_nv" in field)
+
+
 def build_100k(torch) -> dict:
     """The synthetic 100k-vertex road graph, its Chebyshev GSO (Lanczos
     lambda_max), RCM order, the banded operator the JAX CLI builds under
@@ -1409,13 +1449,12 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     operator as CSR (``nnz`` values of ``value_bytes`` each with an int32
     column index, V + 1 int32 row offsets, and V f32 row factors where
     ``row_scales``), each of the V-lane operands read once and each output
-    written once; and the nonzeros' FLOPs. ``pack_bytes`` (for K5 and K7-K9
-    the band as stored; for K6 and K10 what the kernel moves beyond the
-    operands, ``index_traffic``: the nonzero index, a 32-byte sector a value,
-    int8 lane factors and K6's workspace passes), plus the operands read and
-    written once, and ``pack_flops_one`` (the FLOPs of one application per
-    operand column as the kernel does them: the band's, or the index's
-    nonzeros) are reported beside it."""
+    written once; and the nonzeros' FLOPs. ``pack_bytes`` (what the kernel
+    moves beyond the operands, ``index_traffic``: the nonzero index, a
+    32-byte sector a value, int8 row factors and K5's and K6's workspace
+    passes), plus the operands read and written once, and
+    ``pack_flops_one`` (the FLOPs of one application per operand column as
+    the kernel does them: the index's nonzeros) are reported beside it."""
     from stgcn_tpu_torch import kernels
 
     before = kernels.launch_counts()[name]
@@ -1478,15 +1517,20 @@ def sparse_mm(torch, a_csr, x_vn, apps: int):
 
 
 def phase_kernels_banded(torch, data) -> dict:
-    """K5 in each mode at the 100k shapes (N = B·T·c1 of blocks 1 and 2, the
-    real pack), held against its plain version, repeat bit-identical, timed
-    beside its bound and torch.sparse.mm."""
+    """The nonzero indexes of the 100k operator's nv and vn packs built from
+    the slabs on the card as the first launch would (timed, held against the
+    CSR matrix); then K5 in each mode at the 100k shapes (N = B·T·c1 of
+    blocks 1 and 2, the real pack), held against its plain version, repeat
+    bit-identical, timed beside its bound and torch.sparse.mm."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.kernels import banded_nv as nv
 
     gop, v, nnz = data["gop"], data["n_vertex"], data["prep"]["nnz"]
     nbr, w, bs = gop.slabs_nv.shape
+    pack = slab_pack(gop, "slabs_nv")   # the GSO is symmetric: the transpose pack is this one
+    index = {"nv_f32": index_info(torch, pack, data["matrix"]),
+             "vn_f32_stream": index_info(torch, slab_pack(gop, "slabs"), data["matrix"])}
     a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(1)
     results: dict[str, list] = {name: [] for name in NV_MODES}
@@ -1494,17 +1538,21 @@ def phase_kernels_banded(torch, data) -> dict:
         x, g, x_vn = spmm_operands(torch, gen, n, v, gop.v_pad)
         for mode in ("single", "pair", "chain"):
             args = (gop.slabs_nv, gop.lo, x, g if mode == "chain" else None, mode)
-            results[f"nv_{mode}"].append({"slabs": [nbr, w, bs], **check_spmm(
-                torch, f"nv_{mode}", n, mode, lambda a=args: nv.stream_nv(*a),
+            apps = 1 + (mode != "single")
+            results[f"nv_{mode}"].append({"slabs": [nbr, w, bs],
+                                          "band_flops": apps * n * 2 * nbr * w * bs, **check_spmm(
+                torch, f"nv_{mode}", n, mode,
+                lambda a=args: nv.stream_nv(*a, index=gop.index_nv),
                 lambda a=args: nv.stream_nv_reference(*a),
-                lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
+                lambda apps=apps: sparse_mm(torch, a_csr, x_vn, apps),
                 v=v, nnz=nnz, vp=gop.v_pad, value_bytes=4, row_scales=False,
-                pack_bytes=(gop.slabs_nv.numel() + nbr) * 4,
-                pack_flops_one=2 * nbr * w * bs, library_agrees=True, reps=K5_REPS)})
+                pack_bytes=index_traffic(pack, n, mode)[0],
+                pack_flops_one=index_traffic(pack, n, mode)[1], library_agrees=True,
+                reps=K5_REPS)})
         del x, g, x_vn
     kernels.reset_launch_counts()
     emit({"phase": "kernels_banded", "seconds": time.perf_counter() - t0,
-          "tolerance": KERNEL_TOL, "pack": data["prep"], "results": results})
+          "tolerance": KERNEL_TOL, "pack": data["prep"], "index": index, "results": results})
     return results
 
 
@@ -1726,13 +1774,13 @@ def vn_launch(wrapper: str, scales) -> str:
                           resident=wrapper == "banded_cheb_pair")
 
 
-def check_vn(torch, wrapper, slabs, lo, x, g=None, scales=None, scale=1.0, *, v, nnz, a_csr,
-             reps, library_agrees) -> dict:
+def check_vn(torch, wrapper, slabs, lo, x, g=None, scales=None, scale=1.0, *, index, v, nnz,
+             a_csr, reps, library_agrees) -> dict:
     """``check_spmm`` for one wrapper of the vn kernel (K7, K8, K9) on the vn
     operand ``x`` [v_pad, N] (``g`` for the chain; ``scales`` on an int8
-    pack), against its plain version; the library call is ``torch.sparse.mm``
-    on the CSR GSO and x's first V rows (Aᵀ for the chain: the GSO is
-    symmetric)."""
+    pack; ``index`` the pack's nonzero index, built), against its plain
+    version; the library call is ``torch.sparse.mm`` on the CSR GSO and x's
+    first V rows (Aᵀ for the chain: the GSO is symmetric)."""
     from stgcn_tpu_torch.kernels import banded_spmm as bk
 
     mode = VN_WRAPPERS[wrapper]
@@ -1740,17 +1788,21 @@ def check_vn(torch, wrapper, slabs, lo, x, g=None, scales=None, scale=1.0, *, v,
     kw = {"scale": scale} if mode == "single" else {}
     if scales is not None:
         kw["scales_t" if mode == "chain" else "scales"] = scales
+    kw["index_t" if mode == "chain" else "index"] = index
     args = (slabs, lo, x, g) if mode == "chain" else (slabs, lo, x)
     fn = getattr(bk, wrapper)
     q = scales is not None
-    return {"slabs": [nbr, bs, w], "dtype": "int8" if q else "f32", **check_spmm(
+    pack = SlabPack(slabs, lo, x.shape[0], scales, index, False)
+    apps = 1 + (mode != "single")
+    return {"slabs": [nbr, bs, w], "dtype": "int8" if q else "f32",
+            "band_flops": apps * x.shape[1] * 2 * nbr * bs * w, **check_spmm(
         torch, vn_launch(wrapper, scales), x.shape[1], mode, lambda: fn(*args, **kw),
         lambda: bk.banded_vn_reference(slabs, lo, x, g, mode, scales=scales, scale=scale),
-        lambda: sparse_mm(torch, a_csr, x[:v], 1 + (mode != "single")), v=v, nnz=nnz,
+        lambda: sparse_mm(torch, a_csr, x[:v], apps), v=v, nnz=nnz,
         vp=x.shape[0], value_bytes=1 if q else 4, row_scales=q,
-        pack_bytes=slabs.numel() * slabs.element_size() + nbr * 4 + (nbr * bs * 4 if q else 0),
-        pack_flops_one=2 * nbr * bs * w, library_agrees=library_agrees, reps=reps, vn=True,
-        scale=scale)}
+        pack_bytes=index_traffic(pack, x.shape[1], mode)[0],
+        pack_flops_one=index_traffic(pack, x.shape[1], mode)[1], library_agrees=library_agrees,
+        reps=reps, vn=True, scale=scale)}
 
 
 def phase_kernels_banded_vn(torch, data) -> dict:
@@ -1799,6 +1851,11 @@ def phase_kernels_banded_vn(torch, data) -> dict:
                       "v_pad": op.v_pad, "pair_stream": op.pair_stream, "pair_safe": op.pair_safe}
     if not (gop.pair_stream and q.pair_stream and c.pair_safe and not c.pair_stream):
         raise AssertionError(f"the 100k packs do not take the JAX routes this phase checks: {packs}")
+    # the clamped operator packs Aᵀ apart; the int8 one shares its packs (symmetric GSO)
+    index = {"vn_int8": index_info(torch, slab_pack(q, "slabs"), matrix),
+             "nv_int8": index_info(torch, slab_pack(q, "slabs_nv"), matrix),
+             "vn_clamped": index_info(torch, slab_pack(c, "slabs"), matrix),
+             "vn_clamped_t": index_info(torch, slab_pack(c, "slabs_t"), matrix.T)}
 
     a_csr = csr_on_card(torch, data["matrix"])
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1810,37 +1867,42 @@ def phase_kernels_banded_vn(torch, data) -> dict:
         for op, agrees in ((gop, True), (q, False)):
             for scale in (1.0, 2.0):
                 r = check_vn(torch, "banded_spmm", op.slabs, op.lo, x, scales=op.scales,
-                             scale=scale, library_agrees=agrees, **common)
+                             scale=scale, index=op.index, library_agrees=agrees, **common)
                 results.setdefault(vn_launch("banded_spmm", op.scales), []).append(r)
             r = check_vn(torch, "banded_cheb_pair_stream", op.slabs, op.lo, x, scales=op.scales,
-                         library_agrees=agrees, **common)
+                         index=op.index, library_agrees=agrees, **common)
             results.setdefault(vn_launch("banded_cheb_pair_stream", op.scales), []).append(r)
             r = check_vn(torch, "banded_chain_stream", op.slabs_t, op.lo_t, x, g,
-                         scales=op.scales_t, library_agrees=agrees, **common)
+                         scales=op.scales_t, index=op.index_t, library_agrees=agrees, **common)
             results.setdefault(vn_launch("banded_chain_stream", op.scales), []).append(r)
         xc = torch.randn((c.v_pad, n), generator=gen, device="cuda")
         results.setdefault("vn_pair_resident", []).append(check_vn(
-            torch, "banded_cheb_pair", c.slabs, c.lo, xc, library_agrees=True, **common))
+            torch, "banded_cheb_pair", c.slabs, c.lo, xc, index=c.index, library_agrees=True,
+            **common))
         del x, g, xc
         x, g, x_vn = spmm_operands(torch, gen, n, v, q.v_pad)
         nbr, w, bs = q.slabs_nv.shape
+        pack = slab_pack(q, "slabs_nv")
         for mode in ("single", "pair", "chain"):
             args = (q.slabs_nv, q.lo, x, g if mode == "chain" else None, mode)
+            apps = 1 + (mode != "single")
             results.setdefault(nv.launch_name(mode, True), []).append(
-                {"slabs": [nbr, w, bs], "dtype": "int8", **check_spmm(
+                {"slabs": [nbr, w, bs], "dtype": "int8",
+                 "band_flops": apps * n * 2 * nbr * w * bs, **check_spmm(
                     torch, nv.launch_name(mode, True), n, mode,
-                    lambda a=args: nv.stream_nv(*a, scales=q.scales),
+                    lambda a=args: nv.stream_nv(*a, scales=q.scales, index=q.index_nv),
                     lambda a=args: nv.stream_nv_reference(*a, scales=q.scales),
-                    lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr, x_vn, apps),
+                    lambda apps=apps: sparse_mm(torch, a_csr, x_vn, apps),
                     v=v, nnz=nnz, vp=q.v_pad, value_bytes=1, row_scales=True,
-                    pack_bytes=q.slabs_nv.numel() + nbr * 4 + nbr * bs * 4,
-                    pack_flops_one=2 * nbr * w * bs, library_agrees=False, reps=VN_REPS)})
+                    pack_bytes=index_traffic(pack, n, mode)[0],
+                    pack_flops_one=index_traffic(pack, n, mode)[1], library_agrees=False,
+                    reps=VN_REPS)})
         del x, g, x_vn
     del a_csr
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     emit({"phase": "kernels_banded_vn", "seconds": time.perf_counter() - t0,
-          "tolerance": KERNEL_TOL, "packs": packs, "results": results})
+          "tolerance": KERNEL_TOL, "packs": packs, "index": index, "results": results})
     return results
 
 
@@ -1894,6 +1956,7 @@ def phase_banded_100k_unfused(torch, data) -> dict:
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import nnz_index
     from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
     from stgcn_tpu_torch.train import TrainConfig, Trainer
 
@@ -1972,8 +2035,8 @@ def phase_banded_100k_unfused(torch, data) -> dict:
         try:
             per_call[names[i]].append({"call": f"call{i}", **check_vn(
                 torch, name, *args, scales=kw.get("scales", kw.get("scales_t")),
-                scale=kw.get("scale", 1.0), v=v, nnz=data["prep"]["nnz"], a_csr=a_csr, reps=3,
-                library_agrees=True)})
+                scale=kw.get("scale", 1.0), index=kw.get("index", kw.get("index_t")), v=v,
+                nnz=data["prep"]["nnz"], a_csr=a_csr, reps=3, library_agrees=True)})
         except AssertionError as e:
             failed.append(f"call{i} ({names[i]}): {e}")
     if failed:
@@ -2002,6 +2065,7 @@ def phase_banded_100k_unfused(torch, data) -> dict:
 
     tr.train_step = timed_step
     kernels.reset_launch_counts()
+    builds = nnz_index.builds()
     hist = tr.fit(1)["history"]
     launches = kernels.launch_counts()
     val_batches = -(-tr.val_ds.num_windows // BATCH_100K)
@@ -2016,6 +2080,10 @@ def phase_banded_100k_unfused(torch, data) -> dict:
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
         raise AssertionError(f"banded_100k_unfused: non-finite test metrics {test_m}")
+    rebuilds = nnz_index.builds() - builds
+    if rebuilds:   # the operator is fixed: its nonzero index is never rebuilt
+        raise AssertionError(f"banded_100k_unfused: the fit and test rebuilt a nonzero index "
+                             f"{rebuilds} times")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     steps = tr.steps_per_epoch
     del tr, data["int8"], data["clamped"], q, c
@@ -2027,7 +2095,8 @@ def phase_banded_100k_unfused(torch, data) -> dict:
               "forecast_one_batch": forecasts, "steps_per_epoch": steps,
               "val_batches": val_batches, "step_losses": losses, "step_seconds": step_seconds,
               "step_seconds_median": statistics.median(step_seconds), "epoch": hist[0],
-              "launches": launches, "test": test_m, "peak_memory_bytes_fit": fit_peak,
+              "launches": launches, "test": test_m, "index_rebuilds": rebuilds,
+              "peak_memory_bytes_fit": fit_peak,
               "peak_memory_bytes_fit_and_test": torch.cuda.max_memory_allocated(),
               "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
     emit(result)
@@ -2061,47 +2130,60 @@ SECTOR_BYTES = 32
 
 
 def index_traffic(pack, n: int, mode: str) -> tuple[int, int]:
-    """(bytes, FLOPs per operand column) of one K6 or K10 call of ``mode`` at
-    width ``n`` as the kernel moves and does them, beyond each operand read
-    and each output written once (which ``check_spmm`` adds): per
-    application the nonzero index (row offsets, src, off), one 32-byte
-    sector a value (a row's values lie a tile row or more apart) and an
-    int8 pack's lane factors; for K6 also its passes over ``[N, V]``
-    operands, 4 bytes an element: the workspace written by the transpose and
-    read by the gather, and in pair and chain the first pass's vn copy
-    written and read back and x read again by the second pass's epilogue.
-    The gathered x rows count once, as if the L2 caught every re-read.
-    FLOPs: 2 a nonzero."""
+    """(bytes, FLOPs per operand column) of one K5, K6, K7-K9 or K10 call of
+    ``mode`` at width ``n`` as the kernel moves and does them, beyond each
+    operand read and each output written once (which ``check_spmm`` adds):
+    per application the nonzero index (row offsets, src, off), one 32-byte
+    sector a value (a row's values lie a tile or slab row or more apart) and
+    an int8 pack's row factors; for the nv kernels K5 and K6 also their
+    passes over ``[N, V]`` operands, 4 bytes an element: the workspace
+    written by the transpose and read by the gather, and in pair and chain
+    the first pass's vn copy written and read back and x read again by the
+    second pass's epilogue. The gathered x rows count once, as if the L2
+    caught every re-read. FLOPs: 2 a nonzero. The index must be built."""
     from stgcn_tpu_torch.kernels.ell_nv import EllPack
 
     idx = pack.index
+    if idx.src is None:
+        raise AssertionError("index_traffic: the pack's nonzero index is not built")
     apps = 1 if mode == "single" else 2
     scales = getattr(pack, "scales", None)
     per_app = idx.nbytes() + idx.nnz * SECTOR_BYTES + (
         0 if scales is None else scales.numel() * scales.element_size())
-    passes = (2 + (3 if apps == 2 else 0)) if isinstance(pack, EllPack) else 0
-    vp = pack.cols.shape[0] * pack.data.shape[-1]
+    slabs = isinstance(pack, SlabPack)
+    nv_walk = isinstance(pack, EllPack) or (slabs and pack.transposed)
+    passes = (2 + (3 if apps == 2 else 0)) if nv_walk else 0
+    vp = pack.v_pad if slabs else pack.cols.shape[0] * pack.data.shape[-1]
     return apps * per_app + passes * n * vp * 4, 2 * idx.nnz
 
 
-def index_info(torch, pack, matrix, *, transposed: bool) -> dict:
-    """Build a pack's nonzero index from its tile values on the card, as the
-    first launch does (timed, counted as one build), and hold it against the
-    packed CSR ``matrix``: the same row offsets and source vertices, each
-    offset in a live tile at the position of (row, source), holding the
-    stored value (f32, or an int8 pack's ``rint(value / lane factor)``;
-    entries stored as 0 left out). Returns its bytes, nonzeros and build
-    seconds."""
+def index_info(torch, pack, matrix, *, transposed: bool = False) -> dict:
+    """Build a pack's nonzero index from its tile or slab values on the card,
+    as the first launch does (timed, counted as one build), and hold it
+    against the packed CSR ``matrix``: the same row offsets and source
+    vertices, each offset in a live tile (or in its row's slab, at the
+    window position ``src - lo``) at the position of (row, source), holding
+    the stored value (f32, or an int8 pack's ``rint(value / row factor)``
+    in the packer's precision; entries stored as 0 left out).
+    ``transposed``: an ELL pack's tiles
+    (a :class:`SlabPack` says its own layout). Returns its bytes, nonzeros
+    and build seconds."""
     import numpy as np
     import scipy.sparse as sp
 
     from stgcn_tpu_torch.kernels import nnz_index
 
+    slabs = isinstance(pack, SlabPack)
     builds = nnz_index.builds()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    idx = nnz_index.current(pack.index, pack.data, pack.cols, pack.counts, transposed=transposed,
-                            name="index_info")
+    if slabs:
+        idx = nnz_index.current(pack.index, pack.data, pack.lo, pack.v_pad,
+                                transposed=pack.transposed, name="index_info",
+                                build=nnz_index.index_from_slabs)
+    else:
+        idx = nnz_index.current(pack.index, pack.data, pack.cols, pack.counts,
+                                transposed=transposed, name="index_info")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
     if nnz_index.builds() != builds + 1:
@@ -2112,27 +2194,35 @@ def index_info(torch, pack, matrix, *, transposed: bool) -> dict:
     scales = getattr(pack, "scales", None)
     if scales is None:
         stored = csr.data.astype(np.float32)
-    else:
-        stored = np.rint(csr.data / scales.cpu().numpy().reshape(-1)[rows]).astype(np.int8)
+    else:   # as each packer quantizes: the banded one in float32, the ELL one in float64
+        values = csr.data.astype(np.float32) if slabs else csr.data
+        stored = np.rint(values / scales.cpu().numpy().reshape(-1)[rows]).astype(np.int8)
     keep = stored != 0
-    nbr, _, bs, _ = pack.data.shape
-    row_ptr = np.zeros(nbr * bs + 1, np.int64)
-    np.cumsum(np.bincount(rows[keep], minlength=nbr * bs), out=row_ptr[1:])
+    nbr = pack.data.shape[0]
+    bs = pack.bs if slabs else pack.data.shape[2]
+    rows_out = pack.v_pad if slabs else nbr * bs
+    row_ptr = np.zeros(rows_out + 1, np.int64)
+    np.cumsum(np.bincount(rows[keep], minlength=rows_out), out=row_ptr[1:])
     dev = pack.data.device
     src = torch.from_numpy(csr.indices[keep].astype(np.int64)).to(dev)
     ok = (torch.equal(idx.row_ptr.long(), torch.from_numpy(row_ptr).to(dev))
           and torch.equal(idx.src.long(), src))
     if ok:
-        row = torch.repeat_interleave(torch.arange(nbr * bs, device=dev),
+        row = torch.repeat_interleave(torch.arange(rows_out, device=dev),
                                       idx.row_ptr.diff().long())
         br, off = row // bs, idx.off.long()
-        k, pos = off // (bs * bs), off % (bs * bs)
-        lane, c = (pos % bs, pos // bs) if transposed else (pos // bs, pos % bs)
-        ok = (bool((k < pack.counts.long()[br]).all()) and torch.equal(lane, row % bs)
-              and torch.equal(pack.cols.long()[br, k] * bs + c, src)
-              and torch.equal(pack.data.reshape(nbr, -1)[br, off],
-                              torch.from_numpy(stored[keep]).to(dev)))
-        del row, br, off, k, pos, lane, c
+        if slabs:   # the window position k of the source vertex lo + k
+            lane, k = (off % bs, off // bs) if pack.transposed else (off // pack.w, off % pack.w)
+            ok = (bool((k < pack.w).all()) and torch.equal(lane, row % bs)
+                  and torch.equal(pack.lo.long()[br] + k, src))
+        else:
+            k, pos = off // (bs * bs), off % (bs * bs)
+            lane, c = (pos % bs, pos // bs) if transposed else (pos // bs, pos % bs)
+            ok = (bool((k < pack.counts.long()[br]).all()) and torch.equal(lane, row % bs)
+                  and torch.equal(pack.cols.long()[br, k] * bs + c, src))
+        ok = ok and torch.equal(pack.data.reshape(nbr, -1)[br, off],
+                                torch.from_numpy(stored[keep]).to(dev))
+        del row, br, off, k, lane
     del src
     if not ok:
         raise AssertionError("the nonzero index built from the tiles differs from the packed "
@@ -2656,6 +2746,15 @@ def phase_cli(torch, graph_op: str, graph_kernels: tuple, fused: bool = True) ->
     return result
 
 
+def free(torch) -> None:
+    """Collect what a finished problem left in reference cycles (a Trainer
+    and the timed ``train_step`` wrapper a phase sets on it hold each other,
+    and through the Trainer its operator), then return the cached blocks, so
+    a later phase's peak memory counts only its own tensors."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2692,23 +2791,23 @@ def main() -> int:
     kst = phase_kernels_stblock(torch, data, pb)
     fd = phase_fused_dense(torch, data, pb)
     del data, pb
-    torch.cuda.empty_cache()
+    free(torch)
     big = build_100k(torch)
     k5 = phase_kernels_banded(torch, big)
     kvn = phase_kernels_banded_vn(torch, big)
     b100 = phase_banded_100k(torch, big)
     b100u = phase_banded_100k_unfused(torch, big)
     del big
-    torch.cuda.empty_cache()   # the 100k checks peak at 45 GB
+    free(torch)   # the 100k checks peak at 45 GB
     big = build_1m(torch)
     k6 = phase_kernels_ell(torch, big)
     m1 = phase_ell_1m(torch, big)
     del big["gop"]   # the int8 ELL pack; the BCSR phases reuse the graph, GSO and order
-    torch.cuda.empty_cache()
+    free(torch)
     k10 = phase_kernels_bcsr(torch, big)
     b1 = phase_bcsr_1m(torch, big)
     del big
-    torch.cuda.empty_cache()
+    free(torch)
     cli = phase_cli(torch, "banded", ("nv_pair", "nv_chain"))
     cli_ell = phase_cli(torch, "ell_int8", ("ell_int8_pair", "ell_int8_chain"))
     cli_bcsr = phase_cli(torch, "bcsr", ("bcsr_spmm",))

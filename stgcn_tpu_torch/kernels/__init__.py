@@ -9,7 +9,7 @@ of K7-K9 (:mod:`banded_spmm`), counted per wrapper and dtype (``vn_single``
 for K7, ``vn_pair_resident`` for K8, ``vn_pair`` and ``vn_chain`` for K9;
 ``_int8`` on int8 packs), the blocked-ELL nv SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
 ``ell_int8_chain``, …), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
-(``bcsr_spmm``) — K6 and K10 walk the pack's nonzero index
+(``bcsr_spmm``) — K5, K6, K7-K9 and K10 walk the pack's nonzero index
 (:mod:`nnz_index`, its builds counted by :func:`nnz_index.builds`) — with its
 tile-value gradient, the SDDMM K11
 :func:`sddmm.bcsr_sddmm` (``bcsr_sddmm``), and the whole dense ST block

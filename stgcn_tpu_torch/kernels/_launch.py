@@ -71,7 +71,8 @@ def stream_of(device: torch.device) -> int:
 
 
 def workspace(floats: int, device: torch.device) -> torch.Tensor:
-    """Scratch of a backward entry point, sized by its ``*_work`` function."""
+    """Scratch of an entry point (a backward entry point sizes it by its
+    ``*_work`` function)."""
     return torch.empty(max(int(floats), 1), device=device, dtype=torch.float32)
 
 

@@ -24,7 +24,15 @@ CUDA grid runs in no order, so on Hopper ``pair`` and ``chain`` are two
 passes over the whole operand: pass 1 writes t1 (or u) to device memory,
 pass 2 reads it (``csrc/banded_nv.cu``). Both passes are launched by one C
 entry point, counted as one launch of the wrapper's mode (``nv_pair``,
-``nv_chain_int8``, …).
+``nv_chain_int8``, …). The kernel does not walk the band, which a road
+graph fills to 0.57 %: it walks the pack's nonzero index
+(:func:`stgcn_tpu_torch.kernels.nnz_index.index_from_slabs`, carried by the
+graph operator and built from the slabs at the first launch) with K6's
+transposing walk (``csrc/nv_rows.cuh``): x transposed by hand into a
+workspace of ``N·v_pad`` floats (twice that for pair and chain, which keep
+the first pass's result in vn too), then a warp per output lane gathering
+the x rows of its nonzeros. Each wrapper takes the pack's index as
+``index``; on the card it is needed.
 
 Padding, as on the TPU: N is free; a window reads x (and t1, u) as zero
 past ``v_pad`` (the TPU pads to ``x_cols = round_up(max(v_pad, nbr·bs),
@@ -44,10 +52,10 @@ from __future__ import annotations
 
 import torch
 
-from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import _build, nnz_index
 from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
                                              refuse_value_grad, require, require_index,
-                                             stream_of)
+                                             stream_of, workspace)
 from stgcn_tpu_torch.kernels.banded_spmm import _round_up
 
 MODES = {"single": 0, "pair": 1, "chain": 2}
@@ -98,10 +106,12 @@ def stream_nv_reference(slabs_nv, lo, x_nv, g_nv=None, mode: str = "single", *,
 
 
 def stream_nv(slabs_nv, lo, x_nv, g_nv=None, mode: str = "single", *, scales=None,
-              scale: float = 1.0):
+              scale: float = 1.0, index=None):
     """K5. ``slabs_nv`` [nbr, w, bs] float32, or int8 with ``scales`` [nbr,
-    bs]; ``lo`` [nbr] int32 window starts, ``x_nv`` [N, v_pad]; ``g_nv``
-    [N, v_pad] only for ``chain``. Returns ``y`` (single) or ``(t1, t2)`` /
+    bs]; ``lo`` [nbr] int32 window starts, ``index`` the pack's
+    :class:`~stgcn_tpu_torch.kernels.nnz_index.NnzIndex` (the graph
+    operator's; needed on the card); ``x_nv`` [N, v_pad]; ``g_nv`` [N,
+    v_pad] only for ``chain``. Returns ``y`` (single) or ``(t1, t2)`` /
     ``(u, dx)``, each [N, v_pad]. ``scale`` multiplies the single
     application (the Chebyshev ``2G`` step): the kernel's alpha, never
     multiplied into the pack or its scales."""
@@ -116,9 +126,9 @@ def stream_nv(slabs_nv, lo, x_nv, g_nv=None, mode: str = "single", *, scales=Non
     dev = cuda_device(x_nv)
     nbr, w, bs = slabs_nv.shape
     n, v_pad = x_nv.shape
-    if bs % 64 or w % bs or v_pad % bs:
-        raise ValueError(f"K5 needs bs % 64 == 0, w % bs == 0 and v_pad % bs == 0; got bs={bs}, "
-                         f"w={w}, v_pad={v_pad}")
+    if v_pad % bs or v_pad % 32:
+        raise ValueError(f"K5 needs v_pad % bs == 0 and v_pad % 32 == 0; got bs={bs}, "
+                         f"v_pad={v_pad}")
     want = torch.int8 if scales is not None else torch.float32
     if slabs_nv.device != dev or slabs_nv.dtype != want or not slabs_nv.is_contiguous():
         raise ValueError(f"the slabs are {slabs_nv.dtype} on {slabs_nv.device}; K5 takes "
@@ -129,15 +139,21 @@ def stream_nv(slabs_nv, lo, x_nv, g_nv=None, mode: str = "single", *, scales=Non
     g_p = require(g_nv, "g_nv", (n, v_pad), dev)
     if x_p % 16:
         raise ValueError("x_nv must start on a 16-byte boundary (the kernel reads float4)")
-    lo_p = require_index(lo, "lo", (nbr,), dev)
+    require_index(lo, "lo", (nbr,), dev)
+    name = launch_name(mode, scales is not None)
+    idx = nnz_index.current(index, slabs_nv, lo, v_pad, transposed=True, name=name,
+                            build=nnz_index.index_from_slabs)
+    index_p = nnz_index.require(idx, v_pad, dev)
     out = torch.empty((n, v_pad), device=dev, dtype=torch.float32)
     mid = None if mode == "single" else torch.empty_like(out)
+    # x in vn, and for pair and chain the first pass's result in vn too
+    work = workspace(n * v_pad * (1 if mode == "single" else 2), dev)
     err = _build.library().stgcn_banded_nv(
-        slabs_nv.data_ptr(), lo_p, scales_p, x_p, g_p, 0 if mid is None else mid.data_ptr(),
-        out.data_ptr(), nbr, w, bs, n, v_pad, int(scales is not None), MODES[mode],
-        float(scale), stream_of(dev))
+        slabs_nv.data_ptr(), *index_p, scales_p, x_p, g_p, 0 if mid is None else mid.data_ptr(),
+        out.data_ptr(), work.data_ptr(), nbr, w, bs, n, v_pad, int(scales is not None),
+        MODES[mode], float(scale), stream_of(dev))
     _build.check(f"stream_nv[{mode}]", err)
-    count_launch(launch_name(mode, scales is not None))
+    count_launch(name)
     return out if mid is None else (mid, out)
 
 
@@ -149,43 +165,49 @@ class BandedSpmmNv(torch.autograd.Function):
     """``y = scale·(A x)`` on the nv operand; d/dx applies the transpose pack."""
 
     @staticmethod
-    def forward(ctx, x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, scale):
+    def forward(ctx, x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, scale, index,
+                index_t):
         refuse_value_grad(slabs_nv, slabs_nv_t)
-        ctx.pack_t, ctx.scale = (slabs_nv_t, lo_t, scales_t), scale
-        return stream_nv(slabs_nv, lo, x_nv, scales=scales, scale=scale)
+        ctx.pack_t, ctx.scale = (slabs_nv_t, lo_t, scales_t, index_t), scale
+        return stream_nv(slabs_nv, lo, x_nv, scales=scales, scale=scale, index=index)
 
     @staticmethod
     def backward(ctx, g):
-        slabs_t, lo_t, scales_t = ctx.pack_t
-        dx = stream_nv(slabs_t, lo_t, g.contiguous(), scales=scales_t, scale=ctx.scale)
-        return dx, None, None, None, None, None, None, None
+        slabs_t, lo_t, scales_t, index_t = ctx.pack_t
+        dx = stream_nv(slabs_t, lo_t, g.contiguous(), scales=scales_t, scale=ctx.scale,
+                       index=index_t)
+        return (dx,) + (None,) * 9
 
 
 class ChebPairNv(torch.autograd.Function):
     """``(A x, 2 A (A x) − x)``; backward: the chain on the transpose pack."""
 
     @staticmethod
-    def forward(ctx, x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t):
+    def forward(ctx, x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, index, index_t):
         refuse_value_grad(slabs_nv, slabs_nv_t)
-        ctx.pack_t = (slabs_nv_t, lo_t, scales_t)
-        return stream_nv(slabs_nv, lo, x_nv, mode="pair", scales=scales)
+        ctx.pack_t = (slabs_nv_t, lo_t, scales_t, index_t)
+        return stream_nv(slabs_nv, lo, x_nv, mode="pair", scales=scales, index=index)
 
     @staticmethod
     def backward(ctx, g1, g2):
-        slabs_t, lo_t, scales_t = ctx.pack_t
+        slabs_t, lo_t, scales_t, index_t = ctx.pack_t
         ref = g1 if g1 is not None else g2
         g1 = torch.zeros_like(ref) if g1 is None else g1.contiguous()
         g2 = torch.zeros_like(ref) if g2 is None else g2.contiguous()
-        _, dx = stream_nv(slabs_t, lo_t, g2, g1, mode="chain", scales=scales_t)
-        return dx, None, None, None, None, None, None
+        _, dx = stream_nv(slabs_t, lo_t, g2, g1, mode="chain", scales=scales_t, index=index_t)
+        return (dx,) + (None,) * 8
 
 
 def banded_spmm_nv(slabs_nv, lo, slabs_nv_t, lo_t, x_nv, scales=None, scales_t=None, *,
-                   scale: float = 1.0):
-    """Differentiable in ``x_nv`` (JAX ``banded_spmm_nv``)."""
-    return BandedSpmmNv.apply(x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, scale)
+                   scale: float = 1.0, index=None, index_t=None):
+    """Differentiable in ``x_nv`` (JAX ``banded_spmm_nv``); ``index`` and
+    ``index_t`` are the packs' nonzero indexes (needed on the card)."""
+    return BandedSpmmNv.apply(x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, scale,
+                              index, index_t)
 
 
-def cheb_pair_nv(slabs_nv, lo, slabs_nv_t, lo_t, x_nv, scales=None, scales_t=None):
+def cheb_pair_nv(slabs_nv, lo, slabs_nv_t, lo_t, x_nv, scales=None, scales_t=None, *,
+                 index=None, index_t=None):
     """Differentiable in ``x_nv`` (JAX ``cheb_pair_nv``)."""
-    return ChebPairNv.apply(x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t)
+    return ChebPairNv.apply(x_nv, slabs_nv, lo, slabs_nv_t, lo_t, scales, scales_t, index,
+                            index_t)

@@ -34,7 +34,13 @@ one CUDA kernel (``csrc/banded_vn.cu``) serves all four: x lies in device
 memory either way, and a CUDA grid runs in no order, so the pair and the
 chain are two passes through device memory, launched by one C entry point.
 It runs at every width: the TPU's VMEM escape hatches (``_RESIDENT_X_BYTES``
-:299, ``_pair_stream_fallback`` :753) have no counterpart.
+:299, ``_pair_stream_fallback`` :753) have no counterpart. It does not walk
+the band, which a road graph fills to 0.57 %: it walks the pack's nonzero
+index (:func:`stgcn_tpu_torch.kernels.nnz_index.index_from_slabs`, which
+the graph operator carries and the first launch builds from the slabs), a
+warp per output row gathering the x rows of its nonzeros, as K10 does
+(``csrc/csr_rows.cuh``). Each wrapper takes the pack's index as ``index``
+(the chain the transpose pack's as ``index_t``); on the card it is needed.
 
 Each wrapper counts its launches under its own name (:func:`launch_name`):
 ``vn_single`` (K7, :func:`banded_spmm`), ``vn_pair_resident`` (K8,
@@ -67,7 +73,7 @@ import scipy.sparse as sp
 import torch
 
 from stgcn_tpu_torch.device import resolve_device
-from stgcn_tpu_torch.kernels import _build
+from stgcn_tpu_torch.kernels import _build, nnz_index
 from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
                                              refuse_value_grad, require, require_index,
                                              stream_of)
@@ -313,9 +319,11 @@ def banded_spmm_reference(slabs, lo, x, *, scales=None, scale: float = 1.0):
     return banded_vn_reference(slabs, lo, x, scales=scales, scale=scale)
 
 
-def _vn_call(slabs, lo, x, g, mode: str, scales, scale: float, name: str):
+def _vn_call(slabs, lo, x, g, mode: str, scales, scale: float, name: str, index):
     """The vn kernel in ``mode`` (one C call: one pass, or two for pair and
-    chain), counted under ``name``; the plain version for a CPU tensor."""
+    chain) over the pack's nonzero ``index`` (built from the slabs at the
+    first launch), counted under ``name``; the plain version for a CPU
+    tensor."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
     if (g is not None) != (mode == "chain"):
@@ -326,24 +334,25 @@ def _vn_call(slabs, lo, x, g, mode: str, scales, scale: float, name: str):
         return banded_vn_reference(slabs, lo, x, g, mode, scales=scales, scale=scale)
     dev = cuda_device(x)
     nbr, bs, w = slabs.shape
-    if bs % 64 or w % 16 or x.dim() != 2:
-        raise ValueError(f"the vn kernel needs bs % 64 == 0, w % 16 == 0 and an operand "
-                         f"[rows, N]; got bs={bs}, w={w}, operand {tuple(x.shape)}")
+    if x.dim() != 2:
+        raise ValueError(f"the vn kernel takes an operand [rows, N]; got {tuple(x.shape)}")
     want = torch.int8 if scales is not None else torch.float32
-    if slabs.device != dev or slabs.dtype != want or not slabs.is_contiguous() \
-            or slabs.data_ptr() % 16:
+    if slabs.device != dev or slabs.dtype != want or not slabs.is_contiguous():
         raise ValueError(f"the slabs are {slabs.dtype} on {slabs.device}; the vn kernel takes "
-                         f"contiguous, 16-byte aligned [nbr, bs, w] slabs on {dev}, float32 "
-                         "without scales or int8 with them")
+                         f"contiguous [nbr, bs, w] slabs on {dev}, float32 without scales or "
+                         "int8 with them")
     rows, n = x.shape
     x_p = require(x, "x", (rows, n), dev)
     g_p = require(g, "g", (rows, n), dev)
     scales_p = require(scales, "scales", (nbr, bs), dev)
-    lo_p = require_index(lo, "lo", (nbr,), dev)
+    require_index(lo, "lo", (nbr,), dev)
+    idx = nnz_index.current(index, slabs, lo, rows, transposed=False, name=name,
+                            build=nnz_index.index_from_slabs)
+    index_p = nnz_index.require(idx, rows, dev)
     out = torch.empty((rows, n), device=dev, dtype=torch.float32)
     mid = None if mode == "single" else torch.empty_like(out)
     err = _build.library().stgcn_banded_vn(
-        slabs.data_ptr(), lo_p, scales_p, x_p, g_p, 0 if mid is None else mid.data_ptr(),
+        slabs.data_ptr(), *index_p, scales_p, x_p, g_p, 0 if mid is None else mid.data_ptr(),
         out.data_ptr(), nbr, bs, w, rows, n, int(scales is not None), MODES[mode],
         float(scale), stream_of(dev))
     _build.check(f"banded_vn[{mode}]", err)
@@ -351,35 +360,39 @@ def _vn_call(slabs, lo, x, g, mode: str, scales, scale: float, name: str):
     return out if mid is None else (mid, out)
 
 
-def banded_spmm(slabs, lo, x, *, scales=None, scale: float = 1.0):
+def banded_spmm(slabs, lo, x, *, scales=None, scale: float = 1.0, index=None):
     """K7 (JAX ``banded_spmm`` :344, the TPU's K7a and K7b): ``scale · A x``
     on the vn operand. ``slabs`` [nbr, bs, w] float32, or int8 with
-    ``scales`` [nbr, bs]; ``lo`` [nbr] int32 on the operand's device; ``x``
-    [v_pad, N] float32, any N. Returns [v_pad, N]. ``scale`` (the Chebyshev
-    2G step) is the kernel's alpha; the slabs are never multiplied."""
+    ``scales`` [nbr, bs]; ``lo`` [nbr] int32 on the operand's device;
+    ``index`` the pack's :class:`~stgcn_tpu_torch.kernels.nnz_index.NnzIndex`
+    (the graph operator's; needed on the card); ``x`` [v_pad, N] float32,
+    any N. Returns [v_pad, N]. ``scale`` (the Chebyshev 2G step) is the
+    kernel's alpha; the slabs are never multiplied."""
     return _vn_call(slabs, lo, x, None, "single", scales, scale,
-                    launch_name("single", scales is not None))
+                    launch_name("single", scales is not None), index)
 
 
-def banded_cheb_pair(slabs, lo, x):
+def banded_cheb_pair(slabs, lo, x, *, index=None):
     """K8 (JAX ``banded_cheb_pair`` :519): ``(A x, 2 A (A x) − x)`` on a
     float32 pack, each [v_pad, N]."""
-    return _vn_call(slabs, lo, x, None, "pair", None, 1.0, launch_name("pair", resident=True))
+    return _vn_call(slabs, lo, x, None, "pair", None, 1.0, launch_name("pair", resident=True),
+                    index)
 
 
-def banded_cheb_pair_stream(slabs, lo, x, *, scales=None):
+def banded_cheb_pair_stream(slabs, lo, x, *, scales=None, index=None):
     """K9's pair (JAX ``banded_cheb_pair_stream`` :875): ``(A x, 2 A (A x) −
     x)``, float32 or int8 with ``scales``, each [v_pad, N]."""
     return _vn_call(slabs, lo, x, None, "pair", scales, 1.0,
-                    launch_name("pair", scales is not None))
+                    launch_name("pair", scales is not None), index)
 
 
-def banded_chain_stream(slabs_t, lo_t, g2, g1, *, scales_t=None):
-    """K9's chain (JAX ``banded_chain_stream`` :891) on the transpose pack:
-    ``(u = g1 + 2 Aᵀ g2, Aᵀ u − g2)``, each [v_pad, N]. The row factors
-    multiply each sum before the doubling and the ``+ g1`` (:715-718)."""
+def banded_chain_stream(slabs_t, lo_t, g2, g1, *, scales_t=None, index_t=None):
+    """K9's chain (JAX ``banded_chain_stream`` :891) on the transpose pack
+    and its index: ``(u = g1 + 2 Aᵀ g2, Aᵀ u − g2)``, each [v_pad, N]. The
+    row factors multiply each sum before the doubling and the ``+ g1``
+    (:715-718)."""
     return _vn_call(slabs_t, lo_t, g2, g1, "chain", scales_t, 1.0,
-                    launch_name("chain", scales_t is not None))
+                    launch_name("chain", scales_t is not None), index_t)
 
 
 # --------------------------------------------------------------------------
@@ -396,16 +409,17 @@ class BandedSpmmVjp(torch.autograd.Function):
     """``y = scale·(A x)`` (K7); d/dx is K7 on the transpose pack."""
 
     @staticmethod
-    def forward(ctx, x, slabs, lo, slabs_t, lo_t, scales, scales_t, scale):
+    def forward(ctx, x, slabs, lo, slabs_t, lo_t, scales, scales_t, scale, index, index_t):
         refuse_value_grad(slabs, slabs_t)
-        ctx.pack_t, ctx.scale = (slabs_t, lo_t, scales_t), scale
-        return banded_spmm(slabs, lo, x, scales=scales, scale=scale)
+        ctx.pack_t, ctx.scale = (slabs_t, lo_t, scales_t, index_t), scale
+        return banded_spmm(slabs, lo, x, scales=scales, scale=scale, index=index)
 
     @staticmethod
     def backward(ctx, g):
-        slabs_t, lo_t, scales_t = ctx.pack_t
-        dx = banded_spmm(slabs_t, lo_t, g.contiguous(), scales=scales_t, scale=ctx.scale)
-        return dx, None, None, None, None, None, None, None
+        slabs_t, lo_t, scales_t, index_t = ctx.pack_t
+        dx = banded_spmm(slabs_t, lo_t, g.contiguous(), scales=scales_t, scale=ctx.scale,
+                         index=index_t)
+        return (dx,) + (None,) * 9
 
 
 class BandedChebPairVjp(torch.autograd.Function):
@@ -414,17 +428,17 @@ class BandedChebPairVjp(torch.autograd.Function):
     applications on the transpose pack."""
 
     @staticmethod
-    def forward(ctx, x, slabs, lo, slabs_t, lo_t):
+    def forward(ctx, x, slabs, lo, slabs_t, lo_t, index, index_t):
         refuse_value_grad(slabs, slabs_t)
-        ctx.pack_t = (slabs_t, lo_t)
-        return banded_cheb_pair(slabs, lo, x)
+        ctx.pack_t = (slabs_t, lo_t, index_t)
+        return banded_cheb_pair(slabs, lo, x, index=index)
 
     @staticmethod
     def backward(ctx, g1, g2):
-        slabs_t, lo_t = ctx.pack_t
+        slabs_t, lo_t, index_t = ctx.pack_t
         g1, g2 = _cotangents(g1, g2)
-        dt1 = g1 + banded_spmm(slabs_t, lo_t, g2, scale=2.0)
-        return banded_spmm(slabs_t, lo_t, dt1) - g2, None, None, None, None
+        dt1 = g1 + banded_spmm(slabs_t, lo_t, g2, scale=2.0, index=index_t)
+        return (banded_spmm(slabs_t, lo_t, dt1, index=index_t) - g2,) + (None,) * 6
 
 
 class BandedChebPairStreamVjp(torch.autograd.Function):
@@ -432,30 +446,34 @@ class BandedChebPairStreamVjp(torch.autograd.Function):
     transpose pack, as on the TPU (:948-952)."""
 
     @staticmethod
-    def forward(ctx, x, slabs, lo, slabs_t, lo_t, scales, scales_t):
+    def forward(ctx, x, slabs, lo, slabs_t, lo_t, scales, scales_t, index, index_t):
         refuse_value_grad(slabs, slabs_t)
-        ctx.pack_t = (slabs_t, lo_t, scales_t)
-        return banded_cheb_pair_stream(slabs, lo, x, scales=scales)
+        ctx.pack_t = (slabs_t, lo_t, scales_t, index_t)
+        return banded_cheb_pair_stream(slabs, lo, x, scales=scales, index=index)
 
     @staticmethod
     def backward(ctx, g1, g2):
-        slabs_t, lo_t, scales_t = ctx.pack_t
+        slabs_t, lo_t, scales_t, index_t = ctx.pack_t
         g1, g2 = _cotangents(g1, g2)
-        _, dx = banded_chain_stream(slabs_t, lo_t, g2, g1, scales_t=scales_t)
-        return dx, None, None, None, None, None, None
+        _, dx = banded_chain_stream(slabs_t, lo_t, g2, g1, scales_t=scales_t, index_t=index_t)
+        return (dx,) + (None,) * 8
 
 
 def banded_spmm_vjp(slabs, lo, slabs_t, lo_t, x, scales=None, scales_t=None, *,
-                    scale: float = 1.0):
-    """Differentiable in ``x`` (JAX ``banded_spmm_vjp``)."""
-    return BandedSpmmVjp.apply(x, slabs, lo, slabs_t, lo_t, scales, scales_t, scale)
+                    scale: float = 1.0, index=None, index_t=None):
+    """Differentiable in ``x`` (JAX ``banded_spmm_vjp``); ``index`` and
+    ``index_t`` are the packs' nonzero indexes (needed on the card)."""
+    return BandedSpmmVjp.apply(x, slabs, lo, slabs_t, lo_t, scales, scales_t, scale, index,
+                               index_t)
 
 
-def banded_cheb_pair_vjp(slabs, lo, slabs_t, lo_t, x):
+def banded_cheb_pair_vjp(slabs, lo, slabs_t, lo_t, x, *, index=None, index_t=None):
     """Differentiable in ``x`` (JAX ``banded_cheb_pair_vjp``)."""
-    return BandedChebPairVjp.apply(x, slabs, lo, slabs_t, lo_t)
+    return BandedChebPairVjp.apply(x, slabs, lo, slabs_t, lo_t, index, index_t)
 
 
-def banded_cheb_pair_stream_vjp(slabs, lo, slabs_t, lo_t, x, scales=None, scales_t=None):
+def banded_cheb_pair_stream_vjp(slabs, lo, slabs_t, lo_t, x, scales=None, scales_t=None, *,
+                                index=None, index_t=None):
     """Differentiable in ``x`` (JAX ``banded_cheb_pair_stream_vjp``)."""
-    return BandedChebPairStreamVjp.apply(x, slabs, lo, slabs_t, lo_t, scales, scales_t)
+    return BandedChebPairStreamVjp.apply(x, slabs, lo, slabs_t, lo_t, scales, scales_t, index,
+                                         index_t)

@@ -13,127 +13,71 @@
 // >= vp as zero (the TPU pads x to x_cols = round_up(max(vp, nbr*bs), bs)
 // with zeros) and output columns >= nbr*bs have no slab (A x is zero there).
 //
-// Modes (one C entry point, one or two launches of one kernel):
+// Modes (one C entry point, two or three launches):
 //   single: out = scale * A x
 //   pair:   mid = A x;            out = 2 A mid - x
 //   chain:  mid = 2 A x + g;      out = A mid - x      (x = g2, g = g1)
 // On the TPU, stage 2 of block i reads stage-1 blocks that earlier steps of
 // a sequential grid left in a VMEM ring (a wavefront). A CUDA grid runs in
 // no order, so here the two stages are two passes over the whole operand:
-// pass 1 writes `mid` to device memory, pass 2 reads it.
+// pass 1 writes `mid` to device memory (and in vn to the workspace), pass 2
+// reads it.
 //
-// Design: a block owns a 64-row x 64-column output tile inside one block
-// column i and walks the w-long window in steps of 16 through the register
-// tiling of nv_tile.cuh, float32 FMA (no TF32: the parity
-// bound is 1e-4); int8 slabs are read as int8 and widened to float32 in
-// shared memory. The epilogue alpha*acc*scale + beta*add is applied in
-// registers. No atomics: a repeat launch is bit-identical. Offsets are
-// size_t (N * vp is 130 M elements at 100k vertices).
+// What bounds it: bytes. The pack is dense over the band, but a road graph
+// fills 0.57 % of it (100k vertices, RCM, bs = 256: nnz 1.02 M in 391 slabs
+// of 1792 x 256): one application at N = 1280 is 459 GFLOP of band FLOPs
+// against 2.6 GFLOP of useful work. So the kernel never walks the band: it
+// walks the pack's nonzero index (kernels/nnz_index.py, index_from_slabs:
+// row_ptr [vp + 1], src = lo_i + k and off = k*bs + b in CSR order, by
+// output lane then ascending source vertex; lanes past nbr*bs empty),
+// reading each value from its slab at its offset, int8 widened to float32.
 //
-// What bounds it: the pack is dense over the band, but a road graph fills
-// 0.57 % of it (100k vertices, RCM, bs = 256: nnz 1.02 M in 391 slabs of
-// 1792 x 256). One application at N = 1280 is 2*N*nbr*w*bs = 459 GFLOP of
-// band FLOPs (>= 6.9 ms at 67 TFLOP/s) against 2.6 GFLOP of useful work
-// and 1.75 GB of bytes (>= 0.5 ms). This first version does every band
-// FLOP; skipping all-zero sub-tiles, wgmma and TMA are later work.
-#include "nv_tile.cuh"
+// Design: K6's transposing walk (nv_rows.cuh): x transposed by hand into the
+// workspace, then a warp per output lane gathers the x rows of its
+// nonzeros (csr_rows.cuh's row walk, K10's), the sums going out in nv
+// through shared memory; the pair's first pass keeps its result in vn for
+// the second. Each output element is one fmaf chain in ascending source
+// vertex, the order in which the band kernel summed it (its zero terms left
+// out), so the outputs are the band kernel's bit for bit, up to the sign of
+// an all-zero sum. No atomics: a repeat launch is bit-identical.
+#include <cuda_runtime.h>
 
-namespace {
+#include <cstddef>
+#include <cstdint>
 
-using nvtile::kTk;
-using nvtile::kTm;
-using nvtile::kTn;
-using nvtile::kThreads;
-
-// out = alpha * (A x) * lane_scale + beta * add, every operand [n, vp]
-template <typename T>
-struct PassArgs {
-  const T* slabs;       // [nbr, w, bs]
-  const int* lo;        // [nbr]
-  const float* scales;  // [nbr * bs] or null
-  const float* x;
-  const float* add;     // or null
-  float* out;
-  int nbr, w, bs, n, vp;
-  float alpha, beta;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) banded_nv_kernel(PassArgs<T> a) {
-  __shared__ nvtile::Smem sm;
-  const int c0 = blockIdx.x * kTn;   // first output column of the tile
-  const int r0 = blockIdx.y * kTm;   // first output row
-  const int blk = c0 / a.bs;         // block row of the operator
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  if (blk < a.nbr) {  // output columns past nbr*bs have no slab: A x is 0 there
-    const int lo = a.lo[blk];
-    const T* slab = a.slabs + (size_t)blk * a.w * a.bs + (c0 - blk * a.bs);
-    for (int k0 = 0; k0 < a.w; k0 += kTk) {
-      nvtile::stage_x(sm, a.x, a.n, a.vp, r0, lo + k0);
-      nvtile::stage_a(sm, slab + (size_t)k0 * a.bs, a.bs);
-      __syncthreads();
-      nvtile::fma_tile(sm, acc);
-      __syncthreads();
-    }
-  }
-  // past nbr*bs there is no slab and no scale: the sums are 0
-  nvtile::store(acc, blk < a.nbr ? a.scales : nullptr, a.alpha, a.beta, a.add, a.out, a.n,
-                a.vp, r0, c0);
-}
-
-template <typename T>
-cudaError_t launch_pass(const PassArgs<T>& a, cudaStream_t stream) {
-  if (a.n <= 0) return cudaSuccess;
-  const dim3 grid(a.vp / kTn, (a.n + kTm - 1) / kTm);
-  if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  banded_nv_kernel<T><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t run_mode(const T* slabs, const int* lo, const float* scales, const float* x,
-                     const float* g, float* mid, float* out, int nbr, int w, int bs, int n,
-                     int vp, int mode, float scale, cudaStream_t s) {
-  // PassArgs: slabs, lo, scales, x, add, out, nbr, w, bs, n, vp, alpha, beta
-  if (mode == 0)
-    return launch_pass<T>({slabs, lo, scales, x, nullptr, out, nbr, w, bs, n, vp, scale, 0.0f},
-                          s);
-  if (mode != 1 && mode != 2) return cudaErrorInvalidValue;
-  const bool chain = mode == 2;
-  // pass 1: mid = A x (pair) or 2 A x + g (chain)
-  cudaError_t err = launch_pass<T>({slabs, lo, scales, x, chain ? g : nullptr, mid, nbr, w, bs,
-                                    n, vp, chain ? 2.0f : 1.0f, 1.0f}, s);
-  if (err != cudaSuccess) return err;
-  // pass 2: out = 2 A mid - x (pair) or A mid - x (chain)
-  return launch_pass<T>({slabs, lo, scales, mid, x, out, nbr, w, bs, n, vp,
-                         chain ? 1.0f : 2.0f, -1.0f}, s);
-}
-
-}  // namespace
+#include "nv_rows.cuh"
 
 extern "C" {
 
-// K5. slabs [nbr, w, bs] float32 (int8 when `int8`), lo [nbr] int32, scales
-// [nbr, bs] float32 (int8 only, else null); x, g, mid, out [n, vp] with
-// 16-byte-aligned rows; g only for chain, mid for pair and chain. mode 0
-// single, 1 pair, 2 chain. Needs bs % 64 == 0, w % 16 == 0, vp % 64 == 0.
-int stgcn_banded_nv(const void* slabs, const int* lo, const float* scales, const float* x,
-                    const float* g, float* mid, float* out, int nbr, int w, int bs, int n,
-                    int vp, int int8, int mode, float scale, void* stream) {
-  if (bs % kTn != 0 || w % kTk != 0 || vp % kTn != 0 || (int8 != 0) != (scales != nullptr))
+// K5. slabs [nbr, w, bs] float32 (int8 when `int8`); the pack's nonzero
+// index for a vp-wide operand: row_ptr [vp + 1], src and off [nnz] int32,
+// every src < vp and every off < w*bs; scales [nbr, bs] float32 (int8 only,
+// else null); x, g, mid, out [n, vp], x 16-byte aligned; g only for chain,
+// mid for pair and chain; work n * vp floats (single) or twice that (pair,
+// chain). mode 0 single, 1 pair, 2 chain. Needs vp % 32 == 0.
+int stgcn_banded_nv(const void* slabs, const int* row_ptr, const int* src, const int* off,
+                    const float* scales, const float* x, const float* g, float* mid, float* out,
+                    float* work, int nbr, int w, int bs, int n, int vp, int int8, int mode,
+                    float scale, void* stream) {
+  if (bs <= 0 || w <= 0 || nbr <= 0 || n < 0 || vp <= 0 || vp % nv_rows::kRows != 0 ||
+      mode < 0 || mode > 2 || (int8 != 0) != (scales != nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || (mode == 2 && g == nullptr) ||
+      (mode != 0 && mid == nullptr) || work == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t stride = (size_t)w * bs;
+  const int live = nbr * bs;
+  // PassArgs: vals, row_stride, row_ptr, src, off, scales, live_rows, xt, add, out, out_t,
+  // bs, n, vp, alpha, beta (the modes set xt, add, out, out_t, alpha, beta)
   if (int8)
-    return run_mode(static_cast<const int8_t*>(slabs), lo, scales, x, g, mid, out, nbr, w, bs,
-                    n, vp, mode, scale, s);
-  return run_mode(static_cast<const float*>(slabs), lo, scales, x, g, mid, out, nbr, w, bs, n,
-                  vp, mode, scale, s);
+    return nv_rows::nv_modes<int8_t>({static_cast<const int8_t*>(slabs), stride, row_ptr, src,
+                                      off, scales, live, nullptr, nullptr, nullptr, nullptr, bs,
+                                      n, vp, 1.0f, 0.0f},
+                                     x, g, mid, out, work, mode, scale, s);
+  return nv_rows::nv_modes<float>({static_cast<const float*>(slabs), stride, row_ptr, src, off,
+                                   nullptr, live, nullptr, nullptr, nullptr, nullptr, bs, n, vp,
+                                   1.0f, 0.0f},
+                                  x, g, mid, out, work, mode, scale, s);
 }
 
 }  // extern "C"

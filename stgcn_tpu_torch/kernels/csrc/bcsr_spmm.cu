@@ -22,87 +22,24 @@
 // their offsets. What it must move is the index (8 B a nonzero), one value
 // sector a nonzero, the gathered x rows and y once.
 //
-// Design: G lanes per output row (a warp; a half-warp where n <= 64) walk
-// the row's nonzeros with csr_rows.cuh (shared with K6): the lanes load G
-// (src, value) pairs at once and broadcast them by shuffle; for each pair
+// Design: the vn row walk of csr_rows.cuh (vn_pass, shared with K7-K9 of
+// banded_vn.cu; the walk itself also with K6): G lanes per output row (a
+// warp; a half-warp where n <= 64) walk the row's nonzeros: the lanes load
+// G (src, value) pairs at once and broadcast them by shuffle; for each pair
 // the group reads the x row x[src, :] coalesced, float4 where n % 4 == 0
 // and x, y are 16-byte aligned, scalar loads otherwise. Each output element
 // is one fmaf chain in ascending src, alpha applied after the sum; padded
-// rows write 0. Rows are in RCM order, so the groups in
-// flight read neighbouring x rows, which the 50 MB L2 keeps (all of x is
-// 640 MB at n = 160). No atomics: a repeat launch is bit-identical. A
-// block row's tiles start at a size_t offset (the 1M pack holds 3.3e9
-// floats); `off` inside one block row fits int32.
+// rows write 0. Rows are in RCM order, so the groups in flight read
+// neighbouring x rows, which the 50 MB L2 keeps (all of x is 640 MB at
+// n = 160). No atomics: a repeat launch is bit-identical. A block row's
+// tiles start at a size_t offset (the 1M pack holds 3.3e9 floats); `off`
+// inside one block row fits int32.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
 #include "csr_rows.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ void store(float* yr, int c, const float4& acc, float alpha) {
-  *reinterpret_cast<float4*>(yr + c) =
-      make_float4(alpha * acc.x, alpha * acc.y, alpha * acc.z, alpha * acc.w);
-}
-__device__ __forceinline__ void store(float* yr, int c, float acc, float alpha) {
-  yr[c] = alpha * acc;
-}
-
-// G lanes per output row; a lane owns CPL column steps of a chunk of
-// G * CPL * width columns.
-template <int G, int CPL, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-    bcsr_rows_kernel(const float* __restrict__ tiles, const int* __restrict__ row_ptr,
-                     const int* __restrict__ src, const int* __restrict__ off,
-                     const float* __restrict__ x, float* __restrict__ y, int rows, int bs,
-                     size_t row_tiles, int n, float alpha) {
-  using C = csr_rows::Cols<VEC>;
-  const int row = blockIdx.x * (kThreads / G) + threadIdx.x / G;
-  if (row >= rows) return;   // a whole group: rows is a multiple of kThreads / G
-  const int lane = threadIdx.x % G;
-  const int beg = row_ptr[row], end = row_ptr[row + 1];
-  const float* vals = tiles + (size_t)(row / bs) * row_tiles;
-  float* yr = y + (size_t)row * n;
-  constexpr int kChunk = G * CPL * C::kWidth;
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    typename C::T acc[CPL];
-    csr_rows::row_sums<G, CPL, VEC>(vals, src, off, beg, end, x, n, c0, lane, acc);
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) {
-      const int c = c0 + C::kWidth * (lane + G * q);
-      if (c < n) store(yr, c, acc[q], alpha);
-    }
-  }
-}
-
-template <int G, int CPL, bool VEC>
-cudaError_t launch(const float* tiles, const int* row_ptr, const int* src, const int* off,
-                   const float* x, float* y, int rows, int bs, size_t row_tiles, int n,
-                   float alpha, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((rows + kThreads / G - 1) / (kThreads / G));
-  bcsr_rows_kernel<G, CPL, VEC>
-      <<<blocks, kThreads, 0, s>>>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha);
-  return cudaGetLastError();
-}
-
-// column steps a lane needs for `steps` steps of a row, 1, 2 or 4 (wider
-// rows loop over chunks)
-template <int G, bool VEC>
-cudaError_t dispatch(int steps, const float* tiles, const int* row_ptr, const int* src,
-                     const int* off, const float* x, float* y, int rows, int bs,
-                     size_t row_tiles, int n, float alpha, cudaStream_t s) {
-  if (steps <= G)
-    return launch<G, 1, VEC>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha, s);
-  if (steps <= 2 * G)
-    return launch<G, 2, VEC>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha, s);
-  return launch<G, 4, VEC>(tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n, alpha, s);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -117,22 +54,11 @@ int stgcn_bcsr_spmm(const float* tiles, const int* row_ptr, const int* src, cons
   if (bs <= 0 || bs % 16 != 0 || nbr <= 0 || max_b <= 0 || n < 0 ||
       (size_t)nbr * bs >= 0x7fffffffu)
     return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = nbr * bs;
-  const size_t row_tiles = (size_t)max_b * bs * bs;
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int steps = vec ? n / 4 : n;
-  if (n <= 64)
-    return vec ? dispatch<16, true>(steps, tiles, row_ptr, src, off, x, y, rows, bs, row_tiles,
-                                    n, alpha, s)
-               : dispatch<16, false>(steps, tiles, row_ptr, src, off, x, y, rows, bs,
-                                     row_tiles, n, alpha, s);
-  return vec ? dispatch<32, true>(steps, tiles, row_ptr, src, off, x, y, rows, bs, row_tiles, n,
-                                  alpha, s)
-             : dispatch<32, false>(steps, tiles, row_ptr, src, off, x, y, rows, bs, row_tiles,
-                                   n, alpha, s);
+  // VnPass: vals, row_stride, row_ptr, src, off, scales, live_rows, x, add, out, rows, bs,
+  // n, alpha, beta
+  return csr_rows::vn_pass<float>({tiles, (size_t)max_b * bs * bs, row_ptr, src, off, nullptr,
+                                   0, x, nullptr, y, nbr * bs, bs, n, alpha, 0.0f},
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,14 +1,18 @@
 // The row walk over a pack's nonzero index (kernels/nnz_index.py) that K10
-// (bcsr_spmm.cu) and K6 (ell_nv.cu) share.
+// (bcsr_spmm.cu), the banded vn kernel of K7-K9 (banded_vn.cu), and through
+// nv_rows.cuh K6 (ell_nv.cu) and K5 (banded_nv.cu) share.
 //
 // G lanes of a warp (G = 16 or 32) sum one output row over its nonzeros
 // beg..end: the lanes load G (src, value) pairs at once, the value read
-// from the tiles at its offset (int8 widened to float32), and broadcast
+// from the pack at its offset (int8 widened to float32), and broadcast
 // them by shuffle; for each pair the group reads the operand row
 // x[src, 0:n] coalesced, float4 steps where VEC, scalar ones otherwise.
 // Each output column is one fmaf chain in the index's order (ascending
 // source vertex), so a repeat launch is bit-identical; the caller applies
 // its scale and epilogue after the sum.
+//
+// vn_modes is the whole vn kernel (one application, or the Chebyshev pair
+// and its VJP chain as two passes), on row-major [rows, n] operands.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,4 +83,140 @@ __device__ __forceinline__ void row_sums(const V* __restrict__ vals, const int* 
   }
 }
 
+// One vn pass: out = alpha * (A x) * s + beta * add, every operand [rows, n]
+// row-major. Block row i's values start at vals + i * row_stride (a BCSR
+// block row's tiles, a slab); s the per-row dequant factor of an int8 pack
+// (scales [live_rows], 1 for float32 and for rows past live_rows, whose
+// index rows are empty); add may be null (no term).
+template <typename T>
+struct VnPass {
+  const T* vals;
+  size_t row_stride;
+  const int* row_ptr;   // [rows + 1]
+  const int* src;       // [nnz], every src < the rows of x
+  const int* off;       // [nnz]
+  const float* scales;  // [live_rows] or null
+  int live_rows;
+  const float* x;
+  const float* add;
+  float* out;
+  int rows, bs, n;
+  float alpha, beta;
+};
+
+__device__ __forceinline__ float finish(float acc, float s, bool scaled, float alpha, float beta,
+                                        const float* add, size_t o) {
+  const float v = alpha * (scaled ? acc * s : acc);
+  return add != nullptr ? fmaf(beta, add[o], v) : v;
+}
+__device__ __forceinline__ void finish_store(const float4& acc, float s, bool scaled,
+                                             float alpha, float beta, const float* add,
+                                             float* out, size_t o) {
+  *reinterpret_cast<float4*>(out + o) =
+      make_float4(finish(acc.x, s, scaled, alpha, beta, add, o),
+                  finish(acc.y, s, scaled, alpha, beta, add, o + 1),
+                  finish(acc.z, s, scaled, alpha, beta, add, o + 2),
+                  finish(acc.w, s, scaled, alpha, beta, add, o + 3));
+}
+__device__ __forceinline__ void finish_store(float acc, float s, bool scaled, float alpha,
+                                             float beta, const float* add, float* out,
+                                             size_t o) {
+  out[o] = finish(acc, s, scaled, alpha, beta, add, o);
+}
+
+namespace {   // internal linkage: each source that includes this instantiates its own
+
+constexpr int kVnThreads = 256;
+
+// G lanes per output row; a lane owns CPL column steps of a chunk of
+// G * CPL * width columns. A group's lanes share its row, so a group past
+// `rows` returns whole.
+template <int G, int CPL, bool VEC, typename T>
+__global__ void __launch_bounds__(kVnThreads) vn_rows_kernel(VnPass<T> a) {
+  using C = Cols<VEC>;
+  const int row = blockIdx.x * (kVnThreads / G) + threadIdx.x / G;
+  if (row >= a.rows) return;
+  const int lane = threadIdx.x % G;
+  const int beg = a.row_ptr[row], end = a.row_ptr[row + 1];
+  const T* vals = a.vals + (size_t)(row / a.bs) * a.row_stride;
+  const bool scaled = a.scales != nullptr;
+  const float s = scaled && row < a.live_rows ? a.scales[row] : 1.0f;
+  const size_t o = (size_t)row * a.n;
+  constexpr int kChunk = G * CPL * C::kWidth;
+  for (int c0 = 0; c0 < a.n; c0 += kChunk) {
+    typename C::T acc[CPL];
+    row_sums<G, CPL, VEC>(vals, a.src, a.off, beg, end, a.x, a.n, c0, lane, acc);
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      const int c = c0 + C::kWidth * (lane + G * q);
+      if (c < a.n) finish_store(acc[q], s, scaled, a.alpha, a.beta, a.add, a.out, o + c);
+    }
+  }
+}
+
+template <int G, int CPL, bool VEC, typename T>
+cudaError_t vn_launch(const VnPass<T>& a, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((a.rows + kVnThreads / G - 1) / (kVnThreads / G));
+  vn_rows_kernel<G, CPL, VEC, T><<<blocks, kVnThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// column steps a lane needs for `steps` steps of a row, 1, 2 or 4 (wider
+// rows loop over chunks)
+template <int G, bool VEC, typename T>
+cudaError_t vn_dispatch(const VnPass<T>& a, cudaStream_t s) {
+  const int steps = VEC ? a.n / 4 : a.n;
+  if (steps <= G) return vn_launch<G, 1, VEC>(a, s);
+  if (steps <= 2 * G) return vn_launch<G, 2, VEC>(a, s);
+  return vn_launch<G, 4, VEC>(a, s);
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// One pass at any n and alignment: float4 steps where n % 4 == 0 and x and
+// out are 16-byte aligned; a half-warp a row where n <= 64.
+template <typename T>
+cudaError_t vn_pass(const VnPass<T>& a, cudaStream_t s) {
+  if (a.rows == 0 || a.n == 0) return cudaSuccess;
+  const bool vec = a.n % 4 == 0 && aligned16(a.x) && aligned16(a.out);
+  if (a.n <= 64) return vec ? vn_dispatch<16, true>(a, s) : vn_dispatch<16, false>(a, s);
+  return vec ? vn_dispatch<32, true>(a, s) : vn_dispatch<32, false>(a, s);
+}
+
+// The modes, one or two passes of one kernel (`a` carries the pack, its
+// index and sizes):
+//   0 single: out = scale * A x
+//   1 pair:   mid = A x;            out = 2 A mid - x
+//   2 chain:  mid = 2 A x + g;      out = A mid - x      (x = g2, g = g1)
+// The row factor comes before the doubling and the + g. A CUDA grid runs
+// in no order, so pass 2 reads pass 1's result from device memory.
+template <typename T>
+cudaError_t vn_modes(VnPass<T> a, const float* x, const float* g, float* mid, float* out,
+                     int mode, float scale, cudaStream_t s) {
+  a.x = x;
+  if (mode == 0) {
+    a.add = nullptr;
+    a.out = out;
+    a.alpha = scale;
+    a.beta = 0.0f;
+    return vn_pass(a, s);
+  }
+  const bool chain = mode == 2;
+  // pass 1: mid = A x (pair) or 2 A x + g (chain)
+  a.add = chain ? g : nullptr;
+  a.out = mid;
+  a.alpha = chain ? 2.0f : 1.0f;
+  a.beta = 1.0f;
+  cudaError_t err = vn_pass(a, s);
+  if (err != cudaSuccess) return err;
+  // pass 2: out = 2 A mid - x (pair) or A mid - x (chain)
+  a.x = mid;
+  a.add = x;
+  a.out = out;
+  a.alpha = chain ? 1.0f : 2.0f;
+  a.beta = -1.0f;
+  return vn_pass(a, s);
+}
+
+}  // namespace
 }  // namespace csr_rows

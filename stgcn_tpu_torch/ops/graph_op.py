@@ -182,7 +182,10 @@ class BandedGraphOp(_NvSurfaces):
     and two transposes, as the JAX one does. A scalar ``scale`` is the
     kernels' alpha, never multiplied into the slabs (the JAX op multiplies
     f32 slabs, or an int8 pack's scales, per call: at the model's scales of
-    1 and 2 the same product)."""
+    1 and 2 the same product). Each slab tensor carries the nonzero
+    index its kernel walks (``index``, ``index_t``, ``index_nv``,
+    ``index_nv_t``; one object where two fields hold one tensor), unbuilt
+    until its first launch on the card."""
 
     slabs: torch.Tensor       # [nbr, bs, w] float32 or int8 (nv-only: [0, bs, w])
     lo: torch.Tensor          # [nbr] int32 window starts, on the device
@@ -198,6 +201,11 @@ class BandedGraphOp(_NvSurfaces):
     scales_t: torch.Tensor | None = None
     slabs_nv: torch.Tensor | None = None   # [nbr, w, bs], banded_graph_op(nv=True)
     slabs_nv_t: torch.Tensor | None = None
+    # the nonzero index of each slab tensor (kernels/nnz_index.py)
+    index: NnzIndex | None = None
+    index_t: NnzIndex | None = None
+    index_nv: NnzIndex | None = None
+    index_nv_t: NnzIndex | None = None
 
     @property
     def has_nv(self) -> bool:
@@ -210,7 +218,8 @@ class BandedGraphOp(_NvSurfaces):
     def _apply_padded(self, x_vn: torch.Tensor, scale: float) -> torch.Tensor:
         """``scale · (A x)`` on a ``[v_pad, N]`` operand (K7)."""
         return bk.banded_spmm_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t, x_vn,
-                                  self.scales, self.scales_t, scale=scale)
+                                  self.scales, self.scales_t, scale=scale, index=self.index,
+                                  index_t=self.index_t)
 
     def _pair_padded(self, x_vn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``(A x, 2 A (A x) − x)`` on a ``[v_pad, N]`` operand, routed as
@@ -219,11 +228,13 @@ class BandedGraphOp(_NvSurfaces):
         applications; else K8."""
         if self.pair_stream:
             return bk.banded_cheb_pair_stream_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t,
-                                                  x_vn, self.scales, self.scales_t)
+                                                  x_vn, self.scales, self.scales_t,
+                                                  index=self.index, index_t=self.index_t)
         if self.scales is not None or not self.pair_safe:
             t1 = self._apply_padded(x_vn, 1.0)
             return t1, self._apply_padded(t1, 2.0) - x_vn
-        return bk.banded_cheb_pair_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t, x_vn)
+        return bk.banded_cheb_pair_vjp(self.slabs, self.lo, self.slabs_t, self.lo_t, x_vn,
+                                       index=self.index, index_t=self.index_t)
 
     def apply_vn(self, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
         """``[W, N] → [W, N]``, ``W <= v_pad`` rows (zero-padded to it for
@@ -259,12 +270,14 @@ class BandedGraphOp(_NvSurfaces):
     def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
         """``[N, W] → [N, v_pad]``: ``scale · (A x)`` on the nv operand (K5 single)."""
         return nvk.banded_spmm_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
-                                  self._pad(x_nv), self.scales, self.scales_t, scale=scale)
+                                  self._pad(x_nv), self.scales, self.scales_t, scale=scale,
+                                  index=self.index_nv, index_t=self.index_nv_t)
 
     def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """ks=3 recurrence ``(A x, 2 A (A x) − x)`` on the nv operand (K5 pair)."""
         return nvk.cheb_pair_nv(self.slabs_nv, self.lo, self.slabs_nv_t, self.lo_t,
-                                self._pad(x_nv), self.scales, self.scales_t)
+                                self._pad(x_nv), self.scales, self.scales_t,
+                                index=self.index_nv, index_t=self.index_nv_t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,6 +360,16 @@ def dense_graph_op(gso: GraphShiftOperator | np.ndarray, *,
     return DenseGraphOp(matrix=torch.as_tensor(mat, dtype=dtype).to(resolve_device(device)))
 
 
+def _slab_indexes(**slabs: torch.Tensor | None) -> dict[str, NnzIndex]:
+    """An unbuilt nonzero index per slab tensor, keyed ``index`` and the
+    field's suffix (``slabs_t`` gives ``index_t``); fields that hold one
+    tensor (a symmetric GSO's transpose, the empty vn slabs of an nv-only
+    operator) share one index."""
+    by_tensor: dict[int, NnzIndex] = {}
+    return {"index" + name[len("slabs"):]: by_tensor.setdefault(id(t), NnzIndex())
+            for name, t in slabs.items() if t is not None}
+
+
 def banded_graph_op(gso: GraphShiftOperator, *, quantize: bool = False,
                     block_size: int | None = None, stream: bool = True, nv: bool = False,
                     nv_only: bool = False, device: str | torch.device = "cuda") -> BandedGraphOp:
@@ -370,7 +393,8 @@ def banded_graph_op(gso: GraphShiftOperator, *, quantize: bool = False,
             gso.matrix, block_size=bs, device=dev)
         return BandedGraphOp(slabs=slabs, lo=torch.from_numpy(lo).to(dev), slabs_t=slabs_t,
                              lo_t=torch.from_numpy(lo_t).to(dev), n_vertex=gso.n_vertex,
-                             v_pad=v_pad, pair_safe=bk.cheb_pair_wavefront_safe(lo, bs))
+                             v_pad=v_pad, pair_safe=bk.cheb_pair_wavefront_safe(lo, bs),
+                             **_slab_indexes(slabs=slabs, slabs_t=slabs_t))
 
     dtype = torch.int8 if quantize else torch.float32
     csr = sp.csr_matrix(gso.matrix)
@@ -409,7 +433,8 @@ def banded_graph_op(gso: GraphShiftOperator, *, quantize: bool = False,
         v_pad=v_pad,
         pair_safe=bk.cheb_pair_wavefront_safe(lo, bs),
         pair_stream=bk.cheb_pair_stream_safe(lo, w, bs) and bk.cheb_pair_stream_safe(lo_t, w, bs),
-        scales=scales, scales_t=scales_t, slabs_nv=slabs_nv, slabs_nv_t=slabs_nv_t)
+        scales=scales, scales_t=scales_t, slabs_nv=slabs_nv, slabs_nv_t=slabs_nv_t,
+        **_slab_indexes(slabs=slabs, slabs_t=slabs_t, slabs_nv=slabs_nv, slabs_nv_t=slabs_nv_t))
 
 
 def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bool = False,

@@ -2,7 +2,8 @@
 SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8), the
 blocked-ELL nv SpMM K6, the BCSR SpMM K10 and SDDMM K11 and the whole dense
 ST block K12f / K12b against their plain PyTorch versions, on a card; the
-kernels' dropout masks against the plain mask bit for bit.
+kernels' dropout masks against the plain mask bit for bit; the nonzero
+index that K5, K6, K7-K9 and K10 walk, built once per pack on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on the card
 machine, which has neither:
@@ -258,8 +259,8 @@ def test_k5_matches_plain(dev, n_vertex, bs, mode, n):
     x = _rand(rng, dev, n, op.v_pad)
     g = _rand(rng, dev, n, op.v_pad) if mode == "chain" else None
     before = kernels.launch_counts()[f"nv_{mode}"]
-    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode)
-    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode)
+    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, index=op.index_nv)
+    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, index=op.index_nv)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[f"nv_{mode}"] == before + 2
     ref = nv.stream_nv_reference(op.slabs_nv, op.lo, x, g, mode)
@@ -277,12 +278,13 @@ def test_k5_autograd_matches_plain(dev):
     rng = np.random.default_rng(6)
     x, g1, g2 = (_rand(rng, dev, 96, op.v_pad) for _ in range(3))
     pack = (op.slabs_nv, op.lo, op.slabs_nv_t, op.lo_t)
+    index = {"index": op.index_nv, "index_t": op.index_nv_t}
     grads = []
     for d in (dev, torch.device("cpu")):
         xx = x.to(d).requires_grad_(True)
         p = [a.to(d) for a in pack]
-        t1, t2 = nv.cheb_pair_nv(*p, xx)
-        y = nv.banded_spmm_nv(*p, xx, scale=2.0)
+        t1, t2 = nv.cheb_pair_nv(*p, xx, **index)
+        y = nv.banded_spmm_nv(*p, xx, scale=2.0, **index)
         loss = (t1 * g1.to(d)).sum() + (t2 * g2.to(d)).sum() + (y * g1.to(d)).sum()
         grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
     torch.testing.assert_close(grads[0], grads[1], **TOL)
@@ -291,12 +293,15 @@ def test_k5_autograd_matches_plain(dev):
 def test_k5_wrapper_rejects_what_the_kernel_does_not_take(dev):
     op = _banded_op(dev, 600, 256, nv=True, nv_only=True)
     flat = torch.zeros(4 * op.v_pad + 1, device=dev)
+    idx = {"index": op.index_nv}
     with pytest.raises(ValueError, match="16-byte"):   # contiguous, one float off
-        nv.stream_nv(op.slabs_nv, op.lo, flat[1:].view(4, op.v_pad))
+        nv.stream_nv(op.slabs_nv, op.lo, flat[1:].view(4, op.v_pad), **idx)
     with pytest.raises(ValueError, match="int32"):
-        nv.stream_nv(op.slabs_nv, op.lo.long(), flat[:-1].view(4, op.v_pad))
+        nv.stream_nv(op.slabs_nv, op.lo.long(), flat[:-1].view(4, op.v_pad), **idx)
     with pytest.raises(ValueError, match="v_pad % bs"):
-        nv.stream_nv(op.slabs_nv, op.lo, torch.zeros(4, op.v_pad + 64, device=dev))
+        nv.stream_nv(op.slabs_nv, op.lo, torch.zeros(4, op.v_pad + 64, device=dev), **idx)
+    with pytest.raises(ValueError, match="no nonzero index"):   # the card walks the index
+        nv.stream_nv(op.slabs_nv, op.lo, flat[:-1].view(4, op.v_pad))
 
 
 @pytest.mark.parametrize("n", [480, 97])        # N a tile multiple, and not
@@ -311,8 +316,8 @@ def test_k5_int8_matches_plain(dev, n_vertex, bs, mode, n):
     g = _rand(rng, dev, n, op.v_pad) if mode == "chain" else None
     name = nv.launch_name(mode, True)
     before = kernels.launch_counts()[name]
-    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
-    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
+    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales, index=op.index_nv)
+    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales, index=op.index_nv)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[name] == before + 2
     ref = nv.stream_nv_reference(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
@@ -322,7 +327,8 @@ def test_k5_int8_matches_plain(dev, n_vertex, bs, mode, n):
         torch.testing.assert_close(a, r, **TOL)
     if mode == "single":
         torch.testing.assert_close(nv.stream_nv(op.slabs_nv, op.lo, x, scales=op.scales,
-                                                scale=2.0), 2.0 * refs[0], **TOL)
+                                                scale=2.0, index=op.index_nv),
+                                   2.0 * refs[0], **TOL)
 
 
 def test_k5_int8_autograd_matches_plain(dev):
@@ -334,13 +340,14 @@ def test_k5_int8_autograd_matches_plain(dev):
     rng = np.random.default_rng(6)
     x, g1, g2 = (_rand(rng, dev, 96, op.v_pad) for _ in range(3))
     pack = (op.slabs_nv, op.lo, op.slabs_nv_t, op.lo_t)
+    index = {"index": op.index_nv, "index_t": op.index_nv_t}
     grads = []
     for d in (dev, torch.device("cpu")):
         xx = x.to(d).requires_grad_(True)
         p = [a.to(d) for a in pack]
         sc = (op.scales.to(d), op.scales_t.to(d))
-        t1, t2 = nv.cheb_pair_nv(*p, xx, *sc)
-        y = nv.banded_spmm_nv(*p, xx, *sc, scale=2.0)
+        t1, t2 = nv.cheb_pair_nv(*p, xx, *sc, **index)
+        y = nv.banded_spmm_nv(*p, xx, *sc, scale=2.0, **index)
         loss = (t1 * g1.to(d)).sum() + (t2 * g2.to(d)).sum() + (y * g1.to(d)).sum()
         grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
     torch.testing.assert_close(grads[0], grads[1], **TOL)
@@ -374,9 +381,11 @@ def test_k7_k8_k9_match_plain(dev, n_vertex, bs, name, n):
     if mode == "chain":
         args, sc = (op.slabs_t, op.lo_t, x, _rand(rng, dev, op.v_pad, n)), op.scales_t
         kwargs = {"scales_t": sc} if sc is not None else {}
+        kwargs["index_t"] = op.index_t
     else:
         args, sc = (op.slabs, op.lo, x), op.scales
         kwargs = {"scales": sc} if sc is not None else {}
+        kwargs["index"] = op.index
     before = kernels.launch_counts()[name]
     out1, out2 = wrapper(*args, **kwargs), wrapper(*args, **kwargs)
     torch.cuda.synchronize()
@@ -428,6 +437,144 @@ def test_vn_wrapper_rejects_what_the_kernel_does_not_take(dev):
         bvn.banded_spmm(op.slabs, op.lo, x.T.contiguous().T, scales=op.scales)
     with pytest.raises(ValueError, match="chain"):   # the chain without its g1
         bvn.banded_chain_stream(op.slabs_t, op.lo_t, x, None, scales_t=op.scales_t)
+    with pytest.raises(ValueError, match="no nonzero index"):   # the card walks the index
+        bvn.banded_spmm(op.slabs, op.lo, x, scales=op.scales)
+
+
+# --- the banded packs' nonzero index (kernels/nnz_index.py index_from_slabs) --
+
+# banded_graph_op's arguments: the packs K9 and K7 (vn f32 and int8), K8 (the
+# clamped pack) and K5 (nv f32 and int8) walk
+BANDED_KINDS = {"vn_f32": {}, "vn_int8": {"quantize": True}, "vn_clamped": {"stream": False},
+                "nv_f32": {"nv": True, "nv_only": True},
+                "nv_int8": {"quantize": True, "nv": True, "nv_only": True}}
+
+
+def _banded_single(op, kind, x, scale=1.0):
+    """(kernel, plain version) of one application on the kind's pack."""
+    if kind.startswith("nv"):
+        return (nv.stream_nv(op.slabs_nv, op.lo, x, scales=op.scales, scale=scale,
+                             index=op.index_nv),
+                nv.stream_nv_reference(op.slabs_nv, op.lo, x, scales=op.scales, scale=scale))
+    return (bvn.banded_spmm(op.slabs, op.lo, x, scales=op.scales, scale=scale, index=op.index),
+            bvn.banded_vn_reference(op.slabs, op.lo, x, scales=op.scales, scale=scale))
+
+
+def _banded_x(op, kind, n, dev, seed=5):
+    shape = (n, op.v_pad) if kind.startswith("nv") else (op.v_pad, n)
+    return _rand(np.random.default_rng(seed), dev, *shape)
+
+
+@pytest.mark.parametrize("kind", sorted(BANDED_KINDS))
+def test_banded_index_built_once_across_launches(dev, kind):
+    """The first launch builds the pack's index on the card (the operator
+    leaves it unbuilt; one pack for both directions of the symmetric GSO,
+    except the clamped pack's Aᵀ); repeated launches, every mode, rebuild
+    nothing."""
+    before = nnz_index.builds()
+    op = _banded_op(dev, 600, 128, **BANDED_KINDS[kind])
+    assert nnz_index.builds() == before
+    x = _banded_x(op, kind, 33, dev)
+    for _ in range(3):
+        got, ref = _banded_single(op, kind, x)
+        if kind.startswith("nv"):
+            nv.stream_nv(op.slabs_nv, op.lo, x, None, "pair", scales=op.scales,
+                         index=op.index_nv)
+            nv.stream_nv(op.slabs_nv, op.lo, x, x, "chain", scales=op.scales,
+                         index=op.index_nv_t)
+        else:
+            bvn.banded_cheb_pair(op.slabs, op.lo, x, index=op.index) if kind == "vn_clamped" \
+                else bvn.banded_cheb_pair_stream(op.slabs, op.lo, x, scales=op.scales,
+                                                 index=op.index)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+    idx = op.index_nv if kind.startswith("nv") else op.index
+    assert nnz_index.builds() == before + 1 and idx.src.device == x.device
+
+
+@pytest.mark.parametrize("kind", sorted(BANDED_KINDS))
+def test_banded_index_follows_an_edited_slab(dev, kind):
+    """A zero slab entry inside a window set in place: the next launch
+    rebuilds the index once, on the card, and the kernel follows the new
+    value; later launches and a detach() alias rebuild nothing."""
+    op = _banded_op(dev, 600, 128, **BANDED_KINDS[kind])
+    slabs = op.slabs_nv if kind.startswith("nv") else op.slabs
+    x = _banded_x(op, kind, 160, dev)
+    zeros = torch.nonzero(slabs == 0)
+    entry = tuple(int(v) for v in zeros[len(zeros) // 2])
+    _banded_single(op, kind, x)
+    before = nnz_index.builds()
+    with torch.no_grad():
+        slabs[entry] = 3 if slabs.dtype == torch.int8 else 0.5
+    got, ref = _banded_single(op, kind, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+    assert nnz_index.builds() == before + 1
+    field = "slabs_nv" if kind.startswith("nv") else "slabs"
+    alias = dataclasses.replace(op, **{field: slabs.detach()})
+    assert torch.equal(_banded_single(alias, kind, x)[0], got)
+    assert nnz_index.builds() == before + 1
+
+
+@pytest.mark.parametrize("kind", ["vn_f32", "nv_int8"])
+def test_banded_padded_rows_follow_the_off_tpu_branch(dev, kind):
+    """On a stream pack with v_pad > nbr·bs (V = 600, bs = 256: 1024 > 768)
+    and N not a multiple of 4: past nbr·bs, A x is 0, t2 = −x and dx = −g2,
+    bit for bit, as in the JAX package's off-TPU branch."""
+    op = _banded_op(dev, 600, 256, "rw_norm_lap", **BANDED_KINDS[kind])
+    nbr, bs = op.lo.shape[0], 256
+    assert op.v_pad > nbr * bs
+    x, g = _banded_x(op, kind, 97, dev), _banded_x(op, kind, 97, dev, seed=6)
+    if kind.startswith("nv"):
+        single = nv.stream_nv(op.slabs_nv, op.lo, x, scales=op.scales, index=op.index_nv)
+        t1, t2 = nv.stream_nv(op.slabs_nv, op.lo, x, None, "pair", scales=op.scales,
+                              index=op.index_nv)
+        u, dx = nv.stream_nv(op.slabs_nv_t, op.lo_t, x, g, "chain", scales=op.scales_t,
+                             index=op.index_nv_t)
+        pad = (slice(None), slice(nbr * bs, None))
+    else:
+        single = bvn.banded_spmm(op.slabs, op.lo, x, index=op.index)
+        t1, t2 = bvn.banded_cheb_pair_stream(op.slabs, op.lo, x, index=op.index)
+        u, dx = bvn.banded_chain_stream(op.slabs_t, op.lo_t, x, g, index_t=op.index_t)
+        pad = (slice(nbr * bs, None), slice(None))
+    torch.cuda.synchronize()
+    assert not single[pad].any() and not t1[pad].any()
+    assert torch.equal(t2[pad], -x[pad]) and torch.equal(dx[pad], -x[pad])
+    assert torch.equal(u[pad], g[pad])
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_banded_index_built_once_across_a_fit(dev, fused, tmp_path):
+    """A short fit on the banded operator (fused: K5 pair and chain on the
+    nv pack; unfused: K9 on the vn stream pack) builds each pack's index at
+    its first launch, once (one pack for both directions of the symmetric
+    GSO), and the rest of the fit and test() rebuild nothing."""
+    from stgcn_tpu_torch import STGCN, ForecastDataset, Trainer, TrainConfig, ZScoreScaler
+    from stgcn_tpu_torch.data.synthetic import generate_synthetic_vel
+
+    v, n_his, n_pred = 520, 12, 3
+    adj = random_road_graph(v, k_neighbors=6, seed=0)
+    art = build_gso(adj, "sym_norm_lap", cheb=True)
+    perm = rcm_ordering(art.matrix)
+    art = GraphShiftOperator(matrix=permute_matrix(art.matrix, perm), gso_type="sym_norm_lap",
+                             cheb_rescaled=True, lam_max=art.lam_max)
+    op = banded_graph_op(art, block_size=128, nv=fused, device=dev)
+    vel = generate_synthetic_vel(adj, 30, seed=1)[:, perm]
+    scaler = ZScoreScaler().fit(vel)
+    ds = lambda a: ForecastDataset.from_numpy(scaler.transform(a), n_his, n_pred,  # noqa: E731
+                                              device=dev)
+    cfg = TrainConfig(n_his=n_his, n_pred=n_pred, droprate=0.5, batch_size=4, fused=fused,
+                      ckpt_dir=str(tmp_path), dataset_name="toy")
+    tr = Trainer(cfg, STGCN(n_his, v, device=dev), op, ds(vel), ds(vel[:20]), ds(vel[:20]),
+                 scaler, device=dev)
+    before = nnz_index.builds()
+    kernels.reset_launch_counts()
+    tr.fit(2)
+    tr.test()
+    counts = kernels.launch_counts()
+    names = ("nv_pair", "nv_chain") if fused else ("vn_pair", "vn_chain")
+    assert all(counts[k] > 0 for k in names), counts
+    assert nnz_index.builds() == before + 1
 
 
 def _rcm_gso(n_vertex, gso_type="sym_norm_lap"):

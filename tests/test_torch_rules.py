@@ -217,23 +217,28 @@ def test_nv_wrapper_takes_plain_version_only_on_cpu(mode, monkeypatch):
     monkeypatch.setattr(tnv, "cuda_device", lambda t: t.device)
     monkeypatch.setattr(tnv, "stream_of", lambda dev: 0)
 
+    slabs = {d: torch.zeros(1, 256, 128, device=d) for d in ("meta", "cpu")}
+    index = _empty_slab_index(slabs["meta"], 256)
+
     def args(dev):
         g = torch.zeros(5, 256, device=dev) if mode == "chain" else None
-        return (torch.zeros(1, 256, 128, device=dev), torch.zeros(1, dtype=torch.int32, device=dev),
+        return (slabs[dev], torch.zeros(1, dtype=torch.int32, device=dev),
                 torch.zeros(5, 256, device=dev), g)
 
     name = f"nv_{mode}"
     before = kernels.launch_counts()[name]
-    out = tnv.stream_nv(*args("meta"), mode)
+    out = tnv.stream_nv(*args("meta"), mode, index=index)
     assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
     assert fake.calls == [("stgcn_banded_nv", len(_build.SIGNATURES["stgcn_banded_nv"]))]
     assert all(o.shape == (5, 256) for o in ([out] if mode == "single" else out))
     tnv.stream_nv(*args("cpu"), mode)
     assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
     assert len(fake.calls) == 1
+    with pytest.raises(ValueError, match="no nonzero index"):   # the card needs the index
+        tnv.stream_nv(*args("meta"), mode)
     with pytest.raises(ValueError, match="CUDA or CPU"):   # without the test double
         monkeypatch.undo()
-        tnv.stream_nv(*args("meta"), mode)
+        tnv.stream_nv(*args("meta"), mode, index=index)
 
 
 @pytest.mark.parametrize("mode", ["single", "pair", "chain"])
@@ -249,22 +254,25 @@ def test_nv_int8_wrapper_takes_plain_version_only_on_cpu(mode, monkeypatch):
     monkeypatch.setattr(tnv, "cuda_device", lambda t: t.device)
     monkeypatch.setattr(tnv, "stream_of", lambda dev: 0)
 
+    slabs = {d: torch.zeros(1, 256, 128, dtype=torch.int8, device=d) for d in ("meta", "cpu")}
+    index = _empty_slab_index(slabs["meta"], 256)
+
     def args(dev):
         g = torch.zeros(5, 256, device=dev) if mode == "chain" else None
-        return (torch.zeros(1, 256, 128, dtype=torch.int8, device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(5, 256, device=dev), g)
+        return (slabs[dev], torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(5, 256, device=dev), g)
 
     name = tnv.launch_name(mode, True)
     scales = {d: torch.ones(1, 128, device=d) for d in ("meta", "cpu")}
     before = kernels.launch_counts()[name]
-    out = tnv.stream_nv(*args("meta"), mode, scales=scales["meta"])
+    out = tnv.stream_nv(*args("meta"), mode, scales=scales["meta"], index=index)
     assert plain_calls == [] and kernels.launch_counts()[name] == before + 1
     assert fake.calls == [("stgcn_banded_nv", len(_build.SIGNATURES["stgcn_banded_nv"]))]
     assert all(o.shape == (5, 256) for o in ([out] if mode == "single" else out))
     tnv.stream_nv(*args("cpu"), mode, scales=scales["cpu"])
     assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
     with pytest.raises(ValueError, match="int8"):   # int8 slabs without their scales
-        tnv.stream_nv(*args("meta"), mode)
+        tnv.stream_nv(*args("meta"), mode, index=index)
 
 
 VN_WRAPPERS = {   # launch name: (wrapper, its mode, int8)
@@ -293,14 +301,19 @@ def test_vn_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
     monkeypatch.setattr(tbs, "cuda_device", lambda t: t.device)
     monkeypatch.setattr(tbs, "stream_of", lambda dev: 0)
 
-    def call(dev):
-        slabs = torch.zeros(2, 128, 256, dtype=torch.int8 if int8 else torch.float32, device=dev)
+    slabs = {d: torch.zeros(2, 128, 256, dtype=torch.int8 if int8 else torch.float32, device=d)
+             for d in ("meta", "cpu")}
+    index = _empty_slab_index(slabs["meta"], 384)
+
+    def call(dev, with_index=True):
         lo, x = torch.zeros(2, dtype=torch.int32, device=dev), torch.zeros(384, 5, device=dev)
         kw = {"scales_t" if mode == "chain" else "scales": torch.ones(2, 128, device=dev)} \
             if int8 else {}
+        if with_index and dev == "meta":
+            kw["index_t" if mode == "chain" else "index"] = index
         if mode == "chain":
-            return wrapper(slabs, lo, x, x, **kw)
-        return wrapper(slabs, lo, x, **kw)
+            return wrapper(slabs[dev], lo, x, x, **kw)
+        return wrapper(slabs[dev], lo, x, **kw)
 
     before = kernels.launch_counts()[name]
     out = call("meta")
@@ -310,9 +323,19 @@ def test_vn_wrappers_take_plain_version_only_on_cpu(name, monkeypatch):
     call("cpu")
     assert plain_calls == [1] and kernels.launch_counts()[name] == before + 1
     assert len(fake.calls) == 1
+    with pytest.raises(ValueError, match="no nonzero index"):   # the card needs the index
+        call("meta", with_index=False)
     with pytest.raises(ValueError, match="CUDA or CPU"):   # without the test double
         monkeypatch.undo()
         call("meta")
+
+
+def _empty_slab_index(slabs, rows):
+    """The nonzero index of all-zero slabs (K5 and the vn kernel walk it)
+    for an operand of ``rows`` rows: every row empty."""
+    empty = torch.zeros(0, dtype=torch.int32, device=slabs.device)
+    return nnz_index.NnzIndex().bind(
+        slabs, torch.zeros(rows + 1, dtype=torch.int32, device=slabs.device), empty, empty)
 
 
 def _empty_index(data):
