@@ -114,7 +114,13 @@ Eighteen phases, each printing one JSON line with its own seconds:
 11. banded_100k — one forecast batch of 8 fused against the unfused model on
    the same banded operator (K5 against K9; 2e-4 + 2e-4·|ref|, launches
    K1/K2 ×2, K3, K4, K5 pair ×2); every K1-K4 call of one fused training
-   step at 100k held against its plain version; one batch's fused gradients
+   step at 100k held against its plain version; then, on a line of its own
+   (``banded_100k_trace``), one fused step's backward traced by
+   ``torch.profiler`` (device ms by kernel name), each of that step's K1b
+   calls traced alone (its launches in order: block 1 and block 2), and K1b
+   block 2's weight gradient dc1k beside one ``torch.matmul`` of the same
+   product (K1b's "wgrad only" yardstick, in the K1b row of the kernels
+   line as ``wgrad_only_100k``); one batch's fused gradients
    against unfused (the bound of phase 6); a fused ``Trainer.fit(1)`` with
    every step's loss (finite) and seconds and launches per step K1-K4 as in
    phase 6 plus K5 pair ×2 and chain ×2 (validation batches: the forward's);
@@ -1130,6 +1136,60 @@ def profile_once(torch, fn) -> dict:
                     for e in top]}
 
 
+def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
+    """One fused training step's backward traced by ``torch.profiler`` (its
+    kernels' device time by name), each K1b call of that step's recorded
+    calls traced alone (its launches in order, ``kernels/bwd_ab.py``'s
+    ``launches``), and K1b block 2's weight
+    gradient dc1k beside one ``torch.matmul`` of the same product
+    (``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``, random operands laid out for it
+    outside the timing): K1b's "wgrad only" yardstick."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.bwd_ab import launches
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import masked_mse
+
+    model = new_model(torch, data["n_vertex"], DROPRATE)
+    params = dict(model.named_parameters())
+    starts, n_valid = next(data["train"].batches(batch))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    pred = fused_sparse_forward(params, x, data["gop"], model, deterministic=False,
+                                seed=step_seed(42, 0))
+    loss = masked_mse(pred.reshape(batch, -1), y, n_valid)
+    step = profile_once(torch, lambda: torch.autograd.grad(loss, list(params.values()),
+                                                           retain_graph=True))
+    del model, params, pred, loss
+    heads, wgrad = {}, None
+    for name, label, args, kwargs in calls:
+        if name != "head_bwd":
+            continue
+        cfg = args[0]
+        ev = launches(torch, lambda: kernels.WRAPPERS[name](*args, **kwargs))
+        heads[f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}"] = {
+            "device_ms": sum(e["ms"] for e in ev), "launches": ev}
+        if cfg.apply_ln:   # block 2: its dc1k product is the largest weight gradient
+            i = max((j for j, e in enumerate(ev) if "wgrad" in e["name"]),
+                    key=lambda j: ev[j]["ms"])
+            n = args[1].shape[0] * cfg.t1 * cfg.v_pad
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            a = torch.randn((cfg.kt * cfg.c_in, n), generator=gen, device="cuda")
+            d = torch.randn((n, cfg.g1), generator=gen, device="cuda")
+            wgrad = {"shape": [cfg.kt * cfg.c_in, n, cfg.g1],
+                     "wgrad_ms": ev[i]["ms"] + (ev[i + 1]["ms"] if i + 1 < len(ev) else 0.0),
+                     "matmul_ms": cuda_ms(lambda: torch.matmul(a, d), warmup=2, reps=10),
+                     "bound_ms": 2 * cfg.kt * cfg.c_in * n * cfg.g1 / F32_FLOP_PER_S * 1e3}
+            del a, d
+    kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
+    result = {"phase": f"{phase}_trace", "seconds": time.perf_counter() - t0,
+              "step_backward": step, "head_bwd": heads, "wgrad_only": wgrad}
+    emit(result)
+    return result
+
+
 def phase_fused_dense(torch, data, pb) -> dict:
     """Phase 8: the dense whole-block route, ``fused_forward`` over K12f / K12b,
     against the unfused model and ``fused_sparse_forward`` on the same weights:
@@ -1654,7 +1714,10 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
     del model, params, pf, pu
 
     # 2. every K1-K4 call of one fused training step, against its plain version
-    per_call = check_recorded(torch, record_training_step(torch, data, batch), reps=3)
+    calls = record_training_step(torch, data, batch)
+    per_call = check_recorded(torch, calls, reps=3)
+    trace = trace_backward(torch, data, calls, batch, phase) if phase == "banded_100k" else None
+    del calls
 
     # 3. one batch's gradients, fused against unfused, same masks
     model = new_model(torch, v, DROPRATE)
@@ -1747,6 +1810,8 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
               "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
     emit(result)
+    if trace:
+        result["trace"] = trace
     return result
 
 
@@ -2837,9 +2902,11 @@ def main() -> int:
                 f"bound_ms_{tag}": sum(c["bound_ms"] for c in calls),
                 f"max_abs_err_{tag}": max(c["max_abs_err"] for c in calls)}
 
+    wg = b100["trace"]["wgrad_only"]
     rows = [row(name, KERNEL_META[name], calls, launches=tr["launches"][name],
                 launches_forecast=sl["launches"][name], **at(b100, "100k", name),
-                **at(m1, "1m", name))
+                **at(m1, "1m", name),
+                **({"wgrad_only_100k": wg} if name == "head_bwd" else {}))
             for name, calls in per_call.items()]
     fc = b100u["forecast_one_batch"]
     rows += [row(name, K5_META, calls, mode=name[3:], dtype="f32",

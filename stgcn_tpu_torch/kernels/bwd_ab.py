@@ -1,5 +1,6 @@
 """Time the backward kernels K1b-K4b of one or more checkouts, at the
-training path's PeMSD7(M), 100k- and 1M-vertex shapes, on one CUDA card.
+training path's PeMSD7(M), 100k- and 1M-vertex shapes, and K12b at
+PeMSD7(M) and PEMS-BAY batch 512, on one CUDA card.
 
     python3 stgcn_tpu_torch/kernels/bwd_ab.py --tree PARENT --tree . --tree . --tree PARENT
 
@@ -7,12 +8,19 @@ Each ``--tree`` is the root of a checkout of this repository, run in a
 process of its own that builds its kernels (the harness, ``_ab.py``). Per
 tree it prints one JSON line: per kernel and shape the median CUDA-event
 milliseconds of ``--reps`` launches (after 3 of warm-up) on random inputs
-drawn from a fixed seed, and a SHA-256 of the outputs' bytes. Then the
-``nvidia-smi`` name and power limit of the card.
+drawn from a fixed seed, and a SHA-256 of the outputs' bytes; under
+``trace`` the device launches of one K1b call of each block at each shape
+and of every kernel at PeMSD7(M)'s, in launch order, as ``torch.profiler``
+sees them; under ``yardstick`` the
+CUDA-event ms of one ``torch.matmul`` of block 2's ``dc1k`` product at the
+100k shape (``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``, operands laid out for it
+before the timing). Then the ``nvidia-smi`` name and power limit of the
+card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
@@ -24,12 +32,15 @@ else:   # run as a script: its directory is sys.path[0]
 # (B, V, Vp): the batches of the main.py default, bench.py:253 and bench.py:338
 SHAPES = {"pemsd7m": (32, 228, 256), "100k": (8, 100_000, 101_376),
           "1m": (1, 1_000_000, 1_000_192)}
+# (B, V) of the dense whole-block route: PeMSD7(M) and PEMS-BAY (BASELINE.json configs[2])
+K12_SHAPES = {"pemsd7m": (32, 228), "pemsbay": (512, 325)}
 
 
 def cases(torch, b: int, v_true: int, vp: int):
-    """(name, wrapper, args, kwargs) of K1b (block 2's head, t_in 8), K2b
+    """(name, wrapper, args, kwargs) of K1b (``head_bwd``: block 2's head,
+    t_in 8; ``head_bwd_blk1``: block 1's, t_in 12, c_in 1, no LayerNorm), K2b
     (block 1's tail, t_in 12), K3b and K4b at the main.py widths, dropout 0.5
-    on (K2b has no dropout site)."""
+    on (K2b and block 1's head have no dropout site)."""
     from stgcn_tpu_torch.kernels import output_head as oh
     from stgcn_tpu_torch.kernels import vertex_fused as vf
     from stgcn_tpu_torch.kernels.dropout import Drop
@@ -51,6 +62,7 @@ def cases(torch, b: int, v_true: int, vp: int):
     tail = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
                              v_true=v_true, v_pad=vp, t_in=12, c_in=1, c0=64, c1=16, c2=64,
                              apply_ln=False)
+    head1 = dataclasses.replace(head, t_in=12, c_in=1, apply_ln=False)
     out = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func="glu",
                         v_true=v_true, v_pad=vp)
     return [
@@ -58,6 +70,10 @@ def cases(torch, b: int, v_true: int, vp: int):
          (head, rnd(b, 8, 64, vp), *ln(8, 64), rnd(3, 64, 128, scale=192 ** -0.5),
           rnd(128, scale=0.1), rnd(64, 16, scale=0.125), rnd(16, scale=0.1),
           rnd(b, 6, 16, vp, scale=1e-3)), {"drop": Drop(0.5, 11, 1)}),
+        ("head_bwd_blk1", vf.head_bwd,
+         (head1, rnd(b, 12, 1, vp), None, None, None, None, rnd(3, 1, 128, scale=3 ** -0.5),
+          rnd(128, scale=0.1), rnd(64, 16, scale=0.125), rnd(16, scale=0.1),
+          rnd(b, 10, 16, vp, scale=1e-3)), {}),
         ("tail_bwd", vf.tail_bwd,
          (tail, *(rnd(b, 10, 16, vp) for _ in range(3)), rnd(3, 16, 16, scale=48 ** -0.5),
           rnd(16, scale=0.1), rnd(3, 16, 128, scale=48 ** -0.5), rnd(128, scale=0.1),
@@ -74,6 +90,64 @@ def cases(torch, b: int, v_true: int, vp: int):
     ]
 
 
+def k12_cases(torch, b: int, v: int):
+    """(name, wrapper, args, kwargs) of K12b at blocks 1 and 2 of the main.py
+    widths (t_in 12, c_in 1; t_in 8, c_in 64), a random dense GSO, dropout on."""
+    from stgcn_tpu_torch.kernels import fused_stblock as fs
+    from stgcn_tpu_torch.kernels.dropout import Drop
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    gso = torch.randn((v, v), generator=gen, device="cuda") * v ** -0.5
+    out = []
+    for blk, (t_in, c_in) in enumerate(((12, 1), (8, 64))):
+        cfg = fs.FusedBlockConfig(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                                  droprate=0.5, v_true=v, t_in=t_in, c_in=c_in, c0=64, c1=16,
+                                  c2=64, training=True)
+        w = [torch.randn(s, generator=gen, device="cuda") * 0.1 for s in cfg.weight_shapes()]
+        w[8] = w[8] + 1.0
+        x = torch.randn((b, t_in, v, c_in), generator=gen, device="cuda")
+        gy = torch.randn((b, cfg.t2, v, cfg.c2), generator=gen, device="cuda") * 1e-3
+        out.append((f"stblock_bwd_blk{blk + 1}", fs.stblock_bwd, (cfg, x, gso, *w, gy),
+                    {"drop": Drop(0.5, 11, blk)}))
+    return out
+
+
+def launches(torch, fn) -> list:
+    """The device kernels of one call of ``fn`` (after a warm-up call), in
+    launch order: name and device ms, as ``torch.profiler`` records them.
+    Two elementwise marker kernels run first inside the profile and are cut
+    off with every kernel before them (the profiler can miss its first
+    kernel), so ``fn`` itself must not start with an elementwise kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        marker.add_(1.0)
+        marker.add_(1.0)
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                key=lambda e: e.time_range.start)
+    while ev and "elementwise" in ev[0].name:
+        ev.pop(0)
+    return [{"name": e.name.replace("(anonymous namespace)::", "").split("(")[0][:80],
+             "ms": (e.time_range.end - e.time_range.start) / 1e3} for e in ev]
+
+
+def yardstick(torch, reps: int) -> dict:
+    """One ``torch.matmul`` of K1b block 2's ``dc1k`` product at the 100k
+    shape: ``[kt·c_in, n] × [n, g1]``, n = B·t1·Vp."""
+    b, _, vp = SHAPES["100k"]
+    n = b * 6 * vp
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.randn((3 * 64, n), generator=gen, device="cuda")
+    d = torch.randn((n, 128), generator=gen, device="cuda") * 1e-3
+    ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
+    return {"shape": [3 * 64, n, 128], "ms": ms, "flops": 2 * 3 * 64 * n * 128}
+
+
 def run_one(tree: str, reps: int, data) -> dict:
     """Time every case with the checkout at ``tree`` imported."""
     import torch
@@ -82,13 +156,19 @@ def run_one(tree: str, reps: int, data) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
-              "sha256": {}}
-    for shape, (b, v_true, vp) in SHAPES.items():
-        for name, wrapper, args, kwargs in cases(torch, b, v_true, vp):
+              "sha256": {}, "trace": {}}
+    every = [(shape, cases(torch, b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
+    every += [(shape, k12_cases(torch, b, v)) for shape, (b, v) in K12_SHAPES.items()]
+    for shape, made in every:
+        for name, wrapper, args, kwargs in made:
             key = f"{name}/{shape}"
             result["ms"][key], result["sha256"][key] = _ab.timed(
-                torch, lambda: wrapper(*args, **kwargs), reps, warmup=3)
+                torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
+            if name.startswith("head_bwd") or shape == "pemsd7m":
+                result["trace"][key] = launches(torch, lambda: wrapper(*args, **kwargs))
+        del made
         torch.cuda.empty_cache()
+    result["yardstick"] = yardstick(torch, reps)
     return result
 
 

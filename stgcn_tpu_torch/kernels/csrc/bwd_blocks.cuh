@@ -6,6 +6,8 @@
 // so a repeated backward is bit-identical.
 #pragma once
 
+#include <initializer_list>
+
 #include "common.cuh"
 
 namespace stgcn {
@@ -76,6 +78,44 @@ cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* 
                             float* ds, float* dxin, float* a_out, int batch, int t, int vp,
                             cudaStream_t stream);
 
+// The gate backward at one point: the gate value av of the pre-activations
+// p (and, gated, q) with the residual xin, and the gradients dp, dq for the
+// upstream gradient d, plus gp + 2 gpss av when `add` (the LayerNorm-partial
+// cotangents). dq is 0 for relu and silu.
+__device__ __forceinline__ void gate_point_bwd(int act, float p, float q, float xin, float d,
+                                               bool add, float gp, float gpss, float& dp,
+                                               float& dq, float& av) {
+  dq = 0.0f;
+  if (act == kGlu || act == kGtu) {
+    const float lin = p + xin;
+    const float sq = sigmoid(q);
+    if (act == kGlu) {
+      av = lin * sq;
+      if (add) d += gp + 2.0f * gpss * av;
+      dp = d * sq;
+      dq = d * lin * sq * (1.0f - sq);
+    } else {
+      const float th = tanhf(lin);
+      av = th * sq;
+      if (add) d += gp + 2.0f * gpss * av;
+      dp = d * sq * (1.0f - th * th);
+      dq = d * th * sq * (1.0f - sq);
+    }
+  } else {
+    const float z = p + xin;
+    if (act == kRelu) {
+      av = fmaxf(z, 0.0f);
+      if (add) d += gp + 2.0f * gpss * av;
+      dp = z > 0.0f ? d : 0.0f;
+    } else {
+      const float sz = sigmoid(z);
+      av = z * sz;
+      if (add) d += gp + 2.0f * gpss * av;
+      dp = d * sz * (1.0f + z * (1.0f - sz));
+    }
+  }
+}
+
 // K4b's fc1 epilogue over s [B, T, C, Vp]: zd = relu(s) * mask and
 // ds = dzd * mask * (s > 0).
 cudaError_t launch_relu_drop(const float* s, Drop drop, const float* dzd, float* zd, float* ds,
@@ -83,15 +123,31 @@ cudaError_t launch_relu_drop(const float* s, Drop drop, const float* dzd, float*
 
 // Weight gradient out[k, c, o] = sum over b, t < D.t, v of X[b, t + k, c, v]
 // * D[b, t, o, v] for k < K, c < X.c, o < D.c; X.p null stands for ones
-// (X.c = 1, K = 1: the bias gradient). The (b, t) steps are cut into
-// min(B * D.t, kWgradSlices) slices and, when there are fewer steps than
-// kWgradSlices, each step's lanes into kWgradSlices / (B * D.t) chunks, all
-// fixed by the shapes; within a slice no f32 chain sums more than 4096 lanes.
-// Each slice's partial goes to `part` (at most kWgradSlices * K * X.c * D.c
-// floats) and a second pass sums them in slice order.
-constexpr int kWgradSlices = 64;
+// (X.c = 1, K = 1: the bias gradient). It runs on the register tile of
+// f32_tile.cuh: the reduction (b, t, v) is cut into slices of at most 4096
+// terms, as many as fill the card, all fixed by the shapes (so also the
+// lanes of each step when B * D.t is small: batch 1 at 1M vertices); each
+// slice's partial goes to `part` (wgrad_part_floats of the call's shape)
+// and a second pass sums them in slice order. No f32 chain sums more than
+// 4096 terms before it is banked.
 cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, int vp,
                          cudaStream_t stream);
+
+// The same with a row of ones after X's rows, in the same pass: out as
+// above and bias[o] = sum over b, t, v of D[b, t, o, v], so D is read once
+// for both (K1b's dc1k with dc1b, dgaw with dgab).
+cudaError_t launch_wgrad_bias(Cv x, int k, Cv d, float* out, float* bias, float* part, int batch,
+                              int vp, cudaStream_t stream);
+
+// The shape of one weight-gradient call: m rows of X (K * X.c, plus 1 for
+// launch_wgrad_bias's ones row; 1 for a bias alone), n = D.c, terms =
+// B * D.t * Vp.
+struct WgradShape {
+  int m, n;
+  long long terms;
+};
+// Floats of `part` enough for every one of `calls`.
+size_t wgrad_part_floats(std::initializer_list<WgradShape> calls);
 
 // LayerNorm backward with given statistics, for dy = the gradient of
 // y = ((x - mu) * rstd * lng + lnb) * mask over x [B, T, C, Vp]:

@@ -21,8 +21,9 @@
 //   5. align, gate 1 and conv 1 backward -> dx.
 // The TPU sums the weight gradients across its sequential grid with +=; a
 // CUDA grid runs in no order, so each weight gradient goes through per-slice
-// partials over min(B t, 64) slices of (b, t) steps (wgrad of bwd_blocks.cu)
-// and a second pass in slice order. No float atomics: a repeated launch is
+// partials over slices of at most 4096 (b, t, v) terms (wgrad of
+// bwd_blocks.cu, on the tile of f32_tile.cuh) and a second pass in slice
+// order. No float atomics: a repeated launch is
 // bit-identical.
 #include "fused_stblock.cuh"
 
@@ -96,11 +97,10 @@ cudaError_t stblock_bwd(const StDims& d, const float* x, const float* gso, const
   float* da1 = c.take(head);
   float* dxin1 = c.take(head);
   float* dx_cv = c.take(d.lane * d.t_in * d.c_in);
-  size_t wmax = (size_t)d.kt * d.c_in * d.g1;
-  for (size_t m : {(size_t)d.c0 * d.c1, (size_t)d.c1 * d.c1, (size_t)d.kt * d.c1 * d.g2,
-                   (size_t)d.g1, (size_t)d.g2})
-    wmax = m > wmax ? m : wmax;
-  float* part = c.take(kWgradSlices * wmax);
+  const long long r1 = (long long)d.B * d.t1 * d.vp, r2 = (long long)d.B * d.t2 * d.vp;
+  float* part = c.take(wgrad_part_floats(
+      {{d.kt * d.c1, d.g2, r2}, {1, d.g2, r2}, {d.c1, d.c1, r1}, {1, d.c1, r1},
+       {d.c0, d.c1, r1}, {d.kt * d.c_in, d.g1, r1}, {1, d.g1, r1}}));
   if (floats) *floats = c.used;
   if (!work) return cudaSuccess;
   if (!st_dims_valid(d)) return cudaErrorInvalidValue;

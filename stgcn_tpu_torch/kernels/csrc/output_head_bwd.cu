@@ -33,7 +33,8 @@ cudaError_t ohead_bwd(const float* x, const float* mu, const float* rstd, const 
   float* sg = w.take(lane * g);
   float* ds = w.take(lane * g);
   float* dxin = w.take(lane * c0);
-  float* part = w.take(kWgradSlices * (size_t)ko * c_in * g);
+  const long long r = (long long)B * vp;
+  float* part = w.take(wgrad_part_floats({{ko * c_in, g, r}, {1, g, r}}));
   float* lnpart = w.take(ln_bwd_part_floats(B, ko));
   if (floats) *floats = w.used;
   if (!work) return cudaSuccess;
@@ -69,9 +70,8 @@ cudaError_t ofc_bwd(const float* a, const float* mu, const float* rstd, const fl
   float* dzd = w.take(lane * c1);
   float* zd = w.take(lane * c1);
   float* ds2 = w.take(lane * c1);
-  size_t wmax = (size_t)c0 * c1;
-  if ((size_t)c1 * ce > wmax) wmax = (size_t)c1 * ce;
-  float* part = w.take(kWgradSlices * wmax);
+  const long long r = (long long)B * vp;
+  float* part = w.take(wgrad_part_floats({{c1, ce, r}, {1, ce, r}, {c0, c1, r}, {1, c1, r}}));
   float* lnpart = w.take(ln_bwd_part_floats(B, 1));
   if (floats) *floats = w.used;
   if (!work) return cudaSuccess;

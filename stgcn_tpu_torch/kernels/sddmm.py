@@ -10,9 +10,12 @@ gradient.
 
 The TPU kernel (``_sddmm_pallas`` :60) carries each tile's sum over N
 across a sequential grid axis in VMEM scratch. The CUDA kernel
-(``csrc/bcsr_sddmm.cu``) gives one thread block one 64 × 64 sub-tile of one
-slot and sums all of N inside it in a fixed order: no atomics, a repeat
-launch is bit-identical; any N. A scalar ``scale`` is the kernel's alpha.
+(``csrc/bcsr_sddmm.cu``, on the register tile of ``csrc/f32_tile.cuh``)
+gives one thread block one 128 × 128 sub-tile of one slot (64 × 64 where
+the block size is not a multiple of 128), 8 × 8 sums a thread, and sums all
+of N inside it in a fixed order, 16 columns a step staged two buffers deep:
+no atomics, a repeat launch is bit-identical; any N. A scalar ``scale`` is
+the kernel's alpha.
 :func:`bcsr_sddmm_reference` is the plain version.
 """
 
@@ -37,7 +40,7 @@ def bcsr_sddmm_reference(cols: torch.Tensor, counts: torch.Tensor, g_vn: torch.T
     rows."""
     nbr, max_b = cols.shape
     bs, n = block_size, g_vn.shape[1]
-    gb, xb = g_vn.reshape(nbr, bs, n), x_vn.reshape(-1, bs, n)
+    gb, xb = g_vn.reshape(nbr, bs, n), x_vn.reshape(x_vn.shape[0] // bs, bs, n)   # any N >= 0
     rows = max(1, REF_CHUNK_ELEMS // (max_b * bs * max(n, bs)))
     slots = torch.arange(max_b, device=cols.device)
     outs = []

@@ -1,6 +1,6 @@
 """Time the sparse graph kernels of one or more checkouts on one CUDA card:
-at 1M vertices K6 (blocked-ELL nv, every mode, int8 and f32) and K10 (BCSR
-vn); at 100k vertices K5 (banded nv, every mode, f32 and int8) and the vn
+at 1M vertices K6 (blocked-ELL nv, every mode, int8 and f32), K10 (BCSR
+vn) and K11 (the BCSR SDDMM); at 100k vertices K5 (banded nv, every mode, f32 and int8) and the vn
 kernel of K7 (single), K8 (the pair on the clamped pack) and K9 (the stream
 pair and chain), f32 and int8.
 
@@ -66,7 +66,7 @@ def run_banded(torch, art, result: dict, reps: int, gen) -> None:
     from stgcn_tpu_torch.ops import banded_graph_op
 
     def time_it(key, fn):
-        result["ms"][key], result["sha256"][key] = _ab.timed(torch, fn, reps, warmup=2)
+        result["ms"][key], result["sha256"][key] = _ab.timed(torch, fn, reps, warmup=2, key=key)
 
     for quantize in (False, True):
         op = banded_graph_op(art, quantize=quantize, nv=True, device="cuda")
@@ -108,7 +108,7 @@ def run_one(tree: str, reps: int, gso_dir: str) -> dict:
     import stgcn_tpu_torch
     from stgcn_tpu_torch.graph.gso import GraphShiftOperator
     from stgcn_tpu_torch.kernels import ell_nv as ek
-    from stgcn_tpu_torch.kernels import spmm
+    from stgcn_tpu_torch.kernels import sddmm, spmm
     from stgcn_tpu_torch.ops import make_graph_op
 
     def gso(tag):
@@ -130,7 +130,7 @@ def run_one(tree: str, reps: int, gso_dir: str) -> dict:
                 key = f"{ek.launch_name(pack.quantized, mode)}/N={n}"
                 result["ms"][key], result["sha256"][key] = _ab.timed(
                     torch, lambda: ek.ell_nv(pack, x, g if mode == "chain" else None, mode), reps,
-                    warmup=2)
+                    warmup=2, key=key)
             del x, g
         del pack
         torch.cuda.empty_cache()
@@ -139,7 +139,14 @@ def run_one(tree: str, reps: int, gso_dir: str) -> dict:
         x = torch.randn((pack.cols.shape[0] * pack.block_size, n), generator=gen, device="cuda")
         key = f"bcsr_spmm/N={n}"
         result["ms"][key], result["sha256"][key] = _ab.timed(
-            torch, lambda: spmm.bcsr_spmm(pack, x), reps, warmup=2)
+            torch, lambda: spmm.bcsr_spmm(pack, x), reps, warmup=2, key=key)
+        g = torch.randn(x.shape, generator=gen, device="cuda")
+        key = f"bcsr_sddmm/N={n}"
+        result["ms"][key], result["sha256"][key] = _ab.timed(
+            torch, lambda: sddmm.bcsr_sddmm(pack.cols, pack.counts, g, x,
+                                            block_size=pack.block_size),
+            reps, warmup=2, key=key)
+        del g
     del pack, x
     torch.cuda.empty_cache()
     run_banded(torch, gso("100k"), result, reps, gen)

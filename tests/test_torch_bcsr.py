@@ -123,6 +123,27 @@ def test_k11_plain_matches_jax(scale):
     assert float(got[~live].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 160])
+def test_k11_plain_matches_jax_at_edge_widths(n):
+    """K11's plain version against the JAX ``bcsr_sddmm`` off the TPU at the
+    widths where the card kernel stages its operands differently: none,
+    one, ragged below and above a 16-column step, and the 1M route's block
+    1; padding slots exactly zero."""
+    jop, top = _ops()
+    rng = np.random.default_rng(9)
+    g, x = (rand(rng, top.n_vertex_pad, n) for _ in range(2))
+    got = tsd.bcsr_sddmm(top.pack.cols, top.pack.counts, t(g), t(x), block_size=BS)
+    if n:
+        ref = jsd.bcsr_sddmm(jop.block_cols, jnp.asarray(g), jnp.asarray(x),
+                             counts=jop.block_counts, block_size=BS, use_pallas=False)
+    else:   # an empty sum; the JAX reference's reshape cannot take N = 0
+        ref = np.zeros((*jop.block_cols.shape, BS, BS), np.float32)
+    assert got.shape == ref.shape
+    assert_grads([got.numpy()], [np.asarray(ref)], atol=KERNEL_TOL)
+    live = torch.arange(got.shape[1])[None, :] < top.pack.counts[:, None]
+    assert float(got[~live].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("scale", [1.0, 2.0])
 @pytest.mark.parametrize("gso_type", ["sym_norm_lap", "rw_norm_lap"])
 def test_vjp_matches_jax(gso_type, scale):

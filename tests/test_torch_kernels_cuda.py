@@ -180,6 +180,111 @@ def test_head_bwd_matches_plain(dev, act, apply_ln, drop):
     _close_all(got, vf.head_bwd_reference(cfg, x, ln if apply_ln else None, w, gy, drop))
 
 
+# (v_true, v_pad): PeMSD7(M)'s lanes and a 64k-lane graph, whose long
+# reductions take the shared tile's 128-row shapes
+LANES_SMALL, LANES_LARGE = (V_TRUE, V_PAD), (65_000, 65_536)
+
+
+@pytest.mark.parametrize("b,t_in,c_in,drop,lanes", [
+    (3, 12, 1, None, LANES_SMALL), (3, 8, 64, DROP, LANES_SMALL),
+    (1, 8, 64, None, LANES_LARGE), (1, 12, 1, None, LANES_LARGE)])
+def test_head_bwd_at_the_main_widths_matches_plain(dev, b, t_in, c_in, drop, lanes):
+    """K1b at block 1's shape (c_in 1, t_in 12, no LayerNorm: the narrow data
+    gradient) and block 2's (c_in 64, t_in 8, LayerNorm and dropout) at the
+    main.py widths (c0 64, c1 16), at batch 3 and at batch 1 (B·t1 < 64: the
+    weight gradients cut each step's lanes); inputs and cotangents nonzero
+    on the padded lanes, the cotangent at a training step's scale (1e-3). A
+    repeat is bit-identical."""
+    rng = np.random.default_rng(56)
+    apply_ln = c_in > 1
+    v_true, v_pad = lanes
+    cfg = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                            v_true=v_true, v_pad=v_pad, t_in=t_in, c_in=c_in, c0=64, c1=16,
+                            c2=64, apply_ln=apply_ln)
+    x = _rand(rng, dev, b, t_in, c_in, v_pad)
+    gy = _rand(rng, dev, b, cfg.t1, cfg.c1, v_pad, scale=1e-3)   # a step's cotangent scale
+    assert bool((x[..., v_true:] != 0).any()) and bool((gy[..., v_true:] != 0).any())
+    if apply_ln:
+        mu = _rand(rng, dev, b, t_in, 1, 1, scale=0.1)
+        rstd = 0.5 + _rand(rng, dev, b, t_in, 1, 1, scale=0.1).abs()
+        lng, lnb = 1.0 + _rand(rng, dev, c_in, v_pad, scale=0.1), _rand(rng, dev, c_in, v_pad)
+        lng[:, v_true:] = 0.0
+        lnb[:, v_true:] = 0.0
+        ln = (mu, rstd, lng, lnb)
+    else:
+        ln = (None,) * 4
+    w = (_rand(rng, dev, 3, c_in, cfg.g1, scale=(3 * c_in) ** -0.5),
+         _rand(rng, dev, cfg.g1, scale=0.1), _rand(rng, dev, 64, 16, scale=0.125),
+         _rand(rng, dev, 16, scale=0.1))
+    got = vf.head_bwd(cfg, x, *ln, *w, gy, drop=drop)
+    again = vf.head_bwd(cfg, x, *ln, *w, gy, drop=drop)
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    _close_all(got, vf.head_bwd_reference(cfg, x, ln if apply_ln else None, w, gy, drop))
+
+
+def _ohead_case(rng, dev, v_true, v_pad):
+    """K3b's inputs at the main.py widths and batch 1 (dck 256 x 256), the
+    cotangents at a training step's scale."""
+    cfg = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func="glu",
+                        v_true=v_true, v_pad=v_pad)
+    mu = _rand(rng, dev, 1, 4, 1, 1, scale=0.1)
+    rstd = 0.5 + _rand(rng, dev, 1, 4, 1, 1, scale=0.1).abs()
+    args = (_rand(rng, dev, 1, 4, 64, v_pad), mu, rstd, 1.0 + _rand(rng, dev, 64, v_pad, scale=0.1),
+            _rand(rng, dev, 64, v_pad), _rand(rng, dev, 4, 64, 256, scale=0.06),
+            _rand(rng, dev, 256, scale=0.1))
+    cot = (_rand(rng, dev, 1, 1, 128, v_pad, scale=1e-3),
+           *(_rand(rng, dev, 1, 1, 1, 1, scale=1e-5) for _ in range(2)))
+    return cfg, args, cot
+
+
+def test_weight_gradient_tiles_through_k2b_k3b_k4b(dev):
+    """The weight gradients of K2b (dc2k 48 x 128, dgcw 16 x 16, the biases),
+    K3b (dck 256 x 256) and K4b (dw1 128 x 128, dw2 128 x 1) at the main.py
+    widths and batch 1 on 256 lanes (the small tiles a small product takes),
+    against their plain versions; a repeat is bit-identical. Cotangents at a
+    training step's scale (1e-3; bwd_ab.py's)."""
+    rng = np.random.default_rng(57)
+    cfg = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                            v_true=V_TRUE, v_pad=V_PAD, t_in=12, c_in=1, c0=64, c1=16, c2=64,
+                            apply_ln=False)
+    tail = [_rand(rng, dev, 1, cfg.t1, 16, V_PAD) for _ in range(3)]
+    w = (_rand(rng, dev, 3, 16, 16, scale=0.25), _rand(rng, dev, 16, scale=0.1),
+         _rand(rng, dev, 3, 16, 128, scale=0.15), _rand(rng, dev, 128, scale=0.1))
+    cot = (_rand(rng, dev, 1, cfg.t2, 64, V_PAD, scale=1e-3),
+           *(_rand(rng, dev, 1, cfg.t2, 1, 1, scale=1e-5) for _ in range(2)))
+    got = vf.tail_bwd(cfg, *tail, *w, *cot)
+    assert all(torch.equal(a, c) for a, c in zip(got, vf.tail_bwd(cfg, *tail, *w, *cot)))
+    ref = vf.tail_bwd(cfg, *[t_.cpu() for t_ in (*tail, *w, *cot)])
+    _close_all([g.cpu() for g in got], ref)
+
+    ocfg, args, gcot = _ohead_case(rng, dev, V_TRUE, V_PAD)
+    got = oh.ohead_bwd(ocfg, *args, *gcot, drop=DROP)
+    assert all(torch.equal(a, c) for a, c in zip(got, oh.ohead_bwd(ocfg, *args, *gcot, drop=DROP)))
+    _close_all(got, oh.ohead_bwd_reference(ocfg, *args, *gcot, DROP))
+
+    args = (_rand(rng, dev, 1, 1, 128, V_PAD), _rand(rng, dev, 1, 1, 1, 1, scale=0.1),
+            0.5 + _rand(rng, dev, 1, 1, 1, 1, scale=0.1).abs(),
+            1.0 + _rand(rng, dev, 128, V_PAD, scale=0.1), _rand(rng, dev, 128, V_PAD),
+            _rand(rng, dev, 128, 128, scale=0.09), _rand(rng, dev, 128, scale=0.1),
+            _rand(rng, dev, 128, 1, scale=0.09), _rand(rng, dev, 1, scale=0.1))
+    gout = _rand(rng, dev, 1, 1, 1, V_PAD, scale=1e-3)
+    got = oh.ofc_bwd(ocfg, *args, gout, drop=DROP)
+    assert all(torch.equal(a, c) for a, c in zip(got, oh.ofc_bwd(ocfg, *args, gout, drop=DROP)))
+    _close_all(got, oh.ofc_bwd_reference(ocfg, *args, gout, DROP))
+
+
+def test_weight_gradient_tiles_on_many_lanes_through_k3b(dev):
+    """K3b's weight gradients on 65,536 lanes, where dck (256 x 256) takes the
+    128 x 128 tile and dcb the 128 x 16 one, against the plain version; a
+    repeat is bit-identical. (K2b and K4b have a ReLU: on 1e7 units two f32
+    orders disagree on a few decisions, which ``chip_smoke.py`` handles with
+    ``relu_checked``.)"""
+    ocfg, args, gcot = _ohead_case(np.random.default_rng(58), dev, *LANES_LARGE)
+    got = oh.ohead_bwd(ocfg, *args, *gcot, drop=DROP)
+    assert all(torch.equal(a, c) for a, c in zip(got, oh.ohead_bwd(ocfg, *args, *gcot, drop=DROP)))
+    _close_all(got, oh.ohead_bwd_reference(ocfg, *args, *gcot, DROP))
+
+
 @pytest.mark.parametrize("gct,ks,act", [("cheb_graph_conv", 3, "glu"),
                                         ("cheb_graph_conv", 2, "gtu"),
                                         ("cheb_graph_conv", 1, "relu"),
@@ -681,6 +786,31 @@ def test_k11_matches_plain(dev, n_vertex, bs, n):
                                **TOL)
     live = torch.arange(out1.shape[1], device=dev)[None, :] < op.pack.counts[:, None]
     assert not bool(out1[~live].any())
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 160])
+@pytest.mark.parametrize("bs", [64, 256])
+def test_k11_writes_padding_slots_over_nan(dev, bs, n):
+    """K11 at widths none, one, ragged around a 16-column step, and the 1M
+    route's; its output lands on memory filled with NaN just before, so the
+    padding slots must be written as zeros (and nothing read there); a
+    repeat is bit-identical."""
+    op = bcsr_graph_op(_rcm_gso(600), block_size=bs, device=dev)
+    assert bool((op.pack.counts < op.pack.cols.shape[1]).any())   # padding slots exist
+    rng = np.random.default_rng(8)
+    g, x = (_rand(rng, dev, op.n_vertex_pad, n) for _ in range(2))
+    args = (op.pack.cols, op.pack.counts, g, x)
+    filler = torch.full((*op.pack.cols.shape, bs, bs), float("nan"), device=dev)
+    ptr = filler.data_ptr()
+    del filler   # the caching allocator hands the same block to the kernel's output
+    out = sd.bcsr_sddmm(*args, block_size=bs)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr
+    assert not bool(out.isnan().any())
+    live = torch.arange(out.shape[1], device=dev)[None, :] < op.pack.counts[:, None]
+    assert not bool(out[~live].any())
+    assert torch.equal(out, sd.bcsr_sddmm(*args, block_size=bs))
+    torch.testing.assert_close(out, sd.bcsr_sddmm_reference(*args, block_size=bs), **TOL)
 
 
 def test_bcsr_autograd_matches_plain(dev):

@@ -3,6 +3,7 @@ entry points run on the card unless the caller asks for the CPU; a kernel
 wrapper runs its plain version only for a CPU tensor."""
 
 import ast
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -484,3 +485,20 @@ def test_every_source_is_built_and_hashed():
                     "fused_stblock_bwd.cu"}
     h = _build.source_hash()
     assert len(h) == 64 and h == _build.source_hash()
+
+
+def test_every_header_is_hashed_and_the_tile_header_is_shared(monkeypatch, tmp_path):
+    """The headers enter the source hash (editing the register tile
+    f32_tile.cuh rebuilds the library); the tile serves K11, the weight
+    gradients and K1b, and the retired nv_tile.cuh is gone."""
+    headers = {p.name for p in _build.SRC_DIR.glob("*.cuh")}
+    assert headers == {"bwd_blocks.cuh", "common.cuh", "csr_rows.cuh", "dropout.cuh",
+                       "f32_tile.cuh", "fused_stblock.cuh", "nv_rows.cuh"}
+    users = {p.name for p in _build.sources() if '#include "f32_tile.cuh"' in p.read_text()}
+    assert users == {"bcsr_sddmm.cu", "bwd_blocks.cu", "vertex_fused_bwd.cu"}
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    before = _build.source_hash()
+    (src / "f32_tile.cuh").write_text((src / "f32_tile.cuh").read_text() + "\n")
+    assert _build.source_hash() != before

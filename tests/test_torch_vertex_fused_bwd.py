@@ -5,6 +5,8 @@ with dropout through ``jax.vjp`` of ``head_reference`` fed the port's mask
 (the interpret mode's PRNG stub returns zero bits). Then the port's fused
 gradients against its unfused ones with dropout on."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +61,38 @@ def test_head_bwd_with_dropout_matches_jax_reference(gct, ks, act):
     y, vjp = jax.vjp(f, *_j([x, *ln, *w]))
     np.testing.assert_allclose(fwd.numpy(), np.asarray(y), atol=ATOL)
     assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gy)))
+
+
+@pytest.mark.parametrize("batch,c_in,apply_ln", [(1, 1, False), (2, 1, False), (1, 16, True)])
+def test_head_bwd_plain_matches_jax_reference_at_edge_shapes(batch, c_in, apply_ln):
+    """K1b's plain version against ``jax.vjp`` of the JAX ``head_reference``
+    at the shapes where the card kernel cuts its work differently: block 1's
+    (c_in 1, t_in 12, no LayerNorm; the JAX kernel floors c_in at 8), batch 1
+    (B·t1 < 64: the weight gradients cut each step's lanes), V = 150 of 256
+    lanes with nonzero inputs and cotangents on the padded lanes."""
+    _, cfg0 = _cfgs("cheb_graph_conv", 3, "glu", apply_ln)
+    jcfg0, _ = _cfgs("cheb_graph_conv", 3, "glu", apply_ln)
+    cfg = dataclasses.replace(cfg0, c_in=c_in)
+    jcfg = dataclasses.replace(jcfg0, c_in=c_in)
+    rng = np.random.default_rng(25)
+    x = rand(rng, batch, cfg.t_in, c_in, cfg.v_pad)
+    ln = (rand(rng, batch, cfg.t_in, 1, 1, scale=0.1),
+          (0.5 + rng.random((batch, cfg.t_in, 1, 1))).astype(np.float32),
+          1.0 + rand(rng, c_in, cfg.v_pad, scale=0.1), rand(rng, c_in, cfg.v_pad))
+    for a in ln[2:]:
+        a[:, cfg.v_true:] = 0.0
+    w = (rand(rng, cfg.kt, c_in, cfg.g1, scale=0.2), rand(rng, cfg.g1, scale=0.1),
+         rand(rng, cfg.c0, cfg.c1, scale=0.2), rand(rng, cfg.c1, scale=0.1))
+    gy = rand(rng, batch, cfg.t1, cfg.c1, cfg.v_pad)
+    got = tvf.head_bwd(cfg, t(x), *(map(t, ln) if apply_ln else [None] * 4), *map(t, w), t(gy))
+    if apply_ln:
+        y, vjp = jax.vjp(lambda x_, mu, rs, g_, b_, *w_: jvf.head_reference(
+            jcfg, x_, (mu, rs, g_, b_), w_), *_j([x, *ln, *w]))
+        assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gy)))
+    else:
+        y, vjp = jax.vjp(lambda x_, *w_: jvf.head_reference(jcfg, x_, None, w_), *_j([x, *w]))
+        assert got[1:5] == (None,) * 4
+        assert_grads([got[0].numpy()] + [g.numpy() for g in got[5:]], vjp(jnp.asarray(gy)))
 
 
 @pytest.mark.parametrize("gct,ks,act", GATE_CASES)
