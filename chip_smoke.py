@@ -116,11 +116,13 @@ Eighteen phases, each printing one JSON line with its own seconds:
    K1/K2 ×2, K3, K4, K5 pair ×2); every K1-K4 call of one fused training
    step at 100k held against its plain version; then, on a line of its own
    (``banded_100k_trace``), one fused step's backward traced by
-   ``torch.profiler`` (device ms by kernel name), each of that step's K1b
-   calls traced alone (its launches in order: block 1 and block 2), and K1b
-   block 2's weight gradient dc1k beside one ``torch.matmul`` of the same
-   product (K1b's "wgrad only" yardstick, in the K1b row of the kernels
-   line as ``wgrad_only_100k``); one batch's fused gradients
+   ``torch.profiler`` (device ms by kernel name), each of that step's K1b,
+   K2b and K3b calls traced alone (its launches in order: block 1 and block
+   2, and the head), K1b block 2's weight gradient dc1k beside one
+   ``torch.matmul`` of the same product (K1b's "wgrad only" yardstick, in
+   the K1b row of the kernels line as ``wgrad_only_100k``), and K3b's gate
+   pass beside one ``torch.matmul`` of its recompute (K3b's "recompute
+   only", ``recompute_only_100k`` in its row); one batch's fused gradients
    against unfused (the bound of phase 6); a fused ``Trainer.fit(1)`` with
    every step's loss (finite) and seconds and launches per step K1-K4 as in
    phase 6 plus K5 pair ×2 and chain ×2 (validation batches: the forward's);
@@ -1138,12 +1140,13 @@ def profile_once(torch, fn) -> dict:
 
 def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
     """One fused training step's backward traced by ``torch.profiler`` (its
-    kernels' device time by name), each K1b call of that step's recorded
-    calls traced alone (its launches in order, ``kernels/bwd_ab.py``'s
-    ``launches``), and K1b block 2's weight
-    gradient dc1k beside one ``torch.matmul`` of the same product
-    (``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``, random operands laid out for it
-    outside the timing): K1b's "wgrad only" yardstick."""
+    kernels' device time by name); each K1b, K2b and K3b call of that step's
+    recorded calls traced alone (its launches in order, ``kernels/bwd_ab.py``'s
+    ``launches``); and two yardsticks, each one ``torch.matmul`` on random
+    operands laid out for it outside the timing: K1b block 2's weight
+    gradient dc1k against the product ``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``
+    (K1b's "wgrad only"), and K3b's gate pass against its recompute
+    ``[B·Vp, ko·c_in] × [ko·c_in, g]`` (K3b's "recompute only")."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
@@ -1162,30 +1165,44 @@ def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
     step = profile_once(torch, lambda: torch.autograd.grad(loss, list(params.values()),
                                                            retain_graph=True))
     del model, params, pred, loss
-    heads, wgrad = {}, None
+
+    def matmul_ms(m, k, n):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        d = torch.randn((k, n), generator=gen, device="cuda")
+        return cuda_ms(lambda: torch.matmul(a, d), warmup=2, reps=10)
+
+    def pair(ev, key):   # the largest launch whose name holds key, with the one after it
+        i = max((j for j, e in enumerate(ev) if key in e["name"]), key=lambda j: ev[j]["ms"])
+        return ev[i]["ms"] + (ev[i + 1]["ms"] if i + 1 < len(ev) else 0.0)
+
+    traced: dict = {"head_bwd": {}, "tail_bwd": {}, "ohead_bwd": {}}
+    wgrad = recompute = None
     for name, label, args, kwargs in calls:
-        if name != "head_bwd":
+        if name not in traced:
             continue
         cfg = args[0]
         ev = launches(torch, lambda: kernels.WRAPPERS[name](*args, **kwargs))
-        heads[f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}"] = {
-            "device_ms": sum(e["ms"] for e in ev), "launches": ev}
-        if cfg.apply_ln:   # block 2: its dc1k product is the largest weight gradient
-            i = max((j for j, e in enumerate(ev) if "wgrad" in e["name"]),
-                    key=lambda j: ev[j]["ms"])
-            n = args[1].shape[0] * cfg.t1 * cfg.v_pad
-            gen = torch.Generator(device="cuda").manual_seed(3)
-            a = torch.randn((cfg.kt * cfg.c_in, n), generator=gen, device="cuda")
-            d = torch.randn((n, cfg.g1), generator=gen, device="cuda")
-            wgrad = {"shape": [cfg.kt * cfg.c_in, n, cfg.g1],
-                     "wgrad_ms": ev[i]["ms"] + (ev[i + 1]["ms"] if i + 1 < len(ev) else 0.0),
-                     "matmul_ms": cuda_ms(lambda: torch.matmul(a, d), warmup=2, reps=10),
+        key = (f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}" if name != "ohead_bwd"
+               else f"{label}: ko {cfg.ko}, c_in {cfg.c_in}")
+        traced[name][key] = {"device_ms": sum(e["ms"] for e in ev), "launches": ev}
+        b = args[1].shape[0]
+        if name == "head_bwd" and cfg.apply_ln:   # block 2: its dc1k is the largest wgrad
+            n = b * cfg.t1 * cfg.v_pad
+            wgrad = {"shape": [cfg.kt * cfg.c_in, n, cfg.g1], "wgrad_ms": pair(ev, "wgrad"),
+                     "matmul_ms": matmul_ms(cfg.kt * cfg.c_in, n, cfg.g1),
                      "bound_ms": 2 * cfg.kt * cfg.c_in * n * cfg.g1 / F32_FLOP_PER_S * 1e3}
-            del a, d
+        if name == "ohead_bwd":
+            n, k = b * cfg.v_pad, cfg.ko * cfg.c_in
+            gate = [e["ms"] for e in ev if "gate_pass" in e["name"]]
+            recompute = {"shape": [n, k, cfg.g], "gate_pass_ms": sum(gate),
+                         "matmul_ms": matmul_ms(n, k, cfg.g),
+                         "bound_ms": 2 * n * k * cfg.g / F32_FLOP_PER_S * 1e3}
     kernels.reset_launch_counts()
     torch.cuda.empty_cache()
     result = {"phase": f"{phase}_trace", "seconds": time.perf_counter() - t0,
-              "step_backward": step, "head_bwd": heads, "wgrad_only": wgrad}
+              "step_backward": step, **traced, "wgrad_only": wgrad,
+              "recompute_only": recompute}
     emit(result)
     return result
 
@@ -2902,11 +2919,11 @@ def main() -> int:
                 f"bound_ms_{tag}": sum(c["bound_ms"] for c in calls),
                 f"max_abs_err_{tag}": max(c["max_abs_err"] for c in calls)}
 
-    wg = b100["trace"]["wgrad_only"]
+    yard = {"head_bwd": {"wgrad_only_100k": b100["trace"]["wgrad_only"]},
+            "ohead_bwd": {"recompute_only_100k": b100["trace"]["recompute_only"]}}
     rows = [row(name, KERNEL_META[name], calls, launches=tr["launches"][name],
                 launches_forecast=sl["launches"][name], **at(b100, "100k", name),
-                **at(m1, "1m", name),
-                **({"wgrad_only_100k": wg} if name == "head_bwd" else {}))
+                **at(m1, "1m", name), **yard.get(name, {}))
             for name, calls in per_call.items()]
     fc = b100u["forecast_one_batch"]
     rows += [row(name, K5_META, calls, mode=name[3:], dtype="f32",

@@ -9,13 +9,13 @@ process of its own that builds its kernels (the harness, ``_ab.py``). Per
 tree it prints one JSON line: per kernel and shape the median CUDA-event
 milliseconds of ``--reps`` launches (after 3 of warm-up) on random inputs
 drawn from a fixed seed, and a SHA-256 of the outputs' bytes; under
-``trace`` the device launches of one K1b call of each block at each shape
-and of every kernel at PeMSD7(M)'s, in launch order, as ``torch.profiler``
-sees them; under ``yardstick`` the
-CUDA-event ms of one ``torch.matmul`` of block 2's ``dc1k`` product at the
-100k shape (``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``, operands laid out for it
-before the timing). Then the ``nvidia-smi`` name and power limit of the
-card.
+``trace`` the device launches of one call of K1b, K2b (each block) and K3b at
+each shape and of every kernel at PeMSD7(M)'s, in launch order, as
+``torch.profiler`` sees them; under ``yardstick`` the CUDA-event ms of one
+``torch.matmul`` of K1b block 2's ``dc1k`` product at the 100k shape
+(``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``) and one of K3b's recompute
+(``[B·Vp, ko·c_in] × [ko·c_in, g]``), operands laid out for each before the
+timing. Then the ``nvidia-smi`` name and power limit of the card.
 """
 
 from __future__ import annotations
@@ -39,8 +39,9 @@ K12_SHAPES = {"pemsd7m": (32, 228), "pemsbay": (512, 325)}
 def cases(torch, b: int, v_true: int, vp: int):
     """(name, wrapper, args, kwargs) of K1b (``head_bwd``: block 2's head,
     t_in 8; ``head_bwd_blk1``: block 1's, t_in 12, c_in 1, no LayerNorm), K2b
-    (block 1's tail, t_in 12), K3b and K4b at the main.py widths, dropout 0.5
-    on (K2b and block 1's head have no dropout site)."""
+    (``tail_bwd``: block 1's tail, t_in 12; ``tail_bwd_blk2``: block 2's,
+    t_in 8), K3b and K4b at the main.py widths, dropout 0.5 on (K2b and block
+    1's head have no dropout site)."""
     from stgcn_tpu_torch.kernels import output_head as oh
     from stgcn_tpu_torch.kernels import vertex_fused as vf
     from stgcn_tpu_torch.kernels.dropout import Drop
@@ -63,8 +64,17 @@ def cases(torch, b: int, v_true: int, vp: int):
                              v_true=v_true, v_pad=vp, t_in=12, c_in=1, c0=64, c1=16, c2=64,
                              apply_ln=False)
     head1 = dataclasses.replace(head, t_in=12, c_in=1, apply_ln=False)
+    tail2 = dataclasses.replace(tail, t_in=8, c_in=64, apply_ln=True)
     out = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func="glu",
                         v_true=v_true, v_pad=vp)
+
+    def tail_args(cfg):
+        t1, t2 = cfg.t1, cfg.t2
+        return (cfg, *(rnd(b, t1, 16, vp) for _ in range(3)), rnd(3, 16, 16, scale=48 ** -0.5),
+                rnd(16, scale=0.1), rnd(3, 16, 128, scale=48 ** -0.5), rnd(128, scale=0.1),
+                rnd(b, t2, 64, vp, scale=1e-3), rnd(b, t2, 1, 1, scale=1e-3),
+                rnd(b, t2, 1, 1, scale=1e-3))
+
     return [
         ("head_bwd", vf.head_bwd,
          (head, rnd(b, 8, 64, vp), *ln(8, 64), rnd(3, 64, 128, scale=192 ** -0.5),
@@ -74,11 +84,7 @@ def cases(torch, b: int, v_true: int, vp: int):
          (head1, rnd(b, 12, 1, vp), None, None, None, None, rnd(3, 1, 128, scale=3 ** -0.5),
           rnd(128, scale=0.1), rnd(64, 16, scale=0.125), rnd(16, scale=0.1),
           rnd(b, 10, 16, vp, scale=1e-3)), {}),
-        ("tail_bwd", vf.tail_bwd,
-         (tail, *(rnd(b, 10, 16, vp) for _ in range(3)), rnd(3, 16, 16, scale=48 ** -0.5),
-          rnd(16, scale=0.1), rnd(3, 16, 128, scale=48 ** -0.5), rnd(128, scale=0.1),
-          rnd(b, 8, 64, vp, scale=1e-3), rnd(b, 8, 1, 1, scale=1e-3),
-          rnd(b, 8, 1, 1, scale=1e-3)), {}),
+        ("tail_bwd", vf.tail_bwd, tail_args(tail), {}),
         ("ohead_bwd", oh.ohead_bwd,
          (out, rnd(b, 4, 64, vp), *ln(4, 64), rnd(4, 64, 256, scale=256 ** -0.5),
           rnd(256, scale=0.1), rnd(b, 1, 128, vp, scale=1e-3), rnd(b, 1, 1, 1, scale=1e-3),
@@ -87,6 +93,7 @@ def cases(torch, b: int, v_true: int, vp: int):
          (out, rnd(b, 1, 128, vp), *ln(1, 128), rnd(128, 128, scale=128 ** -0.5),
           rnd(128, scale=0.1), rnd(128, 1, scale=128 ** -0.5), rnd(1, scale=0.1),
           rnd(b, 1, 1, vp, scale=1e-3)), {"drop": Drop(0.5, 11, 3)}),
+        ("tail_bwd_blk2", vf.tail_bwd, tail_args(tail2), {}),
     ]
 
 
@@ -138,14 +145,19 @@ def launches(torch, fn) -> list:
 
 def yardstick(torch, reps: int) -> dict:
     """One ``torch.matmul`` of K1b block 2's ``dc1k`` product at the 100k
-    shape: ``[kt·c_in, n] × [n, g1]``, n = B·t1·Vp."""
+    shape, ``[kt·c_in, n] × [n, g1]`` with n = B·t1·Vp, and one of K3b's
+    recompute, ``[B·Vp, ko·c_in] × [ko·c_in, g]``."""
     b, _, vp = SHAPES["100k"]
-    n = b * 6 * vp
     gen = torch.Generator(device="cuda").manual_seed(2)
-    a = torch.randn((3 * 64, n), generator=gen, device="cuda")
-    d = torch.randn((n, 128), generator=gen, device="cuda") * 1e-3
-    ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
-    return {"shape": [3 * 64, n, 128], "ms": ms, "flops": 2 * 3 * 64 * n * 128}
+    out = {}
+    for key, (m, k, n) in {"k1b_dc1k": (3 * 64, b * 6 * vp, 128),
+                           "k3b_recompute": (b * vp, 4 * 64, 256)}.items():
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        d = torch.randn((k, n), generator=gen, device="cuda") * 1e-3
+        ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
+        out[key] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
+        del a, d
+    return out
 
 
 def run_one(tree: str, reps: int, data) -> dict:
@@ -164,7 +176,7 @@ def run_one(tree: str, reps: int, data) -> dict:
             key = f"{name}/{shape}"
             result["ms"][key], result["sha256"][key] = _ab.timed(
                 torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
-            if name.startswith("head_bwd") or shape == "pemsd7m":
+            if name.startswith(("head_bwd", "tail_bwd", "ohead_bwd")) or shape == "pemsd7m":
                 result["trace"][key] = launches(torch, lambda: wrapper(*args, **kwargs))
         del made
         torch.cuda.empty_cache()

@@ -4,20 +4,22 @@
 // `_ohead_pallas_bwd`, `_ofc_pallas_bwd`) recompute their forward per tile
 // and accumulate weight gradients in output blocks that stay resident
 // across a sequential grid. CUDA blocks run in no order, so here each
-// backward is a short pipeline of launches on one stream: K2b-K4b run the
-// recompute and the data gradients one thread per vertex lane (contract,
-// gate_bwd) with the block's intermediates in a workspace in device memory
-// (K1b runs its own fused pair on the register tile, vertex_fused_bwd.cu),
-// and every reduction over (batch, time, vertex) is done by a block that
-// owns its outputs (weight gradients: partials per slice of the reduction
-// on the register tile of f32_tile.cuh, then a fixed-order sum; LayerNorm
+// backward is a short pipeline of launches on one stream, and every
+// reduction over (batch, time, vertex) is done by a block that owns its
+// outputs (weight gradients: partials per slice of the reduction on the
+// register tile of f32_tile.cuh, then a fixed-order sum; LayerNorm
 // statistics one block per (b, t); the (V, C) affine gradients one thread
 // per (c, v)). No float atomics.
 //
+// K1b, K2b and K3b recompute their gated conv, run its gate backward and
+// take its data gradient in fused passes on the same tile (gate_pass_kernel,
+// gate_dx_kernel, K2b's tail_dr_kernel below), so the pre-activations never
+// reach device memory. K4b and K12b still run their contractions one thread
+// per vertex lane (contract, gate_bwd) with the intermediates in a
+// workspace in device memory.
+//
 // What bounds them on the H100: the channel contractions and the weight
 // gradients are float32 FMA issue, the elementwise passes are bytes.
-// K2b-K4b keep their intermediates in device memory instead of on chip;
-// fusing them back is later work (PERF.md).
 #include "bwd_blocks.cuh"
 
 #include "f32_tile.cuh"
@@ -108,8 +110,7 @@ __global__ void ln_drop_kernel(const float* __restrict__ x, const float* __restr
 }
 
 __global__ void gate_bwd_kernel(const float* __restrict__ s, Cv res, int res_shift,
-                                const float* __restrict__ da, const float* __restrict__ gps,
-                                const float* __restrict__ gpss, int v_true, int act, int c_out,
+                                const float* __restrict__ da, int act, int c_out,
                                 float* __restrict__ ds, float* __restrict__ dxin,
                                 float* __restrict__ a_out, int t_len, int vp, size_t n) {
   const bool gated = act == kGlu || act == kGtu;
@@ -124,10 +125,9 @@ __global__ void gate_bwd_kernel(const float* __restrict__ s, Cv res, int res_shi
     const size_t si = (bt * g + c) * vp + v;
     const float xin = c < res.c
         ? res.p[((size_t)(b * res.t + t + res_shift) * res.c + c) * vp + v] : 0.0f;
-    const bool add = gps && v < v_true;
     float dp, dq, av;
-    gate_point_bwd(act, s[si], gated ? s[si + (size_t)c_out * vp] : 0.0f, xin, da[i], add,
-                   add ? gps[bt] : 0.0f, add ? gpss[bt] : 0.0f, dp, dq, av);
+    gate_point_bwd(act, s[si], gated ? s[si + (size_t)c_out * vp] : 0.0f, xin, da[i], false,
+                   0.0f, 0.0f, dp, dq, av);
     if (gated) ds[si + (size_t)c_out * vp] = dq;
     ds[si] = dp;
     dxin[i] = dp;
@@ -481,6 +481,428 @@ __global__ void ln_bwd_affine_kernel(const float* __restrict__ x, const float* _
   dlnb[i] = sb;
 }
 
+// ---- the fused backward passes on the shared float32 tile ----------------
+//
+// K1b, K2b and K3b each recompute a gated temporal conv's pre-activations
+// and run the gate backward on them, then take the conv's data gradient.
+// Both run here on the register tile of f32_tile.cuh, as K1's gate GEMM
+// runs its forward: the pre-activations live only in the tile's registers
+// (they were 3.3 GB a K2b call at 100k when written out), the gate backward
+// is the tile's epilogue, and the residual's gradient dxin, ds's linear half
+// on the input channels, is read back from ds by the data gradient instead
+// of being written apart.
+
+constexpr int kGateLanes = 64;   // lanes of a gate-pass block
+
+// the gate pass's tile: gate channels (p then q, 64 each) x 64 lanes, 8 x 8 a
+// thread, 3 blocks a SM (168 registers a thread: at 128 it spilled and ran
+// 8-12 % slower, as the data gradient's tile did)
+template <bool GATED>
+using GateCfg = f32tile::Cfg<GATED ? 128 : 64, kGateLanes, 16, GATED ? 8 : 4, 8, 3>;
+
+// grid (Vp / 64, t_out * passes, B): for lanes v0 .. v0+63 of output step t
+// and gate channels s0 .. s0+63 (pass s0 / 64, so a small batch still fills
+// the card), s = bias + sum over rows (k, c) of w[k, c, :] x[b, t+k, c, :]
+// (rows ascending, as the forward's tconv), then the upstream gradient da
+// by the policy (HEAD: gy . gaw^T, o ascending; else ga, plus the
+// LayerNorm-partial cotangents on true lanes inside gate_point_bwd), then
+// the gate backward with the in-gate residual x[b, t + kt - 1, c] (c <
+// c_in): ds [B, t_out, G, Vp] and, HEAD, a [B, t_out, c0, Vp]. The policy
+// is a template parameter: a runtime branch would cost the tile registers.
+template <bool GATED, bool HEAD>
+__global__ void __launch_bounds__(GateCfg<GATED>::kThreads, GateCfg<GATED>::kMinBlocks)
+gate_pass_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ bias, GateUp up, float* __restrict__ ds,
+                 float* __restrict__ a_out, int t_in, int c_in, int vp, int kt, int c0,
+                 int act) {
+  using C = GateCfg<GATED>;
+  using SX = f32tile::RSlots<C, kGateLanes>;
+  constexpr int kWPer = C::BK * C::BM / C::kThreads;   // weight values a thread stages
+  constexpr int kUp = HEAD ? kMaxOut : 1;              // the head policy's staged rows
+  __shared__ __align__(16) f32tile::Smem<C> sm;
+  __shared__ __align__(16) float gy_s[kUp][kGateLanes];   // gy[b, t, o, v0 + l]
+  __shared__ __align__(16) float gw_s[kUp][64];           // gaw[s0 + c, o] as [o][c]
+  const int t_out = t_in - kt + 1;
+  const int v0 = blockIdx.x * kGateLanes, t = blockIdx.y % t_out, b = blockIdx.z;
+  const int s0 = blockIdx.y / t_out * 64, g = GATED ? 2 * c0 : c0, rows = kt * c_in;
+  const size_t st = (size_t)b * t_out + t;   // the output step
+  const f32tile::Pos<C> pos;
+
+  if constexpr (HEAD) {   // published by the stage loop's first barrier
+    for (int i = threadIdx.x; i < kMaxOut * kGateLanes; i += C::kThreads) {
+      const int o = i / kGateLanes, l = i % kGateLanes;
+      gy_s[o][l] = o < up.c1 ? up.gy[(st * up.c1 + o) * vp + v0 + l] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < kMaxOut * 64; i += C::kThreads) {
+      const int c = i / kMaxOut, o = i % kMaxOut;
+      gw_s[o][c] = (s0 + c < c0 && o < up.c1) ? up.gaw[(size_t)(s0 + c) * up.c1 + o] : 0.0f;
+    }
+  }
+
+  // the weight column a thread stages: tile row wj (p rows, then q rows)
+  const int wj = threadIdx.x % C::BM, wk0 = (threadIdx.x / C::BM) * kWPer;
+  float acc[C::TM][C::TN];
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int j = pos.row(i), c = s0 + (j & 63);
+    const float bv = c < c0 ? bias[j < 64 ? c : c0 + c] : 0.0f;
+#pragma unroll
+    for (int l = 0; l < C::TN; ++l) acc[i][l] = bv;
+  }
+  const int wc = s0 + (wj & 63);
+  const float* wcol = wc < c0 ? w + (wj < 64 ? wc : c0 + wc) : nullptr;
+  float wv[kWPer];
+  float4 xv[SX::kSlots];
+  auto load = [&](int step) {
+    const int r0 = step * C::BK;
+#pragma unroll
+    for (int q = 0; q < kWPer; ++q) {
+      const int r = r0 + wk0 + q;
+      wv[q] = wcol && r < rows ? __ldg(wcol + (size_t)r * g) : 0.0f;
+    }
+#pragma unroll
+    for (int p = 0; p < SX::kSlots; ++p) {
+      const int r = r0 + SX::k(p);
+      xv[p] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < rows) {
+        const int k = r / c_in, c = r - k * c_in;
+        xv[p] = __ldg(reinterpret_cast<const float4*>(
+            x + ((size_t)(b * t_in + t + k) * c_in + c) * vp + v0 + SX::roff(p)));
+      }
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < kWPer; ++q) sm.a[buf][wk0 + q][wj] = wv[q];
+    SX::store(sm.b[buf], xv);
+  };
+  const int steps = (rows + C::BK - 1) / C::BK;
+  f32tile::stage_loop<C>(sm, pos, steps, acc, load, store, rows - (steps - 1) * C::BK);
+
+  float gp = 0.0f, gq = 0.0f;   // the cotangent policy's LayerNorm-partial cotangents
+  if constexpr (!HEAD) {
+    gp = up.gps[st];
+    gq = up.gpss[st];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = s0 + 4 * pos.ty + i;
+    float da[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) da[l] = 0.0f;
+    if constexpr (HEAD) {
+      for (int o = 0; o < up.c1; ++o) {   // da = gy . gaw^T, o ascending
+        const float wo = gw_s[o][4 * pos.ty + i];
+        float gv[8];
+        f32tile::ld4(gv, &gy_s[o][4 * pos.tx]);
+        f32tile::ld4(gv + 4, &gy_s[o][kGateLanes / 2 + 4 * pos.tx]);
+#pragma unroll
+        for (int l = 0; l < 8; ++l) da[l] = fmaf(gv[l], wo, da[l]);
+      }
+    }
+    if (c >= c0) continue;
+    const size_t srow = st * g + c, arow = st * c0 + c;
+    const float* xr = x + ((size_t)(b * t_in + t + kt - 1) * c_in + c) * vp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {   // lanes 4 tx .. and 32 + 4 tx ..
+      const int v = v0 + h * (kGateLanes / 2) + 4 * pos.tx;
+      float xin[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (c < c_in) f32tile::ld4(xin, xr + v);
+      if constexpr (!HEAD) f32tile::ld4(da + 4 * h, up.gy + arow * vp + v);
+      float dp[4], dq[4], av[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        gate_point_bwd(act, acc[i][4 * h + u], GATED ? acc[C::TM - 4 + i][4 * h + u] : 0.0f,
+                       xin[u], da[4 * h + u], !HEAD && v + u < up.v_true, gp, gq, dp[u],
+                       dq[u], av[u]);
+      *reinterpret_cast<float4*>(ds + srow * vp + v) = make_float4(dp[0], dp[1], dp[2], dp[3]);
+      if (GATED)
+        *reinterpret_cast<float4*>(ds + (srow + c0) * vp + v) =
+            make_float4(dq[0], dq[1], dq[2], dq[3]);
+      if constexpr (HEAD)
+        *reinterpret_cast<float4*>(a_out + arow * vp + v) =
+            make_float4(av[0], av[1], av[2], av[3]);
+    }
+  }
+}
+
+// the data gradient's tile: 64 output channels x 128 lanes, 8 x 8 a thread,
+// 3 blocks a SM
+using DxWide = f32tile::Cfg<64, 128, 16, 8, 8, 3>;
+// K2b's: its c1 = 16 output channels x 128 lanes, 4 x 8 a thread (DxWide's
+// 64 rows would waste three quarters of its FMAs), 6 blocks a SM (at 128
+// registers a thread its epilogue spilled)
+using DxNarrow = f32tile::Cfg<kMaxOut, 128, 16, 4, 8, 6>;
+
+// The data gradient's product for one block tile: acc[o, l] = sum over taps
+// k = k_lo .. k_hi, then g < G, of w[k, o0 + o, g] ds[b, t - k, g, v0 + l]
+// (rows o0 + o < c_out of w [kt, c_out, G]; ds [B, t_out, G, Vp]).
+template <class C>
+__device__ __forceinline__ void dx_product(f32tile::Smem<C>& sm, const f32tile::Pos<C>& pos,
+                                           float (&acc)[C::TM][C::TN],
+                                           const float* __restrict__ ds,
+                                           const float* __restrict__ w, int b, int t, int o0,
+                                           int v0, int c_out, int vp, int t_out, int g_n,
+                                           int k_lo, int k_hi) {
+  using SX = f32tile::RSlots<C, C::BN>;
+  constexpr int kWPer = C::BK * C::BM / C::kThreads;
+  static_assert(kWPer >= 1 && C::BK * C::BM % C::kThreads == 0, "weight staging divides");
+  const int per_tap = (g_n + C::BK - 1) / C::BK;
+  const int steps = k_hi >= k_lo ? (k_hi - k_lo + 1) * per_tap : 0;
+  float wv[kWPer];
+  float4 xv[SX::kSlots];
+  auto load = [&](int st) {
+    const int k = k_lo + st / per_tap, g0 = (st % per_tap) * C::BK;
+#pragma unroll
+    for (int q = 0; q < kWPer; ++q) {
+      const int e = threadIdx.x + q * C::kThreads, kk = e % C::BK, o = o0 + e / C::BK;
+      wv[q] = o < c_out && g0 + kk < g_n ? __ldg(w + ((size_t)k * c_out + o) * g_n + g0 + kk)
+                                         : 0.0f;
+    }
+    const float* xs = ds + ((size_t)(b * t_out + t - k) * g_n + g0) * vp + v0;
+#pragma unroll
+    for (int p = 0; p < SX::kSlots; ++p)
+      xv[p] = g0 + SX::k(p) < g_n
+                  ? __ldg(reinterpret_cast<const float4*>(xs + (size_t)SX::k(p) * vp +
+                                                          SX::roff(p)))
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < kWPer; ++q) {
+      const int e = threadIdx.x + q * C::kThreads;
+      sm.a[buf][e % C::BK][e / C::BK] = wv[q];
+    }
+    SX::store(sm.b[buf], xv);
+  };
+  f32tile::stage_loop<C>(sm, pos, steps, acc, load, store);
+}
+
+// grid (t_in, Vp / BN, B), t fastest so the kt output steps that read one
+// step of ds run together:
+//   dx[b, t, o, :] = sum over taps k with 0 <= t - k < t_out, then g < G, of
+//                    ds[b, t - k, g, :] w[k, o, g]  + ds[b, t - kt + 1, o, :]
+// (the last term the residual's gradient dxin, where that step exists).
+template <class C>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+gate_dx_kernel(const float* __restrict__ ds, const float* __restrict__ w,
+               float* __restrict__ dx, int t_in, int c_in, int vp, int kt, int g_n) {
+  __shared__ __align__(16) f32tile::Smem<C> sm;
+  const int t = blockIdx.x, v0 = blockIdx.y * C::BN, b = blockIdx.z;
+  const int t_out = t_in - kt + 1;
+  const int k_lo = t - t_out + 1 > 0 ? t - t_out + 1 : 0, k_hi = t < kt - 1 ? t : kt - 1;
+  const int ta = t - (kt - 1);   // the residual's step in ds
+  const f32tile::Pos<C> pos;
+  for (int o0 = 0; o0 < c_in; o0 += C::BM) {
+    float acc[C::TM][C::TN];
+    f32tile::zero<C>(acc);
+    dx_product<C>(sm, pos, acc, ds, w, b, t, o0, v0, c_in, vp, t_out, g_n, k_lo, k_hi);
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      const int o = o0 + pos.row(i);
+      if (o >= c_in) continue;
+      float* yr = dx + ((size_t)(b * t_in + t) * c_in + o) * vp + v0;
+      const float* ar = ta >= 0 && ta < t_out
+                            ? ds + ((size_t)(b * t_out + ta) * g_n + o) * vp + v0
+                            : nullptr;
+#pragma unroll
+      for (int j = 0; j < C::TN; j += 4) {
+        const int l = pos.col(j);
+        float y[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]};
+        if (ar) {
+          float add[4];
+          f32tile::ld4(add, ar + l);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) y[u] += add[u];
+        }
+        *reinterpret_cast<float4*>(yr + l) = make_float4(y[0], y[1], y[2], y[3]);
+      }
+    }
+  }
+}
+
+// A narrow input (K1b block 1: c_in = 1) leaves too few output channels for a
+// tile; there one thread takes 4 lanes and walks the steps of ds once, in
+// order, adding each step's taps into a window of the kt output steps it
+// reaches (registers); the oldest is then complete and is written. ds is
+// read once (it is 4.1 GB at 100k), where the tile reads it kt times.
+constexpr int kDxNarrow = 4;      // most input channels of the lane kernel
+constexpr int kDxTaps = 4;        // most taps of the lane kernel
+constexpr int kDxThreads = 64;
+
+// grid (ceil(Vp / (4 kDxThreads)), B, chunks), dynamic shared memory
+// G * kt * c_in floats (the weights as [g][k][o]); block z writes the
+// output steps [z t_chunk, z t_chunk + t_chunk), walking ds from kt - 1
+// steps before them (a small problem, PeMSD7(M)'s, cuts the steps so that
+// enough threads run); the sums of dx[b, t, o, :] as gate_dx_kernel's,
+// the taps taken k = kt-1 .. 0 (steps t - k ascending).
+__global__ void __launch_bounds__(kDxThreads)
+gate_dx_lanes_kernel(const float* __restrict__ ds, const float* __restrict__ w,
+                     float* __restrict__ dx, int t_in, int c_in, int vp, int kt, int g_n,
+                     int t_chunk) {
+  extern __shared__ float4 dx_smem4[];
+  float* w_s = reinterpret_cast<float*>(dx_smem4);
+  const int n = kt * c_in;
+  for (int i = threadIdx.x; i < g_n * n; i += kDxThreads) {
+    const int g = i / n, r = i % n, k = r / c_in, o = r % c_in;
+    w_s[i] = w[((size_t)k * c_in + o) * g_n + g];
+  }
+  __syncthreads();
+  const int v = (blockIdx.x * kDxThreads + threadIdx.x) * 4, b = blockIdx.y;
+  if (v >= vp) return;
+  const int t_out = t_in - kt + 1;
+  float4 win[kDxTaps][kDxNarrow];   // win[k][o]: output step tp + k
+#pragma unroll
+  for (int k = 0; k < kDxTaps; ++k)
+#pragma unroll
+    for (int o = 0; o < kDxNarrow; ++o) win[k][o] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int t0 = blockIdx.z * t_chunk, t_end = t0 + t_chunk < t_in ? t0 + t_chunk : t_in;
+  for (int tp = t0 - (kt - 1) > 0 ? t0 - (kt - 1) : 0; tp < t_end; ++tp) {
+    if (tp < t_out) {   // ds step tp reaches output steps tp .. tp + kt - 1
+      const float* xs = ds + (size_t)(b * t_out + tp) * g_n * vp + v;
+#pragma unroll 4
+      for (int g = 0; g < g_n; ++g) {
+        const float4 xq = __ldg(reinterpret_cast<const float4*>(xs + (size_t)g * vp));
+        const float* wg = w_s + g * n;
+#pragma unroll
+        for (int k = 0; k < kDxTaps; ++k) {
+          if (k >= kt) break;
+#pragma unroll
+          for (int o = 0; o < kDxNarrow; ++o) {
+            if (o >= c_in) break;
+            const float wk = wg[k * c_in + o];
+            win[k][o].x = fmaf(xq.x, wk, win[k][o].x);
+            win[k][o].y = fmaf(xq.y, wk, win[k][o].y);
+            win[k][o].z = fmaf(xq.z, wk, win[k][o].z);
+            win[k][o].w = fmaf(xq.w, wk, win[k][o].w);
+          }
+        }
+      }
+    }
+    const int ta = tp - (kt - 1);   // the residual's step in ds
+#pragma unroll
+    for (int o = 0; o < kDxNarrow; ++o) {
+      if (o >= c_in || tp < t0) break;
+      float4 y = win[0][o];
+      if (ta >= 0 && ta < t_out) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(
+            ds + ((size_t)(b * t_out + ta) * g_n + o) * vp + v));
+        y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
+      }
+      *reinterpret_cast<float4*>(dx + ((size_t)(b * t_in + tp) * c_in + o) * vp + v) = y;
+    }
+#pragma unroll
+    for (int k = 0; k + 1 < kDxTaps; ++k)
+#pragma unroll
+      for (int o = 0; o < kDxNarrow; ++o) win[k][o] = win[k + 1][o];
+#pragma unroll
+    for (int o = 0; o < kDxNarrow; ++o) win[kDxTaps - 1][o] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// K2b's data gradient on the DxNarrow tile. The staging buffers of the
+// product are free once it ends; the dr tile takes their place.
+union TailDrSmem {
+  f32tile::Smem<DxNarrow> tile;
+  float dr[kMaxOut][DxNarrow::BN + 4];
+};
+
+// grid (t1, Vp / 128, B), t fastest:
+//   dr[b, t, o, :] = (sum over taps k with 0 <= t - k < t2, then g < g2, of
+//                     ds2[b, t - k, g, :] c2k[k, o, g] + ds2[b, t - kt + 1, o, :])
+//                    * (h[b, t, o, :] > 0)                                    (o < c1)
+// then, from the dr tile staged in shared memory, the graph terms'
+// gradients, each sum o ascending from 0:
+//   dxg[c] = (sum over o of gcw[0][c, o] dr[o], Chebyshev only: xg is the
+//            term T_0) + dr[c],     dt_i[c] = sum over o of gcw[i + cheb][c, o] dr[o].
+// dr is written for the graph weights' gradients; the three products on it
+// cost an eighth of the tile's FMAs and no second read of dr.
+__global__ void __launch_bounds__(DxNarrow::kThreads, DxNarrow::kMinBlocks)
+tail_dr_kernel(const float* __restrict__ ds2, const float* __restrict__ c2k,
+               const float* __restrict__ h, const float* __restrict__ gcw,
+               float* __restrict__ dr, float* __restrict__ dxg, float* __restrict__ dt_a,
+               float* __restrict__ dt_b, int t1, int c1, int vp, int kt, int g2, int n_terms,
+               int cheb) {
+  using C = DxNarrow;
+  __shared__ __align__(16) TailDrSmem sm;
+  __shared__ __align__(16) float gw_s[3][kMaxOut][kMaxOut];   // gcw[m][c][o] as [m][o][c]
+  const int t = blockIdx.x, v0 = blockIdx.y * C::BN, b = blockIdx.z;
+  const int t2 = t1 - kt + 1, n_c = n_terms + cheb;
+  const int k_lo = t - t2 + 1 > 0 ? t - t2 + 1 : 0, k_hi = t < kt - 1 ? t : kt - 1;
+  const int ta = t - (kt - 1);   // the residual's step in ds2
+  const f32tile::Pos<C> pos;
+  for (int i = threadIdx.x; i < 3 * kMaxOut * kMaxOut; i += C::kThreads) {
+    const int m = i / (kMaxOut * kMaxOut), o = i / kMaxOut % kMaxOut, c = i % kMaxOut;
+    gw_s[m][o][c] = m < n_c && o < c1 && c < c1 ? gcw[((size_t)m * c1 + c) * c1 + o] : 0.0f;
+  }
+  float acc[C::TM][C::TN];
+  f32tile::zero<C>(acc);
+  dx_product<C>(sm.tile, pos, acc, ds2, c2k, b, t, 0, v0, c1, vp, t2, g2, k_lo, k_hi);
+
+  const size_t row0 = (size_t)(b * t1 + t) * c1;
+#pragma unroll
+  for (int i = 0; i < C::TM; ++i) {
+    const int o = pos.row(i);
+#pragma unroll
+    for (int j = 0; j < C::TN; j += 4) {
+      const int l = pos.col(j);
+      float y[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (o < c1) {
+        const size_t at = (row0 + o) * vp + v0 + l;
+        float add[4] = {0.0f, 0.0f, 0.0f, 0.0f}, hv[4];
+        if (ta >= 0 && ta < t2)
+          f32tile::ld4(add, ds2 + ((size_t)(b * t2 + ta) * g2 + o) * vp + v0 + l);
+        f32tile::ld4(hv, h + at);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          y[u] = acc[i][j + u];
+          if (ta >= 0 && ta < t2) y[u] += add[u];
+          if (!(hv[u] > 0.0f)) y[u] = 0.0f;
+        }
+        *reinterpret_cast<float4*>(dr + at) = make_float4(y[0], y[1], y[2], y[3]);
+      }
+      *reinterpret_cast<float4*>(&sm.dr[o][l]) = make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+  __syncthreads();
+  for (int q = 0; q <= n_terms; ++q) {   // dxg, then each term's gradient
+    const int m = q == 0 ? 0 : q - 1 + cheb;
+    float* out = q == 0 ? dxg : (q == 1 ? dt_a : dt_b);
+    f32tile::zero<C>(acc);
+    if (q > 0 || cheb) {
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o) {
+        float wv[4], dv[8];
+        f32tile::ld4(wv, &gw_s[m][o][4 * pos.ty]);
+        f32tile::ld4(dv, &sm.dr[o][4 * pos.tx]);
+        f32tile::ld4(dv + 4, &sm.dr[o][C::BN / 2 + 4 * pos.tx]);
+#pragma unroll
+        for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+          for (int j = 0; j < C::TN; ++j) acc[i][j] = fmaf(dv[j], wv[i], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      const int c = pos.row(i);
+      if (c >= c1) continue;
+#pragma unroll
+      for (int j = 0; j < C::TN; j += 4) {
+        const int l = pos.col(j);
+        float y[4] = {acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]};
+        if (q == 0) {
+          float self[4];
+          f32tile::ld4(self, &sm.dr[c][l]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) y[u] += self[u];
+        }
+        *reinterpret_cast<float4*>(out + (row0 + c) * vp + v0 + l) =
+            make_float4(y[0], y[1], y[2], y[3]);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 cudaError_t launch_contract(const ContractArgs& a, cudaStream_t stream) {
@@ -503,13 +925,12 @@ cudaError_t launch_ln_drop(const float* x, const float* mu, const float* rstd, c
   return cudaGetLastError();
 }
 
-cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da,
-                            const float* gps, const float* gpss, int v_true, int act, int c_out,
-                            float* ds, float* dxin, float* a_out, int batch, int t, int vp,
-                            cudaStream_t stream) {
+cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da, int act,
+                            int c_out, float* ds, float* dxin, float* a_out, int batch, int t,
+                            int vp, cudaStream_t stream) {
   const size_t n = (size_t)batch * t * c_out * vp;
-  gate_bwd_kernel<<<ew_blocks(n), kEwThreads, 0, stream>>>(
-      s, res, res_shift, da, gps, gpss, v_true, act, c_out, ds, dxin, a_out, t, vp, n);
+  gate_bwd_kernel<<<ew_blocks(n), kEwThreads, 0, stream>>>(s, res, res_shift, da, act, c_out, ds,
+                                                           dxin, a_out, t, vp, n);
   return cudaGetLastError();
 }
 
@@ -582,6 +1003,60 @@ cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, co
   }
   ln_bwd_affine_kernel<<<(c * vp + 255) / 256, 256, 0, stream>>>(x, mu, rstd, drop, dy, dlng,
                                                                  dlnb, batch * t, c, vp);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gate_pass(const float* x, const float* w, const float* bias, GateUp up,
+                             float* ds, float* a_out, int batch, int t_in, int c_in, int vp,
+                             int kt, int c0, int act, cudaStream_t stream) {
+  const bool head = up.gaw != nullptr;
+  if (vp % kGateLanes != 0 || (head && up.c1 > kMaxOut) || t_in < kt) return cudaErrorInvalidValue;
+  const dim3 grid(vp / kGateLanes, (t_in - kt + 1) * ((c0 + 63) / 64), batch);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  auto run = [&](auto kernel, int threads) {
+    kernel<<<grid, threads, 0, stream>>>(x, w, bias, up, ds, a_out, t_in, c_in, vp, kt, c0, act);
+  };
+  const int gated = GateCfg<true>::kThreads, plain = GateCfg<false>::kThreads;
+  if (act == kGlu || act == kGtu)
+    head ? run(gate_pass_kernel<true, true>, gated) : run(gate_pass_kernel<true, false>, gated);
+  else
+    head ? run(gate_pass_kernel<false, true>, plain) : run(gate_pass_kernel<false, false>, plain);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gate_dx(const float* ds, const float* w, float* dx, int batch, int t_in,
+                           int c_in, int vp, int kt, int g, cudaStream_t stream) {
+  if (vp % DxWide::BN != 0 || t_in < kt) return cudaErrorInvalidValue;
+  if (c_in <= kDxNarrow && kt <= kDxTaps) {
+    const size_t smem = sizeof(float) * (size_t)g * kt * c_in;
+    const cudaError_t err = set_smem(gate_dx_lanes_kernel, smem);
+    if (err != cudaSuccess) return err;
+    // steps a block: all of them where the lanes alone give 8 threads per
+    // FP32 lane of the card (2^17), fewer below that
+    const long long threads = (long long)(vp / 4) * batch;
+    long long chunks = ((1LL << 17) + threads - 1) / threads;
+    chunks = chunks < 1 ? 1 : (chunks > t_in ? t_in : chunks);
+    const int t_chunk = (int)((t_in + chunks - 1) / chunks);
+    gate_dx_lanes_kernel<<<dim3((vp + 4 * kDxThreads - 1) / (4 * kDxThreads), batch,
+                                (t_in + t_chunk - 1) / t_chunk),
+                           kDxThreads, smem, stream>>>(ds, w, dx, t_in, c_in, vp, kt, g,
+                                                       t_chunk);
+  } else {
+    gate_dx_kernel<DxWide><<<dim3(t_in, vp / DxWide::BN, batch), DxWide::kThreads, 0, stream>>>(
+        ds, w, dx, t_in, c_in, vp, kt, g);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tail_dr(const float* ds2, const float* c2k, const float* h, const float* gcw,
+                           float* dr, float* dxg, float* dt_a, float* dt_b, int batch, int t1,
+                           int c1, int vp, int kt, int g2, int n_terms, int cheb,
+                           cudaStream_t stream) {
+  if (vp % DxNarrow::BN != 0 || c1 > kMaxOut || t1 < kt || n_terms < 0 || n_terms > 2 ||
+      n_terms + cheb < 1 || n_terms + cheb > 3)
+    return cudaErrorInvalidValue;
+  tail_dr_kernel<<<dim3(t1, vp / DxNarrow::BN, batch), DxNarrow::kThreads, 0, stream>>>(
+      ds2, c2k, h, gcw, dr, dxg, dt_a, dt_b, t1, c1, vp, kt, g2, n_terms, cheb);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
-// Building blocks of the backward kernels K1b-K4b (vertex_fused_bwd.cu,
-// output_head_bwd.cu). Every operand is a cv tensor [B, T, C, Vp] float32
-// with Vp a multiple of kLanes. Each launcher returns the cudaError_t of
-// its launch. No block adds into memory another block writes: weight
-// gradients go through per-slice partials and a fixed-order second pass,
-// so a repeated backward is bit-identical.
+// Building blocks of the backward kernels K1b-K4b and K12b (vertex_fused_bwd.cu,
+// output_head_bwd.cu, fused_stblock_bwd.cu). Every operand is a cv tensor
+// [B, T, C, Vp] float32 with Vp a multiple of kLanes. Each launcher returns
+// the cudaError_t of its launch. No block adds into memory another block
+// writes: weight gradients go through per-slice partials and a fixed-order
+// second pass, so a repeated backward is bit-identical.
 #pragma once
 
 #include <initializer_list>
@@ -69,14 +69,12 @@ cudaError_t launch_ln_drop(const float* x, const float* mu, const float* rstd, c
 // Backward of the gate with its in-gate residual, elementwise over
 // s [B, T, G, Vp] (G = 2*c_out gated, c_out otherwise). xin = res[b, t +
 // res_shift, c, v] for c < res.c, else 0. The upstream gradient is da
-// [B, T, c_out, Vp], plus, when gps is given, the LayerNorm-partial
-// cotangents (gps[b, t] + 2 * gpss[b, t] * a) on lanes v < v_true. Writes
-// ds [B, T, G, Vp], dxin [B, T, c_out, Vp] and, when given, a_out (the
-// forward gate value).
-cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da,
-                            const float* gps, const float* gpss, int v_true, int act, int c_out,
-                            float* ds, float* dxin, float* a_out, int batch, int t, int vp,
-                            cudaStream_t stream);
+// [B, T, c_out, Vp]. Writes ds [B, T, G, Vp], dxin [B, T, c_out, Vp] and,
+// when given, a_out (the forward gate value). (K12b; K1b-K3b run the gate
+// backward in their gate pass, launch_gate_pass.)
+cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da, int act,
+                            int c_out, float* ds, float* dxin, float* a_out, int batch, int t,
+                            int vp, cudaStream_t stream);
 
 // The gate backward at one point: the gate value av of the pre-activations
 // p (and, gated, q) with the residual xin, and the gradients dp, dq for the
@@ -115,6 +113,53 @@ __device__ __forceinline__ void gate_point_bwd(int act, float p, float q, float 
     }
   }
 }
+
+// The upstream gradient of a fused gate pass (launch_gate_pass), one of two
+// policies, fixed at compile time inside the kernel:
+//  - head (K1b; gaw given): da = gy . gaw^T over o < c1, gy [B, t_out, c1,
+//    Vp], gaw [c0, c1]; the pass also writes the gate value a;
+//  - cotangent (K2b, K3b; gaw null): da = ga [B, t_out, c0, Vp] (in gy),
+//    plus gps[b, t] + 2 gpss[b, t] a on lanes v < v_true (the
+//    LayerNorm-partial cotangents, gps/gpss [B, t_out]).
+struct GateUp {
+  const float* gy;
+  const float* gaw;
+  int c1;
+  const float* gps;
+  const float* gpss;
+  int v_true;
+};
+
+// The gated conv's recompute and gate backward in one pass on the register
+// tile of f32_tile.cuh (64 gate channels x 64 lanes a block): s = bias +
+// sum over rows (k, c) of w[k, c, :] x[b, t + k, c, :] (w [kt, c_in, G],
+// G = 2 c0 gated, c0 otherwise; rows ascending), then gate_point_bwd with
+// the in-gate residual x[b, t + kt - 1, c] (c < c_in <= c0). Writes ds
+// [B, t_out, G, Vp] (t_out = t_in - kt + 1) and, for the head policy, a_out
+// [B, t_out, c0, Vp]; s never reaches device memory. The residual's gradient
+// is ds's linear half on c < c_in (launch_gate_dx reads it there).
+cudaError_t launch_gate_pass(const float* x, const float* w, const float* bias, GateUp up,
+                             float* ds, float* a_out, int batch, int t_in, int c_in, int vp,
+                             int kt, int c0, int act, cudaStream_t stream);
+
+// The gated conv's data gradient with its residual's: for t < t_in, o < c_in,
+//   dx[b, t, o, :] = sum over taps k with 0 <= t - k < t_out, then g < G, of
+//                    ds[b, t - k, g, :] w[k, o, g]  + ds[b, t - kt + 1, o, :]
+// (the last term where that step exists), on the tile (a lane kernel that
+// reads ds once where c_in <= 4). K1b's dx4, and K3b's with t_out = 1.
+cudaError_t launch_gate_dx(const float* ds, const float* w, float* dx, int batch, int t_in,
+                           int c_in, int vp, int kt, int g, cudaStream_t stream);
+
+// K2b's data gradient on a 16-row tile: dr = (tconv2^T(ds2) + ds2's linear
+// half at step t - kt + 1) * (h > 0), dr [B, t1, c1, Vp] (c1 <= kMaxOut),
+// then in the same block, from dr in shared memory, dxg = dr (+ dr . gcw[0]^T
+// when cheb) and each graph term's gradient dt_i = dr . gcw[i + cheb]^T
+// (n_terms of them; dt_b untouched when n_terms is 1). gcw [n_terms + cheb,
+// c1, c1], c2k [kt, c1, g2], ds2 [B, t1 - kt + 1, g2, Vp].
+cudaError_t launch_tail_dr(const float* ds2, const float* c2k, const float* h, const float* gcw,
+                           float* dr, float* dxg, float* dt_a, float* dt_b, int batch, int t1,
+                           int c1, int vp, int kt, int g2, int n_terms, int cheb,
+                           cudaStream_t stream);
 
 // K4b's fc1 epilogue over s [B, T, C, Vp]: zd = relu(s) * mask and
 // ds = dzd * mask * (s > 0).

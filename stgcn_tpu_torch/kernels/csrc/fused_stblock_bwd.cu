@@ -118,8 +118,8 @@ cudaError_t stblock_bwd(const StDims& d, const float* x, const float* gso, const
   STGCN_TRY(cudaGetLastError());
 
   // 2. gate 2, conv 2, ReLU
-  STGCN_TRY(launch_gate_bwd(f.s2, Cv{f.h, t1, c1}, d.kt - 1, da2, nullptr, nullptr, 0, d.act,
-                            d.c2, ds2, dxin2, nullptr, B, t2, vp, s));
+  STGCN_TRY(launch_gate_bwd(f.s2, Cv{f.h, t1, c1}, d.kt - 1, da2, d.act, d.c2, ds2, dxin2,
+                            nullptr, B, t2, vp, s));
   STGCN_TRY(launch_wgrad(Cv{f.h, t1, c1}, d.kt, Cv{ds2, t2, d.g2}, g.dc2k, part, B, vp, s));
   STGCN_TRY(launch_wgrad(ones, 1, Cv{ds2, t2, d.g2}, g.dc2b, part, B, vp, s));
   // dr = (conv2ᵀ(ds2) + dxin2 at the window's last step) * (h > 0)
@@ -159,8 +159,8 @@ cudaError_t stblock_bwd(const StDims& d, const float* x, const float* gso, const
                              w.c1b, none, 0, 0, nullptr, s1, B, t1, d.g1, vp}, s));
   STGCN_TRY(launch_contract({{dxg, nullptr, nullptr}, t1, c1, w.gaw, 1, 0, 1, nullptr, none, 0,
                              0, nullptr, da1, B, t1, d.c0, vp}, s));
-  STGCN_TRY(launch_gate_bwd(s1, Cv{f.x_cv, d.t_in, d.c_in}, d.kt - 1, da1, nullptr, nullptr, 0,
-                            d.act, d.c0, ds1, dxin1, a1, B, t1, vp, s));
+  STGCN_TRY(launch_gate_bwd(s1, Cv{f.x_cv, d.t_in, d.c_in}, d.kt - 1, da1, d.act, d.c0, ds1,
+                            dxin1, a1, B, t1, vp, s));
   STGCN_TRY(launch_wgrad(Cv{a1, t1, d.c0}, 1, Cv{dxg, t1, c1}, g.dgaw, part, B, vp, s));
   STGCN_TRY(launch_wgrad(ones, 1, Cv{dxg, t1, c1}, g.dgab, part, B, vp, s));
   STGCN_TRY(launch_wgrad(Cv{f.x_cv, d.t_in, d.c_in}, d.kt, Cv{ds1, t1, d.g1}, g.dc1k, part, B,

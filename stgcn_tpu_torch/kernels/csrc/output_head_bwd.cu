@@ -6,10 +6,17 @@
 // `_ohead_pallas_bwd` (:253, body `_make_ohead_bwd_kernel` :159) and
 // `_ofc_pallas_bwd` (:440, body `_make_ofc_bwd_kernel` :353).
 //
-// K3b: x4 = LN-normalize(x) * mask -> s = tconv(x4) (ko taps, time -> 1) ->
-//      gate backward from ga plus the head LayerNorm-partial cotangents
-//      (gps + 2 gpss a on true lanes) -> dck, dcb -> dx4 = tconv^T(ds) + dxin
-//      -> LayerNorm backward dx, dmu, drstd, dlng, dlnb.
+// K3b: x4 = LN-normalize(x) * mask -> the gate pass of K1b and K2b on the
+//      register tile (launch_gate_pass, cotangent policy): s = tconv(x4) + cb
+//      (ko taps, time -> 1) recomputed in registers, the gate backward from
+//      ga plus the head LayerNorm-partial cotangents (gps + 2 gpss a on true
+//      lanes) in its epilogue, writing only ds (s and the residual's gradient
+//      dxin never reach device memory) -> dck with dcb (a ones row, one pass
+//      over ds) -> dx4 = tconv^T(ds) + ds's linear half on the tile
+//      (launch_gate_dx, t_out = 1) -> LayerNorm backward dx, dmu, drstd,
+//      dlng, dlnb.
+//      What bounds it: float32 FMA issue, three products of ko*c_in*g per
+//      lane (recompute, dck, dx4), then the LayerNorm's bytes.
 // K4b: h = LN-normalize(a) -> s2 = h . w1 + b1 -> dzd = gout . w2^T -> zd =
 //      relu(s2) * mask, ds2 = dzd * mask * (s2 > 0) -> dw2, db2, dw1, db1 ->
 //      dh = ds2 . w1^T -> LayerNorm backward da, dmu, drstd, dlnw, dlnb.
@@ -30,28 +37,21 @@ cudaError_t ohead_bwd(const float* x, const float* mu, const float* rstd, const 
   Carver w{work};
   float* x4 = w.take(lane * ko * c_in);
   float* dx4 = w.take(lane * ko * c_in);
-  float* sg = w.take(lane * g);
   float* ds = w.take(lane * g);
-  float* dxin = w.take(lane * c0);
   const long long r = (long long)B * vp;
-  float* part = w.take(wgrad_part_floats({{ko * c_in, g, r}, {1, g, r}}));
+  float* part = w.take(wgrad_part_floats({{ko * c_in + 1, g, r}}));
   float* lnpart = w.take(ln_bwd_part_floats(B, ko));
   if (floats) *floats = w.used;
   if (!work) return cudaSuccess;
   if (ko < 1) return cudaErrorInvalidValue;
 
-  const Cv none{nullptr, 0, 0};
   STGCN_TRY(launch_ln_drop(x, mu, rstd, lng, lnb, drop, x4, B, ko, c_in, vp, s));
-  // s = tconv(x4) + cb, time collapsed to one step
-  STGCN_TRY(launch_contract({{x4, nullptr, nullptr}, ko, c_in, ck, ko, 1, 0, cb, none, 0, 0,
-                             nullptr, sg, B, 1, g, vp}, s));
-  STGCN_TRY(launch_gate_bwd(sg, Cv{x4, ko, c_in}, ko - 1, ga, gps, gpss, v_true, act, c0, ds,
-                            dxin, nullptr, B, 1, vp, s));
-  STGCN_TRY(launch_wgrad(Cv{x4, ko, c_in}, ko, Cv{ds, 1, g}, dck, part, B, vp, s));
-  STGCN_TRY(launch_wgrad(Cv{nullptr, 0, 1}, 1, Cv{ds, 1, g}, dcb, part, B, vp, s));
+  // s = tconv(x4) + cb, time collapsed to one step, and the gate backward in one pass: ds
+  STGCN_TRY(launch_gate_pass(x4, ck, cb, GateUp{ga, nullptr, 0, gps, gpss, v_true}, ds, nullptr,
+                             B, ko, c_in, vp, ko, c0, act, s));
+  STGCN_TRY(launch_wgrad_bias(Cv{x4, ko, c_in}, ko, Cv{ds, 1, g}, dck, dcb, part, B, vp, s));
   // dx4 = tconv^T(ds) + dxin at the last step
-  STGCN_TRY(launch_contract({{ds, nullptr, nullptr}, 1, g, ck, ko, 1, 1, nullptr,
-                             Cv{dxin, 1, c0}, ko - 1, 0, nullptr, dx4, B, ko, c_in, vp}, s));
+  STGCN_TRY(launch_gate_dx(ds, ck, dx4, B, ko, c_in, vp, ko, g, s));
   return launch_ln_bwd(x, mu, rstd, lng, drop, dx4, dx, dmu, drstd, dlng, dlnb, lnpart, B, ko,
                        c_in, vp, s);
 }

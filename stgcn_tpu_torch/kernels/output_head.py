@@ -19,7 +19,9 @@ with the recompute-based backward kernels :func:`ohead_bwd` (K3b) and
 
 The CUDA sources are ``csrc/output_head.cu`` (K3, and both forward entry
 points), ``csrc/gate_gemm.cu`` (K4's body, shared with K1) and
-``csrc/output_head_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K3b, K4b). Each
+``csrc/output_head_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K3b, K4b; K3b's
+recompute with the gate backward, its data gradient and both kernels'
+weight gradients on the register tile of ``csrc/f32_tile.cuh``). Each
 wrapper runs its kernel on a CUDA tensor and its plain version (``*_reference``;
 the backward ones are autograd through the forward ones) on a CPU tensor,
 and counts its launches.

@@ -22,10 +22,10 @@ their inputs, as the TPU's ``custom_vjp`` does.
 All large operands are channel-before-vertex ``[B, T, C, Vp]`` float32, as
 on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body),
 ``csrc/vertex_fused.cu`` (K2, and both forward entry points) and
-``csrc/vertex_fused_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K1b, K2b; K1b's
-recompute, data gradient and every weight gradient on the register tile of
-``csrc/f32_tile.cuh``); their
-notes say what bounds each kernel and how the design answers it. Every
+``csrc/vertex_fused_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K1b, K2b: their
+recompute with the gate backward, their data gradients and every weight
+gradient run on the register tile of ``csrc/f32_tile.cuh``); their notes say
+what bounds each kernel and how the design answers it. Every
 wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_reference``; the backward ones are autograd through the forward ones
 with the same mask) on a CPU tensor, and counts its kernel launches

@@ -307,6 +307,66 @@ def test_tail_bwd_matches_plain(dev, gct, ks, act):
     _close_all([g.cpu() for g in got], ref)
 
 
+@pytest.mark.parametrize("batch,t_in,gct,ks,act,c2", [
+    (1, 8, "cheb_graph_conv", 3, "glu", 64),    # batch 1
+    (2, 5, "cheb_graph_conv", 3, "relu", 64),   # t2 = 1 (t1 = kt)
+    (2, 8, "cheb_graph_conv", 3, "gtu", 40),    # 40 gate channels in a 64-channel pass
+    (2, 8, "graph_conv", 3, "silu", 64),        # one graph term, no T_0
+    (1, 8, "cheb_graph_conv", 2, "glu", 64),    # Chebyshev with one term besides T_0
+])
+def test_tail_bwd_at_edge_shapes_matches_plain(dev, batch, t_in, gct, ks, act, c2):
+    """K2b where its gate pass and dr pass cut their work differently, c1 = 16
+    (the dr tile's rows), V = 150 of 256 lanes with nonzero inputs and ga2 on
+    the padded lanes: against the plain version on a CPU copy, a repeat
+    bit-identical, the unused term's gradient zero."""
+    rng = np.random.default_rng(59)
+    cfg = vf.VertexBlockCfg(kt=3, ks=ks, act_func=act, graph_conv_type=gct, v_true=V_TRUE,
+                            v_pad=V_PAD, t_in=t_in, c_in=16, c0=64, c1=16, c2=c2, apply_ln=True)
+    n_c = cfg.n_terms + (gct == "cheb_graph_conv")
+    xg, ta, tb = (_rand(rng, dev, batch, cfg.t1, cfg.c1, V_PAD) for _ in range(3))
+    w = (_rand(rng, dev, n_c, cfg.c1, cfg.c1, scale=0.2), _rand(rng, dev, cfg.c1, scale=0.1),
+         _rand(rng, dev, 3, cfg.c1, cfg.g2, scale=0.15), _rand(rng, dev, cfg.g2, scale=0.1))
+    ga2 = _rand(rng, dev, batch, cfg.t2, c2, V_PAD)
+    gps, gpss = (_rand(rng, dev, batch, cfg.t2, 1, 1, scale=1e-2) for _ in range(2))
+    got = vf.tail_bwd(cfg, xg, ta, tb, *w, ga2, gps, gpss)
+    again = vf.tail_bwd(cfg, xg, ta, tb, *w, ga2, gps, gpss)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if cfg.n_terms == 1:
+        assert not bool(got[2].any())
+    ref = vf.tail_bwd(cfg, *[t.cpu() for t in (xg, ta, tb, *w, ga2, gps, gpss)])
+    _close_all([g.cpu() for g in got], ref)
+
+
+@pytest.mark.parametrize("batch,ko,c_in,c0,act,drop", [
+    (1, 1, 16, 32, "glu", DROP),      # time already one step: one tap
+    (1, 4, 16, 40, "gtu", None),      # 40 gate channels in a 64-channel pass
+    (32, 4, 64, 128, "glu", DROP),    # the main.py widths on PeMSD7(M)'s grid: two passes
+])
+def test_ohead_bwd_at_edge_shapes_matches_plain(dev, batch, ko, c_in, c0, act, drop):
+    """K3b where its gate pass and data gradient cut their work differently,
+    and at the main.py widths (c_in 64, c0 128) and PeMSD7(M)'s batch and
+    lanes (B = 32, Vp = 256), where the gate pass puts its two channel
+    passes in the grid; nonzero ga on the padded lanes, cotangents at a
+    training step's scale; a repeat is bit-identical."""
+    rng = np.random.default_rng(60)
+    cfg = oh.OutHeadCfg(ko=ko, c_in=c_in, c0=c0, c1=128, c_end=1, act_func=act, v_true=V_TRUE,
+                        v_pad=V_PAD)
+    mu = _rand(rng, dev, batch, ko, 1, 1, scale=0.1)
+    rstd = 0.5 + _rand(rng, dev, batch, ko, 1, 1, scale=0.1).abs()
+    lng, lnb = 1.0 + _rand(rng, dev, c_in, V_PAD, scale=0.1), _rand(rng, dev, c_in, V_PAD)
+    lng[:, V_TRUE:] = 0.0
+    lnb[:, V_TRUE:] = 0.0
+    args = (_rand(rng, dev, batch, ko, c_in, V_PAD), mu, rstd, lng, lnb,
+            _rand(rng, dev, ko, c_in, cfg.g, scale=(ko * c_in) ** -0.5),
+            _rand(rng, dev, cfg.g, scale=0.1))
+    cot = (_rand(rng, dev, batch, 1, c0, V_PAD, scale=1e-3),
+           *(_rand(rng, dev, batch, 1, 1, 1, scale=1e-5) for _ in range(2)))
+    assert bool((cot[0][..., V_TRUE:] != 0).any())
+    got = oh.ohead_bwd(cfg, *args, *cot, drop=drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, oh.ohead_bwd(cfg, *args, *cot, drop=drop)))
+    _close_all(got, oh.ohead_bwd_reference(cfg, *args, *cot, drop))
+
+
 @pytest.mark.parametrize("drop", [None, DROP])
 @pytest.mark.parametrize("act", ["glu", "gtu", "relu", "silu"])
 def test_ohead_bwd_matches_plain(dev, act, drop):

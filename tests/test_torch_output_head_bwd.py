@@ -3,6 +3,8 @@
 ``_ohead_core`` / ``_ofc_core``) fed the port's dropout mask, and against
 ``ohead_fused`` / ``ofc_fused`` in Pallas interpret mode without dropout."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +59,45 @@ def test_ohead_bwd_plain_matches_jax_core(act, drop):
     outs, vjp = jax.vjp(f, *_j(args))
     fwd = toh.ohead_fwd(cfg, *map(t, args), drop=DROPS[drop])
     assert_grads([o.numpy() for o in fwd], outs)
+    got = toh.ohead_bwd(cfg, *map(t, args), *map(t, cot), drop=DROPS[drop])
+    assert_grads([g.numpy() for g in got], vjp(tuple(_j(cot))))
+
+
+@pytest.mark.parametrize("batch,ko,c0,act,drop", [
+    (1, 1, 32, "glu", "drop"),     # time already one step: one tap
+    (1, 4, 40, "gtu", "nodrop"),   # 40 gate channels in a 64-channel pass, batch 1
+    (2, 1, 40, "relu", "drop"),
+])
+def test_ohead_bwd_plain_matches_jax_core_at_edge_shapes(batch, ko, c0, act, drop):
+    """K3b's plain version against ``jax.vjp`` of the JAX core where the card
+    kernel cuts its work differently: ko = 1, c0 = 40 (ragged against a
+    64-channel pass), batch 1; V = 150 of 256 lanes with nonzero inputs and
+    a nonzero ``ga`` on the padded lanes, where the JAX kernel adds the
+    LayerNorm-partial cotangents only on true lanes."""
+    jcfg0, cfg0 = _cfgs(act)
+    jcfg = dataclasses.replace(jcfg0, ko=ko, c0=c0, b_tile=batch)
+    cfg = dataclasses.replace(cfg0, ko=ko, c0=c0)
+    rng = np.random.default_rng(65)
+    c_in = cfg.c_in
+    lng, lnb = 1.0 + rand(rng, c_in, V_PAD, scale=0.1), rand(rng, c_in, V_PAD)
+    lng[:, V_TRUE:] = 0.0
+    lnb[:, V_TRUE:] = 0.0
+    args = [rand(rng, batch, ko, c_in, V_PAD), rand(rng, batch, ko, 1, 1, scale=0.1),
+            (0.5 + rng.random((batch, ko, 1, 1))).astype(np.float32), lng, lnb,
+            rand(rng, ko, c_in, cfg.g, scale=0.2), rand(rng, cfg.g, scale=0.1)]
+    cot = [rand(rng, batch, 1, c0, V_PAD), rand(rng, batch, 1, 1, 1, scale=1e-2),
+           rand(rng, batch, 1, 1, 1, scale=1e-2)]
+    assert float(np.abs(cot[0][..., V_TRUE:]).max()) > 0
+    mask = _mask(DROPS[drop], args[0].shape)
+    vm = (jnp.arange(V_PAD) < V_TRUE).astype(jnp.float32)
+
+    def f(x, mu, rstd, lng_, lnb_, ck, cb):
+        x4 = _ln_drop_fwd(jcfg, x, mu, rstd, lng_, lnb_, mask)
+        _, _, a, _ = joh._ohead_core(jcfg, x4, ck, cb)
+        am = a * vm
+        return a, am.sum((2, 3), keepdims=True), (am * am).sum((2, 3), keepdims=True)
+
+    _, vjp = jax.vjp(f, *_j(args))
     got = toh.ohead_bwd(cfg, *map(t, args), *map(t, cot), drop=DROPS[drop])
     assert_grads([g.numpy() for g in got], vjp(tuple(_j(cot))))
 

@@ -109,6 +109,43 @@ def test_tail_bwd_plain_matches_jax_kernel(gct, ks, act):
     assert_grads([g.numpy() for g in got], ref)
 
 
+@pytest.mark.parametrize("batch,t_in,gct,ks,act,c2", [
+    (1, 8, "cheb_graph_conv", 3, "glu", 16),   # batch 1
+    (2, 5, "cheb_graph_conv", 3, "relu", 16),  # t2 = 1 (t1 = kt)
+    (2, 8, "cheb_graph_conv", 3, "gtu", 40),   # c2 ragged against a 64-channel pass
+    (2, 8, "graph_conv", 3, "silu", 16),       # one graph term, no T_0
+    (1, 8, "cheb_graph_conv", 2, "glu", 16),   # Chebyshev with one term besides T_0
+])
+def test_tail_bwd_plain_matches_jax_reference_at_edge_shapes(batch, t_in, gct, ks, act, c2):
+    """K2b's plain version against ``jax.vjp`` of the JAX ``tail_reference``
+    at the shapes where the card kernel cuts its work differently: batch 1,
+    one output step of the gate (t2 = 1), 40 gate channels in a 64-channel
+    pass, one graph term (``graph_conv``, Chebyshev Ks = 2: the unused term's
+    gradient is zero), V = 150 of 256 lanes with nonzero inputs and
+    cotangents on the padded lanes."""
+    jcfg0, cfg0 = _cfgs(gct, ks, act, True)
+    jcfg = dataclasses.replace(jcfg0, t_in=t_in, c2=c2)
+    cfg = dataclasses.replace(cfg0, t_in=t_in, c2=c2)
+    rng = np.random.default_rng(27)
+    xg, ta, tb = (rand(rng, batch, cfg.t1, cfg.c1, cfg.v_pad) for _ in range(3))
+    n_c = cfg.n_terms + (gct == "cheb_graph_conv")
+    w = (rand(rng, n_c, cfg.c1, cfg.c1, scale=0.2), rand(rng, cfg.c1, scale=0.1),
+         rand(rng, cfg.kt, cfg.c1, cfg.g2, scale=0.2), rand(rng, cfg.g2, scale=0.1))
+    ga2 = rand(rng, batch, cfg.t2, c2, cfg.v_pad)
+    gps, gpss = (rand(rng, batch, cfg.t2, 1, 1, scale=1e-2) for _ in range(2))
+    assert float(np.abs(ga2[..., cfg.v_true:]).max()) > 0
+    got = tvf.tail_bwd(cfg, t(xg), t(ta), t(tb), *map(t, w), t(ga2), t(gps), t(gpss))
+    n = cfg.n_terms
+    terms = [ta, tb][:n]
+    _, vjp = jax.vjp(lambda x_, *r: jvf.tail_reference(jcfg, x_, list(r[:n]), tuple(r[n:])),
+                     *_j([xg, *terms, *w]))
+    ref = vjp(tuple(_j([ga2, gps, gpss])))
+    assert_grads([got[0].numpy(), *(g.numpy() for g in got[1:1 + n]),
+                  *(g.numpy() for g in got[3:])], ref)
+    if n == 1:
+        assert not bool(got[2].any())
+
+
 def test_tail_bwd_plain_takes_given_relu_decisions():
     """The ``relu_mask`` of the plain version (the card check's way to hold it
     to a kernel's ReLU decisions): its own decisions give the default result
