@@ -1141,7 +1141,7 @@ def profile_once(torch, fn) -> dict:
 def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
     """One fused training step's backward traced by ``torch.profiler`` (its
     kernels' device time by name); each K1b, K2b and K3b call of that step's
-    recorded calls traced alone (its launches in order, ``kernels/bwd_ab.py``'s
+    recorded calls traced alone (its launches in order, ``kernels/_ab.py``'s
     ``launches``); and two yardsticks, each one ``torch.matmul`` on random
     operands laid out for it outside the timing: K1b block 2's weight
     gradient dc1k against the product ``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``
@@ -1150,7 +1150,7 @@ def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
-    from stgcn_tpu_torch.kernels.bwd_ab import launches
+    from stgcn_tpu_torch.kernels._ab import launches
     from stgcn_tpu_torch.kernels.dropout import step_seed
     from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
     from stgcn_tpu_torch.train import masked_mse

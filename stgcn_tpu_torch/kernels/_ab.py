@@ -1,10 +1,12 @@
-"""The harness of the A/B timing tools (``bwd_ab.py``, ``sparse_ab.py``):
-each ``--tree`` (the root of a checkout of this repository) runs in a
-process of its own, which swaps this directory for the checkout on
-``sys.path`` and imports its ``stgcn_tpu_torch``, so that checkout builds
-its own kernels; trees run in the order given (two commits compare as A,
-B, B, A on one card). Each process prints one JSON line, the tool's result
-for its tree; then the card's ``nvidia-smi`` name and power limit.
+"""The harness of the A/B timing tools (``fwd_ab.py``, ``bwd_ab.py``,
+``sparse_ab.py``): each ``--tree`` (the root of a checkout of this
+repository) runs in a process of its own, which swaps this directory for
+the checkout on ``sys.path`` and imports its ``stgcn_tpu_torch``, so that
+checkout builds its own kernels; trees run in the order given (two commits
+compare as A, B, B, A on one card). Each process prints one JSON line, the
+tool's result for its tree; then the card's ``nvidia-smi`` name and power
+limit. ``launches`` lists the device kernels of one call, as
+``torch.profiler`` sees them.
 
 A tool supplies ``run_one(tree, reps, data) -> dict`` and, where every tree
 needs the same input, ``prepare(tmpdir) -> path``, run once before the
@@ -74,6 +76,30 @@ def timed(torch, fn, reps: int, warmup: int, key: str | None = None) -> tuple[fl
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), digest.hexdigest()[:16]
+
+
+def launches(torch, fn) -> list:
+    """The device kernels of one call of ``fn`` (after a warm-up call), in
+    launch order: name and device ms, as ``torch.profiler`` records them.
+    Two elementwise marker kernels run first inside the profile and are cut
+    off with every kernel before them (the profiler can miss its first
+    kernel), so ``fn`` itself must not start with an elementwise kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        marker.add_(1.0)
+        marker.add_(1.0)
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                key=lambda e: e.time_range.start)
+    while ev and "elementwise" in ev[0].name:
+        ev.pop(0)
+    return [{"name": e.name.replace("(anonymous namespace)::", "").split("(")[0][:80],
+             "ms": (e.time_range.end - e.time_range.start) / 1e3} for e in ev]
 
 
 def compare(keeps: list) -> dict:

@@ -12,9 +12,10 @@
 // per (c, v)). No float atomics.
 //
 // K1b, K2b and K3b recompute their gated conv, run its gate backward and
-// take its data gradient in fused passes on the same tile (gate_pass_kernel,
-// gate_dx_kernel, K2b's tail_dr_kernel below), so the pre-activations never
-// reach device memory. K4b and K12b still run their contractions one thread
+// take its data gradient in fused passes (gate_pass_kernel, gate_dx_kernel,
+// K2b's tail_dr_kernel below) on the tile that also carries the forward gate
+// GEMM of K1f and K4f (gate_gemm.cu), so the pre-activations never reach
+// device memory. K4b and K12b still run their contractions one thread
 // per vertex lane (contract, gate_bwd) with the intermediates in a
 // workspace in device memory.
 //
@@ -485,8 +486,10 @@ __global__ void ln_bwd_affine_kernel(const float* __restrict__ x, const float* _
 //
 // K1b, K2b and K3b each recompute a gated temporal conv's pre-activations
 // and run the gate backward on them, then take the conv's data gradient.
-// Both run here on the register tile of f32_tile.cuh, as K1's gate GEMM
-// runs its forward: the pre-activations live only in the tile's registers
+// Both run here on the register tile of f32_tile.cuh; the gate pass is the
+// first product of the forward gate GEMM (gate_gemm.cu, K1f and K4f) with
+// the gate backward for its epilogue: the pre-activations live only in the
+// tile's registers
 // (they were 3.3 GB a K2b call at 100k when written out), the gate backward
 // is the tile's epilogue, and the residual's gradient dxin, ds's linear half
 // on the input channels, is read back from ds by the data gradient instead

@@ -3,11 +3,12 @@
 // Layout: every activation is channel-before-vertex ("cv"), [B, T, C, Vp],
 // float32, with Vp a multiple of kLanes, so neighbouring threads take
 // neighbouring vertex lanes and every activation load coalesces. K2 and K3
-// run one thread per lane in blocks of kLanes; K1 and K4 share the
-// register-tiled gate GEMM (gate_gemm.cu). Weights are staged in shared
-// memory and read by the threads of a warp at one address (a broadcast, no
-// bank conflict). Sums run in a fixed order: no atomics, so a launch
-// repeated on the same inputs gives bit-identical output.
+// run one thread per lane in blocks of kLanes, their weights staged in
+// shared memory and read by the threads of a warp at one address (a
+// broadcast, no bank conflict); K1 and K4 share the gate GEMM (gate_gemm.cu)
+// on the register tile of f32_tile.cuh, as the backward passes do. Sums run
+// in a fixed order: no atomics, so a launch repeated on the same inputs
+// gives bit-identical output.
 #pragma once
 
 #include <cuda_runtime.h>

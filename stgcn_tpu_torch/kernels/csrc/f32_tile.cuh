@@ -2,9 +2,10 @@
 //
 //   acc[m, n] += sum over k of A(m, k) * B(n, k)
 //
-// used by K11 (bcsr_sddmm.cu), by every weight gradient of K1b-K4b and K12b
-// (bwd_blocks.cu `launch_wgrad`) and by K1b's recompute and data gradient
-// (vertex_fused_bwd.cu). A block of Cfg::kThreads threads owns a BM x BN
+// used by K11 (bcsr_sddmm.cu), by K1f's and K4f's gate GEMM (gate_gemm.cu),
+// by every weight gradient of K1b-K4b and K12b (bwd_blocks.cu
+// `launch_wgrad`) and by the recompute and data gradient of K1b-K3b
+// (bwd_blocks.cu). A block of Cfg::kThreads threads owns a BM x BN
 // output tile and keeps it in registers, TM x TN sums a thread: with 8, rows
 // 4ty..4ty+3 and BM/2+4ty..BM/2+4ty+3 (columns likewise), so the 16-byte
 // shared loads of a warp fall on distinct banks. The reduction is walked BK

@@ -20,169 +20,292 @@
 // What bounds it on the H100: at the STGCN widths the first product does
 // 50-130 float32 FMAs per byte it must move, above the card's float32
 // balance point (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/byte), so it is bound
-// by FMA issue. The design is a register-tiled SGEMM: a block of 128
-// threads owns 64 gate channels (and their 64 gate partners) x 64 vertex
-// lanes of one (b, t); each thread keeps a 4-channel x 8-lane tile of both
-// halves in registers (64 sums), and per contraction row loads 4 float4
-// from shared memory for 64 FMAs. Rows are staged 16 at a time (weights and
-// the normalized input, LayerNorm applied once per staged value). The gated
-// tile goes to shared memory and the narrow second product reads it there,
-// so nothing but y is written to device memory. No tensor cores: the
-// results are held to float32 accuracy.
+// by FMA issue, and in training by the input mask's hash (integer ops at
+// half the FMA rate, one hash per staged element: each input step is staged
+// by the kt blocks whose window holds it); K1 on the first block (3
+// contraction rows) is bound by its gate and its second product.
+//
+// Design: the first product runs on the register tile of f32_tile.cuh, as
+// the backward gate pass (bwd_blocks.cu) does. A block of 128 threads owns
+// 64 vertex lanes of one (b, t) and 128 tile rows: gated, 64 gate channels
+// (p) and their 64 partners (q); plain, 128 channels; 8 x 8 sums a thread.
+// The grid runs (t, b) fastest, so the blocks that read one input step and
+// one lane tile of the LayerNorm affine run together. Rows are staged 16 at
+// a time, two buffers deep: the load step reads x as float4 lane slots
+// (with apply_ln also the step's statistics and the float4 affine), the
+// store step normalizes, drops out and writes them into shared memory, so
+// the global loads of the next piece overlap the FMAs of this one; the last
+// tap's rows are also stashed as the in-gate residual. The epilogue applies
+// the gate (a template parameter) and K4's output mask, writes the gated
+// tile over the stashed residual, and every thread takes two outputs at 4
+// lanes of the narrow second product. Where c0 is wider than the tile, the
+// block loops over passes and carries the second product's sums in y.
+// Only y reaches device memory.
+//
+// Arithmetic: full float32 fmaf, no TF32, no atomics. Every sum keeps the
+// chain of the body this one replaced (one block per (b, t), 4 x 8 sums a
+// thread): the bias, then rows (k, c) ascending; the gate as gate()
+// (common.cuh); ob, then c ascending. So y is bit-identical to it, and a
+// repeat launch is bit-identical.
 #include "common.cuh"
+#include "f32_tile.cuh"
 
 namespace stgcn {
 
-constexpr int kGemmLanes = 64;  // vertex lanes per block
-constexpr int kGemmCols = 64;   // gate channels per pass (plus as many partners when gated)
-constexpr int kGemmRows = 16;   // contraction rows staged per step
-constexpr int kGemmThreads = 128;  // 16 channel groups x 8 lane groups
+namespace {
 
-template <bool GATED>
-__global__ void __launch_bounds__(kGemmThreads)
+constexpr int kGemmLanes = 64;   // vertex lanes per block
+
+// The tile: 128 rows x 64 lanes, 8 x 8 sums a thread; 3 blocks a SM (168
+// registers a thread: at 128 the 128-thread tiles spill), 4 where the rows
+// fit one staged piece (K1 on the first block: nothing is staged ahead, and
+// the epilogue's latency wants the blocks).
+template <bool ONE_PIECE>
+using GemmCfg = f32tile::Cfg<128, kGemmLanes, 16, 8, 8, ONE_PIECE ? 4 : 3>;
+
+// Dynamic shared memory of a block (46 KB gated, 66 KB plain): the staged
+// pieces; the pass's in-gate residual, stashed as it is staged and
+// overwritten in place by the gated tile; the second product's weights.
+template <class C, int CP>
+struct GemmSmem {
+  f32tile::Smem<C> st;
+  float a[CP][kGemmLanes];
+  float ow[CP][kMaxOut];
+};
+
+template <int ACT>
+struct GateShape {
+  static constexpr bool kGated = ACT == kGlu || ACT == kGtu;
+  static constexpr int kPass = kGated ? 64 : 128;   // channels a pass: with their partners, 128 rows
+};
+
+// The gate is a template parameter: as a runtime switch, each of the
+// epilogue's 64 unrolled gates carried every activation's code, which cost
+// K4 more than its FMAs.
+template <int ACT, bool ONE_PIECE>
+__global__ void __launch_bounds__(GemmCfg<ONE_PIECE>::kThreads, GemmCfg<ONE_PIECE>::kMinBlocks)
 gate_gemm_kernel(const float* __restrict__ x, const float* __restrict__ mu,
                  const float* __restrict__ rstd, const float* __restrict__ lng,
                  const float* __restrict__ lnb, const float* __restrict__ w,
                  const float* __restrict__ wb, const float* __restrict__ ow,
                  const float* __restrict__ ob, float* __restrict__ y, int t_in, int c_in,
-                 int vp, int kt, int c0, int n_out, int act, int apply_ln, int residual,
-                 Drop drop_in, Drop drop_out) {
-  constexpr int NC = GATED ? 2 * kGemmCols : kGemmCols;  // staged weight columns
-  __shared__ float4 w_s[kGemmRows][NC / 4];
-  __shared__ float4 x_s[kGemmRows][kGemmLanes / 4];
-  __shared__ float4 a_s[kGemmCols][kGemmLanes / 4];
-  __shared__ float ow_s[kGemmCols][kMaxOut];
+                 int vp, int kt, int c0, int n_out, int apply_ln, int residual, Drop drop_in,
+                 Drop drop_out) {
+  constexpr bool GATED = GateShape<ACT>::kGated;
+  constexpr int CP = GateShape<ACT>::kPass;
+  using C = GemmCfg<ONE_PIECE>;
+  using SX = f32tile::RSlots<C, kGemmLanes>;
+  constexpr int kWPer = C::BK * C::BM / C::kThreads;   // weight values a thread stages
+  static_assert(C::kThreads == 128 && C::TN == 8, "two outputs at 4 lanes a thread");
+  extern __shared__ float4 smem4[];
+  auto& sm = *reinterpret_cast<GemmSmem<C, CP>*>(smem4);
 
   const int tid = threadIdx.x;
-  const int cg = tid >> 3;  // channel group: channels 4*cg .. 4*cg+3 of the pass
-  const int lg = tid & 7;   // lane group: lanes 4*lg .. +3 and 32 + 4*lg .. +3
-  const int v0 = blockIdx.x * kGemmLanes, t = blockIdx.y, b = blockIdx.z;
-  const int t_out = t_in - kt + 1;
-  const int rows = kt * c_in;
-  const int g = GATED ? 2 * c0 : c0;
-
+  const int t_out = t_in - kt + 1, rows = kt * c_in, g = GATED ? 2 * c0 : c0;
+  const int t = blockIdx.x % t_out, b = blockIdx.x / t_out, v0 = blockIdx.y * kGemmLanes;
+  const int t_res = t + kt - 1;   // the in-gate residual's step
+  const f32tile::Pos<C> pos;
   const uint32_t key_in = drop_key(drop_in.seed, drop_in.site);
   const uint32_t key_out = drop_key(drop_out.seed, drop_out.site);
 
-  // normalized (and dropped) input at step tt, channel c, lane v
-  auto xn = [&](int tt, int c, int v) {
-    const size_t row = (size_t)(b * t_in + tt) * c_in + c;
-    float val = x[row * vp + v];
-    if (apply_ln)
-      val = (val - mu[b * t_in + tt]) * rstd[b * t_in + tt] * lng[(size_t)c * vp + v] +
-            lnb[(size_t)c * vp + v];
-    if (drop_in.threshold) val *= drop_mask(drop_in, key_in, row, v);
+  // x[b, tt, c, v .. v+3] normalized (val: loaded x, m/rs: the step's
+  // statistics, gg/bb: the affine) and dropped out, as K1's input
+  auto xn = [&](float4 val, float m, float rs, float4 gg, float4 bb, int tt, int c, int v) {
+    if (apply_ln) {
+      val.x = (val.x - m) * rs * gg.x + bb.x;
+      val.y = (val.y - m) * rs * gg.y + bb.y;
+      val.z = (val.z - m) * rs * gg.z + bb.z;
+      val.w = (val.w - m) * rs * gg.w + bb.w;
+    }
+    if (drop_in.threshold) {
+      const size_t row = (size_t)(b * t_in + tt) * c_in + c;
+      val.x *= drop_mask(drop_in, key_in, row, v);
+      val.y *= drop_mask(drop_in, key_in, row, v + 1);
+      val.z *= drop_mask(drop_in, key_in, row, v + 2);
+      val.w *= drop_mask(drop_in, key_in, row, v + 3);
+    }
     return val;
   };
+  auto ld4 = [](const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); };
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
-  float out[8];  // output channel o = cg at the thread's 8 lanes
-#pragma unroll
-  for (int l = 0; l < 8; ++l) out[l] = cg < n_out ? ob[cg] : 0.0f;
+  // the weight column a thread stages: tile row wj (gated: p rows, then q rows)
+  const int wj = tid % C::BM, wk0 = (tid / C::BM) * kWPer;
+  const int lq = tid % 16, o0 = 2 * (tid / 16);   // the second product: lanes 4 lq .., o0, o0 + 1
+  auto yrow = [&](int o) { return y + ((size_t)(b * t_out + t) * n_out + o) * vp + v0 + 4 * lq; };
 
-  for (int s = 0; s < c0; s += kGemmCols) {
-    float p[4][8], q[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = s + 4 * cg + i;
-      const float bp = c < c0 ? wb[c] : 0.0f;
-      const float bq = (GATED && c < c0) ? wb[c0 + c] : 0.0f;
-#pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        p[i][l] = bp;
-        q[i][l] = bq;
-      }
+  for (int s0 = 0; s0 < c0; s0 += CP) {
+    // published by the stage loop's first barrier; the previous pass's
+    // second product has passed the barrier that ends it
+    for (int i = tid; i < CP * kMaxOut; i += C::kThreads) {
+      const int c = i / kMaxOut, o = i % kMaxOut;
+      sm.ow[c][o] = (s0 + c < c0 && o < n_out) ? ow[(size_t)(s0 + c) * n_out + o] : 0.0f;
     }
-    for (int r0 = 0; r0 < rows; r0 += kGemmRows) {
-      __syncthreads();  // the previous tile has been consumed
-      float* wf = reinterpret_cast<float*>(w_s);
-      for (int i = tid; i < kGemmRows * NC; i += kGemmThreads) {
-        const int kk = i / NC, j = i % NC;
-        const int r = r0 + kk, c = s + j % kGemmCols;
-        const bool is_q = j >= kGemmCols;
-        wf[i] = (r < rows && c < c0) ? w[(size_t)r * g + (is_q ? c0 + c : c)] : 0.0f;
+
+    float acc[C::TM][C::TN];
+#pragma unroll
+    for (int i = 0; i < C::TM; ++i) {
+      const int j = pos.row(i), c = s0 + j % CP;
+      const float bv = c < c0 ? wb[(GATED && j >= CP) ? c0 + c : c] : 0.0f;
+#pragma unroll
+      for (int l = 0; l < C::TN; ++l) acc[i][l] = bv;
+    }
+    const int wc = s0 + wj % CP;
+    const float* wcol = wc < c0 ? w + ((GATED && wj >= CP) ? c0 + wc : wc) : nullptr;
+
+    float wv[kWPer];
+    float4 xv[SX::kSlots], gv[SX::kSlots], bv[SX::kSlots];
+    float mv[SX::kSlots], rv[SX::kSlots];
+    int tv[SX::kSlots], cv[SX::kSlots];   // the slot's step and channel, -1: past `rows`
+#pragma unroll
+    for (int p = 0; p < SX::kSlots; ++p) {   // read only with apply_ln
+      gv[p] = bv[p] = zero4;
+      mv[p] = rv[p] = 0.0f;
+    }
+    auto load = [&](int step) {
+      const int r0 = step * C::BK;
+#pragma unroll
+      for (int q = 0; q < kWPer; ++q) {
+        const int r = r0 + wk0 + q;
+        wv[q] = wcol && r < rows ? __ldg(wcol + (size_t)r * g) : 0.0f;
       }
-      float* xf = reinterpret_cast<float*>(x_s);
-      for (int i = tid; i < kGemmRows * kGemmLanes; i += kGemmThreads) {
-        const int kk = i / kGemmLanes, l = i % kGemmLanes;
-        const int r = r0 + kk;
-        xf[i] = r < rows ? xn(t + r / c_in, r % c_in, v0 + l) : 0.0f;
-      }
-      __syncthreads();
-      const int n_rows = min(kGemmRows, rows - r0);  // staged rows past `rows` are zero
-#pragma unroll 4
-      for (int kk = 0; kk < n_rows; ++kk) {
-        const float4 xa = x_s[kk][lg], xb = x_s[kk][lg + 8];
-        const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-        const float4 wp4 = w_s[kk][cg];
-        const float wp[4] = {wp4.x, wp4.y, wp4.z, wp4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int l = 0; l < 8; ++l) p[i][l] = fmaf(wp[i], xv[l], p[i][l]);
-        if constexpr (GATED) {
-          const float4 wq4 = w_s[kk][kGemmCols / 4 + cg];
-          const float wq[4] = {wq4.x, wq4.y, wq4.z, wq4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int l = 0; l < 8; ++l) q[i][l] = fmaf(wq[i], xv[l], q[i][l]);
+      for (int p = 0; p < SX::kSlots; ++p) {
+        const int r = r0 + SX::k(p), v = v0 + SX::roff(p);
+        tv[p] = -1;
+        if (r < rows) {
+          const int k = r / c_in, c = r - k * c_in, tt = t + k;
+          tv[p] = tt;
+          cv[p] = c;
+          xv[p] = ld4(x + ((size_t)(b * t_in + tt) * c_in + c) * vp + v);
+          if (apply_ln) {
+            mv[p] = __ldg(mu + b * t_in + tt);
+            rv[p] = __ldg(rstd + b * t_in + tt);
+            gv[p] = ld4(lng + (size_t)c * vp + v);
+            bv[p] = ld4(lnb + (size_t)c * vp + v);
+          }
         }
       }
+    };
+    auto store = [&](int buf) {
+#pragma unroll
+      for (int q = 0; q < kWPer; ++q) sm.st.a[buf][wk0 + q][wj] = wv[q];
+#pragma unroll
+      for (int p = 0; p < SX::kSlots; ++p) {
+        if (tv[p] < 0) {
+          xv[p] = zero4;
+          continue;
+        }
+        xv[p] = xn(xv[p], mv[p], rv[p], gv[p], bv[p], tv[p], cv[p], v0 + SX::roff(p));
+        const int cr = cv[p] - s0;   // the last tap's rows are the pass's residual
+        if (residual && tv[p] == t_res && cr >= 0 && cr < CP)
+          *reinterpret_cast<float4*>(&sm.a[cr][SX::roff(p)]) = xv[p];
+      }
+      SX::store(sm.st.b[buf], xv);
+    };
+    if constexpr (ONE_PIECE) {   // rows <= BK
+      load(0);
+      store(0);
+      __syncthreads();
+      f32tile::fma_piece<C, true>(sm.st.a[0], sm.st.b[0], pos, acc, rows);
+    } else {
+      const int steps = (rows + C::BK - 1) / C::BK;
+      f32tile::stage_loop<C>(sm.st, pos, steps, acc, load, store, rows - (steps - 1) * C::BK);
     }
 
-    // gate (in-gate residual: the window's last step, channels zero-padded)
+    // the epilogue: gate (in-gate residual: the window's last step as
+    // staged, channels zero-padded), K4's output mask; the gated tile over
+    // the residual in shared memory, each element by the thread that read it
+    constexpr int kCh = GATED ? C::TM / 2 : C::TM;   // channels a thread holds
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = s + 4 * cg + i;
-      float a[8];
+    for (int i = 0; i < kCh; ++i) {
+      const int j = pos.row(i), c = s0 + j;
 #pragma unroll
-      for (int l = 0; l < 8; ++l) {
-        const int v = v0 + (l < 4 ? 4 * lg + l : 32 + 4 * lg + l - 4);
-        const float xin = (residual && c < c_in) ? xn(t + kt - 1, c, v) : 0.0f;
-        a[l] = c < c0 ? gate(act, p[i][l], q[i][l], xin) : 0.0f;
-        if (drop_out.threshold && c < c0)
-          a[l] *= drop_mask(drop_out, key_out, (size_t)(b * t_out + t) * c0 + c, v);
+      for (int h = 0; h < 2; ++h) {   // lanes 4 tx .. and 32 + 4 tx ..
+        const int l0 = h * (kGemmLanes / 2) + 4 * pos.tx, v = v0 + l0;
+        float4* ap = reinterpret_cast<float4*>(&sm.a[j][l0]);
+        const float4 xin = residual && c < c_in ? *ap : zero4;
+        const float xi[4] = {xin.x, xin.y, xin.z, xin.w};
+        float av[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float q = GATED ? acc[i + C::TM / 2][4 * h + u] : 0.0f;
+          av[u] = c < c0 ? gate(ACT, acc[i][4 * h + u], q, xi[u]) : 0.0f;
+          if (drop_out.threshold && c < c0)
+            av[u] *= drop_mask(drop_out, key_out, (size_t)(b * t_out + t) * c0 + c, v + u);
+        }
+        *ap = make_float4(av[0], av[1], av[2], av[3]);
       }
-      a_s[4 * cg + i][lg] = make_float4(a[0], a[1], a[2], a[3]);
-      a_s[4 * cg + i][lg + 8] = make_float4(a[4], a[5], a[6], a[7]);
-    }
-    for (int i = tid; i < kGemmCols * kMaxOut; i += kGemmThreads) {
-      const int c = i / kMaxOut, o = i % kMaxOut;
-      ow_s[c][o] = (s + c < c0 && o < n_out) ? ow[(size_t)(s + c) * n_out + o] : 0.0f;
     }
     __syncthreads();
 
-    // second product: thread (o = cg, its 8 lanes)
-    for (int c = 0; c < kGemmCols; ++c) {
-      const float4 aa = a_s[c][lg], ab = a_s[c][lg + 8];
-      const float av[8] = {aa.x, aa.y, aa.z, aa.w, ab.x, ab.y, ab.z, ab.w};
-      const float wv = ow_s[c][cg];
+    // the second product: y[o, v] = ob[o] + sum over c ascending of a[c, v]
+    // ow[c, o]; between passes its sums wait in y, which only this thread
+    // writes and reads
+    if (o0 < n_out) {
+      float out[2][4];
 #pragma unroll
-      for (int l = 0; l < 8; ++l) out[l] = fmaf(av[l], wv, out[l]);
+      for (int e = 0; e < 2; ++e) {
+        float4 o4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (o0 + e < n_out)
+          o4 = s0 > 0 ? *reinterpret_cast<const float4*>(yrow(o0 + e))
+                      : make_float4(ob[o0 + e], ob[o0 + e], ob[o0 + e], ob[o0 + e]);
+        out[e][0] = o4.x;
+        out[e][1] = o4.y;
+        out[e][2] = o4.z;
+        out[e][3] = o4.w;
+      }
+      const int nc = min(CP, c0 - s0);
+#pragma unroll 4
+      for (int c = 0; c < nc; ++c) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&sm.a[c][4 * lq]);
+        const float2 w2 = *reinterpret_cast<const float2*>(&sm.ow[c][o0]);
+        const float al[4] = {a4.x, a4.y, a4.z, a4.w}, we[2] = {w2.x, w2.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) out[e][u] = fmaf(al[u], we[e], out[e][u]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (o0 + e < n_out)
+          *reinterpret_cast<float4*>(yrow(o0 + e)) =
+              make_float4(out[e][0], out[e][1], out[e][2], out[e][3]);
     }
-    __syncthreads();  // a_s and ow_s are rewritten by the next pass
-  }
-
-  if (cg < n_out) {
-    float* yr = y + ((size_t)(b * t_out + t) * n_out + cg) * vp + v0;
-    *reinterpret_cast<float4*>(yr + 4 * lg) = make_float4(out[0], out[1], out[2], out[3]);
-    *reinterpret_cast<float4*>(yr + 32 + 4 * lg) = make_float4(out[4], out[5], out[6], out[7]);
+    __syncthreads();   // the residual, the tile and the weights are rewritten by the next pass
   }
 }
 
-template <bool GATED>
+template <int ACT, bool ONE_PIECE>
 cudaError_t gate_gemm_launch(const GateGemmArgs& a, cudaStream_t stream) {
-  const dim3 grid(a.vp / kGemmLanes, a.t_in - a.kt + 1, a.batch);
-  gate_gemm_kernel<GATED><<<grid, kGemmThreads, 0, stream>>>(
+  constexpr size_t smem = sizeof(GemmSmem<GemmCfg<ONE_PIECE>, GateShape<ACT>::kPass>);
+  const cudaError_t err = set_smem(gate_gemm_kernel<ACT, ONE_PIECE>, smem);
+  if (err != cudaSuccess) return err;
+  // (t, b) fastest: the kt output steps that read one input step, and the
+  // blocks that read one lane tile of the LayerNorm affine, run together
+  const dim3 grid((a.t_in - a.kt + 1) * a.batch, a.vp / kGemmLanes);
+  gate_gemm_kernel<ACT, ONE_PIECE><<<grid, GemmCfg<ONE_PIECE>::kThreads, smem, stream>>>(
       a.x, a.mu, a.rstd, a.lng, a.lnb, a.w, a.wb, a.ow, a.ob, a.y, a.t_in, a.c_in, a.vp, a.kt,
-      a.c0, a.n_out, a.act, a.apply_ln, a.residual, a.drop_in, a.drop_out);
+      a.c0, a.n_out, a.apply_ln, a.residual, a.drop_in, a.drop_out);
   return cudaGetLastError();
 }
 
+}  // namespace
+
 cudaError_t launch_gate_gemm(const GateGemmArgs& a, cudaStream_t stream) {
   if (a.vp % kGemmLanes != 0 || a.n_out > kMaxOut || a.t_in < a.kt) return cudaErrorInvalidValue;
-  return (a.act == kGlu || a.act == kGtu) ? gate_gemm_launch<true>(a, stream)
-                                          : gate_gemm_launch<false>(a, stream);
+  const bool one = a.kt * a.c_in <= 16;   // one staged piece: K1 on the first block
+  switch (a.act) {
+    case kGlu: return one ? gate_gemm_launch<kGlu, true>(a, stream)
+                          : gate_gemm_launch<kGlu, false>(a, stream);
+    case kGtu: return one ? gate_gemm_launch<kGtu, true>(a, stream)
+                          : gate_gemm_launch<kGtu, false>(a, stream);
+    case kRelu: return one ? gate_gemm_launch<kRelu, true>(a, stream)
+                           : gate_gemm_launch<kRelu, false>(a, stream);
+    case kSilu: return one ? gate_gemm_launch<kSilu, true>(a, stream)
+                           : gate_gemm_launch<kSilu, false>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace stgcn

@@ -18,10 +18,12 @@ with the recompute-based backward kernels :func:`ohead_bwd` (K3b) and
 :func:`ofc_fused`. Dropout masks are keyed by element (:mod:`.dropout`).
 
 The CUDA sources are ``csrc/output_head.cu`` (K3, and both forward entry
-points), ``csrc/gate_gemm.cu`` (K4's body, shared with K1) and
+points), ``csrc/gate_gemm.cu`` (K4's body, shared with K1: fc1 on the
+register tile of ``csrc/f32_tile.cuh``, the LayerNorm applied as its input
+is staged, ReLU, dropout and fc2 in the epilogue) and
 ``csrc/output_head_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K3b, K4b; K3b's
 recompute with the gate backward, its data gradient and both kernels'
-weight gradients on the register tile of ``csrc/f32_tile.cuh``). Each
+weight gradients on the same tile). Each
 wrapper runs its kernel on a CUDA tensor and its plain version (``*_reference``;
 the backward ones are autograd through the forward ones) on a CPU tensor,
 and counts its launches.

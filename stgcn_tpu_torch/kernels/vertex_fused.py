@@ -20,12 +20,14 @@ wrap forward and backward as ``torch.autograd.Function``s that save only
 their inputs, as the TPU's ``custom_vjp`` does.
 
 All large operands are channel-before-vertex ``[B, T, C, Vp]`` float32, as
-on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body),
+on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body: conv 1
+on the register tile of ``csrc/f32_tile.cuh``, the input normalized and
+dropped out as it is staged, the gate and the align in the epilogue),
 ``csrc/vertex_fused.cu`` (K2, and both forward entry points) and
 ``csrc/vertex_fused_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K1b, K2b: their
 recompute with the gate backward, their data gradients and every weight
-gradient run on the register tile of ``csrc/f32_tile.cuh``); their notes say
-what bounds each kernel and how the design answers it. Every
+gradient run on the same tile); their notes say what bounds each kernel and
+how the design answers it. Every
 wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_reference``; the backward ones are autograd through the forward ones
 with the same mask) on a CPU tensor, and counts its kernel launches

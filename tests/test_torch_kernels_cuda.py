@@ -34,9 +34,11 @@ from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import sddmm as sd
 from stgcn_tpu_torch.kernels import spmm as spm
 from stgcn_tpu_torch.kernels import vertex_fused as vf
-from stgcn_tpu_torch.kernels.dropout import Drop
+from stgcn_tpu_torch.kernels.dropout import Drop, step_seed
 from stgcn_tpu_torch.kernels.probes import mask_probes
-from stgcn_tpu_torch.ops import banded_graph_op, bcsr_graph_op, ell_graph_op
+from stgcn_tpu_torch.nn import STGCN, fused_forward
+from stgcn_tpu_torch.ops import DenseGraphOp, banded_graph_op, bcsr_graph_op, ell_graph_op
+from tests.gate_gemm_edges import HEAD_EDGES, OFC_EDGES, v_true_of
 
 pytestmark = pytest.mark.cuda
 B, V_TRUE, V_PAD = 3, 150, 256
@@ -164,6 +166,63 @@ def test_head_forward_with_dropout_matches_plain(dev, act):
     cfg, x, ln, w = _head_case(rng, dev, act, True)
     torch.testing.assert_close(vf.head_fwd(cfg, x, *ln, *w, drop=DROP),
                                vf.head_reference(cfg, x, ln, w, DROP), **TOL)
+
+
+def _ln_of(rng, dev, batch, n_t, c, v_true, v_pad):
+    mu = _rand(rng, dev, batch, n_t, 1, 1, scale=0.1)
+    rstd = 0.5 + _rand(rng, dev, batch, n_t, 1, 1, scale=0.1).abs()
+    lng, lnb = 1.0 + _rand(rng, dev, c, v_pad, scale=0.1), _rand(rng, dev, c, v_pad)
+    lng[:, v_true:] = 0.0
+    lnb[:, v_true:] = 0.0
+    return mu, rstd, lng, lnb
+
+
+@pytest.mark.parametrize("act,c0,c_in,kt,t_in,c1,apply_ln,drop,batch,v_pad", HEAD_EDGES)
+def test_head_fwd_at_tile_edges_matches_plain(dev, act, c0, c_in, kt, t_in, c1, apply_ln,
+                                              drop, batch, v_pad):
+    """K1f (the gate GEMM) at the edges of its tile (``gate_gemm_edges``):
+    within the kernel tolerance of its plain version, a repeat launch
+    bit-identical, one launch counted per call."""
+    rng = np.random.default_rng(57)
+    v_true = v_true_of(v_pad)
+    cfg = vf.VertexBlockCfg(kt=kt, ks=3, act_func=act, graph_conv_type="cheb_graph_conv",
+                            v_true=v_true, v_pad=v_pad, t_in=t_in, c_in=c_in, c0=c0, c1=c1,
+                            c2=c1, apply_ln=apply_ln)
+    x = _rand(rng, dev, batch, t_in, c_in, v_pad)
+    ln = _ln_of(rng, dev, batch, t_in, c_in, v_true, v_pad) if apply_ln else (None,) * 4
+    w = (_rand(rng, dev, kt, c_in, cfg.g1, scale=(kt * c_in) ** -0.5),
+         _rand(rng, dev, cfg.g1, scale=0.1), _rand(rng, dev, c0, c1, scale=c0 ** -0.5),
+         _rand(rng, dev, c1, scale=0.1))
+    d = DROP if drop else None
+    before = kernels.launch_counts()["head_fwd"]
+    got = vf.head_fwd(cfg, x, *ln, *w, drop=d)
+    assert torch.equal(got, vf.head_fwd(cfg, x, *ln, *w, drop=d))
+    assert kernels.launch_counts()["head_fwd"] == before + 2
+    assert got.shape == (batch, cfg.t1, c1, v_pad)
+    torch.testing.assert_close(got, vf.head_reference(cfg, x, ln if apply_ln else None, w, d),
+                               **TOL)
+
+
+@pytest.mark.parametrize("c0,c1,c_end,drop,batch,v_pad", OFC_EDGES)
+def test_ofc_fwd_at_tile_edges_matches_plain(dev, c0, c1, c_end, drop, batch, v_pad):
+    """K4f (the gate GEMM: relu, no residual, its dropout after the ReLU) at
+    the edges of its tile, against its plain version; a repeat launch
+    bit-identical."""
+    rng = np.random.default_rng(58)
+    v_true = v_true_of(v_pad)
+    cfg = oh.OutHeadCfg(ko=4, c_in=1, c0=c0, c1=c1, c_end=c_end, act_func="glu",
+                        v_true=v_true, v_pad=v_pad)
+    args = (cfg, _rand(rng, dev, batch, 1, c0, v_pad),
+            *_ln_of(rng, dev, batch, 1, c0, v_true, v_pad),
+            _rand(rng, dev, c0, c1, scale=c0 ** -0.5), _rand(rng, dev, c1, scale=0.1),
+            _rand(rng, dev, c1, c_end, scale=c1 ** -0.5), _rand(rng, dev, c_end, scale=0.1))
+    d = Drop(0.5, 2024, 3) if drop else None
+    before = kernels.launch_counts()["ofc_fwd"]
+    got = oh.ofc_fwd(*args, drop=d)
+    assert torch.equal(got, oh.ofc_fwd(*args, drop=d))
+    assert kernels.launch_counts()["ofc_fwd"] == before + 2
+    assert got.shape == (batch, 1, c_end, v_pad)
+    torch.testing.assert_close(got, oh.ofc_reference(*args, drop=d), **TOL)
 
 
 @pytest.mark.parametrize("apply_ln,drop", [(False, None), (True, None), (True, DROP)])
@@ -1073,6 +1132,28 @@ def test_k12_autograd_matches_plain(dev):
         grads.append([y.detach().cpu(), gr[0].cpu(), *(t.cpu() for t in gr[2:])])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+def test_fused_forward_with_the_head_at_tile_edges_matches_plain(dev):
+    """K12f's head is the gate GEMM: ``fused_forward`` through a model whose
+    blocks sit at the edges of its tile (gate widths 100 and 130: two and
+    three 64-channel passes; bottlenecks 5 and 16; a 65-channel block input),
+    dropout on, on the card against the same on the CPU (the plain versions)."""
+    blocks = [[1], [100, 5, 65], [130, 16, 64], [128, 128], [1]]
+    model = STGCN(12, V_TRUE, blocks=blocks, device="cpu",
+                  generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(34)
+    gso = _rand(rng, dev, V_TRUE, V_TRUE, scale=0.1)
+    x = _rand(rng, dev, B, 12, V_TRUE, 1)
+    params = model.state_dict()
+    before = kernels.launch_counts()["stblock_fwd"]
+    with torch.no_grad():
+        got = fused_forward({k: v.to(dev) for k, v in params.items()}, x, DenseGraphOp(gso),
+                            model, deterministic=False, seed=step_seed(9, 1))
+        ref = fused_forward(params, x.cpu(), DenseGraphOp(gso.cpu()), model,
+                            deterministic=False, seed=step_seed(9, 1))
+    assert kernels.launch_counts()["stblock_fwd"] == before + 2
+    torch.testing.assert_close(got.cpu(), ref, **TOL)
 
 
 def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):

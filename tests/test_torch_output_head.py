@@ -10,8 +10,10 @@ import torch
 from stgcn_tpu.kernels import output_head as joh
 from stgcn_tpu.nn.fused import _output_block_apply_cv as jax_output_block_apply_cv
 from stgcn_tpu_torch.kernels import output_head as toh
+from stgcn_tpu_torch.kernels.dropout import Drop, keep_mask
 from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.fused import _output_block_apply_cv
+from tests.gate_gemm_edges import OFC_EDGES, v_true_of
 from tests.torch_parity_utils import B, rand, t
 
 ATOL = 2e-5
@@ -68,6 +70,42 @@ def test_ofc_plain_matches_jax_kernel(act):
     kern = np.asarray(joh.ofc_fused(jcfg, jnp.int32(V_TRUE), 0, *_j(args)))
     assert got.shape == (B, 1, cfg.c_end, V_PAD)
     np.testing.assert_allclose(got, kern, atol=ATOL)
+
+
+def _jax_ofc(jcfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, mask):
+    """The body of the JAX K4f (``_make_ofc_fwd_kernel``) on whole arrays,
+    its dropout mask given."""
+    h = joh._ln_drop_fwd(jcfg, a, mu, rstd, lnw, lnb, None)
+    _, z = joh._ofc_core(jcfg, h, w1, b1)
+    if mask is not None:
+        z = z * mask
+    return joh._bdot(z, w2, joh._PRECISIONS[jcfg.precision]) + b2[:, None]
+
+
+@pytest.mark.parametrize("c0,c1,c_end,drop,batch,v_pad", OFC_EDGES)
+def test_ofc_plain_at_tile_edges_matches_jax(c0, c1, c_end, drop, batch, v_pad):
+    """K4f's plain version against the JAX K4f's body at the edge shapes of
+    the gate GEMM's tile, where the card tests hold the kernel to the plain
+    version; the keyed mask after the ReLU handed to both."""
+    v_true = v_true_of(v_pad)
+    kw = dict(ko=4, c_in=1, c0=c0, c1=c1, c_end=c_end, act_func="glu", v_true=v_true,
+              v_pad=v_pad)
+    jcfg = joh.OutHeadCfg(droprate=0.5, tile_v=128, b_tile=batch, training=False, **kw)
+    cfg = toh.OutHeadCfg(**kw)
+    rng = np.random.default_rng(34)
+    lnw, lnb = 1.0 + rand(rng, c0, v_pad, scale=0.1), rand(rng, c0, v_pad)
+    lnw[:, v_true:] = 0.0
+    lnb[:, v_true:] = 0.0
+    args = [rand(rng, batch, 1, c0, v_pad), rand(rng, batch, 1, 1, 1, scale=0.1),
+            (0.5 + rng.random((batch, 1, 1, 1))).astype(np.float32), lnw, lnb,
+            rand(rng, c0, c1, scale=c0 ** -0.5), rand(rng, c1, scale=0.1),
+            rand(rng, c1, c_end, scale=c1 ** -0.5), rand(rng, c_end, scale=0.1)]
+    d = Drop(0.5, 2024, 3) if drop else None
+    got = toh.ofc_fwd(cfg, *map(t, args), drop=d).numpy()
+    mask = None if d is None else keep_mask(d, (batch, 1, c1, v_pad), v_true).numpy()
+    ref = np.asarray(_jax_ofc(jcfg, *_j(args), mask))
+    assert got.shape == (batch, 1, c_end, v_pad)
+    np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
 def _head_params(rng, cfg):

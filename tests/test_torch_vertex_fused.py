@@ -11,6 +11,8 @@ import torch
 
 from stgcn_tpu.kernels import vertex_fused as jvf
 from stgcn_tpu_torch.kernels import vertex_fused as tvf
+from stgcn_tpu_torch.kernels.dropout import Drop, keep_mask
+from tests.gate_gemm_edges import HEAD_EDGES, v_true_of
 from tests.torch_parity_utils import B, GATE_CASES, rand, t
 
 ATOL = 2e-5
@@ -61,6 +63,37 @@ def test_head_plain_matches_jax_kernel(gct, ks, act, apply_ln):
     ref = np.asarray(jvf.head_reference(jcfg, jx, jln if apply_ln else None, jw))
     assert got.shape == (B, cfg.t1, cfg.c1, V_PAD)
     np.testing.assert_allclose(got, kern, atol=ATOL)
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("act,c0,c_in,kt,t_in,c1,apply_ln,drop,batch,v_pad", HEAD_EDGES)
+def test_head_plain_at_tile_edges_matches_jax(act, c0, c_in, kt, t_in, c1, apply_ln, drop,
+                                              batch, v_pad):
+    """K1f's plain version against the JAX ``head_reference`` at the edge
+    shapes of the gate GEMM's tile, where the card tests hold the kernel to
+    the plain version; the input dropout's keyed mask handed to both."""
+    kw = dict(kt=kt, ks=3, act_func=act, graph_conv_type="cheb_graph_conv",
+              v_true=v_true_of(v_pad), v_pad=v_pad, t_in=t_in, c_in=c_in, c0=c0, c1=c1, c2=c1,
+              apply_ln=apply_ln)
+    jcfg = jvf.VertexBlockCfg(droprate=0.5, tile_v=128, training=False, **kw)
+    cfg = tvf.VertexBlockCfg(**kw)
+    rng = np.random.default_rng(14)
+    x = rand(rng, batch, t_in, c_in, v_pad)
+    ln = (rand(rng, batch, t_in, 1, 1, scale=0.1),
+          (0.5 + rng.random((batch, t_in, 1, 1))).astype(np.float32),
+          1.0 + rand(rng, c_in, v_pad, scale=0.1), rand(rng, c_in, v_pad))
+    ln[2][:, cfg.v_true:] = 0.0
+    ln[3][:, cfg.v_true:] = 0.0
+    w = (rand(rng, kt, c_in, cfg.g1, scale=(kt * c_in) ** -0.5), rand(rng, cfg.g1, scale=0.1),
+         rand(rng, c0, c1, scale=c0 ** -0.5), rand(rng, c1, scale=0.1))
+    d = Drop(0.5, 2024, 1) if drop else None
+    got = tvf.head_fwd(cfg, t(x), *(map(t, ln) if apply_ln else [None] * 4), *map(t, w),
+                       drop=d).numpy()
+    mask = None if d is None else keep_mask(d, x.shape, cfg.v_true).numpy()
+    ref = np.asarray(jvf.head_reference(jcfg, jnp.asarray(x),
+                                        [jnp.asarray(a) for a in ln] if apply_ln else None,
+                                        [jnp.asarray(a) for a in w], mask))
+    assert got.shape == (batch, cfg.t1, c1, v_pad)
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
