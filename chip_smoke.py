@@ -516,7 +516,7 @@ KERNEL_META = {
                  "stgcn_tpu/kernels/vertex_fused.py:610", "_head_pallas"),
     "tail_fwd": ("K2f", "stgcn_tpu_torch/kernels/csrc/vertex_fused.cu",
                  "stgcn_tpu/kernels/vertex_fused.py:839", "_tail_pallas"),
-    "ohead_fwd": ("K3f", "stgcn_tpu_torch/kernels/csrc/output_head.cu",
+    "ohead_fwd": ("K3f", "stgcn_tpu_torch/kernels/csrc/gate_gemm.cu",
                   "stgcn_tpu/kernels/output_head.py:214", "_ohead_pallas"),
     "ofc_fwd": ("K4f", "stgcn_tpu_torch/kernels/csrc/gate_gemm.cu",
                 "stgcn_tpu/kernels/output_head.py:407", "_ofc_pallas"),

@@ -43,7 +43,7 @@ _DROP = [_U, _I, _U, _F]   # a dropout site: seed, site, threshold, scale
 # dropout site), then the stream; each returns its cudaError_t
 SIGNATURES = {
     "stgcn_head_fwd": [_P] * 10 + [_I] * 10 + _DROP + [_P],
-    "stgcn_tail_fwd": [_P] * 12 + [_I] * 9 + [_P],
+    "stgcn_tail_fwd": [_P] * 13 + [_I] * 9 + [_P],
     "stgcn_ohead_fwd": [_P] * 11 + [_I] * 7 + _DROP + [_P],
     "stgcn_ofc_fwd": [_P] * 10 + [_I] * 6 + _DROP + [_P],
     "stgcn_head_bwd": [_P] * 19 + [_I] * 10 + _DROP + [_P],

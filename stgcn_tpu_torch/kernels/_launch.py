@@ -84,4 +84,6 @@ def drop_args(drop) -> tuple:
 
 ACT_CODES = {"glu": 0, "gtu": 1, "relu": 2, "silu": 3}
 LANES = 128   # vertex lanes per CUDA block (csrc/common.cuh kLanes)
+TILE_LANES = 64   # vertex lanes of a gate GEMM block (csrc/gate_gemm.cu kGemmLanes)
+GATE_PASS = 64    # fewest gate channels of a gate GEMM pass (gated; plain passes take 128)
 MAX_OUT = 16  # narrow outputs a thread keeps in registers (csrc/common.cuh kMaxOut)

@@ -2,13 +2,13 @@
 //
 // Layout: every activation is channel-before-vertex ("cv"), [B, T, C, Vp],
 // float32, with Vp a multiple of kLanes, so neighbouring threads take
-// neighbouring vertex lanes and every activation load coalesces. K2 and K3
-// run one thread per lane in blocks of kLanes, their weights staged in
-// shared memory and read by the threads of a warp at one address (a
-// broadcast, no bank conflict); K1 and K4 share the gate GEMM (gate_gemm.cu)
-// on the register tile of f32_tile.cuh, as the backward passes do. Sums run
-// in a fixed order: no atomics, so a launch repeated on the same inputs
-// gives bit-identical output.
+// neighbouring vertex lanes and every activation load coalesces. K1-K4
+// run their products on the gate GEMM (gate_gemm.cu), on the register tile
+// of f32_tile.cuh as the backward passes do; the lane kernels (one thread
+// per lane in blocks of kLanes: K2's h, the contractions) stage their
+// weights in shared memory, read by the threads of a warp at one address (a
+// broadcast, no bank conflict). Sums run in a fixed order: no atomics, so a
+// launch repeated on the same inputs gives bit-identical output.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,7 +18,7 @@
 namespace stgcn {
 
 constexpr int kLanes = 128;          // vertex lanes (threads) per block
-constexpr int kChunk = 16;           // gate channels whose sums a thread keeps in registers
+constexpr int kChunk = 16;           // outputs whose sums a lane thread keeps in registers
 constexpr int kMaxOut = 16;          // narrow outputs (K1's c1, K2's c1, K4's fc2) a thread keeps
 constexpr int kMaxSmem = 232448;     // shared memory a block may use on sm_90 (227 KB)
 
@@ -44,49 +44,6 @@ __device__ __forceinline__ float gate(int act, float p, float q, float xin) {
   }
 }
 
-// Stage chunks [j0, j0 + nch) of a gate conv weight w [rows, G] and its bias
-// [G] (G = 2*c0 when gated, c0 otherwise) into shared memory as
-// [rows][nch][2*kChunk]: per chunk, kChunk p-columns then kChunk q-columns,
-// zero past c0 (and in the q half when not gated), so the inner loops need
-// no bounds checks and padded channels come out of the gate as 0.
-__device__ __forceinline__ void stage_gate_weight(float* w_s, float* b_s, const float* w,
-                                                  const float* bias, int rows, int c0,
-                                                  bool gated, int j0, int nch) {
-  const int g = gated ? 2 * c0 : c0;
-  const int wcols = nch * 2 * kChunk;
-  for (int i = threadIdx.x; i < rows * wcols; i += blockDim.x) {
-    const int row = i / wcols, col = i % wcols;
-    const int c = (j0 + col / (2 * kChunk)) * kChunk + col % kChunk;
-    const bool is_q = (col % (2 * kChunk)) >= kChunk;
-    float val = 0.0f;
-    if (c < c0 && (gated || !is_q)) val = w[(size_t)row * g + (is_q ? c0 + c : c)];
-    w_s[i] = val;
-  }
-  for (int col = threadIdx.x; col < wcols; col += blockDim.x) {
-    const int c = (j0 + col / (2 * kChunk)) * kChunk + col % kChunk;
-    const bool is_q = (col % (2 * kChunk)) >= kChunk;
-    b_s[col] = (c < c0 && (gated || !is_q)) ? bias[is_q ? c0 + c : c] : 0.0f;
-  }
-}
-
-// p[i] += xv * w[i], q[i] += xv * w[kChunk + i] with w read as float4.
-__device__ __forceinline__ void fma_chunk(float (&p)[kChunk], float (&q)[kChunk], float xv,
-                                          const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int i = 0; i < kChunk / 4; ++i) {
-    const float4 a = w4[i], b = w4[kChunk / 4 + i];
-    p[4 * i + 0] = fmaf(xv, a.x, p[4 * i + 0]);
-    p[4 * i + 1] = fmaf(xv, a.y, p[4 * i + 1]);
-    p[4 * i + 2] = fmaf(xv, a.z, p[4 * i + 2]);
-    p[4 * i + 3] = fmaf(xv, a.w, p[4 * i + 3]);
-    q[4 * i + 0] = fmaf(xv, b.x, q[4 * i + 0]);
-    q[4 * i + 1] = fmaf(xv, b.y, q[4 * i + 1]);
-    q[4 * i + 2] = fmaf(xv, b.z, q[4 * i + 2]);
-    q[4 * i + 3] = fmaf(xv, b.w, q[4 * i + 3]);
-  }
-}
-
 // Sum over the block's threads in a fixed order; the result is valid in
 // thread 0. `scratch` holds kLanes / 32 floats of shared memory.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
@@ -100,24 +57,65 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return total;
 }
 
+// Sums of s and of ss over the block's kLanes threads in a fixed order (each
+// warp's by shuffles, then the warps in index order); the results are valid
+// in thread 0. `scratch` holds 2 * kLanes / 32 floats of shared memory; the
+// call's two barriers also end every read of shared memory made before it.
+__device__ __forceinline__ void block_sum2(float& s, float& ss, float* scratch) {
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    ss += __shfl_down_sync(0xffffffffu, ss, off);
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    scratch[2 * (threadIdx.x >> 5)] = s;
+    scratch[2 * (threadIdx.x >> 5) + 1] = ss;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s = ss = 0.0f;
+    for (int w = 0; w < kLanes / 32; ++w) {
+      s += scratch[2 * w];
+      ss += scratch[2 * w + 1];
+    }
+  }
+}
+
 // Second pass of the LayerNorm partials: part is [rows][n][2] (sum, sum of
-// squares) per block; ps[r], pss[r] are the sums over n, in index order.
+// squares) per block; ps[r], pss[r] are the sums over n, in a fixed order
+// (one block a row: each thread sums a stride of n, then a tree).
 cudaError_t launch_reduce_partials(const float* part, float* ps, float* pss, int rows, int n,
                                    cudaStream_t stream);
 
-// The gate GEMM shared by K1 and K4 (gate_gemm.cu): y [B, t_in-kt+1, n_out, Vp]
-// from x [B, t_in, c_in, Vp], conv weight w [kt*c_in, G] (G = 2*c0 gated,
-// c0 otherwise), bias wb [G], second product ow [c0, n_out], ob [n_out].
+// The gate GEMM of K1-K4 (gate_gemm.cu; K2's conv 2): from x [B, t_in,
+// c_in, Vp], conv weight w [kt*c_in, G] (G = 2*c0 gated, c0 otherwise) and
+// bias wb [G], the gated a [B, t_out, c0, Vp] (t_out = t_in-kt+1), then
+// either (part null) the second product y = a . ow + ob, ow [c0, n_out],
+// ob [n_out], written to y [B, t_out, n_out, Vp]; or (part given: the
+// LayerNorm-partial epilogue) a itself to y, with ps/pss [B, t_out] its sums
+// and sums of squares over channels and the lanes v < v_true (part: scratch
+// of B * t_out * ceil(c0 / 64) * (Vp / 64) * 2 floats).
 // mu/rstd [B, t_in] and lng/lnb [c_in, Vp] are read only when apply_ln.
 // drop_in masks the (normalized) input, keyed [B, t_in, c_in, V_true];
-// drop_out masks the gated a, keyed [B, t_out, c0, V_true].
+// drop_out masks the gated a before the second product, keyed
+// [B, t_out, c0, V_true].
 struct GateGemmArgs {
   const float *x, *mu, *rstd, *lng, *lnb, *w, *wb, *ow, *ob;
   float* y;
   int batch, t_in, c_in, vp, kt, c0, n_out, act, apply_ln, residual;
   Drop drop_in, drop_out;
+  float *part = nullptr, *ps = nullptr, *pss = nullptr;
+  int v_true = 0;
 };
 cudaError_t launch_gate_gemm(const GateGemmArgs& args, cudaStream_t stream);
+
+// h [B, t1, c1, Vp] = relu(gcb + sum over the n_c (1-3) graph-term
+// operands ct[m] [B, t1, c1, Vp], then channels c, of ct[m][.., c, :]
+// gcw[m, c, :] + xg), gcw [n_c, c1, c1], gcb [c1], c1 <= kMaxOut, one thread
+// a lane (vertex_fused.cu): K2's first stage, and K2b's recompute.
+cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
+                          const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
+                          int vp, cudaStream_t stream);
 
 // Opt the kernel into `smem` bytes of dynamic shared memory, then check it fits.
 template <typename K>

@@ -1,5 +1,8 @@
 // K1 (block head) and K2 (block tail) of one STGCN ST block, forward: the
-// C entry points, and K2's kernel. K1's body is the gate GEMM (gate_gemm.cu).
+// C entry points, K2's first stage (tail_h_kernel, which K2b's recompute
+// shares) and the second pass of the LayerNorm partials that K2 and K3
+// write. K1's body and K2's conv 2 are the gate GEMM (gate_gemm.cu, on the
+// register tile of f32_tile.cuh).
 //
 // Replaces the TPU kernels stgcn_tpu/kernels/vertex_fused.py `_head_pallas`
 // (:610, body `_make_head_fwd_kernel` :505 / `_head_core` :393) and
@@ -11,138 +14,135 @@
 //     -> ReLU -> temporal conv 2 -> gate, plus the LayerNorm partial sums
 //     (sum, sum of squares over channels and true vertex lanes) per (b, t).
 //
-// What bounds K2 on the H100: at the STGCN widths (c1 16, gate width 128)
-// it does some 30 float32 FMAs per byte it must move, above the card's
-// float32 balance point (67 TFLOP/s over 3.35 TB/s, about 20 FLOP/byte), so
-// it is bound by FMA issue. One thread per vertex lane first forms the
-// ReLU'd graph-conv output h for the kt steps it needs (in shared memory,
-// its own column), then holds 32 running sums (16 gate channels and their
-// gate partners) in registers; every h value feeds 32 FMAs and the weights
-// come from shared memory as float4 broadcasts.
+// What bounds K2 on the H100: float32 FMA issue. At the STGCN widths (c1 16,
+// c2 64 gated, kt 3, three graph terms) a lane costs 768 FMAs a step for h
+// and 6144 for conv 2, about 30 FMAs per byte it must move, above the card's
+// float32 balance point (67 TFLOP/s over 3.35 TB/s, about 20 FLOP/byte).
+// The lane kernel this replaced formed h kt times (once for each output
+// step whose window holds it) and ran conv 2 as 16-channel chunks from
+// shared memory, at a sixth of the f32 peak. K2 now runs in two launches:
+// tail_h_kernel forms h once, one thread a lane (its 2 GB round trip at
+// 100k block 1 costs less than its FMAs would at the lane kernel's rate),
+// then the gate GEMM runs conv 2 on the tile (kt*c1 = 48 rows staged in
+// three pieces, 128 gate rows x 64 lanes a block) with the LayerNorm-
+// partial epilogue: the gate with the in-gate residual (h's newest step,
+// zero-padded to c2), a2, and one partial per (b, t, pass, 64-lane tile).
+// A single kernel that walked each block's output steps over a ring of h
+// in shared memory (conv 2's weights resident, h never in device memory)
+// was slower at every shape (PERF.md §6): its steps serialize the h
+// chain, conv 2 and the epilogue behind four barriers, and at PeMSD7(M)
+// each block restaged the weights for one or two steps.
 //
 // The TPU tail accumulates the LayerNorm partials in an output block that
 // stays resident across its sequential vertex grid. CUDA blocks run in no
-// order, so K2 writes one partial per (b, t, vertex tile) and a second small
-// pass sums them in index order: no atomics, bit-identical on repeat.
+// order, so K2 (and K3) write one partial per (b, t, lane tile) and a second
+// small pass sums them in a fixed order: no atomics, bit-identical on
+// repeat.
 #include "common.cuh"
 
 namespace stgcn {
 
-__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ ps,
-                                       float* __restrict__ pss, int rows, int n) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  float s = 0.0f, ss = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    s += part[((size_t)r * n + i) * 2];
-    ss += part[((size_t)r * n + i) * 2 + 1];
+// grid (Vp / kLanes, t1, B), one thread per lane:
+//   h[b, t, o, v] = relu(gcb[o] + sum over terms m, then c < c1, of
+//                   ct_m[b, t, c, v] gcw[m, c, o] + xg[b, t, o, v])
+// (bias first, then m and c ascending, the residual last). A term's c1
+// loads, and the residual's, are issued before its FMAs.
+__global__ void __launch_bounds__(kLanes)
+tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
+              const float* __restrict__ ct2, const float* __restrict__ gcw,
+              const float* __restrict__ gcb, const float* __restrict__ xg, float* __restrict__ h,
+              int t1, int c1, int vp, int n_c) {
+  __shared__ __align__(16) float w_s[3 * kMaxOut][kMaxOut];   // gcw[m, c, :], zero past c1
+  __shared__ float b_s[kMaxOut];
+  for (int i = threadIdx.x; i < 3 * kMaxOut * kMaxOut; i += kLanes) {
+    const int m = i / (kMaxOut * kMaxOut), c = i / kMaxOut % kMaxOut, o = i % kMaxOut;
+    w_s[m * kMaxOut + c][o] =
+        m < n_c && c < c1 && o < c1 ? gcw[((size_t)m * c1 + c) * c1 + o] : 0.0f;
   }
-  ps[r] = s;
-  pss[r] = ss;
+  if (threadIdx.x < kMaxOut) b_s[threadIdx.x] = (int)threadIdx.x < c1 ? gcb[threadIdx.x] : 0.0f;
+  __syncthreads();
+  const int v = blockIdx.x * kLanes + threadIdx.x, t = blockIdx.y, b = blockIdx.z;
+  const size_t row0 = (size_t)(b * t1 + t) * c1;
+  float acc[kMaxOut], res[kMaxOut];
+#pragma unroll
+  for (int o = 0; o < kMaxOut; ++o) {
+    acc[o] = b_s[o];
+    res[o] = o < c1 ? xg[(row0 + o) * vp + v] : 0.0f;
+  }
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    if (m >= n_c) break;
+    const float* xr = (m == 0 ? ct0 : m == 1 ? ct1 : ct2) + row0 * vp + v;
+    float xv[kMaxOut];
+#pragma unroll
+    for (int c = 0; c < kMaxOut; ++c) xv[c] = c < c1 ? xr[(size_t)c * vp] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < kMaxOut; ++c) {
+      if (c >= c1) break;
+      const float4* w4 = reinterpret_cast<const float4*>(w_s[m * kMaxOut + c]);
+#pragma unroll
+      for (int q = 0; q < kMaxOut / 4; ++q) {
+        const float4 wq = w4[q];
+        acc[4 * q + 0] = fmaf(xv[c], wq.x, acc[4 * q + 0]);
+        acc[4 * q + 1] = fmaf(xv[c], wq.y, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(xv[c], wq.z, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(xv[c], wq.w, acc[4 * q + 3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kMaxOut; ++o) {
+    if (o >= c1) break;
+    h[(row0 + o) * vp + v] = fmaxf(acc[o] + res[o], 0.0f);
+  }
+}
+
+cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
+                          const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
+                          int vp, cudaStream_t stream) {
+  if (vp % kLanes != 0 || c1 > kMaxOut || n_c < 1 || n_c > 3) return cudaErrorInvalidValue;
+  tail_h_kernel<<<dim3(vp / kLanes, t1, batch), kLanes, 0, stream>>>(
+      ct[0], ct[1], ct[2], gcw, gcb, xg, h, t1, c1, vp, n_c);
+  return cudaGetLastError();
+}
+
+// one block a row: thread i sums partials i, i + 256, .. in order, then a
+// fixed tree over the threads
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ ps,
+                       float* __restrict__ pss, int n) {
+  __shared__ float2 sh[kReduceThreads];
+  const int r = blockIdx.x;
+  const float2* row = reinterpret_cast<const float2*>(part) + (size_t)r * n;
+  float2 acc = make_float2(0.0f, 0.0f);
+  for (int i = threadIdx.x; i < n; i += kReduceThreads) {
+    const float2 p = row[i];
+    acc.x += p.x;
+    acc.y += p.y;
+  }
+  sh[threadIdx.x] = acc;
+  __syncthreads();
+  for (int half = kReduceThreads / 2; half > 0; half /= 2) {
+    if ((int)threadIdx.x < half) {
+      sh[threadIdx.x].x += sh[threadIdx.x + half].x;
+      sh[threadIdx.x].y += sh[threadIdx.x + half].y;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    ps[r] = sh[0].x;
+    pss[r] = sh[0].y;
+  }
 }
 
 cudaError_t launch_reduce_partials(const float* part, float* ps, float* pss, int rows, int n,
                                    cudaStream_t stream) {
-  reduce_partials_kernel<<<(rows + 127) / 128, 128, 0, stream>>>(part, ps, pss, rows, n);
+  reduce_partials_kernel<<<rows, kReduceThreads, 0, stream>>>(part, ps, pss, n);
   return cudaGetLastError();
 }
 
-// out[o] += a * row[o] for o < kMaxOut (row 16-byte aligned).
-__device__ __forceinline__ void fma_row(float (&out)[kMaxOut], float a, const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int i = 0; i < kMaxOut / 4; ++i) {
-    const float4 w = r4[i];
-    out[4 * i + 0] = fmaf(a, w.x, out[4 * i + 0]);
-    out[4 * i + 1] = fmaf(a, w.y, out[4 * i + 1]);
-    out[4 * i + 2] = fmaf(a, w.z, out[4 * i + 2]);
-    out[4 * i + 3] = fmaf(a, w.w, out[4 * i + 3]);
-  }
-}
-
-// grid (Vp / kLanes, T2, B). cterms: n_c operands [B, T1, c1, Vp] of the
-// weight contraction (xg, T1, T2 for Chebyshev order 3). Writes a2
-// [B, T2, c2, Vp] and part [B, T2, nvt, 2].
-__global__ void __launch_bounds__(kLanes)
-tail_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ ct0,
-                const float* __restrict__ ct1, const float* __restrict__ ct2,
-                const float* __restrict__ gcw, const float* __restrict__ gcb,
-                const float* __restrict__ c2k, const float* __restrict__ c2b,
-                float* __restrict__ a2, float* __restrict__ part, int t1, int c1, int vp,
-                int kt, int n_c, int c2, int act, int v_true) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const bool gated = act == kGlu || act == kGtu;
-  const int nch = (c2 + kChunk - 1) / kChunk;
-  const int wcols = nch * 2 * kChunk;
-  const int rows = kt * c1;
-  float* w_s = smem;                     // [rows][wcols] conv-2 weight
-  float* b_s = w_s + rows * wcols;       // [wcols]
-  float* g_s = b_s + wcols;              // [n_c * c1][kMaxOut] contraction weight
-  float* gb_s = g_s + n_c * c1 * kMaxOut;    // [kMaxOut]
-  float* h_s = gb_s + kMaxOut;               // [kt * c1][kLanes] this thread's h column
-  float* red = h_s + rows * kLanes;      // [kLanes / 32]
-  stage_gate_weight(w_s, b_s, c2k, c2b, rows, c2, gated, 0, nch);
-  for (int i = threadIdx.x; i < n_c * c1 * kMaxOut; i += blockDim.x) {
-    const int row = i / kMaxOut, o = i % kMaxOut;
-    g_s[i] = o < c1 ? gcw[row * c1 + o] : 0.0f;
-  }
-  for (int o = threadIdx.x; o < kMaxOut; o += blockDim.x) gb_s[o] = o < c1 ? gcb[o] : 0.0f;
-  __syncthreads();
-
-  const int v = blockIdx.x * kLanes + threadIdx.x;
-  const int t = blockIdx.y, b = blockIdx.z;
-  const int t2 = t1 - kt + 1;
-  const float* cts[3] = {ct0, ct1, ct2};
-
-  // h = relu(sum_m cterm_m gcw[m] + gcb + xg) at steps t .. t+kt-1
-  for (int k = 0; k < kt; ++k) {
-    const size_t base = (size_t)(b * t1 + t + k) * c1 * vp + v;
-    float gc[kMaxOut];
-#pragma unroll
-    for (int o = 0; o < kMaxOut; ++o) gc[o] = gb_s[o];
-    for (int m = 0; m < n_c; ++m)
-      for (int c = 0; c < c1; ++c)
-        fma_row(gc, cts[m][base + (size_t)c * vp], g_s + (m * c1 + c) * kMaxOut);
-#pragma unroll
-    for (int o = 0; o < kMaxOut; ++o)
-      if (o < c1) h_s[(k * c1 + o) * kLanes + threadIdx.x] = fmaxf(gc[o] + xg[base + (size_t)o * vp], 0.0f);
-  }
-
-  const bool live = v < v_true;
-  float s = 0.0f, ss = 0.0f;
-  float* yb = a2 + (size_t)(b * t2 + t) * c2 * vp + v;
-  for (int j = 0; j < nch; ++j) {
-    float p[kChunk], q[kChunk];
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      p[i] = b_s[j * 2 * kChunk + i];
-      q[i] = b_s[j * 2 * kChunk + kChunk + i];
-    }
-    for (int r = 0; r < rows; ++r)
-      fma_chunk(p, q, h_s[r * kLanes + threadIdx.x], w_s + (size_t)r * wcols + j * 2 * kChunk);
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-      const int c = j * kChunk + i;
-      if (c < c2) {
-        const float xin = c < c1 ? h_s[((kt - 1) * c1 + c) * kLanes + threadIdx.x] : 0.0f;
-        const float a = gate(act, p[i], q[i], xin);
-        yb[(size_t)c * vp] = a;
-        if (live) {
-          s += a;
-          ss += a * a;
-        }
-      }
-    }
-  }
-  s = block_sum(s, red);
-  ss = block_sum(ss, red);
-  if (threadIdx.x == 0) {
-    const size_t idx = ((size_t)(b * t2 + t) * gridDim.x + blockIdx.x) * 2;
-    part[idx] = s;
-    part[idx + 1] = ss;
-  }
-}
 
 }  // namespace stgcn
 
@@ -167,25 +167,23 @@ int stgcn_head_fwd(const float* x, const float* mu, const float* rstd, const flo
   return launch_gate_gemm(args, static_cast<cudaStream_t>(stream));
 }
 
-// part: scratch [B, T2, Vp / 128, 2]; ps, pss: [B, T2]. c1 must be at most 16.
+// K2: h (tail_h_kernel), then conv 2 and the gate on the gate GEMM with the
+// LayerNorm-partial epilogue. a2 [B, T2, c2, Vp]; ps, pss: [B, T2]; h:
+// scratch [B, t1, c1, Vp]; part: scratch of B * T2 * ceil(c2 / 64) *
+// (Vp / 64) * 2 floats. c1 must be at most 16; ct1, ct2 are read only when
+// n_c > 1, > 2.
 int stgcn_tail_fwd(const float* xg, const float* ct0, const float* ct1, const float* ct2,
                    const float* gcw, const float* gcb, const float* c2k, const float* c2b,
-                   float* a2, float* part, float* ps, float* pss, int B, int t1, int c1, int vp,
-                   int kt, int n_c, int c2, int act, int v_true, void* stream) {
-  if (c1 > kMaxOut) return cudaErrorInvalidValue;
+                   float* a2, float* h, float* part, float* ps, float* pss, int B, int t1,
+                   int c1, int vp, int kt, int n_c, int c2, int act, int v_true, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int nch = (c2 + kChunk - 1) / kChunk;
-  const int wcols = nch * 2 * kChunk;
-  const size_t smem = sizeof(float) * ((size_t)kt * c1 * wcols + wcols + n_c * c1 * kMaxOut +
-                                       kMaxOut + (size_t)kt * c1 * kLanes + kLanes / 32);
-  cudaError_t err = set_smem(tail_fwd_kernel, smem);
+  const float* ct[3] = {ct0, ct1, ct2};
+  const cudaError_t err = launch_tail_h(ct, n_c, gcw, gcb, xg, h, B, t1, c1, vp, s);
   if (err != cudaSuccess) return err;
-  const int t2 = t1 - kt + 1;
-  tail_fwd_kernel<<<dim3(vp / kLanes, t2, B), kLanes, smem, s>>>(
-      xg, ct0, ct1, ct2, gcw, gcb, c2k, c2b, a2, part, t1, c1, vp, kt, n_c, c2, act, v_true);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_partials(part, ps, pss, B * t2, vp / kLanes, s);
+  const Drop none = make_drop(0, 0, 0, 1.0f, v_true);
+  const GateGemmArgs args{h, nullptr, nullptr, nullptr, nullptr, c2k, c2b, nullptr, nullptr, a2,
+                          B, t1, c1, vp, kt, c2, 0, act, 0, 1, none, none, part, ps, pss, v_true};
+  return launch_gate_gemm(args, s);
 }
 
 }  // extern "C"

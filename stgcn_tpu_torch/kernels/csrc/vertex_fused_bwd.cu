@@ -28,11 +28,12 @@
 //      the weight gradient's staging, where the LayerNorm and the mask's
 //      hash would cost more issue slots than its FMAs.
 // K2b: h = relu(sum_m cterm_m gcw[m] + gcb + xg), one thread per lane
-//      (tail_h_kernel; h is written once: the conv's weight gradient and the
-//      ReLU mask read it) -> the gate pass of K1b on h (cotangent policy:
-//      ga2 plus the LayerNorm-partial cotangents gps + 2 gpss a2 on true
-//      lanes), writing only ds2 (s2 and the residual's gradient dxin2, 3.3
-//      and 1.7 GB at 100k block 1, never reach device memory) -> dc2k with
+//      (tail_h_kernel, vertex_fused.cu, as K2's forward forms it; h is
+//      written once: the conv's weight gradient and the ReLU mask read it)
+//      -> the gate pass of K1b on h (cotangent policy: ga2 plus the
+//      LayerNorm-partial cotangents gps + 2 gpss a2 on true lanes), writing
+//      only ds2 (s2 and the residual's gradient dxin2, 3.3 and 1.7 GB at
+//      100k block 1, never reach device memory) -> dc2k with
 //      dc2b (a ones row) -> dr = (tconv2^T(ds2) + ds2's linear half) * (h > 0)
 //      on a 16-row tile whose epilogue also writes dxg and the graph terms'
 //      gradients from dr in shared memory (launch_tail_dr) -> dgcw, with dgcb
@@ -49,64 +50,6 @@
 
 namespace stgcn {
 namespace {
-
-// grid (Vp / kLanes, t1, B), one thread per lane:
-//   h[b, t, o, v] = relu(gcb[o] + sum over terms m, then c < c1, of
-//                   ct_m[b, t, c, v] gcw[m, c, o] + xg[b, t, o, v])
-// (bias first, then m and c ascending, the residual last).
-__global__ void __launch_bounds__(kLanes)
-tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
-              const float* __restrict__ ct2, const float* __restrict__ gcw,
-              const float* __restrict__ gcb, const float* __restrict__ xg, float* __restrict__ h,
-              int t1, int c1, int vp, int n_c) {
-  __shared__ __align__(16) float w_s[3 * kMaxOut][kMaxOut];   // gcw[m, c, :], zero past c1
-  __shared__ float b_s[kMaxOut];
-  for (int i = threadIdx.x; i < 3 * kMaxOut * kMaxOut; i += kLanes) {
-    const int m = i / (kMaxOut * kMaxOut), c = i / kMaxOut % kMaxOut, o = i % kMaxOut;
-    w_s[m * kMaxOut + c][o] =
-        m < n_c && c < c1 && o < c1 ? gcw[((size_t)m * c1 + c) * c1 + o] : 0.0f;
-  }
-  if (threadIdx.x < kMaxOut) b_s[threadIdx.x] = (int)threadIdx.x < c1 ? gcb[threadIdx.x] : 0.0f;
-  __syncthreads();
-  const int v = blockIdx.x * kLanes + threadIdx.x, t = blockIdx.y, b = blockIdx.z;
-  const size_t row0 = (size_t)(b * t1 + t) * c1;
-  float acc[kMaxOut];
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) acc[o] = b_s[o];
-  const float* cts[3] = {ct0, ct1, ct2};
-#pragma unroll
-  for (int m = 0; m < 3; ++m) {
-    if (m >= n_c) break;
-    const float* xr = cts[m] + row0 * vp + v;
-    for (int c = 0; c < c1; ++c) {
-      const float xv = xr[(size_t)c * vp];
-      const float4* w4 = reinterpret_cast<const float4*>(w_s[m * kMaxOut + c]);
-#pragma unroll
-      for (int q = 0; q < kMaxOut / 4; ++q) {
-        const float4 wq = w4[q];
-        acc[4 * q + 0] = fmaf(xv, wq.x, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(xv, wq.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(xv, wq.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(xv, wq.w, acc[4 * q + 3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    if (o >= c1) break;
-    const size_t i = (row0 + o) * vp + v;
-    h[i] = fmaxf(acc[o] + xg[i], 0.0f);
-  }
-}
-
-cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
-                          const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
-                          int vp, cudaStream_t stream) {
-  if (vp % kLanes != 0 || c1 > kMaxOut || n_c < 1 || n_c > 3) return cudaErrorInvalidValue;
-  tail_h_kernel<<<dim3(vp / kLanes, t1, batch), kLanes, 0, stream>>>(
-      ct[0], ct[1], ct[2], gcw, gcb, xg, h, t1, c1, vp, n_c);
-  return cudaGetLastError();
-}
 
 // One pass over the head backward. With work == nullptr it only sizes the
 // workspace (returned through `floats`).

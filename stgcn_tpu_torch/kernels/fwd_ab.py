@@ -11,9 +11,11 @@ milliseconds of ``--reps`` launches (after 3 of warm-up) on random inputs
 drawn from a fixed seed, and a SHA-256 of the outputs' bytes; under
 ``trace`` the device launches of one call of every case, in launch order,
 as ``torch.profiler`` sees them; under ``yardstick`` the CUDA-event ms of
-one ``torch.matmul`` of K1f block 2's conv product at the 100k shape
-(``[B·t1·Vp, kt·c_in] × [kt·c_in, g1]``) and one of K4f's fc1
-(``[B·Vp, c0] × [c0, c1]``), operands laid out for each before the timing.
+one ``torch.matmul`` of each kernel's product alone, operands laid out for
+it before the timing: at the 100k shape K1f block 2's conv
+(``[B·t1·Vp, kt·c_in] × [kt·c_in, g1]``) and K4f's fc1 (``[B·Vp, c0] ×
+[c0, c1]``); at every shape K2f's conv2 at both blocks (``[B·t2·Vp, kt·c1]
+× [kt·c1, g2]``) and K3f's conv (``[B·Vp, ko·c_in] × [ko·c_in, g]``).
 Then the ``nvidia-smi`` name and power limit of the card.
 """
 
@@ -111,14 +113,20 @@ def k12_cases(torch, b: int, v: int):
 
 
 def yardstick(torch, reps: int) -> dict:
-    """One ``torch.matmul`` of K1f block 2's conv product at the 100k shape,
-    ``[n, kt·c_in] × [kt·c_in, g1]`` with n = B·t1·Vp, and one of K4f's fc1,
-    ``[B·Vp, c0] × [c0, c1]``."""
-    b, _, vp = SHAPES["100k"]
+    """One ``torch.matmul`` of a kernel's product alone, ``[m, k] × [k, n]``:
+    at the 100k shape K1f block 2's conv (m = B·t1·Vp, k = kt·c_in, n = g1)
+    and K4f's fc1 (``[B·Vp, c0] × [c0, c1]``); at each shape K2f's conv2 at
+    blocks 1 and 2 (m = B·t2·Vp with t2 8 and 4, k = kt·c1, n = g2) and K3f's
+    conv (m = B·Vp, k = ko·c_in, n = g)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
+    b, _, vp = SHAPES["100k"]
+    products = {"k1f_conv": (b * 6 * vp, 3 * 64, 128), "k4f_fc1": (b * vp, 128, 128)}
+    for shape, (b, _, vp) in SHAPES.items():
+        products[f"k2f_conv2_blk1/{shape}"] = (b * 8 * vp, 3 * 16, 128)
+        products[f"k2f_conv2_blk2/{shape}"] = (b * 4 * vp, 3 * 16, 128)
+        products[f"k3f_conv/{shape}"] = (b * vp, 4 * 64, 256)
     out = {}
-    for key, (m, k, n) in {"k1f_conv": (b * 6 * vp, 3 * 64, 128),
-                           "k4f_fc1": (b * vp, 128, 128)}.items():
+    for key, (m, k, n) in products.items():
         a = torch.randn((m, k), generator=gen, device="cuda")
         d = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
         ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)

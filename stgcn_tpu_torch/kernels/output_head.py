@@ -17,10 +17,12 @@ with the recompute-based backward kernels :func:`ohead_bwd` (K3b) and
 :func:`ofc_bwd` (K4b) behind the autograd Functions :func:`ohead_fused` and
 :func:`ofc_fused`. Dropout masks are keyed by element (:mod:`.dropout`).
 
-The CUDA sources are ``csrc/output_head.cu`` (K3, and both forward entry
-points), ``csrc/gate_gemm.cu`` (K4's body, shared with K1: fc1 on the
-register tile of ``csrc/f32_tile.cuh``, the LayerNorm applied as its input
-is staged, ReLU, dropout and fc2 in the epilogue) and
+The CUDA sources are ``csrc/output_head.cu`` (both forward entry points),
+``csrc/gate_gemm.cu`` (the body of K3 and K4, shared with K1: the conv or
+fc1 on the register tile of ``csrc/f32_tile.cuh``, the LayerNorm and the
+input mask applied as its input is staged; K3's epilogue the gate, ``a``
+and the LayerNorm partial sums per (b, pass, 64-lane tile), summed in a
+fixed order by a second pass; K4's the ReLU, dropout and fc2) and
 ``csrc/output_head_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K3b, K4b; K3b's
 recompute with the gate backward, its data gradient and both kernels'
 weight gradients on the same tile). Each
@@ -37,13 +39,12 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, LANES, MAX_OUT, count_launch, cuda_device, drop_args, on_cpu, require,
-    stream_of, workspace)
+    ACT_CODES, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device, drop_args,
+    on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.vertex_fused import (
     _cdot, gate_cv, ln_normalize_cv, ln_stats, masked_ln_sums, pad_channels_cv, tconv_cv)
 
-_CHUNK = 16     # gate channels per K3 block (csrc/common.cuh kChunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,8 +149,8 @@ def ohead_fwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, *, drop: Drop | No
             require(ck, "ck", (cfg.ko, cfg.c_in, cfg.g), dev),
             require(cb, "cb", (cfg.g,), dev)]
     a = torch.empty((b, 1, cfg.c0, cfg.v_pad), device=dev, dtype=torch.float32)
-    nch = -(-cfg.c0 // _CHUNK)
-    part = torch.empty((b, nch, cfg.v_pad // LANES, 2), device=dev, dtype=torch.float32)
+    part = torch.empty((b, -(-cfg.c0 // GATE_PASS), cfg.v_pad // TILE_LANES, 2), device=dev,
+                       dtype=torch.float32)
     ps = torch.empty((b, 1, 1, 1), device=dev, dtype=torch.float32)
     pss = torch.empty_like(ps)
     err = _build.library().stgcn_ohead_fwd(

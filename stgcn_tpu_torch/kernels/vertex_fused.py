@@ -23,11 +23,13 @@ All large operands are channel-before-vertex ``[B, T, C, Vp]`` float32, as
 on the TPU. The CUDA sources are ``csrc/gate_gemm.cu`` (K1's body: conv 1
 on the register tile of ``csrc/f32_tile.cuh``, the input normalized and
 dropped out as it is staged, the gate and the align in the epilogue),
-``csrc/vertex_fused.cu`` (K2, and both forward entry points) and
-``csrc/vertex_fused_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K1b, K2b: their
-recompute with the gate backward, their data gradients and every weight
-gradient run on the same tile); their notes say what bounds each kernel and
-how the design answers it. Every
+``csrc/vertex_fused.cu`` (both forward entry points; K2's first stage,
+which forms h once, one thread a lane, then runs conv 2 on the gate GEMM
+with the gate, a2 and the LayerNorm partials in its epilogue; the
+partials' fixed-order second pass) and ``csrc/vertex_fused_bwd.cu`` over
+``csrc/bwd_blocks.cu`` (K1b, K2b: their recompute with the gate backward,
+their data gradients and every weight gradient run on the same tile); their
+notes say what bounds each kernel and how the design answers it. Every
 wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_reference``; the backward ones are autograd through the forward ones
 with the same mask) on a CPU tensor, and counts its kernel launches
@@ -43,8 +45,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, LANES, MAX_OUT, count_launch, cuda_device, drop_args, on_cpu, require,
-    stream_of, workspace)
+    ACT_CODES, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device, drop_args,
+    on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 
 
@@ -297,11 +299,13 @@ def tail_fwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
             require(c2k, "c2k", (cfg.kt, cfg.c1, cfg.g2), dev),
             require(c2b, "c2b", (cfg.g2,), dev)]
     a2 = torch.empty((b, cfg.t2, cfg.c2, cfg.v_pad), device=dev, dtype=torch.float32)
-    part = torch.empty((b, cfg.t2, cfg.v_pad // LANES, 2), device=dev, dtype=torch.float32)
+    h = torch.empty(act, device=dev, dtype=torch.float32)   # scratch: the ReLU'd contraction
+    part = torch.empty((b, cfg.t2, -(-cfg.c2 // GATE_PASS), cfg.v_pad // TILE_LANES, 2),
+                       device=dev, dtype=torch.float32)
     ps = torch.empty((b, cfg.t2, 1, 1), device=dev, dtype=torch.float32)
     pss = torch.empty_like(ps)
     err = _build.library().stgcn_tail_fwd(
-        *ptrs, a2.data_ptr(), part.data_ptr(), ps.data_ptr(), pss.data_ptr(),
+        *ptrs, a2.data_ptr(), h.data_ptr(), part.data_ptr(), ps.data_ptr(), pss.data_ptr(),
         b, cfg.t1, cfg.c1, cfg.v_pad, cfg.kt, n_c, cfg.c2, ACT_CODES[cfg.act_func],
         cfg.v_true, stream_of(dev))
     _build.check("tail_fwd", err)

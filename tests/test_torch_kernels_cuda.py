@@ -38,7 +38,7 @@ from stgcn_tpu_torch.kernels.dropout import Drop, step_seed
 from stgcn_tpu_torch.kernels.probes import mask_probes
 from stgcn_tpu_torch.nn import STGCN, fused_forward
 from stgcn_tpu_torch.ops import DenseGraphOp, banded_graph_op, bcsr_graph_op, ell_graph_op
-from tests.gate_gemm_edges import HEAD_EDGES, OFC_EDGES, v_true_of
+from tests.gate_gemm_edges import HEAD_EDGES, OFC_EDGES, OHEAD_EDGES, TAIL_EDGES, v_true_of
 
 pytestmark = pytest.mark.cuda
 B, V_TRUE, V_PAD = 3, 150, 256
@@ -223,6 +223,89 @@ def test_ofc_fwd_at_tile_edges_matches_plain(dev, c0, c1, c_end, drop, batch, v_
     assert kernels.launch_counts()["ofc_fwd"] == before + 2
     assert got.shape == (batch, 1, c_end, v_pad)
     torch.testing.assert_close(got, oh.ofc_reference(*args, drop=d), **TOL)
+
+
+def _tail_edge(rng, dev, act, gct, ks, c1, c2, kt, t1, batch, v_pad):
+    cfg = vf.VertexBlockCfg(kt=kt, ks=ks, act_func=act, graph_conv_type=gct,
+                            v_true=v_true_of(v_pad), v_pad=v_pad, t_in=t1 + kt - 1, c_in=c1,
+                            c0=c1, c1=c1, c2=c2, apply_ln=False)
+    xg, ta, tb = (_rand(rng, dev, batch, t1, c1, v_pad) for _ in range(3))
+    n_c = cfg.n_terms + (gct == "cheb_graph_conv")
+    w = (_rand(rng, dev, n_c, c1, c1, scale=(n_c * c1) ** -0.5), _rand(rng, dev, c1, scale=0.1),
+         _rand(rng, dev, kt, c1, cfg.g2, scale=(kt * c1) ** -0.5),
+         _rand(rng, dev, cfg.g2, scale=0.1))
+    return cfg, (xg, ta, tb), w
+
+
+def _tail_fwd_matches_plain(cfg, ins, w):
+    """K2f within the kernel tolerance of its plain version, a repeat launch
+    bit-identical, one launch counted per call."""
+    before = kernels.launch_counts()["tail_fwd"]
+    got = vf.tail_fwd(cfg, *ins, *w)
+    again = vf.tail_fwd(cfg, *ins, *w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert kernels.launch_counts()["tail_fwd"] == before + 2
+    b = ins[0].shape[0]
+    assert got[0].shape == (b, cfg.t2, cfg.c2, cfg.v_pad) and got[1].shape == (b, cfg.t2, 1, 1)
+    _close_all(got, vf.tail_reference(cfg, ins[0], list(ins[1:3])[: cfg.n_terms], w))
+
+
+@pytest.mark.parametrize("act,gct,ks,c1,c2,kt,t1,batch,v_pad", TAIL_EDGES)
+def test_tail_fwd_at_tile_edges_matches_plain(dev, act, gct, ks, c1, c2, kt, t1, batch, v_pad):
+    """K2f (h, then conv 2 on the gate GEMM) at the edges of its tile
+    (``gate_gemm_edges``); the padded lanes out of the partial sums."""
+    rng = np.random.default_rng(59)
+    _tail_fwd_matches_plain(*_tail_edge(rng, dev, act, gct, ks, c1, c2, kt, t1, batch, v_pad))
+
+
+@pytest.mark.parametrize("act", ["glu", "relu"])
+def test_tail_fwd_on_a_large_grid_matches_plain(dev, act):
+    """K2f at c2 = 130 (conv 2 in two or three passes, one a block) on a
+    grid of thousands of blocks, as the 100k and 1M paths launch it."""
+    rng = np.random.default_rng(60)
+    _tail_fwd_matches_plain(*_tail_edge(rng, dev, act, "cheb_graph_conv", 3, 16, 130, 3, 10, 3,
+                                        8448))
+
+
+def _ohead_edge(rng, dev, act, c0, c_in, ko, batch, v_pad):
+    v_true = v_true_of(v_pad)
+    cfg = oh.OutHeadCfg(ko=ko, c_in=c_in, c0=c0, c1=1, c_end=1, act_func=act, v_true=v_true,
+                        v_pad=v_pad)
+    return (cfg, _rand(rng, dev, batch, ko, c_in, v_pad),
+            *_ln_of(rng, dev, batch, ko, c_in, v_true, v_pad),
+            _rand(rng, dev, ko, c_in, cfg.g, scale=(ko * c_in) ** -0.5),
+            _rand(rng, dev, cfg.g, scale=0.1))
+
+
+def _ohead_fwd_matches_plain(args, d):
+    """K3f within the kernel tolerance of its plain version, a repeat launch
+    bit-identical, one launch counted per call."""
+    before = kernels.launch_counts()["ohead_fwd"]
+    got = oh.ohead_fwd(*args, drop=d)
+    again = oh.ohead_fwd(*args, drop=d)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert kernels.launch_counts()["ohead_fwd"] == before + 2
+    cfg, b = args[0], args[1].shape[0]
+    assert got[0].shape == (b, 1, cfg.c0, cfg.v_pad) and got[1].shape == (b, 1, 1, 1)
+    _close_all(got, oh.ohead_reference(*args, drop=d))
+
+
+@pytest.mark.parametrize("act,c0,c_in,ko,drop,batch,v_pad", OHEAD_EDGES)
+def test_ohead_fwd_at_tile_edges_matches_plain(dev, act, c0, c_in, ko, drop, batch, v_pad):
+    """K3f (the gate GEMM with its LayerNorm-partial epilogue) at the edges
+    of its tile (``gate_gemm_edges``); the padded lanes out of the partial
+    sums."""
+    rng = np.random.default_rng(61)
+    _ohead_fwd_matches_plain(_ohead_edge(rng, dev, act, c0, c_in, ko, batch, v_pad),
+                             Drop(0.5, 2024, 2) if drop else None)
+
+
+@pytest.mark.parametrize("act", ["glu", "relu"])
+def test_ohead_fwd_on_a_large_grid_matches_plain(dev, act):
+    """K3f at c0 = 130 (three or two passes, one a block) on a grid of
+    thousands of blocks, as the 100k and 1M paths launch it."""
+    rng = np.random.default_rng(62)
+    _ohead_fwd_matches_plain(_ohead_edge(rng, dev, act, 130, 64, 4, 3, 22016), DROP)
 
 
 @pytest.mark.parametrize("apply_ln,drop", [(False, None), (True, None), (True, DROP)])

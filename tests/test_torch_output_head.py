@@ -13,7 +13,7 @@ from stgcn_tpu_torch.kernels import output_head as toh
 from stgcn_tpu_torch.kernels.dropout import Drop, keep_mask
 from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.fused import _output_block_apply_cv
-from tests.gate_gemm_edges import OFC_EDGES, v_true_of
+from tests.gate_gemm_edges import OFC_EDGES, OHEAD_EDGES, v_true_of
 from tests.torch_parity_utils import B, rand, t
 
 ATOL = 2e-5
@@ -70,6 +70,40 @@ def test_ofc_plain_matches_jax_kernel(act):
     kern = np.asarray(joh.ofc_fused(jcfg, jnp.int32(V_TRUE), 0, *_j(args)))
     assert got.shape == (B, 1, cfg.c_end, V_PAD)
     np.testing.assert_allclose(got, kern, atol=ATOL)
+
+
+@pytest.mark.parametrize("act,c0,c_in,ko,drop,batch,v_pad", OHEAD_EDGES)
+def test_ohead_plain_at_tile_edges_matches_jax(act, c0, c_in, ko, drop, batch, v_pad):
+    """K3f's plain version against the JAX K3f's body (``_ln_drop_fwd``,
+    ``_ohead_core``, the partial sums over the true lanes) at the edge shapes
+    of the gate GEMM's tile, where the card tests hold the kernel to the
+    plain version; the keyed input mask handed to both."""
+    v_true = v_true_of(v_pad)
+    kw = dict(ko=ko, c_in=c_in, c0=c0, c1=1, c_end=1, act_func=act, v_true=v_true,
+              v_pad=v_pad)
+    jcfg = joh.OutHeadCfg(droprate=0.5, tile_v=128, b_tile=batch, training=False, **kw)
+    cfg = toh.OutHeadCfg(**kw)
+    rng = np.random.default_rng(35)
+    lng, lnb = 1.0 + rand(rng, c_in, v_pad, scale=0.1), rand(rng, c_in, v_pad)
+    lng[:, v_true:] = 0.0
+    lnb[:, v_true:] = 0.0
+    args = [rand(rng, batch, ko, c_in, v_pad), rand(rng, batch, ko, 1, 1, scale=0.1),
+            (0.5 + rng.random((batch, ko, 1, 1))).astype(np.float32), lng, lnb,
+            rand(rng, ko, c_in, cfg.g, scale=(ko * c_in) ** -0.5), rand(rng, cfg.g, scale=0.1)]
+    d = Drop(0.5, 2024, 2) if drop else None
+    got = toh.ohead_fwd(cfg, *map(t, args), drop=d)
+    mask = None if d is None else jnp.asarray(keep_mask(d, (batch, ko, c_in, v_pad),
+                                                        v_true).numpy())
+    x, mu, rstd, lng_, lnb_, ck, cb = _j(args)
+    _, _, a, _ = joh._ohead_core(jcfg, joh._ln_drop_fwd(jcfg, x, mu, rstd, lng_, lnb_, mask),
+                                 ck, cb)
+    live = np.asarray(a) * (np.arange(v_pad) < v_true)
+    ref = (np.asarray(a), live.sum((2, 3), keepdims=True), (live * live).sum((2, 3),
+                                                                             keepdims=True))
+    assert got[0].shape == (batch, 1, c0, v_pad) and got[1].shape == (batch, 1, 1, 1)
+    for g, r in zip(got, ref):
+        atol = ATOL * max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g.numpy(), r, atol=atol)
 
 
 def _jax_ofc(jcfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, mask):

@@ -12,7 +12,7 @@ import torch
 from stgcn_tpu.kernels import vertex_fused as jvf
 from stgcn_tpu_torch.kernels import vertex_fused as tvf
 from stgcn_tpu_torch.kernels.dropout import Drop, keep_mask
-from tests.gate_gemm_edges import HEAD_EDGES, v_true_of
+from tests.gate_gemm_edges import HEAD_EDGES, TAIL_EDGES, v_true_of
 from tests.torch_parity_utils import B, GATE_CASES, rand, t
 
 ATOL = 2e-5
@@ -111,6 +111,30 @@ def test_tail_plain_matches_jax_kernel(gct, ks, act):
         np.testing.assert_allclose(g.numpy(), np.asarray(k), atol=atol)
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol)
     assert got[1].shape == (B, cfg.t2, 1, 1)
+
+
+@pytest.mark.parametrize("act,gct,ks,c1,c2,kt,t1,batch,v_pad", TAIL_EDGES)
+def test_tail_plain_at_tile_edges_matches_jax(act, gct, ks, c1, c2, kt, t1, batch, v_pad):
+    """K2f's plain version against the JAX ``tail_reference`` at the edge
+    shapes of its ring walk, where the card tests hold the kernel to the
+    plain version: a2 within 2e-5, ps / pss (sums over c2 channels and the
+    true lanes) within 2e-5 of their magnitude."""
+    kw = dict(kt=kt, ks=ks, act_func=act, graph_conv_type=gct, v_true=v_true_of(v_pad),
+              v_pad=v_pad, t_in=t1 + kt - 1, c_in=c1, c0=c1, c1=c1, c2=c2, apply_ln=False)
+    jcfg = jvf.VertexBlockCfg(droprate=0.5, tile_v=128, training=False, **kw)
+    cfg = tvf.VertexBlockCfg(**kw)
+    rng = np.random.default_rng(15)
+    xg, ta, tb = (rand(rng, batch, t1, c1, v_pad) for _ in range(3))
+    n_c = cfg.n_terms + (gct == "cheb_graph_conv")
+    w = (rand(rng, n_c, c1, c1, scale=(n_c * c1) ** -0.5), rand(rng, c1, scale=0.1),
+         rand(rng, kt, c1, cfg.g2, scale=(kt * c1) ** -0.5), rand(rng, cfg.g2, scale=0.1))
+    got = tvf.tail_fwd(cfg, t(xg), t(ta), t(tb), *map(t, w))
+    j = [jnp.asarray(a) for a in (xg, ta, tb, *w)]
+    ref = jvf.tail_reference(jcfg, j[0], [j[1], j[2]][: jcfg.n_terms], tuple(j[3:]))
+    assert got[0].shape == (batch, cfg.t2, c2, v_pad) and got[1].shape == (batch, cfg.t2, 1, 1)
+    for g, r in zip(got, ref):
+        atol = ATOL * max(1.0, float(np.abs(np.asarray(r)).max()))
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=atol)
 
 
 def test_tail_masks_padded_lanes():
