@@ -68,7 +68,12 @@ Eighteen phases, each printing one JSON line with its own seconds:
    (read back through ``relu_out``), and each one it changes must have |r|
    within 1e-5 of max |r|. Timed beside the bound: max(bytes over 3.35 TB/s,
    the JAX cost estimate's FLOPs at the true V over 67 TFLOP/s, the backward
-   3×); no one PyTorch call computes the block, so no library time.
+   3×); no one PyTorch call computes the block, so no library time. Each
+   PEMS-BAY K12b call is traced alone (its launches in order; no
+   ``contract_kernel`` may follow its forward recompute), and one
+   ``torch.matmul`` of its adjoint graph product ``[B·t1·c1, Vp] × [Vp,
+   Vp]`` is timed (K12b's "adjoint only" yardstick, ``adjoint_only_pems_bay``
+   in its row of the kernels line).
 8. fused_dense — the dense whole-block route end to end: the PeMSD7(M) test
    split through ``fused_forward`` against the unfused forward and
    ``fused_sparse_forward`` (2e-4 + 2e-4·|ref|; launches K12f ×2 a batch and
@@ -117,12 +122,13 @@ Eighteen phases, each printing one JSON line with its own seconds:
    step at 100k held against its plain version; then, on a line of its own
    (``banded_100k_trace``), one fused step's backward traced by
    ``torch.profiler`` (device ms by kernel name), each of that step's K1b,
-   K2b and K3b calls traced alone (its launches in order: block 1 and block
-   2, and the head), K1b block 2's weight gradient dc1k beside one
-   ``torch.matmul`` of the same product (K1b's "wgrad only" yardstick, in
-   the K1b row of the kernels line as ``wgrad_only_100k``), and K3b's gate
-   pass beside one ``torch.matmul`` of its recompute (K3b's "recompute
-   only", ``recompute_only_100k`` in its row); one batch's fused gradients
+   K2b, K3b and K4b calls traced alone (its launches in order: block 1 and
+   block 2, and the head; K4b's with no ``contract_kernel``), K1b block
+   2's weight gradient dc1k beside one ``torch.matmul`` of the same product
+   (K1b's "wgrad only" yardstick, in the K1b row of the kernels line as
+   ``wgrad_only_100k``), and K3b's gate pass and K4b's fc pass each beside
+   one ``torch.matmul`` of its recompute (K3b's and K4b's "recompute
+   only", ``recompute_only_100k`` in their rows); one batch's fused gradients
    against unfused (the bound of phase 6); a fused ``Trainer.fit(1)`` with
    every step's loss (finite) and seconds and launches per step K1-K4 as in
    phase 6 plus K5 pair ×2 and chain ×2 (validation batches: the forward's);
@@ -1088,6 +1094,42 @@ def stblock_case(torch, gen, gso, act: str, gct: str, ks: int):
             ("stblock_bwd", label, (cfg, x, gso, *w, gy), {"drop": drop})]
 
 
+def trace_stblock_bwd(torch, calls) -> tuple[dict, dict]:
+    """Each recorded K12b call traced alone (its launches in order; no
+    ``contract_kernel`` after the forward recompute, ``retired_launches``),
+    and one ``torch.matmul`` of the adjoint chain's graph product at the
+    first call's shape, ``[B·t1·c1, Vp] × [Vp, Vp]`` on random operands
+    (K12b's "adjoint only" yardstick; a call runs Ks - 1 of them). The
+    matmul runs on the padded Vp; its bound counts the true V over which
+    ``graph_mm`` contracts, 2·B·t1·c1·V²."""
+    from stgcn_tpu_torch.kernels import fused_stblock as fs
+    from stgcn_tpu_torch.kernels._ab import launches, retired_launches
+
+    traced, adjoint = {}, None
+    for name, label, args, kwargs in calls:
+        if name != "stblock_bwd":
+            continue
+        cfg = args[0]
+        ev = launches(torch, lambda: fs.stblock_bwd(*args, **kwargs))
+        key = f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}"
+        retired = retired_launches(name, ev)
+        if retired:
+            raise AssertionError(f"K12b [{key}] launched a contraction after its recompute: "
+                                 f"{retired}")
+        traced[key] = {"device_ms": sum(e["ms"] for e in ev), "launches": ev}
+        if adjoint is None:
+            m, vp = args[1].shape[0] * cfg.t1 * cfg.c1, -(-cfg.v_true // 128) * 128
+            gen = torch.Generator(device="cuda").manual_seed(4)
+            a = torch.randn((m, vp), generator=gen, device="cuda")
+            g = torch.randn((vp, vp), generator=gen, device="cuda")
+            adjoint = {"shape": [m, vp, vp], "per_call": max(cfg.ks - 1, 1),
+                       "matmul_ms": cuda_ms(lambda: torch.matmul(a, g), warmup=2, reps=10),
+                       "graph_mm_ms": [e["ms"] for e in ev if "graph_mm_kernel<true>" in e["name"]],
+                       "bound_ms": 2 * m * cfg.v_true ** 2 / F32_FLOP_PER_S * 1e3}
+            del a, g
+    return traced, adjoint
+
+
 def phase_kernels_stblock(torch, data, pb) -> dict:
     """Phase 7: every K12f / K12b call of one PeMSD7(M) training step and of one
     PEMS-BAY batch-512 step through ``fused_forward`` (dropout on), and a
@@ -1106,6 +1148,7 @@ def phase_kernels_stblock(torch, data, pb) -> dict:
     model = new_model(torch, pb["n_vertex"], DROPRATE)
     calls = record_dense_step(torch, model, pb["x"], pb["y"], pb["gop"], step_seed(42, 0))
     results["pems_bay"] = check_dense_calls(torch, calls, reps=K12_REPS_PEMS_BAY)
+    results["pems_bay_trace"], results["adjoint_only"] = trace_stblock_bwd(torch, calls)
     del calls, model
     gen = torch.Generator(device="cuda").manual_seed(12)
     general = [c for case in K12_GENERAL
@@ -1140,17 +1183,20 @@ def profile_once(torch, fn) -> dict:
 
 def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
     """One fused training step's backward traced by ``torch.profiler`` (its
-    kernels' device time by name); each K1b, K2b and K3b call of that step's
-    recorded calls traced alone (its launches in order, ``kernels/_ab.py``'s
-    ``launches``); and two yardsticks, each one ``torch.matmul`` on random
-    operands laid out for it outside the timing: K1b block 2's weight
-    gradient dc1k against the product ``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``
-    (K1b's "wgrad only"), and K3b's gate pass against its recompute
-    ``[B·Vp, ko·c_in] × [ko·c_in, g]`` (K3b's "recompute only")."""
+    kernels' device time by name); each K1b, K2b, K3b and K4b call of that
+    step's recorded calls traced alone (its launches in order,
+    ``kernels/_ab.py``'s ``launches``; K4b's must hold no
+    ``contract_kernel``, ``retired_launches``); and three yardsticks, each one
+    ``torch.matmul`` on random operands laid out for it outside the timing:
+    K1b block 2's weight gradient dc1k against the product ``[kt·c_in,
+    B·t1·Vp] × [B·t1·Vp, g1]`` (K1b's "wgrad only"), K3b's gate pass against
+    its recompute ``[B·Vp, ko·c_in] × [ko·c_in, g]`` (K3b's "recompute
+    only"), and K4b's fc pass against its fc1 recompute ``[B·Vp, c0] × [c0,
+    c1]`` (K4b's "recompute only")."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
-    from stgcn_tpu_torch.kernels._ab import launches
+    from stgcn_tpu_torch.kernels._ab import launches, retired_launches
     from stgcn_tpu_torch.kernels.dropout import step_seed
     from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
     from stgcn_tpu_torch.train import masked_mse
@@ -1176,15 +1222,16 @@ def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
         i = max((j for j, e in enumerate(ev) if key in e["name"]), key=lambda j: ev[j]["ms"])
         return ev[i]["ms"] + (ev[i + 1]["ms"] if i + 1 < len(ev) else 0.0)
 
-    traced: dict = {"head_bwd": {}, "tail_bwd": {}, "ohead_bwd": {}}
-    wgrad = recompute = None
+    traced: dict = {"head_bwd": {}, "tail_bwd": {}, "ohead_bwd": {}, "ofc_bwd": {}}
+    wgrad = recompute = fc_recompute = None
     for name, label, args, kwargs in calls:
         if name not in traced:
             continue
         cfg = args[0]
         ev = launches(torch, lambda: kernels.WRAPPERS[name](*args, **kwargs))
-        key = (f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}" if name != "ohead_bwd"
-               else f"{label}: ko {cfg.ko}, c_in {cfg.c_in}")
+        key = (f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}" if name in ("head_bwd", "tail_bwd")
+               else f"{label}: ko {cfg.ko}, c_in {cfg.c_in}" if name == "ohead_bwd"
+               else f"{label}: c0 {cfg.c0}, c1 {cfg.c1}, c_end {cfg.c_end}")
         traced[name][key] = {"device_ms": sum(e["ms"] for e in ev), "launches": ev}
         b = args[1].shape[0]
         if name == "head_bwd" and cfg.apply_ln:   # block 2: its dc1k is the largest wgrad
@@ -1198,11 +1245,20 @@ def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
             recompute = {"shape": [n, k, cfg.g], "gate_pass_ms": sum(gate),
                          "matmul_ms": matmul_ms(n, k, cfg.g),
                          "bound_ms": 2 * n * k * cfg.g / F32_FLOP_PER_S * 1e3}
+        if name == "ofc_bwd":
+            retired = retired_launches(name, ev)
+            if retired:
+                raise AssertionError(f"K4b [{key}] launched a contraction: {retired}")
+            n = b * cfg.v_pad
+            fc = [e["ms"] for e in ev if "gate_pass" in e["name"]]
+            fc_recompute = {"shape": [n, cfg.c0, cfg.c1], "fc_pass_ms": sum(fc),
+                            "matmul_ms": matmul_ms(n, cfg.c0, cfg.c1),
+                            "bound_ms": 2 * n * cfg.c0 * cfg.c1 / F32_FLOP_PER_S * 1e3}
     kernels.reset_launch_counts()
     torch.cuda.empty_cache()
     result = {"phase": f"{phase}_trace", "seconds": time.perf_counter() - t0,
               "step_backward": step, **traced, "wgrad_only": wgrad,
-              "recompute_only": recompute}
+              "recompute_only": recompute, "fc_recompute_only": fc_recompute}
     emit(result)
     return result
 
@@ -2920,7 +2976,8 @@ def main() -> int:
                 f"max_abs_err_{tag}": max(c["max_abs_err"] for c in calls)}
 
     yard = {"head_bwd": {"wgrad_only_100k": b100["trace"]["wgrad_only"]},
-            "ohead_bwd": {"recompute_only_100k": b100["trace"]["recompute_only"]}}
+            "ohead_bwd": {"recompute_only_100k": b100["trace"]["recompute_only"]},
+            "ofc_bwd": {"recompute_only_100k": b100["trace"]["fc_recompute_only"]}}
     rows = [row(name, KERNEL_META[name], calls, launches=tr["launches"][name],
                 launches_forecast=sl["launches"][name], **at(b100, "100k", name),
                 **at(m1, "1m", name), **yard.get(name, {}))
@@ -2969,7 +3026,9 @@ def main() -> int:
                  bound_ms_pems_bay=sum(c["bound_ms"] for c in kst["pems_bay"][name]),
                  max_abs_err_pems_bay=max(c["max_abs_err"] for c in kst["pems_bay"][name]),
                  per_call_pems_bay=kst["pems_bay"][name],
-                 per_call_generality=kst["generality"][name])
+                 per_call_generality=kst["generality"][name],
+                 **({"adjoint_only_pems_bay": kst["adjoint_only"]} if name == "stblock_bwd"
+                    else {}))
              for name in K12_META]
     emit({"kernels": rows})
     print(smi, flush=True)

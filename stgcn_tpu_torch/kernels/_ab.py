@@ -6,7 +6,9 @@ checkout builds its own kernels; trees run in the order given (two commits
 compare as A, B, B, A on one card). Each process prints one JSON line, the
 tool's result for its tree; then the card's ``nvidia-smi`` name and power
 limit. ``launches`` lists the device kernels of one call, as
-``torch.profiler`` sees them.
+``torch.profiler`` sees them, and ``retired_launches`` picks out of such a
+list the ``contract_kernel`` launches that K4b's and K12b's redesign
+retired.
 
 A tool supplies ``run_one(tree, reps, data) -> dict`` and, where every tree
 needs the same input, ``prepare(tmpdir) -> path``, run once before the
@@ -83,23 +85,54 @@ def launches(torch, fn) -> list:
     launch order: name and device ms, as ``torch.profiler`` records them.
     Two elementwise marker kernels run first inside the profile and are cut
     off with every kernel before them (the profiler can miss its first
-    kernel), so ``fn`` itself must not start with an elementwise kernel."""
+    kernel), so ``fn`` itself must not start with an elementwise kernel. A
+    profile that comes back without a kernel (seen once for a whole call) is
+    taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     marker = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        marker.add_(1.0)
-        marker.add_(1.0)
-        fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
-                key=lambda e: e.time_range.start)
-    while ev and "elementwise" in ev[0].name:
-        ev.pop(0)
+    ev: list = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            marker.add_(1.0)
+            marker.add_(1.0)
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start)
+        while ev and "elementwise" in ev[0].name:
+            ev.pop(0)
+        if ev:
+            break
     return [{"name": e.name.replace("(anonymous namespace)::", "").split("(")[0][:80],
              "ms": (e.time_range.end - e.time_range.start) / 1e3} for e in ev]
+
+
+# the one-thread-a-lane contraction, which K4b and K12b's backward no longer
+# launch (K12f's forward still does); the other launches their redesign
+# retired are gone from the source
+RETIRED = "contract_kernel"
+
+
+def retired_launches(name: str, ev: list) -> list:
+    """The names in the launch list ``ev`` of one ``ofc_bwd`` (K4b) or
+    ``stblock_bwd`` (K12b) call that are ``RETIRED``'s: in K12b only
+    after its forward recompute, which ends with ``ln_stats_kernel`` (K12f's
+    own contractions run before it). Raises where K12b's list lacks that
+    end, so an empty or cut trace cannot pass."""
+    def base(e):
+        return e["name"].split("<")[0].split("::")[-1]
+
+    if name == "stblock_bwd":
+        ends = [i for i, e in enumerate(ev) if base(e) == "ln_stats_kernel"]
+        if not ends:
+            raise AssertionError("K12b's trace holds no ln_stats_kernel: no recompute seen")
+        ev = ev[ends[0] + 1:]
+    elif not ev:
+        raise AssertionError(f"{name}: the trace holds no launch")
+    return [e["name"] for e in ev if base(e) == RETIRED]
 
 
 def compare(keeps: list) -> dict:

@@ -9,13 +9,19 @@ process of its own that builds its kernels (the harness, ``_ab.py``). Per
 tree it prints one JSON line: per kernel and shape the median CUDA-event
 milliseconds of ``--reps`` launches (after 3 of warm-up) on random inputs
 drawn from a fixed seed, and a SHA-256 of the outputs' bytes; under
-``trace`` the device launches of one call of K1b, K2b (each block) and K3b at
-each shape and of every kernel at PeMSD7(M)'s, in launch order, as
-``torch.profiler`` sees them; under ``yardstick`` the CUDA-event ms of one
-``torch.matmul`` of K1b block 2's ``dc1k`` product at the 100k shape
-(``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``) and one of K3b's recompute
-(``[B·Vp, ko·c_in] × [ko·c_in, g]``), operands laid out for each before the
-timing. Then the ``nvidia-smi`` name and power limit of the card.
+``trace`` the device launches of one call of every kernel at every shape,
+in launch order, as ``torch.profiler`` sees them, and under ``retired`` the
+``contract_kernel`` launches of each K4b and K12b call, which their redesign
+retired (``_ab.py``'s ``retired_launches``: K12b's counted after its forward
+recompute); under
+``yardstick`` the
+CUDA-event ms of one ``torch.matmul`` each, operands laid out for it before
+the timing: K1b block 2's ``dc1k`` product at the 100k shape
+(``[kt·c_in, B·t1·Vp] × [B·t1·Vp, g1]``), K3b's recompute (``[B·Vp, ko·c_in]
+× [ko·c_in, g]``) and K4b's fc1 recompute (``[B·Vp, 128] × [128, 128]``) at
+100k, and one of K12b's adjoint graph products at PEMS-BAY batch 512, block
+1 (``[B·t1·c1, Vp] × [Vp, Vp]``). Then the ``nvidia-smi`` name and power
+limit of the card.
 """
 
 from __future__ import annotations
@@ -121,18 +127,27 @@ def k12_cases(torch, b: int, v: int):
 
 def yardstick(torch, reps: int) -> dict:
     """One ``torch.matmul`` of K1b block 2's ``dc1k`` product at the 100k
-    shape, ``[kt·c_in, n] × [n, g1]`` with n = B·t1·Vp, and one of K3b's
-    recompute, ``[B·Vp, ko·c_in] × [ko·c_in, g]``."""
+    shape, ``[kt·c_in, n] × [n, g1]`` with n = B·t1·Vp; one of K3b's
+    recompute, ``[B·Vp, ko·c_in] × [ko·c_in, g]``, and of K4b's fc1
+    recompute, ``[B·Vp, c0] × [c0, c1]``, at 100k; and one of K12b's adjoint
+    graph products at PEMS-BAY batch 512, block 1 (t1 10, c1 16, Vp 384),
+    ``[B·t1·c1, Vp] × [Vp, Vp]``: padded, while its ``flops`` count the true
+    V over which ``graph_mm`` contracts, 2·B·t1·c1·V²."""
     b, _, vp = SHAPES["100k"]
+    b12, v12 = K12_SHAPES["pemsbay"]
+    vp12 = -(-v12 // 128) * 128
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for key, (m, k, n) in {"k1b_dc1k": (3 * 64, b * 6 * vp, 128),
-                           "k3b_recompute": (b * vp, 4 * 64, 256)}.items():
+                           "k3b_recompute": (b * vp, 4 * 64, 256),
+                           "k4b_recompute": (b * vp, 128, 128),
+                           "k12b_adjoint_blk1": (b12 * 10 * 16, vp12, vp12)}.items():
         a = torch.randn((m, k), generator=gen, device="cuda")
         d = torch.randn((k, n), generator=gen, device="cuda") * 1e-3
         ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
         out[key] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
         del a, d
+    out["k12b_adjoint_blk1"]["flops"] = 2 * b12 * 10 * 16 * v12 * v12
     return out
 
 
@@ -144,7 +159,7 @@ def run_one(tree: str, reps: int, data) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
-              "sha256": {}, "trace": {}}
+              "sha256": {}, "trace": {}, "retired": {}}
     every = [(shape, cases(torch, b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
     every += [(shape, k12_cases(torch, b, v)) for shape, (b, v) in K12_SHAPES.items()]
     for shape, made in every:
@@ -152,8 +167,12 @@ def run_one(tree: str, reps: int, data) -> dict:
             key = f"{name}/{shape}"
             result["ms"][key], result["sha256"][key] = _ab.timed(
                 torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
-            if name.startswith(("head_bwd", "tail_bwd", "ohead_bwd")) or shape == "pemsd7m":
-                result["trace"][key] = _ab.launches(torch, lambda: wrapper(*args, **kwargs))
+            ev = result["trace"][key] = _ab.launches(torch, lambda: wrapper(*args, **kwargs))
+            if name.startswith(("ofc_bwd", "stblock_bwd")):
+                try:
+                    result["retired"][key] = _ab.retired_launches(name.split("_blk")[0], ev)
+                except AssertionError as e:
+                    result["retired"][key] = str(e)
         del made
         torch.cuda.empty_cache()
     result["yardstick"] = yardstick(torch, reps)

@@ -11,13 +11,12 @@
 // statistics one block per (b, t); the (V, C) affine gradients one thread
 // per (c, v)). No float atomics.
 //
-// K1b, K2b and K3b recompute their gated conv, run its gate backward and
-// take its data gradient in fused passes (gate_pass_kernel, gate_dx_kernel,
-// K2b's tail_dr_kernel below) on the tile that also carries the forward gate
-// GEMM of K1f and K4f (gate_gemm.cu), so the pre-activations never reach
-// device memory. K4b and K12b still run their contractions one thread
-// per vertex lane (contract, gate_bwd) with the intermediates in a
-// workspace in device memory.
+// K1b-K4b and K12b recompute their gated conv (K4b: fc1), run its gate
+// backward and take its data gradient in fused passes (gate_pass_kernel,
+// gate_dx_kernel, K2b's and K12b's tail_dr_kernel below) on the tile that
+// also carries the forward gate GEMM of K1f-K4f (gate_gemm.cu), so the
+// pre-activations never reach device memory. contract_kernel, one thread a
+// lane, is left for K12f's forward (st_forward, fused_stblock.cu).
 //
 // What bounds them on the H100: the channel contractions and the weight
 // gradients are float32 FMA issue, the elementwise passes are bytes.
@@ -107,46 +106,6 @@ __global__ void ln_drop_kernel(const float* __restrict__ x, const float* __restr
     float val = (x[i] - mu[bt]) * rstd[bt] * lng[(size_t)ch * vp + v] + lnb[(size_t)ch * vp + v];
     if (drop.threshold) val *= drop_mask(drop, key, row, v);
     y[i] = val;
-  }
-}
-
-__global__ void gate_bwd_kernel(const float* __restrict__ s, Cv res, int res_shift,
-                                const float* __restrict__ da, int act, int c_out,
-                                float* __restrict__ ds, float* __restrict__ dxin,
-                                float* __restrict__ a_out, int t_len, int vp, size_t n) {
-  const bool gated = act == kGlu || act == kGtu;
-  const int g = gated ? 2 * c_out : c_out;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int v = (int)(i % vp);
-    const size_t row = i / vp;             // (b, t, c) over c_out channels
-    const int c = (int)(row % c_out);
-    const size_t bt = row / c_out;
-    const int t = (int)(bt % t_len), b = (int)(bt / t_len);
-    const size_t si = (bt * g + c) * vp + v;
-    const float xin = c < res.c
-        ? res.p[((size_t)(b * res.t + t + res_shift) * res.c + c) * vp + v] : 0.0f;
-    float dp, dq, av;
-    gate_point_bwd(act, s[si], gated ? s[si + (size_t)c_out * vp] : 0.0f, xin, da[i], false,
-                   0.0f, 0.0f, dp, dq, av);
-    if (gated) ds[si + (size_t)c_out * vp] = dq;
-    ds[si] = dp;
-    dxin[i] = dp;
-    if (a_out) a_out[i] = av;
-  }
-}
-
-__global__ void relu_drop_kernel(const float* __restrict__ s, Drop drop,
-                                 const float* __restrict__ dzd, float* __restrict__ zd,
-                                 float* __restrict__ ds, int vp, size_t n) {
-  const uint32_t key = drop_key(drop.seed, drop.site);
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int v = (int)(i % vp);
-    const float m = drop.threshold ? drop_mask(drop, key, i / vp, v) : 1.0f;
-    const float sv = s[i];
-    zd[i] = fmaxf(sv, 0.0f) * m;
-    ds[i] = sv > 0.0f ? dzd[i] * m : 0.0f;
   }
 }
 
@@ -482,6 +441,45 @@ __global__ void ln_bwd_affine_kernel(const float* __restrict__ x, const float* _
   dlnb[i] = sb;
 }
 
+// grid (ceil(c * vp / 256), slices), block 256: the affine gradients of
+// ln_bwd_affine_kernel over the rows [slice * len, slice * len + len) of
+// (b, t), one thread per (c, v), into part[slice] = [dlng | dlnb] (c * vp
+// floats each); sum_slices_kernel adds the slices in order. For many (b, t)
+// rows over few (c, v): K12b's 4096 rows at PEMS-BAY batch 512, where one
+// thread a (c, v) walking every row left 96 blocks on 132 SMs.
+__global__ void ln_bwd_affine_part_kernel(const float* __restrict__ x,
+                                          const float* __restrict__ mu,
+                                          const float* __restrict__ rstd, Drop drop,
+                                          const float* __restrict__ dy, float* __restrict__ part,
+                                          int bt_total, int c, int vp, int len) {
+  const int n = c * vp, i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t key = drop_key(drop.seed, drop.site);
+  const int ch = i / vp, v = i % vp;
+  const int bt0 = blockIdx.y * len, bt1 = bt0 + len < bt_total ? bt0 + len : bt_total;
+  float sg = 0.0f, sb = 0.0f;
+  for (int bt = bt0; bt < bt1; ++bt) {
+    const size_t row = (size_t)bt * c + ch, idx = row * vp + v;
+    float g = dy[idx];
+    if (drop.threshold) g *= drop_mask(drop, key, row, v);
+    sg += g * ((x[idx] - mu[bt]) * rstd[bt]);
+    sb += g;
+  }
+  float* out = part + (size_t)blockIdx.y * 2 * n;
+  out[i] = sg;
+  out[n + i] = sb;
+}
+
+// The row slices of ln_bwd_affine_part_kernel: enough blocks for four waves
+// of 8 blocks a SM's threads (about 1M), slices of at least 16 rows.
+int ln_affine_slices(int bt_total, int c, int vp) {
+  const long long cols = (long long)c * vp;
+  long long s = ((1LL << 20) + cols - 1) / cols;
+  const long long most = (bt_total + 15) / 16;
+  s = s < most ? s : most;
+  return (int)(s > 1 ? s : 1);
+}
+
 // ---- the fused backward passes on the shared float32 tile ----------------
 //
 // K1b, K2b and K3b each recompute a gated temporal conv's pre-activations
@@ -503,6 +501,76 @@ constexpr int kGateLanes = 64;   // lanes of a gate-pass block
 template <bool GATED>
 using GateCfg = f32tile::Cfg<GATED ? 128 : 64, kGateLanes, 16, GATED ? 8 : 4, 8, 3>;
 
+// K4b's fc1 epilogue (gate_pass_kernel<false, true, true>): per
+// channel row c of the thread, da = gy . gaw^T (o ascending, as the head
+// policy), zd = relu(s) * mask and ds = da * mask * (s > 0) (s2, zd and
+// dzd stay in registers), then the sums over the block's 64 lanes of zd *
+// gy[o] for each o < c1 (dw2's) and of ds (db1's): the thread's 8 lanes in
+// order, then the 8 threads of its row by xor shuffles (each step adds two
+// equal-shape sums, so every thread of the row holds the same bits), written
+// by the row's first thread to a_out = part[slice], [c0][c1] then [c0].
+template <class C>
+__device__ __forceinline__ void fc_epilogue(float (&acc)[C::TM][C::TN], const f32tile::Pos<C>& pos,
+                                            const GateUp& up,
+                                            const float (&gy_s)[kMaxOut][kGateLanes],
+                                            const float (&gw_s)[kMaxOut][64],
+                                            float* __restrict__ ds, float* __restrict__ part,
+                                            size_t st, int s0, int v0, int b, int vp, int c0,
+                                            int act) {
+  static_assert(C::TM == 4 && C::TN == 8 && C::kWx == 8,
+                "a row's 8 threads are 8 neighbouring lanes of a warp");
+  const uint32_t key = drop_key(up.drop.seed, up.drop.site);
+  const size_t slice = (size_t)b * (vp / kGateLanes) + blockIdx.x;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = s0 + 4 * pos.ty + i;
+    float da[8], gv[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) da[l] = 0.0f;
+    for (int o = 0; o < up.c1; ++o) {   // da = gy . gaw^T, o ascending
+      const float wo = gw_s[o][4 * pos.ty + i];
+      f32tile::ld4(gv, &gy_s[o][4 * pos.tx]);
+      f32tile::ld4(gv + 4, &gy_s[o][kGateLanes / 2 + 4 * pos.tx]);
+#pragma unroll
+      for (int l = 0; l < 8; ++l) da[l] = fmaf(gv[l], wo, da[l]);
+    }
+    const size_t row = st * c0 + c;   // fc1's output row, the mask's key (K4f's)
+    float zd[8], sd = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = v0 + h * (kGateLanes / 2) + 4 * pos.tx;
+      float dp[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float m = 1.0f, dq, av;
+        if (up.drop.threshold) m = c < c0 ? drop_mask(up.drop, key, row, v + u) : 0.0f;
+        gate_point_bwd(act, acc[i][4 * h + u], 0.0f, 0.0f, da[4 * h + u] * m, false, 0.0f,
+                       0.0f, dp[u], dq, av);
+        zd[4 * h + u] = c < c0 ? av * m : 0.0f;
+      }
+      if (c < c0)
+        *reinterpret_cast<float4*>(ds + row * vp + v) = make_float4(dp[0], dp[1], dp[2], dp[3]);
+      for (int u = 0; u < 4; ++u) sd += dp[u];
+    }
+    float* out = part + slice * (size_t)c0 * (up.c1 + 1);
+    sd += __shfl_xor_sync(0xffffffffu, sd, 4);   // the block's partial of db1[c]
+    sd += __shfl_xor_sync(0xffffffffu, sd, 2);
+    sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+    if (pos.tx == 0 && c < c0) out[(size_t)c0 * up.c1 + c] = sd;
+    for (int o = 0; o < up.c1; ++o) {   // the block's partial of dw2[c, o]
+      f32tile::ld4(gv, &gy_s[o][4 * pos.tx]);
+      f32tile::ld4(gv + 4, &gy_s[o][kGateLanes / 2 + 4 * pos.tx]);
+      float p = 0.0f;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) p = fmaf(zd[l], gv[l], p);
+      p += __shfl_xor_sync(0xffffffffu, p, 4);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      if (pos.tx == 0 && c < c0) out[(size_t)c * up.c1 + o] = p;
+    }
+  }
+}
+
 // grid (Vp / 64, t_out * passes, B): for lanes v0 .. v0+63 of output step t
 // and gate channels s0 .. s0+63 (pass s0 / 64, so a small batch still fills
 // the card), s = bias + sum over rows (k, c) of w[k, c, :] x[b, t+k, c, :]
@@ -510,14 +578,19 @@ using GateCfg = f32tile::Cfg<GATED ? 128 : 64, kGateLanes, 16, GATED ? 8 : 4, 8,
 // by the policy (HEAD: gy . gaw^T, o ascending; else ga, plus the
 // LayerNorm-partial cotangents on true lanes inside gate_point_bwd), then
 // the gate backward with the in-gate residual x[b, t + kt - 1, c] (c <
-// c_in): ds [B, t_out, G, Vp] and, HEAD, a [B, t_out, c0, Vp]. The policy
-// is a template parameter: a runtime branch would cost the tile registers.
-template <bool GATED, bool HEAD>
+// c_in): ds [B, t_out, G, Vp] and, HEAD, a [B, t_out, c0, Vp]. FC (K4b's
+// fc1: head policy, relu, no residual) masks da by fc1's dropout and
+// writes, in a's place, the block's partial sums of relu(s) * mask * gy
+// over its 64 lanes, [c0][c1] at slice b * (Vp / 64) + blockIdx.x of a_out.
+// The policy and FC are template parameters: a runtime branch would cost
+// the tile registers.
+template <bool GATED, bool HEAD, bool FC = false>
 __global__ void __launch_bounds__(GateCfg<GATED>::kThreads, GateCfg<GATED>::kMinBlocks)
 gate_pass_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, GateUp up, float* __restrict__ ds,
                  float* __restrict__ a_out, int t_in, int c_in, int vp, int kt, int c0,
                  int act) {
+  static_assert(!FC || (HEAD && !GATED), "the fc pass: head policy, relu, no residual");
   using C = GateCfg<GATED>;
   using SX = f32tile::RSlots<C, kGateLanes>;
   constexpr int kWPer = C::BK * C::BM / C::kThreads;   // weight values a thread stages
@@ -586,6 +659,10 @@ gate_pass_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if constexpr (!HEAD) {
     gp = up.gps[st];
     gq = up.gpss[st];
+  }
+  if constexpr (FC) {
+    fc_epilogue<C>(acc, pos, up, gy_s, gw_s, ds, a_out, st, s0, v0, b, vp, c0, act);
+    return;
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -685,8 +762,9 @@ __device__ __forceinline__ void dx_product(f32tile::Smem<C>& sm, const f32tile::
 // step of ds run together:
 //   dx[b, t, o, :] = sum over taps k with 0 <= t - k < t_out, then g < G, of
 //                    ds[b, t - k, g, :] w[k, o, g]  + ds[b, t - kt + 1, o, :]
-// (the last term the residual's gradient dxin, where that step exists).
-template <class C>
+// (the last term the residual's gradient dxin, where that step exists; none
+// without RES).
+template <class C, bool RES = true>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
 gate_dx_kernel(const float* __restrict__ ds, const float* __restrict__ w,
                float* __restrict__ dx, int t_in, int c_in, int vp, int kt, int g_n) {
@@ -705,7 +783,7 @@ gate_dx_kernel(const float* __restrict__ ds, const float* __restrict__ w,
       const int o = o0 + pos.row(i);
       if (o >= c_in) continue;
       float* yr = dx + ((size_t)(b * t_in + t) * c_in + o) * vp + v0;
-      const float* ar = ta >= 0 && ta < t_out
+      const float* ar = RES && ta >= 0 && ta < t_out
                             ? ds + ((size_t)(b * t_out + ta) * g_n + o) * vp + v0
                             : nullptr;
 #pragma unroll
@@ -738,7 +816,9 @@ constexpr int kDxThreads = 64;
 // output steps [z t_chunk, z t_chunk + t_chunk), walking ds from kt - 1
 // steps before them (a small problem, PeMSD7(M)'s, cuts the steps so that
 // enough threads run); the sums of dx[b, t, o, :] as gate_dx_kernel's,
-// the taps taken k = kt-1 .. 0 (steps t - k ascending).
+// the taps taken k = kt-1 .. 0 (steps t - k ascending); the residual's
+// term only with RES.
+template <bool RES = true>
 __global__ void __launch_bounds__(kDxThreads)
 gate_dx_lanes_kernel(const float* __restrict__ ds, const float* __restrict__ w,
                      float* __restrict__ dx, int t_in, int c_in, int vp, int kt, int g_n,
@@ -787,7 +867,7 @@ gate_dx_lanes_kernel(const float* __restrict__ ds, const float* __restrict__ w,
     for (int o = 0; o < kDxNarrow; ++o) {
       if (o >= c_in || tp < t0) break;
       float4 y = win[0][o];
-      if (ta >= 0 && ta < t_out) {
+      if (RES && ta >= 0 && ta < t_out) {
         const float4 r = __ldg(reinterpret_cast<const float4*>(
             ds + ((size_t)(b * t_out + ta) * g_n + o) * vp + v));
         y = make_float4(y.x + r.x, y.y + r.y, y.z + r.z, y.w + r.w);
@@ -906,6 +986,32 @@ tail_dr_kernel(const float* __restrict__ ds2, const float* __restrict__ c2k,
   }
 }
 
+// grid (Vp / kLanes, B * t1), kLanes threads, one lane each: dr's c1 values
+// at the lane in registers, then for each term m the outputs
+// dt_m[c] = sum over o ascending from 0 of gcw[m][c, o] dr[o].
+__global__ void __launch_bounds__(kLanes)
+term_grads_kernel(const float* __restrict__ dr, const float* __restrict__ gcw,
+                  float* __restrict__ dt, int n_terms, int c1, int vp, size_t term) {
+  __shared__ float w_s[kMaxOut * kMaxOut];   // one term's gcw [c][o]
+  const int v = blockIdx.x * kLanes + threadIdx.x;
+  const size_t row0 = (size_t)blockIdx.y * c1;
+  float d[kMaxOut];
+#pragma unroll
+  for (int o = 0; o < kMaxOut; ++o) d[o] = o < c1 ? dr[(row0 + o) * vp + v] : 0.0f;
+  for (int m = 0; m < n_terms; ++m) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < c1 * c1; i += kLanes) w_s[i] = gcw[(size_t)m * c1 * c1 + i];
+    __syncthreads();
+    for (int c = 0; c < c1; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o)
+        if (o < c1) acc = fmaf(d[o], w_s[c * c1 + o], acc);
+      dt[m * term + (row0 + c) * vp + v] = acc;
+    }
+  }
+}
+
 }  // namespace
 
 cudaError_t launch_contract(const ContractArgs& a, cudaStream_t stream) {
@@ -925,22 +1031,6 @@ cudaError_t launch_ln_drop(const float* x, const float* mu, const float* rstd, c
   const size_t n = (size_t)batch * t * c * vp;
   ln_drop_kernel<<<ew_blocks(n), kEwThreads, 0, stream>>>(x, mu, rstd, lng, lnb, drop, y, t, c,
                                                           vp, n);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da, int act,
-                            int c_out, float* ds, float* dxin, float* a_out, int batch, int t,
-                            int vp, cudaStream_t stream) {
-  const size_t n = (size_t)batch * t * c_out * vp;
-  gate_bwd_kernel<<<ew_blocks(n), kEwThreads, 0, stream>>>(s, res, res_shift, da, act, c_out, ds,
-                                                           dxin, a_out, t, vp, n);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_relu_drop(const float* s, Drop drop, const float* dzd, float* zd, float* ds,
-                             int batch, int t, int c, int vp, cudaStream_t stream) {
-  const size_t n = (size_t)batch * t * c * vp;
-  relu_drop_kernel<<<ew_blocks(n), kEwThreads, 0, stream>>>(s, drop, dzd, zd, ds, vp, n);
   return cudaGetLastError();
 }
 
@@ -987,10 +1077,14 @@ cudaError_t launch_wgrad(Cv x, int k, Cv d, float* out, float* part, int batch, 
              : launch_wgrad_bias(x, 1, d, nullptr, out, part, batch, vp, stream);
 }
 
+size_t ln_affine_part_floats(int batch, int t, int c, int vp) {
+  return (size_t)ln_affine_slices(batch * t, c, vp) * 2 * c * vp;
+}
+
 cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, const float* lng,
                           Drop drop, const float* dy, float* dx, float* dmu, float* drstd,
                           float* dlng, float* dlnb, float* part, int batch, int t, int c, int vp,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, float* affine_part) {
   const int n = c * vp;
   int splits = (n + kLanes * 256 - 1) / (kLanes * 256);   // about 256 terms a thread
   splits = splits < 1 ? 1 : (splits > kLnSplits ? kLnSplits : splits);
@@ -1004,8 +1098,19 @@ cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, co
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  ln_bwd_affine_kernel<<<(c * vp + 255) / 256, 256, 0, stream>>>(x, mu, rstd, drop, dy, dlng,
-                                                                 dlnb, batch * t, c, vp);
+  if (!affine_part) {
+    ln_bwd_affine_kernel<<<(c * vp + 255) / 256, 256, 0, stream>>>(x, mu, rstd, drop, dy, dlng,
+                                                                   dlnb, batch * t, c, vp);
+    return cudaGetLastError();
+  }
+  const int bt_total = batch * t, slices = ln_affine_slices(bt_total, c, vp);
+  const int rows = (bt_total + slices - 1) / slices;   // (b, t) rows a slice
+  ln_bwd_affine_part_kernel<<<dim3((unsigned)((n + 255) / 256), slices), 256, 0, stream>>>(
+      x, mu, rstd, drop, dy, affine_part, bt_total, c, vp, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sum_slices_kernel<<<(unsigned)((2 * (size_t)n + 31) / 32), 256, 0, stream>>>(
+      affine_part, dlng, dlnb, (size_t)n, 2 * (size_t)n, slices);
   return cudaGetLastError();
 }
 
@@ -1028,11 +1133,12 @@ cudaError_t launch_gate_pass(const float* x, const float* w, const float* bias, 
 }
 
 cudaError_t launch_gate_dx(const float* ds, const float* w, float* dx, int batch, int t_in,
-                           int c_in, int vp, int kt, int g, cudaStream_t stream) {
+                           int c_in, int vp, int kt, int g, cudaStream_t stream, bool residual) {
   if (vp % DxWide::BN != 0 || t_in < kt) return cudaErrorInvalidValue;
   if (c_in <= kDxNarrow && kt <= kDxTaps) {
     const size_t smem = sizeof(float) * (size_t)g * kt * c_in;
-    const cudaError_t err = set_smem(gate_dx_lanes_kernel, smem);
+    auto lanes = residual ? gate_dx_lanes_kernel<true> : gate_dx_lanes_kernel<false>;
+    const cudaError_t err = set_smem(lanes, smem);
     if (err != cudaSuccess) return err;
     // steps a block: all of them where the lanes alone give 8 threads per
     // FP32 lane of the card (2^17), fewer below that
@@ -1040,14 +1146,68 @@ cudaError_t launch_gate_dx(const float* ds, const float* w, float* dx, int batch
     long long chunks = ((1LL << 17) + threads - 1) / threads;
     chunks = chunks < 1 ? 1 : (chunks > t_in ? t_in : chunks);
     const int t_chunk = (int)((t_in + chunks - 1) / chunks);
-    gate_dx_lanes_kernel<<<dim3((vp + 4 * kDxThreads - 1) / (4 * kDxThreads), batch,
-                                (t_in + t_chunk - 1) / t_chunk),
-                           kDxThreads, smem, stream>>>(ds, w, dx, t_in, c_in, vp, kt, g,
-                                                       t_chunk);
+    lanes<<<dim3((vp + 4 * kDxThreads - 1) / (4 * kDxThreads), batch,
+                 (t_in + t_chunk - 1) / t_chunk),
+            kDxThreads, smem, stream>>>(ds, w, dx, t_in, c_in, vp, kt, g, t_chunk);
   } else {
-    gate_dx_kernel<DxWide><<<dim3(t_in, vp / DxWide::BN, batch), DxWide::kThreads, 0, stream>>>(
-        ds, w, dx, t_in, c_in, vp, kt, g);
+    auto tile = residual ? gate_dx_kernel<DxWide, true> : gate_dx_kernel<DxWide, false>;
+    tile<<<dim3(t_in, vp / DxWide::BN, batch), DxWide::kThreads, 0, stream>>>(ds, w, dx, t_in,
+                                                                             c_in, vp, kt, g);
   }
+  return cudaGetLastError();
+}
+
+namespace {
+
+// The fixed-order sum of K4b's dw2 and db1 partials, slices = B * Vp / 64 of
+// n = c1 * (ce + 1) floats: slices s = j * groups + g, padded with zero slices to
+// per_group * groups; pass 1 sums each group g over j (sum_slices_kernel
+// on groups * n outputs, enough threads to fill the card), pass 2 the
+// groups in order.
+struct FcReduce {
+  int n, slices, groups, per_group;
+};
+
+FcReduce fc_reduce(int batch, int vp, int c1, int ce) {
+  FcReduce r;
+  r.n = c1 * (ce + 1);
+  r.slices = batch * (vp / kGateLanes);
+  const int want = (32768 + r.n - 1) / r.n;   // about 32k outputs in pass 1
+  r.groups = want < r.slices ? want : r.slices;
+  r.groups = r.groups > 0 ? r.groups : 1;
+  r.per_group = (r.slices + r.groups - 1) / r.groups;
+  return r;
+}
+
+}  // namespace
+
+size_t fc_pass_part_floats(int batch, int vp, int c1, int ce) {
+  const FcReduce r = fc_reduce(batch, vp, c1, ce);
+  return ((size_t)r.per_group + 1) * r.groups * r.n;
+}
+
+cudaError_t launch_fc_pass(const float* h, const float* w1, const float* b1, const float* gout,
+                           const float* w2, Drop drop, float* ds2, float* dw2, float* db1,
+                           float* part, int batch, int c_in, int vp, int c1, int ce,
+                           cudaStream_t stream) {
+  if (vp % kGateLanes != 0 || ce > kMaxOut || ce < 1) return cudaErrorInvalidValue;
+  const dim3 grid(vp / kGateLanes, (c1 + 63) / 64, batch);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  const FcReduce r = fc_reduce(batch, vp, c1, ce);
+  float* q = part + (size_t)r.per_group * r.groups * r.n;   // pass 1's group sums
+  const size_t pad = ((size_t)r.per_group * r.groups - r.slices) * r.n;
+  if (pad) STGCN_TRY(cudaMemsetAsync(part + (size_t)r.slices * r.n, 0, pad * sizeof(float),
+                                     stream));
+  GateUp up{gout, w2, ce, nullptr, nullptr, 0, drop};
+  gate_pass_kernel<false, true, true><<<grid, GateCfg<false>::kThreads, 0, stream>>>(
+      h, w1, b1, up, ds2, part, 1, c_in, vp, 1, c1, kRelu);
+  STGCN_TRY(cudaGetLastError());
+  const size_t n1 = (size_t)r.groups * r.n;
+  sum_slices_kernel<<<(unsigned)((n1 + 31) / 32), 256, 0, stream>>>(part, q, nullptr, n1, n1,
+                                                                     r.per_group);
+  STGCN_TRY(cudaGetLastError());
+  sum_slices_kernel<<<(unsigned)((r.n + 31) / 32), 256, 0, stream>>>(
+      q, dw2, db1, (size_t)c1 * ce, r.n, r.groups);
   return cudaGetLastError();
 }
 
@@ -1060,6 +1220,14 @@ cudaError_t launch_tail_dr(const float* ds2, const float* c2k, const float* h, c
     return cudaErrorInvalidValue;
   tail_dr_kernel<<<dim3(t1, vp / DxNarrow::BN, batch), DxNarrow::kThreads, 0, stream>>>(
       ds2, c2k, h, gcw, dr, dxg, dt_a, dt_b, t1, c1, vp, kt, g2, n_terms, cheb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_term_grads(const float* dr, const float* gcw, float* dt, int n_terms,
+                              int batch, int t1, int c1, int vp, cudaStream_t stream) {
+  if (vp % kLanes != 0 || c1 > kMaxOut || n_terms < 1) return cudaErrorInvalidValue;
+  term_grads_kernel<<<dim3(vp / kLanes, batch * t1), kLanes, 0, stream>>>(
+      dr, gcw, dt, n_terms, c1, vp, (size_t)batch * t1 * c1 * vp);
   return cudaGetLastError();
 }
 

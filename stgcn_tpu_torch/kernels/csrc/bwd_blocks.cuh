@@ -3,7 +3,10 @@
 // [B, T, C, Vp] float32 with Vp a multiple of kLanes. Each launcher returns
 // the cudaError_t of its launch. No block adds into memory another block
 // writes: weight gradients go through per-slice partials and a fixed-order
-// second pass, so a repeated backward is bit-identical.
+// second pass, so a repeated backward is bit-identical. Every product of
+// the backward kernels runs on the register tile of f32_tile.cuh (the gate
+// pass, the data gradients, tail_dr, wgrad); launch_contract, one thread a
+// lane, is left for K12f's forward (st_forward, fused_stblock.cu).
 #pragma once
 
 #include <initializer_list>
@@ -37,6 +40,7 @@ struct Cv {
   int t, c;
 };
 
+// K12f's weight contraction and conv 2 (st_forward), one thread a lane:
 // Y[b, t, o, v] (t < ty, o < O) = bias[o] + sum over taps k < K and channels
 // c < C of X_k[b, tx, c, v] * W(k, c, o), where tx = t + k*tstep (forward)
 // or t - k*tstep (back: taps that fall outside [0, X.t) are skipped), and
@@ -65,16 +69,6 @@ cudaError_t launch_contract(const ContractArgs& a, cudaStream_t stream);
 cudaError_t launch_ln_drop(const float* x, const float* mu, const float* rstd, const float* lng,
                            const float* lnb, Drop drop, float* y, int batch, int t, int c,
                            int vp, cudaStream_t stream);
-
-// Backward of the gate with its in-gate residual, elementwise over
-// s [B, T, G, Vp] (G = 2*c_out gated, c_out otherwise). xin = res[b, t +
-// res_shift, c, v] for c < res.c, else 0. The upstream gradient is da
-// [B, T, c_out, Vp]. Writes ds [B, T, G, Vp], dxin [B, T, c_out, Vp] and,
-// when given, a_out (the forward gate value). (K12b; K1b-K3b run the gate
-// backward in their gate pass, launch_gate_pass.)
-cudaError_t launch_gate_bwd(const float* s, Cv res, int res_shift, const float* da, int act,
-                            int c_out, float* ds, float* dxin, float* a_out, int batch, int t,
-                            int vp, cudaStream_t stream);
 
 // The gate backward at one point: the gate value av of the pre-activations
 // p (and, gated, q) with the residual xin, and the gradients dp, dq for the
@@ -116,10 +110,12 @@ __device__ __forceinline__ void gate_point_bwd(int act, float p, float q, float 
 
 // The upstream gradient of a fused gate pass (launch_gate_pass), one of two
 // policies, fixed at compile time inside the kernel:
-//  - head (K1b; gaw given): da = gy . gaw^T over o < c1, gy [B, t_out, c1,
-//    Vp], gaw [c0, c1]; the pass also writes the gate value a;
-//  - cotangent (K2b, K3b; gaw null): da = ga [B, t_out, c0, Vp] (in gy),
-//    plus gps[b, t] + 2 gpss[b, t] a on lanes v < v_true (the
+//  - head (K1b, K12b's head, K4b's fc1; gaw given): da = gy . gaw^T over
+//    o < c1, gy [B, t_out, c1, Vp], gaw [c0, c1]; the pass also writes the
+//    gate value a (K4b's fc1, launch_fc_pass: its dw2 partials instead, and
+//    da masked by `drop`, fc1's dropout);
+//  - cotangent (K2b, K3b, K12b's conv 2; gaw null): da = ga [B, t_out, c0,
+//    Vp] (in gy), plus gps[b, t] + 2 gpss[b, t] a on lanes v < v_true (the
 //    LayerNorm-partial cotangents, gps/gpss [B, t_out]).
 struct GateUp {
   const float* gy;
@@ -128,6 +124,7 @@ struct GateUp {
   const float* gps;
   const float* gpss;
   int v_true;
+  Drop drop;   // K4b's fc1 dropout (launch_fc_pass); unread by the other passes
 };
 
 // The gated conv's recompute and gate backward in one pass on the register
@@ -145,10 +142,29 @@ cudaError_t launch_gate_pass(const float* x, const float* w, const float* bias, 
 // The gated conv's data gradient with its residual's: for t < t_in, o < c_in,
 //   dx[b, t, o, :] = sum over taps k with 0 <= t - k < t_out, then g < G, of
 //                    ds[b, t - k, g, :] w[k, o, g]  + ds[b, t - kt + 1, o, :]
-// (the last term where that step exists), on the tile (a lane kernel that
-// reads ds once where c_in <= 4). K1b's dx4, and K3b's with t_out = 1.
+// (the last term where that step exists; none without `residual`), on the
+// tile (a lane kernel that reads ds once where c_in <= 4). K1b's and K12b's
+// dx4, K3b's with t_out = 1, K4b's dh with kt = 1 and no residual (the
+// residual is a template parameter of both kernels).
 cudaError_t launch_gate_dx(const float* ds, const float* w, float* dx, int batch, int t_in,
-                           int c_in, int vp, int kt, int g, cudaStream_t stream);
+                           int c_in, int vp, int kt, int g, cudaStream_t stream,
+                           bool residual = true);
+
+// K4b's fc1 pass: the gate pass of K1b (head policy, kt = 1, relu, no
+// in-gate residual) on the normalized input h [B, 1, c_in, Vp] with w1
+// [c_in, c1], b1 [c1]: s2 = h . w1 + b1 recomputed on the tile, dzd = gout
+// . w2^T (gout [B, 1, ce, Vp], w2 [c1, ce], ce <= kMaxOut), times fc1's
+// dropout mask (`drop`, keyed [B, 1, c1, V_true] as K4f's), then ds2 = dzd
+// * mask * (s2 > 0), the only tensor written; and in the same epilogue dw2
+// [c1, ce] = sum over (b, v) of relu(s2) * mask * gout and db1 [c1] = sum
+// over (b, v) of ds2, as per-block partials (a block's 64 lanes) summed in
+// a fixed order by two passes: s2, zd and dzd never reach device memory.
+// part: fc_pass_part_floats(...) floats.
+cudaError_t launch_fc_pass(const float* h, const float* w1, const float* b1, const float* gout,
+                           const float* w2, Drop drop, float* ds2, float* dw2, float* db1,
+                           float* part, int batch, int c_in, int vp, int c1, int ce,
+                           cudaStream_t stream);
+size_t fc_pass_part_floats(int batch, int vp, int c1, int ce);
 
 // K2b's data gradient on a 16-row tile: dr = (tconv2^T(ds2) + ds2's linear
 // half at step t - kt + 1) * (h > 0), dr [B, t1, c1, Vp] (c1 <= kMaxOut),
@@ -156,15 +172,18 @@ cudaError_t launch_gate_dx(const float* ds, const float* w, float* dx, int batch
 // when cheb) and each graph term's gradient dt_i = dr . gcw[i + cheb]^T
 // (n_terms of them; dt_b untouched when n_terms is 1). gcw [n_terms + cheb,
 // c1, c1], c2k [kt, c1, g2], ds2 [B, t1 - kt + 1, g2, Vp].
+// (K2b, and K12b's graph terms T_0 .. T_2.)
 cudaError_t launch_tail_dr(const float* ds2, const float* c2k, const float* h, const float* gcw,
                            float* dr, float* dxg, float* dt_a, float* dt_b, int batch, int t1,
                            int c1, int vp, int kt, int g2, int n_terms, int cheb,
                            cudaStream_t stream);
 
-// K4b's fc1 epilogue over s [B, T, C, Vp]: zd = relu(s) * mask and
-// ds = dzd * mask * (s > 0).
-cudaError_t launch_relu_drop(const float* s, Drop drop, const float* dzd, float* zd, float* ds,
-                             int batch, int t, int c, int vp, cudaStream_t stream);
+// The graph terms' gradients past tail_dr's (K12b at Ks >= 4): for m <
+// n_terms, dt_m = dr . gcw[m]^T (o ascending from 0, as tail_dr sums), dr
+// [B, t1, c1, Vp], gcw [n_terms, c1, c1], dt_m at dt + m * B t1 c1 Vp; one
+// thread a lane, dr read once.
+cudaError_t launch_term_grads(const float* dr, const float* gcw, float* dt, int n_terms,
+                              int batch, int t1, int c1, int vp, cudaStream_t stream);
 
 // Weight gradient out[k, c, o] = sum over b, t < D.t, v of X[b, t + k, c, v]
 // * D[b, t, o, v] for k < K, c < X.c, o < D.c; X.p null stands for ones
@@ -201,12 +220,16 @@ size_t wgrad_part_floats(std::initializer_list<WgradShape> calls);
 //   kLnSplits slice partials in `part`, ln_bwd_part_floats(B, T) floats, then
 //   a fixed-order sum of them; a row of at most 32768 elements is one slice,
 //   one block per row, and its block writes dmu and drstd at once);
-//   dlng[c, v] = sum_{b,t} dy * mask * xn, dlnb[c, v] = sum_{b,t} dy * mask.
+//   dlng[c, v] = sum_{b,t} dy * mask * xn, dlnb[c, v] = sum_{b,t} dy * mask
+//   (one thread per (c, v) over every (b, t) in order; with affine_part,
+//   ln_affine_part_floats(B, T, C, Vp) floats, slices of the (b, t) rows
+//   each summed so, then the slices in order: K12b's many rows).
 constexpr int kLnSplits = 256;
 inline size_t ln_bwd_part_floats(int batch, int t) { return (size_t)batch * t * kLnSplits * 2; }
+size_t ln_affine_part_floats(int batch, int t, int c, int vp);
 cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, const float* lng,
                           Drop drop, const float* dy, float* dx, float* dmu, float* drstd,
                           float* dlng, float* dlnb, float* part, int batch, int t, int c, int vp,
-                          cudaStream_t stream);
+                          cudaStream_t stream, float* affine_part = nullptr);
 
 }  // namespace stgcn

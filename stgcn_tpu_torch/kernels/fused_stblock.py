@@ -158,6 +158,19 @@ def st_block_reference(cfg: FusedBlockConfig, x, gso, w, drop: Drop | None = Non
     return dropout.apply_channels_last(y, drop)
 
 
+def ln_stats_cotangents(mu, rstd, dmu, drstd, count: int):
+    """Plain version of K12b's ``ln_cotangents_kernel``: the chain through the
+    LayerNorm statistics, ``(dmu − drstd·rstd³·(a − mu)) / count`` for each
+    element a of a (b, t) row, written as ``gps + 2·gpss·a`` so that K12b's
+    gate pass adds it as K2b's adds its LayerNorm-partial cotangents.
+    ``dmu``/``drstd`` are the gradients of the row's ``mu``/``rstd`` through
+    the normalized output alone; ``count`` = V·c2. Returns ``(gps, gpss)``,
+    shaped as ``mu``."""
+    k = drstd * rstd * rstd * rstd
+    inv = 1.0 / count
+    return (dmu + k * mu) * inv, -0.5 * k * inv
+
+
 def st_block_bwd_reference(cfg: FusedBlockConfig, x, gso, w, gy, drop: Drop | None = None,
                            relu_mask: torch.Tensor | None = None):
     """Plain version of :func:`stblock_bwd`: autograd through

@@ -23,9 +23,10 @@ fc1 on the register tile of ``csrc/f32_tile.cuh``, the LayerNorm and the
 input mask applied as its input is staged; K3's epilogue the gate, ``a``
 and the LayerNorm partial sums per (b, pass, 64-lane tile), summed in a
 fixed order by a second pass; K4's the ReLU, dropout and fc2) and
-``csrc/output_head_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K3b, K4b; K3b's
-recompute with the gate backward, its data gradient and both kernels'
-weight gradients on the same tile). Each
+``csrc/output_head_bwd.cu`` over ``csrc/bwd_blocks.cu`` (K3b, K4b: each
+recomputes its product with the gate backward in one gate pass, K4b's fc1
+with its dropout, ReLU and dw2 / db1 partials; their data gradients and
+weight gradients run on the same tile). Each
 wrapper runs its kernel on a CUDA tensor and its plain version (``*_reference``;
 the backward ones are autograd through the forward ones) on a CPU tensor,
 and counts its launches.

@@ -4,12 +4,15 @@ Pallas interpret mode (the TPU kernels ``_fwd_pallas`` / ``_bwd_pallas``),
 and against the port's unfused ``STConvBlock``. Same inputs from numpy seeds,
 same weights (``nn.convert.params_from_jax``)."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from stgcn_tpu.kernels.fused_stblock import _ln_fwd as jax_ln_fwd
 from stgcn_tpu.kernels.fused_stblock import fused_st_block as jax_fused_st_block
 from stgcn_tpu.nn.layers import STConvBlock as JaxSTConvBlock
 from stgcn_tpu.ops.graph_op import DenseGraphOp as JaxDenseGraphOp
@@ -143,6 +146,50 @@ def test_dropout_equals_unfused_block(act, gct, ks):
     for a, b in zip(g_fus, g_unf):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("v_pad", [V, 32])   # no padded lane; V = 24 of 32 lanes
+@pytest.mark.parametrize("dropped", [False, True])
+def test_ln_stats_cotangents_give_the_layernorm_vjp(dropped, v_pad):
+    """K12b's LayerNorm backward as its kernels split it: the elementwise
+    term rstd·lng·mask·gy (``ln_bwd``), and the chain through the
+    statistics as gps + 2·gpss·a2 from ``ln_stats_cotangents`` (dmu =
+    −rstd·Σ mask·gy·lng, drstd = Σ mask·gy·lng·(a2 − mu) over the row, lng
+    zero past V as the kernel's affine is); on the true lanes their sum
+    equals ``jax.vjp`` of the JAX block's LayerNorm (``_ln_fwd``) followed
+    by the mask, though a2 and gy hold values on the padded lanes."""
+    rng = np.random.default_rng(7)
+    c2, t2 = 64, 3
+    a2 = rng.standard_normal((B, t2, v_pad, c2)).astype(np.float32) * 0.7 + 0.2
+    gy = rng.standard_normal((B, t2, v_pad, c2)).astype(np.float32)
+    lng = (1.0 + 0.1 * rng.standard_normal((v_pad, c2))).astype(np.float32)
+    lnb = (0.1 * rng.standard_normal((v_pad, c2))).astype(np.float32)
+    lng[V:] = 0.0
+    lnb[V:] = 0.0
+    mask = np.ones((B, t2, v_pad, c2), np.float32)
+    if dropped:
+        mask = (rng.random(mask.shape) >= 0.5).astype(np.float32) * 2.0
+    mask[:, :, V:] = 0.0
+    vmask = (jnp.arange(v_pad) < V).astype(jnp.float32)[None, None, :, None]
+    cfg = types.SimpleNamespace(v_true=V, c2=c2)
+
+    def ln(a):
+        y, _, _ = jax_ln_fwd(cfg, a, vmask, jnp.asarray(lng), jnp.asarray(lnb))
+        return y * jnp.asarray(mask)
+
+    _, mu, rstd = jax_ln_fwd(cfg, jnp.asarray(a2), vmask, jnp.asarray(lng), jnp.asarray(lnb))
+    _, vjp = jax.vjp(ln, jnp.asarray(a2))
+    ref = np.asarray(vjp(jnp.asarray(gy))[0])
+
+    a, mu, rstd = t(a2), t(np.asarray(mu)), t(np.asarray(rstd))
+    dxn = t(gy) * t(mask) * t(lng)
+    dmu = -rstd * dxn.sum((2, 3), keepdim=True)
+    drstd = (dxn * (a - mu)).sum((2, 3), keepdim=True)
+    gps, gpss = fs.ln_stats_cotangents(mu, rstd, dmu, drstd, V * c2)
+    got = (rstd * dxn + gps + 2.0 * gpss * a).numpy()
+    assert gps.shape == gpss.shape == (B, t2, 1, 1)
+    np.testing.assert_allclose(got[:, :, :V], ref[:, :, :V], rtol=0,
+                               atol=2e-5 * max(1.0, float(np.abs(ref).max())))
 
 
 def test_relu_out_holds_the_relu_output():

@@ -34,6 +34,7 @@ from stgcn_tpu_torch.kernels import output_head as oh
 from stgcn_tpu_torch.kernels import sddmm as sd
 from stgcn_tpu_torch.kernels import spmm as spm
 from stgcn_tpu_torch.kernels import vertex_fused as vf
+from stgcn_tpu_torch.kernels._ab import launches, retired_launches
 from stgcn_tpu_torch.kernels.dropout import Drop, step_seed
 from stgcn_tpu_torch.kernels.probes import mask_probes
 from stgcn_tpu_torch.nn import STGCN, fused_forward
@@ -538,6 +539,81 @@ def test_ofc_bwd_matches_plain(dev, drop):
     got = oh.ofc_bwd(cfg, *args, gout, drop=drop)
     assert all(torch.equal(a, b) for a, b in zip(got, oh.ofc_bwd(cfg, *args, gout, drop=drop)))
     _close_all(got, oh.ofc_bwd_reference(cfg, *args, gout, drop))
+
+
+# (c0, c1, c_end, dropout): the recompute's rows and dh's channels c0, the fc
+# pass's 64-channel passes over c1, the fc2 outputs c_end it keeps
+OFC_BWD_EDGES = [(16, 16, 1, True), (100, 72, 5, False), (128, 128, 16, True),
+                 (130, 16, 16, False), (130, 128, 1, True), (16, 72, 16, False),
+                 (100, 128, 5, True), (128, 16, 1, False)]
+
+
+@pytest.mark.parametrize("c0,c1,c_end,dropped", OFC_BWD_EDGES)
+def test_ofc_bwd_at_tile_edges_matches_plain(dev, c0, c1, c_end, dropped):
+    """K4b (the fc pass on the tile, dw2 from its partials, dh on the data
+    gradient's tile without a residual) where it cuts its work unevenly,
+    on V = 300 of Vp = 384 lanes (6 of the fc pass's 64-lane tiles, 3 of the
+    data gradient's 128) with a nonzero ``gout`` on the padded lanes, batch
+    2, cotangents at a training step's scale: against the plain version, a
+    repeat bit-identical, and no ``contract_kernel`` among its launches."""
+    rng = np.random.default_rng(81)
+    v_true, v_pad, b = 300, 384, 2
+    cfg = oh.OutHeadCfg(ko=4, c_in=16, c0=c0, c1=c1, c_end=c_end, act_func="glu",
+                        v_true=v_true, v_pad=v_pad)
+    lnw, lnb = 1.0 + _rand(rng, dev, c0, v_pad, scale=0.1), _rand(rng, dev, c0, v_pad)
+    lnw[:, v_true:] = 0.0
+    lnb[:, v_true:] = 0.0
+    args = (_rand(rng, dev, b, 1, c0, v_pad), _rand(rng, dev, b, 1, 1, 1, scale=0.1),
+            0.5 + _rand(rng, dev, b, 1, 1, 1, scale=0.1).abs(), lnw, lnb,
+            _rand(rng, dev, c0, c1, scale=c0 ** -0.5), _rand(rng, dev, c1, scale=0.1),
+            _rand(rng, dev, c1, c_end, scale=c1 ** -0.5), _rand(rng, dev, c_end, scale=0.1))
+    gout = _rand(rng, dev, b, 1, c_end, v_pad, scale=1e-3)
+    drop = DROP if dropped else None
+    got = oh.ofc_bwd(cfg, *args, gout, drop=drop)
+    assert all(torch.equal(a, c) for a, c in zip(got, oh.ofc_bwd(cfg, *args, gout, drop=drop)))
+    _close_all(got, oh.ofc_bwd_reference(cfg, *args, gout, drop))
+    ev = launches(torch, lambda: oh.ofc_bwd(cfg, *args, gout, drop=drop))
+    assert not retired_launches("ofc_bwd", ev), [e["name"] for e in ev]
+
+
+K12B_CASES = [(act, gct, ks) for gct, ks in (("cheb_graph_conv", 1), ("cheb_graph_conv", 2),
+                                             ("cheb_graph_conv", 3), ("cheb_graph_conv", 4),
+                                             ("graph_conv", 1))
+              for act in ("glu", "gtu", "relu", "silu")]
+
+
+@pytest.mark.parametrize("i", range(len(K12B_CASES)))
+def test_k12b_matches_plain_without_the_retired_launches(dev, i):
+    """K12b's backward (K2b's tail, K1b's head around the adjoint chain)
+    at Ks 1-4 and ``graph_conv``, every gate, the block input c_in 1, 3 and
+    64 in turn (the head's data gradient by lanes or on the tile), dropout
+    on: against the plain version at the kernel's ReLU decisions (read back
+    through ``relu_out``), a repeat bit-identical, and no
+    ``contract_kernel`` after its forward recompute."""
+    act, gct, ks = K12B_CASES[i]
+    c_in = (1, 3, 64)[i % 3]
+    rng = np.random.default_rng(90 + i)
+    cfg = fs.FusedBlockConfig(kt=3, ks=ks, act_func=act, graph_conv_type=gct, droprate=0.5,
+                              v_true=V_TRUE, t_in=12 if c_in == 1 else 8, c_in=c_in,
+                              c0=max(32, c_in), c1=16, c2=32, training=True)
+    scales = (c_in ** -0.5, 0.1, 0.2, 0.1, 0.2, 0.1, 0.2, 0.1, 0.1, 0.1)
+    w = [_rand(rng, dev, *shape, scale=sc) for shape, sc in zip(cfg.weight_shapes(), scales)]
+    w[8] = w[8] + 1.0
+    gso = _rand(rng, dev, V_TRUE, V_TRUE, scale=0.1)
+    x = _rand(rng, dev, B, cfg.t_in, V_TRUE, c_in)
+    drop = Drop(0.5, 78, 2)
+    h = torch.empty((B, cfg.t1, V_TRUE, cfg.c1), device=dev)
+    fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h)
+    gy = _rand(rng, dev, B, cfg.t2, V_TRUE, cfg.c2)
+    got = fs.stblock_bwd(cfg, x, gso, *w, gy, drop=drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, fs.stblock_bwd(cfg, x, gso, *w, gy,
+                                                                      drop=drop)))
+    ref = fs.st_block_bwd_reference(cfg, x, gso, w, gy, drop, relu_mask=(h > 0).float())
+    for k, (a, b) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())),
+                                   msg=lambda m, k=k: f"output {k}: {m}")
+    ev = launches(torch, lambda: fs.stblock_bwd(cfg, x, gso, *w, gy, drop=drop))
+    assert not retired_launches("stblock_bwd", ev), [e["name"] for e in ev]
 
 
 @pytest.mark.parametrize("v_true", [V_TRUE, 228])

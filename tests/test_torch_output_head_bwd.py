@@ -123,6 +123,46 @@ def test_ofc_bwd_plain_matches_jax_core(act, drop):
     assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gout)))
 
 
+@pytest.mark.parametrize("drop", sorted(DROPS))
+@pytest.mark.parametrize("ce", [1, 16])
+def test_ofc_bwd_plain_matches_jax_core_at_edge_shapes(ce, drop):
+    """K4b's plain version against ``jax.vjp`` of the core of the JAX kernel
+    ``_make_ofc_bwd_kernel`` (``_ln_drop_fwd`` + ``_ofc_core`` + fc2, the
+    port's keyed mask handed in) where the card kernel's fc pass cuts its
+    work unevenly: batch 1, c0 = 100 (a part piece of the recompute's
+    rows), c1 = 72 (a ragged second 64-channel pass), ce 1 and 16 (the
+    widths of fc2 it keeps in registers), V = 150 of 256 lanes with a
+    nonzero ``gout`` on the padded lanes (dw2 and db2 sum every lane, as the
+    JAX kernel's do)."""
+    jcfg0, cfg0 = _cfgs("glu")
+    kw = dict(c0=100, c1=72, c_end=ce)
+    jcfg = dataclasses.replace(jcfg0, b_tile=1, **kw)
+    cfg = dataclasses.replace(cfg0, **kw)
+    rng = np.random.default_rng(66)
+    lnw, lnb = 1.0 + rand(rng, 100, V_PAD, scale=0.1), rand(rng, 100, V_PAD)
+    lnw[:, V_TRUE:] = 0.0
+    lnb[:, V_TRUE:] = 0.0
+    args = [rand(rng, 1, 1, 100, V_PAD), rand(rng, 1, 1, 1, 1, scale=0.1),
+            (0.5 + rng.random((1, 1, 1, 1))).astype(np.float32), lnw, lnb,
+            rand(rng, 100, 72, scale=0.1), rand(rng, 72, scale=0.1),
+            rand(rng, 72, ce, scale=0.12), rand(rng, ce, scale=0.1)]
+    gout = rand(rng, 1, 1, ce, V_PAD)
+    assert float(np.abs(gout[..., V_TRUE:]).max()) > 0
+    mask = None if DROPS[drop] is None else jnp.asarray(
+        D.keep_mask(DROPS[drop], (1, 1, 72, V_PAD), V_TRUE).numpy())
+
+    def f(a, mu, rstd, lnw_, lnb_, w1, b1, w2, b2):
+        h = _ln_drop_fwd(jcfg, a, mu, rstd, lnw_, lnb_, None)
+        _, z = joh._ofc_core(jcfg, h, w1, b1)
+        if mask is not None:
+            z = z * mask
+        return _bdot(z, w2, None) + b2[:, None]
+
+    _, vjp = jax.vjp(f, *_j(args))
+    got = toh.ofc_bwd(cfg, *map(t, args), t(gout), drop=DROPS[drop])
+    assert_grads([g.numpy() for g in got], vjp(jnp.asarray(gout)))
+
+
 @pytest.mark.parametrize("act", ["glu", "relu"])
 def test_ohead_and_ofc_bwd_plain_match_jax_kernels(act):
     """Without dropout, the JAX custom VJPs run ``_ohead_pallas_bwd`` and
