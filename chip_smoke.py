@@ -69,11 +69,13 @@ Eighteen phases, each printing one JSON line with its own seconds:
    within 1e-5 of max |r|. Timed beside the bound: max(bytes over 3.35 TB/s,
    the JAX cost estimate's FLOPs at the true V over 67 TFLOP/s, the backward
    3×); no one PyTorch call computes the block, so no library time. Each
-   PEMS-BAY K12b call is traced alone (its launches in order; no
-   ``contract_kernel`` may follow its forward recompute), and one
-   ``torch.matmul`` of its adjoint graph product ``[B·t1·c1, Vp] × [Vp,
-   Vp]`` is timed (K12b's "adjoint only" yardstick, ``adjoint_only_pems_bay``
-   in its row of the kernels line).
+   PEMS-BAY K12f and K12b call is traced alone (its launches in order; none
+   may be a kernel the redesigns retired, ``contract_kernel`` or
+   ``gate_fwd_kernel``), and one ``torch.matmul`` of the graph product
+   ``[B·t1·c1, Vp] × [Vp, Vp]`` is timed at each K12f call's shape (K12f's
+   "chain only" yardstick, ``chain_only_pems_bay`` in its row of the kernels
+   line) and at the first K12b call's (K12b's "adjoint only",
+   ``adjoint_only_pems_bay``).
 8. fused_dense — the dense whole-block route end to end: the PeMSD7(M) test
    split through ``fused_forward`` against the unfused forward and
    ``fused_sparse_forward`` (2e-4 + 2e-4·|ref|; launches K12f ×2 a batch and
@@ -86,7 +88,9 @@ Eighteen phases, each printing one JSON line with its own seconds:
    CUDA-event ms of each route's forward and training step (AdamW) with
    the peak memory above what was allocated before, in turns, and one step
    of each route traced by ``torch.profiler``: its kernels' device time by
-   name and in all, and that sum's share of the step.
+   name and in all, that sum's share of the step, and the launches of the
+   retired ``contract_kernel`` and ``gate_fwd_kernel`` (the dense step's
+   must be 0).
 9. kernels_banded — the 100k-vertex problem (``random_road_graph(100_000,
    k_neighbors=8, seed=0)``, ``sym_norm_lap`` Chebyshev GSO with Lanczos
    lambda_max, RCM, the banded operator of 256-row slabs that the JAX CLI
@@ -123,7 +127,7 @@ Eighteen phases, each printing one JSON line with its own seconds:
    (``banded_100k_trace``), one fused step's backward traced by
    ``torch.profiler`` (device ms by kernel name), each of that step's K1b,
    K2b, K3b and K4b calls traced alone (its launches in order: block 1 and
-   block 2, and the head; K4b's with no ``contract_kernel``), K1b block
+   block 2, and the head; K4b's with no retired kernel), K1b block
    2's weight gradient dc1k beside one ``torch.matmul`` of the same product
    (K1b's "wgrad only" yardstick, in the K1b row of the kernels line as
    ``wgrad_only_100k``), and K3b's gate pass and K4b's fc pass each beside
@@ -1094,40 +1098,42 @@ def stblock_case(torch, gen, gso, act: str, gct: str, ks: int):
             ("stblock_bwd", label, (cfg, x, gso, *w, gy), {"drop": drop})]
 
 
-def trace_stblock_bwd(torch, calls) -> tuple[dict, dict]:
-    """Each recorded K12b call traced alone (its launches in order; no
-    ``contract_kernel`` after the forward recompute, ``retired_launches``),
-    and one ``torch.matmul`` of the adjoint chain's graph product at the
-    first call's shape, ``[B·t1·c1, Vp] × [Vp, Vp]`` on random operands
-    (K12b's "adjoint only" yardstick; a call runs Ks - 1 of them). The
-    matmul runs on the padded Vp; its bound counts the true V over which
-    ``graph_mm`` contracts, 2·B·t1·c1·V²."""
+def trace_stblock(torch, calls) -> tuple[dict, dict]:
+    """Each recorded K12f and K12b call traced alone (its launches in order;
+    none of a kernel the redesigns retired, ``retired_launches``), and the
+    graph products' ``torch.matmul`` yardsticks on random operands,
+    ``[B·t1·c1, Vp] × [Vp, Vp]``: at each K12f call's shape (its chain runs
+    Ks - 1 of them) and at the first K12b call's (its adjoint chain; K12b's
+    "adjoint only"). The matmul runs on the padded Vp; its bound counts the
+    true V over which ``graph_mm`` contracts, 2·B·t1·c1·V²."""
     from stgcn_tpu_torch.kernels import fused_stblock as fs
     from stgcn_tpu_torch.kernels._ab import launches, retired_launches
 
-    traced, adjoint = {}, None
+    traced: dict = {name: {} for name in K12_META}
+    yard: dict = {"stblock_fwd": [], "stblock_bwd": []}
     for name, label, args, kwargs in calls:
-        if name != "stblock_bwd":
-            continue
         cfg = args[0]
-        ev = launches(torch, lambda: fs.stblock_bwd(*args, **kwargs))
+        ev = launches(torch, lambda: getattr(fs, name)(*args, **kwargs))
         key = f"{label}: t_in {cfg.t_in}, c_in {cfg.c_in}"
         retired = retired_launches(name, ev)
         if retired:
-            raise AssertionError(f"K12b [{key}] launched a contraction after its recompute: "
+            raise AssertionError(f"{K12_META[name][0]} [{key}] launched a retired kernel: "
                                  f"{retired}")
-        traced[key] = {"device_ms": sum(e["ms"] for e in ev), "launches": ev}
-        if adjoint is None:
-            m, vp = args[1].shape[0] * cfg.t1 * cfg.c1, -(-cfg.v_true // 128) * 128
-            gen = torch.Generator(device="cuda").manual_seed(4)
-            a = torch.randn((m, vp), generator=gen, device="cuda")
-            g = torch.randn((vp, vp), generator=gen, device="cuda")
-            adjoint = {"shape": [m, vp, vp], "per_call": max(cfg.ks - 1, 1),
-                       "matmul_ms": cuda_ms(lambda: torch.matmul(a, g), warmup=2, reps=10),
-                       "graph_mm_ms": [e["ms"] for e in ev if "graph_mm_kernel<true>" in e["name"]],
-                       "bound_ms": 2 * m * cfg.v_true ** 2 / F32_FLOP_PER_S * 1e3}
-            del a, g
-    return traced, adjoint
+        traced[name][key] = {"device_ms": sum(e["ms"] for e in ev), "launches": ev}
+        if name == "stblock_bwd" and yard[name]:
+            continue
+        m, vp = args[1].shape[0] * cfg.t1 * cfg.c1, -(-cfg.v_true // 128) * 128
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        a = torch.randn((m, vp), generator=gen, device="cuda")
+        g = torch.randn((vp, vp), generator=gen, device="cuda")
+        mm = "true>" if name == "stblock_bwd" else "false>"   # the orientation of its chain
+        yard[name].append({"call": key, "shape": [m, vp, vp], "per_call": max(cfg.ks - 1, 1),
+                           "matmul_ms": cuda_ms(lambda: torch.matmul(a, g), warmup=2, reps=10),
+                           "graph_mm_ms": [e["ms"] for e in ev if "graph_mm_kernel" in e["name"]
+                                           and e["name"].endswith(mm)],
+                           "bound_ms": 2 * m * cfg.v_true ** 2 / F32_FLOP_PER_S * 1e3})
+        del a, g
+    return traced, {"chain_only": yard["stblock_fwd"], "adjoint_only": yard["stblock_bwd"][0]}
 
 
 def phase_kernels_stblock(torch, data, pb) -> dict:
@@ -1148,7 +1154,8 @@ def phase_kernels_stblock(torch, data, pb) -> dict:
     model = new_model(torch, pb["n_vertex"], DROPRATE)
     calls = record_dense_step(torch, model, pb["x"], pb["y"], pb["gop"], step_seed(42, 0))
     results["pems_bay"] = check_dense_calls(torch, calls, reps=K12_REPS_PEMS_BAY)
-    results["pems_bay_trace"], results["adjoint_only"] = trace_stblock_bwd(torch, calls)
+    results["pems_bay_trace"], yard = trace_stblock(torch, calls)
+    results.update(yard)
     del calls, model
     gen = torch.Generator(device="cuda").manual_seed(12)
     general = [c for case in K12_GENERAL
@@ -1161,10 +1168,10 @@ def phase_kernels_stblock(torch, data, pb) -> dict:
     return results
 
 
-def profile_once(torch, fn) -> dict:
+def profile_once(torch, fn, count: tuple = ()) -> dict:
     """``torch.profiler`` over one call of ``fn`` after a warm-up call: the
     device time of every kernel launched, in all and by kernel name (the
-    twelve largest)."""
+    twelve largest), and the launches of each kernel named in ``count``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1176,9 +1183,12 @@ def profile_once(torch, fn) -> dict:
     ev = [e for e in prof.key_averages()
           if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
     top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    base = [(e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+             .split("::")[-1], e.count) for e in ev]
     return {"device_ms": sum(e.self_device_time_total for e in ev) / 1e3,
             "top": [{"name": e.key[:100], "calls": e.count, "ms": e.self_device_time_total / 1e3}
-                    for e in top]}
+                    for e in top],
+            "launches_of": {k: sum(n for b, n in base if b == k) for k in count}}
 
 
 def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
@@ -1186,7 +1196,7 @@ def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
     kernels' device time by name); each K1b, K2b, K3b and K4b call of that
     step's recorded calls traced alone (its launches in order,
     ``kernels/_ab.py``'s ``launches``; K4b's must hold no
-    ``contract_kernel``, ``retired_launches``); and three yardsticks, each one
+    retired kernel, ``retired_launches``); and three yardsticks, each one
     ``torch.matmul`` on random operands laid out for it outside the timing:
     K1b block 2's weight gradient dc1k against the product ``[kt·c_in,
     B·t1·Vp] × [B·t1·Vp, g1]`` (K1b's "wgrad only"), K3b's gate pass against
@@ -1248,7 +1258,7 @@ def trace_backward(torch, data, calls, batch: int, phase: str) -> dict:
         if name == "ofc_bwd":
             retired = retired_launches(name, ev)
             if retired:
-                raise AssertionError(f"K4b [{key}] launched a contraction: {retired}")
+                raise AssertionError(f"K4b [{key}] launched a retired kernel: {retired}")
             n = b * cfg.v_pad
             fc = [e["ms"] for e in ev if "gate_pass" in e["name"]]
             fc_recompute = {"shape": [n, cfg.c0, cfg.c1], "fc_pass_ms": sum(fc),
@@ -1271,6 +1281,7 @@ def phase_fused_dense(torch, data, pb) -> dict:
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels._ab import RETIRED
     from stgcn_tpu_torch.kernels.dropout import step_seed
     from stgcn_tpu_torch.nn.fused import fused_forward
     from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
@@ -1432,8 +1443,11 @@ def phase_fused_dense(torch, data, pb) -> dict:
         t["step_ms"].append(step_ms)
         t["peak_gb"].append((torch.cuda.max_memory_allocated() - base) / 1e9)
         if kind not in profiles:   # one traced step a route: its kernels' device time
-            profiles[kind] = profile_once(torch, step)
+            profiles[kind] = profile_once(torch, step, count=RETIRED)
             profiles[kind]["busy_share_of_step"] = profiles[kind]["device_ms"] / step_ms
+            if kind == "dense" and any(profiles[kind]["launches_of"].values()):
+                raise AssertionError(f"a dense step launched retired kernels: "
+                                     f"{profiles[kind]['launches_of']}")
     del pbm, pp
     torch.cuda.empty_cache()
     result = {"phase": "fused_dense", "seconds": time.perf_counter() - t0,
@@ -3028,7 +3042,7 @@ def main() -> int:
                  per_call_pems_bay=kst["pems_bay"][name],
                  per_call_generality=kst["generality"][name],
                  **({"adjoint_only_pems_bay": kst["adjoint_only"]} if name == "stblock_bwd"
-                    else {}))
+                    else {"chain_only_pems_bay": kst["chain_only"]}))
              for name in K12_META]
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -7,8 +7,8 @@ compare as A, B, B, A on one card). Each process prints one JSON line, the
 tool's result for its tree; then the card's ``nvidia-smi`` name and power
 limit. ``launches`` lists the device kernels of one call, as
 ``torch.profiler`` sees them, and ``retired_launches`` picks out of such a
-list the ``contract_kernel`` launches that K4b's and K12b's redesign
-retired.
+list the launches of the kernels that the redesigns of K4b, K12b and K12f
+retired (``RETIRED``).
 
 A tool supplies ``run_one(tree, reps, data) -> dict`` and, where every tree
 needs the same input, ``prepare(tmpdir) -> path``, run once before the
@@ -110,29 +110,20 @@ def launches(torch, fn) -> list:
              "ms": (e.time_range.end - e.time_range.start) / 1e3} for e in ev]
 
 
-# the one-thread-a-lane contraction, which K4b and K12b's backward no longer
-# launch (K12f's forward still does); the other launches their redesign
-# retired are gone from the source
-RETIRED = "contract_kernel"
+# the one-thread-a-lane contraction and K12f's separate gate pass, which no
+# kernel launches any more (their sources are gone): a trace that holds one
+# ran an old tree
+RETIRED = ("contract_kernel", "gate_fwd_kernel")
 
 
 def retired_launches(name: str, ev: list) -> list:
-    """The names in the launch list ``ev`` of one ``ofc_bwd`` (K4b) or
-    ``stblock_bwd`` (K12b) call that are ``RETIRED``'s: in K12b only
-    after its forward recompute, which ends with ``ln_stats_kernel`` (K12f's
-    own contractions run before it). Raises where K12b's list lacks that
-    end, so an empty or cut trace cannot pass."""
-    def base(e):
-        return e["name"].split("<")[0].split("::")[-1]
-
-    if name == "stblock_bwd":
-        ends = [i for i, e in enumerate(ev) if base(e) == "ln_stats_kernel"]
-        if not ends:
-            raise AssertionError("K12b's trace holds no ln_stats_kernel: no recompute seen")
-        ev = ev[ends[0] + 1:]
-    elif not ev:
+    """The names in the launch list ``ev`` of one ``name`` call (K4b's
+    ``ofc_bwd``, K12f's ``stblock_fwd`` or K12b's ``stblock_bwd``) that are
+    ``RETIRED`` kernels', over the whole call. Raises where ``ev`` is empty,
+    so an empty or cut trace cannot pass."""
+    if not ev:
         raise AssertionError(f"{name}: the trace holds no launch")
-    return [e["name"] for e in ev if base(e) == RETIRED]
+    return [e["name"] for e in ev if e["name"].split("<")[0].split("::")[-1] in RETIRED]
 
 
 def compare(keeps: list) -> dict:

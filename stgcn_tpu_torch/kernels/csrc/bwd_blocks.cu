@@ -15,8 +15,7 @@
 // backward and take its data gradient in fused passes (gate_pass_kernel,
 // gate_dx_kernel, K2b's and K12b's tail_dr_kernel below) on the tile that
 // also carries the forward gate GEMM of K1f-K4f (gate_gemm.cu), so the
-// pre-activations never reach device memory. contract_kernel, one thread a
-// lane, is left for K12f's forward (st_forward, fused_stblock.cu).
+// pre-activations never reach device memory.
 //
 // What bounds them on the H100: the channel contractions and the weight
 // gradients are float32 FMA issue, the elementwise passes are bytes.
@@ -33,64 +32,6 @@ constexpr int kEwThreads = 256;
 int ew_blocks(size_t n) {
   const size_t b = (n + kEwThreads - 1) / kEwThreads;
   return (int)(b < 8192 ? (b > 0 ? b : 1) : 8192);
-}
-
-// out[i] += a * w[i] for i < kChunk, w 16-byte aligned in shared memory.
-__device__ __forceinline__ void fma16(float (&out)[kChunk], float a, const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int i = 0; i < kChunk / 4; ++i) {
-    const float4 q = w4[i];
-    out[4 * i + 0] = fmaf(a, q.x, out[4 * i + 0]);
-    out[4 * i + 1] = fmaf(a, q.y, out[4 * i + 1]);
-    out[4 * i + 2] = fmaf(a, q.z, out[4 * i + 2]);
-    out[4 * i + 3] = fmaf(a, q.w, out[4 * i + 3]);
-  }
-}
-
-// grid (Vp / kLanes * n_chunks, ty, B): one thread per lane, kChunk outputs.
-__global__ void __launch_bounds__(kLanes) contract_kernel(ContractArgs a) {
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // [K * C][kChunk]
-  const int n_vt = a.vp / kLanes;
-  const int chunk = blockIdx.x / n_vt;
-  const int o0 = chunk * kChunk;
-  const int v = (blockIdx.x % n_vt) * kLanes + threadIdx.x;
-  const int t = blockIdx.y, b = blockIdx.z;
-  const int rows = a.k * a.c;
-  for (int i = threadIdx.x; i < rows * kChunk; i += blockDim.x) {
-    const int r = i / kChunk, oo = i % kChunk, o = o0 + oo;
-    const int k = r / a.c, c = r % a.c;
-    float val = 0.0f;
-    if (o < a.o)
-      val = a.back ? a.w[((size_t)k * a.o + o) * a.c + c] : a.w[((size_t)k * a.c + c) * a.o + o];
-    w_s[i] = val;
-  }
-  __syncthreads();
-
-  float acc[kChunk];
-#pragma unroll
-  for (int i = 0; i < kChunk; ++i) acc[i] = (a.bias && o0 + i < a.o) ? a.bias[o0 + i] : 0.0f;
-  for (int k = 0; k < a.k; ++k) {
-    const int tx = a.back ? t - k * a.tstep : t + k * a.tstep;
-    if (tx < 0 || tx >= a.x_t) continue;
-    const float* x = (k < 3 && a.xs[k]) ? a.xs[k] : a.xs[0];
-    const float* xr = x + ((size_t)(b * a.x_t + tx) * a.c) * a.vp + v;
-    for (int c = 0; c < a.c; ++c) fma16(acc, xr[(size_t)c * a.vp], w_s + (k * a.c + c) * kChunk);
-  }
-  const int ta = t - a.add_shift;
-  const bool add_t = a.add.p && ta >= 0 && ta < a.add.t;
-#pragma unroll
-  for (int i = 0; i < kChunk; ++i) {
-    const int o = o0 + i;
-    if (o >= a.o) break;
-    float y = acc[i];
-    if (add_t && o < a.add.c) y += a.add.p[((size_t)(b * a.add.t + ta) * a.add.c + o) * a.vp + v];
-    if (a.relu_out) y = fmaxf(y, 0.0f);
-    const size_t yi = ((size_t)(b * a.ty + t) * a.o + o) * a.vp + v;
-    if (a.pos && !(a.pos[yi] > 0.0f)) y = 0.0f;
-    a.y[yi] = y;
-  }
 }
 
 __global__ void ln_drop_kernel(const float* __restrict__ x, const float* __restrict__ mu,
@@ -1013,17 +954,6 @@ term_grads_kernel(const float* __restrict__ dr, const float* __restrict__ gcw,
 }
 
 }  // namespace
-
-cudaError_t launch_contract(const ContractArgs& a, cudaStream_t stream) {
-  if (a.vp % kLanes != 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)a.k * a.c * kChunk;
-  cudaError_t err = set_smem(contract_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int n_chunks = (a.o + kChunk - 1) / kChunk;
-  const dim3 grid((a.vp / kLanes) * n_chunks, a.ty, a.batch);
-  contract_kernel<<<grid, kLanes, smem, stream>>>(a);
-  return cudaGetLastError();
-}
 
 cudaError_t launch_ln_drop(const float* x, const float* mu, const float* rstd, const float* lng,
                            const float* lnb, Drop drop, float* y, int batch, int t, int c,

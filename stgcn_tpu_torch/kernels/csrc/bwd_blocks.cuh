@@ -5,8 +5,7 @@
 // writes: weight gradients go through per-slice partials and a fixed-order
 // second pass, so a repeated backward is bit-identical. Every product of
 // the backward kernels runs on the register tile of f32_tile.cuh (the gate
-// pass, the data gradients, tail_dr, wgrad); launch_contract, one thread a
-// lane, is left for K12f's forward (st_forward, fused_stblock.cu).
+// pass, the data gradients, tail_dr, wgrad).
 #pragma once
 
 #include <initializer_list>
@@ -39,30 +38,6 @@ struct Cv {
   const float* p;
   int t, c;
 };
-
-// K12f's weight contraction and conv 2 (st_forward), one thread a lane:
-// Y[b, t, o, v] (t < ty, o < O) = bias[o] + sum over taps k < K and channels
-// c < C of X_k[b, tx, c, v] * W(k, c, o), where tx = t + k*tstep (forward)
-// or t - k*tstep (back: taps that fall outside [0, X.t) are skipped), and
-// X_k is xs[k] for k < 3 when given, else xs[0] (taps may name separate
-// operands: the Chebyshev terms).
-// W(k, c, o) is w[(k*C + c)*O + o] forward and w[(k*O + o)*C + c] back (the
-// transposed weight). Then, in this order: + add[b, t - add_shift, o, v]
-// where that lies inside add (o < add.c); relu when relu_out; times
-// (pos[b, t, o, v] > 0) when pos is given. K may be 0 (Y = add).
-struct ContractArgs {
-  const float* xs[3];
-  int x_t, c;          // time length and channels of every X_k
-  const float* w;
-  int k, tstep, back;
-  const float* bias;   // [O] or null
-  Cv add;              // add.p may be null
-  int add_shift, relu_out;
-  const float* pos;    // same shape as y, or null
-  float* y;
-  int batch, ty, o, vp;
-};
-cudaError_t launch_contract(const ContractArgs& a, cudaStream_t stream);
 
 // y = ((x - mu[b, t]) * rstd[b, t] * lng[c, v] + lnb[c, v]) * mask, over
 // x [B, T, C, Vp]; mask as `drop` gives it (none when threshold is 0).

@@ -5,10 +5,11 @@
 // neighbouring vertex lanes and every activation load coalesces. K1-K4
 // run their products on the gate GEMM (gate_gemm.cu), on the register tile
 // of f32_tile.cuh as the backward passes do; the lane kernels (one thread
-// per lane in blocks of kLanes: K2's h, the contractions) stage their
-// weights in shared memory, read by the threads of a warp at one address (a
-// broadcast, no bank conflict). Sums run in a fixed order: no atomics, so a
-// launch repeated on the same inputs gives bit-identical output.
+// per lane in blocks of kLanes: K2's and K12's h, K12b's later graph-term
+// gradients) stage their weights in shared memory, read by the threads of a
+// warp at one address (a broadcast, no bank conflict). Sums run in a fixed
+// order: no atomics, so a launch repeated on the same inputs gives
+// bit-identical output.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,7 +19,6 @@
 namespace stgcn {
 
 constexpr int kLanes = 128;          // vertex lanes (threads) per block
-constexpr int kChunk = 16;           // outputs whose sums a lane thread keeps in registers
 constexpr int kMaxOut = 16;          // narrow outputs (K1's c1, K2's c1, K4's fc2) a thread keeps
 constexpr int kMaxSmem = 232448;     // shared memory a block may use on sm_90 (227 KB)
 
@@ -112,10 +112,13 @@ cudaError_t launch_gate_gemm(const GateGemmArgs& args, cudaStream_t stream);
 // h [B, t1, c1, Vp] = relu(gcb + sum over the n_c (1-3) graph-term
 // operands ct[m] [B, t1, c1, Vp], then channels c, of ct[m][.., c, :]
 // gcw[m, c, :] + xg), gcw [n_c, c1, c1], gcb [c1], c1 <= kMaxOut, one thread
-// a lane (vertex_fused.cu): K2's first stage, and K2b's recompute.
+// a lane (vertex_fused.cu): K2's first stage, K2b's recompute and K12's
+// weight contraction. gcb null adds no bias; relu false leaves the sum as
+// it is; xg may be h itself (K12 at Ks >= 4: a later launch of three terms
+// adds onto the sum the first one left in h, the ReLU on the last launch).
 cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
                           const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
-                          int vp, cudaStream_t stream);
+                          int vp, cudaStream_t stream, bool relu = true);
 
 // Opt the kernel into `smem` bytes of dynamic shared memory, then check it fits.
 template <typename K>

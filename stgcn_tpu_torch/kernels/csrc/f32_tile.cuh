@@ -2,11 +2,13 @@
 //
 //   acc[m, n] += sum over k of A(m, k) * B(n, k)
 //
-// used by K11 (bcsr_sddmm.cu), by K1f's and K4f's gate GEMM (gate_gemm.cu),
-// by every weight gradient of K1b-K4b and K12b (bwd_blocks.cu
-// `launch_wgrad`) and by the recompute and data gradient of K1b-K3b
-// (bwd_blocks.cu). A block of Cfg::kThreads threads owns a BM x BN
-// output tile and keeps it in registers, TM x TN sums a thread: with 8, rows
+// used by K11 (bcsr_sddmm.cu), by the gate GEMM of K1f-K4f and of K12f's
+// head and conv 2 (gate_gemm.cu), by K12's dense graph product and its
+// adjoint (fused_stblock.cu `launch_graph_mm`), by every weight gradient of
+// K1b-K4b and K12b (bwd_blocks.cu `launch_wgrad`) and by the recompute and
+// data gradient of K1b-K4b and K12b (bwd_blocks.cu). A block of
+// Cfg::kThreads threads owns a BM x BN output tile and keeps it in
+// registers, TM x TN sums a thread: with 8, rows
 // 4ty..4ty+3 and BM/2+4ty..BM/2+4ty+3 (columns likewise), so the 16-byte
 // shared loads of a warp fall on distinct banks. The reduction is walked BK
 // at a time. Both operand pieces are staged in shared memory k-major

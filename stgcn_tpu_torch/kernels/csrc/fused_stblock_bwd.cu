@@ -4,10 +4,11 @@
 // (:626, body `_make_bwd_kernel` :522 / `_backward_pieces` :394). Like the
 // TPU kernel it recomputes the forward from the block's inputs (st_forward
 // of fused_stblock.cu: the same launches as K12f, so the same ReLU
-// decisions), then applies the chain rule as K2b's tail and K1b's head
-// around the dense adjoint chain, a fixed sequence of launches on the
-// caller's stream over the building blocks of bwd_blocks.cu, every product
-// on the register tile of f32_tile.cuh:
+// decisions; its scratch, with the GSO padded to [Vp, Vp], lent by ds1,
+// which is written only after the adjoint chain), then applies the chain
+// rule as K2b's tail and K1b's head around the dense adjoint chain, a fixed
+// sequence of launches on the caller's stream over the building blocks of
+// bwd_blocks.cu, every product on the register tile of f32_tile.cuh:
 //   1. LayerNorm and dropout backward: ln_bwd gives da2 = rstd * lng * mask
 //      * gy and the per-(b, t) gradients of mu and rstd (partials over
 //      slices of the row, then a fixed-order sum); their chain through the
@@ -19,7 +20,7 @@
 //      cotangents; the affine gradients sum over slices of the (b, t) rows
 //      per (c, v), then the slices in order (a batch of 512 has 4096 rows);
 //   2. conv 2 and gate 2 backward: the gate pass (cotangent policy) on h
-//      recomputes s2 on the tile and writes only ds2 (in s2's place) ->
+//      recomputes s2 on the tile and writes only ds2 ->
 //      dc2k with dc2b (a ones row);
 //   3. dr = (conv2^T(ds2) + ds2's linear half) * (h > 0) on K2b's dr tile
 //      (launch_tail_dr), whose epilogue also forms dxg = dr + dr W_0^T
@@ -27,9 +28,9 @@
 //      lane kernel the terms past T_2, Ks >= 4) -> dgcw[k] = T_k^T dr, with
 //      dgcb as the first one's ones row;
 //   4. the adjoint recurrence with G^T (`:440-458`), on the graph product of
-//      fused_stblock.cu reading G transposed in place: dT_{k-1} += 2 G^T
-//      dT_k, dT_{k-2} -= dT_k for k = Ks-1 .. 2 (dT_0 is folded into dxg),
-//      then dxg += G^T dT_1;
+//      fused_stblock.cu reading the padded G transposed in place: dT_{k-1}
+//      += 2 G^T dT_k, dT_{k-2} -= dT_k for k = Ks-1 .. 2 (dT_0 is folded
+//      into dxg), then dxg += G^T dT_1;
 //   5. K1b's head: the gate pass (head policy: da1 = dxg . gaw^T) on x
 //      recomputes s1 on the tile and writes ds1 and a1 -> dgaw with dgab,
 //      dc1k with dc1b -> dx = conv1^T(ds1) + ds1's linear half
@@ -98,15 +99,20 @@ cudaError_t stblock_bwd(const StDims& d, const float* x, const float* gso, const
   float* drstd = c.take((size_t)d.B * d.t2);
   float* gps = c.take((size_t)d.B * d.t2);
   float* gpss = c.take((size_t)d.B * d.t2);
+  float* lng_cv = c.take((size_t)d.c2 * d.vp);
   float* dlng_cv = c.take((size_t)d.c2 * d.vp);
   float* dlnb_cv = c.take((size_t)d.c2 * d.vp);
   float* lnpart = c.take(ln_bwd_part_floats(d.B, d.t2));
   float* affpart = c.take(ln_affine_part_floats(d.B, d.t2, d.c2, d.vp));
-  float* ds2 = f.s2;   // s2 is not read after the recompute: the gate pass recomputes it
+  float* ds2 = c.take(d.lane * d.t2 * d.g2);
   float* dr = c.take(act1);
   float* dts = c.take(act1 * (n_terms > 0 ? n_terms : 1));
   float* dxg = c.take(act1);
-  float* ds1 = c.take(d.lane * d.t1 * d.g1);
+  const size_t n_ds1 = d.lane * d.t1 * d.g1, n_scratch = st_scratch_floats(d);
+  float* ds1 = c.take(n_ds1);
+  // st_forward's scratch, with the padded GSO that the adjoint chain reads:
+  // ds1, which is written only after that chain, where it is large enough
+  float* scratch = n_scratch <= n_ds1 ? ds1 : c.take(n_scratch);
   float* a1 = c.take(d.lane * d.t1 * d.c0);
   float* dx_cv = c.take(d.lane * d.t_in * d.c_in);
   const long long r1 = (long long)d.B * d.t1 * d.vp, r2 = (long long)d.B * d.t2 * d.vp;
@@ -118,11 +124,13 @@ cudaError_t stblock_bwd(const StDims& d, const float* x, const float* gso, const
   if (!st_dims_valid(d)) return cudaErrorInvalidValue;
 
   const int B = d.B, vp = d.vp, t1 = d.t1, t2 = d.t2, c1 = d.c1;
-  STGCN_TRY(st_forward(d, x, gso, w, f, s));
+  STGCN_TRY(st_forward(d, x, gso, w, f, scratch, s));
+  const float* gp = scratch;   // the padded GSO
 
   // 1. LayerNorm (+ dropout) backward; the statistics' chain as gps, gpss
   STGCN_TRY(launch_nm_to_cv(gy, gy_cv, B * t2, d.V, d.c2, vp, s));
-  STGCN_TRY(launch_ln_bwd(f.a2, f.mu, f.rstd, f.lng_cv, drop, gy_cv, da2, dmu, drstd, dlng_cv,
+  STGCN_TRY(launch_nm_to_cv(w.lng, lng_cv, 1, d.V, d.c2, vp, s));
+  STGCN_TRY(launch_ln_bwd(f.a2, f.mu, f.rstd, lng_cv, drop, gy_cv, da2, dmu, drstd, dlng_cv,
                           dlnb_cv, lnpart, B, t2, d.c2, vp, s, affpart));
   const int rows_t2 = B * t2;
   ln_cotangents_kernel<<<(rows_t2 + kEw - 1) / kEw, kEw, 0, s>>>(
@@ -153,14 +161,14 @@ cudaError_t stblock_bwd(const StDims& d, const float* x, const float* gso, const
   // 4. the adjoint of the graph chain with G^T, into dxg (which holds dT_0's share)
   const long long rows = (long long)B * t1 * c1;
   if (d.graph_conv) {
-    STGCN_TRY(launch_graph_mm(dt(0), gso, dxg, dxg, 1.0f, 1.0f, rows, vp, d.V, 1, s));
+    STGCN_TRY(launch_graph_mm(dt(0), gp, dxg, dxg, 1.0f, 1.0f, rows, vp, d.V, 1, s));
   } else if (d.ks >= 2) {
     for (int k = d.ks - 1; k >= 2; --k) {
-      STGCN_TRY(launch_graph_mm(dt(k), gso, dt(k - 1), dt(k - 1), 2.0f, 1.0f, rows, vp, d.V, 1,
+      STGCN_TRY(launch_graph_mm(dt(k), gp, dt(k - 1), dt(k - 1), 2.0f, 1.0f, rows, vp, d.V, 1,
                                 s));
       STGCN_TRY(axpby(-1.0f, dt(k), 1.0f, k == 2 ? dxg : dt(k - 2), act1, s));
     }
-    STGCN_TRY(launch_graph_mm(dt(1), gso, dxg, dxg, 1.0f, 1.0f, rows, vp, d.V, 1, s));
+    STGCN_TRY(launch_graph_mm(dt(1), gp, dxg, dxg, 1.0f, 1.0f, rows, vp, d.V, 1, s));
   }
 
   // 5. K1b's head: s1 recomputed from x, da1 = dxg . gaw^T and gate 1's

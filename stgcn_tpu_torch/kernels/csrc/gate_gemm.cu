@@ -1,5 +1,6 @@
 // The gate GEMM: the body of K1 (block head), K3 (output-head conv) and K4
-// (output fc head), and K2's (block tail) conv 2.
+// (output fc head), K2's (block tail) conv 2, and K12's (dense whole block,
+// fused_stblock.cu) head and conv 2.
 //
 // Each is, per batch row b and output step t, a small matrix product
 // followed by a pointwise gate and an epilogue:
@@ -25,6 +26,9 @@
 //   K2 (stgcn_tpu/kernels/vertex_fused.py `_tail_pallas` :839): x = h, formed
 //      once by tail_h_kernel (vertex_fused.cu), kt*c1 rows, W = conv 2's taps,
 //      the in-gate residual h's newest step; the LayerNorm-partial epilogue.
+//   K12 (stgcn_tpu/kernels/fused_stblock.py `_fwd_pallas` :590): its head as
+//      K1 without the LayerNorm, its conv 2 and gate 2 as K2's (the
+//      partials unused: K12's statistics take two passes over a2).
 //
 // What bounds it on the H100: at the STGCN widths the first product does
 // 50-130 float32 FMAs per byte it must move, above the card's float32

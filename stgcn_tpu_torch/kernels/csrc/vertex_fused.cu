@@ -1,8 +1,9 @@
 // K1 (block head) and K2 (block tail) of one STGCN ST block, forward: the
 // C entry points, K2's first stage (tail_h_kernel, which K2b's recompute
-// shares) and the second pass of the LayerNorm partials that K2 and K3
-// write. K1's body and K2's conv 2 are the gate GEMM (gate_gemm.cu, on the
-// register tile of f32_tile.cuh).
+// and K12's forward, st_forward of fused_stblock.cu, share) and the second
+// pass of the LayerNorm partials that K2, K3 and K12 write. K1's body and
+// K2's conv 2 are the gate GEMM (gate_gemm.cu, on the register tile of
+// f32_tile.cuh).
 //
 // Replaces the TPU kernels stgcn_tpu/kernels/vertex_fused.py `_head_pallas`
 // (:610, body `_make_head_fwd_kernel` :505 / `_head_core` :393) and
@@ -46,12 +47,15 @@ namespace stgcn {
 //   h[b, t, o, v] = relu(gcb[o] + sum over terms m, then c < c1, of
 //                   ct_m[b, t, c, v] gcw[m, c, o] + xg[b, t, o, v])
 // (bias first, then m and c ascending, the residual last). A term's c1
-// loads, and the residual's, are issued before its FMAs.
+// loads, and the residual's, are issued before its FMAs. gcb may be null
+// (no bias) and relu 0 (none): K12 at Ks >= 4 sums its terms three a launch,
+// the later launches adding onto h (xg == h: each thread reads the residual
+// it overwrites, and nothing else of h).
 __global__ void __launch_bounds__(kLanes)
 tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
               const float* __restrict__ ct2, const float* __restrict__ gcw,
-              const float* __restrict__ gcb, const float* __restrict__ xg, float* __restrict__ h,
-              int t1, int c1, int vp, int n_c) {
+              const float* __restrict__ gcb, const float* xg, float* h, int t1, int c1, int vp,
+              int n_c, int relu) {
   __shared__ __align__(16) float w_s[3 * kMaxOut][kMaxOut];   // gcw[m, c, :], zero past c1
   __shared__ float b_s[kMaxOut];
   for (int i = threadIdx.x; i < 3 * kMaxOut * kMaxOut; i += kLanes) {
@@ -59,7 +63,8 @@ tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
     w_s[m * kMaxOut + c][o] =
         m < n_c && c < c1 && o < c1 ? gcw[((size_t)m * c1 + c) * c1 + o] : 0.0f;
   }
-  if (threadIdx.x < kMaxOut) b_s[threadIdx.x] = (int)threadIdx.x < c1 ? gcb[threadIdx.x] : 0.0f;
+  if (threadIdx.x < kMaxOut)
+    b_s[threadIdx.x] = gcb && (int)threadIdx.x < c1 ? gcb[threadIdx.x] : 0.0f;
   __syncthreads();
   const int v = blockIdx.x * kLanes + threadIdx.x, t = blockIdx.y, b = blockIdx.z;
   const size_t row0 = (size_t)(b * t1 + t) * c1;
@@ -93,16 +98,17 @@ tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
 #pragma unroll
   for (int o = 0; o < kMaxOut; ++o) {
     if (o >= c1) break;
-    h[(row0 + o) * vp + v] = fmaxf(acc[o] + res[o], 0.0f);
+    const float z = acc[o] + res[o];
+    h[(row0 + o) * vp + v] = relu ? fmaxf(z, 0.0f) : z;
   }
 }
 
 cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
                           const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
-                          int vp, cudaStream_t stream) {
+                          int vp, cudaStream_t stream, bool relu) {
   if (vp % kLanes != 0 || c1 > kMaxOut || n_c < 1 || n_c > 3) return cudaErrorInvalidValue;
   tail_h_kernel<<<dim3(vp / kLanes, t1, batch), kLanes, 0, stream>>>(
-      ct[0], ct[1], ct[2], gcw, gcb, xg, h, t1, c1, vp, n_c);
+      ct[0], ct[1], ct[2], gcw, gcb, xg, h, t1, c1, vp, n_c, relu ? 1 : 0);
   return cudaGetLastError();
 }
 

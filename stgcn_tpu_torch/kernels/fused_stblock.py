@@ -16,7 +16,10 @@ TPU's ``custom_vjp`` does, and takes one ST block's entries of the port's
 Operands are channels-last ``[B, T, V, C]`` float32 with the true vertex
 count V: the TPU's 16-row vertex padding, its batch tiles and its padding
 of ``c_in < 8`` are VMEM arithmetic, not semantics. The CUDA sources are
-``csrc/fused_stblock.cu`` (K12f and the forward recompute shared with K12b)
+``csrc/fused_stblock.cu`` (K12f and the forward recompute shared with K12b:
+the head and conv 2 on the gate GEMM of K1f and K2f, the Chebyshev graph
+product on the shared f32 tile, h by K2f's ``tail_h_kernel``, the LayerNorm
+output normalized inside the transposing tile that writes it channels-last)
 and ``csrc/fused_stblock_bwd.cu`` (K12b); their notes give the design. The
 dropout mask is keyed by element (:mod:`.dropout`), so the block drops what
 the unfused ``STConvBlock`` drops at the same site. Each wrapper runs its

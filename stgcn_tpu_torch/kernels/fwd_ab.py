@@ -15,8 +15,12 @@ one ``torch.matmul`` of each kernel's product alone, operands laid out for
 it before the timing: at the 100k shape K1f block 2's conv
 (``[B·t1·Vp, kt·c_in] × [kt·c_in, g1]``) and K4f's fc1 (``[B·Vp, c0] ×
 [c0, c1]``); at every shape K2f's conv2 at both blocks (``[B·t2·Vp, kt·c1]
-× [kt·c1, g2]``) and K3f's conv (``[B·Vp, ko·c_in] × [ko·c_in, g]``).
-Then the ``nvidia-smi`` name and power limit of the card.
+× [kt·c1, g2]``) and K3f's conv (``[B·Vp, ko·c_in] × [ko·c_in, g]``); at
+PEMS-BAY batch 512 one graph product of K12f's Chebyshev chain at blocks 1
+and 2 (``[B·t1·c1, Vp] × [Vp, Vp]``, padded). Under ``retired`` the
+launches of each K12f call that are kernels the redesigns retired
+(``_ab.py``'s ``retired_launches``: none may remain). Then the
+``nvidia-smi`` name and power limit of the card.
 """
 
 from __future__ import annotations
@@ -117,7 +121,10 @@ def yardstick(torch, reps: int) -> dict:
     at the 100k shape K1f block 2's conv (m = B·t1·Vp, k = kt·c_in, n = g1)
     and K4f's fc1 (``[B·Vp, c0] × [c0, c1]``); at each shape K2f's conv2 at
     blocks 1 and 2 (m = B·t2·Vp with t2 8 and 4, k = kt·c1, n = g2) and K3f's
-    conv (m = B·Vp, k = ko·c_in, n = g)."""
+    conv (m = B·Vp, k = ko·c_in, n = g); and one graph product of K12f's
+    chain at PEMS-BAY batch 512, blocks 1 and 2 (m = B·t1·c1 with t1 10 and
+    6, k = n = Vp 384): padded, while its ``flops`` count the true V over
+    which ``graph_mm`` contracts, 2·B·t1·c1·V²."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     b, _, vp = SHAPES["100k"]
     products = {"k1f_conv": (b * 6 * vp, 3 * 64, 128), "k4f_fc1": (b * vp, 128, 128)}
@@ -125,6 +132,10 @@ def yardstick(torch, reps: int) -> dict:
         products[f"k2f_conv2_blk1/{shape}"] = (b * 8 * vp, 3 * 16, 128)
         products[f"k2f_conv2_blk2/{shape}"] = (b * 4 * vp, 3 * 16, 128)
         products[f"k3f_conv/{shape}"] = (b * vp, 4 * 64, 256)
+    b12, v12 = K12_SHAPES["pemsbay"]
+    vp12 = -(-v12 // 128) * 128
+    chain = {f"k12f_chain_blk{blk}": b12 * t1 * 16 for blk, t1 in ((1, 10), (2, 6))}
+    products.update({key: (m, vp12, vp12) for key, m in chain.items()})
     out = {}
     for key, (m, k, n) in products.items():
         a = torch.randn((m, k), generator=gen, device="cuda")
@@ -132,6 +143,8 @@ def yardstick(torch, reps: int) -> dict:
         ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
         out[key] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
         del a, d
+    for key, m in chain.items():
+        out[key]["flops"] = 2 * m * v12 * v12
     return out
 
 
@@ -143,7 +156,7 @@ def run_one(tree: str, reps: int, data) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
-              "sha256": {}, "trace": {}}
+              "sha256": {}, "trace": {}, "retired": {}}
     every = [(shape, cases(torch, b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
     every += [(shape, k12_cases(torch, b, v)) for shape, (b, v) in K12_SHAPES.items()]
     for shape, made in every:
@@ -151,7 +164,9 @@ def run_one(tree: str, reps: int, data) -> dict:
             key = f"{name}/{shape}"
             result["ms"][key], result["sha256"][key] = _ab.timed(
                 torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
-            result["trace"][key] = _ab.launches(torch, lambda: wrapper(*args, **kwargs))
+            ev = result["trace"][key] = _ab.launches(torch, lambda: wrapper(*args, **kwargs))
+            if name.startswith("stblock_fwd"):
+                result["retired"][key] = _ab.retired_launches("stblock_fwd", ev)
         del made
         torch.cuda.empty_cache()
     result["yardstick"] = yardstick(torch, reps)

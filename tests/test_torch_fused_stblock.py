@@ -34,10 +34,10 @@ CASES += [("glu", "cheb_graph_conv", ks, 1) for ks in (1, 2, 4)]
 CASES += [("gtu", "cheb_graph_conv", 3, 8)]
 
 
-def _setup(act, gct, ks, c_in, seed=1):
+def _setup(act, gct, ks, c_in, seed=1, v=V):
     rng = np.random.default_rng(0)
-    gso = (rng.standard_normal((V, V)) * 0.1).astype(np.float32)
-    x = rng.standard_normal((B, T, V, c_in)).astype(np.float32)
+    gso = (rng.standard_normal((v, v)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((B, T, v, c_in)).astype(np.float32)
     blk = JaxSTConvBlock(kt=KT, ks=ks, channels=(64, 16, 64), act_func=act,
                          graph_conv_type=gct, droprate=0.5)
     jp = to_np(blk.init(jax.random.PRNGKey(seed), jnp.asarray(x),
@@ -104,6 +104,41 @@ def test_block_gradients_match_jax(act, gct, ks, c_in):
     assert set(gp) == set(ref_p)
     for k, v in gp.items():
         np.testing.assert_allclose(v.numpy(), ref_p[k], err_msg=k, **GRAD_TOL)
+
+
+def test_layernorm_of_a_large_mean_matches_jax():
+    """The block where every a2 row has |mean| / std >= 1e3, through the
+    port's plain version against the JAX block's reference path: both take
+    the LayerNorm's variance in two passes, the mean square deviation from
+    the mean, where Σa²/n − mu² loses it in f32 (shown below). a2 holds
+    exact f32 values on a grid of 1/4 around 1024 (gcb = −100 turns h to 0,
+    so a2 = relu(c2b)), and a row holds 2048 of them (V = 32, c2 = 64), so
+    its sum and mean are exact in any order: a deviation comes from the
+    statistics, not from two orders of summing a2. The card's K12f is held
+    to the same block in tests/test_torch_kernels_cuda.py."""
+    v, kw = 32, _kw("relu", "cheb_graph_conv", 3)
+    gso, x, jp, _ = _setup("relu", "cheb_graph_conv", 3, 1, v=v)
+    c2b = 1024.0 + np.random.default_rng(8).integers(-4, 5, 64) / 4.0
+    jp["graph_conv"]["cheb_graph_conv"]["bias"] = np.full(16, -100.0, np.float32)
+    jp["tmp_conv2"]["causal_conv"]["bias"] = c2b.astype(np.float32)
+    tp = params_from_jax(jp)
+    with torch.no_grad():
+        got = fs.fused_st_block(t(x), t(gso), tp, deterministic=True, site=0, **kw).numpy()
+        w = fs.block_weights(tp, "cheb_graph_conv")
+        cfg = fs.FusedBlockConfig(kt=KT, ks=3, act_func="relu",
+                                  graph_conv_type="cheb_graph_conv", droprate=0.5, v_true=v,
+                                  t_in=T, c_in=1, c0=64, c1=16, c2=64, training=False)
+        assert not bool(fs.relu_input(cfg, t(x), t(gso), w).gt(0).any())   # h = 0
+    a2 = np.broadcast_to(c2b.astype(np.float32), (v, 64)).reshape(-1)
+    assert abs(a2.astype(np.float64).mean()) >= 1e3 * a2.astype(np.float64).std()
+    sq = np.cumsum(a2 * a2, dtype=np.float32)[-1] / np.float32(a2.size)
+    one_pass = float(sq - np.float32(a2.mean(dtype=np.float32)) ** 2)
+    assert abs(one_pass / a2.astype(np.float64).var() - 1.0) > 0.1
+    ref = np.asarray(jax.jit(lambda xx, g, p: jax_fused_st_block(
+        xx, g, p, deterministic=True, use_pallas=False, **kw))(jnp.asarray(x), jnp.asarray(gso),
+                                                                jp))
+    assert got.shape == ref.shape == (B, T - 2 * (KT - 1), v, 64)
+    np.testing.assert_allclose(got, ref, **FWD_TOL)
 
 
 @pytest.mark.parametrize("act,gct,ks", [("glu", "cheb_graph_conv", 3),

@@ -582,14 +582,8 @@ K12B_CASES = [(act, gct, ks) for gct, ks in (("cheb_graph_conv", 1), ("cheb_grap
               for act in ("glu", "gtu", "relu", "silu")]
 
 
-@pytest.mark.parametrize("i", range(len(K12B_CASES)))
-def test_k12b_matches_plain_without_the_retired_launches(dev, i):
-    """K12b's backward (K2b's tail, K1b's head around the adjoint chain)
-    at Ks 1-4 and ``graph_conv``, every gate, the block input c_in 1, 3 and
-    64 in turn (the head's data gradient by lanes or on the tile), dropout
-    on: against the plain version at the kernel's ReLU decisions (read back
-    through ``relu_out``), a repeat bit-identical, and no
-    ``contract_kernel`` after its forward recompute."""
+def _k12_general_case(dev, i):
+    """K12B_CASES[i] with the block input c_in 1, 3 and 64 in turn, dropout on."""
     act, gct, ks = K12B_CASES[i]
     c_in = (1, 3, 64)[i % 3]
     rng = np.random.default_rng(90 + i)
@@ -601,7 +595,38 @@ def test_k12b_matches_plain_without_the_retired_launches(dev, i):
     w[8] = w[8] + 1.0
     gso = _rand(rng, dev, V_TRUE, V_TRUE, scale=0.1)
     x = _rand(rng, dev, B, cfg.t_in, V_TRUE, c_in)
-    drop = Drop(0.5, 78, 2)
+    return rng, cfg, x, gso, w, Drop(0.5, 78, 2)
+
+
+@pytest.mark.parametrize("i", range(len(K12B_CASES)))
+def test_k12f_matches_plain_without_the_retired_launches(dev, i):
+    """K12f (the graph product on the tile, h by tail_h_kernel, conv 2 and
+    gate 2 on the gate GEMM, the output stage in the transposing tile) at
+    Ks 1-4 and ``graph_conv``, every gate, c_in 1, 3 and 64, dropout on:
+    against the plain version, its ReLU output through ``relu_out``, a
+    repeat bit-identical, and no launch of a retired kernel
+    (``contract_kernel``, ``gate_fwd_kernel``)."""
+    _, cfg, x, gso, w, drop = _k12_general_case(dev, i)
+    h = torch.empty((B, cfg.t1, V_TRUE, cfg.c1), device=dev)
+    y = fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h)
+    h2 = torch.empty_like(h)
+    assert torch.equal(y, fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h2))
+    assert torch.equal(h, h2)
+    torch.testing.assert_close(y, fs.st_block_reference(cfg, x, gso, w, drop), **TOL)
+    torch.testing.assert_close(h, torch.relu(fs.relu_input(cfg, x, gso, w)), **TOL)
+    ev = launches(torch, lambda: fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h))
+    assert not retired_launches("stblock_fwd", ev), [e["name"] for e in ev]
+
+
+@pytest.mark.parametrize("i", range(len(K12B_CASES)))
+def test_k12b_matches_plain_without_the_retired_launches(dev, i):
+    """K12b's backward (K2b's tail, K1b's head around the adjoint chain)
+    at Ks 1-4 and ``graph_conv``, every gate, the block input c_in 1, 3 and
+    64 in turn (the head's data gradient by lanes or on the tile), dropout
+    on: against the plain version at the kernel's ReLU decisions (read back
+    through ``relu_out``), a repeat bit-identical, and no launch of a
+    retired kernel over the whole call, its forward recompute included."""
+    rng, cfg, x, gso, w, drop = _k12_general_case(dev, i)
     h = torch.empty((B, cfg.t1, V_TRUE, cfg.c1), device=dev)
     fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h)
     gy = _rand(rng, dev, B, cfg.t2, V_TRUE, cfg.c2)
@@ -614,6 +639,77 @@ def test_k12b_matches_plain_without_the_retired_launches(dev, i):
                                    msg=lambda m, k=k: f"output {k}: {m}")
     ev = launches(torch, lambda: fs.stblock_bwd(cfg, x, gso, *w, gy, drop=drop))
     assert not retired_launches("stblock_bwd", ev), [e["name"] for e in ev]
+
+
+@pytest.mark.parametrize("gct,ks", [("cheb_graph_conv", 4), ("graph_conv", 1)])
+@pytest.mark.parametrize("batch,t_in", [(3, 12), (71, 12), (1, 7)])
+def test_k12_graph_product_edges_match_plain(dev, batch, t_in, gct, ks):
+    """The graph product's edges through K12f and K12b: V = 300 (Vp 384, the
+    last 128-vertex column tile 44 of 128 true), rows B·t1·c1 = 480, 11,360
+    and 80, none a multiple of the row tile (64 on the small grid of batches
+    3 and 1, 128 on the wide grid of batch 71), and the adjoint's in-place
+    ``y == out`` (the Chebyshev recurrence at Ks 4; ``graph_conv``'s dxg);
+    at batch 1 the padded GSO does not fit in K12b's ds1, where it lives at
+    the other shapes, so K12b carves a buffer of its own; forward and
+    gradients against the plain versions, a repeat bit-identical."""
+    v = 300
+    rng = np.random.default_rng(95 + batch)
+    cfg = fs.FusedBlockConfig(kt=3, ks=ks, act_func="glu", graph_conv_type=gct, droprate=0.5,
+                              v_true=v, t_in=t_in, c_in=1, c0=32, c1=16, c2=32, training=True)
+    scales = (1.0, 0.1, 0.2, 0.1, 0.2, 0.1, 0.2, 0.1, 0.1, 0.1)
+    w = [_rand(rng, dev, *shape, scale=sc) for shape, sc in zip(cfg.weight_shapes(), scales)]
+    w[8] = w[8] + 1.0
+    gso = _rand(rng, dev, v, v, scale=v ** -0.5)
+    x = _rand(rng, dev, batch, cfg.t_in, v, 1)
+    drop = Drop(0.5, 79, 1)
+    h = torch.empty((batch, cfg.t1, v, cfg.c1), device=dev)
+    y = fs.stblock_fwd(cfg, x, gso, *w, drop=drop, relu_out=h)
+    assert torch.equal(y, fs.stblock_fwd(cfg, x, gso, *w, drop=drop))
+    torch.testing.assert_close(y, fs.st_block_reference(cfg, x, gso, w, drop), **TOL)
+    torch.testing.assert_close(h, torch.relu(fs.relu_input(cfg, x, gso, w)), **TOL)
+    gy = _rand(rng, dev, batch, cfg.t2, v, cfg.c2)
+    got = fs.stblock_bwd(cfg, x, gso, *w, gy, drop=drop)
+    assert all(torch.equal(a, b) for a, b in zip(got, fs.stblock_bwd(cfg, x, gso, *w, gy,
+                                                                      drop=drop)))
+    ref = fs.st_block_bwd_reference(cfg, x, gso, w, gy, drop, relu_mask=(h > 0).float())
+    for k, (a, b) in enumerate(zip(got, ref)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * max(1.0, float(b.abs().max())),
+                                   msg=lambda m, k=k: f"output {k}: {m}")
+
+
+def test_k12f_layernorm_of_a_large_mean_matches_plain(dev):
+    """K12f's LayerNorm where every a2 row has |mean| / std >= 1e3: there the
+    one-pass variance Σa²/n − mu² loses the variance in f32 (checked below
+    on the plain a2), and the kernel's two-pass statistics keep it, so its
+    rows come out with unit variance and equal to the plain version's. The
+    block is built so that a2 holds exact f32 values on a grid of 1/4 around
+    1024 (gcb = −100 turns h to 0, so a2 = relu(c2b)), 2048 to a row (V =
+    64 of 128 lanes, c2 = 32), so a row's sum and mean are exact in any
+    order: a deviation comes from the statistics, not from two orders of
+    summing a2."""
+    rng, v = np.random.default_rng(97), 64
+    cfg = fs.FusedBlockConfig(kt=3, ks=3, act_func="relu", graph_conv_type="cheb_graph_conv",
+                              droprate=0.5, v_true=v, t_in=8, c_in=3, c0=32, c1=16, c2=32,
+                              training=False)
+    scales = (0.3, 0.1, 0.2, 0.1, 0.2, 0.1, 0.2, 0.1, 0.1, 0.1)
+    w = [_rand(rng, dev, *shape, scale=sc) for shape, sc in zip(cfg.weight_shapes(), scales)]
+    w[5] = torch.full_like(w[5], -100.0)                               # gcb: h = 0
+    c2b = 1024.0 + rng.integers(-4, 5, cfg.c2) / 4.0
+    w[7] = torch.from_numpy(c2b).float().to(dev)
+    w[8], w[9] = torch.ones_like(w[8]), torch.zeros_like(w[9])         # the affine off
+    gso = _rand(rng, dev, v, v, scale=0.1)
+    x = _rand(rng, dev, B, cfg.t_in, v, cfg.c_in)
+    h = torch.empty((B, cfg.t1, v, cfg.c1), device=dev)
+    y = fs.stblock_fwd(cfg, x, gso, *w, relu_out=h)
+    assert not bool(h.any())
+    a2 = np.broadcast_to(c2b.astype(np.float32), (v, cfg.c2)).reshape(-1)
+    assert abs(a2.astype(np.float64).mean()) >= 1e3 * a2.astype(np.float64).std()
+    sq = np.cumsum(a2 * a2, dtype=np.float32)[-1] / np.float32(a2.size)
+    one_pass = float(sq - np.float32(a2.mean(dtype=np.float32)) ** 2)
+    assert abs(one_pass / a2.astype(np.float64).var() - 1.0) > 0.1
+    torch.testing.assert_close(y, fs.st_block_reference(cfg, x, gso, w), **TOL)
+    var = y.double().pow(2).mean((2, 3))
+    assert float((var - 1.0).abs().max()) < 1e-4, var
 
 
 @pytest.mark.parametrize("v_true", [V_TRUE, 228])

@@ -490,14 +490,15 @@ def test_every_source_is_built_and_hashed():
 def test_every_header_is_hashed_and_the_tile_header_is_shared(monkeypatch, tmp_path):
     """The headers enter the source hash (editing the register tile
     f32_tile.cuh rebuilds the library); the tile serves K11, the gate GEMM of
-    K1f-K4f (gate_gemm.cu) and, in bwd_blocks.cu, every weight gradient and
-    the fused gate and data-gradient passes of K1b, K2b and K3b, and the
-    retired nv_tile.cuh is gone."""
+    K1f-K4f (gate_gemm.cu), K12's graph product (fused_stblock.cu) and, in
+    bwd_blocks.cu, every weight gradient and the fused gate and
+    data-gradient passes of K1b-K4b and K12b, and the retired nv_tile.cuh
+    is gone."""
     headers = {p.name for p in _build.SRC_DIR.glob("*.cuh")}
     assert headers == {"bwd_blocks.cuh", "common.cuh", "csr_rows.cuh", "dropout.cuh",
                        "f32_tile.cuh", "fused_stblock.cuh", "nv_rows.cuh"}
     users = {p.name for p in _build.sources() if '#include "f32_tile.cuh"' in p.read_text()}
-    assert users == {"bcsr_sddmm.cu", "bwd_blocks.cu", "gate_gemm.cu"}
+    assert users == {"bcsr_sddmm.cu", "bwd_blocks.cu", "gate_gemm.cu", "fused_stblock.cu"}
     src = tmp_path / "csrc"
     shutil.copytree(_build.SRC_DIR, src)
     monkeypatch.setattr(_build, "SRC_DIR", src)
