@@ -4,15 +4,16 @@ and check them: PeMSD7(M) through the dense operator, fused per vertex tile
 (K1-K4) and as whole ST blocks (K12, also at PEMS-BAY batch 512), then a 100k-vertex
 road graph through the banded operator, fused through its kernel K5 and
 unfused (``main.py``'s default route there) through the vn kernels K7-K9,
-f32 and int8, then the 1M-vertex road graph through the blocked-ELL operator
-and its kernel K6 and through the BCSR operator (what
-``make_graph_op(kind="auto")`` picks there) and its kernels K10 and K11,
-then the CLI.
+f32 and int8, and in bf16 with remat (the vn kernel's bf16 variant), then
+the 1M-vertex road graph through the blocked-ELL operator and its kernel K6
+and through the BCSR operator (what ``make_graph_op(kind="auto")`` picks
+there) and its kernels K10 and K11, float32 and bf16 with remat (K10's bf16
+variant), then the CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Eighteen phases, each printing one JSON line with its own seconds:
+Twenty-one phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -120,7 +121,18 @@ Eighteen phases, each printing one JSON line with its own seconds:
    repeat bit-identical, timed beside its bound (the nonzeros as CSR, int8
    values at 1 B and the row factors, the operands read or written once;
    2·nnz·N FLOPs an application) and ``torch.sparse.mm`` on the CSR GSO.
-11. banded_100k — one forecast batch of 8 fused against the unfused model on
+11. kernels_bf16 (part ``vn_100k``) — the bf16 variant of the vn kernel:
+   a bf16 operand at N = 1280 and 768, random, over the f32 stream pack,
+   a bf16 one (``banded_graph_op(dtype=bfloat16)``, as the bench packs it,
+   built on the card, timed, its index checked as in phase 9) and the int8
+   one: K7 at scale 1 and 2, K9 pair and chain; K8 pair on the clamped f32
+   pack. Each held against its plain version in bf16 (the same rounding
+   points: single and ``mid`` within 2 ulps of bf16 plus the floor, the
+   second pass within 2 ulps of its plain version fed with the kernel's
+   ``mid``, the whole within 2^-6·(|ref| + |x|)), repeat bit-identical,
+   timed beside its bound (2-byte operands) and ``torch.sparse.mm`` on the
+   bf16 CSR GSO where it takes bf16.
+12. banded_100k — one forecast batch of 8 fused against the unfused model on
    the same banded operator (K5 against K9; 2e-4 + 2e-4·|ref|, launches
    K1/K2 ×2, K3, K4, K5 pair ×2); every K1-K4 call of one fused training
    step at 100k held against its plain version; then, on a line of its own
@@ -138,7 +150,7 @@ Eighteen phases, each printing one JSON line with its own seconds:
    phase 6 plus K5 pair ×2 and chain ×2 (validation batches: the forward's);
    ``test()``; peak device memory of the fit and test, and apart from it
    that of the checks before it.
-12. banded_100k_unfused — the 100k route of ``auto`` without ``--fused``:
+13. banded_100k_unfused — the 100k route of ``auto`` without ``--fused``:
    one forecast batch of the unfused model through K9 (launches K9 pair ×2)
    against the fused one through K5; on ``banded_int8`` K9 int8 against K5
    int8 (and the int8 forecast's distance from the f32 one, printed); the
@@ -148,9 +160,25 @@ Eighteen phases, each printing one JSON line with its own seconds:
    ×2, chain ×2) against its plain version; an unfused ``Trainer.fit(1)``
    with finite losses, every step's seconds, launches per step K9 pair ×2
    and chain ×2 and K5 none, and ``test()``, rebuilding no nonzero index
-   (so phase 11's fit); the fit's peak memory apart from the checks'. Then
+   (so phase 12's fit); the fit's peak memory apart from the checks'. Then
    the int8 and clamped operators are freed.
-13. kernels_ell — the 100k problem freed, the 1M-vertex problem
+14. banded_100k_bf16 — ``bench.py:253-335`` unfused as ``--compute_dtype
+   bfloat16 --remat True`` builds it: ``STGCN(dtype=bfloat16, remat=True)``
+   over the f32 stream pack (a bf16 operand), batch 8, AdamW: forecast
+   batches of the bf16 model against the f32 model's on the same operator
+   within the JAX package's bf16 bound (atol 0.1, rtol 0.05): on the stream
+   pack (K9 pair bf16 ×2), the int8 one (K9 pair int8 bf16 ×2), the clamped
+   one (K8 bf16 ×2) and, in a graph_conv model, the stream and int8 packs
+   (K7 bf16 and int8 bf16 ×2); then the int8 and clamped operators are
+   freed; every vn call of one
+   training step (K9 pair and chain bf16 ×2 each) against its plain version
+   as in phase 11; a ``Trainer.fit(1)`` with launches per step K9 pair bf16
+   ×2 and chain bf16 ×2 and nothing else (remat replays no graph product),
+   losses finite and within rtol 0.08 of phase 13's f32 fit, step seconds,
+   peak memory, ``test()``; then the same fit without remat, whose peak must
+   be the higher; one more step of each traced by ``torch.profiler`` (its
+   kernels by device time, the device's busy share of the step).
+15. kernels_ell — the 100k problem freed, the 1M-vertex problem
    (``random_road_graph(1_000_000, k_neighbors=8, seed=0)``, ``sym_norm_lap``
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
    256 × 256 tiles, int8 and f32, scattered on the card, 55 steps of
@@ -170,8 +198,8 @@ Eighteen phases, each printing one JSON line with its own seconds:
    32-byte sector a value, the workspace passes and the operands, is
    printed too) and
    ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
-14. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
-   Lion lr 1e-3, weight decay 1e-3, as phase 11 with K6 for K5: one forecast
+16. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
+   Lion lr 1e-3, weight decay 1e-3, as phase 12 with K6 for K5: one forecast
    batch fused against unfused (launches K1/K2 ×2, K3, K4, K6 pair ×2),
    every K1-K4 call of one training step against its plain version, fused
    against unfused gradients, a fused ``Trainer.fit(1)`` (8 steps; launches
@@ -179,10 +207,10 @@ Eighteen phases, each printing one JSON line with its own seconds:
    the fit's peak memory apart from the checks'. Cuts: f32 (the JAX bench ran
    bf16), no remat, Lion's momentum in f32, the series cut to 55 steps split
    23 / 16 / 16 (8 training windows, one validation and one test window).
-15. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
+17. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
    order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
    of 256 × 256 row-major f32 tiles for both directions, scattered on the
-   card (timed), and its nonzero index built and checked as in phase 13.
+   card (timed), and its nonzero index built and checked as in phase 15.
    K10 walks the index, a warp per output row gathering the x rows of its
    nonzeros (the row walk K6 shares, ``csrc/csr_rows.cuh``). K10 at N =
    160 and 96, scale 1 and 2 (its alpha), and K11 at the same widths,
@@ -193,24 +221,40 @@ Eighteen phases, each printing one JSON line with its own seconds:
    once, the live tiles written once) and their library calls
    (``torch.sparse.mm`` on the CSR GSO; one ``torch.bmm`` over the live
    tiles' operands, gathered outside the timing).
-16. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
-   (the cuts of phase 14): one forecast batch through K10 (launches K10 ×4)
+18. bcsr_1m — the unfused route of ``auto`` end to end at batch 1 with Lion
+   (the cuts of phase 16): one forecast batch through K10 (launches K10 ×4)
    against the same weights on the f32 ELL operator (K6) within 2e-4 +
    2e-4·|ref|; every K10 call of one unfused training step (×8) against its
    plain version; one backward with the tile values requiring grad, K11
    launched through autograd and held against its plain version; an
    unfused ``Trainer.fit(1)`` with finite losses and launches per step K10
    ×8 and K11 ×0 (validation: K10 ×4 a batch), then ``test()``, rebuilding
-   no nonzero index (so phase 14's fit); the fit's peak memory apart from
+   no nonzero index (so phase 16's fit); the fit's peak memory apart from
    the checks'.
-17. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
+19. bcsr_1m_bf16 — the same route with ``--compute_dtype bfloat16 --remat
+   True``: ``STGCN(dtype=bfloat16, remat=True)`` over the f32 tiles (a bf16
+   operand): one step's K10 calls recorded (×8, bf16), a ``Trainer.fit(1)``
+   with launches per step K10 bf16 ×8 and nothing else, finite losses,
+   within rtol 0.08 of phase 18's, step seconds and peak memory beside
+   phase 18's, ``test()``, a step traced; the same without remat (its peak
+   the higher); then
+   ``kernels_bf16`` (part ``k10_1m``): K10's bf16 variant at each recorded
+   call over the f32 tiles and over a bf16 pack (``bcsr_graph_op(dtype=
+   bfloat16)``, built on the card beside the f32 one, timed, its index
+   checked as in phase 17) against its plain version in bf16 (2 ulps plus
+   the floor), repeat bit-identical, timed beside its bound and
+   ``torch.sparse.mm`` on the bf16 CSR GSO where it takes bf16.
+20. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
    then with ``--graph_op ell_int8``, then ``bcsr`` (the fused forward's vn
    branch), then unfused on ``banded`` (K9) and ``banded_int8`` (K9 int8),
-   then ``banded_int8 --fused True`` (K5 int8): its epoch and test lines,
+   then ``banded_int8 --fused True`` (K5 int8), then unfused ``banded
+   --compute_dtype bfloat16 --remat True`` (K9 bf16), ``banded_int8
+   --compute_dtype bfloat16`` (K9 int8 bf16) and ``auto --compute_dtype
+   bfloat16`` (dense: no kernel may launch): its epoch and test lines,
    every kernel of the step (K5, K6 or K9 pair and chain, or K10, included)
    launched, and none of K1-K4 unfused.
-18. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
+21. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
    training paths, PeMSD7(M), 100k and 1M, and its launches), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -554,6 +598,33 @@ def expected(per: dict, n: int, *more: tuple[dict, int]) -> dict:
     return {k: sum(p.get(k, 0) * m for p, m in pairs) for k in WRAPPERS}
 
 
+def timed_fit(torch, tr, phase: str) -> tuple[list, list, list, dict]:
+    """``tr.fit(1)`` with every step's loss (finite, or it raises) and
+    seconds, its history and the launches of the fit (counted from 0)."""
+    from stgcn_tpu_torch import kernels
+
+    step_losses, step_seconds = [], []
+    real_step = tr.train_step
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = real_step(*a)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t1)
+        step_losses.append(loss)
+        return loss
+
+    tr.train_step = timed_step
+    kernels.reset_launch_counts()
+    hist = tr.fit(1)["history"]
+    launches = kernels.launch_counts()
+    losses = [float(v_) for v_ in step_losses]
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
+        raise AssertionError(f"{phase}: non-finite step losses {losses}")
+    return losses, step_seconds, hist, launches
+
+
 def check_and_time(torch, name, label, wrapper, plain, args, kwargs, flops, *,
                    reps: int = 30) -> dict:
     """Hold one kernel call against its plain version (tolerance, repeat
@@ -627,12 +698,14 @@ def load_pemsd7(torch) -> dict:
                                  device="cuda")}
 
 
-def new_model(torch, n_vertex: int, droprate: float, gct: str = "cheb_graph_conv"):
+def new_model(torch, n_vertex: int, droprate: float, gct: str = "cheb_graph_conv", **kw):
+    """The main.py model at full width, weights from seed 42 (``kw``: the
+    model's ``dtype`` and ``remat``)."""
     from stgcn_tpu_torch.nn import STGCN
 
     return STGCN(N_HIS, n_vertex, kt=3, ks=3, act_func="glu", graph_conv_type=gct,
                  droprate=droprate, device="cuda",
-                 generator=torch.Generator().manual_seed(42))
+                 generator=torch.Generator().manual_seed(42), **kw)
 
 
 def record_training_step(torch, data, batch: int = BATCH) -> list:
@@ -1582,7 +1655,8 @@ def csr_on_card(torch, m):
 
 def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, value_bytes: int,
                row_scales: bool, pack_bytes: int, pack_flops_one: int, library_agrees: bool,
-               reps: int, vn: bool = False, scale: float = 1.0) -> dict:
+               reps: int, vn: bool = False, scale: float = 1.0, operand_bytes: int = 4,
+               compare=None) -> dict:
     """Hold one mode of a sparse kernel (K5, K6 on the nv operand ``[N, V]``;
     K10 on the vn one ``[V, N]`` when ``vn``) against its plain version
     (tolerance, repeat bit-identical, launch counter) at width N = ``n``,
@@ -1601,9 +1675,14 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     32-byte sector a value, int8 row factors and K5's and K6's workspace
     passes), plus the operands read and written once, and
     ``pack_flops_one`` (the FLOPs of one application per operand column as
-    the kernel does them: the index's nonzeros) are reported beside it."""
+    the kernel does them: the index's nonzeros) are reported beside it.
+
+    bf16 variants: ``operand_bytes`` 2, ``compare(kernel outputs, plain
+    outputs)`` their bound (``bf16_err``) in place of ``max_err``, and
+    ``library`` None where ``torch.sparse.mm`` takes no bf16 operand."""
     from stgcn_tpu_torch import kernels
 
+    compare = compare or max_err
     before = kernels.launch_counts()[name]
     out1, out2 = kernel(), kernel()
     torch.cuda.synchronize()
@@ -1612,13 +1691,13 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
         raise AssertionError(f"{name} [N={n}]: a repeat launch is not bit-identical")
     try:
-        err, ref_max = max_err(out1, plain())
+        err, ref_max = compare(out1, plain())
         lib_err = None
-        if mode == "single":
+        if mode == "single" and library is not None:
             got, lib = (out1[:v], scale * library()) if vn else (out1[:, :v], library().T)
-            lib_err = float((got - lib).abs().max())
+            lib_err = float((got.float() - lib.float()).abs().max())
             if library_agrees:
-                max_err(got, lib)
+                compare(got, lib)
             del got, lib
     except AssertionError as e:
         raise AssertionError(f"{name} [N={n}]: {e}") from None
@@ -1626,25 +1705,27 @@ def check_spmm(torch, name, n, mode, kernel, plain, library, *, v, nnz, vp, valu
     apps = 1 if mode == "single" else 2
     ms = cuda_ms(kernel, warmup=2, reps=reps)
     plain_ms = cuda_ms(plain, warmup=1, reps=3)
-    library_ms = cuda_ms(library, warmup=2, reps=reps)
+    library_ms = None if library is None else cuda_ms(library, warmup=2, reps=reps)
     # each input read once (the operator, x, and g for chain), each output written once
     n_operands = 1 + (mode == "chain") + (1 if mode == "single" else 2)
     op_bytes = nnz * (value_bytes + 4) + (v + 1) * 4 + (v * 4 if row_scales else 0)
-    nbytes = op_bytes + n_operands * n * v * 4
+    nbytes = op_bytes + n_operands * n * v * operand_bytes
     nnz_flops, pack_flops = 2 * apps * n * nnz, apps * n * pack_flops_one
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nnz_flops / F32_FLOP_PER_S * 1e3
     return {"shape": f"N={n}", "input": [vp, n] if vn else [n, vp], "scale": scale,
             "max_abs_err": err, "ref_max": ref_max,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_call": f"torch.sparse.mm CSR x{apps}"
-                            + ("" if vn else ", operand transposed outside the timing")
-                            + ("" if apps == 1 else ", 2·y − x not included")
-                            + ("" if scale == 1.0 else ", the scale not included"),
+            "library_call": None if library is None else (
+                f"torch.sparse.mm CSR x{apps}"
+                + ("" if vn else ", operand transposed outside the timing")
+                + ("" if apps == 1 else ", 2·y − x not included")
+                + ("" if scale == 1.0 else ", the scale not included")),
             "library_max_abs_diff": lib_err, "bytes": nbytes, "nnz_flops": nnz_flops,
             "bytes_ms": t_bytes, "nnz_flops_ms": t_ops,
-            "pack_bytes": pack_bytes + n_operands * n * vp * 4,
-            "pack_bytes_ms": (pack_bytes + n_operands * n * vp * 4) / HBM_BYTES_PER_S * 1e3,
+            "pack_bytes": pack_bytes + n_operands * n * vp * operand_bytes,
+            "pack_bytes_ms": (pack_bytes + n_operands * n * vp * operand_bytes)
+            / HBM_BYTES_PER_S * 1e3,
             "pack_flops": pack_flops, "pack_flops_ms": pack_flops / F32_FLOP_PER_S * 1e3,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1854,30 +1935,12 @@ def run_route(torch, data, *, phase: str, batch: int, per_step: dict, per_batch:
                       fused=True, ckpt_dir=str(ckpt_root), dataset_name=dataset_name)
     tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
                  data["test"], data["scaler"], device="cuda")
-    step_losses, step_seconds = [], []
-    real_step = tr.train_step
-
-    def timed_step(*a):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = real_step(*a)
-        torch.cuda.synchronize()
-        step_seconds.append(time.perf_counter() - t1)
-        step_losses.append(loss)
-        return loss
-
-    tr.train_step = timed_step
-    kernels.reset_launch_counts()
     builds = nnz_index.builds()
-    hist = tr.fit(1)["history"]
-    launches = kernels.launch_counts()
+    losses, step_seconds, hist, launches = timed_fit(torch, tr, phase)
     val_batches = -(-tr.val_ds.num_windows // batch)
     want = expected(per_step, tr.steps_per_epoch, (per_batch, val_batches))
     if launches != want:
         raise AssertionError(f"{phase}: the fit launched {launches}, expected {want}")
-    losses = [float(v_) for v_ in step_losses]
-    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
-        raise AssertionError(f"{phase}: non-finite step losses {losses}")
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
         raise AssertionError(f"{phase}: non-finite test metrics {test_m}")
@@ -2058,10 +2121,11 @@ def phase_kernels_banded_vn(torch, data) -> dict:
     return results
 
 
-def record_vn_step(torch, data, gop) -> list:
+def record_vn_step(torch, data, gop, model=None) -> list:
     """Run one unfused training step (forward with dropout, backward) on the
     first training batch through the banded operator ``gop`` and record
-    every call of the vn kernel's wrappers: (wrapper, args, kwargs)."""
+    every call of the vn kernel's wrappers: (wrapper, args, kwargs). The
+    model is ``new_model``'s unless one is given."""
     from stgcn_tpu_torch.data import gather_windows
     from stgcn_tpu_torch.kernels import banded_spmm as bk
     from stgcn_tpu_torch.kernels.dropout import step_seed
@@ -2077,7 +2141,7 @@ def record_vn_step(torch, data, gop) -> list:
             return real[name](*args, **kwargs)
         return call
 
-    model = new_model(torch, data["n_vertex"], DROPRATE)
+    model = model if model is not None else new_model(torch, data["n_vertex"], DROPRATE)
     params = dict(model.named_parameters())
     starts, n_valid = next(data["train"].batches(BATCH_100K))
     x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
@@ -2104,7 +2168,8 @@ def phase_banded_100k_unfused(torch, data) -> dict:
     every vn call of one unfused training step against its plain version;
     an unfused ``Trainer.fit(1)`` with its launches counted (K9 pair ×2 and
     chain ×2 a step, K5 never), then ``test()``; the fit's peak memory apart
-    from the checks'. Frees the int8 and clamped operators at the end."""
+    from the checks'. Leaves the int8 and clamped operators to
+    ``phase_banded_100k_bf16``, which frees them."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.data import gather_windows
@@ -2203,31 +2268,13 @@ def phase_banded_100k_unfused(torch, data) -> dict:
                       opt="adamw", fused=False, ckpt_dir=str(ckpt_root), dataset_name="road-100k")
     tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
                  data["test"], data["scaler"], device="cuda")
-    step_losses, step_seconds = [], []
-    real_step = tr.train_step
-
-    def timed_step(*a):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = real_step(*a)
-        torch.cuda.synchronize()
-        step_seconds.append(time.perf_counter() - t1)
-        step_losses.append(loss)
-        return loss
-
-    tr.train_step = timed_step
-    kernels.reset_launch_counts()
     builds = nnz_index.builds()
-    hist = tr.fit(1)["history"]
-    launches = kernels.launch_counts()
+    losses, step_seconds, hist, launches = timed_fit(torch, tr, "banded_100k_unfused")
     val_batches = -(-tr.val_ds.num_windows // BATCH_100K)
     want = expected(PER_STEP_100K_UNFUSED, tr.steps_per_epoch,
                     (PER_BATCH_100K_UNFUSED, val_batches))
     if launches != want:
         raise AssertionError(f"banded_100k_unfused: the fit launched {launches}, expected {want}")
-    losses = [float(v_) for v_ in step_losses]
-    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
-        raise AssertionError(f"banded_100k_unfused: non-finite step losses {losses}")
     fit_peak = torch.cuda.max_memory_allocated()
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
@@ -2238,7 +2285,7 @@ def phase_banded_100k_unfused(torch, data) -> dict:
                              f"{rebuilds} times")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     steps = tr.steps_per_epoch
-    del tr, data["int8"], data["clamped"], q, c
+    del tr, q, c
     torch.cuda.empty_cache()
     result = {"phase": "banded_100k_unfused", "seconds": time.perf_counter() - t0,
               "n_vertex": v, "batch_size": BATCH_100K, "optimizer": "adamw",
@@ -2251,6 +2298,450 @@ def phase_banded_100k_unfused(torch, data) -> dict:
               "peak_memory_bytes_fit": fit_peak,
               "peak_memory_bytes_fit_and_test": torch.cuda.max_memory_allocated(),
               "peak_memory_bytes_checks": checks_peak, "per_step_calls": per_call}
+    emit(result)
+    return result
+
+
+# --------------------------------------------------------------------------
+# bf16 mixed precision and remat on the unfused model (BASELINE.json
+# configs[3] and [4]: bench.py:253-335, :338-450): the bf16 variants of the
+# vn kernel (K7-K9) and of K10
+# --------------------------------------------------------------------------
+
+BF16_REL = 2.0 ** -7     # two ulps of bf16: kernel and plain version round at the same points
+BF16_LOOSE = 2.0 ** -6   # a whole pair or chain against its plain version (vn_bf16_compare)
+BF16_LOSS_RTOL = 0.08    # bf16 against float32 losses (tests/test_train.py:235)
+# a bf16 model's forecast against the float32 one's: the JAX package's own bf16
+# bound (tests/test_vertex_fused.py:232)
+BF16_MODEL_ATOL, BF16_MODEL_RTOL = 0.1, 0.05
+PER_STEP_100K_BF16 = {"vn_pair_bf16": 2, "vn_chain_bf16": 2}
+PER_BATCH_100K_BF16 = {"vn_pair_bf16": 2}
+PER_STEP_BCSR_BF16 = {"bcsr_spmm_bf16": 8}
+PER_BATCH_BCSR_BF16 = {"bcsr_spmm_bf16": 4}
+SLAB_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
+
+
+def bf16_err(got, ref, *, add=None, rel: float = BF16_REL) -> tuple[float, list]:
+    """max |Δ| and each output's max |ref| of bf16 outputs; raises where an
+    element lies outside ``rel · (|ref| + |add|) + KERNEL_TOL · min(1, max
+    |ref|)``: the kernel and its plain version round at the same points, so
+    they differ where float32 sums taken in other orders round to
+    neighbouring bf16 values."""
+    import torch
+
+    worst, ref_max = 0.0, []
+    for i, (g, r) in enumerate(zip(flat(got), flat(ref))):
+        if g.dtype != r.dtype or g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"output {i}: {g.dtype} {tuple(g.shape)} against {r.dtype} "
+                                 f"{tuple(r.shape)}, or non-finite values")
+        g32, r32 = g.float(), r.float()
+        d = (g32 - r32).abs()
+        ref_max.append(float(r32.abs().max()))
+        scale = r32.abs() if add is None else r32.abs() + add.float().abs()
+        bad = d > rel * scale + KERNEL_TOL * min(1.0, ref_max[-1])
+        if bad.any():
+            raise AssertionError(f"output {i}: {int(bad.sum())} of {bad.numel()} elements "
+                                 f"outside the bf16 bound (max |Δ| {float(d.max()):.3e}, "
+                                 f"max |ref| {ref_max[-1]:.3e})")
+        worst = max(worst, float(d.max()))
+        del g32, r32, d, scale, bad
+    return worst, ref_max
+
+
+def vn_bf16_compare(slabs, lo, x, mode: str, scales):
+    """The bound of a bf16 vn call (``check_spmm``'s ``compare``): single
+    and ``mid`` within two ulps of their plain version; the second pass
+    within two ulps of its plain version fed with the kernel's own ``mid``
+    (a ``mid`` an ulp apart moves it further where ``2·A·mid`` and ``x``
+    cancel); the whole within ``BF16_LOOSE · (|ref| + |x|)`` of the plain
+    version."""
+    from stgcn_tpu_torch.kernels import banded_spmm as bk
+
+    def compare(got, ref):
+        if mode == "single":
+            return bf16_err(got, ref)
+        e1, m1 = bf16_err(got[0], ref[0])
+        e2, m2 = bf16_err(got[1], bk.vn_pass_reference(
+            slabs, lo, got[0], x, alpha=2.0 if mode == "pair" else 1.0, beta=-1.0,
+            scales=scales))
+        bf16_err(got[1], ref[1], add=x, rel=BF16_LOOSE)
+        return max(e1, e2), m1 + m2
+
+    return compare
+
+
+def csr_bf16_on_card(torch, m) -> tuple[Any, str | None]:
+    """The CSR GSO in bf16 on the card and whether ``torch.sparse.mm`` takes
+    it with a bf16 operand (None and the error where it does not)."""
+    a = torch.sparse_csr_tensor(torch.from_numpy(m.indptr.astype("int64")),
+                                torch.from_numpy(m.indices.astype("int64")),
+                                torch.from_numpy(m.data.astype("float32")).bfloat16(),
+                                size=m.shape, check_invariants=False).to("cuda")
+    try:
+        torch.sparse.mm(a, torch.zeros((m.shape[1], 8), device="cuda", dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return a, None
+
+
+def check_vn_bf16(torch, wrapper, slabs, lo, x, g=None, scales=None, scale=1.0, *, index, v,
+                  nnz, a_csr16, reps) -> dict:
+    """``check_vn`` for the bf16 variant: a bf16 operand ``x`` (and ``g``)
+    over float32, bf16 or int8 slabs, held to ``vn_bf16_compare``; the
+    bound counts 2-byte operands; the library call is ``torch.sparse.mm`` on
+    the bf16 CSR GSO where it takes bf16 (its values rounded to bf16, so
+    its distance is printed, not checked)."""
+    from stgcn_tpu_torch.kernels import banded_spmm as bk
+
+    mode = VN_WRAPPERS[wrapper]
+    nbr, bs, w = slabs.shape
+    kw = {"scale": scale} if mode == "single" else {}
+    if scales is not None:
+        kw["scales_t" if mode == "chain" else "scales"] = scales
+    kw["index_t" if mode == "chain" else "index"] = index
+    args = (slabs, lo, x, g) if mode == "chain" else (slabs, lo, x)
+    fn = getattr(bk, wrapper)
+    slab_kind = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}[slabs.dtype]
+    pack = SlabPack(slabs, lo, x.shape[0], scales, index, False)
+    apps = 1 + (mode != "single")
+    name = bk.launch_name(mode, scales is not None, resident=wrapper == "banded_cheb_pair",
+                          bf16=True)
+    return {"slabs": [nbr, bs, w], "dtype": "bf16", "slabs_dtype": slab_kind,
+            "band_flops": apps * x.shape[1] * 2 * nbr * bs * w, **check_spmm(
+        torch, name, x.shape[1], mode, lambda: fn(*args, **kw),
+        lambda: bk.banded_vn_reference(slabs, lo, x, g, mode, scales=scales, scale=scale),
+        None if a_csr16 is None else lambda: sparse_mm(torch, a_csr16, x[:v], apps), v=v,
+        nnz=nnz, vp=x.shape[0], value_bytes=SLAB_BYTES[slab_kind], row_scales=scales is not None,
+        pack_bytes=index_traffic(pack, x.shape[1], mode)[0],
+        pack_flops_one=index_traffic(pack, x.shape[1], mode)[1], library_agrees=False,
+        reps=reps, vn=True, scale=scale, operand_bytes=2,
+        compare=vn_bf16_compare(slabs, lo, x, mode, scales))}
+
+
+def phase_kernels_bf16(torch, data) -> dict:
+    """The bf16 variant of the vn kernel at the 100k shapes: a bf16 operand
+    at N = 1280 and 768 (B·T·c1 of the two ST blocks at batch 8), random,
+    over the float32 stream pack (the operator the CLI builds), the bf16
+    one (``banded_graph_op(dtype=bfloat16)``, the bench's, built here on the
+    card, timed, and its index checked as in phase 9) and the int8 one: K7
+    at scale 1 and 2, K9 pair and chain; K8 pair on the clamped float32
+    pack. Each held against its plain version in bf16 (``vn_bf16_compare``),
+    repeat bit-identical, timed beside its bound (2-byte operands) and
+    ``torch.sparse.mm`` on the bf16 CSR GSO where it takes bf16. The bf16
+    pack is freed at the end."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.ops import banded_graph_op
+
+    gop, q, c, v = data["gop"], data["int8"], data["clamped"], data["n_vertex"]
+    nnz = data["prep"]["nnz"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b16 = banded_graph_op(data["art"], dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    pack = {"bf16_operator_s": time.perf_counter() - t1, "slabs": list(b16.slabs.shape),
+            "bytes": b16.slabs.numel() * b16.slabs.element_size(),
+            "shared_transpose_pack": b16.slabs_t is b16.slabs, "pair_stream": b16.pair_stream}
+    if not (b16.pair_stream and b16.slabs.dtype == torch.bfloat16 and b16.v_pad == gop.v_pad):
+        raise AssertionError(f"the bf16 100k operator does not take the stream route: {pack}")
+    index = index_info(torch, slab_pack(b16, "slabs"), data["matrix"])
+    a_csr16, lib_error = csr_bf16_on_card(torch, data["matrix"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results: dict[str, list] = {}
+    common = dict(v=v, nnz=nnz, a_csr16=a_csr16, reps=VN_REPS)
+    for n in (BATCH_100K * (N_HIS - 2) * 16, BATCH_100K * (N_HIS - 6) * 16):
+        x = torch.randn((gop.v_pad, n), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((gop.v_pad, n), generator=gen, device="cuda").bfloat16()
+        for op in (gop, b16, q):
+            for scale in (1.0, 2.0):
+                r = check_vn_bf16(torch, "banded_spmm", op.slabs, op.lo, x, scales=op.scales,
+                                  scale=scale, index=op.index, **common)
+                results.setdefault(r["slabs_dtype"], {}).setdefault(
+                    vn_launch("banded_spmm", op.scales) + "_bf16", []).append(r)
+            r = check_vn_bf16(torch, "banded_cheb_pair_stream", op.slabs, op.lo, x,
+                              scales=op.scales, index=op.index, **common)
+            results[r["slabs_dtype"]].setdefault(
+                vn_launch("banded_cheb_pair_stream", op.scales) + "_bf16", []).append(r)
+            r = check_vn_bf16(torch, "banded_chain_stream", op.slabs_t, op.lo_t, x, g,
+                              scales=op.scales_t, index=op.index_t, **common)
+            results[r["slabs_dtype"]].setdefault(
+                vn_launch("banded_chain_stream", op.scales) + "_bf16", []).append(r)
+        xc = torch.randn((c.v_pad, n), generator=gen, device="cuda").bfloat16()
+        results["f32"].setdefault("vn_pair_resident_bf16", []).append(check_vn_bf16(
+            torch, "banded_cheb_pair", c.slabs, c.lo, xc, index=c.index, **common))
+        del x, g, xc
+    del b16, a_csr16
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_bf16", "part": "vn_100k", "seconds": time.perf_counter() - t0,
+          "tolerance": {"rel": BF16_REL, "whole_pair_or_chain_rel": BF16_LOOSE,
+                        "floor": KERNEL_TOL},
+          "library_bf16": "torch.sparse.mm (bf16 CSR)" if lib_error is None else None,
+          "library_bf16_error": lib_error, "bf16_pack": pack, "bf16_index": index,
+          "results": results})
+    return results
+
+
+def bf16_fit(torch, data, gop, *, phase: str, remat: bool, batch: int, opt: str,
+             per_step: dict, per_batch: dict, f32_fit: dict, dataset_name: str) -> dict:
+    """A ``Trainer.fit(1)`` of the unfused ``STGCN(dtype=bfloat16, remat=)``
+    (weights, batches and dropout masks those of the float32 fit
+    ``f32_fit``): launches exactly ``per_step`` a step and ``per_batch`` a
+    validation batch (so no graph product replayed under remat), no index
+    rebuilt, finite losses and their distance from the float32 fit's, step
+    seconds, the fit's peak memory, ``test()``; then one more step traced by
+    ``torch.profiler`` (its kernels by name and device time, against the
+    step's seconds: the device's busy share)."""
+    from stgcn_tpu_torch.kernels import nnz_index
+    from stgcn_tpu_torch.train import TrainConfig, Trainer
+
+    ckpt_root = ROOT / "checkpoints" / f"chip_smoke_{phase}"   # removed at the end
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=batch, opt=opt,
+                      fused=False, compute_dtype="bfloat16", remat=remat,
+                      ckpt_dir=str(ckpt_root), dataset_name=dataset_name)
+    tr = Trainer(cfg, new_model(torch, data["n_vertex"], DROPRATE, dtype=torch.bfloat16,
+                                remat=remat), gop,
+                 data["train"], data["val"], data["test"], data["scaler"], device="cuda")
+    base = torch.cuda.memory_allocated()
+    builds = nnz_index.builds()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, hist, launches = timed_fit(torch, tr, phase)
+    fit_peak = torch.cuda.max_memory_allocated()
+    val_batches = -(-tr.val_ds.num_windows // batch)
+    want = expected(per_step, tr.steps_per_epoch, (per_batch, val_batches))
+    if launches != want:
+        raise AssertionError(f"{phase} (remat {remat}): the fit launched {launches}, expected "
+                             f"{want}")
+    test_m = tr.test()
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
+        raise AssertionError(f"{phase}: non-finite test metrics {test_m}")
+    if nnz_index.builds() != builds:
+        raise AssertionError(f"{phase}: the fit rebuilt a nonzero index")
+    starts, n_valid = tr._plan(tr.train_ds)[0]
+    trace = profile_once(torch, lambda: Trainer.train_step(tr, starts, n_valid, 0))
+    trace["busy_share_of_median_step"] = trace["device_ms"] / 1e3 / statistics.median(seconds)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ref = f32_fit["step_losses"]
+    out = {"step_losses": losses, "step_seconds": seconds,
+           "step_seconds_median": statistics.median(seconds), "epoch": hist[0],
+           "loss_rel_diff_vs_f32": [abs(a - b) / abs(b) for a, b in zip(losses, ref)],
+           "launches": {k: n for k, n in launches.items() if n},
+           "peak_memory_bytes_fit": fit_peak, "memory_bytes_before_fit": base,
+           "steps_per_epoch": tr.steps_per_epoch, "val_batches": val_batches, "test": test_m,
+           "trace_one_step": trace}
+    del tr
+    free(torch)
+    return out
+
+
+def phase_banded_100k_bf16(torch, data, f32_fit: dict) -> dict:
+    """``bench.py:253-335`` (configs[3]) unfused, as ``--compute_dtype
+    bfloat16 --remat True`` builds it: ``STGCN(dtype=bfloat16, remat=True)``
+    over the float32 stream pack (a bf16 operand), batch 8, AdamW. Forecast
+    batches of the bf16 model against the float32 model's on the same
+    operator, within ``BF16_MODEL_ATOL`` / ``BF16_MODEL_RTOL``: on the
+    stream pack (K9 pair bf16 ×2), the int8 pack (K9 pair int8 bf16 ×2),
+    the clamped pack (K8 bf16 ×2) and, in a graph_conv model, the stream
+    and int8 packs (K7 bf16, K7 int8 bf16 ×2); the int8 and clamped
+    operators freed; every vn
+    call of one training step (K9 pair and chain bf16, ×2 each) against its
+    plain version in bf16; a ``Trainer.fit(1)`` with launches per step K9
+    pair bf16 ×2 and chain bf16 ×2 and no float32 vn launch (remat replays
+    no graph product), losses finite and within rtol 0.08 of the float32
+    fit's (phase 13, same weights, batches and dropout masks), step seconds,
+    the fit's peak memory, ``test()``; then the same fit without remat, for
+    its step seconds and peak; one step of each traced (``bf16_fit``)."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+
+    gop, v = data["gop"], data["n_vertex"]
+
+    # 1. forecast batches: the bf16 model against the float32 one (same weights)
+    # on each pack and graph conv; then the int8 and clamped operators go
+    starts, _ = next(data["test"].batches(BATCH_100K))
+    x, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+    q, c = data.pop("int8"), data.pop("clamped")
+    forecast = {"tolerance_vs_f32": {"atol": BF16_MODEL_ATOL, "rtol": BF16_MODEL_RTOL}}
+    for tag, gct, op, want in (
+            ("stream_k9", "cheb_graph_conv", gop, PER_BATCH_100K_BF16),
+            ("int8_k9", "cheb_graph_conv", q, {"vn_pair_int8_bf16": 2}),
+            ("clamped_k8", "cheb_graph_conv", c, {"vn_pair_resident_bf16": 2}),
+            ("graph_conv_k7", "graph_conv", gop, {"vn_single_bf16": 2}),
+            ("graph_conv_int8_k7", "graph_conv", q, {"vn_single_int8_bf16": 2})):
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            p16 = new_model(torch, v, DROPRATE, gct, dtype=torch.bfloat16,
+                            remat=True).eval()(x, op)
+            torch.cuda.synchronize()
+            fc_launches = kernels.launch_counts()
+            p32 = new_model(torch, v, DROPRATE, gct).eval()(x, op)
+        if fc_launches != expected(want, 1):
+            raise AssertionError(f"the bf16 100k forecast {tag} launched {fc_launches}, "
+                                 f"expected {expected(want, 1)}")
+        if p16.dtype != torch.float32 or p16.shape != (BATCH_100K, 1, v, 1) \
+                or not torch.isfinite(p16).all():
+            raise AssertionError(f"the bf16 100k forecast {tag} is not finite float32 "
+                                 "[B, 1, V, 1]")
+        d = (p16 - p32).abs()
+        if not bool((d <= BF16_MODEL_ATOL + BF16_MODEL_RTOL * p32.abs()).all()):
+            raise AssertionError(f"the bf16 100k forecast {tag} differs from the float32 one: "
+                                 f"max |Δ| {float(d.max()):.3e}")
+        forecast[tag] = {"launches": {k: n for k, n in fc_launches.items() if n},
+                         "max_abs_diff_vs_f32": float(d.max()),
+                         "rel_l2_vs_f32": rel_l2(torch, p16, p32)}
+        del p16, p32, d
+    del q, c, op
+    free(torch)
+
+    # 2. every vn call of one bf16 remat training step, against its plain version
+    calls = record_vn_step(torch, data, gop, new_model(torch, v, DROPRATE, dtype=torch.bfloat16,
+                                                       remat=True))
+    names = [vn_launch(name, kw.get("scales")) + "_bf16" for name, _, kw in calls]
+    if sorted(names) != sorted(k for k, n in PER_STEP_100K_BF16.items() for _ in range(n)):
+        raise AssertionError(f"one bf16 remat 100k step called {names}, expected "
+                             f"{PER_STEP_100K_BF16}")
+    a_csr16, _ = csr_bf16_on_card(torch, data["matrix"])
+    per_call: dict[str, list] = {k: [] for k in PER_STEP_100K_BF16}
+    failed = []
+    for i, (name, args, kw) in enumerate(calls):
+        try:
+            per_call[names[i]].append({"call": f"call{i}", **check_vn_bf16(
+                torch, name, *args, scales=kw.get("scales", kw.get("scales_t")),
+                scale=kw.get("scale", 1.0), index=kw.get("index", kw.get("index_t")), v=v,
+                nnz=data["prep"]["nnz"], a_csr16=a_csr16, reps=3)})
+        except AssertionError as e:
+            failed.append(f"call{i} ({names[i]}): {e}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    del calls, a_csr16
+    free(torch)
+
+    # 3. the bf16 fit with remat, then without
+    fits = {}
+    for remat in (True, False):
+        fits["remat" if remat else "no_remat"] = fit = bf16_fit(
+            torch, data, gop, phase="banded_100k_bf16", remat=remat, batch=BATCH_100K,
+            opt="adamw", per_step=PER_STEP_100K_BF16, per_batch=PER_BATCH_100K_BF16,
+            f32_fit=f32_fit, dataset_name="road-100k")
+        if len(fit["step_losses"]) != len(f32_fit["step_losses"]) \
+                or max(fit["loss_rel_diff_vs_f32"]) > BF16_LOSS_RTOL:
+            raise AssertionError(f"banded_100k_bf16 (remat {remat}): step losses "
+                                 f"{fit['step_losses']} against the float32 fit's "
+                                 f"{f32_fit['step_losses']}")
+    if fits["remat"]["peak_memory_bytes_fit"] >= fits["no_remat"]["peak_memory_bytes_fit"]:
+        raise AssertionError(f"banded_100k_bf16: remat did not lower the fit's peak: {fits}")
+    result = {"phase": "banded_100k_bf16", "seconds": time.perf_counter() - t0, "n_vertex": v,
+              "batch_size": BATCH_100K, "optimizer": "adamw",
+              "route": "unfused, STGCN(dtype=bfloat16, remat=True), banded vn stream pack "
+                       "(float32 slabs, bf16 operand: K9 bf16)",
+              "cuts": ["one epoch", "a one-day series", "float32 slabs (the CLI's operator, "
+                       "built without a dtype; the bench packs bf16: phase kernels_bf16)"],
+              "forecast_one_batch": forecast, "fits": fits,
+              "f32_fit": {"step_seconds_median": f32_fit["step_seconds_median"],
+                          "peak_memory_bytes_fit": f32_fit["peak_memory_bytes_fit"]},
+              "loss_rtol": BF16_LOSS_RTOL, "launches": fits["remat"]["launches"],
+              "per_step_calls": per_call}
+    emit(result)
+    return result
+
+
+def phase_bcsr_1m_bf16(torch, data, f32_fit: dict) -> dict:
+    """The CLI's 1M route (``auto`` → BCSR, float32 tiles) with
+    ``--compute_dtype bfloat16 --remat True``: the unfused
+    ``STGCN(dtype=bfloat16, remat=True)`` at batch 1 with Lion (the cuts of
+    phase 16). Every K10 call of one training step (×8, all bf16) recorded;
+    a ``Trainer.fit(1)`` with launches per step K10 bf16 ×8, no float32 K10
+    and no K11 (remat replays no graph product), finite losses within rtol
+    0.08 of the float32 fit's (phase 18, same weights and batches), step
+    seconds and peak memory beside the float32 fit's, ``test()``; the same
+    without remat, whose peak must be the higher (``bf16_fit``). Then, as
+    phase ``kernels_bf16`` part ``k10_1m``, K10's bf16 variant at each
+    recorded call over the float32 tiles and over a bf16 pack
+    (``bcsr_graph_op(dtype=bfloat16)``, 6.65 GB, built on the card beside
+    the float32 one, timed, its index checked as in phase 17), each held
+    against its plain version in bf16, repeat bit-identical, timed beside
+    its bound (2-byte operands) and ``torch.sparse.mm`` on the bf16 CSR GSO
+    where it takes bf16."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import spmm
+    from stgcn_tpu_torch.ops import bcsr_graph_op
+
+    gop, v, nnz = data["bcsr"], data["n_vertex"], data["prep"]["nnz"]
+
+    # 1. one step's K10 calls, then the fit with remat and without
+    calls = record_bcsr_step(torch, data, gop, new_model(torch, v, DROPRATE,
+                                                         dtype=torch.bfloat16, remat=True))
+    if len(calls) != 8 or any(c[2].dtype != torch.bfloat16 for c in calls):
+        raise AssertionError(f"one bf16 1M step made {len(calls)} K10 calls, expected 8 bf16")
+    free(torch)
+    fits = {("remat" if remat else "no_remat"): bf16_fit(
+        torch, data, gop, phase="bcsr_1m_bf16", remat=remat, batch=BATCH_1M, opt="lion",
+        per_step=PER_STEP_BCSR_BF16, per_batch=PER_BATCH_BCSR_BF16, f32_fit=f32_fit,
+        dataset_name="road-1m") for remat in (True, False)}
+    for remat, fit in fits.items():
+        if len(fit["step_losses"]) != len(f32_fit["step_losses"]) \
+                or max(fit["loss_rel_diff_vs_f32"]) > BF16_LOSS_RTOL:
+            raise AssertionError(f"bcsr_1m_bf16 ({remat}): step losses {fit['step_losses']} "
+                                 f"against the float32 fit's {f32_fit['step_losses']}")
+    if fits["remat"]["peak_memory_bytes_fit"] >= fits["no_remat"]["peak_memory_bytes_fit"]:
+        raise AssertionError(f"bcsr_1m_bf16: remat did not lower the fit's peak: {fits}")
+    result = {"phase": "bcsr_1m_bf16", "n_vertex": v, "batch_size": BATCH_1M,
+              "optimizer": "lion",
+              "route": "unfused, STGCN(dtype=bfloat16, remat=True), BCSR (float32 tiles, bf16 "
+                       "operand: K10 bf16)",
+              "cuts": ["Lion momentum in f32 (TrainConfig has no mu_dtype)",
+                       "series cut to 55 steps: 23 train (8 windows), 16 validation, 16 test"],
+              "fits": fits, "step_losses_f32": f32_fit["step_losses"],
+              "loss_rtol": BF16_LOSS_RTOL,
+              "launches": fits["remat"]["launches"],
+              "f32_fit": {"step_seconds_median": f32_fit["step_seconds_median"],
+                          "peak_memory_bytes_fit": f32_fit["peak_memory_bytes_fit"]}}
+
+    # 2. K10's bf16 variant at the step's calls, over the float32 and a bf16 pack
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    b16 = bcsr_graph_op(data["art"], dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    pack = {"bf16_pack_s": time.perf_counter() - t1, "pack_bytes": pack_bytes(b16.pack),
+            "shared_transpose_pack": b16.pack_t is b16.pack,
+            **index_info(torch, b16.pack, data["matrix"], transposed=False)}
+    a_csr16, lib_error = csr_bf16_on_card(torch, data["matrix"])
+    per_call: dict[str, list] = {"f32": [], "bf16": []}
+    failed = []
+    for label, pk, xv, scale in calls:
+        for kind, p in (("f32", pk), ("bf16", b16.pack)):
+            try:
+                per_call[kind].append({"call": label, "tiles_dtype": kind, **check_spmm(
+                    torch, spmm.LAUNCH_NAME_BF16, xv.shape[1], "single",
+                    lambda p=p, xv=xv, scale=scale: spmm.bcsr_spmm(p, xv, scale=scale),
+                    lambda p=p, xv=xv, scale=scale: spmm.bcsr_spmm_reference(p, xv,
+                                                                              scale=scale),
+                    None if a_csr16 is None else lambda xv=xv: torch.sparse.mm(a_csr16, xv[:v]),
+                    v=v, nnz=nnz, vp=xv.shape[0], value_bytes=SLAB_BYTES[kind],
+                    row_scales=False, pack_bytes=index_traffic(p, xv.shape[1], "single")[0],
+                    pack_flops_one=index_traffic(p, xv.shape[1], "single")[1],
+                    library_agrees=False, reps=3, vn=True, scale=scale, operand_bytes=2,
+                    compare=bf16_err)})
+            except AssertionError as e:
+                failed.append(f"{label} ({kind} tiles): {e}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    del calls, b16, a_csr16
+    free(torch)
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_bf16", "part": "k10_1m", "seconds": time.perf_counter() - t1,
+          "tolerance": {"rel": BF16_REL, "floor": KERNEL_TOL},
+          "library_bf16": "torch.sparse.mm (bf16 CSR)" if lib_error is None else None,
+          "library_bf16_error": lib_error, "bf16_pack": pack,
+          "where": "the 1M step's 8 calls (the bf16 pack fits beside the float32 one)",
+          "results": per_call})
+    result["seconds"] = time.perf_counter() - t0
+    result["per_step_calls"] = per_call["f32"]
+    result["per_step_calls_bf16_tiles"] = per_call["bf16"]
     emit(result)
     return result
 
@@ -2344,7 +2835,10 @@ def index_info(torch, pack, matrix, *, transposed: bool = False) -> dict:
     csr.sort_indices()
     rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
     scales = getattr(pack, "scales", None)
-    if scales is None:
+    if pack.data.dtype == torch.bfloat16:   # each float32 value rounded to nearest even
+        stored16 = torch.from_numpy(csr.data.astype(np.float32)).bfloat16()
+        stored = stored16.float().numpy()
+    elif scales is None:
         stored = csr.data.astype(np.float32)
     else:   # as each packer quantizes: the banded one in float32, the ELL one in float64
         values = csr.data.astype(np.float32) if slabs else csr.data
@@ -2372,8 +2866,9 @@ def index_info(torch, pack, matrix, *, transposed: bool = False) -> dict:
             lane, c = (pos % bs, pos // bs) if transposed else (pos // bs, pos % bs)
             ok = (bool((k < pack.counts.long()[br]).all()) and torch.equal(lane, row % bs)
                   and torch.equal(pack.cols.long()[br, k] * bs + c, src))
-        ok = ok and torch.equal(pack.data.reshape(nbr, -1)[br, off],
-                                torch.from_numpy(stored[keep]).to(dev))
+        want = (stored16[torch.from_numpy(keep)] if pack.data.dtype == torch.bfloat16
+                else torch.from_numpy(stored[keep]))
+        ok = ok and torch.equal(pack.data.reshape(nbr, -1)[br, off], want.to(dev))
         del row, br, off, k, lane
     del src
     if not ok:
@@ -2672,10 +3167,11 @@ def phase_kernels_bcsr(torch, data) -> dict:
     return results
 
 
-def record_bcsr_step(torch, data, gop) -> list:
+def record_bcsr_step(torch, data, gop, model=None) -> list:
     """Run one unfused training step (forward with dropout, backward) on the
     first training batch through the BCSR operator ``gop`` and record every
-    K10 call it makes: (label, pack, x, scale), in call order."""
+    K10 call it makes: (label, pack, x, scale), in call order. The model is
+    ``new_model``'s unless one is given."""
     from stgcn_tpu_torch.data import gather_windows
     from stgcn_tpu_torch.kernels import spmm
     from stgcn_tpu_torch.kernels.dropout import step_seed
@@ -2688,7 +3184,7 @@ def record_bcsr_step(torch, data, gop) -> list:
         calls.append((f"call{len(calls)}", pack, x_vn.detach(), scale))
         return real(pack, x_vn, scale=scale)
 
-    model = new_model(torch, data["n_vertex"], DROPRATE)
+    model = model if model is not None else new_model(torch, data["n_vertex"], DROPRATE)
     params = dict(model.named_parameters())
     starts, n_valid = next(data["train"].batches(BATCH_1M))
     x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
@@ -2806,30 +3302,12 @@ def phase_bcsr_1m(torch, data) -> dict:
                       opt="lion", fused=False, ckpt_dir=str(ckpt_root), dataset_name="road-1m")
     tr = Trainer(cfg, new_model(torch, v, DROPRATE), gop, data["train"], data["val"],
                  data["test"], data["scaler"], device="cuda")
-    step_losses, step_seconds = [], []
-    real_step = tr.train_step
-
-    def timed_step(*a):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss = real_step(*a)
-        torch.cuda.synchronize()
-        step_seconds.append(time.perf_counter() - t1)
-        step_losses.append(loss)
-        return loss
-
-    tr.train_step = timed_step
-    kernels.reset_launch_counts()
     builds = nnz_index.builds()
-    hist = tr.fit(1)["history"]
-    launches = kernels.launch_counts()
+    losses, step_seconds, hist, launches = timed_fit(torch, tr, "bcsr_1m")
     val_batches = -(-tr.val_ds.num_windows // BATCH_1M)
     want = expected(PER_STEP_BCSR, tr.steps_per_epoch, (PER_BATCH_BCSR, val_batches))
     if launches != want:
         raise AssertionError(f"bcsr_1m: the fit launched {launches}, expected {want}")
-    losses = [float(v_) for v_ in step_losses]
-    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in losses):
-        raise AssertionError(f"bcsr_1m: non-finite step losses {losses}")
     fit_peak = torch.cuda.max_memory_allocated()
     test_m = tr.test()
     if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
@@ -2857,12 +3335,14 @@ def phase_bcsr_1m(torch, data) -> dict:
     return result
 
 
-def phase_cli(torch, graph_op: str, graph_kernels: tuple, fused: bool = True) -> dict:
+def phase_cli(torch, graph_op: str, graph_kernels: tuple, fused: bool = True,
+              extra: tuple = ()) -> dict:
     """``python -m stgcn_tpu_torch.cli`` in-process: PeMSD7(M) through the
     sparse operator ``graph_op`` (one block row of 256), one epoch of the
     fused kernels (or of the unfused model: none of K1-K4 may launch), then
     the reference test line; ``graph_kernels`` are the launch counters of
-    the operator's kernel."""
+    the operator's kernel (none: the dense operator, where no kernel may
+    launch), ``extra`` more flags (``--compute_dtype``, ``--remat``)."""
     import contextlib
     import io
 
@@ -2877,7 +3357,7 @@ def phase_cli(torch, graph_op: str, graph_kernels: tuple, fused: bool = True) ->
     with contextlib.redirect_stdout(buf):
         mets = cli_main(["--dataset", "pemsd7-m", "--data_root", str(ROOT / "data"),
                          "--graph_op", graph_op, "--fused", str(fused), "--epochs", "1",
-                         "--ckpt_dir", str(ckpt)])
+                         "--ckpt_dir", str(ckpt), *extra])
     launches = kernels.launch_counts()
     shutil.rmtree(ckpt, ignore_errors=True)
     lines = buf.getvalue().strip().splitlines()
@@ -2886,12 +3366,13 @@ def phase_cli(torch, graph_op: str, graph_kernels: tuple, fused: bool = True) ->
     if not lines[-1].startswith("Dataset pemsd7-m | Test loss "):
         raise AssertionError(f"the CLI's last line is not the test line: {lines[-1]!r}")
     if not all(launches[k] > 0 for k in (*(PER_STEP if fused else ()), *graph_kernels)) \
-            or not (fused or all(launches[k] == 0 for k in PER_STEP)):
+            or not (fused or all(launches[k] == 0 for k in PER_STEP)) \
+            or not (fused or graph_kernels or not any(launches.values())):
         raise AssertionError(f"the CLI run on {graph_op} (fused {fused}) routed around a "
                              f"kernel: {launches}")
     if not all(v == v and abs(v) < float("inf") for v in mets.values()):
         raise AssertionError(f"non-finite CLI test metrics {mets}")
-    result = {"phase": "cli", "graph_op": graph_op, "fused": fused,
+    result = {"phase": "cli", "graph_op": graph_op, "fused": fused, "flags": list(extra),
               "seconds": time.perf_counter() - t0,
               "test_line": lines[-1], "launches": launches, "test": mets}
     emit(result)
@@ -2947,8 +3428,11 @@ def main() -> int:
     big = build_100k(torch)
     k5 = phase_kernels_banded(torch, big)
     kvn = phase_kernels_banded_vn(torch, big)
+    kbf = phase_kernels_bf16(torch, big)
     b100 = phase_banded_100k(torch, big)
     b100u = phase_banded_100k_unfused(torch, big)
+    free(torch)
+    b100bf = phase_banded_100k_bf16(torch, big, b100u)
     del big
     free(torch)   # the 100k checks peak at 45 GB
     big = build_1m(torch)
@@ -2958,6 +3442,8 @@ def main() -> int:
     free(torch)
     k10 = phase_kernels_bcsr(torch, big)
     b1 = phase_bcsr_1m(torch, big)
+    free(torch)   # the float32 fit's memory, before the bf16 one
+    b1bf = phase_bcsr_1m_bf16(torch, big, b1)
     del big
     free(torch)
     cli = phase_cli(torch, "banded", ("nv_pair", "nv_chain"))
@@ -2966,6 +3452,11 @@ def main() -> int:
     cli_vn = phase_cli(torch, "banded", ("vn_pair", "vn_chain"), fused=False)
     cli_vn8 = phase_cli(torch, "banded_int8", ("vn_pair_int8", "vn_chain_int8"), fused=False)
     cli_nv8 = phase_cli(torch, "banded_int8", ("nv_pair_int8", "nv_chain_int8"))
+    cli_bf16 = phase_cli(torch, "banded", tuple(PER_STEP_100K_BF16), fused=False,
+                         extra=("--compute_dtype", "bfloat16", "--remat", "True"))
+    cli_bf16_8 = phase_cli(torch, "banded_int8", ("vn_pair_int8_bf16", "vn_chain_int8_bf16"),
+                           fused=False, extra=("--compute_dtype", "bfloat16"))
+    phase_cli(torch, "auto", (), fused=False, extra=("--compute_dtype", "bfloat16"))
 
     def row(name, meta, calls, **extra):
         """One kernel's line: per training step it runs once at each call."""
@@ -3044,6 +3535,35 @@ def main() -> int:
                  **({"adjoint_only_pems_bay": kst["adjoint_only"]} if name == "stblock_bwd"
                     else {"chain_only_pems_bay": kst["chain_only"]}))
              for name in K12_META]
+    # the bf16 variants: the vn kernel's (K7-K9) with a bf16 operand on the 100k bf16
+    # route (float32 slabs, the CLI's operator) and its random checks over float32, bf16
+    # and int8 slabs; K10's on the 1M bf16 route over the float32 tiles, and a bf16 pack
+    def random_calls(name):
+        return {slabs: kbf[slabs].get(name, []) for slabs in ("f32", "bf16", "int8")}
+
+    rows += [row(name, K9_META, b100bf["per_step_calls"][name], mode=name.split("_")[1],
+                 dtype="bf16", slabs_dtype="f32", launches=b100bf["launches"][name],
+                 launches_cli=cli_bf16["launches"][name], per_call_random=random_calls(name))
+             for name in PER_STEP_100K_BF16]
+    fc16 = b100bf["forecast_one_batch"]
+    rows += [row(name, K9_META, kbf["int8"][name], mode=name.split("_")[1], dtype="bf16",
+                 slabs_dtype="int8", launches=cli_bf16_8["launches"][name],
+                 launches_forecast_100k=fc16["int8_k9"]["launches"].get(name, 0))
+             for name in ("vn_pair_int8_bf16", "vn_chain_int8_bf16")]
+    rows += [row(name, meta, [c for c in kbf[slabs][name] if c["scale"] == 1.0], mode="single",
+                 dtype="bf16", slabs_dtype=slabs, launches=fc16[tag]["launches"][name],
+                 per_call_scale_2=[c for c in kbf[slabs][name] if c["scale"] != 1.0],
+                 **({"per_call_random_bf16_slabs": kbf["bf16"][name]} if slabs == "f32" else {}))
+             for meta in K7_META for name, slabs, tag in (
+                 ("vn_single_bf16", "f32", "graph_conv_k7"),
+                 ("vn_single_int8_bf16", "int8", "graph_conv_int8_k7"))]
+    rows.append(row("vn_pair_resident_bf16", K8_META, kbf["f32"]["vn_pair_resident_bf16"],
+                    mode="pair", dtype="bf16", slabs_dtype="f32",
+                    launches=fc16["clamped_k8"]["launches"]["vn_pair_resident_bf16"]))
+    rows += [row("bcsr_spmm_bf16", meta, b1bf["per_step_calls"], dtype="bf16",
+                 tiles_dtype="f32", launches=b1bf["launches"]["bcsr_spmm_bf16"],
+                 per_call_bf16_tiles=b1bf["per_step_calls_bf16_tiles"])
+             for meta in K10_META]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

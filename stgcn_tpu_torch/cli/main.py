@@ -6,6 +6,8 @@ reference's (`main.py:39-94`).
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op banded_int8
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op ell_int8 --fused True
     python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op bcsr --fused True
+    python -m stgcn_tpu_torch.cli --dataset pemsd7-m --graph_op banded \
+        --compute_dtype bfloat16 --remat True
 
 Pipeline: adjacency → GSO → (RCM order for the sparse kinds) → graph
 operator on the device; CSV (or a synthetic series) → chronological split
@@ -13,9 +15,15 @@ operator on the device; CSV (or a synthetic series) → chronological split
 train → test from the best checkpoint. It runs on the CUDA card; ``--platform
 cpu`` (or the reference's ``--enable_cuda False``) asks for the CPU.
 
+``--compute_dtype bfloat16`` and ``--remat True`` build ``STGCN(dtype=
+torch.bfloat16, remat=True)`` over an operator packed without a dtype
+(float32 values, a bf16 operand), as the JAX CLI does; they train the
+unfused model.
+
 Not ported yet, and refused with ``NotImplementedError``: ``--compute_dtype
-bfloat16`` (the bf16 kernel variants), ``--remat True``, a device mesh and
-``--distributed`` (the ``dist`` slice), ``--profile_dir`` (``utils/
+bfloat16`` or ``--remat True`` with ``--fused True`` (the fused bf16 slice:
+the fused kernels' bf16 variants), a device mesh and ``--distributed`` (the
+``dist`` slice), ``--profile_dir`` (``utils/
 profiling.py``), and ``--fused_tile_v`` / ``--fused_b_tile`` (the TPU
 kernels' tile sizes; the CUDA kernels fix their own). ``--fused True`` with
 ``--graph_op auto`` where auto picks bcsr raises a ``TypeError``, as the
@@ -113,13 +121,14 @@ def get_parameters(argv=None):
                         help="torch.autograd anomaly detection (slow; debugging aid)")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="bfloat16 is not ported yet")
+                        help="bfloat16 = mixed-precision training (f32 params/LN; unfused)")
     parser.add_argument("--fused", type=_str2bool, default=False,
                         help="train through the vertex-fused kernels K1-K4 (the banded "
                              "operator aggregates through K5, the ELL one through K6, the "
                              "BCSR one through K10)")
     parser.add_argument("--remat", type=_str2bool, default=False,
-                        help="recompute ST blocks in the backward (not ported yet)")
+                        help="recompute ST blocks in the backward (unfused; the graph "
+                             "terms are kept)")
     parser.add_argument("--fused_tile_v", type=int, default=None,
                         help="vertex tile of the TPU kernels (not ported: the CUDA "
                              "kernels fix their own tiles)")
@@ -136,9 +145,12 @@ def get_parameters(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the options whose code comes with a later slice of the port."""
     later = {
-        "--compute_dtype bfloat16": (args.compute_dtype == "bfloat16",
-                                     "the bf16 slice (model path and kernel variants)"),
-        "--remat True": (args.remat, "the remat slice (torch.utils.checkpoint per ST block)"),
+        "--compute_dtype bfloat16 with --fused True": (
+            args.compute_dtype == "bfloat16" and args.fused,
+            "the fused bf16 slice (the bf16 variants of K1f-K4f, K1b-K4b, K5 and K6)"),
+        "--remat True with --fused True": (
+            args.remat and args.fused,
+            "the fused bf16 slice (fused_sparse_forward(remat=, remat_policy=))"),
         "a device mesh": (args.mesh_data * args.mesh_graph * args.mesh_model > 1
                           or args.distributed, "the dist slice"),
         "--profile_dir": (args.profile_dir is not None,
@@ -229,8 +241,9 @@ def build_trainer(cfg: TrainConfig, *, dataset: str, data_root: str = "data",
 
     model = STGCN(cfg.n_his, art.n_vertex, kt=cfg.kt, ks=cfg.ks, stblock_num=cfg.stblock_num,
                   act_func=cfg.act_func, graph_conv_type=cfg.graph_conv_type,
-                  use_bias=cfg.enable_bias, droprate=cfg.droprate, device=dev,
-                  generator=torch.Generator().manual_seed(cfg.seed))
+                  use_bias=cfg.enable_bias, droprate=cfg.droprate, remat=cfg.remat,
+                  dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None,
+                  device=dev, generator=torch.Generator().manual_seed(cfg.seed))
     return Trainer(cfg, model, gop, mk(train), mk(val), mk(test), scaler, device=dev)
 
 

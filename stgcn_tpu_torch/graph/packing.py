@@ -106,23 +106,30 @@ def pack_ell_device(matrix: sp.spmatrix, *, block_size: int = 256, quantize: boo
 
 
 def pack_bcsr_device(matrix: sp.spmatrix, *, block_size: int = 256,
-                     device: str | torch.device = "cuda"):
+                     dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda"):
     """The JAX ``pack_bcsr`` built on ``device`` (13.3 GB of float32 tiles
     for the 1M-vertex road graph, scattered in place). Returns ``(data,
     cols, counts)`` as tensors on ``device``: ``data`` ``[nbr, max_b, bs,
-    bs]`` float32 row-major tiles, ``cols`` ``[nbr, max_b]`` int32 (padding
-    slots: 0), ``counts`` ``[nbr]`` int32."""
+    bs]`` row-major tiles, float32 or ``dtype=torch.bfloat16`` (each float32
+    value rounded to nearest even, as ``jnp.asarray(data, bfloat16)``),
+    ``cols`` ``[nbr, max_b]`` int32 (padding slots: 0), ``counts`` ``[nbr]``
+    int32."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the BCSR tiles are float32 or bfloat16, got {dtype}")
     dev = resolve_device(device)
     flat, values, cols, counts, _, shape = _ell_layout(matrix, block_size, False,
                                                        transposed=False)
-    return (_scatter(flat, values, shape, dev), torch.from_numpy(cols).to(dev),
+    return (_scatter(flat, values, shape, dev, dtype), torch.from_numpy(cols).to(dev),
             torch.from_numpy(counts).to(dev))
 
 
-def _scatter(flat: np.ndarray, values: np.ndarray, shape: tuple, dev: torch.device):
-    """A zeroed tensor of ``shape`` on ``dev`` with ``values`` at the flat
-    offsets ``flat`` (one ``index_put_``)."""
+def _scatter(flat: np.ndarray, values: np.ndarray, shape: tuple, dev: torch.device,
+             dtype: torch.dtype | None = None):
+    """A zeroed tensor of ``shape`` on ``dev`` with ``values`` (cast to
+    ``dtype`` when given) at the flat offsets ``flat`` (one ``index_put_``)."""
     values = torch.from_numpy(values).to(dev)
+    if dtype is not None:
+        values = values.to(dtype)
     data = torch.zeros(int(np.prod(shape)), dtype=values.dtype, device=dev)
     data.index_put_((torch.from_numpy(flat).to(dev),), values)
     return data.reshape(shape)

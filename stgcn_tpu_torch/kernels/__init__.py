@@ -7,9 +7,9 @@ backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
 per mode and dtype (``nv_single``, ``nv_pair_int8``, …), the banded vn SpMM
 of K7-K9 (:mod:`banded_spmm`), counted per wrapper and dtype (``vn_single``
 for K7, ``vn_pair_resident`` for K8, ``vn_pair`` and ``vn_chain`` for K9;
-``_int8`` on int8 packs), the blocked-ELL nv SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
+``_int8`` on int8 packs, ``_bf16`` on a bf16 operand), the blocked-ELL nv SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
 ``ell_int8_chain``, …), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
-(``bcsr_spmm``) — K5, K6, K7-K9 and K10 walk the pack's nonzero index
+(``bcsr_spmm``, ``bcsr_spmm_bf16`` on a bf16 operand) — K5, K6, K7-K9 and K10 walk the pack's nonzero index
 (:mod:`nnz_index`, its builds counted by :func:`nnz_index.builds`) — with its
 tile-value gradient, the SDDMM K11
 :func:`sddmm.bcsr_sddmm` (``bcsr_sddmm``), and the whole dense ST block
@@ -36,13 +36,17 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd,
             **{_nv.launch_name(m, q): functools.partial(_nv.stream_nv, mode=m)
                for q in (False, True) for m in ("single", "pair", "chain")},
-            **{_vn.launch_name("single", q): _vn.banded_spmm for q in (False, True)},
-            _vn.launch_name("pair", resident=True): _vn.banded_cheb_pair,
-            **{_vn.launch_name("pair", q): _vn.banded_cheb_pair_stream for q in (False, True)},
-            **{_vn.launch_name("chain", q): _vn.banded_chain_stream for q in (False, True)},
+            **{_vn.launch_name("single", q, bf16=h): _vn.banded_spmm
+               for q in (False, True) for h in (False, True)},
+            **{_vn.launch_name("pair", resident=True, bf16=h): _vn.banded_cheb_pair
+               for h in (False, True)},
+            **{_vn.launch_name("pair", q, bf16=h): _vn.banded_cheb_pair_stream
+               for q in (False, True) for h in (False, True)},
+            **{_vn.launch_name("chain", q, bf16=h): _vn.banded_chain_stream
+               for q in (False, True) for h in (False, True)},
             **{_ell.launch_name(q, m): functools.partial(_ell.ell_nv, mode=m)
                for q in (False, True) for m in ("single", "pair", "chain")},
-            "bcsr_spmm": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm,
+            "bcsr_spmm": bcsr_spmm, "bcsr_spmm_bf16": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm,
             "stblock_fwd": stblock_fwd, "stblock_bwd": stblock_bwd}
 
 

@@ -24,14 +24,14 @@ def on_cpu(t: torch.Tensor) -> bool:
 
 
 def require(t: torch.Tensor | None, name: str, shape: tuple[int, ...],
-            device: torch.device) -> int:
+            device: torch.device, dtype: torch.dtype = torch.float32) -> int:
     """Check a kernel operand and return its device pointer (0 for None)."""
     if t is None:
         return 0
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -49,15 +49,37 @@ def require_index(t: torch.Tensor, name: str, shape: tuple[int, ...],
 
 
 def refuse_value_grad(*values: torch.Tensor | None) -> None:
-    """Raise where a caller asks for the gradient of an f32 operator's values
-    (banded slabs, ELL tiles): the JAX VJPs give it through scans that are
-    not ported yet (``ROADMAP.md`` §1 item 5), and returning nothing would
-    drop it without a word. int8 values are frozen, as in JAX."""
-    if any(v is not None and v.requires_grad and v.dtype == torch.float32 for v in values):
+    """Raise where a caller asks for the gradient of an f32 (or bf16)
+    operator's values (banded slabs, ELL tiles): the JAX VJPs give it
+    through scans that are not ported yet (``ROADMAP.md`` §1 item 5), and
+    returning nothing would drop it without a word. int8 values are frozen,
+    as in JAX."""
+    if any(v is not None and v.requires_grad and v.dtype.is_floating_point for v in values):
         raise NotImplementedError(
             "the gradient of the graph operator's f32 values (banded slabs, ELL tiles) is "
             "not ported yet (ROADMAP.md §1 item 5); detach the operator, or use the BCSR "
             "operator, whose tile-value gradient runs through K11")
+
+
+BF16_SLICE = ("the fused bf16 slice of the port (ROADMAP.md §1: the bf16 variants of K1f-K4f, "
+              "K1b-K4b, K5 and K6)")
+
+
+def refuse_bf16(what: str, *tensors: torch.Tensor | None, where: str = BF16_SLICE) -> None:
+    """Raise ``NotImplementedError`` where a kernel whose bf16 variant is not
+    ported yet is handed a bf16 tensor: nothing is cast to float32 to reuse
+    the float32 kernel."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise NotImplementedError(f"{what} on bf16 is not ported yet; it comes with {where}")
+
+
+def refuse_bf16_model(model, route: str) -> None:
+    """Raise ``NotImplementedError`` for a bf16 model (``dtype`` or
+    ``ln_param_dtype``) on a fused route: its kernels' bf16 variants come
+    with the fused bf16 slice."""
+    if model.dtype is not None or model.ln_param_dtype != torch.float32:
+        raise NotImplementedError(f"{route} of a bf16 model is not ported yet; it comes with "
+                                  f"{BF16_SLICE}")
 
 
 def cuda_device(t: torch.Tensor) -> torch.device:

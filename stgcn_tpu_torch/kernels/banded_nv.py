@@ -53,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from stgcn_tpu_torch.kernels import _build, nnz_index
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, refuse_bf16,
                                              refuse_value_grad, require, require_index,
                                              stream_of, workspace)
 from stgcn_tpu_torch.kernels.banded_spmm import _round_up
@@ -121,6 +121,7 @@ def stream_nv(slabs_nv, lo, x_nv, g_nv=None, mode: str = "single", *, scales=Non
         raise ValueError("g_nv is given for mode 'chain' and only for it")
     if scale != 1.0 and mode != "single":
         raise ValueError("scale applies to mode 'single' only")
+    refuse_bf16("K5 (the banded nv kernel)", slabs_nv, x_nv, g_nv)
     if on_cpu(x_nv):
         return stream_nv_reference(slabs_nv, lo, x_nv, g_nv, mode, scales=scales, scale=scale)
     dev = cuda_device(x_nv)

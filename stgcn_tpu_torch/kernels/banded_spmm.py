@@ -1,7 +1,8 @@
 """Banded-slab SpMM on the vn operand ``[V, N]`` (port of
 ``stgcn_tpu/kernels/banded_spmm.py``): the slab packs, and the kernels K7
 (one application), K8 (the Chebyshev pair on a clamped pack) and K9 (the
-streaming pair and its VJP chain), float32 or int8 slabs.
+streaming pair and its VJP chain), float32, bf16 or int8 slabs under a
+float32 or bf16 operand.
 
 After reverse Cuthill–McKee reordering a road graph's GSO has a narrow band:
 every nonzero of a ``bs``-row block lies in one column window. A pack
@@ -15,6 +16,7 @@ stores each block row as one dense slab over its window, zero-filled:
   from the COO triplets; ``contain_diag=True, col_align=bs`` gives the
   streaming pack (block-aligned windows that cover each block's own
   diagonal), ``dtype=torch.int8`` int8 slabs with per-row scales,
+  ``dtype=torch.bfloat16`` bf16 slabs (each value rounded to nearest even),
   ``transpose_slabs=True`` the nv layout ``[nbr, w, bs]`` of K5
   (:mod:`stgcn_tpu_torch.kernels.banded_nv`).
 
@@ -46,8 +48,20 @@ Each wrapper counts its launches under its own name (:func:`launch_name`):
 ``vn_single`` (K7, :func:`banded_spmm`), ``vn_pair_resident`` (K8,
 :func:`banded_cheb_pair`), ``vn_pair`` and ``vn_chain`` (K9,
 :func:`banded_cheb_pair_stream`, :func:`banded_chain_stream`), with an
-``_int8`` suffix on int8 packs. On a CPU tensor each runs its plain version
-(:func:`banded_vn_reference`).
+``_int8`` suffix on int8 packs and a ``_bf16`` suffix on a bf16 operand
+(over float32, bf16 or int8 slabs). On a CPU tensor each runs its plain
+version (:func:`banded_vn_reference`).
+
+bf16 (the TPU kernels' bf16 operands into an f32 accumulator, JAX
+:214-219, :245-250): a bf16 operand and bf16 slab values widen exactly to
+float32, each output is one float32 sum, the scale and epilogue run in
+float32, and the result is rounded once to the operand's type. The pair
+rounds T1 to bf16 before the second application reads it (the TPU
+kernel's ``t1c``, :719-721; in the chain from ``2·acc + g`` in float32,
+:718), and ``t2 = round(y2 − x)`` from float32 (:744-748). The plain
+versions keep these rounding points. The JAX off-TPU branch rounds
+elsewhere (``_pair_stream_fallback`` :753-771: ``round(A t1)``, then
+``2·that − x`` in bf16), so the two may differ by an ulp of bf16 there.
 
 Padding: the operand and every output have ``v_pad`` rows (the JAX single
 application returns ``nbr·bs`` rows; every caller cuts or pads them to
@@ -147,12 +161,13 @@ def _scatter(coo: sp.coo_matrix, lo: np.ndarray, shape: tuple[int, int, int], va
 
 
 def pack_banded(matrix: sp.spmatrix, *, block_size: int = 128, col_align: int = 128,
-                v_pad: int | None = None, device: str | torch.device = "cuda"):
+                v_pad: int | None = None, dtype: torch.dtype = torch.float32,
+                device: str | torch.device = "cuda"):
     """Pack an (RCM-ordered) sparse matrix into per-block-row dense slabs
     over ``col_align``-aligned windows, each clamped so ``lo_i + w <=
-    v_pad``. Returns ``(slabs [nbr, bs, w] float32 on the device, lo [nbr]
-    int32 numpy, v_pad)``; pass ``v_pad`` to force a common padding with
-    another pack (the transpose)."""
+    v_pad``. Returns ``(slabs [nbr, bs, w] float32 (or ``dtype``,
+    ``torch.bfloat16``) on the device, lo [nbr] int32 numpy, v_pad)``; pass
+    ``v_pad`` to force a common padding with another pack (the transpose)."""
     csr = sp.csr_matrix(matrix)
     v = csr.shape[0]
     bs = block_size
@@ -164,19 +179,22 @@ def pack_banded(matrix: sp.spmatrix, *, block_size: int = 128, col_align: int = 
     lo = np.minimum(lo, v_pad - w)
     coo = csr.tocoo()
     slabs = _scatter(coo, lo, (-(-v // bs), bs, w), coo.data.astype(np.float32),
-                     torch.float32, False, resolve_device(device))
+                     _slab_dtype(dtype, int8=False), False, resolve_device(device))
     return slabs, lo.astype(np.int32), v_pad
 
 
 def pack_banded_with_transpose(matrix: sp.spmatrix, *, block_size: int = 128,
+                               dtype: torch.dtype = torch.float32,
                                device: str | torch.device = "cuda"):
     """Forward and transpose packs (the backward's ``Aᵀ``) with a common
     ``v_pad``: ``(slabs, lo, slabs_t, lo_t, v_pad)``."""
     csr = sp.csr_matrix(matrix)
     csr_t = csr.T.tocsr()
     v_pad = max(_window_meta(m, block_size, 128)[3] for m in (csr, csr_t))
-    slabs, lo, _ = pack_banded(csr, block_size=block_size, v_pad=v_pad, device=device)
-    slabs_t, lo_t, _ = pack_banded(csr_t, block_size=block_size, v_pad=v_pad, device=device)
+    slabs, lo, _ = pack_banded(csr, block_size=block_size, v_pad=v_pad, dtype=dtype,
+                               device=device)
+    slabs_t, lo_t, _ = pack_banded(csr_t, block_size=block_size, v_pad=v_pad, dtype=dtype,
+                                   device=device)
     return slabs, lo, slabs_t, lo_t, v_pad
 
 
@@ -217,6 +235,14 @@ def cheb_pair_stream_safe(lo, w: int, block_size: int) -> bool:
                 and (lo + w >= (i + 1) * block_size).all())
 
 
+def _slab_dtype(dtype: torch.dtype, int8: bool = True) -> torch.dtype:
+    allowed = (torch.float32, torch.bfloat16, torch.int8) if int8 else (torch.float32,
+                                                                      torch.bfloat16)
+    if dtype not in allowed:
+        raise TypeError(f"these banded slabs are {' or '.join(map(str, allowed))}, got {dtype}")
+    return dtype
+
+
 def pack_banded_device(matrix: sp.spmatrix, *, block_size: int = 256, col_align: int = 128,
                        dtype: torch.dtype = torch.float32, v_pad: int | None = None,
                        contain_diag: bool = False, transpose_slabs: bool = False,
@@ -226,14 +252,14 @@ def pack_banded_device(matrix: sp.spmatrix, *, block_size: int = 256, col_align:
     scattered in place. Returns ``(slabs, lo, v_pad)``, and for
     ``dtype=torch.int8`` also the per-row dequant factors ``scales [nbr,
     bs]`` float32 on the device: ``slabs`` ``[nbr, bs, w]`` (``[nbr, w, bs]``
-    with ``transpose_slabs``, the operand layout of K5), ``lo`` the int32
-    window starts (numpy).
+    with ``transpose_slabs``, the operand layout of K5), float32, bf16 (each
+    float32 value rounded to nearest even, the JAX ``v.astype(bfloat16)``)
+    or int8, ``lo`` the int32 window starts (numpy).
 
     The int8 values are the JAX pack's, computed as it computes them, in
     float32: a row's scale is its max |a| / 127 (1 for an empty row), a
     value ``round(a / scale)`` clipped to ±127."""
-    if dtype not in (torch.float32, torch.int8):
-        raise TypeError(f"the banded packs are float32 or int8, got {dtype}")
+    _slab_dtype(dtype)
     csr = sp.csr_matrix(matrix)
     bs = block_size
     nbr = -(-csr.shape[0] // bs)
@@ -267,25 +293,28 @@ def pack_banded_device(matrix: sp.spmatrix, *, block_size: int = 256, col_align:
 # K7 / K8 / K9: plain versions and the kernel wrapper
 # --------------------------------------------------------------------------
 
-def launch_name(mode: str, quantized: bool = False, resident: bool = False) -> str:
+def launch_name(mode: str, quantized: bool = False, resident: bool = False,
+                bf16: bool = False) -> str:
     """The launch counter of the vn kernel in ``mode``: ``vn_single`` (K7),
     ``vn_pair_resident`` (K8), ``vn_pair`` / ``vn_chain`` (K9); ``_int8``
-    on an int8 pack."""
-    return f"vn_{mode}{'_resident' if resident else ''}{'_int8' if quantized else ''}"
+    on an int8 pack, ``_bf16`` on a bf16 operand."""
+    return (f"vn_{mode}{'_resident' if resident else ''}{'_int8' if quantized else ''}"
+            f"{'_bf16' if bf16 else ''}")
 
 
 def _apply_reference(slabs, lo, x, scales=None) -> torch.Tensor:
     """One application ``A x`` with ``x.shape[0]`` rows out (the JAX
     ``banded_spmm_reference`` :121, its ``nbr·bs`` rows cut or zero-padded),
-    chunked over block rows so the gathered windows stay small; the row
-    factors multiply the sums."""
+    in float32 whatever the operand's and slabs' types (each widens
+    exactly), chunked over block rows so the gathered windows stay small;
+    the row factors multiply the sums."""
     nbr, bs, w = slabs.shape
     rows, n = x.shape
     chunk = max(1, REF_CHUNK_ELEMS // (w * max(n, bs)))
     lo = lo.to(x.device).long()
     ys = []
     for s in range(0, nbr, chunk):
-        win = x[lo[s:s + chunk, None] + torch.arange(w, device=x.device)]   # [rows, w, n]
+        win = x[lo[s:s + chunk, None] + torch.arange(w, device=x.device)].float()  # [rows, w, n]
         y = torch.einsum("ibw,iwn->ibn", slabs[s:s + chunk].float(), win)
         ys.append(y if scales is None else y * scales[s:s + chunk, :, None])
     y = torch.cat(ys).reshape(nbr * bs, n)
@@ -293,24 +322,38 @@ def _apply_reference(slabs, lo, x, scales=None) -> torch.Tensor:
         else y[:rows]
 
 
+def vn_pass_reference(slabs, lo, x, add=None, *, alpha: float = 1.0, beta: float = 0.0,
+                      scales=None) -> torch.Tensor:
+    """Plain version of one pass of the vn kernel: ``alpha · (A x) + beta ·
+    add`` in float32 (the row factors on the sum), rounded once to x's type."""
+    y = _apply_reference(slabs, lo, x, scales)
+    if alpha != 1.0:
+        y = alpha * y
+    if add is not None:
+        y = y + beta * add.float()
+    return y.to(x.dtype)
+
+
 def banded_vn_reference(slabs, lo, x, g=None, mode: str = "single", *, scales=None,
                         scale: float = 1.0):
     """Plain version of the vn kernel: one application (``single``, times
     ``scale``), or two as the off-TPU branches of the JAX pair
     (``_cheb_pair_stream_primal`` :919, ``banded_cheb_pair`` :539-548) and
-    chain (``_cheb_pair_stream_bwd`` :953-964) apply them."""
-    def one(v):
-        return _apply_reference(slabs, lo, v, scales)
+    chain (``_cheb_pair_stream_bwd`` :953-964) apply them, pass by pass as
+    the kernel runs them (:func:`vn_pass_reference`): each sum and its
+    epilogue in float32, each result rounded to x's type, T1 before the
+    second application reads it (the module's notes)."""
+    def one(v, add=None, alpha=1.0, beta=0.0):
+        return vn_pass_reference(slabs, lo, v, add, alpha=alpha, beta=beta, scales=scales)
 
     if mode == "single":
-        y = one(x)
-        return y if scale == 1.0 else scale * y
+        return one(x, alpha=scale)
     if mode == "pair":
         t1 = one(x)
-        return t1, 2.0 * one(t1) - x
+        return t1, one(t1, x, 2.0, -1.0)
     if mode == "chain":
-        u = g + 2.0 * one(x)
-        return u, one(u) - x
+        u = one(x, g, 2.0, 1.0)
+        return u, one(u, x, 1.0, -1.0)
     raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
 
 
@@ -319,11 +362,17 @@ def banded_spmm_reference(slabs, lo, x, *, scales=None, scale: float = 1.0):
     return banded_vn_reference(slabs, lo, x, scales=scales, scale=scale)
 
 
+# the C entry point's value types of the slabs
+VALUE_TYPES = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+OPERAND_TYPES = (torch.float32, torch.bfloat16)
+
+
 def _vn_call(slabs, lo, x, g, mode: str, scales, scale: float, name: str, index):
     """The vn kernel in ``mode`` (one C call: one pass, or two for pair and
     chain) over the pack's nonzero ``index`` (built from the slabs at the
     first launch), counted under ``name``; the plain version for a CPU
-    tensor."""
+    tensor. A bf16 operand launches the bf16 variant; its outputs (and
+    ``mid``) are bf16."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
     if (g is not None) != (mode == "chain"):
@@ -336,63 +385,71 @@ def _vn_call(slabs, lo, x, g, mode: str, scales, scale: float, name: str, index)
     nbr, bs, w = slabs.shape
     if x.dim() != 2:
         raise ValueError(f"the vn kernel takes an operand [rows, N]; got {tuple(x.shape)}")
-    want = torch.int8 if scales is not None else torch.float32
-    if slabs.device != dev or slabs.dtype != want or not slabs.is_contiguous():
+    if x.dtype not in OPERAND_TYPES:
+        raise TypeError(f"the vn kernel takes a float32 or bf16 operand, got {x.dtype}")
+    int8 = slabs.dtype == torch.int8
+    if slabs.device != dev or slabs.dtype not in VALUE_TYPES or (scales is not None) != int8 \
+            or not slabs.is_contiguous():
         raise ValueError(f"the slabs are {slabs.dtype} on {slabs.device}; the vn kernel takes "
-                         f"contiguous [nbr, bs, w] slabs on {dev}, float32 without scales or "
-                         "int8 with them")
+                         f"contiguous [nbr, bs, w] slabs on {dev}, float32 or bf16 without "
+                         "scales or int8 with them")
     rows, n = x.shape
-    x_p = require(x, "x", (rows, n), dev)
-    g_p = require(g, "g", (rows, n), dev)
+    x_p = require(x, "x", (rows, n), dev, x.dtype)
+    g_p = require(g, "g", (rows, n), dev, x.dtype)
     scales_p = require(scales, "scales", (nbr, bs), dev)
     require_index(lo, "lo", (nbr,), dev)
     idx = nnz_index.current(index, slabs, lo, rows, transposed=False, name=name,
                             build=nnz_index.index_from_slabs)
     index_p = nnz_index.require(idx, rows, dev)
-    out = torch.empty((rows, n), device=dev, dtype=torch.float32)
+    out = torch.empty((rows, n), device=dev, dtype=x.dtype)
     mid = None if mode == "single" else torch.empty_like(out)
     err = _build.library().stgcn_banded_vn(
         slabs.data_ptr(), *index_p, scales_p, x_p, g_p, 0 if mid is None else mid.data_ptr(),
-        out.data_ptr(), nbr, bs, w, rows, n, int(scales is not None), MODES[mode],
-        float(scale), stream_of(dev))
+        out.data_ptr(), nbr, bs, w, rows, n, VALUE_TYPES[slabs.dtype],
+        int(x.dtype == torch.bfloat16), MODES[mode], float(scale), stream_of(dev))
     _build.check(f"banded_vn[{mode}]", err)
     count_launch(name)
     return out if mid is None else (mid, out)
 
 
+def _bf16(x) -> bool:
+    return x.dtype == torch.bfloat16
+
+
 def banded_spmm(slabs, lo, x, *, scales=None, scale: float = 1.0, index=None):
     """K7 (JAX ``banded_spmm`` :344, the TPU's K7a and K7b): ``scale · A x``
-    on the vn operand. ``slabs`` [nbr, bs, w] float32, or int8 with
+    on the vn operand. ``slabs`` [nbr, bs, w] float32 or bf16, or int8 with
     ``scales`` [nbr, bs]; ``lo`` [nbr] int32 on the operand's device;
     ``index`` the pack's :class:`~stgcn_tpu_torch.kernels.nnz_index.NnzIndex`
-    (the graph operator's; needed on the card); ``x`` [v_pad, N] float32,
-    any N. Returns [v_pad, N]. ``scale`` (the Chebyshev 2G step) is the
-    kernel's alpha; the slabs are never multiplied."""
+    (the graph operator's; needed on the card); ``x`` [v_pad, N] float32 or
+    bf16, any N. Returns [v_pad, N] in x's type. ``scale`` (the Chebyshev
+    2G step) is the kernel's alpha; the slabs are never multiplied."""
     return _vn_call(slabs, lo, x, None, "single", scales, scale,
-                    launch_name("single", scales is not None), index)
+                    launch_name("single", scales is not None, bf16=_bf16(x)), index)
 
 
 def banded_cheb_pair(slabs, lo, x, *, index=None):
     """K8 (JAX ``banded_cheb_pair`` :519): ``(A x, 2 A (A x) − x)`` on a
-    float32 pack, each [v_pad, N]."""
-    return _vn_call(slabs, lo, x, None, "pair", None, 1.0, launch_name("pair", resident=True),
-                    index)
+    float32 or bf16 pack, each [v_pad, N] in x's type."""
+    return _vn_call(slabs, lo, x, None, "pair", None, 1.0,
+                    launch_name("pair", resident=True, bf16=_bf16(x)), index)
 
 
 def banded_cheb_pair_stream(slabs, lo, x, *, scales=None, index=None):
     """K9's pair (JAX ``banded_cheb_pair_stream`` :875): ``(A x, 2 A (A x) −
-    x)``, float32 or int8 with ``scales``, each [v_pad, N]."""
+    x)``, float32 or bf16 slabs or int8 with ``scales``, each [v_pad, N] in
+    x's type."""
     return _vn_call(slabs, lo, x, None, "pair", scales, 1.0,
-                    launch_name("pair", scales is not None), index)
+                    launch_name("pair", scales is not None, bf16=_bf16(x)), index)
 
 
 def banded_chain_stream(slabs_t, lo_t, g2, g1, *, scales_t=None, index_t=None):
     """K9's chain (JAX ``banded_chain_stream`` :891) on the transpose pack
-    and its index: ``(u = g1 + 2 Aᵀ g2, Aᵀ u − g2)``, each [v_pad, N]. The
-    row factors multiply each sum before the doubling and the ``+ g1``
-    (:715-718)."""
+    and its index: ``(u = g1 + 2 Aᵀ g2, Aᵀ u − g2)``, each [v_pad, N] in
+    g2's type (g1 the same). The row factors multiply each sum before the
+    doubling and the ``+ g1`` (:715-718)."""
     return _vn_call(slabs_t, lo_t, g2, g1, "chain", scales_t, 1.0,
-                    launch_name("chain", scales_t is not None), index_t)
+                    launch_name("chain", scales_t is not None, bf16=_bf16(g2)), index_t)
 
 
 # --------------------------------------------------------------------------

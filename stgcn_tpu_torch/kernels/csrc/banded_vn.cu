@@ -3,7 +3,8 @@
 // K7b `_banded_pallas` :302, one application with x resident in VMEM or
 // streamed by DMA; K8 `banded_cheb_pair` :519 and K9 `_pair_stream_call`
 // :774, the Chebyshev pair and its VJP chain as wavefronts over a
-// sequential grid), float32 or int8 slabs.
+// sequential grid), float32, bf16 or int8 slabs under a float32 or bf16
+// operand.
 //
 // One application, with slab_i the row-major bs x w dense slab of block row
 // i over its column window starting at lo_i, and s the per-row dequant
@@ -15,6 +16,17 @@
 // n; x rows >= rows read as zero; output rows >= nbr*bs have no slab (A x
 // is zero there). The factor multiplies the float32 sum, as the TPU kernels
 // apply it (:217-218, :715-716).
+//
+// bf16 (the TPU's bf16 operands into an f32 accumulator, :214-219, :245-250):
+// a bf16 operand row is read as 16-byte vectors of eight (scalar where n %
+// 8 != 0 or an operand is not 16-byte aligned) and widened exactly; bf16
+// slab values widen exactly too. The sum is the float32 fmaf chain of the
+// float32 operand, the epilogue alpha * (acc * s) + beta * add runs in
+// float32, and its result is rounded once to bf16 (round to nearest even).
+// In pair and chain `mid` is stored in bf16, as the TPU kernel rounds T1
+// (`t1c`, :719-721, in chain from 2 * acc + g in float32, :718) before
+// stage 2 reads it; pass 2 reads that, and its out = round(y2 - x) from
+// float32 (:744-748).
 //
 // Modes (one C entry point, one or two launches of one kernel), as K5's:
 //   single: out = scale * A x
@@ -56,35 +68,60 @@
 
 #include "csr_rows.cuh"
 
+namespace {
+
+template <typename T, typename X>
+int run(const void* slabs, const int* row_ptr, const int* src, const int* off,
+        const float* scales, const void* x, const void* g, void* mid, void* out, int nbr,
+        int bs, int w, int rows, int n, int mode, float scale, cudaStream_t s) {
+  // VnPass: vals, row_stride, row_ptr, src, off, scales, live_rows, x, add, out, rows, bs,
+  // n, alpha, beta (the modes set x, add, out, alpha, beta)
+  return csr_rows::vn_modes<T, X>({static_cast<const T*>(slabs), (size_t)bs * w, row_ptr, src,
+                                   off, scales, nbr * bs, nullptr, nullptr, nullptr, rows, bs,
+                                   n, 1.0f, 0.0f},
+                                  static_cast<const X*>(x), static_cast<const X*>(g),
+                                  static_cast<X*>(mid), static_cast<X*>(out), mode, scale, s);
+}
+
+template <typename X>
+int run_x(int vals_type, const void* slabs, const int* row_ptr, const int* src, const int* off,
+          const float* scales, const void* x, const void* g, void* mid, void* out, int nbr,
+          int bs, int w, int rows, int n, int mode, float scale, cudaStream_t s) {
+  if (vals_type == 1)
+    return run<int8_t, X>(slabs, row_ptr, src, off, scales, x, g, mid, out, nbr, bs, w, rows,
+                          n, mode, scale, s);
+  if (vals_type == 2)
+    return run<csr_rows::bf16, X>(slabs, row_ptr, src, off, scales, x, g, mid, out, nbr, bs,
+                                  w, rows, n, mode, scale, s);
+  return run<float, X>(slabs, row_ptr, src, off, scales, x, g, mid, out, nbr, bs, w, rows, n,
+                       mode, scale, s);
+}
+
+}  // namespace
+
 extern "C" {
 
-// K7-K9. slabs [nbr, bs, w] float32 (int8 when `int8`); the pack's nonzero
-// index for `rows` operand rows: row_ptr [rows + 1], src and off [nnz]
-// int32, every src < rows and every off < bs*w; scales [nbr, bs] float32
-// (int8 only, else null); x, g, mid, out [rows, n] float32, any alignment;
-// g only for chain, mid for pair and chain. mode 0 single, 1 pair, 2 chain.
+// K7-K9. slabs [nbr, bs, w]: vals_type 0 float32, 1 int8, 2 bf16; the pack's
+// nonzero index for `rows` operand rows: row_ptr [rows + 1], src and off
+// [nnz] int32, every src < rows and every off < bs*w; scales [nbr, bs]
+// float32 (int8 only, else null); x, g, mid, out [rows, n], float32
+// (x_bf16 0) or bf16 (x_bf16 1), any alignment; g only for chain, mid for
+// pair and chain. mode 0 single, 1 pair, 2 chain.
 int stgcn_banded_vn(const void* slabs, const int* row_ptr, const int* src, const int* off,
-                    const float* scales, const float* x, const float* g, float* mid, float* out,
-                    int nbr, int bs, int w, int rows, int n, int int8, int mode, float scale,
-                    void* stream) {
+                    const float* scales, const void* x, const void* g, void* mid, void* out,
+                    int nbr, int bs, int w, int rows, int n, int vals_type, int x_bf16, int mode,
+                    float scale, void* stream) {
   if (bs <= 0 || w <= 0 || nbr <= 0 || rows < 0 || n < 0 || mode < 0 || mode > 2 ||
-      (int8 != 0) != (scales != nullptr) || (mode == 2 && g == nullptr) ||
+      vals_type < 0 || vals_type > 2 || x_bf16 < 0 || x_bf16 > 1 ||
+      (vals_type == 1) != (scales != nullptr) || (mode == 2 && g == nullptr) ||
       (mode != 0 && mid == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t stride = (size_t)bs * w;
-  const int live = nbr * bs;
-  // VnPass: vals, row_stride, row_ptr, src, off, scales, live_rows, x, add, out, rows, bs,
-  // n, alpha, beta (the modes set x, add, out, alpha, beta)
-  if (int8)
-    return csr_rows::vn_modes<int8_t>({static_cast<const int8_t*>(slabs), stride, row_ptr, src,
-                                       off, scales, live, nullptr, nullptr, nullptr, rows, bs, n,
-                                       1.0f, 0.0f},
-                                      x, g, mid, out, mode, scale, s);
-  return csr_rows::vn_modes<float>({static_cast<const float*>(slabs), stride, row_ptr, src, off,
-                                    nullptr, live, nullptr, nullptr, nullptr, rows, bs, n, 1.0f,
-                                    0.0f},
-                                   x, g, mid, out, mode, scale, s);
+  if (x_bf16)
+    return run_x<csr_rows::bf16>(vals_type, slabs, row_ptr, src, off, scales, x, g, mid, out,
+                                 nbr, bs, w, rows, n, mode, scale, s);
+  return run_x<float>(vals_type, slabs, row_ptr, src, off, scales, x, g, mid, out, nbr, bs, w,
+                      rows, n, mode, scale, s);
 }
 
 }  // extern "C"

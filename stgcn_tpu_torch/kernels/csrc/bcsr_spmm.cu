@@ -1,7 +1,8 @@
 // K10: BCSR SpMM on the vn operand [Vp, N] (replaces both TPU kernels of
 // stgcn_tpu/kernels/spmm.py: `_spmm_pallas_resident` :123, x resident in
 // VMEM, and `_spmm_pallas` :166, x streamed by DMA; on Hopper x lies in
-// device memory either way, so one kernel serves both), float32.
+// device memory either way, so one kernel serves both), float32 or bf16
+// tiles under a float32 or bf16 operand.
 //
 // With tiles[i, k] the row-major bs x bs tile of block row i at column
 // block cols[i, k], for k < counts[i]:
@@ -41,24 +42,46 @@
 
 #include "csr_rows.cuh"
 
-extern "C" {
+namespace {
 
-// K10. tiles [nbr, max_b, bs, bs] float32 row-major; the pack's nonzero
-// index row_ptr [nbr*bs + 1], src and off [nnz] int32; x, y [nbr*bs, n]
-// float32 row-major, any alignment (float4 only where both are 16-byte
-// aligned and n % 4 == 0). Needs bs % 16 == 0, every src < nbr*bs and every
-// off < max_b*bs*bs.
-int stgcn_bcsr_spmm(const float* tiles, const int* row_ptr, const int* src, const int* off,
-                    const float* x, float* y, int nbr, int max_b, int bs, int n, float alpha,
-                    void* stream) {
-  if (bs <= 0 || bs % 16 != 0 || nbr <= 0 || max_b <= 0 || n < 0 ||
-      (size_t)nbr * bs >= 0x7fffffffu)
-    return cudaErrorInvalidValue;
+template <typename T, typename X>
+int run(const void* tiles, const int* row_ptr, const int* src, const int* off, const void* x,
+        void* y, int nbr, int max_b, int bs, int n, float alpha, cudaStream_t s) {
   // VnPass: vals, row_stride, row_ptr, src, off, scales, live_rows, x, add, out, rows, bs,
   // n, alpha, beta
-  return csr_rows::vn_pass<float>({tiles, (size_t)max_b * bs * bs, row_ptr, src, off, nullptr,
-                                   0, x, nullptr, y, nbr * bs, bs, n, alpha, 0.0f},
-                                  static_cast<cudaStream_t>(stream));
+  return csr_rows::vn_pass<T, X>({static_cast<const T*>(tiles), (size_t)max_b * bs * bs,
+                                  row_ptr, src, off, nullptr, 0, static_cast<const X*>(x),
+                                  nullptr, static_cast<X*>(y), nbr * bs, bs, n, alpha, 0.0f},
+                                 s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K10. tiles [nbr, max_b, bs, bs] row-major, float32 (tiles_bf16 0) or bf16
+// (1); the pack's nonzero index row_ptr [nbr*bs + 1], src and off [nnz]
+// int32; x, y [nbr*bs, n] row-major, float32 (x_bf16 0) or bf16 (1), any
+// alignment (16-byte vectors only where both are 16-byte aligned and n is a
+// multiple of the vector: 4 float32 or 8 bf16). Needs bs % 16 == 0, every
+// src < nbr*bs and every off < max_b*bs*bs. A bf16 y is the float32 sum
+// times alpha, rounded once.
+int stgcn_bcsr_spmm(const void* tiles, const int* row_ptr, const int* src, const int* off,
+                    const void* x, void* y, int nbr, int max_b, int bs, int n, int tiles_bf16,
+                    int x_bf16, float alpha, void* stream) {
+  if (bs <= 0 || bs % 16 != 0 || nbr <= 0 || max_b <= 0 || n < 0 ||
+      (size_t)nbr * bs >= 0x7fffffffu || tiles_bf16 < 0 || tiles_bf16 > 1 || x_bf16 < 0 ||
+      x_bf16 > 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using csr_rows::bf16;
+  if (x_bf16)
+    return tiles_bf16 ? run<bf16, bf16>(tiles, row_ptr, src, off, x, y, nbr, max_b, bs, n, alpha, s)
+                      : run<float, bf16>(tiles, row_ptr, src, off, x, y, nbr, max_b, bs, n, alpha,
+                                         s);
+  return tiles_bf16 ? run<bf16, float>(tiles, row_ptr, src, off, x, y, nbr, max_b, bs, n, alpha, s)
+                    : run<float, float>(tiles, row_ptr, src, off, x, y, nbr, max_b, bs, n, alpha,
+                                        s);
 }
 
 }  // extern "C"

@@ -136,8 +136,9 @@ def apply_cv(x: torch.Tensor, drop: Drop | None, v_true: int) -> torch.Tensor:
 
 def apply_channels_last(x: torch.Tensor, drop: Drop | None) -> torch.Tensor:
     """Dropout of a channels-last ``[B, T, V, C]`` tensor with the mask of its
-    cv layout ``[B, T, C, V]``: the unfused model drops what the kernels drop."""
+    cv layout ``[B, T, C, V]``: the unfused model drops what the kernels drop.
+    A bf16 ``x`` is scaled in float32 and rounded once back to bf16."""
     if drop is None:
         return x
     b, t, v, c = x.shape
-    return x * keep_mask(drop, (b, t, c, v), v, device=x.device).transpose(2, 3)
+    return (x * keep_mask(drop, (b, t, c, v), v, device=x.device).transpose(2, 3)).to(x.dtype)

@@ -49,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from stgcn_tpu_torch.kernels import _build, nnz_index
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, refuse_bf16,
                                              refuse_value_grad, require, require_index,
                                              stream_of)
 
@@ -126,6 +126,7 @@ def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float
         raise ValueError("g_nv is given for mode 'chain' and only for it")
     if scale != 1.0 and mode != "single":
         raise ValueError("scale applies to mode 'single' only")
+    refuse_bf16("K6 (the blocked-ELL nv kernel)", pack.data, x_nv, g_nv)
     if on_cpu(x_nv):
         return ell_nv_reference(pack, x_nv, g_nv, mode, scale=scale)
     dev = cuda_device(x_nv)

@@ -25,7 +25,8 @@ dropout mask is keyed by element (:mod:`.dropout`), so the block drops what
 the unfused ``STConvBlock`` drops at the same site. Each wrapper runs its
 kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor
 (:func:`st_block_reference`; the backward's is autograd through it with the
-same mask), and counts its launches. The bf16 variant is not ported yet.
+same mask), and counts its launches. The bf16 variant is not ported yet: it
+comes after the fused bf16 slice, and raises until then.
 """
 
 from __future__ import annotations
@@ -193,7 +194,8 @@ def st_block_bwd_reference(cfg: FusedBlockConfig, x, gso, w, gy, drop: Drop | No
 def _check(cfg: FusedBlockConfig, drop: Drop | None) -> None:
     if cfg.precision != "default":
         raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 variant of K12 is "
-                                  "not ported yet")
+                                  "not ported yet; it comes after the fused bf16 slice "
+                                  "(ROADMAP.md §1)")
     if cfg.act_func not in ACT_CODES:
         raise ValueError(f"unknown act_func {cfg.act_func!r}")
     if cfg.graph_conv_type not in GRAPH_CONV_CODES:

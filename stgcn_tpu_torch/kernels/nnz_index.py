@@ -20,7 +20,9 @@ source vertex:
   tile, ``c·bs + b`` in a transposed ELL tile), ``a·w + k`` in a vn slab
   ``[bs, w]``, ``k·bs + b`` in an nv slab ``[w, bs]``.
 
-The values stay in the tiles or slabs: a kernel reads each one at ``off``.
+The values stay in the tiles or slabs: a kernel reads each one at ``off``,
+so the index is built from the values the kernel reads (a bf16 pack's bf16
+values: an entry that rounds to zero in bf16 is left out).
 The graph operators give each pack an unbuilt :class:`NnzIndex` (one for
 both directions of a symmetric GSO, which shares its pack), and the first
 CUDA launch builds it on the device from the values

@@ -40,8 +40,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device, drop_args,
-    on_cpu, require, stream_of, workspace)
+    ACT_CODES, BF16_SLICE, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device,
+    drop_args, on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.vertex_fused import (
     _cdot, gate_cv, ln_normalize_cv, ln_stats, masked_ln_sums, pad_channels_cv, tconv_cv)
@@ -121,8 +121,8 @@ def ofc_bwd_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, go
 
 def _check_cfg(cfg: OutHeadCfg) -> None:
     if cfg.precision != "default":
-        raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 kernel variants "
-                                  "are not ported yet")
+        raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 variants of K1-K4 "
+                                  f"are not ported yet; they come with {BF16_SLICE}")
     if cfg.act_func not in ACT_CODES:
         raise ValueError(f"unknown act_func {cfg.act_func!r}")
     if cfg.v_pad % LANES:

@@ -1,5 +1,6 @@
 """K10: BCSR SpMM on the vn operand ``[Vp, N]`` (port of
-``stgcn_tpu/kernels/spmm.py``, float32).
+``stgcn_tpu/kernels/spmm.py``): float32 or bf16 tiles under a float32 or
+bf16 operand.
 
 The operator of ``--graph_op bcsr``, which ``make_graph_op(kind="auto")``
 picks above 4096 vertices when the RCM band is too wide for the banded
@@ -20,13 +21,18 @@ from the tile values when they change), reading each value from the tiles
 at its offset and gathering the x rows it needs; any N, any alignment, no
 chunking. A scalar ``scale`` is the kernel's alpha, never multiplied into
 the pack (the JAX op copies the pack per call,
-``ops/graph_op.py:172-173``).
+``ops/graph_op.py:172-173``). A bf16 operand and bf16 tile values widen
+exactly to float32 and each output is one float32 sum times the scale,
+rounded once to the operand's type (the TPU kernel's ``acc.astype``,
+:96, :118); it is counted under ``bcsr_spmm_bf16``.
 
 :class:`BcsrSpmmVjp` is the autograd Function (JAX ``bcsr_spmm_vjp``
 :248-279): forward K10 on the pack; ``dx`` K10 on the transpose pack; the
 tile-value gradient K11 (:func:`stgcn_tpu_torch.kernels.sddmm.bcsr_sddmm`)
 times the scale, computed (and ``x`` saved for it) only when the tile
-values require grad. :func:`bcsr_spmm_reference` is the plain version.
+values require grad; K11's bf16 variant is not ported yet, so a bf16
+operand or pack whose tile values require grad raises. :func:`bcsr_spmm_reference`
+is the plain version.
 """
 
 from __future__ import annotations
@@ -37,12 +43,14 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, nnz_index
 from stgcn_tpu_torch.kernels import sddmm as _sddmm
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, require,
-                                             require_index, stream_of)
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, refuse_bf16,
+                                             require, require_index, stream_of)
 
 # elements of the plain version's largest temporary (one chunk of block rows)
 REF_CHUNK_ELEMS = 1 << 26
 LAUNCH_NAME = "bcsr_spmm"
+LAUNCH_NAME_BF16 = "bcsr_spmm_bf16"   # a bf16 operand
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 
 class BcsrPack(NamedTuple):
@@ -51,7 +59,7 @@ class BcsrPack(NamedTuple):
     ``torch.no_grad`` (the index follows its version counter), not through
     ``data.data``, or call ``index.invalidate()`` after."""
 
-    data: torch.Tensor     # [nbr, max_b, bs, bs] float32 row-major tiles
+    data: torch.Tensor     # [nbr, max_b, bs, bs] float32 or bf16 row-major tiles
     cols: torch.Tensor     # [nbr, max_b] int32 column blocks (padding: 0)
     counts: torch.Tensor   # [nbr] int32 live tiles per block row
     index: nnz_index.NnzIndex | None = None   # the nonzeros K10 walks
@@ -64,24 +72,27 @@ class BcsrPack(NamedTuple):
 def bcsr_spmm_reference(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0
                         ) -> torch.Tensor:
     """Plain version of :func:`bcsr_spmm`: the JAX ``bcsr_spmm_reference``
-    (:38-48), gather x tiles per (row, slot) and contract, chunked over
-    block rows. Padding tiles are all zero, so no count masking is needed."""
+    (:38-48), gather x tiles per (row, slot) and contract in float32,
+    chunked over block rows, the result times ``scale`` rounded to x's
+    type. Padding tiles are all zero, so no count masking is needed."""
     nbr, max_b, bs, _ = pack.data.shape
     n = x_vn.shape[1]
     xb = x_vn.reshape(nbr, bs, n)
     rows = max(1, REF_CHUNK_ELEMS // (max_b * bs * max(n, bs)))
-    ys = [torch.einsum("rkab,rkbn->ran", pack.data[s:s + rows],
-                       xb[pack.cols[s:s + rows].long()])
+    ys = [torch.einsum("rkab,rkbn->ran", pack.data[s:s + rows].float(),
+                       xb[pack.cols[s:s + rows].long()].float())
           for s in range(0, nbr, rows)]
     y = torch.cat(ys).reshape(nbr * bs, n)
-    return y if scale == 1.0 else scale * y
+    return (y if scale == 1.0 else scale * y).to(x_vn.dtype)
 
 
 def bcsr_spmm(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-    """K10. ``pack`` (with its nonzero index) on the operand's device;
-    ``x_vn`` ``[nbr·bs, N]`` float32, any N, any alignment (float4 loads
-    where it is 16-byte aligned and N % 4 == 0, scalar ones otherwise).
-    Returns ``scale · (A x)``, ``[nbr·bs, N]``."""
+    """K10. ``pack`` (float32 or bf16 tiles, with its nonzero index) on the
+    operand's device; ``x_vn`` ``[nbr·bs, N]`` float32 or bf16, any N, any
+    alignment (16-byte loads, four float32 or eight bf16, where it is
+    16-byte aligned and N is a multiple of the vector; scalar ones
+    otherwise). Returns ``scale · (A x)``, ``[nbr·bs, N]`` in x's type,
+    counted under ``bcsr_spmm`` or, for a bf16 operand, ``bcsr_spmm_bf16``."""
     if on_cpu(x_vn):
         return bcsr_spmm_reference(pack, x_vn, scale=scale)
     dev = cuda_device(x_vn)
@@ -90,22 +101,26 @@ def bcsr_spmm(pack: BcsrPack, x_vn: torch.Tensor, *, scale: float = 1.0) -> torc
         raise ValueError(f"K10 needs bs % 64 == 0 and an operand [nbr·bs = {nbr * bs}, N]; got "
                          f"bs={bs}, operand {tuple(x_vn.shape)}")
     data = pack.data
-    if data.device != dev or data.dtype != torch.float32 or not data.is_contiguous() \
+    if data.device != dev or data.dtype not in FLOAT_TYPES or not data.is_contiguous() \
             or data.shape[2:] != (bs, bs):
         raise ValueError(f"the tiles are {data.dtype} {tuple(data.shape)} on {data.device}; K10 "
-                         f"takes contiguous float32 [nbr, max_b, bs, bs] tiles on {dev}")
+                         f"takes contiguous float32 or bf16 [nbr, max_b, bs, bs] tiles on {dev}")
+    if x_vn.dtype not in FLOAT_TYPES:
+        raise TypeError(f"K10 takes a float32 or bf16 operand, got {x_vn.dtype}")
     require_index(pack.cols, "cols", (nbr, max_b), dev)
     require_index(pack.counts, "counts", (nbr,), dev)
-    x_p = require(x_vn, "x_vn", tuple(x_vn.shape), dev)
+    x_p = require(x_vn, "x_vn", tuple(x_vn.shape), dev, x_vn.dtype)
     idx = nnz_index.current(pack.index, data, pack.cols, pack.counts, transposed=False,
                             name="K10")
     index_p = nnz_index.require(idx, nbr * bs, dev)
-    out = torch.empty(x_vn.shape, device=dev, dtype=torch.float32)
+    out = torch.empty(x_vn.shape, device=dev, dtype=x_vn.dtype)
+    bf16 = x_vn.dtype == torch.bfloat16
     err = _build.library().stgcn_bcsr_spmm(data.data_ptr(), *index_p, x_p, out.data_ptr(), nbr,
-                                           max_b, bs, x_vn.shape[1], float(scale),
-                                           stream_of(dev))
+                                           max_b, bs, x_vn.shape[1],
+                                           int(data.dtype == torch.bfloat16), int(bf16),
+                                           float(scale), stream_of(dev))
     _build.check("bcsr_spmm", err)
-    count_launch(LAUNCH_NAME)
+    count_launch(LAUNCH_NAME_BF16 if bf16 else LAUNCH_NAME)
     return out
 
 
@@ -119,6 +134,9 @@ class BcsrSpmmVjp(torch.autograd.Function):
     def forward(ctx, x_vn, data, pack, pack_t, scale):
         ctx.pack, ctx.pack_t, ctx.scale = pack, pack_t, scale
         if ctx.needs_input_grad[1]:
+            refuse_bf16("the BCSR tile-value gradient (K11)", x_vn, data,
+                        where="the bf16 variants of K11 and K12, after the fused bf16 slice "
+                              "(ROADMAP.md §1)")
             ctx.save_for_backward(x_vn)
         return bcsr_spmm(pack._replace(data=data), x_vn, scale=scale)
 

@@ -33,8 +33,10 @@ notes say what bounds each kernel and how the design answers it. Every
 wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_reference``; the backward ones are autograd through the forward ones
 with the same mask) on a CPU tensor, and counts its kernel launches
-(:func:`stgcn_tpu_torch.kernels.launch_counts`). The bf16 variants
-(``precision="bfloat16"`` on the TPU) are not ported yet and raise.
+(:func:`stgcn_tpu_torch.kernels.launch_counts`). Their bf16 variants
+(``precision="bfloat16"`` on the TPU) come with the fused bf16 slice of the
+port and raise until then; the unfused bf16 model runs (its graph kernels
+K7-K10 have bf16 variants).
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device, drop_args,
-    on_cpu, require, stream_of, workspace)
+    ACT_CODES, BF16_SLICE, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device,
+    drop_args, on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 
 
@@ -225,8 +227,8 @@ def tail_bwd_reference(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss, relu_m
 
 def _check_cfg(cfg: VertexBlockCfg) -> None:
     if cfg.precision != "default":
-        raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 kernel variants "
-                                  "are not ported yet")
+        raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 variants of K1-K4 "
+                                  f"are not ported yet; they come with {BF16_SLICE}")
     if cfg.act_func not in ACT_CODES:
         raise ValueError(f"unknown act_func {cfg.act_func!r}")
     if cfg.v_pad % LANES:

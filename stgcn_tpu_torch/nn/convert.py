@@ -10,7 +10,11 @@ layouts:
 - LayerNorm ``scale`` ↔ ``weight``, both ``[V, C]``;
 - Chebyshev / GraphConv ``weight`` and every ``bias``: unchanged.
 
-Both directions are exact (a transpose is a copy of the same floats).
+Both directions are exact (a transpose is a copy of the same floats). A
+bf16 leaf (the LayerNorm affine under ``ln_param_dtype=bfloat16``) comes in
+as a torch bf16 tensor bit for bit, through its 16-bit pattern (numpy's
+bf16 is a type of its own that ``torch.from_numpy`` does not take), and
+goes out as float32, which holds every bf16 value exactly.
 """
 
 from __future__ import annotations
@@ -30,6 +34,18 @@ def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v)
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr).copy()
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """flax param tree (nested dicts of arrays) → port ``state_dict``."""
     out = {}
@@ -41,7 +57,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             arr, leaf = arr.T, "weight"
         elif leaf == "scale":
             leaf = "weight"
-        out[".".join([*mods, leaf])] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        out[".".join([*mods, leaf])] = _tensor(arr)
     return out
 
 
@@ -50,10 +66,10 @@ def params_to_jax(module: nn.Module) -> dict:
     tree: dict = {}
     for mname, mod in module.named_modules():
         if isinstance(mod, L.CausalConv):
-            leaves = {"kernel": mod.weight.detach().cpu().numpy().transpose(2, 3, 1, 0),
+            leaves = {"kernel": _array(mod.weight).transpose(2, 3, 1, 0),
                       "bias": mod.bias}
         elif isinstance(mod, nn.Linear):
-            leaves = {"kernel": mod.weight.detach().cpu().numpy().T, "bias": mod.bias}
+            leaves = {"kernel": _array(mod.weight).T, "bias": mod.bias}
         elif isinstance(mod, nn.LayerNorm):
             leaves = {"scale": mod.weight, "bias": mod.bias}
         elif isinstance(mod, (L.ChebGraphConv, L.GraphConv)):
@@ -67,6 +83,6 @@ def params_to_jax(module: nn.Module) -> dict:
             if v is None:
                 continue
             if isinstance(v, torch.Tensor):
-                v = v.detach().cpu().numpy()
+                v = _array(v)
             node[k] = np.ascontiguousarray(v).copy()
     return tree

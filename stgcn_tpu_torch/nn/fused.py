@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from stgcn_tpu_torch.kernels import dropout
+from stgcn_tpu_torch.kernels._launch import refuse_bf16_model
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.fused_stblock import fused_st_block, gate_nm, tconv_nm
 from stgcn_tpu_torch.kernels.vertex_fused import gate_cv, pad_channels_cv
@@ -78,6 +79,7 @@ def fused_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, *,
         raise TypeError(f"fused_forward needs a dense graph operator (gop.matrix); "
                         f"{type(gop).__name__} has none: use fused_sparse_forward or the "
                         "unfused model")
+    refuse_bf16_model(model, "fused_forward")
     training = not deterministic and model.droprate > 0.0
     if training and seed is None:
         raise ValueError("training with dropout needs the step's dropout seed (seed=...)")

@@ -41,7 +41,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from stgcn_tpu_torch.kernels._launch import LANES
+from stgcn_tpu_torch.kernels._launch import LANES, refuse_bf16_model
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.fused_stblock import block_weights
 from stgcn_tpu_torch.kernels.output_head import output_head_fused
@@ -129,6 +129,7 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     :func:`stgcn_tpu_torch.kernels.dropout.step_seed`) keys the masks.
     Returns ``[B, 1, V, 1]`` float32.
     """
+    refuse_bf16_model(model, "fused_sparse_forward")
     training = not deterministic and model.droprate > 0.0
     if training and seed is None:
         raise ValueError("training with dropout needs the step's dropout seed (seed=...)")

@@ -4,6 +4,12 @@ One class covers both reference variants (`model/models.py:6-103`): the
 Cheb/1st-order split is a config field. Input ``[B, n_his, V, 1]``
 (channels-last), output ``[B, T_out, V, 1]`` with ``T_out = 1`` for every
 valid config. The graph operator is a call argument.
+
+The JAX model's precision and memory fields (``nn/model.py:64-69``) are
+``dtype`` (None, float32; ``torch.bfloat16`` runs the layers in bf16 with
+float32 parameters), ``ln_param_dtype`` (the LayerNorm affine's own type)
+and ``remat`` (each ST block recomputed in its backward, the graph terms
+kept: :class:`~stgcn_tpu_torch.nn.layers.STConvBlock`).
 """
 
 from __future__ import annotations
@@ -55,19 +61,32 @@ class STGCN(nn.Module):
     """Spatio-temporal GCN: ``stblock_num`` × STConvBlock + output head.
 
     Parameters are drawn from ``generator`` (default: a CPU generator seeded
-    with 0) and live on ``device``, which defaults to ``"cuda"``."""
+    with 0) and live on ``device``, which defaults to ``"cuda"``. ``dtype``
+    is the compute dtype (None or ``torch.float32``: float32;
+    ``torch.bfloat16``: mixed precision, the parameters float32 but the
+    LayerNorm affine's, which is ``ln_param_dtype``); ``remat`` recomputes
+    each ST block in its backward. The output is float32 either way."""
 
     def __init__(self, n_his: int, n_vertex: int, kt: int = 3, ks: int = 3,
                  blocks: Sequence[Sequence[int]] | None = None, stblock_num: int = 2,
                  act_func: str = "glu", graph_conv_type: str = "cheb_graph_conv",
                  use_bias: bool = True, droprate: float = 0.5, *,
+                 dtype: torch.dtype | None = None,
+                 ln_param_dtype: torch.dtype = torch.float32, remat: bool = False,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         dev = resolve_device(device)
+        if dtype == torch.float32:
+            dtype = None
+        if dtype not in (None, torch.bfloat16) or ln_param_dtype not in (torch.float32,
+                                                                         torch.bfloat16):
+            raise ValueError(f"dtype {dtype} / ln_param_dtype {ln_param_dtype}: the model "
+                             "computes in float32 or bfloat16")
         self.n_his, self.n_vertex, self.kt, self.ks = n_his, n_vertex, kt, ks
         self.stblock_num, self.act_func = stblock_num, act_func
         self.graph_conv_type, self.use_bias, self.droprate = graph_conv_type, use_bias, droprate
+        self.dtype, self.ln_param_dtype, self.remat = dtype, ln_param_dtype, remat
         self.blocks = None if blocks is None else [list(b) for b in blocks]
         blocks, ko = self.plan()
         if ko == 1:
@@ -79,12 +98,16 @@ class STGCN(nn.Module):
         for l in range(len(blocks) - 3):
             self.add_module(f"st_block_{l}", L.STConvBlock(
                 kt, ks, n_vertex, blocks[l][-1], tuple(blocks[l + 1]), act_func,
-                graph_conv_type, use_bias, device=dev))
+                graph_conv_type, use_bias, device=dev, dtype=dtype,
+                ln_param_dtype=ln_param_dtype, remat=remat))
         if ko > 1:
             self.output = L.OutputBlock(ko, n_vertex, blocks[-3][-1], tuple(blocks[-2]),
-                                        blocks[-1][0], act_func, use_bias, device=dev)
+                                        blocks[-1][0], act_func, use_bias, device=dev,
+                                        dtype=dtype, ln_param_dtype=ln_param_dtype)
         else:  # ko == 0 — fc head (`models.py:38-42,48-51`); its dropout is
-            # defined there but never applied in forward — mirrored here
+            # defined there but never applied in forward — mirrored here. As in
+            # the JAX model its Dense layers have no dtype: they compute in the
+            # promoted type of their input and float32 weights
             self.fc1 = L.Linear(blocks[-3][-1], blocks[-2][0], bias=use_bias, device=dev)
             self.fc2 = L.Linear(blocks[-2][0], blocks[-1][0], bias=use_bias, device=dev)
         if generator is None:

@@ -23,6 +23,17 @@ to the layers at call time:
   (:mod:`stgcn_tpu_torch.kernels.spmm`) on the folded ``[V, N]`` operand:
   what ``auto`` picks above 4096 vertices when the RCM band is too wide for
   the banded slabs (the 1M-vertex road graph), as in the JAX package.
+
+Every kind but ELL takes a bf16 operand (the JAX package's
+``STGCN(dtype=bfloat16)``): ``dense_graph_op``, ``banded_graph_op`` and
+``bcsr_graph_op`` also pack their values in ``dtype=torch.bfloat16``, as
+the JAX builders do, and the sparse surfaces return x's dtype, their
+kernels summing in float32 (K7-K10's bf16 variants). The dense
+``__call__`` promotes as the JAX ``einsum`` does (a float32 matrix and a
+bf16 operand give a float32 product); its cv and nv surfaces cast the
+matrix to x's dtype. The nv kernels (K5, K6: the ELL operator, the banded
+nv surfaces) raise ``NotImplementedError`` on bf16 until the fused bf16
+slice of the port brings their bf16 variants.
 """
 
 from __future__ import annotations
@@ -100,9 +111,10 @@ class DenseGraphOp:
         return torch.matmul(x_cv, mat.T)
 
     def cheb_pair_cv(self, x_cv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(G·x, 2G(G·x) − x)`` on the last-axis operand (`model/layers.py:158-161`)."""
+        """``(G·x, 2G(G·x) − x)`` on the last-axis operand (`model/layers.py:158-161`),
+        ``2·y − x`` in float32 and rounded once to x's dtype, as in JAX."""
         t1 = self.apply_cv(x_cv)
-        return t1, 2.0 * self.apply_cv(t1) - x_cv
+        return t1, (2.0 * self.apply_cv(t1).float() - x_cv.float()).to(x_cv.dtype)
 
     def apply_nv(self, x_nv: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
         """``[N, W] → [N, W]``: the same product on a 2-D operand."""
@@ -112,12 +124,15 @@ class DenseGraphOp:
 
     def cheb_pair_nv(self, x_nv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         t1 = self.apply_nv(x_nv)
-        return t1, 2.0 * self.apply_nv(t1) - x_nv
+        return t1, (2.0 * self.apply_nv(t1).float() - x_nv.float()).to(x_nv.dtype)
 
     def __call__(self, x: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-        """Channels-last ``[..., V, C]`` application."""
+        """Channels-last ``[..., V, C]`` application, in the promoted type of
+        the matrix and x (the JAX ``einsum``: a float32 matrix lifts a bf16
+        operand, exactly)."""
         mat = self.matrix if scale == 1.0 else self.matrix * scale
-        return torch.einsum("uv,...vc->...uc", mat, x)
+        dt = torch.promote_types(mat.dtype, x.dtype)
+        return torch.einsum("uv,...vc->...uc", mat.to(dt), x.to(dt))
 
 
 class _NvSurfaces:
@@ -370,14 +385,15 @@ def _slab_indexes(**slabs: torch.Tensor | None) -> dict[str, NnzIndex]:
             for name, t in slabs.items() if t is not None}
 
 
-def banded_graph_op(gso: GraphShiftOperator, *, quantize: bool = False,
-                    block_size: int | None = None, stream: bool = True, nv: bool = False,
-                    nv_only: bool = False, device: str | torch.device = "cuda") -> BandedGraphOp:
+def banded_graph_op(gso: GraphShiftOperator, *, dtype: torch.dtype = torch.float32,
+                    quantize: bool = False, block_size: int | None = None, stream: bool = True,
+                    nv: bool = False, nv_only: bool = False,
+                    device: str | torch.device = "cuda") -> BandedGraphOp:
     """The JAX ``banded_graph_op`` (:446-537), packed on the device.
 
     ``stream`` or ``quantize``: block-aligned, diagonal-containing windows
-    (``col_align = bs``), the pack of the streaming pair K9, float32 or int8
-    with per-row scales; ``nv`` adds the pre-transposed nv family for K5,
+    (``col_align = bs``), the pack of the streaming pair K9, ``dtype``
+    (float32 or bf16) or int8 with per-row scales; ``nv`` adds the pre-transposed nv family for K5,
     ``nv_only`` keeps only that one. A symmetric GSO (every ``sym_*``
     normalization, up to rounding) reuses one pack for the transpose;
     ``v_pad`` is the pack's natural one (the max of both directions).
@@ -390,13 +406,14 @@ def banded_graph_op(gso: GraphShiftOperator, *, quantize: bool = False,
     dev = resolve_device(device)
     if not (stream or quantize):
         slabs, lo, slabs_t, lo_t, v_pad = bk.pack_banded_with_transpose(
-            gso.matrix, block_size=bs, device=dev)
+            gso.matrix, block_size=bs, dtype=dtype, device=dev)
         return BandedGraphOp(slabs=slabs, lo=torch.from_numpy(lo).to(dev), slabs_t=slabs_t,
                              lo_t=torch.from_numpy(lo_t).to(dev), n_vertex=gso.n_vertex,
                              v_pad=v_pad, pair_safe=bk.cheb_pair_wavefront_safe(lo, bs),
                              **_slab_indexes(slabs=slabs, slabs_t=slabs_t))
 
-    dtype = torch.int8 if quantize else torch.float32
+    if quantize:
+        dtype = torch.int8
     csr = sp.csr_matrix(gso.matrix)
     csr_t = csr.T.tocsr()
     symmetric = effectively_symmetric(csr)
@@ -458,9 +475,10 @@ def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bo
 
 
 def bcsr_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
+                  dtype: torch.dtype = torch.float32,
                   device: str | torch.device = "cuda") -> BcsrGraphOp:
-    """The JAX ``bcsr_graph_op`` (:420-442), packed on the device, float32,
-    256 × 256 tiles as its default. A symmetric GSO (every ``sym_*``
+    """The JAX ``bcsr_graph_op`` (:420-442), packed on the device, float32
+    (or ``dtype=torch.bfloat16``), 256 × 256 tiles as its default. A symmetric GSO (every ``sym_*``
     normalization, up to rounding) reuses the forward pack for the
     transpose — the same device tensors; the JAX op packs ``Aᵀ`` apart
     (:434), the same numbers, and at 1M vertices 26.6 GB where one pack is
@@ -470,7 +488,8 @@ def bcsr_graph_op(gso: GraphShiftOperator, *, block_size: int = 256,
     csr = sp.csr_matrix(gso.matrix)
 
     def pack(m):
-        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, device=dev), NnzIndex())
+        return sk.BcsrPack(*pack_bcsr_device(m, block_size=block_size, dtype=dtype, device=dev),
+                           NnzIndex())
 
     fwd = pack(csr)
     return BcsrGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),
@@ -491,7 +510,8 @@ def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
                   ) -> DenseGraphOp | BandedGraphOp | EllGraphOp | BcsrGraphOp:
     """Pick a representation (the JAX rule, ``ops/graph_op.py:574-601``):
     ``auto`` as :func:`auto_kind`; ``banded_int8``, ``ell`` / ``ell_int8``
-    and ``bcsr`` are asked for by name, as in the JAX package."""
+    and ``bcsr`` are asked for by name, as in the JAX package. ``dtype``
+    (the dense, banded and BCSR kinds) goes to the builder."""
     if kind == "auto":
         kind = auto_kind(gso)
     if kind == "dense":

@@ -13,8 +13,18 @@ kernels (K1-K4 forward, K1b-K4b backward); evaluation on a dense graph
 operator runs the unfused forward, as the JAX trainer does
 (`stgcn_tpu/train/loop.py:157-166`). Dropout masks are keyed by element from
 ``(seed, global step)`` (:func:`~stgcn_tpu_torch.kernels.dropout.step_seed`),
-so the fused and unfused routes drop the same elements and a resumed run
-repeats the uninterrupted one.
+so the fused and unfused routes drop the same elements, a resumed run
+repeats the uninterrupted one, and a recompute under remat draws its mask
+again.
+
+Mixed precision and remat are the model's (``STGCN(dtype=torch.bfloat16,
+remat=True)``, which the CLI builds from ``compute_dtype`` and ``remat``):
+the unfused model trains in bf16 with float32 parameters, gradients and
+optimizer state (the LayerNorm affine's in ``ln_param_dtype``), as in the
+JAX package; a ``TrainConfig`` whose ``compute_dtype`` or ``remat``
+disagrees with the model's raises ``ValueError``. The fused route raises
+``NotImplementedError`` for either until the fused bf16 slice of the port brings its kernels' bf16 variants
+and ``fused_sparse_forward(remat=...)``.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 from stgcn_tpu_torch.data.datasets import (
     ForecastDataset, ZScoreScaler, gather_windows, window_starts)
 from stgcn_tpu_torch.device import resolve_device
+from stgcn_tpu_torch.kernels._launch import BF16_SLICE, refuse_bf16_model
 from stgcn_tpu_torch.kernels.dropout import step_seed
 from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
 from stgcn_tpu_torch.train import metrics as M
@@ -60,8 +71,8 @@ class TrainConfig:
     patience: int = 10
     seed: int = 42
     shuffle: bool = False  # reference quirk: no shuffling even in training
-    compute_dtype: str | None = None  # 'bfloat16' is not ported yet
-    remat: bool = False  # activation recompute per ST block: not ported yet
+    compute_dtype: str | None = None  # 'bfloat16' for mixed-precision training (unfused)
+    remat: bool = False  # recompute per ST block (the model's; unfused)
     fused: bool = False  # train through the vertex-fused kernels
     # io
     ckpt_dir: str = "checkpoints/run"
@@ -81,11 +92,22 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError("a device mesh (data / graph parallel training) comes "
                                       "with the dist slice of the port")
-        if config.compute_dtype not in (None, "float32"):
-            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r}: the bf16 model "
-                                      "path and kernel variants come with a later slice")
-        if config.remat:
-            raise NotImplementedError("remat (recompute per ST block) comes with a later slice")
+        if config.compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {config.compute_dtype!r}: float32 or bfloat16")
+        want_dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
+        if config.fused:
+            # the unfused model trains in bf16 and with remat; the fused kernels'
+            # bf16 variants and the fused route's remat are not ported yet
+            refuse_bf16_model(model, "fused training")
+            if want_dtype is not None or config.remat or model.remat:
+                raise NotImplementedError(
+                    f"fused training with {'remat' if want_dtype is None else 'bf16'} is not "
+                    f"ported yet; it comes with {BF16_SLICE}, with "
+                    "fused_sparse_forward(remat=, remat_policy=)")
+        if model.dtype != want_dtype or model.remat != config.remat:
+            raise ValueError(f"compute_dtype {config.compute_dtype!r} / remat {config.remat} "
+                             f"disagree with the model's dtype {model.dtype} / remat "
+                             f"{model.remat}: the model's fields decide how it trains")
         self.cfg = config
         self.model = model.to(self.device)
         self.gop = gop

@@ -240,8 +240,8 @@ def test_banded_pack_refuses_what_is_not_ported():
     _, _, tart = banded_gsos()
     with pytest.raises(ValueError, match="v_pad"):
         tbs.pack_banded_device(tart.matrix, v_pad=128, device="cpu")
-    with pytest.raises(TypeError, match="float32 or int8"):   # bf16 packs: the bf16 slice
-        tbs.pack_banded_device(tart.matrix, dtype=torch.bfloat16, device="cpu")
+    with pytest.raises(TypeError, match="float32"):   # float32, bf16 or int8 packs only
+        tbs.pack_banded_device(tart.matrix, dtype=torch.float16, device="cpu")
     with pytest.raises(ValueError, match="chain"):
         tnv.stream_nv(torch.zeros(1, 256, 256), torch.zeros(1, dtype=torch.int32),
                       torch.zeros(2, 256), mode="chain")

@@ -121,8 +121,9 @@ def test_main_trains_on_the_banded_op_and_prints_the_test_line(tmp_path, capsys)
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--compute_dtype", "bfloat16"], "bf16"),
-    (["--remat", "True"], "remat"),
+    # bf16 and remat run unfused (tests/test_torch_bf16.py); fused they raise
+    (["--compute_dtype", "bfloat16", "--fused", "True"], "bf16"),
+    (["--remat", "True", "--fused", "True"], "remat"),
     (["--mesh_data", "2"], "dist"),
     (["--distributed"], "dist"),
     (["--profile_dir", "trace"], "profiling"),

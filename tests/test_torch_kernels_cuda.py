@@ -1,6 +1,8 @@
 """The CUDA kernels K1-K4, their backward kernels K1b-K4b, the banded nv
-SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8), the
-blocked-ELL nv SpMM K6, the BCSR SpMM K10 and SDDMM K11 and the whole dense
+SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8, and its
+bf16 variant over f32, bf16 and int8 slabs), the blocked-ELL nv SpMM K6, the
+BCSR SpMM K10 (f32, and its bf16 variant over f32 and bf16 tiles) and SDDMM
+K11 and the whole dense
 ST block K12f / K12b against their plain PyTorch versions, on a card; the
 kernels' dropout masks against the plain mask bit for bit; the nonzero
 index that K5, K6, K7-K9 and K10 walk, built once per pack on the card.
@@ -918,6 +920,189 @@ def test_vn_wrapper_rejects_what_the_kernel_does_not_take(dev):
         bvn.banded_chain_stream(op.slabs_t, op.lo_t, x, None, scales_t=op.scales_t)
     with pytest.raises(ValueError, match="no nonzero index"):   # the card walks the index
         bvn.banded_spmm(op.slabs, op.lo, x, scales=op.scales)
+
+
+# --- the bf16 variants of the vn kernel (K7-K9) and of K10 -------------------
+
+BF16_REL = 2.0 ** -7   # two ulps of bf16 (kernel and plain version round at the same points)
+BF16_LOOSE = 2.0 ** -6   # a whole pair or chain against its plain version (see _vn_bf16_check)
+
+
+def _bf16_close(got, ref, *, add=None, rel=BF16_REL):
+    """Each element within ``rel · (|ref| + |add|)`` plus a floor of
+    1e-4 · min(1, max |ref|) (the float32 sums run in another order)."""
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    g, r = got.float(), ref.float()
+    assert torch.isfinite(g).all()
+    scale = r.abs() if add is None else r.abs() + add.float().abs()
+    d = (g - r).abs()
+    bad = d > rel * scale + 1e-4 * min(1.0, float(r.abs().max()))
+    assert not bad.any(), f"{int(bad.sum())} of {bad.numel()} elements, max |Δ| {float(d.max())}"
+
+
+def _vn_bf16_check(slabs, lo, x, g, mode, scales, got):
+    """A bf16 vn call's outputs against its plain version: ``single`` and
+    ``mid`` within two ulps; the second pass within two ulps of its plain
+    version fed with the kernel's own ``mid`` (a ``mid`` an ulp apart would
+    move it further where ``2·A·mid`` and ``x`` cancel); the whole against
+    the plain version within ``BF16_LOOSE · (|ref| + |x|)``."""
+    ref = bvn.banded_vn_reference(slabs, lo, x, g, mode, scales=scales)
+    if mode == "single":
+        _bf16_close(got, ref)
+        return
+    _bf16_close(got[0], ref[0])
+    alpha, beta = (2.0, -1.0) if mode == "pair" else (1.0, -1.0)
+    _bf16_close(got[1], bvn.vn_pass_reference(slabs, lo, got[0], x, alpha=alpha, beta=beta,
+                                              scales=scales))
+    _bf16_close(got[1], ref[1], add=x, rel=BF16_LOOSE)
+
+
+# launch name -> (wrapper, mode, slabs, the operator's arguments)
+VN_BF16_CASES = {
+    f"{name}/{slabs}": (wrapper, mode, slabs, {**kw, **({"quantize": True} if slabs == "int8"
+                                                        else {"dtype": torch.bfloat16}
+                                                        if slabs == "bf16" else {})})
+    for name, (wrapper, mode, kw) in {
+        "vn_single_bf16": (bvn.banded_spmm, "single", {}),
+        "vn_pair_resident_bf16": (bvn.banded_cheb_pair, "pair", {"stream": False}),
+        "vn_pair_bf16": (bvn.banded_cheb_pair_stream, "pair", {}),
+        "vn_chain_bf16": (bvn.banded_chain_stream, "chain", {})}.items()
+    for slabs in ("f32", "bf16", "int8") if name != "vn_pair_resident_bf16" or slabs != "int8"
+}
+
+
+@pytest.mark.parametrize("n", [480, 97])        # 16-byte vectors of eight, and scalar steps
+@pytest.mark.parametrize("case", sorted(VN_BF16_CASES))
+def test_vn_bf16_matches_plain(dev, case, n):
+    """The bf16 variant of every vn wrapper (K7, K8 on the clamped pack, K9
+    pair and chain) with a bf16 operand over float32, bf16 and int8 slabs of
+    a non-symmetric GSO, against its plain version in bf16 (the same
+    rounding points); a repeat launch bit-identical, counted under the
+    ``_bf16`` name."""
+    wrapper, mode, slabs_kind, kw = VN_BF16_CASES[case]
+    op = _banded_op(dev, 600, 256, "rw_norm_lap", **kw)
+    assert op.slabs.dtype == {"f32": torch.float32, "bf16": torch.bfloat16,
+                              "int8": torch.int8}[slabs_kind]
+    rng = np.random.default_rng(7)
+    x = _rand(rng, dev, op.v_pad, n).bfloat16()
+    g = _rand(rng, dev, op.v_pad, n).bfloat16() if mode == "chain" else None
+    slabs, lo, sc, index = ((op.slabs_t, op.lo_t, op.scales_t, op.index_t) if mode == "chain"
+                            else (op.slabs, op.lo, op.scales, op.index))
+    kwargs = {}
+    if sc is not None:
+        kwargs["scales_t" if mode == "chain" else "scales"] = sc
+    kwargs["index_t" if mode == "chain" else "index"] = index
+    args = (slabs, lo, x, g) if mode == "chain" else (slabs, lo, x)
+    name = bvn.launch_name(mode, sc is not None, resident=wrapper is bvn.banded_cheb_pair,
+                           bf16=True)
+    before = kernels.launch_counts()[name]
+    out1, out2 = wrapper(*args, **kwargs), wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    for a, b in zip(flat_outs(out1), flat_outs(out2)):
+        assert a.dtype == torch.bfloat16 and a.shape == (op.v_pad, n) and torch.equal(a, b)
+    _vn_bf16_check(slabs, lo, x, g, mode, sc, out1)
+    if mode == "single":
+        _bf16_close(wrapper(*args, scale=2.0, **kwargs),
+                    bvn.banded_vn_reference(slabs, lo, x, scales=sc, scale=2.0))
+
+
+def flat_outs(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("slabs", ["f32", "bf16", "int8"])
+def test_vn_bf16_autograd_matches_plain(dev, slabs):
+    """The bf16 model's graph terms through every surface of the banded
+    operator (K9 pair and chain, K7 at scale 2 and its transpose) with a
+    bf16 operand, on the card against the same on the CPU."""
+    kw = {"quantize": True} if slabs == "int8" else {"dtype": torch.bfloat16} \
+        if slabs == "bf16" else {}
+    op = _banded_op(dev, 600, 128, "rw_norm_lap", **kw)
+    rng = np.random.default_rng(6)
+    x = _rand(rng, dev, 3, 4, 600, 5).bfloat16()
+    g1, g2, g3 = (_rand(rng, dev, 3, 4, 600, 5).bfloat16() for _ in range(3))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        cop = dataclasses.replace(op, **{f.name: getattr(op, f.name).to(d)
+                                         for f in dataclasses.fields(op)
+                                         if isinstance(getattr(op, f.name), torch.Tensor)})
+        xx = x.to(d).requires_grad_(True)
+        t1, t2 = cop.cheb_pair(xx)
+        assert t1.dtype == t2.dtype == torch.bfloat16
+        loss = (t1.float() * g1.to(d).float()).sum() + (t2.float() * g2.to(d).float()).sum() \
+            + (cop(xx, scale=2.0).float() * g3.to(d).float()).sum()
+        grads.append(torch.autograd.grad(loss, [xx])[0].cpu())
+    assert grads[0].dtype == torch.bfloat16
+    _bf16_close(grads[0], grads[1], rel=BF16_LOOSE)
+
+
+@pytest.mark.parametrize("n", [160, 97])        # N as on the 1M route's block 1, and ragged
+@pytest.mark.parametrize("scale", [1.0, 2.0])
+@pytest.mark.parametrize("tiles", ["f32", "bf16"])
+def test_k10_bf16_matches_plain(dev, tiles, scale, n):
+    """K10's bf16 variant (a bf16 operand over float32 and bf16 tiles)
+    against its plain version in bf16; a repeat launch bit-identical,
+    counted under ``bcsr_spmm_bf16`` and not ``bcsr_spmm``."""
+    op = bcsr_graph_op(_rcm_gso(600), block_size=64, device=dev,
+                       dtype=torch.bfloat16 if tiles == "bf16" else torch.float32)
+    x = _rand(np.random.default_rng(5), dev, op.n_vertex_pad, n).bfloat16()
+    before = kernels.launch_counts()
+    out1 = spm.bcsr_spmm(op.pack, x, scale=scale)
+    out2 = spm.bcsr_spmm(op.pack, x, scale=scale)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["bcsr_spmm_bf16"] == before["bcsr_spmm_bf16"] + 2
+    assert after["bcsr_spmm"] == before["bcsr_spmm"]
+    assert out1.dtype == torch.bfloat16 and torch.equal(out1, out2)
+    _bf16_close(out1, spm.bcsr_spmm_reference(op.pack, x, scale=scale))
+
+
+def test_k10_bf16_takes_an_unaligned_operand(dev):
+    """A bf16 operand off a 16-byte boundary runs the scalar steps."""
+    op = _sparse_op("bcsr", dev)
+    flat = _rand(np.random.default_rng(3), dev, op.n_vertex_pad * 16 + 1).bfloat16()
+    x = flat[1:].view(op.n_vertex_pad, 16)
+    assert x.data_ptr() % 16
+    got = spm.bcsr_spmm(op.pack, x, scale=2.0)
+    torch.cuda.synchronize()
+    _bf16_close(got, spm.bcsr_spmm_reference(op.pack, x, scale=2.0))
+
+
+def test_bcsr_bf16_autograd_matches_plain(dev):
+    """The BCSR operator's bf16 surface: forward and operand gradient on the
+    card against the CPU; the tile-value gradient (K11) refuses bf16."""
+    op = bcsr_graph_op(_rcm_gso(600, "rw_norm_lap"), block_size=64, device=dev)
+    rng = np.random.default_rng(8)
+    x = _rand(rng, dev, 3, 4, 600, 5).bfloat16()
+    w = _rand(rng, dev, 3, 4, 600, 5)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        pack = lambda p: p._replace(**{k: v.to(d) for k, v in p._asdict().items()  # noqa: E731
+                                       if isinstance(v, torch.Tensor)})
+        cop = dataclasses.replace(op, pack=pack(op.pack), pack_t=pack(op.pack_t))
+        xx = x.to(d).requires_grad_(True)
+        y = cop(xx, scale=2.0)
+        dx = torch.autograd.grad((y.float() * w.to(d)).sum(), [xx])[0]
+        outs.append((y.detach().cpu(), dx.cpu()))
+    _bf16_close(outs[0][0], outs[1][0])
+    _bf16_close(outs[0][1], outs[1][1], rel=BF16_LOOSE)
+    tiles = op.pack.data.detach().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        spm.bcsr_spmm_vjp(op.pack._replace(data=tiles), op.pack,
+                          torch.zeros(op.n_vertex_pad, 8, device=dev, dtype=torch.bfloat16))
+
+
+def test_nv_kernels_refuse_bf16(dev):
+    """K5 and K6 have no bf16 variant yet: a bf16 operand raises, nothing is
+    cast to float32."""
+    op = _banded_op(dev, 600, 256, nv=True)
+    x = torch.zeros(4, op.v_pad, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="fused bf16 slice"):
+        op.apply_nv(x)
+    eop = _sparse_op("ell_f32", dev, bs=256)
+    with pytest.raises(NotImplementedError, match="fused bf16 slice"):
+        ek.ell_nv(eop.pack, torch.zeros(4, eop.v_pad, device=dev, dtype=torch.bfloat16))
 
 
 # --- the banded packs' nonzero index (kernels/nnz_index.py index_from_slabs) --

@@ -109,8 +109,11 @@ def test_test_reports_the_reference_line(problem, tmp_path, capsys):
 @pytest.mark.parametrize("field,value,match", [("compute_dtype", "bfloat16", "bf16"),
                                                ("remat", True, "remat")])
 def test_later_slices_raise(problem, tmp_path, field, value, match):
+    """bf16 and remat run on the unfused model (tests/test_torch_bf16.py,
+    tests/test_torch_remat.py); the fused route refuses them until the
+    fused bf16 slice."""
     with pytest.raises(NotImplementedError, match=match):
-        _port_trainer(problem, tmp_path, **{field: value})
+        _port_trainer(problem, tmp_path, fused=True, **{field: value})
 
 
 def test_mesh_raises(problem, tmp_path):
