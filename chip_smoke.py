@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's forecast and training slices on one CUDA card
 and check them: PeMSD7(M) through the dense operator, fused per vertex tile
-(K1-K4) and as whole ST blocks (K12, also at PEMS-BAY batch 512), then a 100k-vertex
+(K1-K4, float32, and the forward in bf16) and as whole ST blocks (K12, also at
+PEMS-BAY batch 512), then a 100k-vertex
 road graph through the banded operator, fused through its kernel K5 and
 unfused (``main.py``'s default route there) through the vn kernels K7-K9,
 f32 and int8, and in bf16 with remat (the vn kernel's bf16 variant), then
 the 1M-vertex road graph through the blocked-ELL operator and its kernel K6
 and through the BCSR operator (what ``make_graph_op(kind="auto")`` picks
 there) and its kernels K10 and K11, float32 and bf16 with remat (K10's bf16
-variant), then the CLI.
+variant) and the fused forward in bf16 around K10's bf16 variant, then the
+CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Twenty-one phases, each printing one JSON line with its own seconds:
+Twenty-three phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -27,6 +29,20 @@ Twenty-one phases, each printing one JSON line with its own seconds:
    bit-identical, the launch counter moved;
    then CUDA-event times (median of 30 launches after 5 of warm-up) of
    kernel and plain version.
+3a. kernels_bf16 (part ``fused_fwd``) — the bf16 variants of K1f-K4f (the
+   gate GEMM and ``tail_h_kernel`` on bf16 operands, float32 sums, the TPU's
+   bf16 rounding points) at every forecast-path shape: PeMSD7(M) batch 32,
+   100k batch 8 and 1M batch 1 (Vp of the banded and ELL operators), random
+   bf16 inputs, K1f and K2f at both blocks, K3f with glu (and gtu at
+   PeMSD7(M)), K4f; dropout on for K1f block 2, K3f and K4f. Each held to
+   its plain version in bf16 (``kernels/bf16_bounds.py``: within 2^-7 of
+   |ref| plus the rounding scale of the terms, at most a share 2^-10 of an
+   output's elements outside 2 ulps of bf16), a repeat launch
+   bit-identical, two launches counted under its ``_bf16`` name and none
+   under the float32 kernel's; CUDA-event times of the bf16 kernel, the
+   float32 kernel on the same values and the plain version, beside both
+   bounds (operations at the bf16 tensor cores' 989 TFLOP/s and at the f32
+   FMA rate, 2-byte operands over 3.35 TB/s).
 4. kernels_bwd — one fused training step on a PeMSD7(M) batch (dropout on)
    records the inputs of every kernel call of the training path: K1f/K2f ×2,
    K3f, K4f and the backward kernels K1b/K2b ×2, K3b, K4b. Each recorded call
@@ -92,6 +108,15 @@ Twenty-one phases, each printing one JSON line with its own seconds:
    name and in all, that sum's share of the step, and the launches of the
    retired ``contract_kernel`` and ``gate_fwd_kernel`` (the dense step's
    must be 0).
+8a. fused_bf16 — ``fused_sparse_forward`` of ``STGCN(dtype=bfloat16)`` (the
+   weights of phase 5's model) on the dense operator: the PeMSD7(M) test
+   split (launches K1f/K2f bf16 ×2, K3f/K4f bf16 ×1 a batch, no float32
+   K1-K4) and a PEMS-BAY batch of 512, each held to the unfused bf16
+   model's forecast and to the float32 fused forecast within atol 0.1, rtol
+   0.05 (max |Δ| printed); the bf16 and float32 fused forecasts timed in
+   turns; the dense bf16 graph product (``torch.matmul``) at the PeMSD7(M)
+   block-1 shape with ``allow_bf16_reduced_precision_reduction`` on and
+   off, each against the exact products summed in float32.
 9. kernels_banded — the 100k-vertex problem (``random_road_graph(100_000,
    k_neighbors=8, seed=0)``, ``sym_norm_lap`` Chebyshev GSO with Lanczos
    lambda_max, RCM, the banded operator of 256-row slabs that the JAX CLI
@@ -243,7 +268,11 @@ Twenty-one phases, each printing one JSON line with its own seconds:
    bfloat16)``, built on the card beside the f32 one, timed, its index
    checked as in phase 17) against its plain version in bf16 (2 ulps plus
    the floor), repeat bit-identical, timed beside its bound and
-   ``torch.sparse.mm`` on the bf16 CSR GSO where it takes bf16.
+   ``torch.sparse.mm`` on the bf16 CSR GSO where it takes bf16; last, on
+   the same operator, one forecast batch of the bf16 model through
+   ``fused_sparse_forward`` (K1f-K4f bf16 around ``bcsr_spmm_bf16`` ×2 a
+   block) held to the float32 fused forecast and to the unfused bf16
+   model's within atol 0.1, rtol 0.05 (``fused_forecast`` in its line).
 20. cli     — ``stgcn_tpu_torch.cli.main`` in-process on PeMSD7(M) with
    ``--graph_op banded --fused True --epochs 1`` (a one-block-row pack),
    then with ``--graph_op ell_int8``, then ``bcsr`` (the fused forward's vn
@@ -255,7 +284,9 @@ Twenty-one phases, each printing one JSON line with its own seconds:
    every kernel of the step (K5, K6 or K9 pair and chain, or K10, included)
    launched, and none of K1-K4 unfused.
 21. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
-   training paths, PeMSD7(M), 100k and 1M, and its launches), the
+   training paths, PeMSD7(M), 100k and 1M, and its launches; the bf16
+   K1f-K4f rows per PeMSD7(M) forecast batch, their launches from phase
+   8a's test split, the 100k and 1M shapes and the float32 kernel beside), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 A failed check raises: the script then exits non-zero and prints no
@@ -2483,6 +2514,319 @@ def phase_kernels_bf16(torch, data) -> dict:
     return results
 
 
+# --------------------------------------------------------------------------
+# the fused forward in bf16: the bf16 variants of K1f-K4f (the gate GEMM and
+# tail_h_kernel on bf16 operands) and fused_sparse_forward of a bf16 model
+# --------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 on the tensor cores (NVIDIA data sheet)
+FUSED_BF16_META = {
+    "head_fwd_bf16": ("K1f bf16", "stgcn_tpu_torch/kernels/csrc/gate_gemm_bf16.cu",
+                      "stgcn_tpu/kernels/vertex_fused.py:610", "_head_pallas"),
+    "tail_fwd_bf16": ("K2f bf16", "stgcn_tpu_torch/kernels/csrc/vertex_fused.cu",
+                      "stgcn_tpu/kernels/vertex_fused.py:839", "_tail_pallas"),
+    "ohead_fwd_bf16": ("K3f bf16", "stgcn_tpu_torch/kernels/csrc/gate_gemm_bf16.cu",
+                       "stgcn_tpu/kernels/output_head.py:214", "_ohead_pallas"),
+    "ofc_fwd_bf16": ("K4f bf16", "stgcn_tpu_torch/kernels/csrc/gate_gemm_bf16.cu",
+                     "stgcn_tpu/kernels/output_head.py:407", "_ofc_pallas"),
+}
+PER_BATCH_FWD_BF16 = {f"{k}_bf16": n for k, n in PER_BATCH_FWD.items()}
+# (B, V, Vp) of the forecast path's kernel calls: PeMSD7(M) at batch 32, the
+# 100k graph at batch 8 (the banded operator's Vp), the 1M graph at batch 1
+FUSED_BF16_SHAPES = {"pemsd7m": (BATCH, 228, 256), "100k": (8, 100_000, 101_376),
+                     "1m": (1, 1_000_000, 1_000_192)}
+FUSED_BF16_REPS = {"pemsd7m": 30, "100k": 5, "1m": 3}
+
+
+def fused_bf16_cases(torch, gen, b: int, v_true: int, vp: int, gtu: bool):
+    """(f32 kernel name, label, config, float32 arguments, kwargs) of each
+    K1f-K4f call of a forecast (and a training step's dropout) at one shape,
+    the main.py widths: K1f and K2f at both blocks (block 2's head drops out
+    its input), K3f with the glu gate (and gtu with ``gtu``), K4f; random
+    inputs, the LayerNorm affine zero on padded lanes."""
+    from stgcn_tpu_torch.kernels import output_head as oh
+    from stgcn_tpu_torch.kernels import vertex_fused as vf
+    from stgcn_tpu_torch.kernels.dropout import Drop
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def ln(t, c):
+        g, bb = 1.0 + rnd(c, vp, scale=0.1), rnd(c, vp, scale=0.1)
+        g[:, v_true:] = 0.0
+        bb[:, v_true:] = 0.0
+        return rnd(b, t, 1, 1, scale=0.1), 0.5 + torch.rand((b, t, 1, 1), generator=gen,
+                                                            device="cuda"), g, bb
+
+    out = []
+    for blk, (t_in, c_in) in enumerate([(12, 1), (8, 64)]):
+        cfg = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                                v_true=v_true, v_pad=vp, t_in=t_in, c_in=c_in, c0=64, c1=16,
+                                c2=64, apply_ln=blk > 0)
+        lnv = ln(t_in, c_in) if blk else (None,) * 4
+        out.append(("head_fwd", f"block{blk}", cfg,
+                    (rnd(b, t_in, c_in, vp), *lnv, rnd(3, c_in, 128, scale=(3 * c_in) ** -0.5),
+                     rnd(128, scale=0.1), rnd(64, 16, scale=0.125), rnd(16, scale=0.1)),
+                    {"drop": Drop(DROPRATE, 11, blk)} if blk else {}))
+        out.append(("tail_fwd", f"block{blk}", cfg,
+                    (*(rnd(b, cfg.t1, 16, vp) for _ in range(3)), rnd(3, 16, 16, scale=0.25),
+                     rnd(16, scale=0.1), rnd(3, 16, 128, scale=48 ** -0.5),
+                     rnd(128, scale=0.1)), {}))
+    for act in ("glu", "gtu") if gtu else ("glu",):
+        ocfg = oh.OutHeadCfg(ko=4, c_in=64, c0=128, c1=128, c_end=1, act_func=act,
+                             v_true=v_true, v_pad=vp)
+        label = "head" if act == "glu" else "head-gtu"
+        out.append(("ohead_fwd", label, ocfg,
+                    (rnd(b, 4, 64, vp), *ln(4, 64), rnd(4, 64, 256, scale=256 ** -0.5),
+                     rnd(256, scale=0.1)), {"drop": Drop(DROPRATE, 11, 2)}))
+        if act == "glu":   # K4f's gate is fc1's ReLU whatever the model's gate
+            out.append(("ofc_fwd", label, ocfg,
+                        (rnd(b, 1, 128, vp), *ln(1, 128), rnd(128, 128, scale=128 ** -0.5),
+                         rnd(128, scale=0.1), rnd(128, 1, scale=128 ** -0.5),
+                         rnd(1, scale=0.1)), {"drop": Drop(DROPRATE, 11, 3)}))
+    return out
+
+
+def check_fused_bf16(torch, name, label, cfg, args32, kwargs, reps: int) -> dict:
+    """One bf16 forward kernel call: held to its plain version in bf16
+    (``kernels/bf16_bounds.py``: 2 ulps of bf16 beside the rounding scale of
+    the terms, neighbours rare), a repeat launch bit-identical, two launches
+    counted under its ``_bf16`` name and none under the float32 kernel's;
+    timed (CUDA-event medians) beside the float32 kernel on the same values
+    and the plain version, with both bounds (operations at the bf16 tensor
+    cores' rate, the type of its products, and at the float32 FMA rate,
+    which it runs on)."""
+    import dataclasses
+
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import bf16_bounds as bb
+    from stgcn_tpu_torch.kernels import output_head as oh
+    from stgcn_tpu_torch.kernels import vertex_fused as vf
+    from stgcn_tpu_torch.kernels.fwd_ab import F32_ARGS
+
+    cfg16 = dataclasses.replace(cfg, precision="bfloat16")
+    args = tuple(t if i + 1 in F32_ARGS[name] or t is None else t.to(torch.bfloat16)
+                 for i, t in enumerate(args32))
+    mod = oh if name in ("ohead_fwd", "ofc_fwd") else vf
+    wrapper = getattr(mod, name)
+    n16 = f"{name}_bf16"
+    if name == "head_fwd":
+        ln = args[1:5] if cfg.apply_ln else None
+        plain = lambda: vf.head_reference(cfg16, args[0], ln, args[5:], kwargs.get("drop"))
+        scale = lambda: bb.head_scale(cfg16, args[0], ln, args[5:], kwargs.get("drop"))
+    elif name == "tail_fwd":
+        terms = list(args[1:3])[: cfg.n_terms]
+        plain = lambda: vf.tail_reference(cfg16, args[0], terms, args[3:])
+        scale = lambda: bb.tail_scale(cfg16, args[0], terms, args[3:])
+    else:
+        ref_fn = getattr(oh, name.replace("_fwd", "_reference"))
+        scale_fn = getattr(bb, name.replace("_fwd", "_scale"))
+        plain = lambda: ref_fn(cfg16, *args, **kwargs)
+        scale = lambda: scale_fn(cfg16, *args, **kwargs)
+    before = kernels.launch_counts()
+    out1 = wrapper(cfg16, *args, **kwargs)
+    out2 = wrapper(cfg16, *args, **kwargs)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    if after[n16] - before[n16] != 2 or after[name] != before[name]:
+        raise AssertionError(f"{n16} [{label}]: launches {n16} +{after[n16] - before[n16]}, "
+                             f"{name} +{after[name] - before[name]}; expected +2, +0")
+    if not all(torch.equal(p, q) for p, q in zip(flat(out1), flat(out2))):
+        raise AssertionError(f"{n16} [{label}]: a repeat launch is not bit-identical")
+    del out2
+    try:
+        check = bb.within(out1, plain(), scale())
+    except AssertionError as e:
+        raise AssertionError(f"{n16} [{label}]: {e}") from None
+    warm = min(3, reps)
+    ms = cuda_ms(lambda: wrapper(cfg16, *args, **kwargs), warmup=warm, reps=reps)
+    f32_ms = cuda_ms(lambda: wrapper(cfg, *args32, **kwargs), warmup=warm, reps=reps)
+    plain_ms = cuda_ms(plain, warmup=1, reps=min(reps, 5))
+    nbytes = io_bytes(args, out1)
+    flops = flops_of(name, cfg, args[0].shape[0])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t16, t32 = flops / BF16_FLOP_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"shape": label, "input": list(args[0].shape), "output": list(flat(out1)[0].shape),
+            "dropout": kwargs.get("drop") is not None, **check, "ms": ms, "f32_ms": f32_ms,
+            "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(t_bytes, t16), "bound_by": "bytes" if t_bytes >= t16 else "operations",
+            "bound_ms_f32_fma": max(t_bytes, t32),
+            "bound_by_f32_fma": "bytes" if t_bytes >= t32 else "operations"}
+
+
+def phase_kernels_bf16_fused(torch) -> dict:
+    """``kernels_bf16`` part ``fused_fwd``: K1f-K4f's bf16 variants at every
+    forecast-path shape (``FUSED_BF16_SHAPES``), random bf16 inputs, the gtu
+    gate beside glu at PeMSD7(M), dropout on for K1f block 2, K3f and K4f
+    (``check_fused_bf16``). Returns, per shape, per bf16 kernel name, the
+    calls' measurements."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import bf16_bounds as bb
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    results: dict[str, dict] = {}
+    for shape, (b, v_true, vp) in FUSED_BF16_SHAPES.items():
+        per: dict[str, list] = {}
+        for name, label, cfg, args32, kwargs in fused_bf16_cases(torch, gen, b, v_true, vp,
+                                                                  gtu=shape == "pemsd7m"):
+            per.setdefault(f"{name}_bf16", []).append(check_fused_bf16(
+                torch, name, label, cfg, args32, kwargs, FUSED_BF16_REPS[shape]))
+            del args32
+        results[shape] = per
+        free(torch)
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_bf16", "part": "fused_fwd", "seconds": time.perf_counter() - t0,
+          "tolerance": {"rel": bb.REL, "floor": bb.FLOOR, "rare_outside_2ulp": bb.RARE,
+                        "scale": "kernels/bf16_bounds.py"},
+          "shapes": {k: list(v) for k, v in FUSED_BF16_SHAPES.items()}, "results": results})
+    return results
+
+
+def bf16_agree(torch, label: str, got, ref) -> float:
+    """max |Δ| of a bf16 forecast from ``ref``; raises outside the JAX
+    package's bf16 bound, atol 0.1, rtol 0.05."""
+    if got.shape != ref.shape or got.dtype != torch.float32 or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}, or non-finite values")
+    d = (got - ref).abs()
+    if not bool((d <= BF16_MODEL_ATOL + BF16_MODEL_RTOL * ref.abs()).all()):
+        raise AssertionError(f"{label}: max |Δ| {float(d.max()):.3e} outside atol "
+                             f"{BF16_MODEL_ATOL}, rtol {BF16_MODEL_RTOL}")
+    return float(d.max())
+
+
+def dense_bf16_product(torch, gop, gen) -> dict:
+    """The dense operator's bf16 graph product (``torch.matmul`` of a bf16
+    operand and the GSO cast to bf16, as ``DenseGraphOp.apply_cv`` runs it)
+    at the PeMSD7(M) block-1 shape, with PyTorch's
+    ``allow_bf16_reduced_precision_reduction`` on (its default) and off:
+    each one's max |Δ| from the exact products summed in float32 and
+    rounded once (what the TPU's f32 accumulation gives up to the order),
+    and from each other. The flag is restored."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    x = torch.randn((BATCH, N_HIS - 2, 16, gop.v_pad), generator=gen,
+                    device="cuda").bfloat16()
+    ref = gop.apply_cv(x.float()).bfloat16().float()
+    out = {}
+    try:
+        for on in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+            out[on] = gop.apply_cv(x).float()
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return {"shape": list(x.shape), "flag_default": flag,
+            "max_abs_diff_flag_on": float((out[True] - ref).abs().max()),
+            "max_abs_diff_flag_off": float((out[False] - ref).abs().max()),
+            "max_abs_diff_on_off": float((out[True] - out[False]).abs().max()),
+            "ref_max": float(ref.abs().max())}
+
+
+def phase_fused_bf16(torch, data, pb) -> dict:
+    """The fused forward of a bf16 model (``STGCN(dtype=bfloat16)``, the
+    weights of phase 5's model) through K1f-K4f's bf16 variants on the
+    dense operator: the PeMSD7(M) test split and a PEMS-BAY batch of 512,
+    each held to the unfused bf16 model's forecast and to the float32 fused
+    forecast (``bf16_agree``), launches per batch K1f-K4f bf16 as K1f-K4f
+    run in float32 and no float32 K1f-K4f; forecast seconds of the bf16 and
+    float32 fused routes in turns; the dense bf16 product with PyTorch's
+    reduced-precision reduction on and off (``dense_bf16_product``)."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import evaluate_metrics
+
+    test_ds, scaler, gop, v = data["test"], data["scaler"], data["gop"], data["n_vertex"]
+    models = {"bf16": new_model(torch, v, DROPRATE, dtype=torch.bfloat16).eval(),
+              "f32": new_model(torch, v, DROPRATE).eval()}
+    params = {k: m.state_dict() for k, m in models.items()}
+    preds: dict[str, list] = {"fused_bf16": [], "unfused_bf16": [], "fused_f32": []}
+
+    def predictor(kind):
+        def predict(starts):
+            x, y = gather_windows(test_ds.series, starts, N_HIS, N_PRED)
+            dt = "f32" if kind == "fused_f32" else "bf16"
+            out = (fused_sparse_forward(params[dt], x, gop, models[dt])
+                   if kind.startswith("fused") else models[dt](x, gop))
+            preds[kind].append(out.reshape(len(starts), -1))
+            return preds[kind][-1], y
+        return predict
+
+    with torch.inference_mode():
+        starts0, _ = next(test_ds.batches(BATCH))   # warm-up
+        for kind in preds:
+            predictor(kind)(starts0)
+            preds[kind].clear()
+        torch.cuda.synchronize()
+        n_batches = -(-test_ds.num_windows // BATCH)
+        kernels.reset_launch_counts()
+        m16 = evaluate_metrics(predictor("fused_bf16"), test_ds, scaler, BATCH)
+        launches = kernels.launch_counts()
+        for kind in ("unfused_bf16", "fused_f32"):
+            evaluate_metrics(predictor(kind), test_ds, scaler, BATCH)
+        walls: dict[str, list] = {"fused_bf16": [], "fused_f32": []}
+        for kind in ("fused_bf16", "fused_f32", "fused_f32", "fused_bf16"):
+            t1 = time.perf_counter()
+            evaluate_metrics(predictor(kind), test_ds, scaler, BATCH)
+            walls[kind].append(time.perf_counter() - t1)
+    if launches != expected(PER_BATCH_FWD_BF16, n_batches):
+        raise AssertionError(f"fused_bf16: launches {launches} != "
+                             f"{expected(PER_BATCH_FWD_BF16, n_batches)}")
+    if not all(x_ == x_ and abs(x_) < float("inf") for x_ in m16.values()):
+        raise AssertionError(f"fused_bf16: non-finite metrics {m16}")
+    n = n_batches   # the first evaluation of each kind
+    pf16, pu16, pf32 = (torch.cat(preds[k][:n]) for k in ("fused_bf16", "unfused_bf16",
+                                                         "fused_f32"))
+    pemsd7 = {"batches": n_batches, "launches": launches, "metrics_fused_bf16": m16,
+              "max_abs_diff_vs_unfused_bf16": bf16_agree(torch, "PeMSD7(M) vs unfused bf16",
+                                                          pf16, pu16),
+              "max_abs_diff_vs_fused_f32": bf16_agree(torch, "PeMSD7(M) vs fused f32",
+                                                      pf16, pf32),
+              "forecast_seconds": {k: statistics.median(w) for k, w in walls.items()},
+              "forecast_seconds_all": walls}
+    del preds, pf16, pu16, pf32
+
+    # PEMS-BAY at batch 512 on its dense operator
+    vb, gb, xb = pb["n_vertex"], pb["gop"], pb["x"]
+    mb = {"bf16": new_model(torch, vb, DROPRATE, dtype=torch.bfloat16).eval(),
+          "f32": new_model(torch, vb, DROPRATE).eval()}
+    pbp = {k: m.state_dict() for k, m in mb.items()}
+    with torch.inference_mode():
+        fused_sparse_forward(pbp["bf16"], xb, gb, mb["bf16"])   # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        f16 = fused_sparse_forward(pbp["bf16"], xb, gb, mb["bf16"])
+        torch.cuda.synchronize()
+        launches_pb = kernels.launch_counts()
+        u16 = mb["bf16"](xb, gb)
+        f32 = fused_sparse_forward(pbp["f32"], xb, gb, mb["f32"])
+        ms = {"fused_bf16": [], "fused_f32": []}
+        for kind in ("fused_bf16", "fused_f32", "fused_f32", "fused_bf16"):
+            dt = kind[-4:].replace("_", "")
+            ms[kind].append(cuda_ms(lambda: fused_sparse_forward(pbp[dt], xb, gb, mb[dt]),
+                                    warmup=2, reps=10))
+    if launches_pb != expected(PER_BATCH_FWD_BF16, 1):
+        raise AssertionError(f"fused_bf16 (PEMS-BAY): launches {launches_pb}")
+    pems_bay = {"batch_size": BATCH_PEMS_BAY, "n_vertex": vb, "launches": launches_pb,
+                "max_abs_diff_vs_unfused_bf16": bf16_agree(torch, "PEMS-BAY vs unfused bf16",
+                                                            f16, u16),
+                "max_abs_diff_vs_fused_f32": bf16_agree(torch, "PEMS-BAY vs fused f32", f16,
+                                                        f32),
+                "forward_ms": {k: statistics.median(v_) for k, v_ in ms.items()},
+                "forward_ms_all": ms}
+    del f16, u16, f32, mb, pbp
+    product = dense_bf16_product(torch, gop, torch.Generator(device="cuda").manual_seed(8))
+    kernels.reset_launch_counts()
+    result = {"phase": "fused_bf16", "seconds": time.perf_counter() - t0,
+              "route": "fused_sparse_forward(STGCN(dtype=bfloat16)), dense operator",
+              "tolerance": {"atol": BF16_MODEL_ATOL, "rtol": BF16_MODEL_RTOL},
+              "pemsd7m": pemsd7, "pems_bay": pems_bay, "dense_bf16_product": product}
+    emit(result)
+    return result
+
+
 def bf16_fit(torch, data, gop, *, phase: str, remat: bool, batch: int, opt: str,
              per_step: dict, per_batch: dict, f32_fit: dict, dataset_name: str) -> dict:
     """A ``Trainer.fit(1)`` of the unfused ``STGCN(dtype=bfloat16, remat=)``
@@ -2648,6 +2992,52 @@ def phase_banded_100k_bf16(torch, data, f32_fit: dict) -> dict:
     return result
 
 
+def fused_bf16_forecast_1m(torch, data, gop, v: int) -> dict:
+    """One 1M forecast batch of the bf16 model through ``fused_sparse_forward``
+    on the BCSR operator (launches K1f-K4f bf16 as a batch runs them and
+    ``bcsr_spmm_bf16`` ×2 a block), held to the float32 fused forecast
+    (K1f-K4f and K10 in float32) and to the unfused bf16 model's
+    (``bf16_agree``); the seconds of the bf16 and float32 fused forecasts in
+    turns."""
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+
+    models = {"bf16": new_model(torch, v, DROPRATE, dtype=torch.bfloat16).eval(),
+              "f32": new_model(torch, v, DROPRATE).eval()}
+    params = {k: m.state_dict() for k, m in models.items()}
+    starts, _ = next(data["test"].batches(BATCH_1M))
+    x, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+
+    def fused(dt):
+        return fused_sparse_forward(params[dt], x, gop, models[dt])
+
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        f16 = fused("bf16")
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        f32 = fused("f32")
+        u16 = models["bf16"](x, gop)
+        walls: dict[str, list] = {"bf16": [], "f32": []}
+        for dt in ("bf16", "f32", "f32", "bf16"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fused(dt)
+            torch.cuda.synchronize()
+            walls[dt].append(time.perf_counter() - t1)
+    want = expected(PER_BATCH_FWD_BF16, 1, ({"bcsr_spmm_bf16": 4}, 1))
+    if launches != want:
+        raise AssertionError(f"bcsr_1m_bf16: the fused bf16 forecast launched {launches}, "
+                             f"expected {want}")
+    return {"launches": launches,
+            "max_abs_diff_vs_fused_f32": bf16_agree(torch, "1M BCSR vs fused f32", f16, f32),
+            "max_abs_diff_vs_unfused_bf16": bf16_agree(torch, "1M BCSR vs unfused bf16", f16,
+                                                        u16),
+            "seconds": {dt: statistics.median(w) for dt, w in walls.items()},
+            "tolerance": {"atol": BF16_MODEL_ATOL, "rtol": BF16_MODEL_RTOL}}
+
+
 def phase_bcsr_1m_bf16(torch, data, f32_fit: dict) -> dict:
     """The CLI's 1M route (``auto`` → BCSR, float32 tiles) with
     ``--compute_dtype bfloat16 --remat True``: the unfused
@@ -2731,6 +3121,12 @@ def phase_bcsr_1m_bf16(torch, data, f32_fit: dict) -> dict:
     if failed:
         raise AssertionError("; ".join(failed))
     del calls, b16, a_csr16
+    free(torch)
+
+    # 3. one fused bf16 forecast batch on the same operator: K1f-K4f's bf16
+    # variants around K10's, held to the float32 fused forecast and the
+    # unfused bf16 model's
+    result["fused_forecast"] = fused_bf16_forecast_1m(torch, data, gop, v)
     free(torch)
     kernels.reset_launch_counts()
     emit({"phase": "kernels_bf16", "part": "k10_1m", "seconds": time.perf_counter() - t1,
@@ -3416,6 +3812,7 @@ def main() -> int:
           "library": str(info.path.relative_to(ROOT)), "ptxas": ptxas})
 
     phase_kernels(torch)
+    kbf_fused = phase_kernels_bf16_fused(torch)
     data = load_pemsd7(torch)
     per_call = phase_kernels_bwd(torch, data)
     sl = phase_slice(torch, data)
@@ -3423,6 +3820,7 @@ def main() -> int:
     pb = load_pems_bay(torch)
     kst = phase_kernels_stblock(torch, data, pb)
     fd = phase_fused_dense(torch, data, pb)
+    fb = phase_fused_bf16(torch, data, pb)
     del data, pb
     free(torch)
     big = build_100k(torch)
@@ -3564,6 +3962,27 @@ def main() -> int:
                  tiles_dtype="f32", launches=b1bf["launches"]["bcsr_spmm_bf16"],
                  per_call_bf16_tiles=b1bf["per_step_calls_bf16_tiles"])
              for meta in K10_META]
+    # K1f-K4f's bf16 variants: per PeMSD7(M) forecast batch (both blocks of K1f
+    # and K2f), launches from the bf16 forecast of the test split; the 100k and
+    # 1M shapes beside, and the float32 kernel at each shape
+    def at16(shape, name, key):
+        return sum(c[key] for c in kbf_fused[shape][name])
+
+    def glu_calls(name):
+        return [c for c in kbf_fused["pemsd7m"][name] if c["shape"] != "head-gtu"]
+
+    rows += [row(name, meta, glu_calls(name), dtype="bf16",
+                 launches=fb["pemsd7m"]["launches"][name],
+                 launches_pems_bay=fb["pems_bay"]["launches"][name],
+                 launches_1m_bcsr=b1bf["fused_forecast"]["launches"][name],
+                 f32_ms=at16("pemsd7m", name, "f32_ms"),
+                 bound_ms_f32_fma=at16("pemsd7m", name, "bound_ms_f32_fma"),
+                 **{f"{k}_{shape}": at16(shape, name, k)
+                    for shape in ("100k", "1m")
+                    for k in ("ms", "f32_ms", "plain_ms", "bound_ms", "bound_ms_f32_fma")},
+                 **{f"per_call_{shape}": kbf_fused[shape][name] for shape in ("100k", "1m")},
+                 per_call_gtu=[c for c in kbf_fused["pemsd7m"][name] if c["shape"] == "head-gtu"])
+             for name, meta in FUSED_BF16_META.items()]
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

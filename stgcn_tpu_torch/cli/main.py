@@ -147,7 +147,8 @@ def refuse_unported(args) -> None:
     later = {
         "--compute_dtype bfloat16 with --fused True": (
             args.compute_dtype == "bfloat16" and args.fused,
-            "the fused bf16 slice (the bf16 variants of K1f-K4f, K1b-K4b, K5 and K6)"),
+            "the fused bf16 slice (fused training in bf16: the bf16 variants of K1b-K4b, "
+            "K5 and K6)"),
         "--remat True with --fused True": (
             args.remat and args.fused,
             "the fused bf16 slice (fused_sparse_forward(remat=, remat_policy=))"),

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
 K1 :func:`vertex_fused.head_fwd`, K2 :func:`vertex_fused.tail_fwd`,
-K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd`, their
+K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd` (each
+also counted as ``<name>_bf16`` for its bf16 variant), their
 backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
 ``ofc_bwd``), the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
 per mode and dtype (``nv_single``, ``nv_pair_int8``, …), the banded vn SpMM
@@ -32,6 +33,8 @@ from stgcn_tpu_torch.kernels.vertex_fused import head_bwd, head_fwd, tail_bwd, t
 
 WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             "ohead_fwd": ohead_fwd, "ofc_fwd": ofc_fwd,
+            "head_fwd_bf16": head_fwd, "tail_fwd_bf16": tail_fwd,
+            "ohead_fwd_bf16": ohead_fwd, "ofc_fwd_bf16": ofc_fwd,
             "head_bwd": head_bwd, "tail_bwd": tail_bwd,
             "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd,
             **{_nv.launch_name(m, q): functools.partial(_nv.stream_nv, mode=m)

@@ -61,6 +61,8 @@ def timed(torch, fn, reps: int, warmup: int, key: str | None = None) -> tuple[fl
     digest = hashlib.sha256()
     for o in outs:   # in pieces of 2^26 elements: K11's output holds 3.3e9 floats
         flat = o.detach().reshape(-1)
+        if flat.dtype == torch.bfloat16:   # numpy has no bf16: its 16-bit patterns
+            flat = flat.view(torch.int16)
         for i in range(0, flat.numel(), 1 << 26):
             digest.update(flat[i:i + (1 << 26)].cpu().numpy().tobytes())
     if KEEP and key:

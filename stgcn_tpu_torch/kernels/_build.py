@@ -46,6 +46,10 @@ SIGNATURES = {
     "stgcn_tail_fwd": [_P] * 13 + [_I] * 9 + [_P],
     "stgcn_ohead_fwd": [_P] * 11 + [_I] * 7 + _DROP + [_P],
     "stgcn_ofc_fwd": [_P] * 10 + [_I] * 6 + _DROP + [_P],
+    "stgcn_head_fwd_bf16": [_P] * 10 + [_I] * 10 + _DROP + [_P],
+    "stgcn_tail_fwd_bf16": [_P] * 13 + [_I] * 9 + [_P],
+    "stgcn_ohead_fwd_bf16": [_P] * 11 + [_I] * 7 + _DROP + [_P],
+    "stgcn_ofc_fwd_bf16": [_P] * 10 + [_I] * 6 + _DROP + [_P],
     "stgcn_head_bwd": [_P] * 19 + [_I] * 10 + _DROP + [_P],
     "stgcn_tail_bwd": [_P] * 18 + [_I] * 10 + [_P],
     "stgcn_ohead_bwd": [_P] * 18 + [_I] * 7 + _DROP + [_P],

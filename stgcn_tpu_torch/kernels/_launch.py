@@ -51,18 +51,18 @@ def require_index(t: torch.Tensor, name: str, shape: tuple[int, ...],
 def refuse_value_grad(*values: torch.Tensor | None) -> None:
     """Raise where a caller asks for the gradient of an f32 (or bf16)
     operator's values (banded slabs, ELL tiles): the JAX VJPs give it
-    through scans that are not ported yet (``ROADMAP.md`` §1 item 5), and
-    returning nothing would drop it without a word. int8 values are frozen,
-    as in JAX."""
+    through scans that are not ported yet (``ROADMAP.md`` §1, "The
+    operator-value gradients"), and returning nothing would drop it without
+    a word. int8 values are frozen, as in JAX."""
     if any(v is not None and v.requires_grad and v.dtype.is_floating_point for v in values):
         raise NotImplementedError(
             "the gradient of the graph operator's f32 values (banded slabs, ELL tiles) is "
-            "not ported yet (ROADMAP.md §1 item 5); detach the operator, or use the BCSR "
-            "operator, whose tile-value gradient runs through K11")
+            "not ported yet (ROADMAP.md §1, \"The operator-value gradients\"); detach the "
+            "operator, or use the BCSR operator, whose tile-value gradient runs through K11")
 
 
-BF16_SLICE = ("the fused bf16 slice of the port (ROADMAP.md §1: the bf16 variants of K1f-K4f, "
-              "K1b-K4b, K5 and K6)")
+BF16_SLICE = ("the fused bf16 slice of the port (ROADMAP.md §1: fused training in bf16, with "
+              "the bf16 variants of K1b-K4b; K5 and K6 in bf16, with the fused remat)")
 
 
 def refuse_bf16(what: str, *tensors: torch.Tensor | None, where: str = BF16_SLICE) -> None:
@@ -73,13 +73,14 @@ def refuse_bf16(what: str, *tensors: torch.Tensor | None, where: str = BF16_SLIC
         raise NotImplementedError(f"{what} on bf16 is not ported yet; it comes with {where}")
 
 
-def refuse_bf16_model(model, route: str) -> None:
+def refuse_bf16_model(model, route: str, where: str = BF16_SLICE) -> None:
     """Raise ``NotImplementedError`` for a bf16 model (``dtype`` or
-    ``ln_param_dtype``) on a fused route: its kernels' bf16 variants come
-    with the fused bf16 slice."""
+    ``ln_param_dtype``) on a route whose kernels' bf16 variants are not
+    ported yet (fused training; ``fused_forward``'s K12), naming the slice
+    that brings them."""
     if model.dtype is not None or model.ln_param_dtype != torch.float32:
         raise NotImplementedError(f"{route} of a bf16 model is not ported yet; it comes with "
-                                  f"{BF16_SLICE}")
+                                  f"{where}")
 
 
 def cuda_device(t: torch.Tensor) -> torch.device:

@@ -12,6 +12,7 @@
 // bit-identical output.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dropout.cuh"
@@ -42,6 +43,36 @@ __device__ __forceinline__ float gate(int act, float p, float q, float xin) {
     case kRelu: return fmaxf(z, 0.0f);
     default: return z * sigmoid(z);
   }
+}
+
+// The bf16 variants (precision="bfloat16" on the TPU: bf16 storage and
+// operands, float32 sums, stgcn_tpu/kernels/vertex_fused.py:497-498): a
+// bf16 value is widened exactly to float32, sums run in float32 as in the
+// float32 kernels, and a value is rounded back to bf16 (to nearest even)
+// wherever the TPU kernel rounds it.
+using bf16 = __nv_bfloat16;
+
+__host__ __device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+// sigma(x) as the TPU's bf16 kernels compose it, tanh(x / 2) / 2 + 1 / 2
+// (`_sigmoid`, stgcn_tpu/kernels/fused_stblock.py:182-189), each op rounded
+__device__ __forceinline__ float sigmoid_bf16(float x) {
+  return bf16r(bf16r(bf16r(tanhf(bf16r(x * 0.5f))) * 0.5f) + 0.5f);
+}
+
+// gate() of bf16 operands (p, q and xin bf16 values), rounding after each
+// op as the TPU's bf16 gate does (`_gate_fwd_cv`, vertex_fused.py:280-303)
+template <int ACT>
+__device__ __forceinline__ float gate_bf16(float p, float q, float xin) {
+  const float z = bf16r(p + xin);
+  if constexpr (ACT == kGlu) return bf16r(z * sigmoid_bf16(q));
+  if constexpr (ACT == kGtu) return bf16r(bf16r(tanhf(z)) * sigmoid_bf16(q));
+  if constexpr (ACT == kRelu) return fmaxf(z, 0.0f);
+  return bf16r(z * sigmoid_bf16(z));
 }
 
 // Sum over the block's threads in a fixed order; the result is valid in
@@ -99,15 +130,24 @@ cudaError_t launch_reduce_partials(const float* part, float* ps, float* pss, int
 // drop_in masks the (normalized) input, keyed [B, t_in, c_in, V_true];
 // drop_out masks the gated a before the second product, keyed
 // [B, t_out, c0, V_true].
+// The bf16 variant (launch_gate_gemm_bf16, gate_gemm_bf16.cu) takes bf16
+// x, lng, lnb, w and ow (mu, rstd, wb, ob and the partials stay float32),
+// and writes y in bf16, or (y_f32: K4's output) in float32.
 struct GateGemmArgs {
-  const float *x, *mu, *rstd, *lng, *lnb, *w, *wb, *ow, *ob;
-  float* y;
+  const void *x;
+  const float *mu, *rstd;
+  const void *lng, *lnb, *w;
+  const float* wb;
+  const void* ow;
+  const float* ob;
+  void* y;
   int batch, t_in, c_in, vp, kt, c0, n_out, act, apply_ln, residual;
   Drop drop_in, drop_out;
   float *part = nullptr, *ps = nullptr, *pss = nullptr;
   int v_true = 0;
 };
 cudaError_t launch_gate_gemm(const GateGemmArgs& args, cudaStream_t stream);
+cudaError_t launch_gate_gemm_bf16(const GateGemmArgs& args, bool y_f32, cudaStream_t stream);
 
 // h [B, t1, c1, Vp] = relu(gcb + sum over the n_c (1-3) graph-term
 // operands ct[m] [B, t1, c1, Vp], then channels c, of ct[m][.., c, :]

@@ -58,4 +58,32 @@ int stgcn_ofc_fwd(const float* a, const float* mu, const float* rstd, const floa
   return launch_gate_gemm(args, static_cast<cudaStream_t>(stream));
 }
 
+// The bf16 variants (the TPU kernels' precision="bfloat16" build): x, a,
+// the LayerNorm affine (lng, lnb; lnw, lnb) and the weights ck, w1, w2 are
+// bf16, K3's a is written in bf16; mu, rstd, the biases, the partials and
+// K4's out stay float32. The dropout scale is rounded to bf16.
+int stgcn_ohead_fwd_bf16(const void* x, const float* mu, const float* rstd, const void* lng,
+                         const void* lnb, const void* ck, const float* cb, void* a, float* part,
+                         float* ps, float* pss, int B, int ko, int c_in, int vp, int c0, int act,
+                         int v_true, unsigned seed, int site, unsigned threshold, float scale,
+                         void* stream) {
+  const GateGemmArgs args{x, mu, rstd, lng, lnb, ck, cb, nullptr, nullptr, a,
+                          B, ko, c_in, vp, ko, c0, 0, act, 1, 1,
+                          make_drop(seed, site, threshold, scale, v_true),
+                          make_drop(0, 0, 0, 1.0f, v_true), part, ps, pss, v_true};
+  return launch_gate_gemm_bf16(args, false, static_cast<cudaStream_t>(stream));
+}
+
+int stgcn_ofc_fwd_bf16(const void* a, const float* mu, const float* rstd, const void* lnw,
+                       const void* lnb, const void* w1, const float* b1, const void* w2,
+                       const float* b2, float* out, int B, int c0, int c1, int ce, int vp,
+                       int v_true, unsigned seed, int site, unsigned threshold, float scale,
+                       void* stream) {
+  const GateGemmArgs args{a, mu, rstd, lnw, lnb, w1, b1, w2,    b2, out,
+                          B, 1,  c0,   vp,  1,   c1, ce, kRelu, 1,  0,
+                          make_drop(0, 0, 0, 1.0f, v_true),
+                          make_drop(seed, site, threshold, scale, v_true)};
+  return launch_gate_gemm_bf16(args, true, static_cast<cudaStream_t>(stream));
+}
+
 }  // extern "C"

@@ -39,6 +39,8 @@
 // order, so K2 (and K3) write one partial per (b, t, lane tile) and a second
 // small pass sums them in a fixed order: no atomics, bit-identical on
 // repeat.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace stgcn {
@@ -50,18 +52,21 @@ namespace stgcn {
 // loads, and the residual's, are issued before its FMAs. gcb may be null
 // (no bias) and relu 0 (none): K12 at Ks >= 4 sums its terms three a launch,
 // the later launches adding onto h (xg == h: each thread reads the residual
-// it overwrites, and nothing else of h).
+// it overwrites, and nothing else of h). T = bf16 (K2f's bf16 variant):
+// bf16 operands and weights widened into the same float32 sums, then, as
+// the TPU's `_tail_core` (vertex_fused.py:423-442), the contraction rounded
+// to bf16 before the residual, the residual a bf16 add, h stored in bf16.
+template <typename T>
 __global__ void __launch_bounds__(kLanes)
-tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
-              const float* __restrict__ ct2, const float* __restrict__ gcw,
-              const float* __restrict__ gcb, const float* xg, float* h, int t1, int c1, int vp,
-              int n_c, int relu) {
+tail_h_kernel(const T* __restrict__ ct0, const T* __restrict__ ct1, const T* __restrict__ ct2,
+              const T* __restrict__ gcw, const float* __restrict__ gcb, const T* xg, T* h,
+              int t1, int c1, int vp, int n_c, int relu) {
   __shared__ __align__(16) float w_s[3 * kMaxOut][kMaxOut];   // gcw[m, c, :], zero past c1
   __shared__ float b_s[kMaxOut];
   for (int i = threadIdx.x; i < 3 * kMaxOut * kMaxOut; i += kLanes) {
     const int m = i / (kMaxOut * kMaxOut), c = i / kMaxOut % kMaxOut, o = i % kMaxOut;
     w_s[m * kMaxOut + c][o] =
-        m < n_c && c < c1 && o < c1 ? gcw[((size_t)m * c1 + c) * c1 + o] : 0.0f;
+        m < n_c && c < c1 && o < c1 ? widen(gcw[((size_t)m * c1 + c) * c1 + o]) : 0.0f;
   }
   if (threadIdx.x < kMaxOut)
     b_s[threadIdx.x] = gcb && (int)threadIdx.x < c1 ? gcb[threadIdx.x] : 0.0f;
@@ -72,15 +77,15 @@ tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
 #pragma unroll
   for (int o = 0; o < kMaxOut; ++o) {
     acc[o] = b_s[o];
-    res[o] = o < c1 ? xg[(row0 + o) * vp + v] : 0.0f;
+    res[o] = o < c1 ? widen(xg[(row0 + o) * vp + v]) : 0.0f;
   }
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
     if (m >= n_c) break;
-    const float* xr = (m == 0 ? ct0 : m == 1 ? ct1 : ct2) + row0 * vp + v;
+    const T* xr = (m == 0 ? ct0 : m == 1 ? ct1 : ct2) + row0 * vp + v;
     float xv[kMaxOut];
 #pragma unroll
-    for (int c = 0; c < kMaxOut; ++c) xv[c] = c < c1 ? xr[(size_t)c * vp] : 0.0f;
+    for (int c = 0; c < kMaxOut; ++c) xv[c] = c < c1 ? widen(xr[(size_t)c * vp]) : 0.0f;
 #pragma unroll
     for (int c = 0; c < kMaxOut; ++c) {
       if (c >= c1) break;
@@ -98,18 +103,30 @@ tail_h_kernel(const float* __restrict__ ct0, const float* __restrict__ ct1,
 #pragma unroll
   for (int o = 0; o < kMaxOut; ++o) {
     if (o >= c1) break;
-    const float z = acc[o] + res[o];
-    h[(row0 + o) * vp + v] = relu ? fmaxf(z, 0.0f) : z;
+    if constexpr (std::is_same<T, float>::value) {
+      const float z = acc[o] + res[o];
+      h[(row0 + o) * vp + v] = relu ? fmaxf(z, 0.0f) : z;
+    } else {
+      const float z = bf16r(bf16r(acc[o]) + res[o]);
+      h[(row0 + o) * vp + v] = __float2bfloat16_rn(relu ? fmaxf(z, 0.0f) : z);
+    }
   }
+}
+
+template <typename T>
+cudaError_t tail_h_run(const T* const (&ct)[3], int n_c, const T* gcw, const float* gcb,
+                       const T* xg, T* h, int batch, int t1, int c1, int vp,
+                       cudaStream_t stream, bool relu) {
+  if (vp % kLanes != 0 || c1 > kMaxOut || n_c < 1 || n_c > 3) return cudaErrorInvalidValue;
+  tail_h_kernel<T><<<dim3(vp / kLanes, t1, batch), kLanes, 0, stream>>>(
+      ct[0], ct[1], ct[2], gcw, gcb, xg, h, t1, c1, vp, n_c, relu ? 1 : 0);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
                           const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
                           int vp, cudaStream_t stream, bool relu) {
-  if (vp % kLanes != 0 || c1 > kMaxOut || n_c < 1 || n_c > 3) return cudaErrorInvalidValue;
-  tail_h_kernel<<<dim3(vp / kLanes, t1, batch), kLanes, 0, stream>>>(
-      ct[0], ct[1], ct[2], gcw, gcb, xg, h, t1, c1, vp, n_c, relu ? 1 : 0);
-  return cudaGetLastError();
+  return tail_h_run<float>(ct, n_c, gcw, gcb, xg, h, batch, t1, c1, vp, stream, relu);
 }
 
 // one block a row: thread i sums partials i, i + 256, .. in order, then a
@@ -190,6 +207,40 @@ int stgcn_tail_fwd(const float* xg, const float* ct0, const float* ct1, const fl
   const GateGemmArgs args{h, nullptr, nullptr, nullptr, nullptr, c2k, c2b, nullptr, nullptr, a2,
                           B, t1, c1, vp, kt, c2, 0, act, 0, 1, none, none, part, ps, pss, v_true};
   return launch_gate_gemm(args, s);
+}
+
+// The bf16 variants (the TPU kernels' precision="bfloat16" build): x, ct*,
+// xg, the weights c1k, gaw, gcw, c2k, and the outputs xg, a2 and the h
+// scratch are bf16; mu, rstd, the biases, the partials and ps, pss float32;
+// lng, lnb bf16. Otherwise as above. The dropout scale is rounded to bf16.
+int stgcn_head_fwd_bf16(const void* x, const float* mu, const float* rstd, const void* lng,
+                        const void* lnb, const void* c1k, const float* c1b, const void* gaw,
+                        const float* gab, void* xg, int B, int t_in, int c_in, int vp, int kt,
+                        int c0, int c1, int act, int apply_ln, int v_true, unsigned seed,
+                        int site, unsigned threshold, float scale, void* stream) {
+  const GateGemmArgs args{x,  mu, rstd, lng,  lnb, c1k, c1b, gaw, gab,      xg,
+                          B,  t_in, c_in, vp, kt,  c0,  c1,  act, apply_ln, 1,
+                          make_drop(seed, site, threshold, scale, v_true),
+                          make_drop(0, 0, 0, 1.0f, v_true)};
+  return launch_gate_gemm_bf16(args, false, static_cast<cudaStream_t>(stream));
+}
+
+int stgcn_tail_fwd_bf16(const void* xg, const void* ct0, const void* ct1, const void* ct2,
+                        const void* gcw, const float* gcb, const void* c2k, const float* c2b,
+                        void* a2, void* h, float* part, float* ps, float* pss, int B, int t1,
+                        int c1, int vp, int kt, int n_c, int c2, int act, int v_true,
+                        void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const bf16* ct[3] = {static_cast<const bf16*>(ct0), static_cast<const bf16*>(ct1),
+                       static_cast<const bf16*>(ct2)};
+  const cudaError_t err =
+      tail_h_run<bf16>(ct, n_c, static_cast<const bf16*>(gcw), gcb,
+                       static_cast<const bf16*>(xg), static_cast<bf16*>(h), B, t1, c1, vp, s, true);
+  if (err != cudaSuccess) return err;
+  const Drop none = make_drop(0, 0, 0, 1.0f, v_true);
+  const GateGemmArgs args{h, nullptr, nullptr, nullptr, nullptr, c2k, c2b, nullptr, nullptr, a2,
+                          B, t1, c1, vp, kt, c2, 0, act, 0, 1, none, none, part, ps, pss, v_true};
+  return launch_gate_gemm_bf16(args, false, s);
 }
 
 }  // extern "C"

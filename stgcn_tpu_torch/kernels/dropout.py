@@ -128,10 +128,12 @@ def keep_mask(drop: Drop, shape: tuple[int, int, int, int], v_true: int, *,
 
 
 def apply_cv(x: torch.Tensor, drop: Drop | None, v_true: int) -> torch.Tensor:
-    """``x * keep_mask`` for a cv tensor ``[B, T, C, W]``; identity for None."""
+    """``x * keep_mask`` for a cv tensor ``[B, T, C, W]``; identity for None.
+    A bf16 ``x`` is multiplied by the mask in bf16 (the scale rounded to
+    bf16, the product rounded), as the TPU's bf16 kernels store the mask."""
     if drop is None:
         return x
-    return x * keep_mask(drop, tuple(x.shape), v_true, device=x.device)
+    return x * keep_mask(drop, tuple(x.shape), v_true, device=x.device).to(x.dtype)
 
 
 def apply_channels_last(x: torch.Tensor, drop: Drop | None) -> torch.Tensor:

@@ -21,6 +21,14 @@ and 2 (``[B·t1·c1, Vp] × [Vp, Vp]``, padded). Under ``retired`` the
 launches of each K12f call that are kernels the redesigns retired
 (``_ab.py``'s ``retired_launches``: none may remain). Then the
 ``nvidia-smi`` name and power limit of the card.
+
+Beside each K1f-K4f case runs its bf16 variant (``<name>_bf16``: the same
+inputs rounded to bf16, biases and statistics float32, ``precision=
+"bfloat16"``), with bf16 ``torch.matmul`` yardsticks of the same products
+(``<product>_bf16``, under PyTorch's default
+``allow_bf16_reduced_precision_reduction``). A tree whose kernels have no
+bf16 variant (it raises ``NotImplementedError``) times none and lists those
+cases under ``no_bf16``.
 """
 
 from __future__ import annotations
@@ -95,6 +103,26 @@ def cases(torch, b: int, v_true: int, vp: int):
     ]
 
 
+# the arguments of each K1f-K4f wrapper that stay float32 in its bf16 variant:
+# the LayerNorm statistics and the biases (the config is argument 0)
+F32_ARGS = {"head_fwd": {2, 3, 7, 9}, "tail_fwd": {5, 7}, "ohead_fwd": {2, 3, 7},
+            "ofc_fwd": {2, 3, 7, 9}}
+
+
+def bf16_cases(torch, made):
+    """The bf16 variant of each K1f-K4f case of ``made``: its inputs rounded
+    to bf16 (the statistics and biases float32), ``precision="bfloat16"``.
+    Built after the float32 cases, so their random inputs are the parent's."""
+    out = []
+    for name, wrapper, args, kwargs in made:
+        keep = F32_ARGS[wrapper.__name__]
+        cfg = dataclasses.replace(args[0], precision="bfloat16")
+        conv = [t if i in keep or t is None else t.to(torch.bfloat16)
+                for i, t in enumerate(args) if i > 0]
+        out.append((f"{name}_bf16", wrapper, (cfg, *conv), kwargs))
+    return out
+
+
 def k12_cases(torch, b: int, v: int):
     """(name, wrapper, args, kwargs) of K12f at blocks 1 and 2 of the main.py
     widths (t_in 12, c_in 1; t_in 8, c_in 64), a random dense GSO, dropout on."""
@@ -142,6 +170,11 @@ def yardstick(torch, reps: int) -> dict:
         d = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
         ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
         out[key] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
+        if not key.startswith("k12f"):   # the bf16 variants' products
+            a16, d16 = a.bfloat16(), d.bfloat16()
+            ms, _ = _ab.timed(torch, lambda: torch.matmul(a16, d16), reps, warmup=3)
+            out[f"{key}_bf16"] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
+            del a16, d16
         del a, d
     for key, m in chain.items():
         out[key]["flops"] = 2 * m * v12 * v12
@@ -156,14 +189,23 @@ def run_one(tree: str, reps: int, data) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
-              "sha256": {}, "trace": {}, "retired": {}}
-    every = [(shape, cases(torch, b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
+              "sha256": {}, "trace": {}, "retired": {}, "no_bf16": []}
+
+    def made_cases(b, v_true, vp):
+        made = cases(torch, b, v_true, vp)
+        return made + bf16_cases(torch, made)
+
+    every = [(shape, made_cases(b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
     every += [(shape, k12_cases(torch, b, v)) for shape, (b, v) in K12_SHAPES.items()]
     for shape, made in every:
         for name, wrapper, args, kwargs in made:
             key = f"{name}/{shape}"
-            result["ms"][key], result["sha256"][key] = _ab.timed(
-                torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
+            try:
+                result["ms"][key], result["sha256"][key] = _ab.timed(
+                    torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
+            except NotImplementedError:   # a tree without the bf16 variants
+                result["no_bf16"].append(key)
+                continue
             ev = result["trace"][key] = _ab.launches(torch, lambda: wrapper(*args, **kwargs))
             if name.startswith("stblock_fwd"):
                 result["retired"][key] = _ab.retired_launches("stblock_fwd", ev)

@@ -30,6 +30,14 @@ weight gradients run on the same tile). Each
 wrapper runs its kernel on a CUDA tensor and its plain version (``*_reference``;
 the backward ones are autograd through the forward ones) on a CPU tensor,
 and counts its launches.
+
+``OutHeadCfg(precision="bfloat16")`` selects K3's and K4's bf16 variants
+(``ohead_fwd_bf16``, ``ofc_fwd_bf16``), rounding as the TPU's bf16 kernels
+do (``stgcn_tpu/kernels/output_head.py:127-159``, ``:327-348``): K3 as K1
+(:mod:`.vertex_fused`), ``a`` stored in bf16 and its partial sums in
+float32; K4's LayerNorm output and fc1 → ReLU rounded to bf16, the mask a
+bf16 product, fc2 summed in float32 and left in float32. Their backward
+raises ``NotImplementedError`` until fused training in bf16 is ported.
 """
 
 from __future__ import annotations
@@ -40,12 +48,12 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, BF16_SLICE, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device,
-    drop_args, on_cpu, require, stream_of, workspace)
+    ACT_CODES, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device, drop_args,
+    on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.vertex_fused import (
-    _cdot, gate_cv, ln_normalize_cv, ln_stats, masked_ln_sums, pad_channels_cv, tconv_cv)
-
+    BF16, PRECISIONS, _cdot, gate_cv, launch_name, linear_cv, ln_normalize_cv, ln_stats,
+    masked_ln_sums, pad_channels_cv, refuse_bf16_bwd, tconv_cv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +78,11 @@ class OutHeadCfg:
     def g(self) -> int:
         return 2 * self.c0 if self.gated else self.c0
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activations' and weights' type: bf16 for the bf16 variants."""
+        return BF16 if self.precision == "bfloat16" else torch.float32
+
 
 def ohead_reference(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb,
                     drop: Drop | None = None):
@@ -81,8 +94,9 @@ def ohead_reference(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb,
 
 
 def ofc_preact(a, mu, rstd, lnw, lnb, w1, b1) -> torch.Tensor:
-    """The input of fc1's ReLU, ``[B, 1, c1, Vp]``."""
-    return _cdot(ln_normalize_cv(a, mu, rstd, lnw, lnb), w1) + b1[:, None]
+    """The input of fc1's ReLU, ``[B, 1, c1, Vp]``; bf16 for a bf16 ``a``
+    (the LayerNorm output and the product plus bias each rounded)."""
+    return linear_cv(ln_normalize_cv(a, mu, rstd, lnw, lnb), w1, b1)
 
 
 def ofc_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2,
@@ -91,8 +105,14 @@ def ofc_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2,
     (1 where the ReLU passes, shaped as :func:`ofc_preact`) replaces the
     ReLU's own decisions when given."""
     z = ofc_preact(a, mu, rstd, lnw, lnb, w1, b1)
-    h = torch.relu(z) if relu_mask is None else z * relu_mask
-    return _cdot(dropout.apply_cv(h, drop, cfg.v_true), w2) + b2[:, None]
+    return ofc_out(cfg, torch.relu(z) if relu_mask is None else z * relu_mask, w2, b2, drop)
+
+
+def ofc_out(cfg: OutHeadCfg, h, w2, b2, drop: Drop | None = None) -> torch.Tensor:
+    """fc1's ReLU output ``h`` → dropout → fc2: ``[B, 1, c_end, Vp]``, float32
+    (for a bf16 ``h`` the mask a bf16 product and fc2's float32 sums left
+    unrounded, `_make_ofc_fwd_kernel`, ``output_head.py:335-348``)."""
+    return _cdot(dropout.apply_cv(h, drop, cfg.v_true).float(), w2.float()) + b2[:, None]
 
 
 def _grad_reference(fn, ins, couts):
@@ -120,9 +140,8 @@ def ofc_bwd_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, go
 
 
 def _check_cfg(cfg: OutHeadCfg) -> None:
-    if cfg.precision != "default":
-        raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 variants of K1-K4 "
-                                  f"are not ported yet; they come with {BF16_SLICE}")
+    if cfg.precision not in PRECISIONS:
+        raise ValueError(f"precision {cfg.precision!r}: one of {PRECISIONS}")
     if cfg.act_func not in ACT_CODES:
         raise ValueError(f"unknown act_func {cfg.act_func!r}")
     if cfg.v_pad % LANES:
@@ -142,24 +161,25 @@ def ohead_fwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, *, drop: Drop | No
     if on_cpu(x):
         return ohead_reference(cfg, x, mu, rstd, lng, lnb, ck, cb, drop)
     dev = cuda_device(x)
-    b = x.shape[0]
+    b, cdt = x.shape[0], cfg.dtype
     stat, aff = (b, cfg.ko, 1, 1), (cfg.c_in, cfg.v_pad)
-    ptrs = [require(x, "x", (b, cfg.ko, cfg.c_in, cfg.v_pad), dev),
+    ptrs = [require(x, "x", (b, cfg.ko, cfg.c_in, cfg.v_pad), dev, cdt),
             require(mu, "mu", stat, dev), require(rstd, "rstd", stat, dev),
-            require(lng, "lng", aff, dev), require(lnb, "lnb", aff, dev),
-            require(ck, "ck", (cfg.ko, cfg.c_in, cfg.g), dev),
+            require(lng, "lng", aff, dev, cdt), require(lnb, "lnb", aff, dev, cdt),
+            require(ck, "ck", (cfg.ko, cfg.c_in, cfg.g), dev, cdt),
             require(cb, "cb", (cfg.g,), dev)]
-    a = torch.empty((b, 1, cfg.c0, cfg.v_pad), device=dev, dtype=torch.float32)
+    a = torch.empty((b, 1, cfg.c0, cfg.v_pad), device=dev, dtype=cdt)
     part = torch.empty((b, -(-cfg.c0 // GATE_PASS), cfg.v_pad // TILE_LANES, 2), device=dev,
                        dtype=torch.float32)
     ps = torch.empty((b, 1, 1, 1), device=dev, dtype=torch.float32)
     pss = torch.empty_like(ps)
-    err = _build.library().stgcn_ohead_fwd(
+    name = launch_name("ohead_fwd", cfg.precision)
+    err = getattr(_build.library(), f"stgcn_{name}")(
         *ptrs, a.data_ptr(), part.data_ptr(), ps.data_ptr(), pss.data_ptr(),
         b, cfg.ko, cfg.c_in, cfg.v_pad, cfg.c0, ACT_CODES[cfg.act_func], cfg.v_true,
         *drop_args(drop), stream_of(dev))
-    _build.check("ohead_fwd", err)
-    count_launch("ohead_fwd")
+    _build.check(name, err)
+    count_launch(name)
     return a, ps, pss
 
 
@@ -167,24 +187,27 @@ def ofc_fwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, *,
             drop: Drop | None = None) -> torch.Tensor:
     """K4: ``a`` [B, 1, c0, Vp], ``mu``/``rstd`` [B, 1, 1, 1], ``lnw``/``lnb``
     [c0, Vp], ``w1`` [c0, c1], ``b1`` [c1], ``w2`` [c1, c_end], ``b2``
-    [c_end] → ``[B, 1, c_end, Vp]``. ``drop`` drops out fc1's ReLU output."""
+    [c_end] → ``[B, 1, c_end, Vp]`` (float32 for both variants). ``drop``
+    drops out fc1's ReLU output."""
     _check_cfg(cfg)
     if on_cpu(a):
         return ofc_reference(cfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, drop)
     dev = cuda_device(a)
-    b = a.shape[0]
+    b, cdt = a.shape[0], cfg.dtype
     stat, aff = (b, 1, 1, 1), (cfg.c0, cfg.v_pad)
-    ptrs = [require(a, "a", (b, 1, cfg.c0, cfg.v_pad), dev),
+    ptrs = [require(a, "a", (b, 1, cfg.c0, cfg.v_pad), dev, cdt),
             require(mu, "mu", stat, dev), require(rstd, "rstd", stat, dev),
-            require(lnw, "lnw", aff, dev), require(lnb, "lnb", aff, dev),
-            require(w1, "w1", (cfg.c0, cfg.c1), dev), require(b1, "b1", (cfg.c1,), dev),
-            require(w2, "w2", (cfg.c1, cfg.c_end), dev), require(b2, "b2", (cfg.c_end,), dev)]
+            require(lnw, "lnw", aff, dev, cdt), require(lnb, "lnb", aff, dev, cdt),
+            require(w1, "w1", (cfg.c0, cfg.c1), dev, cdt), require(b1, "b1", (cfg.c1,), dev),
+            require(w2, "w2", (cfg.c1, cfg.c_end), dev, cdt),
+            require(b2, "b2", (cfg.c_end,), dev)]
     out = torch.empty((b, 1, cfg.c_end, cfg.v_pad), device=dev, dtype=torch.float32)
-    err = _build.library().stgcn_ofc_fwd(
+    name = launch_name("ofc_fwd", cfg.precision)
+    err = getattr(_build.library(), f"stgcn_{name}")(
         *ptrs, out.data_ptr(), b, cfg.c0, cfg.c1, cfg.c_end, cfg.v_pad, cfg.v_true,
         *drop_args(drop), stream_of(dev))
-    _build.check("ofc_fwd", err)
-    count_launch("ofc_fwd")
+    _build.check(name, err)
+    count_launch(name)
     return out
 
 
@@ -195,6 +218,7 @@ def ohead_bwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss, *,
     and regenerating its mask. Returns ``(dx, dmu, drstd, dlng, dlnb, dck,
     dcb)``."""
     _check_cfg(cfg)
+    refuse_bf16_bwd("K3b, the backward of K3", cfg.precision)
     if on_cpu(x):
         return ohead_bwd_reference(cfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss, drop)
     dev = cuda_device(x)
@@ -226,6 +250,7 @@ def ofc_bwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout, *,
     [B, 1, c_end, Vp], recomputing the forward and regenerating its mask.
     Returns ``(da, dmu, drstd, dlnw, dlnb, dw1, db1, dw2, db2)``."""
     _check_cfg(cfg)
+    refuse_bf16_bwd("K4b, the backward of K4", cfg.precision)
     if on_cpu(a):
         return ofc_bwd_reference(cfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout, drop)
     dev = cuda_device(a)
@@ -300,25 +325,32 @@ def output_head_fused(params: dict, a2, mu, rstd, lng_p, lnb_p, *, v_true: int,
     the ``output.`` prefix removed. ``a2`` [B, ko, C, Vp]; ``mu``/``rstd``
     [B, ko, 1, 1]; ``lng_p``/``lnb_p`` [C, Vp] (the final block's LN affine,
     zero-padded). ``drop_in`` drops the final block's normalized output,
-    ``drop_fc`` fc1's output (training). Returns [B, 1, Vp, c_end]."""
+    ``drop_fc`` fc1's output (training). Returns [B, 1, Vp, c_end], float32.
+
+    A bf16 ``a2`` runs K3's and K4's bf16 variants, as the JAX head does
+    (``stgcn_tpu/kernels/output_head.py:547-562``): the conv and fc weights
+    cast to bf16, the biases float32, the head's LayerNorm affine in the
+    type of the inter-block one (``lng_p``)."""
     b, ko, c_in, v_pad = a2.shape
+    precision = "bfloat16" if a2.dtype == BF16 else "default"
+    cdt, ln_dt, f32 = a2.dtype, lng_p.dtype, torch.float32
     conv_w = params["tmp_conv1.causal_conv.weight"]          # [g, c_in, ko, 1]
-    ck = conv_w[..., 0].permute(2, 1, 0).contiguous()         # [ko, c_in, g]
+    ck = conv_w[..., 0].permute(2, 1, 0).to(cdt).contiguous()   # [ko, c_in, g]
     g = ck.shape[-1]
     c0 = g // 2 if act_func in ("glu", "gtu") else g
-    w1 = params["fc1.weight"].T.contiguous()
-    w2 = params["fc2.weight"].T.contiguous()
+    w1 = params["fc1.weight"].T.to(cdt).contiguous()
+    w2 = params["fc2.weight"].T.to(cdt).contiguous()
     b1 = params.get("fc1.bias", torch.zeros(w1.shape[1], device=a2.device))
     b2 = params.get("fc2.bias", torch.zeros(w2.shape[1], device=a2.device))
     cfg = OutHeadCfg(ko=ko, c_in=c_in, c0=c0, c1=w1.shape[1], c_end=w2.shape[1],
-                     act_func=act_func, v_true=v_true, v_pad=v_pad)
+                     act_func=act_func, v_true=v_true, v_pad=v_pad, precision=precision)
     pad_v = (0, 0, 0, v_pad - params["ln.weight"].shape[0])
-    lnw = torch.nn.functional.pad(params["ln.weight"], pad_v).T.contiguous()
-    lnb = torch.nn.functional.pad(params["ln.bias"], pad_v).T.contiguous()
+    lnw = torch.nn.functional.pad(params["ln.weight"].to(ln_dt), pad_v).T.contiguous()
+    lnb = torch.nn.functional.pad(params["ln.bias"].to(ln_dt), pad_v).T.contiguous()
 
     a, ps, pss = ohead_fused(cfg, a2, mu, rstd, lng_p, lnb_p, ck,
-                             params["tmp_conv1.causal_conv.bias"], drop=drop_in)
+                             params["tmp_conv1.causal_conv.bias"].to(f32), drop=drop_in)
     mu2, rstd2 = ln_stats(ps, pss, v_true * c0)
-    out = ofc_fused(cfg, a, mu2, rstd2, lnw, lnb, w1, b1.contiguous(), w2, b2.contiguous(),
-                    drop=drop_fc)
+    out = ofc_fused(cfg, a, mu2, rstd2, lnw, lnb, w1, b1.to(f32).contiguous(), w2,
+                    b2.to(f32).contiguous(), drop=drop_fc)
     return out.permute(0, 1, 3, 2)  # [B, 1, Vp, c_end]

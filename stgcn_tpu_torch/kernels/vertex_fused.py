@@ -33,10 +33,20 @@ notes say what bounds each kernel and how the design answers it. Every
 wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (``*_reference``; the backward ones are autograd through the forward ones
 with the same mask) on a CPU tensor, and counts its kernel launches
-(:func:`stgcn_tpu_torch.kernels.launch_counts`). Their bf16 variants
-(``precision="bfloat16"`` on the TPU) come with the fused bf16 slice of the
-port and raise until then; the unfused bf16 model runs (its graph kernels
-K7-K10 have bf16 variants).
+(:func:`stgcn_tpu_torch.kernels.launch_counts`).
+
+``VertexBlockCfg(precision="bfloat16")`` selects the forward kernels' bf16
+variants (the TPU kernels' ``precision="bfloat16"`` build, counted as
+``head_fwd_bf16`` and ``tail_fwd_bf16``): bf16 activations, weights and
+LayerNorm affine, float32 biases, statistics and partial sums; float32 sums
+of bf16 products, rounded to bf16 where the TPU kernel rounds
+(``stgcn_tpu/kernels/vertex_fused.py:338-442``): the normalized input, then
+its product with the bf16 mask; each product's sum plus bias; the contraction
+before the residual; every op of the gate, whose σ is ``tanh(x/2)/2 + 1/2``
+as the TPU's bf16 kernels compose it. The plain versions round at the same
+points, their products float32 einsums of bf16 values. The backward kernels'
+bf16 variants come with fused training in bf16 (``ROADMAP.md`` §1): the
+backward of a bf16 call raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +60,9 @@ from stgcn_tpu_torch.kernels._launch import (
     ACT_CODES, BF16_SLICE, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device,
     drop_args, on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
+
+BF16 = torch.bfloat16
+PRECISIONS = ("default", "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +108,17 @@ class VertexBlockCfg:
         """Graph terms entering the weight contraction besides xg."""
         return 1 if self.graph_conv_type == "graph_conv" else self.ks - 1
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activations' and weights' type: bf16 for the bf16 variants."""
+        return BF16 if self.precision == "bfloat16" else torch.float32
+
+
+def launch_name(name: str, precision: str) -> str:
+    """The launch counter of a forward kernel: ``name``, or ``name_bf16`` for
+    its bf16 variant."""
+    return f"{name}_bf16" if precision == "bfloat16" else name
+
 
 # --------------------------------------------------------------------------
 # plain PyTorch versions (cv layout, whole arrays)
@@ -105,6 +129,15 @@ def _cdot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("btcv,cg->btgv", x, w)
 
 
+def linear_cv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x`` [b, t, c, v] × ``w`` [c, g] + ``b`` [g] → [b, t, g, v] in x's
+    type: for a bf16 ``x``, the float32 sums of its bf16 products plus the
+    float32 bias, rounded once (K1's align, K4's fc1: `_head_core`,
+    ``stgcn_tpu/kernels/vertex_fused.py:393-404``; `_ofc_core`,
+    ``output_head.py:327-332``)."""
+    return (_cdot(x.float(), w.float()) + b[:, None]).to(x.dtype)
+
+
 def pad_channels_cv(x: torch.Tensor, c_out: int) -> torch.Tensor:
     """Zero-pad the cv channel axis (-2) up to ``c_out`` (`model/layers.py:17-19`)."""
     c_in = x.shape[2]
@@ -113,9 +146,24 @@ def pad_channels_cv(x: torch.Tensor, c_out: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, c_out - c_in)) if c_in < c_out else x
 
 
+def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """σ of a bf16 tensor as the TPU's bf16 kernels compose it,
+    ``tanh(x/2)/2 + 1/2``, each op rounded to bf16 (`_sigmoid`,
+    ``stgcn_tpu/kernels/fused_stblock.py:182-189``)."""
+    return torch.tanh(x * 0.5) * 0.5 + 0.5
+
+
 def gate_cv(act_func: str, s: torch.Tensor, xin: torch.Tensor, c: int) -> torch.Tensor:
     """Gate with the in-gate residual on the cv channel axis (reference
-    semantics `model/layers.py:105,109,111-115`)."""
+    semantics `model/layers.py:105,109,111-115`). On bf16 operands every op
+    rounds to bf16 and σ is :func:`sigmoid_bf16` (`_gate_fwd_cv`,
+    ``stgcn_tpu/kernels/vertex_fused.py:280-303``)."""
+    if s.dtype == BF16:
+        if act_func in ("glu", "gtu"):
+            lin = s[:, :, :c] + xin
+            return (torch.tanh(lin) if act_func == "gtu" else lin) * sigmoid_bf16(s[:, :, c:])
+        z = s + xin
+        return torch.relu(z) if act_func == "relu" else z * sigmoid_bf16(z)
     if act_func in ("glu", "gtu"):
         lin = s[:, :, :c] + xin
         if act_func == "gtu":
@@ -127,17 +175,25 @@ def gate_cv(act_func: str, s: torch.Tensor, xin: torch.Tensor, c: int) -> torch.
 
 def tconv_cv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, kt: int) -> torch.Tensor:
     """Valid temporal conv on cv operands, one contraction per tap.
-    ``x`` [b, t, c_in, v]; ``kernel`` [kt, c_in, c_out]."""
+    ``x`` [b, t, c_in, v]; ``kernel`` [kt, c_in, c_out]. A bf16 ``x``: the
+    float32 sums of its bf16 products plus the float32 bias, rounded once
+    to bf16 (`_tconv_fwd_cv`, ``stgcn_tpu/kernels/vertex_fused.py:338-345``)."""
+    dt = x.dtype
+    x, kernel = x.float(), kernel.float()
     t_out = x.shape[1] - kt + 1
     acc = _cdot(x[:, 0:t_out], kernel[0])
     for k in range(1, kt):
         acc = acc + _cdot(x[:, k:k + t_out], kernel[k])
-    return acc + bias[:, None]
+    return (acc + bias[:, None]).to(dt)
 
 
 def ln_normalize_cv(x, mu, rstd, lng, lnb):
     """Normalize with given per-(b, t) statistics ``[B, T, 1, 1]``, then the
-    (V, C) affine ``[c, Vp]`` (zero on padded lanes)."""
+    (V, C) affine ``[c, Vp]`` (zero on padded lanes). A bf16 ``x`` (and
+    affine): in float32, rounded once to bf16 (`_ln_drop_fwd`,
+    ``stgcn_tpu/kernels/vertex_fused.py:363-375``)."""
+    if x.dtype == BF16:
+        return ((x.float() - mu) * rstd * lng.float() + lnb.float()).to(BF16)
     return (x - mu) * rstd * lng + lnb
 
 
@@ -150,17 +206,21 @@ def head_reference(cfg: VertexBlockCfg, x, ln, w, drop: Drop | None = None) -> t
         x = dropout.apply_cv(ln_normalize_cv(x, *ln), drop, cfg.v_true)
     s1 = tconv_cv(x, c1k, c1b, cfg.kt)
     a1 = gate_cv(cfg.act_func, s1, pad_channels_cv(x[:, cfg.kt - 1:], cfg.c0), cfg.c0)
-    return _cdot(a1, gaw) + gab[:, None]
+    return linear_cv(a1, gaw, gab)
 
 
 def tail_preact(cfg: VertexBlockCfg, xg, terms, w) -> torch.Tensor:
     """The input of the tail's ReLU: graph-term contraction plus bias and
-    residual, ``[B, t1, c1, Vp]``."""
-    gcw, gcb = w[0], w[1]
+    residual, ``[B, t1, c1, Vp]``. bf16: the contraction plus bias rounded
+    to bf16 before the residual, a bf16 add (`_tail_core`,
+    ``stgcn_tpu/kernels/vertex_fused.py:423-442``)."""
+    gcw, gcb = w[0].float(), w[1]
     cterms = [xg, *terms] if cfg.graph_conv_type == "cheb_graph_conv" else list(terms)
-    out = _cdot(cterms[0], gcw[0])
+    out = _cdot(cterms[0].float(), gcw[0])
     for k in range(1, len(cterms)):
-        out = out + _cdot(cterms[k], gcw[k])
+        out = out + _cdot(cterms[k].float(), gcw[k])
+    if xg.dtype == BF16:
+        return (out + gcb[:, None]).to(BF16) + xg
     return out + gcb[:, None] + xg
 
 
@@ -173,7 +233,9 @@ def _tail_core(cfg: VertexBlockCfg, xg, terms, w, relu_mask=None) -> torch.Tenso
 
 
 def masked_ln_sums(a: torch.Tensor, v_true: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(Σ a, Σ a²) over channels and the true vertex lanes, ``[B, T, 1, 1]``."""
+    """(Σ a, Σ a²) over channels and the true vertex lanes, ``[B, T, 1, 1]``,
+    in float32 (of a bf16 ``a``'s values)."""
+    a = a.float()
     vm = (torch.arange(a.shape[-1], device=a.device) < v_true).to(a.dtype)
     a = a * vm
     return a.sum((2, 3), keepdim=True), (a * a).sum((2, 3), keepdim=True)
@@ -226,9 +288,8 @@ def tail_bwd_reference(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss, relu_m
 
 
 def _check_cfg(cfg: VertexBlockCfg) -> None:
-    if cfg.precision != "default":
-        raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 variants of K1-K4 "
-                                  f"are not ported yet; they come with {BF16_SLICE}")
+    if cfg.precision not in PRECISIONS:
+        raise ValueError(f"precision {cfg.precision!r}: one of {PRECISIONS}")
     if cfg.act_func not in ACT_CODES:
         raise ValueError(f"unknown act_func {cfg.act_func!r}")
     if cfg.v_pad % LANES:
@@ -238,6 +299,16 @@ def _check_cfg(cfg: VertexBlockCfg) -> None:
     if cfg.c_in > cfg.c0 or cfg.c1 > cfg.c2:
         raise ValueError("the fused block supports zero-pad residual aligns only "
                          "(c_in <= c0, c1 <= c2)")
+
+
+def refuse_bf16_bwd(what: str, precision: str) -> None:
+    """Raise ``NotImplementedError`` for the backward of a bf16 call: the
+    bf16 variants of K1b-K4b are not ported yet, and nothing is cast to
+    float32 to reuse the float32 kernels."""
+    if precision == "bfloat16":
+        raise NotImplementedError(
+            f"{what} of a bf16 call (precision='bfloat16') is not ported yet; it comes with "
+            f"fused training in bf16 (ROADMAP.md §1 item 2), part of {BF16_SLICE}")
 
 
 def _check_drop(cfg: VertexBlockCfg, drop: Drop | None) -> None:
@@ -258,22 +329,24 @@ def head_fwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, *,
         ln = (mu, rstd, lng, lnb) if cfg.apply_ln else None
         return head_reference(cfg, x, ln, (c1k, c1b, gaw, gab), drop)
     dev = cuda_device(x)
-    b = x.shape[0]
+    b, cdt, f32 = x.shape[0], cfg.dtype, torch.float32
     ln_shapes = [(b, cfg.t_in, 1, 1)] * 2 + [(cfg.c_in, cfg.v_pad)] * 2
-    ptrs = [require(x, "x", (b, cfg.t_in, cfg.c_in, cfg.v_pad), dev)]
-    for name, t, shape in zip(("mu", "rstd", "lng", "lnb"), (mu, rstd, lng, lnb), ln_shapes):
-        ptrs.append(require(t, name, shape, dev) if cfg.apply_ln else 0)
-    ptrs += [require(c1k, "c1k", (cfg.kt, cfg.c_in, cfg.g1), dev),
+    ptrs = [require(x, "x", (b, cfg.t_in, cfg.c_in, cfg.v_pad), dev, cdt)]
+    for name, t, shape, dt in zip(("mu", "rstd", "lng", "lnb"), (mu, rstd, lng, lnb), ln_shapes,
+                                  (f32, f32, cdt, cdt)):
+        ptrs.append(require(t, name, shape, dev, dt) if cfg.apply_ln else 0)
+    ptrs += [require(c1k, "c1k", (cfg.kt, cfg.c_in, cfg.g1), dev, cdt),
              require(c1b, "c1b", (cfg.g1,), dev),
-             require(gaw, "gaw", (cfg.c0, cfg.c1), dev),
+             require(gaw, "gaw", (cfg.c0, cfg.c1), dev, cdt),
              require(gab, "gab", (cfg.c1,), dev)]
-    xg = torch.empty((b, cfg.t1, cfg.c1, cfg.v_pad), device=dev, dtype=torch.float32)
-    err = _build.library().stgcn_head_fwd(
+    xg = torch.empty((b, cfg.t1, cfg.c1, cfg.v_pad), device=dev, dtype=cdt)
+    name = launch_name("head_fwd", cfg.precision)
+    err = getattr(_build.library(), f"stgcn_{name}")(
         *ptrs, xg.data_ptr(), b, cfg.t_in, cfg.c_in, cfg.v_pad, cfg.kt, cfg.c0, cfg.c1,
         ACT_CODES[cfg.act_func], int(cfg.apply_ln), cfg.v_true, *drop_args(drop),
         stream_of(dev))
-    _build.check("head_fwd", err)
-    count_launch("head_fwd")
+    _build.check(name, err)
+    count_launch(name)
     return xg
 
 
@@ -289,29 +362,30 @@ def tail_fwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b):
     if on_cpu(xg):
         return tail_reference(cfg, xg, terms, (gcw, gcb, c2k, c2b))
     dev = cuda_device(xg)
-    b = xg.shape[0]
+    b, cdt = xg.shape[0], cfg.dtype
     act = (b, cfg.t1, cfg.c1, cfg.v_pad)
     cterms = [xg, *terms] if cfg.graph_conv_type == "cheb_graph_conv" else terms
     n_c = len(cterms)
-    ct = [require(t, f"term{i}", act, dev) for i, t in enumerate(cterms)]
+    ct = [require(t, f"term{i}", act, dev, cdt) for i, t in enumerate(cterms)]
     ct += [0] * (3 - n_c)
-    ptrs = [require(xg, "xg", act, dev), *ct,
-            require(gcw, "gcw", (n_c, cfg.c1, cfg.c1), dev),
+    ptrs = [require(xg, "xg", act, dev, cdt), *ct,
+            require(gcw, "gcw", (n_c, cfg.c1, cfg.c1), dev, cdt),
             require(gcb, "gcb", (cfg.c1,), dev),
-            require(c2k, "c2k", (cfg.kt, cfg.c1, cfg.g2), dev),
+            require(c2k, "c2k", (cfg.kt, cfg.c1, cfg.g2), dev, cdt),
             require(c2b, "c2b", (cfg.g2,), dev)]
-    a2 = torch.empty((b, cfg.t2, cfg.c2, cfg.v_pad), device=dev, dtype=torch.float32)
-    h = torch.empty(act, device=dev, dtype=torch.float32)   # scratch: the ReLU'd contraction
+    a2 = torch.empty((b, cfg.t2, cfg.c2, cfg.v_pad), device=dev, dtype=cdt)
+    h = torch.empty(act, device=dev, dtype=cdt)   # scratch: the ReLU'd contraction
     part = torch.empty((b, cfg.t2, -(-cfg.c2 // GATE_PASS), cfg.v_pad // TILE_LANES, 2),
                        device=dev, dtype=torch.float32)
     ps = torch.empty((b, cfg.t2, 1, 1), device=dev, dtype=torch.float32)
     pss = torch.empty_like(ps)
-    err = _build.library().stgcn_tail_fwd(
+    name = launch_name("tail_fwd", cfg.precision)
+    err = getattr(_build.library(), f"stgcn_{name}")(
         *ptrs, a2.data_ptr(), h.data_ptr(), part.data_ptr(), ps.data_ptr(), pss.data_ptr(),
         b, cfg.t1, cfg.c1, cfg.v_pad, cfg.kt, n_c, cfg.c2, ACT_CODES[cfg.act_func],
         cfg.v_true, stream_of(dev))
-    _build.check("tail_fwd", err)
-    count_launch("tail_fwd")
+    _build.check(name, err)
+    count_launch(name)
     return a2, ps, pss
 
 
@@ -323,6 +397,7 @@ def head_bwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, gy,
     shaped as the inputs; the four LayerNorm entries are None unless
     ``cfg.apply_ln``."""
     _check_cfg(cfg)
+    refuse_bf16_bwd("K1b, the backward of K1", cfg.precision)
     _check_drop(cfg, drop)
     ln = (mu, rstd, lng, lnb) if cfg.apply_ln else None
     if on_cpu(x):
@@ -365,6 +440,7 @@ def tail_bwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gp
     dgcb, dc2k, dc2b)``; the gradient of a graph term the tail does not read
     (``t_b`` with one term) is zero."""
     _check_cfg(cfg)
+    refuse_bf16_bwd("K2b, the backward of K2", cfg.precision)
     terms = [t_a, t_b][: cfg.n_terms]
     if on_cpu(xg):
         dxg, dterms, *dw = tail_bwd_reference(cfg, xg, terms, (gcw, gcb, c2k, c2b), ga2, gps,

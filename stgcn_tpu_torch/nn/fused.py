@@ -79,7 +79,8 @@ def fused_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, *,
         raise TypeError(f"fused_forward needs a dense graph operator (gop.matrix); "
                         f"{type(gop).__name__} has none: use fused_sparse_forward or the "
                         "unfused model")
-    refuse_bf16_model(model, "fused_forward")
+    refuse_bf16_model(model, "fused_forward",
+                      "the bf16 variants of K12f / K12b (ROADMAP.md §1 item 4)")
     training = not deterministic and model.droprate > 0.0
     if training and seed is None:
         raise ValueError("training with dropout needs the step's dropout seed (seed=...)")

@@ -32,6 +32,16 @@ plus fc1's output in K4 (site ``n_blocks``), with masks keyed by element
 ``seed`` drops the same elements. Cheb ``Ks > 3`` and the degenerate
 ``Ko == 0`` plan run the unfused model (same math), as the JAX package does
 for ``Ks > 3``.
+
+``precision`` is the JAX argument's (``nn/fused_sparse.py:290-297,
+367-376``): ``"auto"`` runs a bf16 model (``STGCN(dtype=bfloat16)``) through
+the kernels' bf16 variants (``"bfloat16"``) and any other in float32
+(``"default"``). In bf16 the input, the weights (biases stay float32), the
+activations between the kernels and the LayerNorm affine threaded between
+blocks are bf16, the LayerNorm statistics float32; the graph terms come
+from the operator in bf16 (the dense ``torch.matmul``, K10's bf16 variant on
+BCSR; the nv kernels K5 and K6 refuse a bf16 operand). The bf16 backward
+kernels are not ported yet: a bf16 forward runs, its backward raises.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from stgcn_tpu_torch.kernels._launch import LANES, refuse_bf16_model
+from stgcn_tpu_torch.kernels._launch import LANES
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.fused_stblock import block_weights
 from stgcn_tpu_torch.kernels.output_head import output_head_fused
@@ -111,7 +121,8 @@ def _st_block(cfg: VertexBlockCfg, gop: Any, head_in, mu, rstd, lng_p, lnb_p, w,
 
 
 def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, *,
-                         deterministic: bool = True, seed: int | None = None) -> torch.Tensor:
+                         deterministic: bool = True, seed: int | None = None,
+                         precision: str = "auto") -> torch.Tensor:
     """Forward pass through the vertex-fused kernels.
 
     ``params``: the port's ``state_dict`` (``model.state_dict()``, or one
@@ -127,9 +138,16 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     (:class:`~stgcn_tpu_torch.ops.BcsrGraphOp`). With ``deterministic=False``
     and a nonzero droprate, ``seed`` (one step's dropout seed,
     :func:`stgcn_tpu_torch.kernels.dropout.step_seed`) keys the masks.
-    Returns ``[B, 1, V, 1]`` float32.
+    ``precision``: ``"auto"`` (bf16 for a bf16 model), ``"default"``
+    (float32) or ``"bfloat16"``. Returns ``[B, 1, V, 1]`` float32.
     """
-    refuse_bf16_model(model, "fused_sparse_forward")
+    if precision == "auto":
+        precision = "bfloat16" if model.dtype == torch.bfloat16 else "default"
+    if precision not in ("default", "bfloat16"):
+        raise ValueError(f"precision {precision!r}: 'auto', 'default' or 'bfloat16'")
+    # the JAX package's cdt and ln_dt: a float32 model's bf16 LayerNorm affine
+    # (ln_param_dtype) is cast to float32
+    cdt = torch.bfloat16 if precision == "bfloat16" else torch.float32
     training = not deterministic and model.droprate > 0.0
     if training and seed is None:
         raise ValueError("training with dropout needs the step's dropout seed (seed=...)")
@@ -153,7 +171,7 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     v_pad = -(-gv // LANES) * LANES
     b, _, v_true, c_x = x.shape
 
-    x = x.float()
+    x = x.to(cdt)
     if c_x == 1:  # the cv transpose of one channel is a reshape
         x = x.reshape(b, x.shape[1], 1, v_true)
     else:
@@ -167,8 +185,9 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
         cfg = VertexBlockCfg(kt=model.kt, ks=model.ks, act_func=model.act_func,
                              graph_conv_type=model.graph_conv_type, v_true=v_true,
                              v_pad=v_pad, t_in=cur_t, c_in=c_in, c0=c0, c1=c1, c2=c2,
-                             apply_ln=l > 0)
+                             apply_ln=l > 0, precision=precision)
         *w, lng, lnb = block_weights(subtree(params, f"st_block_{l}"), model.graph_conv_type)
+        w = [t.to(cdt if i % 2 == 0 else torch.float32) for i, t in enumerate(w)]   # biases f32
         if state is None:
             head_in, mu, rstd, lng_p, lnb_p = x, None, None, None, None
         else:
@@ -177,8 +196,8 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
                                 drop(l - 1) if l > 0 else None)
         mu, rstd = ln_stats(ps, pss, v_true * c2)
         pad_v = (0, 0, 0, v_pad - v_true)
-        state = (a2, mu, rstd, F.pad(lng, pad_v).T.contiguous(),
-                 F.pad(lnb, pad_v).T.contiguous())
+        state = (a2, mu, rstd, F.pad(lng.to(cdt), pad_v).T.contiguous(),
+                 F.pad(lnb.to(cdt), pad_v).T.contiguous())
         cur_t, c_in = cfg.t2, c2
 
     a2, mu, rstd, lng_p, lnb_p = state

@@ -23,8 +23,9 @@ the unfused model trains in bf16 with float32 parameters, gradients and
 optimizer state (the LayerNorm affine's in ``ln_param_dtype``), as in the
 JAX package; a ``TrainConfig`` whose ``compute_dtype`` or ``remat``
 disagrees with the model's raises ``ValueError``. The fused route raises
-``NotImplementedError`` for either until the fused bf16 slice of the port brings its kernels' bf16 variants
-and ``fused_sparse_forward(remat=...)``.
+``NotImplementedError`` for either until the fused bf16 slice of the port
+brings its backward kernels' bf16 variants and ``fused_sparse_forward(remat=...)``
+(its forward runs a bf16 model already).
 """
 
 from __future__ import annotations
@@ -96,8 +97,8 @@ class Trainer:
             raise ValueError(f"compute_dtype {config.compute_dtype!r}: float32 or bfloat16")
         want_dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
         if config.fused:
-            # the unfused model trains in bf16 and with remat; the fused kernels'
-            # bf16 variants and the fused route's remat are not ported yet
+            # the unfused model trains in bf16 and with remat; the fused backward
+            # kernels' bf16 variants and the fused route's remat are not ported yet
             refuse_bf16_model(model, "fused training")
             if want_dtype is not None or config.remat or model.remat:
                 raise NotImplementedError(

@@ -535,9 +535,10 @@ def test_unfused_trainer_refuses_a_config_the_model_disagrees_with(tmp_path, mod
 
 def test_fused_route_refuses_bf16_and_remat(tmp_path):
     """``fused=True`` with bf16 or remat raises in the ``Trainer`` and in
-    the CLI (``--fused True --compute_dtype bfloat16``), and so do the
-    fused forward of a bf16 model and the nv kernels (K5, K6) on a bf16
-    operand: nothing falls back to float32."""
+    the CLI (``--fused True --compute_dtype bfloat16``), and so do the nv
+    kernels (K5, K6) on a bf16 operand: nothing falls back to float32. The
+    fused forward of a bf16 model runs, through K1f-K4f's bf16 variants
+    (``tests/test_torch_fused_bf16.py``)."""
     jop, top, v = _ops("dense")
     adj = random_road_graph(V, k_neighbors=4, seed=11)
     vel = generate_synthetic_vel(adj, T_STEPS, seed=12)
@@ -556,8 +557,9 @@ def test_fused_route_refuses_bf16_and_remat(tmp_path):
         tcli.main(["--dataset", "pemsd7-m", "--platform", "cpu", "--fused", "True",
                    "--compute_dtype", "bfloat16"])
     model = STGCN(N_HIS, V, dtype=BF16, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused bf16 slice"):
-        fused_sparse_forward(model.state_dict(), torch.zeros(1, N_HIS, V, 1), top, model)
+    out = fused_sparse_forward(model.state_dict(), torch.zeros(1, N_HIS, V, 1), top, model)
+    assert out.dtype == torch.float32 and out.shape == (1, 1, V, 1)
+    assert bool(torch.isfinite(out).all())
     _, _, tart = banded_gsos(n=V_SPARSE, seed=3)
     nv_op = banded_graph_op(tart, block_size=128, nv=True, nv_only=True, device="cpu")
     ell = ell_graph_op(tart, block_size=128, device="cpu")

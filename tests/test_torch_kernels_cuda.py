@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K4, their backward kernels K1b-K4b, the banded nv
+"""The CUDA kernels K1-K4 (f32, and their forward kernels' bf16 variants), their
+backward kernels K1b-K4b, the banded nv
 SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8, and its
 bf16 variant over f32, bf16 and int8 slabs), the blocked-ELL nv SpMM K6, the
 BCSR SpMM K10 (f32, and its bf16 variant over f32 and bf16 tiles) and SDDMM
@@ -29,6 +30,7 @@ from stgcn_tpu_torch.graph import build_gso, permute_matrix, rcm_ordering
 from stgcn_tpu_torch.graph.gso import GraphShiftOperator
 from stgcn_tpu_torch.kernels import banded_nv as nv
 from stgcn_tpu_torch.kernels import banded_spmm as bvn
+from stgcn_tpu_torch.kernels import bf16_bounds as bb
 from stgcn_tpu_torch.kernels import ell_nv as ek
 from stgcn_tpu_torch.kernels import fused_stblock as fs
 from stgcn_tpu_torch.kernels import nnz_index
@@ -1607,3 +1609,154 @@ def test_k12_wrapper_rejects_what_the_kernel_does_not_take(dev):
         fs.stblock_fwd(cfg, x, gso[:-1], *w)
     with pytest.raises(NotImplementedError, match="bf16"):
         fs.stblock_fwd(dataclasses.replace(cfg, precision="bfloat16"), x, gso, *w)
+
+
+# --- the bf16 variants of K1f-K4f (the gate GEMM and tail_h_kernel in bf16) ---
+
+BF16 = torch.bfloat16
+
+
+def _bf16_matches_plain(name, kernel, plain, scale):
+    """A bf16 forward kernel within the bf16 bound of its plain version
+    (``kernels/bf16_bounds.py``), a repeat launch bit-identical, two launches
+    counted under its ``_bf16`` name and none under the float32 kernel's."""
+    before = kernels.launch_counts()
+    got, again = kernel(), kernel()
+    after = kernels.launch_counts()
+    flat = (lambda o: list(o) if isinstance(o, tuple) else [o])
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+    assert after[name] == before[name] + 2
+    assert after[name[:-len("_bf16")]] == before[name[:-len("_bf16")]]
+    return bb.within(got, plain(), scale())
+
+
+def _ln_bf16(rng, dev, batch, n_t, c, v_true, v_pad):
+    mu, rstd, lng, lnb = _ln_of(rng, dev, batch, n_t, c, v_true, v_pad)
+    return mu, rstd, lng.to(BF16), lnb.to(BF16)
+
+
+@pytest.mark.parametrize("act,c0,c_in,kt,t_in,c1,apply_ln,drop,batch,v_pad", HEAD_EDGES)
+def test_head_fwd_bf16_at_tile_edges_matches_plain(dev, act, c0, c_in, kt, t_in, c1, apply_ln,
+                                                   drop, batch, v_pad):
+    """K1f's bf16 variant at the edges of the gate GEMM's tile: bf16 xg
+    within the bf16 bound of the plain version, which rounds at the same
+    points."""
+    rng = np.random.default_rng(63)
+    v_true = v_true_of(v_pad)
+    cfg = vf.VertexBlockCfg(kt=kt, ks=3, act_func=act, graph_conv_type="cheb_graph_conv",
+                            v_true=v_true, v_pad=v_pad, t_in=t_in, c_in=c_in, c0=c0, c1=c1,
+                            c2=c1, apply_ln=apply_ln, precision="bfloat16")
+    x = _rand(rng, dev, batch, t_in, c_in, v_pad).to(BF16)
+    ln = _ln_bf16(rng, dev, batch, t_in, c_in, v_true, v_pad) if apply_ln else (None,) * 4
+    w = (_rand(rng, dev, kt, c_in, cfg.g1, scale=(kt * c_in) ** -0.5).to(BF16),
+         _rand(rng, dev, cfg.g1, scale=0.1), _rand(rng, dev, c0, c1, scale=c0 ** -0.5).to(BF16),
+         _rand(rng, dev, c1, scale=0.1))
+    d = DROP if drop else None
+    lnr = ln if apply_ln else None
+    _bf16_matches_plain("head_fwd_bf16", lambda: vf.head_fwd(cfg, x, *ln, *w, drop=d),
+                        lambda: vf.head_reference(cfg, x, lnr, w, d),
+                        lambda: bb.head_scale(cfg, x, lnr, w, d))
+    assert vf.head_fwd(cfg, x, *ln, *w, drop=d).dtype == BF16
+
+
+def _tail_bf16(rng, dev, act, gct, ks, c1, c2, kt, t1, batch, v_pad):
+    cfg, ins, w = _tail_edge(rng, dev, act, gct, ks, c1, c2, kt, t1, batch, v_pad)
+    cfg = dataclasses.replace(cfg, precision="bfloat16")
+    return cfg, [t.to(BF16) for t in ins], (w[0].to(BF16), w[1], w[2].to(BF16), w[3])
+
+
+def _tail_bf16_matches_plain(cfg, ins, w):
+    terms = list(ins[1:3])[: cfg.n_terms]
+    r = _bf16_matches_plain("tail_fwd_bf16", lambda: vf.tail_fwd(cfg, *ins, *w),
+                            lambda: vf.tail_reference(cfg, ins[0], terms, w),
+                            lambda: bb.tail_scale(cfg, ins[0], terms, w))
+    a2, ps, _ = vf.tail_fwd(cfg, *ins, *w)
+    assert a2.dtype == BF16 and ps.dtype == torch.float32
+    return r
+
+
+@pytest.mark.parametrize("act,gct,ks,c1,c2,kt,t1,batch,v_pad", TAIL_EDGES)
+def test_tail_fwd_bf16_at_tile_edges_matches_plain(dev, act, gct, ks, c1, c2, kt, t1, batch,
+                                                   v_pad):
+    """K2f's bf16 variant (h in bf16 by tail_h_kernel, conv 2 on the bf16
+    gate GEMM) at the edges of its tile: bf16 a2 and float32 partial sums of
+    its true lanes within the bf16 bound of the plain version."""
+    rng = np.random.default_rng(64)
+    _tail_bf16_matches_plain(*_tail_bf16(rng, dev, act, gct, ks, c1, c2, kt, t1, batch, v_pad))
+
+
+@pytest.mark.parametrize("act", ["glu", "relu"])
+def test_tail_fwd_bf16_on_a_large_grid_matches_plain(dev, act):
+    """K2f's bf16 variant at c2 = 130 on a grid of thousands of blocks."""
+    rng = np.random.default_rng(65)
+    _tail_bf16_matches_plain(*_tail_bf16(rng, dev, act, "cheb_graph_conv", 3, 16, 130, 3, 10, 3,
+                                         8448))
+
+
+def _ohead_bf16(rng, dev, act, c0, c_in, ko, batch, v_pad):
+    cfg, x, mu, rstd, lng, lnb, ck, cb = _ohead_edge(rng, dev, act, c0, c_in, ko, batch, v_pad)
+    return (dataclasses.replace(cfg, precision="bfloat16"), x.to(BF16), mu, rstd, lng.to(BF16),
+            lnb.to(BF16), ck.to(BF16), cb)
+
+
+def _ohead_bf16_matches_plain(args, d):
+    r = _bf16_matches_plain("ohead_fwd_bf16", lambda: oh.ohead_fwd(*args, drop=d),
+                            lambda: oh.ohead_reference(*args, drop=d),
+                            lambda: bb.ohead_scale(*args, drop=d))
+    assert oh.ohead_fwd(*args, drop=d)[0].dtype == BF16
+    return r
+
+
+@pytest.mark.parametrize("act,c0,c_in,ko,drop,batch,v_pad", OHEAD_EDGES)
+def test_ohead_fwd_bf16_at_tile_edges_matches_plain(dev, act, c0, c_in, ko, drop, batch,
+                                                    v_pad):
+    """K3f's bf16 variant at the edges of its tile, input dropout in bf16."""
+    rng = np.random.default_rng(66)
+    _ohead_bf16_matches_plain(_ohead_bf16(rng, dev, act, c0, c_in, ko, batch, v_pad),
+                              Drop(0.5, 2024, 2) if drop else None)
+
+
+@pytest.mark.parametrize("act", ["glu", "relu"])
+def test_ohead_fwd_bf16_on_a_large_grid_matches_plain(dev, act):
+    """K3f's bf16 variant at c0 = 130 on a grid of thousands of blocks."""
+    rng = np.random.default_rng(67)
+    _ohead_bf16_matches_plain(_ohead_bf16(rng, dev, act, 130, 64, 4, 3, 22016), DROP)
+
+
+@pytest.mark.parametrize("c0,c1,c_end,drop,batch,v_pad", OFC_EDGES)
+def test_ofc_fwd_bf16_at_tile_edges_matches_plain(dev, c0, c1, c_end, drop, batch, v_pad):
+    """K4f's bf16 variant at the edges of its tile: float32 output, its
+    LayerNorm and fc1 rounded to bf16, the mask a bf16 product."""
+    rng = np.random.default_rng(68)
+    v_true = v_true_of(v_pad)
+    cfg = oh.OutHeadCfg(ko=4, c_in=1, c0=c0, c1=c1, c_end=c_end, act_func="glu",
+                        v_true=v_true, v_pad=v_pad, precision="bfloat16")
+    args = (cfg, _rand(rng, dev, batch, 1, c0, v_pad).to(BF16),
+            *_ln_bf16(rng, dev, batch, 1, c0, v_true, v_pad),
+            _rand(rng, dev, c0, c1, scale=c0 ** -0.5).to(BF16), _rand(rng, dev, c1, scale=0.1),
+            _rand(rng, dev, c1, c_end, scale=c1 ** -0.5).to(BF16),
+            _rand(rng, dev, c_end, scale=0.1))
+    d = Drop(0.3, 2024, 3) if drop else None
+    _bf16_matches_plain("ofc_fwd_bf16", lambda: oh.ofc_fwd(*args, drop=d),
+                        lambda: oh.ofc_reference(*args, drop=d),
+                        lambda: bb.ofc_scale(*args, drop=d))
+    assert oh.ofc_fwd(*args, drop=d).dtype == torch.float32
+
+
+def test_bf16_wrappers_take_only_their_types(dev):
+    """A bf16 call takes bf16 activations and weights and float32 biases and
+    statistics; a float32 call refuses bf16 ones: nothing is cast."""
+    rng = np.random.default_rng(69)
+    cfg = vf.VertexBlockCfg(kt=3, ks=3, act_func="glu", graph_conv_type="cheb_graph_conv",
+                            v_true=V_TRUE, v_pad=V_PAD, t_in=12, c_in=1, c0=16, c1=8, c2=16,
+                            apply_ln=False, precision="bfloat16")
+    x = _rand(rng, dev, B, 12, 1, V_PAD)
+    w = (_rand(rng, dev, 3, 1, 32).to(BF16), _rand(rng, dev, 32), _rand(rng, dev, 16, 8).to(BF16),
+         _rand(rng, dev, 8))
+    with pytest.raises(TypeError, match="x must be torch.bfloat16"):
+        vf.head_fwd(cfg, x, None, None, None, None, *w)
+    with pytest.raises(TypeError, match="c1b must be torch.float32"):
+        vf.head_fwd(cfg, x.to(BF16), None, None, None, None, w[0], w[1].to(BF16), *w[2:])
+    f32 = dataclasses.replace(cfg, precision="default")
+    with pytest.raises(TypeError, match="x must be torch.float32"):
+        vf.head_fwd(f32, x.to(BF16), None, None, None, None, *(t.float() for t in w))

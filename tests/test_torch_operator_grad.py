@@ -111,7 +111,8 @@ FUNCTIONS = {
 def test_f32_value_grad_raises(gso, name):
     """Each Function refuses an f32 pack whose values require grad, naming
     the queue item that ports the scans, instead of dropping the gradient."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match=r'ROADMAP\.md §1, "The operator-value gradients"'):
         FUNCTIONS[name](gso)
 
 

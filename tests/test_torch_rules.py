@@ -479,7 +479,8 @@ def test_build_needs_nvcc_and_raises_without_it(monkeypatch, tmp_path):
 
 def test_every_source_is_built_and_hashed():
     srcs = {p.name for p in _build.sources()}
-    assert srcs == {"gate_gemm.cu", "vertex_fused.cu", "output_head.cu", "bwd_blocks.cu",
+    assert srcs == {"gate_gemm.cu", "gate_gemm_bf16.cu", "vertex_fused.cu", "output_head.cu",
+                    "bwd_blocks.cu",
                     "vertex_fused_bwd.cu", "output_head_bwd.cu", "banded_nv.cu", "banded_vn.cu",
                     "ell_nv.cu", "bcsr_spmm.cu", "bcsr_sddmm.cu", "fused_stblock.cu",
                     "fused_stblock_bwd.cu"}
@@ -493,12 +494,17 @@ def test_every_header_is_hashed_and_the_tile_header_is_shared(monkeypatch, tmp_p
     K1f-K4f (gate_gemm.cu), K12's graph product (fused_stblock.cu) and, in
     bwd_blocks.cu, every weight gradient and the fused gate and
     data-gradient passes of K1b-K4b and K12b, and the retired nv_tile.cuh
-    is gone."""
+    is gone. The gate GEMM's kernel template (gate_gemm.cuh) is the tile's
+    user for its float32 and bf16 instantiations (gate_gemm.cu,
+    gate_gemm_bf16.cu)."""
     headers = {p.name for p in _build.SRC_DIR.glob("*.cuh")}
     assert headers == {"bwd_blocks.cuh", "common.cuh", "csr_rows.cuh", "dropout.cuh",
-                       "f32_tile.cuh", "fused_stblock.cuh", "nv_rows.cuh"}
-    users = {p.name for p in _build.sources() if '#include "f32_tile.cuh"' in p.read_text()}
-    assert users == {"bcsr_sddmm.cu", "bwd_blocks.cu", "gate_gemm.cu", "fused_stblock.cu"}
+                       "f32_tile.cuh", "fused_stblock.cuh", "gate_gemm.cuh", "nv_rows.cuh"}
+    users = {p.name for p in [*_build.sources(), *_build.SRC_DIR.glob("*.cuh")]
+             if '#include "f32_tile.cuh"' in p.read_text()}
+    assert users == {"bcsr_sddmm.cu", "bwd_blocks.cu", "gate_gemm.cuh", "fused_stblock.cu"}
+    assert {p.name for p in _build.sources() if '#include "gate_gemm.cuh"' in p.read_text()} \
+        == {"gate_gemm.cu", "gate_gemm_bf16.cu"}
     src = tmp_path / "csrc"
     shutil.copytree(_build.SRC_DIR, src)
     monkeypatch.setattr(_build, "SRC_DIR", src)
