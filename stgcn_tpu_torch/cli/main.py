@@ -121,7 +121,8 @@ def get_parameters(argv=None):
                         help="torch.autograd anomaly detection (slow; debugging aid)")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="bfloat16 = mixed-precision training (f32 params/LN; unfused)")
+                        help="bfloat16 = mixed-precision training (f32 params/LN; under "
+                             "--fused on the dense and BCSR operators)")
     parser.add_argument("--fused", type=_str2bool, default=False,
                         help="train through the vertex-fused kernels K1-K4 (the banded "
                              "operator aggregates through K5, the ELL one through K6, the "
@@ -145,10 +146,6 @@ def get_parameters(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the options whose code comes with a later slice of the port."""
     later = {
-        "--compute_dtype bfloat16 with --fused True": (
-            args.compute_dtype == "bfloat16" and args.fused,
-            "the fused bf16 slice (fused training in bf16: the bf16 variants of K1b-K4b, "
-            "K5 and K6)"),
         "--remat True with --fused True": (
             args.remat and args.fused,
             "the fused bf16 slice (fused_sparse_forward(remat=, remat_policy=))"),

@@ -4,7 +4,7 @@ K1 :func:`vertex_fused.head_fwd`, K2 :func:`vertex_fused.tail_fwd`,
 K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd` (each
 also counted as ``<name>_bf16`` for its bf16 variant), their
 backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
-``ofc_bwd``), the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
+``ofc_bwd``; ``<name>_bf16`` for their bf16 variants), the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
 per mode and dtype (``nv_single``, ``nv_pair_int8``, …), the banded vn SpMM
 of K7-K9 (:mod:`banded_spmm`), counted per wrapper and dtype (``vn_single``
 for K7, ``vn_pair_resident`` for K8, ``vn_pair`` and ``vn_chain`` for K9;
@@ -37,6 +37,8 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             "ohead_fwd_bf16": ohead_fwd, "ofc_fwd_bf16": ofc_fwd,
             "head_bwd": head_bwd, "tail_bwd": tail_bwd,
             "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd,
+            "head_bwd_bf16": head_bwd, "tail_bwd_bf16": tail_bwd,
+            "ohead_bwd_bf16": ohead_bwd, "ofc_bwd_bf16": ofc_bwd,
             **{_nv.launch_name(m, q): functools.partial(_nv.stream_nv, mode=m)
                for q in (False, True) for m in ("single", "pair", "chain")},
             **{_vn.launch_name("single", q, bf16=h): _vn.banded_spmm

@@ -54,6 +54,10 @@ SIGNATURES = {
     "stgcn_tail_bwd": [_P] * 18 + [_I] * 10 + [_P],
     "stgcn_ohead_bwd": [_P] * 18 + [_I] * 7 + _DROP + [_P],
     "stgcn_ofc_bwd": [_P] * 19 + [_I] * 6 + _DROP + [_P],
+    "stgcn_head_bwd_bf16": [_P] * 19 + [_I] * 10 + _DROP + [_P],
+    "stgcn_tail_bwd_bf16": [_P] * 18 + [_I] * 10 + [_P],
+    "stgcn_ohead_bwd_bf16": [_P] * 18 + [_I] * 7 + _DROP + [_P],
+    "stgcn_ofc_bwd_bf16": [_P] * 19 + [_I] * 6 + _DROP + [_P],
     "stgcn_banded_nv": [_P] * 10 + [_I] * 7 + [_F, _P],
     "stgcn_banded_vn": [_P] * 9 + [_I] * 8 + [_F, _P],
     "stgcn_ell_nv": [_P] * 10 + [_I] * 6 + [_F, _P],
@@ -68,6 +72,10 @@ WORK_SIGNATURES = {
     "stgcn_tail_bwd_work": [_I] * 9,
     "stgcn_ohead_bwd_work": [_I] * 6,
     "stgcn_ofc_bwd_work": [_I] * 5,
+    "stgcn_head_bwd_bf16_work": [_I] * 9,
+    "stgcn_tail_bwd_bf16_work": [_I] * 9,
+    "stgcn_ohead_bwd_bf16_work": [_I] * 6,
+    "stgcn_ofc_bwd_bf16_work": [_I] * 5,
     "stgcn_stblock_fwd_work": [_I] * 11,
     "stgcn_stblock_bwd_work": [_I] * 11,
 }

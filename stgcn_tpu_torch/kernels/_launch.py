@@ -61,8 +61,8 @@ def refuse_value_grad(*values: torch.Tensor | None) -> None:
             "operator, or use the BCSR operator, whose tile-value gradient runs through K11")
 
 
-BF16_SLICE = ("the fused bf16 slice of the port (ROADMAP.md §1: fused training in bf16, with "
-              "the bf16 variants of K1b-K4b; K5 and K6 in bf16, with the fused remat)")
+BF16_SLICE = ("the fused bf16 slice of the port (ROADMAP.md §1 item 3: K5 and K6 in bf16, with "
+              "the fused remat)")
 
 
 def refuse_bf16(what: str, *tensors: torch.Tensor | None, where: str = BF16_SLICE) -> None:

@@ -21,6 +21,15 @@ the timing: K1b block 2's ``dc1k`` product at the 100k shape
 100k, and one of K12b's adjoint graph products at PEMS-BAY batch 512, block
 1 (``[B·t1·c1, Vp] × [Vp, Vp]``). Then the ``nvidia-smi`` name and power
 limit of the card.
+
+Beside each K1b-K4b case runs its bf16 variant (``<name>_bf16``: the same
+inputs rounded to bf16, the statistics, biases, LayerNorm-partial
+cotangents and K4b's output cotangent float32, ``precision="bfloat16"``),
+with a bf16 ``torch.matmul`` yardstick beside each K1b-K4b one
+(``<product>_bf16``, under PyTorch's default
+``allow_bf16_reduced_precision_reduction``). A tree whose backward kernels
+have no bf16 variant (it raises ``NotImplementedError``) times none and
+lists those cases under ``no_bf16``.
 """
 
 from __future__ import annotations
@@ -102,6 +111,27 @@ def cases(torch, b: int, v_true: int, vp: int):
     ]
 
 
+# the arguments (1-based, the config first) of each K1b-K4b wrapper that stay
+# float32 in its bf16 variant: the statistics, the biases, the LayerNorm-
+# partial cotangents and K4b's output cotangent
+F32_ARGS = {"head_bwd": {2, 3, 7, 9}, "tail_bwd": {5, 7, 9, 10}, "ohead_bwd": {2, 3, 7, 9, 10},
+            "ofc_bwd": {2, 3, 7, 9, 10}}
+
+
+def bf16_cases(torch, made):
+    """The bf16 variant of each K1b-K4b case of ``made``: its inputs rounded
+    to bf16 (what stays float32 in ``F32_ARGS``), ``precision="bfloat16"``.
+    Built after the float32 cases, so their random inputs are the parent's."""
+    out = []
+    for name, wrapper, args, kwargs in made:
+        keep = F32_ARGS[wrapper.__name__]
+        cfg = dataclasses.replace(args[0], precision="bfloat16")
+        conv = [t if i in keep or t is None else t.to(torch.bfloat16)
+                for i, t in enumerate(args) if i > 0]
+        out.append((f"{name}_bf16", wrapper, (cfg, *conv), kwargs))
+    return out
+
+
 def k12_cases(torch, b: int, v: int):
     """(name, wrapper, args, kwargs) of K12b at blocks 1 and 2 of the main.py
     widths (t_in 12, c_in 1; t_in 8, c_in 64), a random dense GSO, dropout on."""
@@ -145,6 +175,11 @@ def yardstick(torch, reps: int) -> dict:
         d = torch.randn((k, n), generator=gen, device="cuda") * 1e-3
         ms, _ = _ab.timed(torch, lambda: torch.matmul(a, d), reps, warmup=3)
         out[key] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
+        if not key.startswith("k12b"):   # the bf16 variants' products
+            a16, d16 = a.bfloat16(), d.bfloat16()
+            ms, _ = _ab.timed(torch, lambda: torch.matmul(a16, d16), reps, warmup=3)
+            out[f"{key}_bf16"] = {"shape": [m, k, n], "ms": ms, "flops": 2 * m * k * n}
+            del a16, d16
         del a, d
     out["k12b_adjoint_blk1"]["flops"] = 2 * b12 * 10 * 16 * v12 * v12
     return out
@@ -158,14 +193,23 @@ def run_one(tree: str, reps: int, data) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     result = {"tree": tree, "package": os.path.dirname(stgcn_tpu_torch.__file__), "ms": {},
-              "sha256": {}, "trace": {}, "retired": {}}
-    every = [(shape, cases(torch, b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
+              "sha256": {}, "trace": {}, "retired": {}, "no_bf16": []}
+
+    def made_cases(b, v_true, vp):
+        made = cases(torch, b, v_true, vp)
+        return made + bf16_cases(torch, made)
+
+    every = [(shape, made_cases(b, v_true, vp)) for shape, (b, v_true, vp) in SHAPES.items()]
     every += [(shape, k12_cases(torch, b, v)) for shape, (b, v) in K12_SHAPES.items()]
     for shape, made in every:
         for name, wrapper, args, kwargs in made:
             key = f"{name}/{shape}"
-            result["ms"][key], result["sha256"][key] = _ab.timed(
-                torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
+            try:
+                result["ms"][key], result["sha256"][key] = _ab.timed(
+                    torch, lambda: wrapper(*args, **kwargs), reps, warmup=3, key=key)
+            except NotImplementedError:   # a tree without the bf16 variants
+                result["no_bf16"].append(key)
+                continue
             ev = result["trace"][key] = _ab.launches(torch, lambda: wrapper(*args, **kwargs))
             if name.startswith(("ofc_bwd", "stblock_bwd")):
                 try:

@@ -1,6 +1,10 @@
 // Building blocks of the backward kernels K1b-K4b and K12b (vertex_fused_bwd.cu,
 // output_head_bwd.cu, fused_stblock_bwd.cu). Every operand is a cv tensor
-// [B, T, C, Vp] float32 with Vp a multiple of kLanes. Each launcher returns
+// [B, T, C, Vp] float32 with Vp a multiple of kLanes; the bf16 overloads
+// (bwd_blocks_bf16.cu: K1b-K4b's bf16 variants, the TPU kernels'
+// precision="bfloat16" build) take bf16 activations and weights, float32
+// biases, statistics and weight gradients, and round where the TPU kernels
+// round (see each launcher). Each launcher returns
 // the cudaError_t of its launch. No block adds into memory another block
 // writes: weight gradients go through per-slice partials and a fixed-order
 // second pass, so a repeated backward is bit-identical. Every product of
@@ -24,6 +28,11 @@ struct Carver {
     used += (n + 63) / 64 * 64;  // keep every buffer 256-byte aligned
     return p;
   }
+  // n elements of T (a bf16 buffer takes half the floats)
+  template <typename T>
+  T* take_as(size_t n) {
+    return reinterpret_cast<T*>(take((n * sizeof(T) + sizeof(float) - 1) / sizeof(float)));
+  }
 };
 
 // Return the error of a launch that failed.
@@ -34,10 +43,12 @@ struct Carver {
   } while (0)
 
 // A cv operand: data pointer and its time / channel extents.
-struct Cv {
-  const float* p;
+template <typename T>
+struct CvT {
+  const T* p;
   int t, c;
 };
+using Cv = CvT<float>;
 
 // y = ((x - mu[b, t]) * rstd[b, t] * lng[c, v] + lnb[c, v]) * mask, over
 // x [B, T, C, Vp]; mask as `drop` gives it (none when threshold is 0).
@@ -92,15 +103,17 @@ __device__ __forceinline__ void gate_point_bwd(int act, float p, float q, float 
 //  - cotangent (K2b, K3b, K12b's conv 2; gaw null): da = ga [B, t_out, c0,
 //    Vp] (in gy), plus gps[b, t] + 2 gpss[b, t] a on lanes v < v_true (the
 //    LayerNorm-partial cotangents, gps/gpss [B, t_out]).
-struct GateUp {
-  const float* gy;
-  const float* gaw;
+template <typename T>
+struct GateUpT {
+  const T* gy;
+  const T* gaw;
   int c1;
   const float* gps;
   const float* gpss;
   int v_true;
   Drop drop;   // K4b's fc1 dropout (launch_fc_pass); unread by the other passes
 };
+using GateUp = GateUpT<float>;
 
 // The gated conv's recompute and gate backward in one pass on the register
 // tile of f32_tile.cuh (64 gate channels x 64 lanes a block): s = bias +
@@ -206,5 +219,56 @@ cudaError_t launch_ln_bwd(const float* x, const float* mu, const float* rstd, co
                           Drop drop, const float* dy, float* dx, float* dmu, float* drstd,
                           float* dlng, float* dlnb, float* part, int batch, int t, int c, int vp,
                           cudaStream_t stream, float* affine_part = nullptr);
+
+// ---- the bf16 overloads (bwd_blocks_bf16.cu) -----------------------------
+//
+// Each computes what its float32 launcher above does, on bf16 operands
+// widened exactly into the same float32 tile and sums, and rounds to bf16
+// where the TPU's bf16 backward kernels round (stgcn_tpu/kernels/
+// vertex_fused.py `_gate_bwd_cv` :306, `_tconv_bwd_cv` :348, `_ln_drop_bwd`
+// :378, `_head_core_bwd` :407, `_tail_core_bwd` :445; output_head.py
+// `_make_ohead_bwd_kernel` :160, `_make_ofc_bwd_kernel` :349). The dropout
+// scale is the caller's, rounded to bf16 (the TPU's bf16 mask).
+//  - ln_drop: the normalized value rounded, then its bf16 product with the mask.
+//  - gate_pass: s rounded, the upstream gradient rounded (the head policy's
+//    gy . gaw^T; the cotangent policy's ga + gps + 2 gpss a once), the gate
+//    backward each op rounded (gate_point_bwd_bf16); ds and a in bf16.
+//  - fc_pass: dzd = gout . w2^T rounded, dz = dzd * mask and zd = relu(s2) *
+//    mask bf16 products; ds2 in bf16; the dw2 / db1 partials float32.
+//  - gate_dx / tail_dr: each tap's float32 sum rounded, the taps added in
+//    bf16 in ascending order (k = 0 .. kt-1), then the residual's gradient a
+//    bf16 add; tail_dr's dr = dh * (h > 0), the graph terms' gradients each
+//    rounded, dxg = dr + dcterms_0 a bf16 add.
+//  - wgrad: float32 sums and outputs (the weights' gradients).
+//  - ln_bwd: the statistics in float32; dy * mask a bf16 product; dx =
+//    dxn * rstd rounded; dlng, dlnb summed over every (b, t) in float32 and
+//    rounded once (no affine_part).
+cudaError_t launch_ln_drop(const bf16* x, const float* mu, const float* rstd, const bf16* lng,
+                           const bf16* lnb, Drop drop, bf16* y, int batch, int t, int c, int vp,
+                           cudaStream_t stream);
+cudaError_t launch_gate_pass(const bf16* x, const bf16* w, const float* bias, GateUpT<bf16> up,
+                             bf16* ds, bf16* a_out, int batch, int t_in, int c_in, int vp,
+                             int kt, int c0, int act, cudaStream_t stream);
+cudaError_t launch_gate_dx(const bf16* ds, const bf16* w, bf16* dx, int batch, int t_in,
+                           int c_in, int vp, int kt, int g, cudaStream_t stream,
+                           bool residual = true);
+cudaError_t launch_fc_pass(const bf16* h, const bf16* w1, const float* b1, const bf16* gout,
+                           const bf16* w2, Drop drop, bf16* ds2, float* dw2, float* db1,
+                           float* part, int batch, int c_in, int vp, int c1, int ce,
+                           cudaStream_t stream);
+cudaError_t launch_tail_dr(const bf16* ds2, const bf16* c2k, const bf16* h, const bf16* gcw,
+                           bf16* dr, bf16* dxg, bf16* dt_a, bf16* dt_b, int batch, int t1,
+                           int c1, int vp, int kt, int g2, int n_terms, int cheb,
+                           cudaStream_t stream);
+cudaError_t launch_wgrad(CvT<bf16> x, int k, CvT<bf16> d, float* out, float* part, int batch,
+                         int vp, cudaStream_t stream);
+cudaError_t launch_wgrad_bias(CvT<bf16> x, int k, CvT<bf16> d, float* out, float* bias,
+                              float* part, int batch, int vp, cudaStream_t stream);
+cudaError_t launch_ln_bwd(const bf16* x, const float* mu, const float* rstd, const bf16* lng,
+                          Drop drop, const bf16* dy, bf16* dx, float* dmu, float* drstd,
+                          bf16* dlng, bf16* dlnb, float* part, int batch, int t, int c, int vp,
+                          cudaStream_t stream);
+// y = x rounded to bf16, n elements (K4b's float32 output cotangent)
+cudaError_t launch_to_bf16(const float* x, bf16* y, size_t n, cudaStream_t stream);
 
 }  // namespace stgcn

@@ -75,6 +75,102 @@ __device__ __forceinline__ float gate_bf16(float p, float q, float xin) {
   return bf16r(z * sigmoid_bf16(z));
 }
 
+// The gate backward of gate_point_bwd (bwd_blocks.cuh) on bf16 values, each
+// op rounded as the TPU's bf16 `_gate_bwd_cv` (vertex_fused.py:306-335)
+// does: p and q the rounded pre-activations, xin and d (the upstream
+// gradient) bf16 values; the gate value av as gate_bf16; with `add` the
+// LayerNorm-partial cotangents gp + 2 gpss av summed in float32 onto d and
+// rounded once (`_make_tail_bwd_kernel` :806-810). GLU: dp = d sq, dq =
+// ((d lin) sq)(1 - sq); GTU: dp = (d sq)(1 - th th), dq = ((d th) sq)(1 - sq);
+// relu: d (z > 0); silu: (d sz)(1 + z (1 - sz)).
+__device__ __forceinline__ void gate_point_bwd_bf16(int act, float p, float q, float xin,
+                                                    float d, bool add, float gp, float gpss,
+                                                    float& dp, float& dq, float& av) {
+  dq = 0.0f;
+  if (act == kGlu || act == kGtu) {
+    const float lin = bf16r(p + xin);
+    const float sq = sigmoid_bf16(q);
+    const float one_sq = bf16r(1.0f - sq);
+    const float th = act == kGtu ? bf16r(tanhf(lin)) : lin;   // GLU: the linear half itself
+    av = bf16r(th * sq);
+    if (add) d = bf16r(d + (gp + 2.0f * gpss * av));
+    dp = bf16r(d * sq);
+    if (act == kGtu) dp = bf16r(dp * bf16r(1.0f - bf16r(th * th)));
+    dq = bf16r(bf16r(bf16r(d * th) * sq) * one_sq);
+  } else {
+    const float z = bf16r(p + xin);
+    if (act == kRelu) {
+      av = fmaxf(z, 0.0f);
+      if (add) d = bf16r(d + (gp + 2.0f * gpss * av));
+      dp = z > 0.0f ? d : 0.0f;
+    } else {
+      const float sz = sigmoid_bf16(z);
+      av = bf16r(z * sz);
+      if (add) d = bf16r(d + (gp + 2.0f * gpss * av));
+      dp = bf16r(bf16r(d * sz) * bf16r(1.0f + bf16r(z * bf16r(1.0f - sz))));
+    }
+  }
+}
+
+// Four neighbouring lanes of an operand as a load step holds them: a
+// float4, or 8 bytes of four bf16 widened (exactly) at the store step.
+template <typename T>
+struct Lanes4;
+template <>
+struct Lanes4<float> {
+  using V = float4;
+  __device__ __forceinline__ static V load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ __forceinline__ static float4 widen(V v) { return v; }
+};
+template <>
+struct Lanes4<bf16> {
+  using V = uint2;
+  __device__ __forceinline__ static V load(const bf16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ static float4 widen(V v) {   // lane 0 in the low half
+    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+};
+
+__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldw(const bf16* p) { return __bfloat162float(__ldg(p)); }
+
+// four lanes read with a plain load (data this kernel's own launch may have
+// written before: no read-only path), widened to float32
+__device__ __forceinline__ void ld4w(float* d, const float* s) {
+  const float4 q = *reinterpret_cast<const float4*>(s);
+  d[0] = q.x;
+  d[1] = q.y;
+  d[2] = q.z;
+  d[3] = q.w;
+}
+__device__ __forceinline__ void ld4w(float* d, const bf16* s) {
+  const uint2 q = *reinterpret_cast<const uint2*>(s);
+  d[0] = __uint_as_float(q.x << 16);
+  d[1] = __uint_as_float(q.x & 0xffff0000u);
+  d[2] = __uint_as_float(q.y << 16);
+  d[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+// four lanes of y: a float4, or four bf16 (each rounded) in 8 bytes
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
+  const uint32_t b0 = __float_as_uint(bf16r(v[0])), b1 = __float_as_uint(bf16r(v[1]));
+  const uint32_t b2 = __float_as_uint(bf16r(v[2])), b3 = __float_as_uint(bf16r(v[3]));
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2((b0 >> 16) | (b1 & 0xffff0000u), (b2 >> 16) | (b3 & 0xffff0000u));
+}
+
+// one element stored in T: float as it is, bf16 rounded to nearest even
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // Sum over the block's threads in a fixed order; the result is valid in
 // thread 0. `scratch` holds kLanes / 32 floats of shared memory.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
@@ -159,6 +255,12 @@ cudaError_t launch_gate_gemm_bf16(const GateGemmArgs& args, bool y_f32, cudaStre
 cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw,
                           const float* gcb, const float* xg, float* h, int batch, int t1, int c1,
                           int vp, cudaStream_t stream, bool relu = true);
+
+// The same on bf16 operands, the contraction rounded to bf16 before the
+// residual, a bf16 add, h stored in bf16 (K2f's and K2b's bf16 variants).
+cudaError_t launch_tail_h_bf16(const bf16* const (&ct)[3], int n_c, const bf16* gcw,
+                               const float* gcb, const bf16* xg, bf16* h, int batch, int t1,
+                               int c1, int vp, cudaStream_t stream);
 
 // Opt the kernel into `smem` bytes of dynamic shared memory, then check it fits.
 template <typename K>

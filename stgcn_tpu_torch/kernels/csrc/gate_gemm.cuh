@@ -56,43 +56,6 @@ struct GateShape {
   static constexpr int kPass = kGated ? 64 : 128;   // channels a pass: with their partners, 128 rows
 };
 
-// Four neighbouring lanes of an operand as the load step holds them: a
-// float4, or 8 bytes of four bf16 widened (exactly) at the store step.
-template <typename T>
-struct Lanes4;
-template <>
-struct Lanes4<float> {
-  using V = float4;
-  __device__ __forceinline__ static V load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-};
-template <>
-struct Lanes4<bf16> {
-  using V = uint2;
-  __device__ __forceinline__ static V load(const bf16* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  __device__ __forceinline__ static float4 widen(V v) {   // lane 0 in the low half
-    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-  }
-};
-
-__device__ __forceinline__ float ldw(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldw(const bf16* p) { return __bfloat162float(__ldg(p)); }
-
-// four lanes of y: a float4, or four bf16 (each rounded) in 8 bytes
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
-  const uint32_t b0 = __float_as_uint(bf16r(v[0])), b1 = __float_as_uint(bf16r(v[1]));
-  const uint32_t b2 = __float_as_uint(bf16r(v[2])), b3 = __float_as_uint(bf16r(v[3]));
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2((b0 >> 16) | (b1 & 0xffff0000u), (b2 >> 16) | (b3 & 0xffff0000u));
-}
-
 // The gate and the epilogue are template parameters: as a runtime switch,
 // each of the epilogue's 64 unrolled gates carried every activation's code,
 // which cost K4 more than its FMAs. LN: the LayerNorm-partial epilogue (K2's

@@ -129,6 +129,12 @@ cudaError_t launch_tail_h(const float* const (&ct)[3], int n_c, const float* gcw
   return tail_h_run<float>(ct, n_c, gcw, gcb, xg, h, batch, t1, c1, vp, stream, relu);
 }
 
+cudaError_t launch_tail_h_bf16(const bf16* const (&ct)[3], int n_c, const bf16* gcw,
+                               const float* gcb, const bf16* xg, bf16* h, int batch, int t1,
+                               int c1, int vp, cudaStream_t stream) {
+  return tail_h_run<bf16>(ct, n_c, gcw, gcb, xg, h, batch, t1, c1, vp, stream, true);
+}
+
 // one block a row: thread i sums partials i, i + 256, .. in order, then a
 // fixed tree over the threads
 constexpr int kReduceThreads = 256;
@@ -234,8 +240,8 @@ int stgcn_tail_fwd_bf16(const void* xg, const void* ct0, const void* ct1, const 
   const bf16* ct[3] = {static_cast<const bf16*>(ct0), static_cast<const bf16*>(ct1),
                        static_cast<const bf16*>(ct2)};
   const cudaError_t err =
-      tail_h_run<bf16>(ct, n_c, static_cast<const bf16*>(gcw), gcb,
-                       static_cast<const bf16*>(xg), static_cast<bf16*>(h), B, t1, c1, vp, s, true);
+      launch_tail_h_bf16(ct, n_c, static_cast<const bf16*>(gcw), gcb,
+                         static_cast<const bf16*>(xg), static_cast<bf16*>(h), B, t1, c1, vp, s);
   if (err != cudaSuccess) return err;
   const Drop none = make_drop(0, 0, 0, 1.0f, v_true);
   const GateGemmArgs args{h, nullptr, nullptr, nullptr, nullptr, c2k, c2b, nullptr, nullptr, a2,

@@ -46,28 +46,40 @@
 //      channels in dr) leave the tile little work per block to hide its
 //      loads behind (PERF.md: a cp.async prefetch, streaming stores
 //      and a two-step dr tile did not help).
+// The bf16 variants (stgcn_head_bwd_bf16, stgcn_tail_bwd_bf16: the TPU
+// kernels with precision="bfloat16") run the same pipelines on the bf16
+// overloads of the building blocks (bwd_blocks_bf16.cu), which round where
+// the TPU kernels round (bwd_blocks.cuh); their workspace holds x4, dx4,
+// ds1, a1 (K1b) and h, dr, ds2 (K2b) in bf16, half the float32 bytes, and
+// K2b recomputes h with K2f's bf16 tail_h_kernel. The weight gradients stay
+// float32 sums (the caller rounds them to the weights' type, as the TPU's
+// custom_vjp does); dlng and dlnb are summed over the whole batch in float32
+// and rounded once.
+#include <type_traits>
+
 #include "bwd_blocks.cuh"
 
 namespace stgcn {
 namespace {
 
-// One pass over the head backward. With work == nullptr it only sizes the
-// workspace (returned through `floats`).
-cudaError_t head_bwd(const float* x, const float* mu, const float* rstd, const float* lng,
-                     const float* lnb, const float* c1k, const float* c1b, const float* gaw,
-                     const float* gy, float* dx, float* dmu, float* drstd, float* dlng,
-                     float* dlnb, float* dc1k, float* dc1b, float* dgaw, float* dgab,
-                     float* work, size_t* floats, int B, int t_in, int c_in, int vp, int kt,
-                     int c0, int c1, int act, int apply_ln, Drop drop, cudaStream_t s) {
+// One pass over the head backward, T = float or bf16. With work == nullptr
+// it only sizes the workspace (returned through `floats`).
+template <typename T>
+cudaError_t head_bwd(const T* x, const float* mu, const float* rstd, const T* lng, const T* lnb,
+                     const T* c1k, const float* c1b, const T* gaw, const T* gy, T* dx,
+                     float* dmu, float* drstd, T* dlng, T* dlnb, float* dc1k, float* dc1b,
+                     float* dgaw, float* dgab, float* work, size_t* floats, int B, int t_in,
+                     int c_in, int vp, int kt, int c0, int c1, int act, int apply_ln, Drop drop,
+                     cudaStream_t s) {
   const bool gated = act == kGlu || act == kGtu;
   const int g1 = gated ? 2 * c0 : c0, t1 = t_in - kt + 1;
   const size_t lane = (size_t)B * vp;
   const long long r1 = (long long)B * t1 * vp;
   Carver w{work};
-  float* x4 = apply_ln ? w.take(lane * t_in * c_in) : nullptr;
-  float* dx4 = apply_ln ? w.take(lane * t_in * c_in) : dx;
-  float* ds1 = w.take(lane * t1 * g1);
-  float* a1 = w.take(lane * t1 * c0);
+  T* x4 = apply_ln ? w.take_as<T>(lane * t_in * c_in) : nullptr;
+  T* dx4 = apply_ln ? w.take_as<T>(lane * t_in * c_in) : dx;
+  T* ds1 = w.take_as<T>(lane * t1 * g1);
+  T* a1 = w.take_as<T>(lane * t1 * c0);
   float* part = w.take(wgrad_part_floats({{c0 + 1, c1, r1}, {kt * c_in + 1, g1, r1}}));
   float* lnpart = apply_ln ? w.take(ln_bwd_part_floats(B, t_in)) : nullptr;
   if (floats) *floats = w.used;
@@ -75,13 +87,14 @@ cudaError_t head_bwd(const float* x, const float* mu, const float* rstd, const f
   if (t1 < 1 || c1 > kMaxOut) return cudaErrorInvalidValue;
 
   if (apply_ln) STGCN_TRY(launch_ln_drop(x, mu, rstd, lng, lnb, drop, x4, B, t_in, c_in, vp, s));
-  const float* xin = apply_ln ? x4 : x;
+  const T* xin = apply_ln ? x4 : x;
   // s1, da1 and the gate backward in one pass: ds1, a1
-  STGCN_TRY(launch_gate_pass(xin, c1k, c1b, GateUp{gy, gaw, c1, nullptr, nullptr, 0}, ds1, a1, B,
-                             t_in, c_in, vp, kt, c0, act, s));
-  STGCN_TRY(launch_wgrad_bias(Cv{a1, t1, c0}, 1, Cv{gy, t1, c1}, dgaw, dgab, part, B, vp, s));
-  STGCN_TRY(launch_wgrad_bias(Cv{xin, t_in, c_in}, kt, Cv{ds1, t1, g1}, dc1k, dc1b, part, B, vp,
+  STGCN_TRY(launch_gate_pass(xin, c1k, c1b, GateUpT<T>{gy, gaw, c1, nullptr, nullptr, 0}, ds1,
+                             a1, B, t_in, c_in, vp, kt, c0, act, s));
+  STGCN_TRY(launch_wgrad_bias(CvT<T>{a1, t1, c0}, 1, CvT<T>{gy, t1, c1}, dgaw, dgab, part, B, vp,
                               s));
+  STGCN_TRY(launch_wgrad_bias(CvT<T>{xin, t_in, c_in}, kt, CvT<T>{ds1, t1, g1}, dc1k, dc1b, part,
+                              B, vp, s));
   // dx4 = tconv1^T(ds1) + dxin shifted to the window's last step
   STGCN_TRY(launch_gate_dx(ds1, c1k, dx4, B, t_in, c_in, vp, kt, g1, s));
   if (apply_ln)
@@ -90,20 +103,21 @@ cudaError_t head_bwd(const float* x, const float* mu, const float* rstd, const f
   return cudaSuccess;
 }
 
-cudaError_t tail_bwd(const float* xg, const float* t_a, const float* t_b, const float* gcw,
-                     const float* gcb, const float* c2k, const float* c2b, const float* ga2,
-                     const float* gps, const float* gpss, float* dxg, float* dt_a, float* dt_b,
-                     float* dgcw, float* dgcb, float* dc2k, float* dc2b, float* work,
-                     size_t* floats, int B, int t1, int c1, int vp, int kt, int n_terms,
-                     int cheb, int c2, int act, int v_true, cudaStream_t s) {
+template <typename T>
+cudaError_t tail_bwd(const T* xg, const T* t_a, const T* t_b, const T* gcw, const float* gcb,
+                     const T* c2k, const float* c2b, const T* ga2, const float* gps,
+                     const float* gpss, T* dxg, T* dt_a, T* dt_b, float* dgcw, float* dgcb,
+                     float* dc2k, float* dc2b, float* work, size_t* floats, int B, int t1, int c1,
+                     int vp, int kt, int n_terms, int cheb, int c2, int act, int v_true,
+                     cudaStream_t s) {
   const bool gated = act == kGlu || act == kGtu;
   const int g2 = gated ? 2 * c2 : c2, t2 = t1 - kt + 1;
   const int n_c = n_terms + (cheb ? 1 : 0);
   const size_t lane = (size_t)B * vp;
   Carver w{work};
-  float* h = w.take(lane * t1 * c1);
-  float* dr = w.take(lane * t1 * c1);
-  float* ds2 = w.take(lane * t2 * g2);
+  T* h = w.take_as<T>(lane * t1 * c1);
+  T* dr = w.take_as<T>(lane * t1 * c1);
+  T* ds2 = w.take_as<T>(lane * t2 * g2);
   const long long r1 = (long long)B * t1 * vp, r2 = (long long)B * t2 * vp;
   float* part = w.take(wgrad_part_floats({{kt * c1 + 1, g2, r2}, {c1 + 1, c1, r1},
                                           {c1, c1, r1}}));
@@ -111,23 +125,28 @@ cudaError_t tail_bwd(const float* xg, const float* t_a, const float* t_b, const 
   if (!work) return cudaSuccess;
   if (t2 < 1 || n_c < 1 || n_c > 3 || n_terms > 2) return cudaErrorInvalidValue;
 
-  const float* terms[2] = {t_a, t_b};
-  const float* ct[3] = {nullptr, nullptr, nullptr};  // contraction operands
+  const T* terms[2] = {t_a, t_b};
+  const T* ct[3] = {nullptr, nullptr, nullptr};  // contraction operands
   int m = 0;
   if (cheb) ct[m++] = xg;
   for (int i = 0; i < n_terms; ++i) ct[m++] = terms[i];
   // h = relu(sum_m ct_m gcw[m] + gcb + xg)
-  STGCN_TRY(launch_tail_h(ct, n_c, gcw, gcb, xg, h, B, t1, c1, vp, s));
+  if constexpr (std::is_same<T, float>::value)
+    STGCN_TRY(launch_tail_h(ct, n_c, gcw, gcb, xg, h, B, t1, c1, vp, s));
+  else
+    STGCN_TRY(launch_tail_h_bf16(ct, n_c, gcw, gcb, xg, h, B, t1, c1, vp, s));
   // s2 = tconv2(h) + c2b and the gate backward from ga2, gps, gpss in one pass: ds2
-  STGCN_TRY(launch_gate_pass(h, c2k, c2b, GateUp{ga2, nullptr, 0, gps, gpss, v_true}, ds2,
+  STGCN_TRY(launch_gate_pass(h, c2k, c2b, GateUpT<T>{ga2, nullptr, 0, gps, gpss, v_true}, ds2,
                              nullptr, B, t1, c1, vp, kt, c2, act, s));
-  STGCN_TRY(launch_wgrad_bias(Cv{h, t1, c1}, kt, Cv{ds2, t2, g2}, dc2k, dc2b, part, B, vp, s));
+  STGCN_TRY(launch_wgrad_bias(CvT<T>{h, t1, c1}, kt, CvT<T>{ds2, t2, g2}, dc2k, dc2b, part, B, vp,
+                              s));
   // dr = (tconv2^T(ds2) + dxin2 shifted) * (h > 0), then dxg and the terms' gradients
   STGCN_TRY(launch_tail_dr(ds2, c2k, h, gcw, dr, dxg, dt_a, dt_b, B, t1, c1, vp, kt, g2,
                            n_terms, cheb ? 1 : 0, s));
   for (int i = 0; i < n_c; ++i)   // dgcw[i], with dgcb as the first one's ones row
-    STGCN_TRY(launch_wgrad_bias(Cv{ct[i], t1, c1}, 1, Cv{dr, t1, c1}, dgcw + (size_t)i * c1 * c1,
-                                i == 0 ? dgcb : nullptr, part, B, vp, s));
+    STGCN_TRY(launch_wgrad_bias(CvT<T>{ct[i], t1, c1}, 1, CvT<T>{dr, t1, c1},
+                                dgcw + (size_t)i * c1 * c1, i == 0 ? dgcb : nullptr, part, B, vp,
+                                s));
   return cudaSuccess;
 }
 
@@ -148,19 +167,19 @@ int stgcn_head_bwd(const float* x, const float* mu, const float* rstd, const flo
                    int B, int t_in, int c_in, int vp, int kt, int c0, int c1, int act,
                    int apply_ln, int v_true, unsigned seed, int site, unsigned threshold,
                    float scale, void* stream) {
-  return head_bwd(x, mu, rstd, lng, lnb, c1k, c1b, gaw, gy, dx, dmu, drstd, dlng, dlnb, dc1k,
-                  dc1b, dgaw, dgab, work, nullptr, B, t_in, c_in, vp, kt, c0, c1, act,
-                  apply_ln, make_drop(seed, site, threshold, scale, v_true),
-                  static_cast<cudaStream_t>(stream));
+  return head_bwd<float>(x, mu, rstd, lng, lnb, c1k, c1b, gaw, gy, dx, dmu, drstd, dlng, dlnb,
+                         dc1k, dc1b, dgaw, dgab, work, nullptr, B, t_in, c_in, vp, kt, c0, c1,
+                         act, apply_ln, make_drop(seed, site, threshold, scale, v_true),
+                         static_cast<cudaStream_t>(stream));
 }
 
 long long stgcn_head_bwd_work(int B, int t_in, int c_in, int vp, int kt, int c0, int c1,
                               int act, int apply_ln) {
   size_t n = 0;
-  head_bwd(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-           nullptr, &n, B, t_in, c_in, vp, kt, c0, c1, act, apply_ln,
-           make_drop(0, 0, 0, 1.0f, vp), nullptr);
+  head_bwd<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, &n, B, t_in, c_in, vp, kt, c0, c1, act, apply_ln,
+                  make_drop(0, 0, 0, 1.0f, vp), nullptr);
   return (long long)n;
 }
 
@@ -173,17 +192,70 @@ int stgcn_tail_bwd(const float* xg, const float* t_a, const float* t_b, const fl
                    float* dgcw, float* dgcb, float* dc2k, float* dc2b, float* work, int B,
                    int t1, int c1, int vp, int kt, int n_terms, int cheb, int c2, int act,
                    int v_true, void* stream) {
-  return tail_bwd(xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gpss, dxg, dt_a, dt_b, dgcw, dgcb,
-                  dc2k, dc2b, work, nullptr, B, t1, c1, vp, kt, n_terms, cheb, c2, act, v_true,
-                  static_cast<cudaStream_t>(stream));
+  return tail_bwd<float>(xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gpss, dxg, dt_a, dt_b, dgcw,
+                         dgcb, dc2k, dc2b, work, nullptr, B, t1, c1, vp, kt, n_terms, cheb, c2,
+                         act, v_true, static_cast<cudaStream_t>(stream));
 }
 
 long long stgcn_tail_bwd_work(int B, int t1, int c1, int vp, int kt, int n_terms, int cheb,
                               int c2, int act) {
   size_t n = 0;
-  tail_bwd(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, &n,
-           B, t1, c1, vp, kt, n_terms, cheb, c2, act, 0, nullptr);
+  tail_bwd<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  &n, B, t1, c1, vp, kt, n_terms, cheb, c2, act, 0, nullptr);
+  return (long long)n;
+}
+
+// The bf16 variants of K1b and K2b: x, lng, lnb, c1k, gaw, gy and dx, dlng,
+// dlnb (K1b); xg, the terms, gcw, c2k, ga2 and dxg and the terms' gradients
+// (K2b) are bf16; mu, rstd, the biases, gps, gpss, dmu, drstd and the weight
+// gradients float32. The dropout scale is rounded to bf16, as K1f's.
+int stgcn_head_bwd_bf16(const void* x, const float* mu, const float* rstd, const void* lng,
+                        const void* lnb, const void* c1k, const float* c1b, const void* gaw,
+                        const void* gy, void* dx, float* dmu, float* drstd, void* dlng,
+                        void* dlnb, float* dc1k, float* dc1b, float* dgaw, float* dgab,
+                        float* work, int B, int t_in, int c_in, int vp, int kt, int c0, int c1,
+                        int act, int apply_ln, int v_true, unsigned seed, int site,
+                        unsigned threshold, float scale, void* stream) {
+  using P = const bf16*;
+  return head_bwd<bf16>(P(x), mu, rstd, P(lng), P(lnb), P(c1k), c1b, P(gaw), P(gy),
+                        static_cast<bf16*>(dx), dmu, drstd, static_cast<bf16*>(dlng),
+                        static_cast<bf16*>(dlnb), dc1k, dc1b, dgaw, dgab, work, nullptr, B, t_in,
+                        c_in, vp, kt, c0, c1, act, apply_ln,
+                        make_drop(seed, site, threshold, bf16r(scale), v_true),
+                        static_cast<cudaStream_t>(stream));
+}
+
+long long stgcn_head_bwd_bf16_work(int B, int t_in, int c_in, int vp, int kt, int c0, int c1,
+                                   int act, int apply_ln) {
+  size_t n = 0;
+  head_bwd<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, &n, B, t_in, c_in, vp, kt, c0, c1, act, apply_ln,
+                 make_drop(0, 0, 0, 1.0f, vp), nullptr);
+  return (long long)n;
+}
+
+int stgcn_tail_bwd_bf16(const void* xg, const void* t_a, const void* t_b, const void* gcw,
+                        const float* gcb, const void* c2k, const float* c2b, const void* ga2,
+                        const float* gps, const float* gpss, void* dxg, void* dt_a, void* dt_b,
+                        float* dgcw, float* dgcb, float* dc2k, float* dc2b, float* work, int B,
+                        int t1, int c1, int vp, int kt, int n_terms, int cheb, int c2, int act,
+                        int v_true, void* stream) {
+  using P = const bf16*;
+  return tail_bwd<bf16>(P(xg), P(t_a), P(t_b), P(gcw), gcb, P(c2k), c2b, P(ga2), gps, gpss,
+                        static_cast<bf16*>(dxg), static_cast<bf16*>(dt_a),
+                        static_cast<bf16*>(dt_b), dgcw, dgcb, dc2k, dc2b, work, nullptr, B, t1,
+                        c1, vp, kt, n_terms, cheb, c2, act, v_true,
+                        static_cast<cudaStream_t>(stream));
+}
+
+long long stgcn_tail_bwd_bf16_work(int B, int t1, int c1, int vp, int kt, int n_terms, int cheb,
+                                   int c2, int act) {
+  size_t n = 0;
+  tail_bwd<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 &n, B, t1, c1, vp, kt, n_terms, cheb, c2, act, 0, nullptr);
   return (long long)n;
 }
 

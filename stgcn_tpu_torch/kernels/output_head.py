@@ -37,7 +37,13 @@ do (``stgcn_tpu/kernels/output_head.py:127-159``, ``:327-348``): K3 as K1
 (:mod:`.vertex_fused`), ``a`` stored in bf16 and its partial sums in
 float32; K4's LayerNorm output and fc1 → ReLU rounded to bf16, the mask a
 bf16 product, fc2 summed in float32 and left in float32. Their backward
-raises ``NotImplementedError`` until fused training in bf16 is ported.
+kernels' bf16 variants (``ohead_bwd_bf16``, ``ofc_bwd_bf16``) round where the
+TPU's bf16 backward kernels round (``output_head.py:160-211``, ``:349-404``):
+K3b's upstream gradient ``ga`` plus the LayerNorm-partial cotangents, the gate
+backward and the per-tap data gradient as K1b's (:mod:`.vertex_fused`); K4b's
+float32 ``gout`` first, ``dzd = gout · w2ᵀ`` and ``dh = ds2 · w1ᵀ``, the mask a
+bf16 product; the LayerNorm backward as K1b's. Weight gradients are float32
+sums, each rounded to its weight's type by the autograd Functions.
 """
 
 from __future__ import annotations
@@ -52,8 +58,9 @@ from stgcn_tpu_torch.kernels._launch import (
     on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 from stgcn_tpu_torch.kernels.vertex_fused import (
-    BF16, PRECISIONS, _cdot, gate_cv, launch_name, linear_cv, ln_normalize_cv, ln_stats,
-    masked_ln_sums, pad_channels_cv, refuse_bf16_bwd, tconv_cv)
+    BF16, PRECISIONS, _cdot, _drop_mask, as_input_types, gate_bwd_cv, gate_cv, launch_name,
+    linear_cv, ln_drop_bwd_cv, ln_normalize_cv, ln_stats, masked_ln_sums, pad_channels_cv,
+    shift_pad_t, tconv_bwd_cv, tconv_cv, wsum_cv)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,17 +133,46 @@ def _grad_reference(fn, ins, couts):
 
 def ohead_bwd_reference(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss,
                         drop: Drop | None = None):
-    """Plain version of :func:`ohead_bwd`: autograd through :func:`ohead_reference`."""
-    return _grad_reference(lambda *t: ohead_reference(cfg, *t, drop=drop),
-                           (x, mu, rstd, lng, lnb, ck, cb), (ga, gps, gpss))
+    """Plain version of :func:`ohead_bwd`: autograd through :func:`ohead_reference`;
+    for bf16 operands the TPU's bf16 backward (`_make_ohead_bwd_kernel`,
+    ``stgcn_tpu/kernels/output_head.py:160-211``), weight gradients float32."""
+    if x.dtype != BF16:
+        return _grad_reference(lambda *t: ohead_reference(cfg, *t, drop=drop),
+                               (x, mu, rstd, lng, lnb, ck, cb), (ga, gps, gpss))
+    mask = _drop_mask(drop, x, cfg.v_true)
+    x4 = ln_normalize_cv(x, mu, rstd, lng, lnb)
+    x4 = x4 if mask is None else x4 * mask
+    s = tconv_cv(x4, ck, cb, cfg.ko)
+    xin = pad_channels_cv(x4[:, cfg.ko - 1:], cfg.c0)
+    a = gate_cv(cfg.act_func, s, xin, cfg.c0)
+    vm = (torch.arange(cfg.v_pad, device=ga.device) < cfg.v_true).float()
+    da = (ga.float() + (gps + 2.0 * gpss * a.float() * vm) * vm).to(BF16)
+    ds, dxin = gate_bwd_cv(cfg.act_func, s, xin, cfg.c0, da)
+    dck, dcb, dx4 = tconv_bwd_cv(x4, ds, ck, cfg.ko)
+    dx4 = dx4 + shift_pad_t(dxin[:, :, :cfg.c_in], cfg.ko - 1, cfg.ko)
+    return (*ln_drop_bwd_cv(x, mu, rstd, lng, mask, dx4), dck, dcb)
 
 
 def ofc_bwd_reference(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout,
                       drop: Drop | None = None, relu_mask=None):
     """Plain version of :func:`ofc_bwd`: autograd through :func:`ofc_reference`
-    (with ``relu_mask`` as there)."""
-    return _grad_reference(lambda *t: ofc_reference(cfg, *t, drop=drop, relu_mask=relu_mask),
-                           (a, mu, rstd, lnw, lnb, w1, b1, w2, b2), gout)
+    (with ``relu_mask`` as there); for bf16 operands the TPU's bf16 backward
+    (`_make_ofc_bwd_kernel`, ``output_head.py:349-404``), weight gradients
+    float32, ``relu_mask`` replacing the ReLU's decisions in the same way."""
+    if a.dtype != BF16:
+        return _grad_reference(lambda *t: ofc_reference(cfg, *t, drop=drop, relu_mask=relu_mask),
+                               (a, mu, rstd, lnw, lnb, w1, b1, w2, b2), gout)
+    h = ln_normalize_cv(a, mu, rstd, lnw, lnb)
+    s2 = linear_cv(h, w1, b1)
+    pos = (s2.float() > 0).to(BF16) if relu_mask is None else relu_mask.to(BF16)
+    mask = _drop_mask(drop, s2, cfg.v_true)
+    zd = s2 * pos if mask is None else s2 * pos * mask
+    g = gout.to(BF16)
+    dzd = _cdot(g.float(), w2.float().T).to(BF16)
+    ds2 = (dzd if mask is None else dzd * mask) * pos
+    dh = _cdot(ds2.float(), w1.float().T).to(BF16)
+    return (*ln_drop_bwd_cv(a, mu, rstd, lnw, None, dh), wsum_cv(h, ds2),
+            ds2.float().sum((0, 1, 3)), wsum_cv(zd, g), g.float().sum((0, 1, 3)))
 
 
 def _check_cfg(cfg: OutHeadCfg) -> None:
@@ -218,29 +254,32 @@ def ohead_bwd(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss, *,
     and regenerating its mask. Returns ``(dx, dmu, drstd, dlng, dlnb, dck,
     dcb)``."""
     _check_cfg(cfg)
-    refuse_bf16_bwd("K3b, the backward of K3", cfg.precision)
     if on_cpu(x):
         return ohead_bwd_reference(cfg, x, mu, rstd, lng, lnb, ck, cb, ga, gps, gpss, drop)
     dev = cuda_device(x)
-    b = x.shape[0]
+    b, cdt = x.shape[0], cfg.dtype
     lib = _build.library()
     stat, aff = (b, cfg.ko, 1, 1), (cfg.c_in, cfg.v_pad)
     ins = (x, mu, rstd, lng, lnb, ck, cb)
-    ptrs = [require(x, "x", (b, cfg.ko, cfg.c_in, cfg.v_pad), dev),
+    ptrs = [require(x, "x", (b, cfg.ko, cfg.c_in, cfg.v_pad), dev, cdt),
             require(mu, "mu", stat, dev), require(rstd, "rstd", stat, dev),
-            require(lng, "lng", aff, dev), require(lnb, "lnb", aff, dev),
-            require(ck, "ck", (cfg.ko, cfg.c_in, cfg.g), dev),
+            require(lng, "lng", aff, dev, cdt), require(lnb, "lnb", aff, dev, cdt),
+            require(ck, "ck", (cfg.ko, cfg.c_in, cfg.g), dev, cdt),
             require(cb, "cb", (cfg.g,), dev),
-            require(ga, "ga", (b, 1, cfg.c0, cfg.v_pad), dev),
+            require(ga, "ga", (b, 1, cfg.c0, cfg.v_pad), dev, cdt),
             require(gps, "gps", (b, 1, 1, 1), dev), require(gpss, "gpss", (b, 1, 1, 1), dev)]
-    outs = [torch.empty_like(t) for t in ins]
+    # dx, dlng, dlnb in the operands' type; the statistics' and weights' float32
+    outs = [torch.empty(t.shape, device=dev, dtype=cdt if i in (0, 3, 4) else torch.float32)
+            for i, t in enumerate(ins)]
     act = ACT_CODES[cfg.act_func]
-    work = workspace(lib.stgcn_ohead_bwd_work(b, cfg.ko, cfg.c_in, cfg.v_pad, cfg.c0, act), dev)
-    err = lib.stgcn_ohead_bwd(
+    name = launch_name("ohead_bwd", cfg.precision)
+    work = workspace(getattr(lib, f"stgcn_{name}_work")(b, cfg.ko, cfg.c_in, cfg.v_pad, cfg.c0,
+                                                        act), dev)
+    err = getattr(lib, f"stgcn_{name}")(
         *ptrs, *[t.data_ptr() for t in outs], work.data_ptr(), b, cfg.ko, cfg.c_in, cfg.v_pad,
         cfg.c0, act, cfg.v_true, *drop_args(drop), stream_of(dev))
-    _build.check("ohead_bwd", err)
-    count_launch("ohead_bwd")
+    _build.check(name, err)
+    count_launch(name)
     return tuple(outs)
 
 
@@ -250,28 +289,31 @@ def ofc_bwd(cfg: OutHeadCfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout, *,
     [B, 1, c_end, Vp], recomputing the forward and regenerating its mask.
     Returns ``(da, dmu, drstd, dlnw, dlnb, dw1, db1, dw2, db2)``."""
     _check_cfg(cfg)
-    refuse_bf16_bwd("K4b, the backward of K4", cfg.precision)
     if on_cpu(a):
         return ofc_bwd_reference(cfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, gout, drop)
     dev = cuda_device(a)
-    b = a.shape[0]
+    b, cdt = a.shape[0], cfg.dtype
     lib = _build.library()
     stat, aff = (b, 1, 1, 1), (cfg.c0, cfg.v_pad)
     ins = (a, mu, rstd, lnw, lnb, w1, b1, w2, b2)
-    ptrs = [require(a, "a", (b, 1, cfg.c0, cfg.v_pad), dev),
+    ptrs = [require(a, "a", (b, 1, cfg.c0, cfg.v_pad), dev, cdt),
             require(mu, "mu", stat, dev), require(rstd, "rstd", stat, dev),
-            require(lnw, "lnw", aff, dev), require(lnb, "lnb", aff, dev),
-            require(w1, "w1", (cfg.c0, cfg.c1), dev), require(b1, "b1", (cfg.c1,), dev),
-            require(w2, "w2", (cfg.c1, cfg.c_end), dev),
+            require(lnw, "lnw", aff, dev, cdt), require(lnb, "lnb", aff, dev, cdt),
+            require(w1, "w1", (cfg.c0, cfg.c1), dev, cdt), require(b1, "b1", (cfg.c1,), dev),
+            require(w2, "w2", (cfg.c1, cfg.c_end), dev, cdt),
             require(gout, "gout", (b, 1, cfg.c_end, cfg.v_pad), dev)]
     require(b2, "b2", (cfg.c_end,), dev)
-    outs = [torch.empty_like(t) for t in ins]
-    work = workspace(lib.stgcn_ofc_bwd_work(b, cfg.c0, cfg.c1, cfg.c_end, cfg.v_pad), dev)
-    err = lib.stgcn_ofc_bwd(
+    # da, dlnw, dlnb in the operands' type; the statistics' and weights' float32
+    outs = [torch.empty(t.shape, device=dev, dtype=cdt if i in (0, 3, 4) else torch.float32)
+            for i, t in enumerate(ins)]
+    name = launch_name("ofc_bwd", cfg.precision)
+    work = workspace(getattr(lib, f"stgcn_{name}_work")(b, cfg.c0, cfg.c1, cfg.c_end, cfg.v_pad),
+                     dev)
+    err = getattr(lib, f"stgcn_{name}")(
         *ptrs, *[t.data_ptr() for t in outs], work.data_ptr(), b, cfg.c0, cfg.c1, cfg.c_end,
         cfg.v_pad, cfg.v_true, *drop_args(drop), stream_of(dev))
-    _build.check("ofc_bwd", err)
-    count_launch("ofc_bwd")
+    _build.check(name, err)
+    count_launch(name)
     return tuple(outs)
 
 
@@ -287,9 +329,11 @@ class _OheadFused(torch.autograd.Function):
         x = ctx.saved_tensors[0]
         b, cfg = x.shape[0], ctx.cfg
         ga = x.new_zeros((b, 1, cfg.c0, cfg.v_pad)) if ga is None else ga.contiguous()
-        gps = x.new_zeros((b, 1, 1, 1)) if gps is None else gps.contiguous()
-        gpss = x.new_zeros((b, 1, 1, 1)) if gpss is None else gpss.contiguous()
-        return (None, None, *ohead_bwd(cfg, *ctx.saved_tensors, ga, gps, gpss, drop=ctx.drop))
+        f32 = torch.float32
+        gps = x.new_zeros((b, 1, 1, 1), dtype=f32) if gps is None else gps.contiguous()
+        gpss = x.new_zeros((b, 1, 1, 1), dtype=f32) if gpss is None else gpss.contiguous()
+        grads = ohead_bwd(cfg, *ctx.saved_tensors, ga, gps, gpss, drop=ctx.drop)
+        return (None, None, *as_input_types(grads, ctx.saved_tensors))
 
 
 class _OfcFused(torch.autograd.Function):
@@ -301,8 +345,8 @@ class _OfcFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        return (None, None, *ofc_bwd(ctx.cfg, *ctx.saved_tensors, gout.contiguous(),
-                                     drop=ctx.drop))
+        grads = ofc_bwd(ctx.cfg, *ctx.saved_tensors, gout.contiguous(), drop=ctx.drop)
+        return (None, None, *as_input_types(grads, ctx.saved_tensors))
 
 
 def ohead_fused(cfg: OutHeadCfg, x, mu, rstd, lng, lnb, ck, cb, *, drop: Drop | None = None):

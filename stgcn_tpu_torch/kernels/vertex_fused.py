@@ -45,8 +45,19 @@ its product with the bf16 mask; each product's sum plus bias; the contraction
 before the residual; every op of the gate, whose σ is ``tanh(x/2)/2 + 1/2``
 as the TPU's bf16 kernels compose it. The plain versions round at the same
 points, their products float32 einsums of bf16 values. The backward kernels'
-bf16 variants come with fused training in bf16 (``ROADMAP.md`` §1): the
-backward of a bf16 call raises ``NotImplementedError``.
+bf16 variants (``head_bwd_bf16``, ``tail_bwd_bf16``: ``csrc/bwd_blocks_bf16.cu``)
+recompute that forward and round where the TPU's bf16 backward kernels round
+(``stgcn_tpu/kernels/vertex_fused.py:306-469``, ``:525-585``, ``:797-836``):
+the upstream gradient (K1b's ``gy · gawᵀ``, K2b's ``ga2`` plus the LayerNorm-
+partial cotangents); every op of the gate backward; each tap's data gradient,
+the taps then added in bf16 in order and the residual's gradient last; K2b's
+``dr`` and each graph term's gradient; the LayerNorm backward's ``dx`` (its
+statistics float32) and its affine gradients, summed over the whole batch in
+float32 and rounded once. Weight and bias gradients are float32 sums; the
+autograd Functions hand each input a gradient in its own type (a bf16 weight
+a bf16 one, as the TPU's ``custom_vjp`` casts them), μ/rstd float32 ones.
+The plain versions (``head_bwd_reference``, ``tail_bwd_reference``) follow
+the same points with float32 einsums of bf16 values.
 """
 
 from __future__ import annotations
@@ -57,8 +68,8 @@ import torch
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, BF16_SLICE, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device,
-    drop_args, on_cpu, require, stream_of, workspace)
+    ACT_CODES, GATE_PASS, LANES, MAX_OUT, TILE_LANES, count_launch, cuda_device, drop_args,
+    on_cpu, require, stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 
 BF16 = torch.bfloat16
@@ -258,12 +269,132 @@ def tail_reference(cfg: VertexBlockCfg, xg, terms, w, relu_mask=None):
 
 
 # --------------------------------------------------------------------------
+# the bf16 backward's plain pieces: each op on bf16 tensors rounds, as the
+# TPU's bf16 kernels do; products are float32 einsums of bf16 values
+# --------------------------------------------------------------------------
+
+def gate_bwd_cv(act_func: str, s, xin, c: int, da):
+    """The gate's backward on bf16 operands, each op rounded (`_gate_bwd_cv`,
+    ``stgcn_tpu/kernels/vertex_fused.py:306-335``): returns (ds, dxin), dxin
+    the gradient of the in-gate residual (ds's linear half)."""
+    if act_func in ("glu", "gtu"):
+        lin = s[:, :, :c] + xin
+        sq = sigmoid_bf16(s[:, :, c:])
+        if act_func == "glu":
+            dlin, dq = da * sq, da * lin * sq * (1.0 - sq)
+        else:
+            th = torch.tanh(lin)
+            dlin, dq = da * sq * (1.0 - th * th), da * th * sq * (1.0 - sq)
+        return torch.cat([dlin, dq], dim=2), dlin
+    z = s + xin
+    if act_func == "relu":
+        dz = da * (z.float() > 0).to(z.dtype)
+    else:
+        sz = sigmoid_bf16(z)
+        dz = da * sz * (1.0 + z * (1.0 - sz))
+    return dz, dz
+
+
+def shift_pad_t(y, k: int, t_total: int):
+    """Place ``y`` [B, t_out, C, V] at time offset ``k`` of a zero [B, t_total,
+    C, V] (the transpose of a valid-conv tap's slice)."""
+    return torch.nn.functional.pad(y, (0, 0, 0, 0, k, t_total - y.shape[1] - k))
+
+
+def wsum_cv(a, b) -> torch.Tensor:
+    """Σ over (b, t, v) of ``a[.., ca, v] · b[.., cb, v]`` → [ca, cb], float32."""
+    return torch.einsum("btcv,btgv->cg", a.float(), b.float())
+
+
+def tconv_bwd_cv(x, ds, kernel, kt: int):
+    """Backward of :func:`tconv_cv` on bf16 operands (`_tconv_bwd_cv`,
+    ``vertex_fused.py:348-360``): (dkernel, dbias) float32 sums; dx each tap's
+    float32 sum rounded to bf16, the taps added in bf16, k = 0 .. kt-1."""
+    t_out, t_total = ds.shape[1], x.shape[1]
+    dk = torch.stack([wsum_cv(x[:, k:k + t_out], ds) for k in range(kt)])
+    db = ds.float().sum((0, 1, 3))
+    dx = None
+    for k in range(kt):
+        tap = shift_pad_t(_cdot(ds.float(), kernel[k].float().T).to(ds.dtype), k, t_total)
+        dx = tap if dx is None else dx + tap
+    return dk, db, dx
+
+
+def ln_drop_bwd_cv(x, mu, rstd, lng, mask, dy):
+    """The LayerNorm (and dropout) backward with given statistics, bf16
+    (`_ln_drop_bwd`, ``vertex_fused.py:378-390``): ``dy · mask`` a bf16
+    product, the rest in float32; returns (dx rounded to bf16, dmu, drstd
+    [B, T, 1, 1] float32, dlng, dlnb summed over every (b, t) in float32,
+    rounded to ``lng``'s type)."""
+    xc = x.float() - mu
+    dy32 = (dy if mask is None else dy * mask).float()
+    dxn = dy32 * lng.float()
+    dmu = -dxn.sum((2, 3), keepdim=True) * rstd
+    drstd = (dxn * xc).sum((2, 3), keepdim=True)
+    return ((dxn * rstd).to(x.dtype), dmu, drstd, (dy32 * (xc * rstd)).sum((0, 1)).to(lng.dtype),
+            dy32.sum((0, 1)).to(lng.dtype))
+
+
+def _drop_mask(drop: Drop | None, like: torch.Tensor, v_true: int):
+    """The bf16 keep mask of a site (its scale rounded to bf16) shaped as
+    ``like``, or None."""
+    if drop is None:
+        return None
+    return dropout.keep_mask(drop, tuple(like.shape), v_true, device=like.device).to(BF16)
+
+
+def _head_bwd_bf16(cfg: VertexBlockCfg, x, ln, w, gy, drop: Drop | None):
+    """The plain K1b in bf16 (`_make_head_bwd_kernel`, ``vertex_fused.py:525-585``)."""
+    c1k, c1b, gaw, _ = w
+    x4, mask = x, None
+    if cfg.apply_ln:
+        mask = _drop_mask(drop, x, cfg.v_true)
+        x4 = ln_normalize_cv(x, *ln)
+        x4 = x4 if mask is None else x4 * mask
+    s1 = tconv_cv(x4, c1k, c1b, cfg.kt)
+    xin1 = pad_channels_cv(x4[:, cfg.kt - 1:], cfg.c0)
+    a1 = gate_cv(cfg.act_func, s1, xin1, cfg.c0)
+    da1 = _cdot(gy.float(), gaw.float().T).to(BF16)
+    ds1, dxin1 = gate_bwd_cv(cfg.act_func, s1, xin1, cfg.c0, da1)
+    dc1k, dc1b, dx4 = tconv_bwd_cv(x4, ds1, c1k, cfg.kt)
+    dx4 = dx4 + shift_pad_t(dxin1[:, :, :cfg.c_in], cfg.kt - 1, cfg.t_in)
+    dln = (ln_drop_bwd_cv(x, ln[0], ln[1], ln[2], mask, dx4) if cfg.apply_ln
+           else (dx4, None, None, None, None))
+    return (*dln, dc1k, dc1b, wsum_cv(a1, gy), gy.float().sum((0, 1, 3)))
+
+
+def _tail_bwd_bf16(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss):
+    """The plain K2b in bf16 (`_make_tail_bwd_kernel`, ``vertex_fused.py:797-836``)."""
+    gcw, _, c2k, c2b = w
+    cheb = cfg.graph_conv_type == "cheb_graph_conv"
+    cterms = [xg, *terms] if cheb else list(terms)
+    r = tail_preact(cfg, xg, terms, w)
+    h = torch.relu(r)
+    s2 = tconv_cv(h, c2k, c2b, cfg.kt)
+    xin2 = pad_channels_cv(h[:, cfg.kt - 1:], cfg.c2)
+    a2 = gate_cv(cfg.act_func, s2, xin2, cfg.c2)
+    vm = (torch.arange(cfg.v_pad, device=ga2.device) < cfg.v_true).float()
+    da2 = (ga2.float() + (gps + 2.0 * gpss * a2.float()) * vm).to(BF16)
+    ds2, dxin2 = gate_bwd_cv(cfg.act_func, s2, xin2, cfg.c2, da2)
+    dc2k, dc2b, dh = tconv_bwd_cv(h, ds2, c2k, cfg.kt)
+    dh = dh + shift_pad_t(dxin2[:, :, :cfg.c1], cfg.kt - 1, cfg.t1)
+    dr = dh * (r.float() > 0).to(BF16)
+    dgcw = torch.stack([wsum_cv(t, dr) for t in cterms])
+    dct = [_cdot(dr.float(), gcw[k].float().T).to(BF16) for k in range(len(cterms))]
+    dxg = dr + dct[0] if cheb else dr
+    return dxg, dct[1:] if cheb else dct, dgcw, dr.float().sum((0, 1, 3)), dc2k, dc2b
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
 def head_bwd_reference(cfg: VertexBlockCfg, x, ln, w, gy, drop: Drop | None = None):
     """Plain version of :func:`head_bwd`: autograd through
-    :func:`head_reference` with the same mask."""
+    :func:`head_reference` with the same mask; for bf16 operands the TPU's
+    bf16 backward, rounding where it rounds, weight gradients float32."""
+    if x.dtype == BF16:
+        return _head_bwd_bf16(cfg, x, ln, w, gy, drop)
     with torch.enable_grad():
         ins = [x, *(ln if cfg.apply_ln else ()), *w]
         ins = [t.detach().requires_grad_() for t in ins]
@@ -277,7 +408,13 @@ def head_bwd_reference(cfg: VertexBlockCfg, x, ln, w, gy, drop: Drop | None = No
 def tail_bwd_reference(cfg: VertexBlockCfg, xg, terms, w, ga2, gps, gpss, relu_mask=None):
     """Plain version of :func:`tail_bwd`: autograd through
     :func:`tail_reference` (with ``relu_mask`` as there); returns (dxg,
-    [dterm per term], dgcw, dgcb, dc2k, dc2b)."""
+    [dterm per term], dgcw, dgcb, dc2k, dc2b). For bf16 operands the TPU's
+    bf16 backward, rounding where it rounds, weight gradients float32
+    (``relu_mask`` is not taken there)."""
+    if xg.dtype == BF16:
+        if relu_mask is not None:
+            raise ValueError("relu_mask is a float32 check of the kernel's ReLU decisions")
+        return _tail_bwd_bf16(cfg, xg, terms, w, ga2, gps, gpss)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (xg, *terms, *w)]
         n = len(terms)
@@ -299,16 +436,6 @@ def _check_cfg(cfg: VertexBlockCfg) -> None:
     if cfg.c_in > cfg.c0 or cfg.c1 > cfg.c2:
         raise ValueError("the fused block supports zero-pad residual aligns only "
                          "(c_in <= c0, c1 <= c2)")
-
-
-def refuse_bf16_bwd(what: str, precision: str) -> None:
-    """Raise ``NotImplementedError`` for the backward of a bf16 call: the
-    bf16 variants of K1b-K4b are not ported yet, and nothing is cast to
-    float32 to reuse the float32 kernels."""
-    if precision == "bfloat16":
-        raise NotImplementedError(
-            f"{what} of a bf16 call (precision='bfloat16') is not ported yet; it comes with "
-            f"fused training in bf16 (ROADMAP.md §1 item 2), part of {BF16_SLICE}")
 
 
 def _check_drop(cfg: VertexBlockCfg, drop: Drop | None) -> None:
@@ -395,41 +522,44 @@ def head_bwd(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, gy,
     [B, t1, c1, Vp], recomputing the forward from its inputs and regenerating
     its mask. Returns ``(dx, dmu, drstd, dlng, dlnb, dc1k, dc1b, dgaw, dgab)``
     shaped as the inputs; the four LayerNorm entries are None unless
-    ``cfg.apply_ln``."""
+    ``cfg.apply_ln``. ``dx``, ``dlng`` and ``dlnb`` are in the operands' type
+    (bf16 for the bf16 variant), the rest float32: the weight gradients are
+    float32 sums, which the caller rounds to the weights' type."""
     _check_cfg(cfg)
-    refuse_bf16_bwd("K1b, the backward of K1", cfg.precision)
     _check_drop(cfg, drop)
     ln = (mu, rstd, lng, lnb) if cfg.apply_ln else None
     if on_cpu(x):
         return head_bwd_reference(cfg, x, ln, (c1k, c1b, gaw, gab), gy, drop)
     dev = cuda_device(x)
-    b = x.shape[0]
+    b, cdt, f32 = x.shape[0], cfg.dtype, torch.float32
     lib = _build.library()
     act = ACT_CODES[cfg.act_func]
-    ins = [require(x, "x", (b, cfg.t_in, cfg.c_in, cfg.v_pad), dev)]
+    ins = [require(x, "x", (b, cfg.t_in, cfg.c_in, cfg.v_pad), dev, cdt)]
     ln_shapes = [(b, cfg.t_in, 1, 1)] * 2 + [(cfg.c_in, cfg.v_pad)] * 2
-    for name, t, shape in zip(("mu", "rstd", "lng", "lnb"), (mu, rstd, lng, lnb), ln_shapes):
-        ins.append(require(t, name, shape, dev) if cfg.apply_ln else 0)
-    ins += [require(c1k, "c1k", (cfg.kt, cfg.c_in, cfg.g1), dev),
+    for name, t, shape, dt in zip(("mu", "rstd", "lng", "lnb"), (mu, rstd, lng, lnb), ln_shapes,
+                                  (f32, f32, cdt, cdt)):
+        ins.append(require(t, name, shape, dev, dt) if cfg.apply_ln else 0)
+    ins += [require(c1k, "c1k", (cfg.kt, cfg.c_in, cfg.g1), dev, cdt),
             require(c1b, "c1b", (cfg.g1,), dev),
-            require(gaw, "gaw", (cfg.c0, cfg.c1), dev),
-            require(gy, "gy", (b, cfg.t1, cfg.c1, cfg.v_pad), dev)]
+            require(gaw, "gaw", (cfg.c0, cfg.c1), dev, cdt),
+            require(gy, "gy", (b, cfg.t1, cfg.c1, cfg.v_pad), dev, cdt)]
     require(gab, "gab", (cfg.c1,), dev)
 
-    def new(t):
-        return torch.empty_like(t)
+    def new(t, dt=f32):
+        return torch.empty(t.shape, device=dev, dtype=dt)
 
     dx = torch.empty_like(x)
-    dln = [new(t) for t in (mu, rstd, lng, lnb)] if cfg.apply_ln else [None] * 4
+    dln = [new(mu), new(rstd), new(lng, cdt), new(lnb, cdt)] if cfg.apply_ln else [None] * 4
     dw = [new(t) for t in (c1k, c1b, gaw, gab)]
     sizes = (b, cfg.t_in, cfg.c_in, cfg.v_pad, cfg.kt, cfg.c0, cfg.c1, act, int(cfg.apply_ln))
-    work = workspace(lib.stgcn_head_bwd_work(*sizes), dev)
+    name = launch_name("head_bwd", cfg.precision)
+    work = workspace(getattr(lib, f"stgcn_{name}_work")(*sizes), dev)
     outs = [dx, *dln, *dw]
-    err = lib.stgcn_head_bwd(
+    err = getattr(lib, f"stgcn_{name}")(
         *ins, *[0 if t is None else t.data_ptr() for t in outs], work.data_ptr(), *sizes,
         cfg.v_true, *drop_args(drop), stream_of(dev))
-    _build.check("head_bwd", err)
-    count_launch("head_bwd")
+    _build.check(name, err)
+    count_launch(name)
     return tuple(outs)
 
 
@@ -438,9 +568,9 @@ def tail_bwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gp
     c2, Vp] of ``a2`` and ``gps``/``gpss`` [B, t2, 1, 1] of its LayerNorm
     partial sums, recomputing the forward. Returns ``(dxg, dt_a, dt_b, dgcw,
     dgcb, dc2k, dc2b)``; the gradient of a graph term the tail does not read
-    (``t_b`` with one term) is zero."""
+    (``t_b`` with one term) is zero. The data gradients are in the operands'
+    type, the weight gradients float32 sums."""
     _check_cfg(cfg)
-    refuse_bf16_bwd("K2b, the backward of K2", cfg.precision)
     terms = [t_a, t_b][: cfg.n_terms]
     if on_cpu(xg):
         dxg, dterms, *dw = tail_bwd_reference(cfg, xg, terms, (gcw, gcb, c2k, c2b), ga2, gps,
@@ -448,38 +578,46 @@ def tail_bwd(cfg: VertexBlockCfg, xg, t_a, t_b, gcw, gcb, c2k, c2b, ga2, gps, gp
         dterms = [*dterms] + [torch.zeros_like(xg)] * (2 - len(dterms))
         return (dxg, *dterms, *dw)
     dev = cuda_device(xg)
-    b = xg.shape[0]
+    b, cdt = xg.shape[0], cfg.dtype
     lib = _build.library()
     cheb = cfg.graph_conv_type == "cheb_graph_conv"
     n_c = len(terms) + int(cheb)
     act = (b, cfg.t1, cfg.c1, cfg.v_pad)
     stat = (b, cfg.t2, 1, 1)
-    term_ptrs = [require(t, f"term{i}", act, dev) for i, t in enumerate(terms)]
-    ins = [require(xg, "xg", act, dev), *term_ptrs, *[0] * (2 - len(terms)),
-           require(gcw, "gcw", (n_c, cfg.c1, cfg.c1), dev),
+    term_ptrs = [require(t, f"term{i}", act, dev, cdt) for i, t in enumerate(terms)]
+    ins = [require(xg, "xg", act, dev, cdt), *term_ptrs, *[0] * (2 - len(terms)),
+           require(gcw, "gcw", (n_c, cfg.c1, cfg.c1), dev, cdt),
            require(gcb, "gcb", (cfg.c1,), dev),
-           require(c2k, "c2k", (cfg.kt, cfg.c1, cfg.g2), dev),
+           require(c2k, "c2k", (cfg.kt, cfg.c1, cfg.g2), dev, cdt),
            require(c2b, "c2b", (cfg.g2,), dev),
-           require(ga2, "ga2", (b, cfg.t2, cfg.c2, cfg.v_pad), dev),
+           require(ga2, "ga2", (b, cfg.t2, cfg.c2, cfg.v_pad), dev, cdt),
            require(gps, "gps", stat, dev), require(gpss, "gpss", stat, dev)]
     dxg = torch.empty_like(xg)
     dterms = [torch.empty_like(xg) if i < len(terms) else torch.zeros_like(xg)
               for i in range(2)]
-    dw = [torch.empty_like(t) for t in (gcw, gcb, c2k, c2b)]
+    dw = [torch.empty(t.shape, device=dev, dtype=torch.float32) for t in (gcw, gcb, c2k, c2b)]
     sizes = (b, cfg.t1, cfg.c1, cfg.v_pad, cfg.kt, len(terms), int(cheb), cfg.c2,
              ACT_CODES[cfg.act_func])
-    work = workspace(lib.stgcn_tail_bwd_work(*sizes), dev)
+    name = launch_name("tail_bwd", cfg.precision)
+    work = workspace(getattr(lib, f"stgcn_{name}_work")(*sizes), dev)
     outs = [dxg, *dterms, *dw]
-    err = lib.stgcn_tail_bwd(*ins, *[t.data_ptr() for t in outs], work.data_ptr(), *sizes,
-                             cfg.v_true, stream_of(dev))
-    _build.check("tail_bwd", err)
-    count_launch("tail_bwd")
+    err = getattr(lib, f"stgcn_{name}")(*ins, *[t.data_ptr() for t in outs], work.data_ptr(),
+                                        *sizes, cfg.v_true, stream_of(dev))
+    _build.check(name, err)
+    count_launch(name)
     return tuple(outs)
 
 
 # --------------------------------------------------------------------------
 # autograd Functions: forward and backward kernels, inputs saved
 # --------------------------------------------------------------------------
+
+def as_input_types(grads, inputs) -> tuple:
+    """Each gradient in its input's type: the backward kernels' float32
+    weight gradients rounded to a bf16 weight's type, as the TPU's
+    ``custom_vjp`` casts them (``stgcn_tpu/kernels/vertex_fused.py:753-754``)."""
+    return tuple(None if g is None else g.to(t.dtype) for g, t in zip(grads, inputs))
+
 
 class _HeadFused(torch.autograd.Function):
     @staticmethod
@@ -491,7 +629,7 @@ class _HeadFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         grads = head_bwd(ctx.cfg, *ctx.saved_tensors, gy.contiguous(), drop=ctx.drop)
-        return (None, None, *grads)
+        return (None, None, *as_input_types(grads, ctx.saved_tensors))
 
 
 class _TailFused(torch.autograd.Function):
@@ -509,11 +647,11 @@ class _TailFused(torch.autograd.Function):
         if ga2 is None:
             ga2 = xg.new_zeros((b, cfg.t2, cfg.c2, cfg.v_pad))
         stat = (b, cfg.t2, 1, 1)
-        gps = xg.new_zeros(stat) if gps is None else gps
-        gpss = xg.new_zeros(stat) if gpss is None else gpss
+        gps = xg.new_zeros(stat, dtype=torch.float32) if gps is None else gps
+        gpss = xg.new_zeros(stat, dtype=torch.float32) if gpss is None else gpss
         grads = tail_bwd(cfg, *ctx.saved_tensors, ga2.contiguous(), gps.contiguous(),
                          gpss.contiguous())
-        return (None, *grads)
+        return (None, *as_input_types(grads, ctx.saved_tensors))
 
 
 def head_fused(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, *,

@@ -40,8 +40,12 @@ the kernels' bf16 variants (``"bfloat16"``) and any other in float32
 activations between the kernels and the LayerNorm affine threaded between
 blocks are bf16, the LayerNorm statistics float32; the graph terms come
 from the operator in bf16 (the dense ``torch.matmul``, K10's bf16 variant on
-BCSR; the nv kernels K5 and K6 refuse a bf16 operand). The bf16 backward
-kernels are not ported yet: a bf16 forward runs, its backward raises.
+BCSR; the nv kernels K5 and K6 refuse a bf16 operand). The backward runs
+K1b-K4b's bf16 variants: the data gradients in bf16 (the cotangents of
+``xg`` from the tail and from the graph terms' adjoint meet as a bf16 add,
+as in JAX), each weight gradient a float32 sum rounded to bf16 by its
+Function, as the JAX ``custom_vjp`` casts it, then cast to the float32
+master parameter by autograd; μ/rstd and their gradients float32.
 """
 
 from __future__ import annotations

@@ -534,28 +534,45 @@ def test_unfused_trainer_refuses_a_config_the_model_disagrees_with(tmp_path, mod
 
 
 def test_fused_route_refuses_bf16_and_remat(tmp_path):
-    """``fused=True`` with bf16 or remat raises in the ``Trainer`` and in
-    the CLI (``--fused True --compute_dtype bfloat16``), and so do the nv
-    kernels (K5, K6) on a bf16 operand: nothing falls back to float32. The
-    fused forward of a bf16 model runs, through K1f-K4f's bf16 variants
-    (``tests/test_torch_fused_bf16.py``)."""
+    """``fused=True`` trains a bf16 model (and a float32 one with a bf16
+    LayerNorm affine) on the dense operator: one step each, finite losses
+    (tests/test_torch_fused_bf16_bwd.py holds them to the float32 steps); a
+    float32 model under ``compute_dtype="bfloat16"`` raises ``ValueError``,
+    as on the unfused route. What stays refused raises
+    ``NotImplementedError`` naming the fused bf16 slice: remat on the fused
+    route, in the ``Trainer`` and in the CLI (``--fused True --remat True``);
+    a fused bf16 ``Trainer`` on an operator whose graph terms run on K5 (the
+    banded nv pack) or K6 (ELL), when it is built, and so the CLI's
+    ``--fused True --compute_dtype bfloat16 --graph_op banded`` (the banded
+    operator packed for K5); and the nv kernels themselves on a bf16
+    operand: nothing falls back to float32."""
     jop, top, v = _ops("dense")
     adj = random_road_graph(V, k_neighbors=4, seed=11)
     vel = generate_synthetic_vel(adj, T_STEPS, seed=12)
     ds = ForecastDataset.from_numpy(ZScoreScaler().fit(vel).transform(vel), N_HIS, N_PRED,
                                     device="cpu")
+
+    def trainer(model_kw, cfg_kw, gop=top, v_model=V):
+        cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, fused=True, batch_size=B,
+                          ckpt_dir=str(tmp_path), **cfg_kw)
+        return Trainer(cfg, STGCN(N_HIS, v_model, device="cpu", **model_kw), gop, ds, ds, ds,
+                       ZScoreScaler().fit(vel), device="cpu")
+
     for model_kw, cfg_kw in (({"dtype": BF16}, {"compute_dtype": "bfloat16"}),
-                             ({}, {"compute_dtype": "bfloat16"}),
-                             ({"remat": True}, {"remat": True}),
                              ({"ln_param_dtype": BF16}, {})):
-        cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, fused=True, ckpt_dir=str(tmp_path),
-                          **cfg_kw)
-        with pytest.raises(NotImplementedError, match="fused bf16 slice"):
-            Trainer(cfg, STGCN(N_HIS, V, device="cpu", **model_kw), top, ds, ds, ds,
-                    ZScoreScaler().fit(vel), device="cpu")
+        tr = trainer(model_kw, cfg_kw)
+        starts, n_valid = tr._plan(tr.train_ds)[0]
+        assert bool(torch.isfinite(tr.train_step(starts, n_valid, 0)))
+    with pytest.raises(ValueError, match="the model's fields decide"):
+        trainer({}, {"compute_dtype": "bfloat16"})
+    with pytest.raises(NotImplementedError, match="fused bf16 slice"):
+        trainer({"remat": True}, {"remat": True})
     with pytest.raises(NotImplementedError, match="fused bf16 slice"):
         tcli.main(["--dataset", "pemsd7-m", "--platform", "cpu", "--fused", "True",
-                   "--compute_dtype", "bfloat16"])
+                   "--remat", "True"])
+    with pytest.raises(NotImplementedError, match=r"K5 / K6.*fused bf16 slice"):
+        tcli.main(["--dataset", "pemsd7-m", "--platform", "cpu", "--fused", "True",
+                   "--compute_dtype", "bfloat16", "--graph_op", "banded"])
     model = STGCN(N_HIS, V, dtype=BF16, device="cpu")
     out = fused_sparse_forward(model.state_dict(), torch.zeros(1, N_HIS, V, 1), top, model)
     assert out.dtype == torch.float32 and out.shape == (1, 1, V, 1)
@@ -567,3 +584,5 @@ def test_fused_route_refuses_bf16_and_remat(tmp_path):
     for op in (nv_op, ell):
         with pytest.raises(NotImplementedError, match="fused bf16 slice"):
             op.cheb_pair(xb)
+        with pytest.raises(NotImplementedError, match=r"K5 / K6.*fused bf16 slice"):
+            trainer({"dtype": BF16}, {"compute_dtype": "bfloat16"}, gop=op, v_model=V_SPARSE)

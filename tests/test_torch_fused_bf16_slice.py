@@ -3,8 +3,9 @@
 on the dense and BCSR operators against JAX ``fused_sparse_forward(
 use_pallas="xla")`` of the bf16 model and against the float32 model; a
 float32 model with a bf16 LayerNorm affine; the ``precision`` argument; the
-C calls of the bf16 wrappers; and the refusals: the backward of every bf16
-call, and ``fused_forward`` (K12) of a bf16 model. V = 150 (dense) or 520
+C calls of the bf16 wrappers; the backward of every bf16 call, which hands
+each input a gradient in its own type; and the refusal of ``fused_forward``
+(K12) of a bf16 model. V = 150 (dense) or 520
 (BCSR, RCM-ordered), B = 3. The kernels one by one against the JAX mirrors
 are in ``tests/test_torch_fused_bf16.py``."""
 
@@ -175,41 +176,46 @@ def test_bf16_wrappers_call_their_entry_points(monkeypatch):
 
 
 def test_bf16_backward_raises():
-    """The backward of each bf16 Function (K1b-K4b in bf16, fused training in
-    bf16) raises ``NotImplementedError`` naming that slice; so does the
-    backward of a bf16 model's ``fused_sparse_forward``. Nothing is cast to
-    float32."""
+    """The backward of each bf16 Function (K1b-K4b in bf16) runs and hands
+    every bf16 input a bf16 gradient and every float32 one (μ, rstd, the
+    biases) a float32 one, and so does the backward of a bf16 model's
+    ``fused_sparse_forward`` (float32 gradients of the master parameters);
+    nothing is cast to float32 on the way. (Its values:
+    ``tests/test_torch_fused_bf16_bwd.py``.)"""
     jop, top, v = _ops("dense")
     tm = STGCN(N_HIS, v, dtype=BF16, device="cpu", generator=torch.Generator().manual_seed(5))
     x = torch.from_numpy(rand(np.random.default_rng(4), B, N_HIS, v, 1))
     params = dict(tm.named_parameters())
-    out = fused_sparse_forward(params, x, top, tm)
-    with pytest.raises(NotImplementedError, match=r"fused training in bf16 \(ROADMAP\.md §1"):
-        out.sum().backward()
+    out = fused_sparse_forward(params, x, top, tm, deterministic=False, seed=3)
+    grads = torch.autograd.grad(out.sum(), list(params.values()))
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads)
     rng = np.random.default_rng(5)
+
+    def run(fn, ins, *rest, **kw):
+        ins = [t.requires_grad_() for t in ins]
+        outs = fn(*ins, *rest, **kw)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        got = torch.autograd.grad([o.float().sum() for o in outs], ins, allow_unused=True)
+        for t, g in zip(ins, got):
+            assert g is not None and g.dtype == t.dtype and g.shape == t.shape
+            assert bool(torch.isfinite(g.float()).all())
+
     _, cfg = _cfgs("glu", True)
-    xb = _t16(rand(rng, B, 8, 16, V_PAD)).requires_grad_()
-    ln = _ln(rng, 8, 16)
-    w = (_t16(rand(rng, 3, 16, 32)), torch.zeros(32), _t16(rand(rng, 16, 8)), torch.zeros(8))
-    y = tvf.head_fused(cfg, xb, *ln, *w, drop=Drop(0.5, 1, 0))
-    with pytest.raises(NotImplementedError, match="K1b"):
-        y.float().sum().backward()
-    terms = [_t16(rand(rng, B, 6, 8, V_PAD)).requires_grad_() for _ in range(3)]
-    a2, _, _ = tvf.tail_fused(cfg, *terms, _t16(rand(rng, 3, 8, 8)), torch.zeros(8),
-                              _t16(rand(rng, 3, 8, 32)), torch.zeros(32))
-    with pytest.raises(NotImplementedError, match="K2b"):
-        a2.float().sum().backward()
+    f32 = torch.float32
+    run(lambda *t, **kw: tvf.head_fused(cfg, *t, **kw),
+        [_t16(rand(rng, B, 8, 16, V_PAD)), *_ln(rng, 8, 16), _t16(rand(rng, 3, 16, 32)),
+         torch.zeros(32), _t16(rand(rng, 16, 8)), torch.zeros(8)], drop=Drop(0.5, 1, 0))
+    run(lambda *t: tvf.tail_fused(cfg, *t),
+        [*(_t16(rand(rng, B, 6, 8, V_PAD)) for _ in range(3)), _t16(rand(rng, 3, 8, 8)),
+         torch.zeros(8), _t16(rand(rng, 3, 8, 32)), torch.zeros(32)])
     _, ocfg = _ohead_cfgs("glu")
-    xo = _t16(rand(rng, B, 4, 16, V_PAD)).requires_grad_()
-    a, _, _ = toh.ohead_fused(ocfg, xo, *_ln(rng, 4, 16), _t16(rand(rng, 4, 16, 64)),
-                              torch.zeros(64))
-    with pytest.raises(NotImplementedError, match="K3b"):
-        a.float().sum().backward()
-    ao = _t16(rand(rng, B, 1, 32, V_PAD)).requires_grad_()
-    o = toh.ofc_fused(ocfg, ao, *_ln(rng, 1, 32), _t16(rand(rng, 32, 24)), torch.zeros(24),
-                      _t16(rand(rng, 24, 1)), torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="K4b"):
-        o.sum().backward()
+    run(lambda *t, **kw: toh.ohead_fused(ocfg, *t, **kw),
+        [_t16(rand(rng, B, 4, 16, V_PAD)), *_ln(rng, 4, 16), _t16(rand(rng, 4, 16, 64)),
+         torch.zeros(64)], drop=Drop(0.5, 2, 1))
+    run(lambda *t, **kw: toh.ofc_fused(ocfg, *t, **kw),
+        [_t16(rand(rng, B, 1, 32, V_PAD)), *_ln(rng, 1, 32), _t16(rand(rng, 32, 24)),
+         torch.zeros(24, dtype=f32), _t16(rand(rng, 24, 1)), torch.zeros(1)],
+        drop=Drop(0.5, 3, 2))
 
 
 def test_fused_forward_of_a_bf16_model_still_raises():

@@ -1760,3 +1760,139 @@ def test_bf16_wrappers_take_only_their_types(dev):
     f32 = dataclasses.replace(cfg, precision="default")
     with pytest.raises(TypeError, match="x must be torch.float32"):
         vf.head_fwd(f32, x.to(BF16), None, None, None, None, *(t.float() for t in w))
+
+
+# --- the bf16 variants of K1b-K4b (bwd_blocks_bf16.cu) ------------------------
+
+def _bf16_bwd_matches_plain(name, kernel, plain, scale):
+    """A bf16 backward kernel against its plain version, which rounds at the
+    same points: its bf16 outputs within the bf16 bound and its float32 ones
+    within 2^-8 in relative L2 (``bf16_bounds.within_grads``); a repeat launch
+    bit-identical (no atomics); two launches counted under its ``_bf16`` name
+    and none under the float32 kernel's."""
+    before = kernels.launch_counts()
+    got, again = kernel(), kernel()
+    after = kernels.launch_counts()
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    assert after[name] == before[name] + 2
+    assert after[name[:-len("_bf16")]] == before[name[:-len("_bf16")]]
+    return bb.within_grads(got, plain(), scale())
+
+
+def _head_bwd_bf16_case(rng, dev, act, c0, c_in, kt, t_in, c1, apply_ln, batch, v_pad):
+    v_true = v_true_of(v_pad)
+    cfg = vf.VertexBlockCfg(kt=kt, ks=3, act_func=act, graph_conv_type="cheb_graph_conv",
+                            v_true=v_true, v_pad=v_pad, t_in=t_in, c_in=c_in, c0=c0, c1=c1,
+                            c2=c1, apply_ln=apply_ln, precision="bfloat16")
+    x = _rand(rng, dev, batch, t_in, c_in, v_pad).to(BF16)
+    ln = _ln_bf16(rng, dev, batch, t_in, c_in, v_true, v_pad) if apply_ln else (None,) * 4
+    w = (_rand(rng, dev, kt, c_in, cfg.g1, scale=(kt * c_in) ** -0.5).to(BF16),
+         _rand(rng, dev, cfg.g1, scale=0.1), _rand(rng, dev, c0, c1, scale=c0 ** -0.5).to(BF16),
+         _rand(rng, dev, c1, scale=0.1))
+    gy = _rand(rng, dev, batch, cfg.t1, c1, v_pad).to(BF16)
+    return cfg, x, ln, w, gy
+
+
+def _head_bwd_bf16_matches_plain(cfg, x, ln, w, gy, d):
+    lnr = ln if cfg.apply_ln else None
+    r = _bf16_bwd_matches_plain(
+        "head_bwd_bf16", lambda: vf.head_bwd(cfg, x, *ln, *w, gy, drop=d),
+        lambda: vf.head_bwd_reference(cfg, x, lnr, w, gy, d),
+        lambda: bb.head_bwd_scale(cfg, x, lnr, w, gy, d))
+    got = vf.head_bwd(cfg, x, *ln, *w, gy, drop=d)
+    assert got[0].dtype == BF16 and all(g.dtype == torch.float32 for g in got[5:])
+    return r
+
+
+@pytest.mark.parametrize("act,c0,c_in,kt,t_in,c1,apply_ln,drop,batch,v_pad", HEAD_EDGES)
+def test_head_bwd_bf16_at_tile_edges_matches_plain(dev, act, c0, c_in, kt, t_in, c1, apply_ln,
+                                                   drop, batch, v_pad):
+    """K1b's bf16 variant at the edges of the gate pass's and the data
+    gradient's tiles (c_in 1 and 3: the bf16 lane kernel, kt 1-3), its
+    dropout regenerated in bf16."""
+    rng = np.random.default_rng(71)
+    case = _head_bwd_bf16_case(rng, dev, act, c0, c_in, kt, t_in, c1, apply_ln, batch, v_pad)
+    _head_bwd_bf16_matches_plain(*case, DROP if drop else None)
+
+
+@pytest.mark.parametrize("b,t_in,c_in,drop,v_pad", [(3, 12, 1, None, 256), (3, 8, 64, DROP, 256),
+                                                   (1, 8, 64, DROP, 65_536),
+                                                   (1, 12, 1, None, 65_536)])
+def test_head_bwd_bf16_at_the_main_widths_matches_plain(dev, b, t_in, c_in, drop, v_pad):
+    """K1b's bf16 variant at block 1's and block 2's shapes (c0 64, c1 16),
+    on PeMSD7(M)'s lanes and a 64k-lane graph's."""
+    rng = np.random.default_rng(72)
+    case = _head_bwd_bf16_case(rng, dev, "glu", 64, c_in, 3, t_in, 16, c_in > 1, b, v_pad)
+    _head_bwd_bf16_matches_plain(*case, drop)
+
+
+def _tail_bwd_bf16_matches_plain(rng, dev, cfg, ins, w):
+    xg = ins[0]
+    b, t2 = xg.shape[0], cfg.t2
+    ga2 = _rand(rng, dev, b, t2, cfg.c2, cfg.v_pad).to(BF16)
+    gps, gpss = (_rand(rng, dev, b, t2, 1, 1, scale=1e-2) for _ in range(2))
+    terms = list(ins[1:3])[: cfg.n_terms]
+
+    def plain():
+        dxg, dterms, *dw = vf.tail_bwd_reference(cfg, xg, terms, w, ga2, gps, gpss)
+        return (dxg, *dterms, *[torch.zeros_like(xg)] * (2 - len(dterms)), *dw)
+
+    def scale():
+        m_dxg, m_dt = bb.tail_bwd_scale(cfg, xg, terms, w, ga2, gps, gpss)
+        return [m_dxg, *m_dt, *[torch.zeros(xg.shape, device=dev)] * (2 - len(m_dt))]
+
+    return _bf16_bwd_matches_plain(
+        "tail_bwd_bf16", lambda: vf.tail_bwd(cfg, *ins, *w, ga2, gps, gpss), plain, scale)
+
+
+@pytest.mark.parametrize("act,gct,ks,c1,c2,kt,t1,batch,v_pad", TAIL_EDGES)
+def test_tail_bwd_bf16_at_tile_edges_matches_plain(dev, act, gct, ks, c1, c2, kt, t1, batch,
+                                                   v_pad):
+    """K2b's bf16 variant (h recomputed in bf16, the gate pass's cotangent
+    policy, tail_dr's per-tap rounding and bf16 graph-term gradients) at the
+    edges of its tiles."""
+    rng = np.random.default_rng(73)
+    _tail_bwd_bf16_matches_plain(rng, dev, *_tail_bf16(rng, dev, act, gct, ks, c1, c2, kt, t1,
+                                                        batch, v_pad))
+
+
+@pytest.mark.parametrize("act", ["glu", "relu"])
+def test_tail_bwd_bf16_on_a_large_grid_matches_plain(dev, act):
+    """K2b's bf16 variant at the main widths (c1 16, c2 64) on 64k lanes."""
+    rng = np.random.default_rng(74)
+    _tail_bwd_bf16_matches_plain(rng, dev, *_tail_bf16(rng, dev, act, "cheb_graph_conv", 3, 16,
+                                                        64, 3, 8, 1, 65_536))
+
+
+@pytest.mark.parametrize("act,c0,c_in,ko,drop,batch,v_pad", OHEAD_EDGES)
+def test_ohead_bwd_bf16_at_tile_edges_matches_plain(dev, act, c0, c_in, ko, drop, batch,
+                                                    v_pad):
+    """K3b's bf16 variant at the edges of its tiles, input dropout in bf16."""
+    rng = np.random.default_rng(75)
+    args = _ohead_bf16(rng, dev, act, c0, c_in, ko, batch, v_pad)
+    cot = (_rand(rng, dev, batch, 1, c0, v_pad).to(BF16),
+           *(_rand(rng, dev, batch, 1, 1, 1, scale=1e-2) for _ in range(2)))
+    d = Drop(0.5, 2024, 2) if drop else None
+    _bf16_bwd_matches_plain("ohead_bwd_bf16", lambda: oh.ohead_bwd(*args, *cot, drop=d),
+                            lambda: oh.ohead_bwd_reference(*args, *cot, drop=d),
+                            lambda: bb.ohead_bwd_scale(*args, *cot, drop=d))
+
+
+@pytest.mark.parametrize("c0,c1,c_end,drop,batch,v_pad", OFC_EDGES)
+def test_ofc_bwd_bf16_at_tile_edges_matches_plain(dev, c0, c1, c_end, drop, batch, v_pad):
+    """K4b's bf16 variant at the edges of its tiles: the float32 gout rounded
+    first, fc1's dropout a bf16 product, dh on the bf16 data gradient."""
+    rng = np.random.default_rng(76)
+    v_true = v_true_of(v_pad)
+    cfg = oh.OutHeadCfg(ko=4, c_in=1, c0=c0, c1=c1, c_end=c_end, act_func="glu",
+                        v_true=v_true, v_pad=v_pad, precision="bfloat16")
+    args = (cfg, _rand(rng, dev, batch, 1, c0, v_pad).to(BF16),
+            *_ln_bf16(rng, dev, batch, 1, c0, v_true, v_pad),
+            _rand(rng, dev, c0, c1, scale=c0 ** -0.5).to(BF16), _rand(rng, dev, c1, scale=0.1),
+            _rand(rng, dev, c1, c_end, scale=c1 ** -0.5).to(BF16),
+            _rand(rng, dev, c_end, scale=0.1))
+    gout = _rand(rng, dev, batch, 1, c_end, v_pad)
+    d = Drop(0.3, 2024, 3) if drop else None
+    _bf16_bwd_matches_plain("ofc_bwd_bf16", lambda: oh.ofc_bwd(*args, gout, drop=d),
+                            lambda: oh.ofc_bwd_reference(*args, gout, drop=d),
+                            lambda: bb.ofc_bwd_scale(*args, gout, drop=d))

@@ -20,7 +20,7 @@ from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler
 from stgcn_tpu_torch.graph import build_gso
 from stgcn_tpu_torch.nn.convert import params_from_jax
 from stgcn_tpu_torch.nn.model import STGCN
-from stgcn_tpu_torch.ops import dense_graph_op
+from stgcn_tpu_torch.ops import banded_graph_op, dense_graph_op
 from stgcn_tpu_torch.train import TrainConfig, Trainer
 from tests.torch_parity_utils import B, V, to_np
 
@@ -34,18 +34,20 @@ def problem():
     return adj, vel
 
 
-def _port_trainer(problem, tmp_path, *, fused=False, droprate=0.0, state=None, **kw):
+def _port_trainer(problem, tmp_path, *, fused=False, droprate=0.0, state=None, dtype=None,
+                  gop=None, **kw):
     adj, vel = problem
     scaler = ZScoreScaler().fit(vel)
     series = scaler.transform(vel)
     ds = lambda a: ForecastDataset.from_numpy(a, N_HIS, N_PRED, device="cpu")  # noqa: E731
-    model = STGCN(N_HIS, V, droprate=droprate, device="cpu",
+    model = STGCN(N_HIS, V, droprate=droprate, dtype=dtype, device="cpu",
                   generator=torch.Generator().manual_seed(42))
     if state is not None:
         model.load_state_dict(state)
     cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=droprate, batch_size=B,
                       fused=fused, ckpt_dir=str(tmp_path), dataset_name="toy", **kw)
-    gop = dense_graph_op(build_gso(adj, "sym_norm_lap", cheb=True), device="cpu")
+    if gop is None:
+        gop = dense_graph_op(build_gso(adj, "sym_norm_lap", cheb=True), device="cpu")
     return Trainer(cfg, model, gop, ds(series), ds(series[:20]), ds(series[:20]), scaler,
                    device="cpu")
 
@@ -106,14 +108,21 @@ def test_test_reports_the_reference_line(problem, tmp_path, capsys):
     assert all(np.isfinite(v) for v in mets.values())
 
 
-@pytest.mark.parametrize("field,value,match", [("compute_dtype", "bfloat16", "bf16"),
+@pytest.mark.parametrize("field,value,match", [("compute_dtype", "bfloat16", "K5 / K6"),
                                                ("remat", True, "remat")])
 def test_later_slices_raise(problem, tmp_path, field, value, match):
-    """bf16 and remat run on the unfused model (tests/test_torch_bf16.py,
-    tests/test_torch_remat.py); the fused route refuses them until the
-    fused bf16 slice."""
+    """remat runs on the unfused model (tests/test_torch_remat.py) and the
+    fused route refuses it until the fused bf16 slice; so it does bf16 on an
+    operator whose graph terms run on K5 (the banded nv pack, here) or K6.
+    On the dense and BCSR operators the fused route trains in bf16
+    (tests/test_torch_fused_bf16_bwd.py)."""
+    kw = {field: value}
+    if field == "compute_dtype":
+        gso = build_gso(problem[0], "sym_norm_lap", cheb=True)
+        kw |= {"dtype": torch.bfloat16,
+               "gop": banded_graph_op(gso, block_size=128, nv=True, device="cpu")}
     with pytest.raises(NotImplementedError, match=match):
-        _port_trainer(problem, tmp_path, fused=True, **{field: value})
+        _port_trainer(problem, tmp_path, fused=True, **kw)
 
 
 def test_mesh_raises(problem, tmp_path):

@@ -152,14 +152,18 @@ def test_tail_masks_padded_lanes():
 
 def test_bf16_variant_raises():
     """K1f's bf16 variant runs forward (``tests/test_torch_fused_bf16.py``
-    holds it to the JAX package); its backward, K1b in bf16, is not ported
-    yet and raises rather than casting to float32."""
+    holds it to the JAX package), and its backward, K1b in bf16, runs too
+    (``tests/test_torch_fused_bf16_bwd.py`` holds it to the JAX package):
+    nothing raises, and the bf16 input and weights get bf16 gradients, the
+    float32 biases float32 ones; nothing is cast to float32 on the way."""
     _, cfg = _cfgs("cheb_graph_conv", 3, "glu", False)
     x, _, w = _head_inputs(cfg, seed=1)
     x16 = t(x).bfloat16().requires_grad_()
-    w16 = (t(w[0]).bfloat16(), t(w[1]), t(w[2]).bfloat16(), t(w[3]))
+    w16 = [t(w[0]).bfloat16(), t(w[1]), t(w[2]).bfloat16(), t(w[3])]
+    w16 = [a.requires_grad_() for a in w16]
     y = tvf.head_fused(dataclasses.replace(cfg, precision="bfloat16"), x16, None, None, None,
                        None, *w16)
     assert y.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="bf16"):
-        y.float().sum().backward()
+    grads = torch.autograd.grad(y.float().sum(), [x16, *w16])
+    assert [g.dtype for g in grads] == [a.dtype for a in (x16, *w16)]
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
