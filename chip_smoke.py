@@ -9,13 +9,14 @@ f32 and int8, and in bf16 with remat (the vn kernel's bf16 variant), then
 the 1M-vertex road graph through the blocked-ELL operator and its kernel K6
 and through the BCSR operator (what ``make_graph_op(kind="auto")`` picks
 there) and its kernels K10 and K11, float32 and bf16 with remat (K10's bf16
-variant) and the fused forward in bf16 around K10's bf16 variant, then the
-CLI.
+variant) and the fused forward in bf16 around K10's bf16 variant; fused bf16
+training on the nv operators (the bf16 variants of K5 and K6, the fused
+remat): the JAX bench's 100k and 1M routes; then the CLI.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA H100 and nvcc.
-Twenty-five phases, each printing one JSON line with its own seconds:
+Twenty-eight phases, each printing one JSON line with its own seconds:
 
 1. device  — the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name
    and power limit); TF32 is switched off for matmuls and cuDNN.
@@ -173,6 +174,17 @@ Twenty-five phases, each printing one JSON line with its own seconds:
    repeat bit-identical, timed beside its bound (the nonzeros as CSR, int8
    values at 1 B and the row factors, the operands read or written once;
    2·nnz·N FLOPs an application) and ``torch.sparse.mm`` on the CSR GSO.
+11b. kernels_bf16 (part ``nv_100k``, after part ``vn_100k``) — K5's bf16
+   variant in each mode at N = 1280 and 768, a random bf16 operand, over
+   the f32 nv slabs, the int8 ones and the bf16 ones of
+   ``banded_graph_op(dtype=bfloat16, nv=True)`` (the bench's operator, built
+   on the card, timed, its nv index checked as in phase 9, kept for phase
+   14b): each call held to its plain version by ``kernels/bf16_bounds.within``
+   (2 ulps of bf16 beside the rounding scale ``spmm_scale``, from the
+   absolute CSR GSO), repeat bit-identical, counted under its ``_bf16`` name
+   and none under the float32 one, timed beside the float32 kernel on the
+   same slabs (the f32 ones for the bf16 pack), its bound (2-byte operands)
+   and ``torch.sparse.mm`` on the bf16 CSR GSO where it takes bf16.
 11. kernels_bf16 (part ``vn_100k``) — the bf16 variant of the vn kernel:
    a bf16 operand at N = 1280 and 768, random, over the f32 stream pack,
    a bf16 one (``banded_graph_op(dtype=bfloat16)``, as the bench packs it,
@@ -230,6 +242,17 @@ Twenty-five phases, each printing one JSON line with its own seconds:
    peak memory, ``test()``; then the same fit without remat, whose peak must
    be the higher; one more step of each traced by ``torch.profiler`` (its
    kernels by device time, the device's busy share of the step).
+14b. banded_100k_fused_bf16 — the bench's 100k route (``bench.py:253-335``):
+   the bf16 operator of phase 11b, ``STGCN(dtype=bfloat16, remat=True)``,
+   batch 8, AdamW, a ``Trainer(fused=True, compute_dtype="bfloat16",
+   remat=True).fit(1)`` from phase 12's weights, batches and masks: its
+   epoch loss within rtol 0.08 of phase 12's float32 fused fit, launches per
+   step only the ``_bf16`` K1-K4, K1b-K4b and K5 pair and chain ×2 (the
+   default policy ``"graph-terms"`` replays nothing), step seconds and peak,
+   ``test()``; three AdamW steps on one batch under no remat,
+   ``"graph-terms"`` and ``"minimal"``: every gradient bit-equal to the
+   no-remat one, each policy's peak and launches; one ``graph_conv`` bf16
+   forecast batch (K5 single bf16 ×2).
 15. kernels_ell — the 100k problem freed, the 1M-vertex problem
    (``random_road_graph(1_000_000, k_neighbors=8, seed=0)``, ``sym_norm_lap``
    Chebyshev GSO with Lanczos lambda_max, RCM, the blocked-ELL packs of
@@ -249,7 +272,15 @@ Twenty-five phases, each printing one JSON line with its own seconds:
    nonzeros' FLOPs over 67 TFLOP/s; what the kernel moves, the index, a
    32-byte sector a value, the workspace passes and the operands, is
    printed too) and
-   ``torch.sparse.mm`` on the CSR GSO. Then the f32 pack is freed.
+   ``torch.sparse.mm`` on the CSR GSO. Then, on its own line (phase
+   ``kernels_bf16`` part ``ell_1m``), K6's bf16 variant in each mode at N =
+   160 and 96 over the int8 tiles and the bf16 ones of
+   ``ell_graph_op(dtype=bfloat16)`` (built on the card, timed, its index
+   checked, freed after), checked and timed as in phase 11b beside the
+   float32 kernel (int8 tiles, or the f32 pack for the bf16 one); on the bf16
+   tiles one fused bf16 training step (K6 pair and chain bf16 ×2 each) and
+   one ``graph_conv`` bf16 forecast batch (K6 single bf16 ×2), counted. Then
+   the f32 pack is freed.
 16. ell_1m — the 1M route end to end on the int8 ELL operator at batch 1,
    Lion lr 1e-3, weight decay 1e-3, as phase 12 with K6 for K5: one forecast
    batch fused against unfused (launches K1/K2 ×2, K3, K4, K6 pair ×2),
@@ -259,6 +290,17 @@ Twenty-five phases, each printing one JSON line with its own seconds:
    the fit's peak memory apart from the checks'. Cuts: f32 (the JAX bench ran
    bf16), no remat, Lion's momentum in f32, the series cut to 55 steps split
    23 / 16 / 16 (8 training windows, one validation and one test window).
+16b. ell_1m_bf16 — the bench's 1M route (``bench.py:423-443``) on the int8
+   ELL pack: ``fused_sparse_forward(remat_policy="minimal",
+   deterministic=False)`` of ``STGCN(dtype=bfloat16, remat=True)``, loss
+   ``mean(pred²)``, ``lion(1e-3, weight_decay=1e-3, mu_dtype=bfloat16)``,
+   batch 1, four steps, against the same steps of the float32 model (no
+   remat, Lion's μ float32) within rtol 0.08; launches per step K1f, K2f
+   and K6 pair bf16 ×4 (each block replayed once), chain ×2 and the rest of
+   K1-K4 / K1b-K4b bf16 once a step as phase 6; step seconds, the peak over
+   the steps; one bf16 step on the first batch without remat and one under
+   ``"minimal"``: the gradients bit-equal, each one's peak; one
+   ``graph_conv`` bf16 forecast batch (K6 single int8 bf16 ×2).
 17. kernels_bcsr — the int8 ELL pack freed, the same 1M graph, GSO and RCM
    order through ``make_graph_op(kind="auto")``: a BCSR operator, one pack
    of 256 × 256 row-major f32 tiles for both directions, scattered on the
@@ -312,7 +354,10 @@ Twenty-five phases, each printing one JSON line with its own seconds:
    --compute_dtype bfloat16 --remat True`` (K9 bf16), ``banded_int8
    --compute_dtype bfloat16`` (K9 int8 bf16) and ``auto --compute_dtype
    bfloat16`` (dense: no kernel may launch), then ``dense --fused True
-   --compute_dtype bfloat16`` (K1-K4 and K1b-K4b bf16, none in float32):
+   --compute_dtype bfloat16`` (K1-K4 and K1b-K4b bf16, none in float32),
+   then ``--fused True --compute_dtype bfloat16`` on ``banded --remat
+   True`` (K5 bf16), ``ell_int8`` (K6 int8 bf16) and ``banded_int8`` (K5
+   int8 bf16):
    its epoch and test lines, every kernel of the step (K5, K6 or K9 pair
    and chain, or K10, included) launched, and none of K1-K4 unfused.
 21. the ``{"kernels": [...]}`` line (every kernel's per-step times on the
@@ -2931,7 +2976,7 @@ def fused_steps(torch, state: dict, make_model, gop, batches, opt: str) -> dict:
         out[dt] = {"losses": losses, "step_seconds": secs,
                    "launches": kernels.launch_counts(),
                    "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
-        del m, p, st, grads
+        del m, p, st, grads, updates, pred, loss   # none may sit in the next run's base
     rel = [abs(a - b) / abs(b) for a, b in zip(out["bf16"]["losses"], out["f32"]["losses"])]
     if not all(r <= BF16_LOSS_RTOL for r in rel):
         raise AssertionError(f"fused bf16 step losses {out['bf16']['losses']} against the float32 "
@@ -3515,6 +3560,508 @@ def phase_bcsr_1m_bf16(torch, data, f32_fit: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the bf16 variants of the nv kernels K5 and K6, and the fused bf16 routes on
+# them: the bench's 100k route (bench.py:253-335) and 1M route (:423-443)
+# --------------------------------------------------------------------------
+
+NV_BF16_REPS = 5
+PER_STEP_100K_FUSED_BF16 = {**PER_STEP_BF16, "nv_pair_bf16": 2, "nv_chain_bf16": 2}
+PER_BATCH_100K_FUSED_BF16 = {**PER_BATCH_FWD_BF16, "nv_pair_bf16": 2}
+# "minimal" remat replays each block's K1f, pair and K2f before its K2b and K1b
+PER_STEP_1M_MINIMAL_BF16 = {**PER_STEP_BF16, "head_fwd_bf16": 4, "tail_fwd_bf16": 4,
+                            "ell_int8_pair_bf16": 4, "ell_int8_chain_bf16": 2}
+PER_STEP_1M_BF16 = {**PER_STEP_BF16, "ell_int8_pair_bf16": 2, "ell_int8_chain_bf16": 2}
+ELL_1M_BF16_STEPS = 4
+
+
+def abs_csr_apply(torch, m, vp: int):
+    """``v ↦ |A| v`` on an nv operand ``[N, vp]`` in float32, through
+    ``torch.sparse.mm`` on the absolute CSR GSO (the rounding scale's
+    product: an int8 or bf16 pack holds ``A`` to its own rounding)."""
+    a = csr_on_card(torch, abs(m))
+    v = m.shape[0]
+
+    def apply(x):
+        y = torch.sparse.mm(a, x[:, :v].float().T.contiguous()).T
+        return torch.nn.functional.pad(y, (0, vp - v))
+    return apply
+
+
+def nv_bf16_compare(torch, apply_abs, x, g, mode: str):
+    """``check_spmm``'s ``compare`` of a bf16 K5 or K6 call: each output
+    within ``kernels/bf16_bounds.within`` of its plain version, beside the
+    rounding scale ``spmm_scale``."""
+    from stgcn_tpu_torch.kernels import bf16_bounds as bb
+
+    def compare(got, ref):
+        r = bb.within(list(flat(got)), list(flat(ref)),
+                      list(flat(bb.spmm_scale(apply_abs, x, g, mode))))
+        return r["max_abs_err"], r["ref_max"]
+    return compare
+
+
+def check_nv_bf16(torch, name, f32_name, n, mode, kernel, plain, f32_kernel, library, *,
+                  apply_abs, x, g, pack, v, nnz, vp, value_bytes, row_scales, reps) -> dict:
+    """``check_spmm`` of a bf16 K5 or K6 call (2-byte operands; the library
+    call ``torch.sparse.mm`` on the bf16 CSR GSO where it takes bf16, its
+    distance printed, not checked); the launches counted under ``name``
+    only, none under the float32 kernel's ``f32_name``; then the float32
+    kernel timed on the same values (``f32_kernel``)."""
+    from stgcn_tpu_torch import kernels
+
+    before = kernels.launch_counts()[f32_name]
+    out = check_spmm(torch, name, n, mode, kernel, plain, library, v=v, nnz=nnz, vp=vp,
+                     value_bytes=value_bytes, row_scales=row_scales,
+                     pack_bytes=index_traffic(pack, n, mode, operand_bytes=2)[0],
+                     pack_flops_one=index_traffic(pack, n, mode)[1], library_agrees=False,
+                     reps=reps, operand_bytes=2,
+                     compare=nv_bf16_compare(torch, apply_abs, x, g, mode))
+    if kernels.launch_counts()[f32_name] != before:
+        raise AssertionError(f"{name} [N={n}]: a launch counted under {f32_name}")
+    out["f32_ms"] = cuda_ms(f32_kernel, warmup=2, reps=reps)
+    return out
+
+
+def phase_kernels_bf16_nv(torch, data) -> dict:
+    """Phase ``kernels_bf16`` part ``nv_100k``: K5's bf16 variant in each
+    mode at N = 1280 and 768 (B·T·c1 of the two ST blocks at batch 8), a
+    random bf16 operand, over the 100k float32 nv slabs (the CLI's operator),
+    the int8 ones and the bf16 ones of ``banded_graph_op(dtype=bfloat16,
+    nv=True)`` (the bench's operator, built here on the card, timed, its nv
+    index checked as in phase 9, and kept for ``banded_100k_fused_bf16``).
+    Each call held to its plain version by ``bf16_bounds.within``, repeat
+    bit-identical, counted under its ``_bf16`` name only, timed beside the
+    float32 kernel on the same slabs (float32 ones for the bf16 pack), its
+    bound (2-byte operands) and bf16 ``torch.sparse.mm``."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import banded_nv as nv
+    from stgcn_tpu_torch.ops import banded_graph_op
+
+    gop, q, v, nnz = data["gop"], data["int8"], data["n_vertex"], data["prep"]["nnz"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b16 = data["bf16_nv"] = banded_graph_op(data["art"], dtype=torch.bfloat16, nv=True,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    pack = {"bf16_operator_s": time.perf_counter() - t1, "slabs_nv": list(b16.slabs_nv.shape),
+            "nv_bytes": b16.slabs_nv.numel() * b16.slabs_nv.element_size(),
+            "shared_transpose_pack": b16.slabs_nv_t is b16.slabs_nv,
+            **index_info(torch, slab_pack(b16, "slabs_nv"), data["matrix"])}
+    if not (b16.slabs_nv.dtype == torch.bfloat16 and b16.v_pad == gop.v_pad):
+        raise AssertionError(f"the bf16 100k operator's nv pack is not bf16 at v_pad: {pack}")
+    apply_abs = abs_csr_apply(torch, data["matrix"], gop.v_pad)
+    a_csr16, lib_error = csr_bf16_on_card(torch, data["matrix"])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    results: dict[str, dict] = {"f32": {}, "bf16": {}, "int8": {}}
+    for n in (BATCH_100K * (N_HIS - 2) * 16, BATCH_100K * (N_HIS - 6) * 16):
+        x = torch.randn((n, gop.v_pad), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((n, gop.v_pad), generator=gen, device="cuda").bfloat16()
+        x32, g32, x_vn = x.float(), g.float(), x[:, :v].T.contiguous()
+        for kind, op, f32_op in (("f32", gop, gop), ("bf16", b16, gop), ("int8", q, q)):
+            sp = slab_pack(op, "slabs_nv")
+            q8 = op.scales is not None
+            for mode in ("single", "pair", "chain"):
+                gg, gg32 = (g, g32) if mode == "chain" else (None, None)
+                args = (op.slabs_nv, op.lo, x, gg, mode)
+                args32 = (f32_op.slabs_nv, f32_op.lo, x32, gg32, mode)
+                name = nv.launch_name(mode, q8, bf16=True)
+                apps = 1 + (mode != "single")
+                results[kind].setdefault(name, []).append({
+                    "slabs": list(op.slabs_nv.shape), "dtype": "bf16", "slabs_dtype": kind,
+                    **check_nv_bf16(
+                        torch, name, nv.launch_name(mode, q8), n, mode,
+                        lambda a=args, o=op: nv.stream_nv(*a, scales=o.scales,
+                                                          index=o.index_nv),
+                        lambda a=args, o=op: nv.stream_nv_reference(*a, scales=o.scales),
+                        lambda a=args32, o=f32_op: nv.stream_nv(*a, scales=o.scales,
+                                                                index=o.index_nv),
+                        None if a_csr16 is None
+                        else lambda apps=apps: sparse_mm(torch, a_csr16, x_vn, apps),
+                        apply_abs=apply_abs, x=x, g=gg, pack=sp, v=v, nnz=nnz, vp=gop.v_pad,
+                        value_bytes=SLAB_BYTES[kind], row_scales=q8, reps=NV_BF16_REPS)})
+        del x, g, x32, g32, x_vn
+    del a_csr16
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_bf16", "part": "nv_100k", "seconds": time.perf_counter() - t0,
+          "tolerance": "kernels/bf16_bounds.within beside bf16_bounds.spmm_scale",
+          "library_bf16": "torch.sparse.mm (bf16 CSR)" if lib_error is None else None,
+          "library_bf16_error": lib_error, "bf16_pack": pack, "results": results})
+    return results
+
+
+def kernels_bf16_ell(torch, data) -> dict:
+    """Phase ``kernels_bf16`` part ``ell_1m``, inside ``kernels_ell`` while
+    the 1M packs live: K6's bf16 variant in each mode at N = 160 and 96, a
+    random bf16 operand, over the int8 tiles (the bench's operator) and the
+    bf16 ones of ``ell_graph_op(dtype=bfloat16)`` (6.7 GB, built on the card
+    here, timed, its index checked, then freed): held to its plain version by
+    ``bf16_bounds.within``, repeat bit-identical, counted under
+    ``ell_<tiles>_<mode>_bf16`` only, timed beside the float32 kernel (on the
+    int8 tiles, or on the float32 pack for the bf16 one), its bound and
+    bf16 ``torch.sparse.mm``. Then the fused bf16 route on the bf16 tiles
+    (``bf16_tiles_route``), whose counts are the bf16 tiles' launches."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels import ell_nv as ek
+    from stgcn_tpu_torch.ops import ell_graph_op
+
+    v, nnz = data["n_vertex"], data["prep"]["nnz"]
+    q, f32 = data["gop"], data["gop_f32"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b16 = ell_graph_op(data["art"], dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    pack = {"bf16_pack_s": time.perf_counter() - t1, "pack_bytes": pack_bytes(b16.pack),
+            "shared_transpose_pack": b16.pack_t is b16.pack,
+            **index_info(torch, b16.pack, data["matrix"], transposed=True)}
+    apply_abs = abs_csr_apply(torch, data["matrix"], q.v_pad)
+    a_csr16, lib_error = csr_bf16_on_card(torch, data["matrix"])
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    results: dict[str, dict] = {"int8": {}, "bf16": {}}
+    for n in (BATCH_1M * (N_HIS - 2) * 16, BATCH_1M * (N_HIS - 6) * 16):
+        x = torch.randn((n, q.v_pad), generator=gen, device="cuda").bfloat16()
+        g = torch.randn((n, q.v_pad), generator=gen, device="cuda").bfloat16()
+        x32, g32, x_vn = x.float(), g.float(), x[:, :v].T.contiguous()
+        for kind, op, f32_op in (("int8", q, q), ("bf16", b16, f32)):
+            p = op.pack
+            nbr, max_b, bs, _ = p.data.shape
+            for mode in ("single", "pair", "chain"):
+                gg, gg32 = (g, g32) if mode == "chain" else (None, None)
+                name = ek.pack_launch_name(p, mode, x)
+                results[kind].setdefault(name, []).append({
+                    "tiles": [nbr, max_b, bs, bs], "dtype": "bf16", "tiles_dtype": kind,
+                    **check_nv_bf16(
+                        torch, name, ek.pack_launch_name(f32_op.pack, mode, x32), n, mode,
+                        lambda p=p, gg=gg, m=mode: ek.ell_nv(p, x, gg, m),
+                        lambda p=p, gg=gg, m=mode: ek.ell_nv_reference(p, x, gg, m),
+                        lambda p=f32_op.pack, gg=gg32, m=mode: ek.ell_nv(p, x32, gg, m),
+                        None if a_csr16 is None
+                        else lambda apps=1 + (mode != "single"): sparse_mm(torch, a_csr16,
+                                                                            x_vn, apps),
+                        apply_abs=apply_abs, x=x, g=gg, pack=p, v=v, nnz=nnz, vp=q.v_pad,
+                        value_bytes=SLAB_BYTES[kind], row_scales=p.quantized,
+                        reps=NV_BF16_REPS)})
+        del x, g, x32, g32, x_vn
+    del a_csr16
+    route = bf16_tiles_route(torch, data, b16)
+    del b16
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    emit({"phase": "kernels_bf16", "part": "ell_1m", "seconds": time.perf_counter() - t0,
+          "tolerance": "kernels/bf16_bounds.within beside bf16_bounds.spmm_scale",
+          "library_bf16": "torch.sparse.mm (bf16 CSR)" if lib_error is None else None,
+          "library_bf16_error": lib_error, "bf16_pack": pack, "results": results,
+          "bf16_tiles_route": route})
+    return {**results, "route": route}
+
+
+def bf16_tiles_route(torch, data, gop) -> dict:
+    """The fused bf16 route on the bf16 tiles of ``ell_graph_op(dtype=
+    bfloat16)`` (1M, batch 1): one training step of ``STGCN(dtype=bfloat16)``
+    through ``fused_sparse_forward`` (dropout on, loss ``mean(pred²)``, no
+    remat: K6 pair and chain bf16 ×2 each), then one forecast batch of a
+    ``graph_conv`` bf16 model (K6 single bf16 ×2); the counts set to 0 just
+    before each, the loss and the gradients finite."""
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+
+    v = data["n_vertex"]
+    starts, _ = next(data["train"].batches(BATCH_1M))
+    x, _ = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    m = new_model(torch, v, DROPRATE, dtype=torch.bfloat16)
+    p = dict(m.named_parameters())
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    loss = (fused_sparse_forward(p, x, gop, m, deterministic=False, seed=step_seed(42, 0))
+            .float() ** 2).mean()
+    grads = torch.autograd.grad(loss, list(p.values()))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    step = {k: n for k, n in kernels.launch_counts().items() if n}
+    want = {k: n for k, n in expected({**PER_STEP_BF16, "ell_bf16_pair_bf16": 2,
+                                       "ell_bf16_chain_bf16": 2}, 1).items() if n}
+    if step != want or not (torch.isfinite(loss) and all(torch.isfinite(g_).all()
+                                                          for g_ in grads)):
+        raise AssertionError(f"ell_1m bf16 tiles: the step launched {step} (expected {want}), "
+                             f"loss {float(loss)}")
+    del m, p, grads
+    free(torch)
+    model = new_model(torch, v, DROPRATE, "graph_conv", dtype=torch.bfloat16).eval()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        pf = fused_sparse_forward(model.state_dict(), x, gop, model)
+        torch.cuda.synchronize()
+        forecast = {k: n for k, n in kernels.launch_counts().items() if n}
+    if forecast.get("ell_bf16_single_bf16") != 2 or not torch.isfinite(pf).all():
+        raise AssertionError(f"ell_1m bf16 tiles: the graph_conv forecast launched {forecast}")
+    return {"step_launches": step, "step_seconds_first": step_s, "step_loss": float(loss),
+            "graph_conv_forecast_launches": forecast}
+
+
+def policy_steps(torch, data, gop, model_kw: dict, batch: tuple, *, steps: int, opt,
+                 policies, loss_fn) -> dict:
+    """``steps`` fused training steps on one ``batch`` (x, y, n_valid) from
+    seed 42's weights under each remat policy (None: no remat), the step's
+    dropout seed each step: per policy the losses, every step's gradients
+    (kept on the card), step seconds, launches, the peak memory over the
+    steps above what was allocated before them."""
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train.optim import apply_updates
+
+    x, y, n_valid = batch
+    out = {}
+    for policy in policies:
+        m = new_model(torch, data["n_vertex"], DROPRATE, **model_kw)
+        p = dict(m.named_parameters())
+        tx = opt()
+        st = tx.init(p)
+        free(torch)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, secs, grads_all = [], [], []
+        for i in range(steps):
+            t1 = time.perf_counter()
+            kw = {"remat": False} if policy is None else {"remat": True, "remat_policy": policy}
+            pred = fused_sparse_forward(p, x, gop, m, deterministic=False,
+                                        seed=step_seed(42, i), **kw)
+            loss = loss_fn(pred, y, n_valid)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            updates, st = tx.update(dict(zip(p, grads)), st, p)
+            apply_updates(p, updates)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(float(loss.detach()))
+            grads_all.append(torch.cat([g_.flatten() for g_ in grads]))
+        out[str(policy)] = {"losses": losses, "step_seconds": secs,
+                            "launches": {k: n for k, n in kernels.launch_counts().items() if n},
+                            "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+                            "grads": grads_all}
+        del m, p, st, grads, updates, pred, loss
+    return out
+
+
+def phase_banded_100k_fused_bf16(torch, data, f32_fit: dict) -> dict:
+    """The bench's 100k route (``bench.py:253-335``): the bf16 operator with
+    its nv pack (``banded_graph_op(dtype=bfloat16, nv=True)``, from part
+    ``nv_100k``), ``STGCN(dtype=bfloat16, remat=True)``, batch 8, AdamW, a
+    ``Trainer(fused=True, compute_dtype="bfloat16", remat=True).fit(1)`` from
+    phase ``banded_100k``'s weights, batches and dropout masks: its epoch loss
+    within rtol 0.08 of that phase's float32 fused fit, every step launching
+    only the ``_bf16`` K1-K4, K1b-K4b and K5 pair and chain (the default
+    policy ``"graph-terms"`` replays nothing), step seconds, the fit's peak,
+    ``test()``. Then three AdamW steps on one batch under each policy (no
+    remat, ``"graph-terms"``, ``"minimal"``): every gradient bit-equal to the
+    no-remat one; each policy's peak and launches. Last, one forecast batch
+    of a ``graph_conv`` bf16 model (K5 single bf16 ×2)."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels import nnz_index
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train import TrainConfig, Trainer, masked_mse
+    from stgcn_tpu_torch.train.optim import adamw
+
+    gop, v = data["bf16_nv"], data["n_vertex"]
+    phase = "banded_100k_fused_bf16"
+    ckpt_root = ROOT / "checkpoints" / f"chip_smoke_{phase}"   # removed at the end
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    free(torch)
+    cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=DROPRATE, batch_size=BATCH_100K,
+                      opt="adamw", fused=True, compute_dtype="bfloat16", remat=True,
+                      ckpt_dir=str(ckpt_root), dataset_name="road-100k")
+    tr = Trainer(cfg, new_model(torch, v, DROPRATE, dtype=torch.bfloat16, remat=True), gop,
+                 data["train"], data["val"], data["test"], data["scaler"], device="cuda")
+    base = torch.cuda.memory_allocated()
+    builds = nnz_index.builds()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, hist, launches = timed_fit(torch, tr, phase)
+    fit_peak = torch.cuda.max_memory_allocated()
+    val_batches = -(-tr.val_ds.num_windows // BATCH_100K)
+    want = expected(PER_STEP_100K_FUSED_BF16, tr.steps_per_epoch,
+                    (PER_BATCH_100K_FUSED_BF16, val_batches))
+    if launches != want:
+        raise AssertionError(f"{phase}: the fit launched {launches}, expected {want}")
+    ref_loss = f32_fit["epoch"]["train_loss"]
+    epoch_rel = abs(hist[0]["train_loss"] - ref_loss) / abs(ref_loss)
+    if not epoch_rel <= BF16_LOSS_RTOL:
+        raise AssertionError(f"{phase}: epoch loss {hist[0]['train_loss']} against the float32 "
+                             f"fused fit's {ref_loss}: relative {epoch_rel}")
+    test_m = tr.test()
+    if not all(v_ == v_ and abs(v_) < float("inf") for v_ in test_m.values()):
+        raise AssertionError(f"{phase}: non-finite test metrics {test_m}")
+    if nnz_index.builds() != builds:   # the bf16 nv pack's index: built in part nv_100k
+        raise AssertionError(f"{phase}: the fit rebuilt a nonzero index")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    fit = {"step_losses": losses, "step_seconds": seconds,
+           "step_seconds_median": statistics.median(seconds), "epoch": hist[0],
+           "epoch_loss_rel_diff_vs_f32_fused": epoch_rel,
+           "step_loss_rel_diff_vs_f32_fused": [abs(a - b) / abs(b) for a, b in
+                                               zip(losses, f32_fit["step_losses"])],
+           "peak_memory_bytes_fit": fit_peak, "memory_bytes_before_fit": base,
+           "steps_per_epoch": tr.steps_per_epoch, "val_batches": val_batches, "test": test_m}
+    del tr
+    free(torch)
+
+    # three steps on one batch under each policy: the gradients bit-equal
+    starts, n_valid = next(data["train"].batches(BATCH_100K))
+    x, y = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+    pol = policy_steps(
+        torch, data, gop, {"dtype": torch.bfloat16, "remat": True}, (x, y, n_valid), steps=3,
+        opt=lambda: adamw(1e-3, weight_decay=1e-3), policies=(None, "graph-terms", "minimal"),
+        loss_fn=lambda pred, yy, nv: masked_mse(pred.reshape(pred.shape[0], -1), yy, nv))
+    for policy in ("graph-terms", "minimal"):
+        if not all(torch.equal(a, b) for a, b in zip(pol[policy]["grads"], pol["None"]["grads"])):
+            raise AssertionError(f"{phase}: the gradients under remat policy {policy} differ "
+                                 "from the no-remat ones")
+    for r in pol.values():
+        del r["grads"]
+    free(torch)
+
+    # one graph_conv forecast batch: K5 single bf16
+    starts, _ = next(data["test"].batches(BATCH_100K))
+    xf, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+    model = new_model(torch, v, DROPRATE, "graph_conv", dtype=torch.bfloat16).eval()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        pf = fused_sparse_forward(model.state_dict(), xf, gop, model)
+        torch.cuda.synchronize()
+        gc_launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    if gc_launches.get("nv_single_bf16") != 2 or not torch.isfinite(pf).all():
+        raise AssertionError(f"{phase}: the graph_conv forecast launched {gc_launches}")
+    result = {"phase": phase, "seconds": time.perf_counter() - t0, "n_vertex": v,
+              "batch_size": BATCH_100K, "optimizer": "adamw",
+              "route": "fused, STGCN(dtype=bfloat16, remat=True), banded_graph_op(dtype="
+                       "bfloat16, nv=True): K1-K4 bf16, K1b-K4b bf16, K5 bf16 over bf16 slabs",
+              "cuts": ["one epoch", "a one-day series"], "fit": fit, "launches": launches,
+              "loss_rtol": BF16_LOSS_RTOL,
+              "f32_fused_fit": {"step_seconds_median": f32_fit["step_seconds_median"],
+                                "peak_memory_bytes": f32_fit["peak_memory_bytes"],
+                                "epoch": f32_fit["epoch"]},
+              "policies_three_steps": pol, "graph_conv_forecast_launches": gc_launches}
+    emit(result)
+    return result
+
+
+def phase_ell_1m_bf16(torch, data, f32_fit: dict) -> dict:
+    """The bench's 1M route (``bench.py:423-443``) on the int8 ELL operator:
+    ``fused_sparse_forward(remat_policy="minimal", deterministic=False)`` of
+    ``STGCN(dtype=bfloat16, remat=True)``, the loss ``mean(pred²)``, Lion
+    (lr 1e-3, weight decay 1e-3) with a bf16 μ, batch 1, four steps on the
+    first training batches; the same steps of the float32 model (no remat,
+    Lion's μ float32: phase ``ell_1m``'s route) on the same batches: the
+    losses within rtol 0.08. Launches per step (under ``"minimal"`` K1f, K2f
+    and the pair twice a block), step seconds, the peak over the steps. Then
+    one bf16 step on the first batch without remat and one under
+    ``"minimal"`` (``policy_steps``): the gradients bit-equal, each one's
+    launches and peak. Then one forecast batch of a ``graph_conv`` bf16
+    model (K6 single bf16)."""
+    t0 = time.perf_counter()
+    from stgcn_tpu_torch import kernels
+    from stgcn_tpu_torch.data import gather_windows
+    from stgcn_tpu_torch.kernels.dropout import step_seed
+    from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
+    from stgcn_tpu_torch.train.optim import apply_updates, lion
+
+    gop, v = data["gop"], data["n_vertex"]
+    batches = []
+    for starts, _ in list(data["train"].batches(BATCH_1M))[:ELL_1M_BF16_STEPS]:
+        xs, _ = gather_windows(data["train"].series, starts, N_HIS, N_PRED)
+        batches.append(xs)
+    runs = {}
+    for tag, model_kw, kw, mu in (("f32", {}, {}, None),
+                                  ("bf16", {"dtype": torch.bfloat16, "remat": True},
+                                   {"remat_policy": "minimal"}, torch.bfloat16)):
+        m = new_model(torch, v, DROPRATE, **model_kw)
+        p = dict(m.named_parameters())
+        tx = lion(1e-3, weight_decay=1e-3, mu_dtype=mu)
+        st = tx.init(p)
+        free(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        losses, secs, per_step = [], [], []
+        for i, xs in enumerate(batches):
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            pred = fused_sparse_forward(p, xs, gop, m, deterministic=False,
+                                        seed=step_seed(42, i), **kw)
+            loss = (pred.float() ** 2).mean()
+            grads = torch.autograd.grad(loss, list(p.values()))
+            updates, st = tx.update(dict(zip(p, grads)), st, p)
+            apply_updates(p, updates)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(float(loss.detach()))
+            per_step.append({k: n for k, n in kernels.launch_counts().items() if n})
+        runs[tag] = {"losses": losses, "step_seconds": secs,
+                     "step_seconds_median": statistics.median(secs),
+                     "launches_per_step": per_step[0],
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated() - base,
+                     "mu_dtype": str(next(iter(st["mu"].values())).dtype)}
+        del m, p, st, grads, updates, pred, loss
+    want = {k: n for k, n in expected(PER_STEP_1M_MINIMAL_BF16, 1).items() if n}
+    if any(s != want for s in [runs["bf16"]["launches_per_step"]]):
+        raise AssertionError(f"ell_1m_bf16: a step launched {runs['bf16']['launches_per_step']}, "
+                             f"expected {want}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["bf16"]["losses"], runs["f32"]["losses"])]
+    if not all(r <= BF16_LOSS_RTOL for r in rel) or not all(
+            l_ == l_ and abs(l_) < float("inf") for l_ in runs["bf16"]["losses"]):
+        raise AssertionError(f"ell_1m_bf16: losses {runs['bf16']['losses']} against the float32 "
+                             f"ones {runs['f32']['losses']}: relative {rel}")
+    # one step on the first batch without remat and under "minimal": the replay's
+    # gradients bit-equal to the plain route's on this operator
+    free(torch)
+    pol = policy_steps(
+        torch, data, gop, {"dtype": torch.bfloat16, "remat": True}, (batches[0], None, None),
+        steps=1, opt=lambda: lion(1e-3, weight_decay=1e-3, mu_dtype=torch.bfloat16),
+        policies=(None, "minimal"), loss_fn=lambda pred, yy, nv: (pred.float() ** 2).mean())
+    if not all(torch.equal(a, b) for a, b in zip(pol["minimal"]["grads"], pol["None"]["grads"])):
+        raise AssertionError("ell_1m_bf16: the gradients under remat policy minimal differ from "
+                             "the no-remat ones")
+    want_plain = {k: n for k, n in expected(PER_STEP_1M_BF16, 1).items() if n}
+    if pol["None"]["launches"] != want_plain or pol["minimal"]["launches"] != want:
+        raise AssertionError(f"ell_1m_bf16: the policy steps launched "
+                             f"{[r['launches'] for r in pol.values()]}")
+    for r in pol.values():
+        del r["grads"]
+    del batches
+    free(torch)
+    starts, _ = next(data["test"].batches(BATCH_1M))
+    xf, _ = gather_windows(data["test"].series, starts, N_HIS, N_PRED)
+    model = new_model(torch, v, DROPRATE, "graph_conv", dtype=torch.bfloat16).eval()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        pf = fused_sparse_forward(model.state_dict(), xf, gop, model)
+        torch.cuda.synchronize()
+        gc_launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    if gc_launches.get("ell_int8_single_bf16") != 2 or not torch.isfinite(pf).all():
+        raise AssertionError(f"ell_1m_bf16: the graph_conv forecast launched {gc_launches}")
+    del model, pf
+    free(torch)
+    result = {"phase": "ell_1m_bf16", "seconds": time.perf_counter() - t0, "n_vertex": v,
+              "batch_size": BATCH_1M, "steps": ELL_1M_BF16_STEPS,
+              "route": "fused_sparse_forward(remat_policy='minimal', deterministic=False) of "
+                       "STGCN(dtype=bfloat16, remat=True) on the int8 ELL pack, loss "
+                       "mean(pred**2), lion(1e-3, weight_decay=1e-3, mu_dtype=bfloat16)",
+              "reference": "the float32 model's fused steps, no remat, Lion μ float32",
+              "loss_rtol": BF16_LOSS_RTOL, "loss_rel_diff": rel, "runs": runs,
+              "launches": runs["bf16"]["launches_per_step"],
+              "f32_fit": {"step_seconds_median": f32_fit["step_seconds_median"],
+                          "peak_memory_bytes": f32_fit["peak_memory_bytes"]},
+              "policies_one_step": pol, "graph_conv_forecast_launches": gc_launches}
+    emit(result)
+    return result
+
+
+# --------------------------------------------------------------------------
 # the 1M-vertex blocked-ELL route (BASELINE.json configs[4]: bench.py:338-470)
 # --------------------------------------------------------------------------
 
@@ -3540,14 +4087,14 @@ def pack_bytes(pack) -> int:
 SECTOR_BYTES = 32
 
 
-def index_traffic(pack, n: int, mode: str) -> tuple[int, int]:
+def index_traffic(pack, n: int, mode: str, operand_bytes: int = 4) -> tuple[int, int]:
     """(bytes, FLOPs per operand column) of one K5, K6, K7-K9 or K10 call of
     ``mode`` at width ``n`` as the kernel moves and does them, beyond each
     operand read and each output written once (which ``check_spmm`` adds):
     per application the nonzero index (row offsets, src, off), one 32-byte
     sector a value (a row's values lie a tile or slab row or more apart) and
     an int8 pack's row factors; for the nv kernels K5 and K6 also their
-    passes over ``[N, V]`` operands, 4 bytes an element: the workspace
+    passes over ``[N, V]`` operands, ``operand_bytes`` an element: the workspace
     written by the transpose and read by the gather, and in pair and chain
     the first pass's vn copy written and read back and x read again by the
     second pass's epilogue. The gathered x rows count once, as if the L2
@@ -3565,7 +4112,7 @@ def index_traffic(pack, n: int, mode: str) -> tuple[int, int]:
     nv_walk = isinstance(pack, EllPack) or (slabs and pack.transposed)
     passes = (2 + (3 if apps == 2 else 0)) if nv_walk else 0
     vp = pack.v_pad if slabs else pack.cols.shape[0] * pack.data.shape[-1]
-    return apps * per_app + passes * n * vp * 4, 2 * idx.nnz
+    return apps * per_app + passes * n * vp * operand_bytes, 2 * idx.nnz
 
 
 def index_info(torch, pack, matrix, *, transposed: bool = False) -> dict:
@@ -3710,8 +4257,9 @@ def build_1m(torch) -> dict:
 def phase_kernels_ell(torch, data) -> dict:
     """K6 in each mode on the int8 and f32 packs at the 1M shapes (N = B·T·c1
     of blocks 1 and 2 at batch 1), held against its plain version, repeat
-    bit-identical, timed beside its bound and torch.sparse.mm; then the f32
-    pack is freed."""
+    bit-identical, timed beside its bound and torch.sparse.mm; then, while
+    the packs live, K6's bf16 variant (``kernels_bf16_ell``, phase
+    ``kernels_bf16`` part ``ell_1m``); then the f32 pack is freed."""
     t0 = time.perf_counter()
     from stgcn_tpu_torch import kernels
     from stgcn_tpu_torch.kernels import ell_nv as ek
@@ -3743,10 +4291,13 @@ def phase_kernels_ell(torch, data) -> dict:
                         pack_flops_one=index_traffic(pack, n, mode)[1],
                         library_agrees=not pack.quantized, reps=K6_REPS)})
         del x, g, x_vn
-    del data["gop_f32"], a_csr
+    del a_csr
+    t_ell = time.perf_counter() - t0
+    data["kernels_bf16_ell"] = kernels_bf16_ell(torch, data)
+    del data["gop_f32"]
     torch.cuda.empty_cache()
     kernels.reset_launch_counts()
-    emit({"phase": "kernels_ell", "seconds": time.perf_counter() - t0,
+    emit({"phase": "kernels_ell", "seconds_without_part_ell_1m": t_ell, "seconds": time.perf_counter() - t0,
           "tolerance": KERNEL_TOL, "pack": data["prep"], "index": index, "results": results})
     return results
 
@@ -4205,15 +4756,21 @@ def main() -> int:
     k5 = phase_kernels_banded(torch, big)
     kvn = phase_kernels_banded_vn(torch, big)
     kbf = phase_kernels_bf16(torch, big)
+    kbfnv = phase_kernels_bf16_nv(torch, big)
     b100 = phase_banded_100k(torch, big)
     b100u = phase_banded_100k_unfused(torch, big)
     free(torch)
     b100bf = phase_banded_100k_bf16(torch, big, b100u)
+    free(torch)
+    b100fbf = phase_banded_100k_fused_bf16(torch, big, b100)
     del big
     free(torch)   # the 100k checks peak at 45 GB
     big = build_1m(torch)
     k6 = phase_kernels_ell(torch, big)
+    k6bf = big.pop("kernels_bf16_ell")
     m1 = phase_ell_1m(torch, big)
+    free(torch)
+    m1bf = phase_ell_1m_bf16(torch, big, m1)
     del big["gop"]   # the int8 ELL pack; the BCSR phases reuse the graph, GSO and order
     free(torch)
     k10 = phase_kernels_bcsr(torch, big)
@@ -4234,6 +4791,12 @@ def main() -> int:
                            fused=False, extra=("--compute_dtype", "bfloat16"))
     phase_cli(torch, "auto", (), fused=False, extra=("--compute_dtype", "bfloat16"))
     phase_cli(torch, "dense", (), extra=("--compute_dtype", "bfloat16"))
+    cli_nv16 = phase_cli(torch, "banded", ("nv_pair_bf16", "nv_chain_bf16"),
+                         extra=("--compute_dtype", "bfloat16", "--remat", "True"))
+    cli_ell16 = phase_cli(torch, "ell_int8", ("ell_int8_pair_bf16", "ell_int8_chain_bf16"),
+                          extra=("--compute_dtype", "bfloat16"))
+    cli_nv8_16 = phase_cli(torch, "banded_int8", ("nv_pair_int8_bf16", "nv_chain_int8_bf16"),
+                           extra=("--compute_dtype", "bfloat16"))
 
     def row(name, meta, calls, **extra):
         """One kernel's line: per training step it runs once at each call."""
@@ -4383,6 +4946,37 @@ def main() -> int:
                  per_call_other_gates=[c for shape in kbf_bwd for c in kbf_bwd[shape][name]
                                        if c["act"] != "glu"])
              for name, meta in FUSED_BF16_BWD_META.items()]
+    # K5's and K6's bf16 variants: per call of the random checks at the main
+    # path's widths (N = 1280 and 768 at 100k, 160 and 96 at 1M) over each
+    # slab or tile type, the float32 kernel's time beside; launches from the
+    # bench's 100k route (bf16 slabs), its graph_conv forecast, the 1M route
+    # (int8 tiles) and the CLI runs
+    def nv16(calls, **extra):
+        return {"f32_ms": sum(c["f32_ms"] for c in calls), **extra}
+
+    for mode in ("single", "pair", "chain"):
+        name = f"nv_{mode}_bf16"
+        main16 = (b100fbf["graph_conv_forecast_launches"].get(name, 0) if mode == "single"
+                  else b100fbf["launches"][name])
+        rows.append(row(name, K5_META, kbfnv["bf16"][name], mode=mode, dtype="bf16",
+                        slabs_dtype="bf16", launches=main16,
+                        launches_cli_f32_slabs=cli_nv16["launches"][name],
+                        per_call_f32_slabs=kbfnv["f32"][name],
+                        **nv16(kbfnv["bf16"][name])))
+        name8 = f"nv_{mode}_int8_bf16"
+        rows.append(row(name8, K5_META, kbfnv["int8"][name8], mode=mode, dtype="bf16",
+                        slabs_dtype="int8", launches=cli_nv8_16["launches"][name8],
+                        **nv16(kbfnv["int8"][name8])))
+        for tiles in ("int8", "bf16"):
+            name = f"ell_{tiles}_{mode}_bf16"
+            src = k6bf["route"] if tiles == "bf16" else m1bf
+            main16 = (src["graph_conv_forecast_launches"].get(name, 0) if mode == "single"
+                      else src["step_launches" if tiles == "bf16" else "launches"].get(name, 0))
+            rows.append(row(name, K6_META, k6bf[tiles][name], mode=mode, dtype="bf16",
+                            tiles_dtype=tiles, launches=main16,
+                            **({"launches_cli": cli_ell16["launches"][name]}
+                               if tiles == "int8" else {}),
+                            **nv16(k6bf[tiles][name])))
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,11 +18,13 @@ cpu`` (or the reference's ``--enable_cuda False``) asks for the CPU.
 ``--compute_dtype bfloat16`` and ``--remat True`` build ``STGCN(dtype=
 torch.bfloat16, remat=True)`` over an operator packed without a dtype
 (float32 values, a bf16 operand), as the JAX CLI does; they train the
-unfused model.
+unfused model, or with ``--fused True`` the fused one on every operator
+kind (the bf16 variants of K1-K4, K1b-K4b and the graph kernel K5, K6 or
+K10; under ``fused_sparse_forward``'s default remat policy ``"graph-terms"``,
+which keeps what the plain route keeps and recomputes nothing).
 
-Not ported yet, and refused with ``NotImplementedError``: ``--compute_dtype
-bfloat16`` or ``--remat True`` with ``--fused True`` (the fused bf16 slice:
-the fused kernels' bf16 variants), a device mesh and ``--distributed`` (the
+Not ported yet, and refused with ``NotImplementedError``: a device mesh and
+``--distributed`` (the
 ``dist`` slice), ``--profile_dir`` (``utils/
 profiling.py``), and ``--fused_tile_v`` / ``--fused_b_tile`` (the TPU
 kernels' tile sizes; the CUDA kernels fix their own). ``--fused True`` with
@@ -121,15 +123,18 @@ def get_parameters(argv=None):
                         help="torch.autograd anomaly detection (slow; debugging aid)")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="bfloat16 = mixed-precision training (f32 params/LN; under "
-                             "--fused on the dense and BCSR operators)")
+                        help="bfloat16 = mixed-precision training (f32 params/LN; fused "
+                             "or unfused, on every operator kind)")
     parser.add_argument("--fused", type=_str2bool, default=False,
                         help="train through the vertex-fused kernels K1-K4 (the banded "
                              "operator aggregates through K5, the ELL one through K6, the "
                              "BCSR one through K10)")
     parser.add_argument("--remat", type=_str2bool, default=False,
-                        help="recompute ST blocks in the backward (unfused; the graph "
-                             "terms are kept)")
+                        help="unfused: recompute each ST block's head and tail in the "
+                             "backward, the graph terms kept; fused: the default policy "
+                             "'graph-terms' keeps what the plain route keeps and recomputes "
+                             "nothing (only fused_sparse_forward(remat_policy='minimal') "
+                             "recomputes)")
     parser.add_argument("--fused_tile_v", type=int, default=None,
                         help="vertex tile of the TPU kernels (not ported: the CUDA "
                              "kernels fix their own tiles)")
@@ -146,9 +151,6 @@ def get_parameters(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the options whose code comes with a later slice of the port."""
     later = {
-        "--remat True with --fused True": (
-            args.remat and args.fused,
-            "the fused bf16 slice (fused_sparse_forward(remat=, remat_policy=))"),
         "a device mesh": (args.mesh_data * args.mesh_graph * args.mesh_model > 1
                           or args.distributed, "the dist slice"),
         "--profile_dir": (args.profile_dir is not None,

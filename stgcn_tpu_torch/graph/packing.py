@@ -90,18 +90,23 @@ def _ell_layout(matrix: sp.spmatrix, block_size: int, quantize: bool, transposed
 
 
 def pack_ell_device(matrix: sp.spmatrix, *, block_size: int = 256, quantize: bool = False,
-                    device: str | torch.device = "cuda"):
+                    dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda"):
     """The JAX ``pack_ell_nv`` built on ``device``: the pack's indices and
     values travel there, the zero-filled tiles (3.3 GB int8 for the
     1M-vertex road graph) are scattered in place by one ``index_put_``.
     Returns ``(data, cols, counts, scales)`` as tensors on ``device``:
-    ``data`` ``[nbr, max_b, bs, bs]`` (int8 when ``quantize``, else
-    float32), ``cols`` ``[nbr, max_b]`` int32, ``counts`` ``[nbr]`` int32,
-    ``scales`` ``[nbr, bs]`` float32 or None."""
+    ``data`` ``[nbr, max_b, bs, bs]`` (int8 when ``quantize``, else float32,
+    or ``dtype=torch.bfloat16``: each float32 value rounded to nearest even,
+    as the JAX ``ell_graph_op`` casts its float32 host pack on transfer),
+    ``cols`` ``[nbr, max_b]`` int32, ``counts`` ``[nbr]`` int32, ``scales``
+    ``[nbr, bs]`` float32 or None."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the ELL tiles are float32 or bfloat16 (or int8 by quantize), got "
+                        f"{dtype}")
     dev = resolve_device(device)
     flat, values, cols, counts, scales, shape = _ell_layout(matrix, block_size, quantize)
-    return (_scatter(flat, values, shape, dev), torch.from_numpy(cols).to(dev),
-            torch.from_numpy(counts).to(dev),
+    return (_scatter(flat, values, shape, dev, None if quantize else dtype),
+            torch.from_numpy(cols).to(dev), torch.from_numpy(counts).to(dev),
             None if scales is None else torch.from_numpy(scales).to(dev))
 
 

@@ -5,11 +5,13 @@ K3 :func:`output_head.ohead_fwd`, K4 :func:`output_head.ofc_fwd` (each
 also counted as ``<name>_bf16`` for its bf16 variant), their
 backward kernels K1b-K4b (``head_bwd``, ``tail_bwd``, ``ohead_bwd``,
 ``ofc_bwd``; ``<name>_bf16`` for their bf16 variants), the banded nv SpMM K5 :func:`banded_nv.stream_nv`, counted
-per mode and dtype (``nv_single``, ``nv_pair_int8``, …), the banded vn SpMM
+per mode and dtype (``nv_single``, ``nv_pair_int8``, ``nv_chain_bf16`` on a
+bf16 operand, …), the banded vn SpMM
 of K7-K9 (:mod:`banded_spmm`), counted per wrapper and dtype (``vn_single``
 for K7, ``vn_pair_resident`` for K8, ``vn_pair`` and ``vn_chain`` for K9;
 ``_int8`` on int8 packs, ``_bf16`` on a bf16 operand), the blocked-ELL nv SpMM K6 :func:`ell_nv.ell_nv`, counted per dtype and mode (``ell_f32_pair``,
-``ell_int8_chain``, …), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
+``ell_int8_chain``, and ``ell_{f32,int8,bf16}_{mode}_bf16`` on a bf16
+operand, the tiles' type first), and the BCSR vn SpMM K10 :func:`spmm.bcsr_spmm`
 (``bcsr_spmm``, ``bcsr_spmm_bf16`` on a bf16 operand) — K5, K6, K7-K9 and K10 walk the pack's nonzero index
 (:mod:`nnz_index`, its builds counted by :func:`nnz_index.builds`) — with its
 tile-value gradient, the SDDMM K11
@@ -39,8 +41,9 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
             "ohead_bwd": ohead_bwd, "ofc_bwd": ofc_bwd,
             "head_bwd_bf16": head_bwd, "tail_bwd_bf16": tail_bwd,
             "ohead_bwd_bf16": ohead_bwd, "ofc_bwd_bf16": ofc_bwd,
-            **{_nv.launch_name(m, q): functools.partial(_nv.stream_nv, mode=m)
-               for q in (False, True) for m in ("single", "pair", "chain")},
+            **{_nv.launch_name(m, q, h): functools.partial(_nv.stream_nv, mode=m)
+               for h in (False, True) for q in (False, True)
+               for m in ("single", "pair", "chain")},
             **{_vn.launch_name("single", q, bf16=h): _vn.banded_spmm
                for q in (False, True) for h in (False, True)},
             **{_vn.launch_name("pair", resident=True, bf16=h): _vn.banded_cheb_pair
@@ -51,6 +54,9 @@ WRAPPERS = {"head_fwd": head_fwd, "tail_fwd": tail_fwd,
                for q in (False, True) for h in (False, True)},
             **{_ell.launch_name(q, m): functools.partial(_ell.ell_nv, mode=m)
                for q in (False, True) for m in ("single", "pair", "chain")},
+            **{_ell.launch_name(tiles == "int8", m, bf16=True, bf16_tiles=tiles == "bf16"):
+               functools.partial(_ell.ell_nv, mode=m)
+               for tiles in ("f32", "int8", "bf16") for m in ("single", "pair", "chain")},
             "bcsr_spmm": bcsr_spmm, "bcsr_spmm_bf16": bcsr_spmm, "bcsr_sddmm": bcsr_sddmm,
             "stblock_fwd": stblock_fwd, "stblock_bwd": stblock_bwd}
 

@@ -58,9 +58,9 @@ SIGNATURES = {
     "stgcn_tail_bwd_bf16": [_P] * 18 + [_I] * 10 + [_P],
     "stgcn_ohead_bwd_bf16": [_P] * 18 + [_I] * 7 + _DROP + [_P],
     "stgcn_ofc_bwd_bf16": [_P] * 19 + [_I] * 6 + _DROP + [_P],
-    "stgcn_banded_nv": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "stgcn_banded_nv": [_P] * 10 + [_I] * 8 + [_F, _P],
     "stgcn_banded_vn": [_P] * 9 + [_I] * 8 + [_F, _P],
-    "stgcn_ell_nv": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "stgcn_ell_nv": [_P] * 10 + [_I] * 7 + [_F, _P],
     "stgcn_bcsr_spmm": [_P] * 6 + [_I] * 6 + [_F, _P],
     "stgcn_bcsr_sddmm": [_P] * 5 + [_I] * 4 + [_F, _P],
     "stgcn_stblock_fwd": [_P] * 15 + [_I] * 11 + _DROP + [_P],

@@ -61,8 +61,8 @@ def refuse_value_grad(*values: torch.Tensor | None) -> None:
             "operator, or use the BCSR operator, whose tile-value gradient runs through K11")
 
 
-BF16_SLICE = ("the fused bf16 slice of the port (ROADMAP.md §1 item 3: K5 and K6 in bf16, with "
-              "the fused remat)")
+BF16_SLICE = ("the bf16 variants of K11 and K12 (ROADMAP.md §1 item 4), the next slice of "
+              "the port")
 
 
 def refuse_bf16(what: str, *tensors: torch.Tensor | None, where: str = BF16_SLICE) -> None:
@@ -76,8 +76,8 @@ def refuse_bf16(what: str, *tensors: torch.Tensor | None, where: str = BF16_SLIC
 def refuse_bf16_model(model, route: str, where: str = BF16_SLICE) -> None:
     """Raise ``NotImplementedError`` for a bf16 model (``dtype`` or
     ``ln_param_dtype``) on a route whose kernels' bf16 variants are not
-    ported yet (fused training; ``fused_forward``'s K12), naming the slice
-    that brings them."""
+    ported yet (``fused_forward``'s K12), naming the slice that brings
+    them."""
     if model.dtype is not None or model.ln_param_dtype != torch.float32:
         raise NotImplementedError(f"{route} of a bf16 model is not ported yet; it comes with "
                                   f"{where}")
@@ -93,10 +93,11 @@ def stream_of(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def workspace(floats: int, device: torch.device) -> torch.Tensor:
+def workspace(floats: int, device: torch.device, dtype: torch.dtype = torch.float32
+              ) -> torch.Tensor:
     """Scratch of an entry point (a backward entry point sizes it by its
-    ``*_work`` function)."""
-    return torch.empty(max(int(floats), 1), device=device, dtype=torch.float32)
+    ``*_work`` function): ``floats`` elements of ``dtype``."""
+    return torch.empty(max(int(floats), 1), device=device, dtype=dtype)
 
 
 def drop_args(drop) -> tuple:

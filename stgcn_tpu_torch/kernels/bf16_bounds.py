@@ -22,7 +22,8 @@ fault that moves most elements, fails there.
 
 The functions here return ``M`` per output, shaped as the outputs of the
 plain version (``head_reference``, ``tail_reference``, ``ohead_reference``,
-``ofc_reference``); :func:`within` checks a kernel's outputs against its
+``ofc_reference``; :func:`spmm_scale` those of the nv graph kernels K5 and
+K6 in each mode); :func:`within` checks a kernel's outputs against its
 plain version's with them.
 
 The backward kernels' bf16 outputs (the data gradients, the LayerNorm affine
@@ -112,6 +113,25 @@ def ofc_scale(cfg, a, mu, rstd, lnw, lnb, w1, b1, w2, b2, drop=None) -> torch.Te
     """M of K4f's output (``ofc_reference``'s arguments)."""
     m_z = linear_cv(_abs(ln_normalize_cv(a, mu, rstd, lnw, lnb)), _abs(w1), _abs(b1))
     return linear_cv(dropout.apply_cv(m_z, drop, cfg.v_true), _abs(w2), _abs(b2))
+
+
+def spmm_scale(apply_abs, x, g=None, mode: str = "single", *, scale: float = 1.0):
+    """M of a sparse product's outputs in ``mode`` (K5's and K6's: single
+    ``scale·A x``; pair ``(A x, 2 A t1 − x)``; chain ``(g + 2 A x, A u −
+    x)``), given ``apply_abs(v)``, the product of ``|A|`` (absolute values
+    times the absolute lane factors) with a float32 ``v``. A second pass
+    reads the first one's bf16 output, whose magnitude and M are each at
+    most its own M, and an add contributes its magnitude."""
+    ax = _abs(x)
+    if mode == "single":
+        return abs(scale) * apply_abs(ax)
+    if mode == "pair":
+        m1 = apply_abs(ax)
+        return m1, 4.0 * apply_abs(m1) + ax
+    if mode == "chain":
+        m1 = 2.0 * apply_abs(ax) + _abs(g)
+        return m1, 2.0 * apply_abs(m1) + ax
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 def within(got, ref, scale, *, rel: float = REL, floor: float = FLOOR,

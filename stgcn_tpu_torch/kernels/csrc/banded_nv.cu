@@ -1,6 +1,7 @@
 // K5: banded SpMM on the nv operand [N, V] (replaces the TPU kernel
 // `_stream_nv_call`, stgcn_tpu/kernels/banded_nv.py:208), float32 or int8
-// slabs.
+// slabs under a float32 operand, float32, bf16 or int8 slabs under a bf16
+// one.
 //
 // One application, with slab_i the pre-transposed [w, bs] dense slab of
 // block row i over its column window starting at lo_i, and scale_i the
@@ -40,6 +41,16 @@
 // vertex, the order in which the band kernel summed it (its zero terms left
 // out), so the outputs are the band kernel's bit for bit, up to the sign of
 // an all-zero sum. No atomics: a repeat launch is bit-identical.
+//
+// bf16 (the TPU kernel's bf16 operand into an f32 accumulator, :141-183):
+// the operand is transposed as bf16 and read as 16-byte vectors of eight,
+// widened exactly, as are bf16 slab values. Stage 1 sums in float32, takes
+// the int8 lane factor, for chain 2 * acc + g in float32, and rounds once
+// to bf16 (`t1c`, :157-160): that value is both the output t1 / u and the
+// operand of stage 2 (`mid` and its vn copy are bf16). Stage 2 sums over
+// that bf16 t1 in float32, doubles (pair), takes the lane factor, subtracts
+// x in float32 and rounds once (:179-183); single rounds once after alpha
+// and the factor.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -47,37 +58,60 @@
 
 #include "nv_rows.cuh"
 
-extern "C" {
+namespace {
 
-// K5. slabs [nbr, w, bs] float32 (int8 when `int8`); the pack's nonzero
-// index for a vp-wide operand: row_ptr [vp + 1], src and off [nnz] int32,
-// every src < vp and every off < w*bs; scales [nbr, bs] float32 (int8 only,
-// else null); x, g, mid, out [n, vp], x 16-byte aligned; g only for chain,
-// mid for pair and chain; work n * vp floats (single) or twice that (pair,
-// chain). mode 0 single, 1 pair, 2 chain. Needs vp % 32 == 0.
-int stgcn_banded_nv(const void* slabs, const int* row_ptr, const int* src, const int* off,
-                    const float* scales, const float* x, const float* g, float* mid, float* out,
-                    float* work, int nbr, int w, int bs, int n, int vp, int int8, int mode,
-                    float scale, void* stream) {
-  if (bs <= 0 || w <= 0 || nbr <= 0 || n < 0 || vp <= 0 || vp % nv_rows::kRows != 0 ||
-      mode < 0 || mode > 2 || (int8 != 0) != (scales != nullptr) ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || (mode == 2 && g == nullptr) ||
-      (mode != 0 && mid == nullptr) || work == nullptr)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t stride = (size_t)w * bs;
-  const int live = nbr * bs;
+template <typename T, typename X>
+int run(const void* slabs, const int* row_ptr, const int* src, const int* off,
+        const float* scales, const void* x, const void* g, void* mid, void* out, void* work,
+        int nbr, int w, int bs, int n, int vp, int mode, float scale, cudaStream_t s) {
   // PassArgs: vals, row_stride, row_ptr, src, off, scales, live_rows, xt, add, out, out_t,
   // bs, n, vp, alpha, beta (the modes set xt, add, out, out_t, alpha, beta)
-  if (int8)
-    return nv_rows::nv_modes<int8_t>({static_cast<const int8_t*>(slabs), stride, row_ptr, src,
-                                      off, scales, live, nullptr, nullptr, nullptr, nullptr, bs,
-                                      n, vp, 1.0f, 0.0f},
-                                     x, g, mid, out, work, mode, scale, s);
-  return nv_rows::nv_modes<float>({static_cast<const float*>(slabs), stride, row_ptr, src, off,
-                                   nullptr, live, nullptr, nullptr, nullptr, nullptr, bs, n, vp,
-                                   1.0f, 0.0f},
-                                  x, g, mid, out, work, mode, scale, s);
+  return nv_rows::nv_modes<T, X>({static_cast<const T*>(slabs), (size_t)w * bs, row_ptr, src,
+                                  off, scales, nbr * bs, nullptr, nullptr, nullptr, nullptr,
+                                  bs, n, vp, 1.0f, 0.0f},
+                                 static_cast<const X*>(x), static_cast<const X*>(g),
+                                 static_cast<X*>(mid), static_cast<X*>(out),
+                                 static_cast<X*>(work), mode, scale, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K5. slabs [nbr, w, bs]: vals_type 0 float32, 1 int8, 2 bf16 (bf16 only
+// under a bf16 operand); the pack's nonzero index for a vp-wide operand:
+// row_ptr [vp + 1], src and off [nnz] int32, every src < vp and every off <
+// w*bs; scales [nbr, bs] float32 (int8 only, else null); x, g, mid, out [n,
+// vp], float32 (x_bf16 0) or bf16 (x_bf16 1), x 16-byte aligned; g only for
+// chain, mid for pair and chain; work n * vp elements of x's type (single)
+// or twice that (pair, chain), 16-byte aligned. mode 0 single, 1 pair, 2
+// chain. Needs vp % 32 == 0.
+int stgcn_banded_nv(const void* slabs, const int* row_ptr, const int* src, const int* off,
+                    const float* scales, const void* x, const void* g, void* mid, void* out,
+                    void* work, int nbr, int w, int bs, int n, int vp, int vals_type,
+                    int x_bf16, int mode, float scale, void* stream) {
+  if (bs <= 0 || w <= 0 || nbr <= 0 || n < 0 || vp <= 0 || vp % nv_rows::kRows != 0 ||
+      mode < 0 || mode > 2 || vals_type < 0 || vals_type > 2 || x_bf16 < 0 || x_bf16 > 1 ||
+      (vals_type == 2 && !x_bf16) || (vals_type == 1) != (scales != nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(work) % 16 != 0 ||
+      (mode == 2 && g == nullptr) || (mode != 0 && mid == nullptr) || work == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    if (vals_type == 1)
+      return run<int8_t, csr_rows::bf16>(slabs, row_ptr, src, off, scales, x, g, mid, out, work,
+                                         nbr, w, bs, n, vp, mode, scale, s);
+    if (vals_type == 2)
+      return run<csr_rows::bf16, csr_rows::bf16>(slabs, row_ptr, src, off, scales, x, g, mid,
+                                                 out, work, nbr, w, bs, n, vp, mode, scale, s);
+    return run<float, csr_rows::bf16>(slabs, row_ptr, src, off, scales, x, g, mid, out, work,
+                                      nbr, w, bs, n, vp, mode, scale, s);
+  }
+  if (vals_type == 1)
+    return run<int8_t, float>(slabs, row_ptr, src, off, scales, x, g, mid, out, work, nbr, w,
+                              bs, n, vp, mode, scale, s);
+  return run<float, float>(slabs, row_ptr, src, off, scales, x, g, mid, out, work, nbr, w, bs,
+                           n, vp, mode, scale, s);
 }
 
 }  // extern "C"

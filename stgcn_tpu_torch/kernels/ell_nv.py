@@ -1,5 +1,6 @@
 """K6: blocked-ELL SpMM on the nv operand ``[N, V]`` (port of
-``stgcn_tpu/kernels/ell_nv.py``, float32 and int8 tiles).
+``stgcn_tpu/kernels/ell_nv.py``): a float32 operand over float32 or int8
+tiles, a bf16 one over float32, int8 or bf16 tiles.
 
 The O(nnz) operator of the 1M-vertex road graph: a contiguous-window pack
 (K5's banded slabs) grows as ``V^1.5`` on a road graph, so the blocked-ELL
@@ -29,8 +30,19 @@ gathers the x rows each output row needs and writes the sums back in nv
 through shared memory. The pair and chain are two gather passes launched
 by one C entry point (the first also keeping its result in vn for the
 second, the second folding ``2y − x`` into its epilogue), counted as one
-launch of the wrapper's mode and dtype (``ell_f32_pair``,
-``ell_int8_chain``, …).
+launch of the wrapper's mode and dtypes (``ell_f32_pair``,
+``ell_int8_chain``; on a bf16 operand ``ell_{f32,int8,bf16}_{mode}_bf16``,
+the tiles' type first).
+
+bf16: each application sums in float32 (a bf16 operand and bf16 or int8
+tile values widen exactly) and is written in x's type, as the JAX ELL path
+writes it (:116-118); the pair and chain then combine the rounded products
+in float32 and round again (``ell_cheb_pair_nv`` :274-285: t1 = bf16(A x),
+t2 = bf16(2·bf16(A t1) − x); ``_pair_bwd`` :302-313: u = bf16(g1 +
+2·bf16(Aᵀ g2)), dx = bf16(bf16(Aᵀ u) − g2)). So where an add follows, the
+kernel rounds the product first (``csrc/nv_rows.cuh``'s ``ROUND``); single
+mode rounds once. K5 rounds once a pass, as its TPU kernel does: the two
+bf16 variants differ there.
 
 The operand is exactly ``nbr·bs`` wide (the operator pads to it); output
 lanes of rows past ``n_vertex`` are zero. :class:`EllSpmmNv` and
@@ -49,9 +61,11 @@ from typing import NamedTuple
 import torch
 
 from stgcn_tpu_torch.kernels import _build, nnz_index
-from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu, refuse_bf16,
+from stgcn_tpu_torch.kernels._launch import (count_launch, cuda_device, on_cpu,
                                              refuse_value_grad, require, require_index,
-                                             stream_of)
+                                             stream_of, workspace)
+from stgcn_tpu_torch.kernels.banded_nv import pair_cotangents
+from stgcn_tpu_torch.kernels.banded_spmm import VALUE_TYPES
 
 MODES = {"single": 0, "pair": 1, "chain": 2}
 # elements of the plain version's largest temporary (one chunk of block rows)
@@ -61,7 +75,7 @@ REF_CHUNK_ELEMS = 1 << 26
 class EllPack(NamedTuple):
     """One direction of a blocked-ELL operator (the JAX pack's arrays)."""
 
-    data: torch.Tensor                # [nbr, max_b, bs, bs] float32 or int8, tiles transposed
+    data: torch.Tensor                # [nbr, max_b, bs, bs] float32, bf16 or int8, transposed
     cols: torch.Tensor                # [nbr, max_b] int32 column blocks (padding: 0)
     counts: torch.Tensor              # [nbr] int32 live tiles per block row
     scales: torch.Tensor | None = None  # [nbr, bs] float32 per output lane (int8 packs)
@@ -72,19 +86,32 @@ class EllPack(NamedTuple):
         return self.scales is not None
 
 
-def launch_name(quantized: bool, mode: str) -> str:
-    """The launch counter of K6 in ``mode`` on an int8 or float32 pack."""
-    return f"ell_{'int8' if quantized else 'f32'}_{mode}"
+TILE_KINDS = {torch.float32: "f32", torch.int8: "int8", torch.bfloat16: "bf16"}
+
+
+def launch_name(quantized: bool, mode: str, *, bf16: bool = False,
+                bf16_tiles: bool = False) -> str:
+    """The launch counter of K6 in ``mode`` on an int8, float32 or bf16
+    pack, with a ``_bf16`` suffix on a bf16 operand."""
+    tiles = "int8" if quantized else "bf16" if bf16_tiles else "f32"
+    return f"ell_{tiles}_{mode}{'_bf16' if bf16 else ''}"
+
+
+def pack_launch_name(pack: EllPack, mode: str, x: torch.Tensor) -> str:
+    """:func:`launch_name` of ``pack`` under the operand ``x``."""
+    return launch_name(pack.quantized, mode, bf16=x.dtype == torch.bfloat16,
+                       bf16_tiles=pack.data.dtype == torch.bfloat16)
 
 
 def _apply_reference(pack: EllPack, x_nv: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """One application ``scale · (A x)``, ``[n, nbr·bs]``, chunked over block
-    rows so the gathered x windows (``[n, rows, max_b, bs]``) stay small.
-    Padding tiles are all zero, so no count masking is needed (the JAX
-    ``ell_nv_reference`` :47)."""
+    """One application ``scale · (A x)`` in float32 (the operand and the
+    tiles widen exactly), ``[n, nbr·bs]``, chunked over block rows so the
+    gathered x windows (``[n, rows, max_b, bs]``) stay small. Padding tiles
+    are all zero, so no count masking is needed (the JAX ``ell_nv_reference``
+    :47)."""
     nbr, max_b, bs, _ = pack.data.shape
     n = x_nv.shape[0]
-    xb = x_nv.reshape(n, nbr, bs)
+    xb = x_nv.float().reshape(n, nbr, bs)
     rows = max(1, REF_CHUNK_ELEMS // (max_b * bs * max(n, bs)))
     ys = []
     for s in range(0, nbr, rows):
@@ -98,35 +125,52 @@ def _apply_reference(pack: EllPack, x_nv: torch.Tensor, scale: float = 1.0) -> t
     return y.reshape(n, nbr * bs)
 
 
+def ell_pass_reference(pack: EllPack, x_nv, add=None, *, alpha: float = 1.0,
+                       beta: float = 0.0) -> torch.Tensor:
+    """Plain version of one pass of K6: ``alpha · (A x) + beta · add`` in
+    float32, rounded to x's type; on a bf16 operand the product ``A x`` is
+    rounded to bf16 first where an add follows (the module's notes)."""
+    y = _apply_reference(pack, x_nv)
+    if add is not None and x_nv.dtype != torch.float32:
+        y = y.to(x_nv.dtype).float()
+    if alpha != 1.0:
+        y = alpha * y
+    if add is not None:
+        y = y + beta * add.float()
+    return y.to(x_nv.dtype)
+
+
 def ell_nv_reference(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *,
                      scale: float = 1.0):
-    """Plain version of :func:`ell_nv`: :func:`_apply_reference` once or
-    twice, as the JAX ``ell_spmm_nv_vjp`` / ``ell_cheb_pair_nv`` apply it."""
+    """Plain version of :func:`ell_nv`: one application, or two (pass by
+    pass, :func:`ell_pass_reference`) as the JAX ``ell_spmm_nv_vjp`` /
+    ``ell_cheb_pair_nv`` apply them."""
     if mode == "single":
-        return _apply_reference(pack, x_nv, scale)
+        return _apply_reference(pack, x_nv, scale).to(x_nv.dtype)
     if mode == "pair":
-        t1 = _apply_reference(pack, x_nv)
-        return t1, 2.0 * _apply_reference(pack, t1) - x_nv
+        t1 = ell_pass_reference(pack, x_nv)
+        return t1, ell_pass_reference(pack, t1, x_nv, alpha=2.0, beta=-1.0)
     if mode == "chain":
-        u = g_nv + 2.0 * _apply_reference(pack, x_nv)
-        return u, _apply_reference(pack, u) - x_nv
+        u = ell_pass_reference(pack, x_nv, g_nv, alpha=2.0, beta=1.0)
+        return u, ell_pass_reference(pack, u, x_nv, beta=-1.0)
     raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
 
 
 def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float = 1.0):
     """K6. ``pack`` (with its nonzero index) on the operand's device;
-    ``x_nv`` [N, nbr·bs] float32, 16-byte aligned; ``g_nv`` [N, nbr·bs]
-    only for ``chain``. Returns ``y`` (single) or
-    ``(t1, t2)`` / ``(u, dx)``, each [N, nbr·bs]. ``scale`` multiplies the
-    single application (the Chebyshev ``2G`` step; for an int8 pack it joins
-    the dequant factors, the tiles are never multiplied)."""
+    ``x_nv`` [N, nbr·bs] float32 or bf16, 16-byte aligned; ``g_nv`` [N,
+    nbr·bs] in x's type, only for ``chain``. Returns ``y`` (single) or
+    ``(t1, t2)`` / ``(u, dx)``, each [N, nbr·bs] in x's type: a bf16 operand
+    launches the bf16 variant (over float32, int8 or bf16 tiles; bf16 tiles
+    only under a bf16 operand). ``scale`` multiplies the single application
+    (the Chebyshev ``2G`` step; for an int8 pack it joins the dequant
+    factors, the tiles are never multiplied)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {sorted(MODES)}")
     if (g_nv is not None) != (mode == "chain"):
         raise ValueError("g_nv is given for mode 'chain' and only for it")
     if scale != 1.0 and mode != "single":
         raise ValueError("scale applies to mode 'single' only")
-    refuse_bf16("K6 (the blocked-ELL nv kernel)", pack.data, x_nv, g_nv)
     if on_cpu(x_nv):
         return ell_nv_reference(pack, x_nv, g_nv, mode, scale=scale)
     dev = cuda_device(x_nv)
@@ -135,32 +179,37 @@ def ell_nv(pack: EllPack, x_nv, g_nv=None, mode: str = "single", *, scale: float
     if bs % 64 or vp != nbr * bs:
         raise ValueError(f"K6 needs bs % 64 == 0 and an operand nbr·bs = {nbr * bs} wide; got "
                          f"bs={bs}, width {vp}")
-    want = torch.int8 if pack.quantized else torch.float32
-    if pack.data.device != dev or pack.data.dtype != want or not pack.data.is_contiguous() \
-            or pack.data.shape[3] != bs:
+    bf16 = x_nv.dtype == torch.bfloat16
+    if x_nv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K6 takes a float32 or bf16 operand, got {x_nv.dtype}")
+    want = (torch.int8,) if pack.quantized else \
+        (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if pack.data.device != dev or pack.data.dtype not in want or \
+            not pack.data.is_contiguous() or pack.data.shape[3] != bs:
         raise ValueError(f"the tiles are {pack.data.dtype} on {pack.data.device}; K6 takes "
-                         f"contiguous [nbr, max_b, bs, bs] tiles on {dev}, float32 without "
-                         "scales or int8 with them")
+                         f"contiguous [nbr, max_b, bs, bs] tiles on {dev}, float32 (or bf16 "
+                         "under a bf16 operand) without scales or int8 with them")
     require_index(pack.cols, "cols", (nbr, max_b), dev)
     require_index(pack.counts, "counts", (nbr,), dev)
     scales_p = require(pack.scales, "scales", (nbr, bs), dev)
-    x_p = require(x_nv, "x_nv", (n, vp), dev)
-    g_p = require(g_nv, "g_nv", (n, vp), dev)
+    x_p = require(x_nv, "x_nv", (n, vp), dev, x_nv.dtype)
+    g_p = require(g_nv, "g_nv", (n, vp), dev, x_nv.dtype)
     if x_p % 16:
-        raise ValueError("x_nv must start on a 16-byte boundary (the kernel reads it as float4)")
+        raise ValueError("x_nv must start on a 16-byte boundary (the kernel reads it in "
+                         "16-byte vectors)")
     idx = nnz_index.current(pack.index, pack.data, pack.cols, pack.counts, transposed=True,
                             name="K6")
     index_p = nnz_index.require(idx, vp, dev)
-    out = torch.empty((n, vp), device=dev, dtype=torch.float32)
+    out = torch.empty((n, vp), device=dev, dtype=x_nv.dtype)
     mid = None if mode == "single" else torch.empty_like(out)
-    # x in vn, and for pair and chain the first pass's result in vn too
-    work = torch.empty(n * vp * (1 if mode == "single" else 2), device=dev, dtype=torch.float32)
+    # x in vn, and for pair and chain the first pass's result in vn too, in x's type
+    work = workspace(n * vp * (1 if mode == "single" else 2), dev, x_nv.dtype)
     err = _build.library().stgcn_ell_nv(
         pack.data.data_ptr(), *index_p, scales_p, x_p, g_p,
         0 if mid is None else mid.data_ptr(), out.data_ptr(), work.data_ptr(), nbr, max_b, bs,
-        n, int(pack.quantized), MODES[mode], float(scale), stream_of(dev))
+        n, VALUE_TYPES[pack.data.dtype], int(bf16), MODES[mode], float(scale), stream_of(dev))
     _build.check(f"ell_nv[{mode}]", err)
-    count_launch(launch_name(pack.quantized, mode))
+    count_launch(pack_launch_name(pack, mode, x_nv))
     return out if mid is None else (mid, out)
 
 
@@ -174,12 +223,13 @@ class EllSpmmNv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_nv, pack, pack_t, scale):
         refuse_value_grad(pack.data, pack_t.data)
-        ctx.pack_t, ctx.scale = pack_t, scale
+        ctx.pack_t, ctx.scale, ctx.dtype = pack_t, scale, x_nv.dtype
         return ell_nv(pack, x_nv, scale=scale)
 
     @staticmethod
     def backward(ctx, g):
-        return ell_nv(ctx.pack_t, g.contiguous(), scale=ctx.scale), None, None, None
+        return (ell_nv(ctx.pack_t, g.to(ctx.dtype).contiguous(), scale=ctx.scale), None, None,
+                None)
 
 
 class EllChebPairNv(torch.autograd.Function):
@@ -188,14 +238,12 @@ class EllChebPairNv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_nv, pack, pack_t):
         refuse_value_grad(pack.data, pack_t.data)
-        ctx.pack_t = pack_t
+        ctx.pack_t, ctx.dtype = pack_t, x_nv.dtype
         return ell_nv(pack, x_nv, mode="pair")
 
     @staticmethod
     def backward(ctx, g1, g2):
-        ref = g1 if g1 is not None else g2
-        g1 = torch.zeros_like(ref) if g1 is None else g1.contiguous()
-        g2 = torch.zeros_like(ref) if g2 is None else g2.contiguous()
+        g1, g2 = pair_cotangents(g1, g2, ctx.dtype)
         _, dx = ell_nv(ctx.pack_t, g2, g1, mode="chain")
         return dx, None, None
 

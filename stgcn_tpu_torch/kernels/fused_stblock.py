@@ -26,7 +26,7 @@ the unfused ``STConvBlock`` drops at the same site. Each wrapper runs its
 kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor
 (:func:`st_block_reference`; the backward's is autograd through it with the
 same mask), and counts its launches. The bf16 variant is not ported yet: it
-comes after the fused bf16 slice, and raises until then.
+comes with ``ROADMAP.md`` §1 item 4, and raises until then.
 """
 
 from __future__ import annotations
@@ -38,8 +38,8 @@ import torch.nn.functional as F
 
 from stgcn_tpu_torch.kernels import _build, dropout
 from stgcn_tpu_torch.kernels._launch import (
-    ACT_CODES, MAX_OUT, count_launch, cuda_device, drop_args, on_cpu, require, stream_of,
-    workspace)
+    ACT_CODES, BF16_SLICE, MAX_OUT, count_launch, cuda_device, drop_args, on_cpu, require,
+    stream_of, workspace)
 from stgcn_tpu_torch.kernels.dropout import Drop
 
 GRAPH_CONV_CODES = {"cheb_graph_conv": 0, "graph_conv": 1}
@@ -194,8 +194,7 @@ def st_block_bwd_reference(cfg: FusedBlockConfig, x, gso, w, gy, drop: Drop | No
 def _check(cfg: FusedBlockConfig, drop: Drop | None) -> None:
     if cfg.precision != "default":
         raise NotImplementedError(f"precision {cfg.precision!r}: the bf16 variant of K12 is "
-                                  "not ported yet; it comes after the fused bf16 slice "
-                                  "(ROADMAP.md §1)")
+                                  f"not ported yet; it comes with {BF16_SLICE}")
     if cfg.act_func not in ACT_CODES:
         raise ValueError(f"unknown act_func {cfg.act_func!r}")
     if cfg.graph_conv_type not in GRAPH_CONV_CODES:

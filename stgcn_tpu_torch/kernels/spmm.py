@@ -134,9 +134,7 @@ class BcsrSpmmVjp(torch.autograd.Function):
     def forward(ctx, x_vn, data, pack, pack_t, scale):
         ctx.pack, ctx.pack_t, ctx.scale = pack, pack_t, scale
         if ctx.needs_input_grad[1]:
-            refuse_bf16("the BCSR tile-value gradient (K11)", x_vn, data,
-                        where="the bf16 variants of K11 and K12, after the fused bf16 slice "
-                              "(ROADMAP.md §1)")
+            refuse_bf16("the BCSR tile-value gradient (K11)", x_vn, data)
             ctx.save_for_backward(x_vn)
         return bcsr_spmm(pack._replace(data=data), x_vn, scale=scale)
 

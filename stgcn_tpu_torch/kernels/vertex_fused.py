@@ -628,8 +628,9 @@ class _HeadFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        grads = head_bwd(ctx.cfg, *ctx.saved_tensors, gy.contiguous(), drop=ctx.drop)
-        return (None, None, *as_input_types(grads, ctx.saved_tensors))
+        saved = ctx.saved_tensors   # once: a checkpoint's replay unpacks each tensor once
+        grads = head_bwd(ctx.cfg, *saved, gy.contiguous(), drop=ctx.drop)
+        return (None, None, *as_input_types(grads, saved))
 
 
 class _TailFused(torch.autograd.Function):
@@ -641,7 +642,8 @@ class _TailFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ga2, gps, gpss):
-        xg = ctx.saved_tensors[0]
+        saved = ctx.saved_tensors   # once: a checkpoint's replay unpacks each tensor once
+        xg = saved[0]
         b = xg.shape[0]
         cfg = ctx.cfg
         if ga2 is None:
@@ -649,9 +651,8 @@ class _TailFused(torch.autograd.Function):
         stat = (b, cfg.t2, 1, 1)
         gps = xg.new_zeros(stat, dtype=torch.float32) if gps is None else gps
         gpss = xg.new_zeros(stat, dtype=torch.float32) if gpss is None else gpss
-        grads = tail_bwd(cfg, *ctx.saved_tensors, ga2.contiguous(), gps.contiguous(),
-                         gpss.contiguous())
-        return (None, *as_input_types(grads, ctx.saved_tensors))
+        grads = tail_bwd(cfg, *saved, ga2.contiguous(), gps.contiguous(), gpss.contiguous())
+        return (None, *as_input_types(grads, saved))
 
 
 def head_fused(cfg: VertexBlockCfg, x, mu, rstd, lng, lnb, c1k, c1b, gaw, gab, *,

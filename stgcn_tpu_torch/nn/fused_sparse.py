@@ -39,13 +39,29 @@ the kernels' bf16 variants (``"bfloat16"``) and any other in float32
 (``"default"``). In bf16 the input, the weights (biases stay float32), the
 activations between the kernels and the LayerNorm affine threaded between
 blocks are bf16, the LayerNorm statistics float32; the graph terms come
-from the operator in bf16 (the dense ``torch.matmul``, K10's bf16 variant on
-BCSR; the nv kernels K5 and K6 refuse a bf16 operand). The backward runs
+from the operator in bf16 (the dense ``torch.matmul``, the bf16 variants of
+K5 on the banded nv pack, K6 on ELL and K10 on BCSR). The backward runs
 K1b-K4b's bf16 variants: the data gradients in bf16 (the cotangents of
 ``xg`` from the tail and from the graph terms' adjoint meet as a bf16 add,
 as in JAX), each weight gradient a float32 sum rounded to bf16 by its
 Function, as the JAX ``custom_vjp`` casts it, then cast to the float32
 master parameter by autograd; μ/rstd and their gradients float32.
+
+``remat`` (default: the model's) and ``remat_policy`` are the JAX
+arguments (``nn/fused_sparse.py:290-298, 475-483``), taken where autograd
+records. ``"minimal"`` keeps nothing of an ST block but its inputs (head
+input, μ, rstd, the LayerNorm affine, the weights): the block runs under
+``torch.utils.checkpoint`` and the backward replays K1, the graph product
+(K5 / K6 / K10 / the matmul) and K2 before K2b and K1b; the dropout masks
+are keyed by element, so the replay draws the same ones, and the gradients
+are the plain route's bit for bit. ``"graph-terms"`` keeps the block's
+inputs, ``xg`` and the graph terms and recomputes the rest, as the JAX
+policy ``save_only_these_names("stgcn_xg", "stgcn_graph_term")`` does. On
+this route that is what the plain route keeps: K1's Function saves only its
+inputs, K2's only ``xg``, the graph terms and its weights, the nv pairs and
+K10's Function only their transpose pack (the dense ``torch.matmul`` also
+its padded ``[Vp, Vp]`` matrix), so the policy runs the block as it is,
+with no replay.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 
 from stgcn_tpu_torch.kernels._launch import LANES
 from stgcn_tpu_torch.kernels.dropout import Drop
@@ -124,9 +141,13 @@ def _st_block(cfg: VertexBlockCfg, gop: Any, head_in, mu, rstd, lng_p, lnb_p, w,
     return tail_fused(cfg, xg, t_a, t_b, gcw, gcb, c2k, c2b)
 
 
+REMAT_POLICIES = ("graph-terms", "minimal")
+
+
 def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, *,
                          deterministic: bool = True, seed: int | None = None,
-                         precision: str = "auto") -> torch.Tensor:
+                         precision: str = "auto", remat: bool | None = None,
+                         remat_policy: str = "graph-terms") -> torch.Tensor:
     """Forward pass through the vertex-fused kernels.
 
     ``params``: the port's ``state_dict`` (``model.state_dict()``, or one
@@ -143,8 +164,19 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
     and a nonzero droprate, ``seed`` (one step's dropout seed,
     :func:`stgcn_tpu_torch.kernels.dropout.step_seed`) keys the masks.
     ``precision``: ``"auto"`` (bf16 for a bf16 model), ``"default"``
-    (float32) or ``"bfloat16"``. Returns ``[B, 1, V, 1]`` float32.
+    (float32) or ``"bfloat16"``. ``remat`` (None: ``model.remat``) and
+    ``remat_policy`` (``"graph-terms"`` or ``"minimal"``): what the backward
+    recomputes (the module's notes). Returns ``[B, 1, V, 1]`` float32.
     """
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
+    if remat is None:
+        remat = model.remat
+    block = _st_block
+    if remat and remat_policy == "minimal" and torch.is_grad_enabled():
+        def block(*args):
+            return ckpt.checkpoint(_st_block, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
     if precision == "auto":
         precision = "bfloat16" if model.dtype == torch.bfloat16 else "default"
     if precision not in ("default", "bfloat16"):
@@ -196,8 +228,8 @@ def fused_sparse_forward(params: dict, x: torch.Tensor, gop: Any, model: STGCN, 
             head_in, mu, rstd, lng_p, lnb_p = x, None, None, None, None
         else:
             head_in, mu, rstd, lng_p, lnb_p = state
-        a2, ps, pss = _st_block(cfg, gop, head_in, mu, rstd, lng_p, lnb_p, w,
-                                drop(l - 1) if l > 0 else None)
+        a2, ps, pss = block(cfg, gop, head_in, mu, rstd, lng_p, lnb_p, w,
+                            drop(l - 1) if l > 0 else None)
         mu, rstd = ln_stats(ps, pss, v_true * c2)
         pad_v = (0, 0, 0, v_pad - v_true)
         state = (a2, mu, rstd, F.pad(lng.to(cdt), pad_v).T.contiguous(),

@@ -24,16 +24,13 @@ to the layers at call time:
   what ``auto`` picks above 4096 vertices when the RCM band is too wide for
   the banded slabs (the 1M-vertex road graph), as in the JAX package.
 
-Every kind but ELL takes a bf16 operand (the JAX package's
-``STGCN(dtype=bfloat16)``): ``dense_graph_op``, ``banded_graph_op`` and
-``bcsr_graph_op`` also pack their values in ``dtype=torch.bfloat16``, as
-the JAX builders do, and the sparse surfaces return x's dtype, their
-kernels summing in float32 (K7-K10's bf16 variants). The dense
-``__call__`` promotes as the JAX ``einsum`` does (a float32 matrix and a
-bf16 operand give a float32 product); its cv and nv surfaces cast the
-matrix to x's dtype. The nv kernels (K5, K6: the ELL operator, the banded
-nv surfaces) raise ``NotImplementedError`` on bf16 until the fused bf16
-slice of the port brings their bf16 variants.
+Every kind takes a bf16 operand (the JAX package's
+``STGCN(dtype=bfloat16)``): each builder also packs its values in
+``dtype=torch.bfloat16``, as the JAX builders do, and the sparse surfaces
+return x's dtype, their kernels summing in float32 (the bf16 variants of
+K5-K10). The dense ``__call__`` promotes as the JAX ``einsum`` does (a
+float32 matrix and a bf16 operand give a float32 product); its cv and nv
+surfaces cast the matrix to x's dtype.
 """
 
 from __future__ import annotations
@@ -455,9 +452,12 @@ def banded_graph_op(gso: GraphShiftOperator, *, dtype: torch.dtype = torch.float
 
 
 def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda") -> EllGraphOp:
     """The JAX ``ell_graph_op`` (:540-571), packed on the device: int8 tiles
-    with per-row scales when ``quantize``, else float32. A symmetric GSO
+    with per-row scales when ``quantize`` (``dtype`` ignored, as in JAX),
+    else float32 or ``dtype=torch.bfloat16`` (the float32 host pack cast on
+    transfer, :552-555). A symmetric GSO
     (every ``sym_*`` normalization, up to rounding) reuses the forward pack
     for the transpose application — the same device tensors. Each pack
     carries an unbuilt nonzero index, which K6's first launch builds from
@@ -467,7 +467,7 @@ def ell_graph_op(gso: GraphShiftOperator, *, block_size: int = 256, quantize: bo
 
     def pack(m):
         return ek.EllPack(*pack_ell_device(m, block_size=block_size, quantize=quantize,
-                                           device=dev), NnzIndex())
+                                           dtype=dtype, device=dev), NnzIndex())
 
     fwd = pack(csr)
     return EllGraphOp(pack=fwd, pack_t=fwd if effectively_symmetric(csr) else pack(csr.T.tocsr()),
@@ -511,7 +511,7 @@ def make_graph_op(gso: GraphShiftOperator, kind: str = "auto", *,
     """Pick a representation (the JAX rule, ``ops/graph_op.py:574-601``):
     ``auto`` as :func:`auto_kind`; ``banded_int8``, ``ell`` / ``ell_int8``
     and ``bcsr`` are asked for by name, as in the JAX package. ``dtype``
-    (the dense, banded and BCSR kinds) goes to the builder."""
+    goes to the builder."""
     if kind == "auto":
         kind = auto_kind(gso)
     if kind == "dense":

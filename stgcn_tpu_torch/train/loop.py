@@ -23,11 +23,13 @@ the model trains in bf16 with float32 parameters, gradients and optimizer
 state (the LayerNorm affine's in ``ln_param_dtype``), as in the JAX package;
 a ``TrainConfig`` whose ``compute_dtype`` or ``remat`` disagrees with the
 model's raises ``ValueError``. ``fused=True`` trains a bf16 model through the
-bf16 variants of K1-K4 and K1b-K4b on the dense and BCSR operators (the
-JAX trainer's ``fused_prec = "bfloat16"``); on an operator whose graph terms
-run on the nv kernels K5 or K6 (banded, ELL) it raises
-``NotImplementedError`` when the Trainer is built, as it does for remat on
-the fused route: both come with the next slice of the port.
+bf16 variants of K1-K4 and K1b-K4b around those of the graph kernel (K5 on
+the banded operator's nv pack, K6 on ELL, K10 on BCSR; the dense operator's
+matmul), as the JAX trainer's ``fused_prec = "bfloat16"`` does. On the fused
+route ``remat=True`` takes ``fused_sparse_forward``'s default policy
+``"graph-terms"``, which keeps what the plain route keeps and recomputes
+nothing (each fused Function saves only its inputs); only
+``fused_sparse_forward(remat_policy="minimal")`` recomputes the blocks.
 """
 
 from __future__ import annotations
@@ -42,7 +44,6 @@ import torch
 from stgcn_tpu_torch.data.datasets import (
     ForecastDataset, ZScoreScaler, gather_windows, window_starts)
 from stgcn_tpu_torch.device import resolve_device
-from stgcn_tpu_torch.kernels._launch import BF16_SLICE
 from stgcn_tpu_torch.kernels.dropout import step_seed
 from stgcn_tpu_torch.nn.fused_sparse import fused_sparse_forward
 from stgcn_tpu_torch.train import metrics as M
@@ -75,7 +76,8 @@ class TrainConfig:
     seed: int = 42
     shuffle: bool = False  # reference quirk: no shuffling even in training
     compute_dtype: str | None = None  # 'bfloat16' for mixed-precision training
-    remat: bool = False  # recompute per ST block (the model's; unfused)
+    remat: bool = False  # the model's; unfused: recompute head and tail per ST block;
+    # fused: policy "graph-terms", which keeps what no remat keeps (no recompute)
     fused: bool = False  # train through the vertex-fused kernels
     # io
     ckpt_dir: str = "checkpoints/run"
@@ -98,17 +100,6 @@ class Trainer:
         if config.compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype {config.compute_dtype!r}: float32 or bfloat16")
         want_dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else None
-        if config.fused:
-            # the fused route's remat and K5 / K6 in bf16 are not ported yet
-            if config.remat or model.remat:
-                raise NotImplementedError(
-                    f"fused training with remat is not ported yet; it comes with {BF16_SLICE}, "
-                    "with fused_sparse_forward(remat=, remat_policy=)")
-            if model.dtype is not None and getattr(gop, "has_nv", False):
-                raise NotImplementedError(
-                    f"fused training in bf16 on {type(gop).__name__} (its graph terms on K5 / K6, "
-                    f"whose bf16 variants are not ported yet) comes with {BF16_SLICE}; use the "
-                    "dense or BCSR operator")
         if model.dtype != want_dtype or model.remat != config.remat:
             raise ValueError(f"compute_dtype {config.compute_dtype!r} / remat {config.remat} "
                              f"disagree with the model's dtype {model.dtype} / remat "

@@ -138,11 +138,10 @@ def test_main_trains_fused_bf16_on_the_dense_op(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # remat runs unfused (tests/test_torch_remat.py), fused it raises; fused bf16
-    # trains on the dense and BCSR operators, and raises on the banded one packed
-    # for K5 (not ported in bf16 yet)
-    (["--compute_dtype", "bfloat16", "--fused", "True", "--graph_op", "banded"], "K5 / K6"),
-    (["--remat", "True", "--fused", "True"], "remat"),
+    # remat and bf16 run fused and unfused on every operator kind
+    # (tests/test_torch_fused_remat.py); a mesh on any of its axes still raises
+    (["--mesh_model", "2", "--fused", "True"], "dist"),
+    (["--mesh_graph", "2", "--compute_dtype", "bfloat16", "--remat", "True"], "dist"),
     (["--mesh_data", "2"], "dist"),
     (["--distributed"], "dist"),
     (["--profile_dir", "trace"], "profiling"),

@@ -1,7 +1,9 @@
 """The CUDA kernels K1-K4 (f32, and their forward kernels' bf16 variants), their
 backward kernels K1b-K4b, the banded nv
-SpMM K5 (f32 and int8), the banded vn kernel of K7-K9 (f32 and int8, and its
-bf16 variant over f32, bf16 and int8 slabs), the blocked-ELL nv SpMM K6, the
+SpMM K5 (f32 and int8, and its bf16 variant over f32, bf16 and int8 slabs),
+the banded vn kernel of K7-K9 (f32 and int8, and its bf16 variant over f32,
+bf16 and int8 slabs), the blocked-ELL nv SpMM K6 (and its bf16 variant
+over f32, int8 and bf16 tiles), the
 BCSR SpMM K10 (f32, and its bf16 variant over f32 and bf16 tiles) and SDDMM
 K11 and the whole dense
 ST block K12f / K12b against their plain PyTorch versions, on a card; the
@@ -1096,15 +1098,85 @@ def test_bcsr_bf16_autograd_matches_plain(dev):
 
 
 def test_nv_kernels_refuse_bf16(dev):
-    """K5 and K6 have no bf16 variant yet: a bf16 operand raises, nothing is
-    cast to float32."""
-    op = _banded_op(dev, 600, 256, nv=True)
-    x = torch.zeros(4, op.v_pad, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="fused bf16 slice"):
-        op.apply_nv(x)
-    eop = _sparse_op("ell_f32", dev, bs=256)
-    with pytest.raises(NotImplementedError, match="fused bf16 slice"):
-        ek.ell_nv(eop.pack, torch.zeros(4, eop.v_pad, device=dev, dtype=torch.bfloat16))
+    """K5 and K6 take bf16 values only under a bf16 operand: bf16 slabs or
+    tiles under a float32 operand raise, nothing is cast (their bf16
+    variants: test_k5_bf16_matches_plain, test_k6_bf16_matches_plain)."""
+    op = _banded_op(dev, 600, 256, dtype=torch.bfloat16, nv=True, nv_only=True)
+    x = torch.zeros(4, op.v_pad, device=dev)
+    with pytest.raises(ValueError, match="bf16 under a bf16 operand"):
+        nv.stream_nv(op.slabs_nv, op.lo, x, index=op.index_nv)
+    eop = ell_graph_op(_rcm_gso(600), block_size=256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="bf16 under a bf16 operand"):
+        ek.ell_nv(eop.pack, torch.zeros(4, eop.v_pad, device=dev))
+
+
+def _nv_bf16_check(outs1, outs2, ref, scale):
+    """A bf16 K5 / K6 call against its plain version (``bf16_bounds.within``
+    beside ``spmm_scale``), a repeat bit-identical."""
+    outs1, outs2, ref, scale = ([o] if torch.is_tensor(o) else list(o)
+                                for o in (outs1, outs2, ref, scale))
+    for a, b in zip(outs1, outs2):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    bb.within(outs1, ref, scale)
+
+
+@pytest.mark.parametrize("n", [480, 97])        # N a multiple of the 16-byte vector, and not
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+@pytest.mark.parametrize("slabs", ["f32", "bf16", "int8"])
+def test_k5_bf16_matches_plain(dev, slabs, mode, n):
+    """K5's bf16 variant over float32, bf16 and int8 slabs, every mode,
+    against its plain version; a repeat launch bit-identical; each launch
+    counted under its ``_bf16`` name and none under the float32 one."""
+    kw = {"f32": {}, "bf16": {"dtype": torch.bfloat16}, "int8": {"quantize": True}}[slabs]
+    op = _banded_op(dev, 600, 128, nv=True, nv_only=True, **kw)
+    rng = np.random.default_rng(7)
+    x = _rand(rng, dev, n, op.v_pad).bfloat16()
+    g = _rand(rng, dev, n, op.v_pad).bfloat16() if mode == "chain" else None
+    q = op.scales is not None
+    name = nv.launch_name(mode, q, bf16=True)
+    before = kernels.launch_counts()
+    out1 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales, index=op.index_nv)
+    out2 = nv.stream_nv(op.slabs_nv, op.lo, x, g, mode, scales=op.scales, index=op.index_nv)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 2
+    assert after[nv.launch_name(mode, q)] == before[nv.launch_name(mode, q)]
+    ref = nv.stream_nv_reference(op.slabs_nv, op.lo, x, g, mode, scales=op.scales)
+    slabs_abs = op.slabs_nv.float().abs()
+    scales_abs = None if op.scales is None else op.scales.abs()
+    absa = lambda v: nv.nv_pass_reference(slabs_abs, op.lo, v, scales=scales_abs)  # noqa: E731
+    _nv_bf16_check(out1, out2, ref, bb.spmm_scale(absa, x, g, mode))
+
+
+@pytest.mark.parametrize("n", [480, 97])
+@pytest.mark.parametrize("mode", ["single", "pair", "chain"])
+@pytest.mark.parametrize("tiles", ["f32", "int8", "bf16"])
+def test_k6_bf16_matches_plain(dev, tiles, mode, n):
+    """K6's bf16 variant over float32, int8 and bf16 tiles, every mode (the
+    product rounded to bf16 before an add, as the JAX ELL path does),
+    against its plain version; a repeat bit-identical; counted under
+    ``ell_<tiles>_<mode>_bf16`` only."""
+    kw = {"f32": {}, "int8": {"quantize": True}, "bf16": {"dtype": torch.bfloat16}}[tiles]
+    op = ell_graph_op(_rcm_gso(600), block_size=64, device=dev, **kw)
+    rng = np.random.default_rng(8)
+    x = _rand(rng, dev, n, op.v_pad).bfloat16()
+    g = _rand(rng, dev, n, op.v_pad).bfloat16() if mode == "chain" else None
+    name = ek.pack_launch_name(op.pack, mode, x)
+    assert name == f"ell_{tiles}_{mode}_bf16"
+    before = kernels.launch_counts()
+    out1 = ek.ell_nv(op.pack, x, g, mode)
+    out2 = ek.ell_nv(op.pack, x, g, mode)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 2
+    if tiles != "bf16":
+        f32_name = ek.launch_name(tiles == "int8", mode)
+        assert after[f32_name] == before[f32_name]
+    ref = ek.ell_nv_reference(op.pack, x, g, mode)
+    absp = op.pack._replace(data=op.pack.data.float().abs(),
+                            scales=None if op.pack.scales is None else op.pack.scales.abs())
+    absa = lambda v: ek._apply_reference(absp, v)  # noqa: E731
+    _nv_bf16_check(out1, out2, ref, bb.spmm_scale(absa, x, g, mode))
 
 
 # --- the banded packs' nonzero index (kernels/nnz_index.py index_from_slabs) --

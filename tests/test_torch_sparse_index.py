@@ -244,9 +244,7 @@ def _check_tile_index(idx, pack, src, stored, transposed):
     assert np.array_equal(pack.data.numpy().reshape(nbr, -1)[br, idx.off.numpy()], stored)
 
 
-@pytest.mark.parametrize("n_vertex,bs,gso_type", GRAPHS)
-@pytest.mark.parametrize("kind", KINDS)
-def test_packer_index_equals_rebuilt(kind, n_vertex, bs, gso_type):
+def check_packer_index(kind, n_vertex, bs, gso_type):
     """The packs leave the index unbuilt; the first launch builds it from
     the tile or slab values, once for a symmetric GSO's shared pack (the
     clamped pack of ``stream=False`` packs Aᵀ apart), and it equals the
@@ -277,9 +275,7 @@ def test_packer_index_equals_rebuilt(kind, n_vertex, bs, gso_type):
     assert _current(op.pack_t) is op.pack_t.index and nnz_index.builds() == before
 
 
-@pytest.mark.parametrize("n_vertex,bs,gso_type", GRAPHS)
-@pytest.mark.parametrize("kind", KINDS)
-def test_index_product_matches_plain_and_jax(kind, n_vertex, bs, gso_type):
+def check_index_product(kind, n_vertex, bs, gso_type):
     """One application over the index (scale 1 and 2) against the port's
     plain version and the JAX reference on the same pack; for ELL and the
     banded packs every mode (chain on the transpose pack) against the plain
@@ -327,6 +323,14 @@ def _zero_entry(pack):
     return tuple(int(v) for v in zeros[len(zeros) // 2])
 
 
+@pytest.mark.parametrize("n_vertex,bs,gso_type", GRAPHS)
+@pytest.mark.parametrize("kind", TILE_KINDS)
+def test_packer_index_equals_rebuilt(kind, n_vertex, bs, gso_type):
+    """``check_packer_index`` on the tile packs (the banded ones:
+    ``tests/test_torch_sparse_index_2.py``)."""
+    check_packer_index(kind, n_vertex, bs, gso_type)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_in_place_edit_rebuilds_once(kind):
     """A zero tile entry set in place (a learned tile value leaving zero)
@@ -356,44 +360,6 @@ def test_in_place_edit_rebuilds_once(kind):
     other = pack._replace(data=pack.data.clone())
     torch.testing.assert_close(_index_product(other, x), _reference(other, x), **TOL)
     assert nnz_index.builds() == before + 2 and pack.index.built_for(other.data)
-
-
-@pytest.mark.parametrize("kind", KINDS)
-def test_data_edit_is_seen_only_after_invalidate(kind):
-    """The index follows the version counter of the tiles tensor: an edit
-    through ``pack.data.data`` does not move it, so the index stays as it
-    was (the documented limit) until ``invalidate()``, after which the next
-    launch rebuilds it once and the product follows the new value."""
-    op = _op(kind, 600, 64, "sym_norm_lap")
-    pack = op.pack
-    x = _x(pack, 33)
-    _current(pack)
-    before, nnz = nnz_index.builds(), pack.index.nnz
-    pack.data.data[_zero_entry(pack)] = 3 if pack.data.dtype == torch.int8 else 0.5
-    _current(pack)
-    assert nnz_index.builds() == before and pack.index.nnz == nnz
-    pack.index.invalidate()
-    torch.testing.assert_close(_index_product(pack, x), _reference(pack, x), **TOL)
-    assert nnz_index.builds() == before + 1 and pack.index.nnz == nnz + 1
-
-
-@pytest.mark.parametrize("kind", KINDS)
-def test_dense_tile(kind):
-    """A fully dense live tile (or a slab whose whole window is nonzero)
-    goes through the same index: bs² nonzeros of one tile (bs·w of the
-    slab), and the product still equals the plain version."""
-    op = _op(kind, 200, 64, "rw_norm_lap")
-    pack = op.pack
-    rng = np.random.default_rng(9)
-    shape = tuple(pack.data.shape[1:] if kind in BANDED else (64, 64))
-    int8 = pack.data.dtype == torch.int8
-    fill = rng.integers(1, 100, shape) if int8 else rng.uniform(0.1, 1, shape)
-    with torch.no_grad():
-        pack.data[(1,) if kind in BANDED else (1, 0)] = torch.from_numpy(fill).to(pack.data.dtype)
-    x = _x(pack, 20)
-    torch.testing.assert_close(_index_product(pack, x), _reference(pack, x), **TOL)
-    rows = pack.index.row_ptr.diff()[64:128]
-    assert int(rows.min()) >= (pack.w if kind in BANDED else 64)
 
 
 def test_pack_without_index_or_from_inference_mode_raises():

@@ -19,6 +19,7 @@ from stgcn_tpu.train.loop import Trainer as JaxTrainer
 from stgcn_tpu_torch.data import ForecastDataset, ZScoreScaler
 from stgcn_tpu_torch.graph import build_gso
 from stgcn_tpu_torch.nn.convert import params_from_jax
+from stgcn_tpu_torch.nn.fused import fused_forward
 from stgcn_tpu_torch.nn.model import STGCN
 from stgcn_tpu_torch.ops import banded_graph_op, dense_graph_op
 from stgcn_tpu_torch.train import TrainConfig, Trainer
@@ -40,8 +41,8 @@ def _port_trainer(problem, tmp_path, *, fused=False, droprate=0.0, state=None, d
     scaler = ZScoreScaler().fit(vel)
     series = scaler.transform(vel)
     ds = lambda a: ForecastDataset.from_numpy(a, N_HIS, N_PRED, device="cpu")  # noqa: E731
-    model = STGCN(N_HIS, V, droprate=droprate, dtype=dtype, device="cpu",
-                  generator=torch.Generator().manual_seed(42))
+    model = STGCN(N_HIS, V, droprate=droprate, dtype=dtype, remat=kw.get("remat", False),
+                  device="cpu", generator=torch.Generator().manual_seed(42))
     if state is not None:
         model.load_state_dict(state)
     cfg = TrainConfig(n_his=N_HIS, n_pred=N_PRED, droprate=droprate, batch_size=B,
@@ -108,21 +109,28 @@ def test_test_reports_the_reference_line(problem, tmp_path, capsys):
     assert all(np.isfinite(v) for v in mets.values())
 
 
-@pytest.mark.parametrize("field,value,match", [("compute_dtype", "bfloat16", "K5 / K6"),
-                                               ("remat", True, "remat")])
-def test_later_slices_raise(problem, tmp_path, field, value, match):
-    """remat runs on the unfused model (tests/test_torch_remat.py) and the
-    fused route refuses it until the fused bf16 slice; so it does bf16 on an
-    operator whose graph terms run on K5 (the banded nv pack, here) or K6.
-    On the dense and BCSR operators the fused route trains in bf16
-    (tests/test_torch_fused_bf16_bwd.py)."""
+@pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16"), ("remat", True)])
+def test_later_slices_raise(problem, tmp_path, field, value):
+    """The fused route's bf16 and remat came with a later slice of the port:
+    a fused ``Trainer`` in bf16 on an operator whose graph terms run on K5
+    (the banded nv pack, here), or with remat, is built and takes a finite
+    step (tests/test_torch_fused_remat.py holds them to the float32 steps,
+    to the plain route and to JAX). What stays for a later slice still
+    raises: a bf16 model through ``fused_forward`` (K12's bf16 variant,
+    ``ROADMAP.md`` §1 item 4), and a device mesh (test_mesh_raises)."""
     kw = {field: value}
     if field == "compute_dtype":
         gso = build_gso(problem[0], "sym_norm_lap", cheb=True)
         kw |= {"dtype": torch.bfloat16,
                "gop": banded_graph_op(gso, block_size=128, nv=True, device="cpu")}
-    with pytest.raises(NotImplementedError, match=match):
-        _port_trainer(problem, tmp_path, fused=True, **kw)
+    tr = _port_trainer(problem, tmp_path, fused=True, **kw)
+    starts, n_valid = tr._plan(tr.train_ds)[0]
+    assert bool(torch.isfinite(tr.train_step(starts, n_valid, 0)))
+    if field == "compute_dtype":
+        x = torch.zeros(1, tr.cfg.n_his, tr.model.n_vertex, 1)
+        dense = dense_graph_op(build_gso(problem[0], "sym_norm_lap", cheb=True), device="cpu")
+        with pytest.raises(NotImplementedError, match=r"§1 item 4"):
+            fused_forward(tr.model.state_dict(), x, dense, tr.model)
 
 
 def test_mesh_raises(problem, tmp_path):
